@@ -1,0 +1,158 @@
+"""Build, load and launch the port's hand-written CUDA kernels.
+
+The sources in ``shannon_tpu_torch/csrc/*.cu`` have a plain C interface.
+At first use they are compiled with ``nvcc`` for ``sm_90a`` into
+``build/kernels/libshannon_kernels.so`` beside the package, and loaded with
+``ctypes`` (the same pattern ``shannon_tpu/native`` uses for the ingest
+library).  The library is rebuilt whenever the hash of the sources changes.
+Nothing here runs at import time: the CPU tests import every module, and only
+a call on a CUDA tensor reaches :func:`library`.
+
+There is no fallback.  A missing ``nvcc``, a failed build, a failed load or a
+nonzero launch status raises.
+
+Each kernel counts its launches in :attr:`KernelLibrary.launches` so a run can
+show that the main path went through it (``chip_smoke.py`` reads them).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+_CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
+LIB_NAME = "libshannon_kernels.so"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+KERNELS = ("extract_kmers", "reduce_sorted", "lookup_sorted")
+
+_P = ctypes.c_void_p
+_I64 = ctypes.c_int64
+_I = ctypes.c_int
+_ARGTYPES = {
+    "shannon_extract_kmers": [_P, _P, _P, _I64, _I, _I, _I, _I, _I, _P, _P, _P],
+    "shannon_run_start_flags": [_P, _I64, _P, _P],
+    "shannon_reduce_runs": [_P, _P, _I64, _P, _I64, _P, _P, _P, _P],
+    "shannon_lookup_sorted": [_P, _I64, _P, _I64, _P, _P, _P],
+}
+
+
+def _sources() -> list[Path]:
+    return sorted(_CSRC.glob("*.cu"))
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256()
+    for p in _sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()
+
+
+def _nvcc() -> str:
+    for cand in (
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+        shutil.which("nvcc"),
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError(
+        "nvcc not found (set CUDA_HOME or put nvcc on PATH); the port's "
+        "CUDA kernels are built from shannon_tpu_torch/csrc at first use"
+    )
+
+
+def build(force: bool = False) -> tuple[Path, str]:
+    """Compile the kernel library if the sources changed.  Returns (path,
+    compiler log); the log is empty when the cached build was reused."""
+    lib = BUILD_DIR / LIB_NAME
+    stamp = BUILD_DIR / (LIB_NAME + ".sha256")
+    digest = _source_hash()
+    if not force and lib.exists() and stamp.exists() and stamp.read_text() == digest:
+        return lib, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = BUILD_DIR / f"{LIB_NAME}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
+        )
+    os.replace(tmp, lib)  # atomic: concurrent builders never see half a file
+    stamp.write_text(digest)
+    return lib, proc.stdout + proc.stderr
+
+
+class KernelLibrary:
+    """The loaded kernel library plus per-kernel launch counts."""
+
+    def __init__(self, path: Path):
+        self.path = path
+        self._lib = ctypes.CDLL(str(path))
+        for name, argtypes in _ARGTYPES.items():
+            fn = getattr(self._lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        self._lib.shannon_error_string.argtypes = [ctypes.c_int]
+        self._lib.shannon_error_string.restype = ctypes.c_char_p
+        self.launches = {name: 0 for name in KERNELS}
+
+    def reset_counts(self) -> None:
+        for name in self.launches:
+            self.launches[name] = 0
+
+    def call(self, entry: str, device: torch.device, *args) -> None:
+        """Launch C entry point `entry` on `device`'s current stream and
+        raise if the launch was refused.  Pointers are passed as ints."""
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            err = getattr(self._lib, entry)(*args, stream)
+        if err != 0:
+            msg = self._lib.shannon_error_string(err).decode()
+            raise RuntimeError(f"{entry} failed: CUDA error {err} ({msg})")
+
+    def count(self, kernel: str) -> None:
+        self.launches[kernel] += 1
+
+
+_lock = threading.Lock()
+_library: KernelLibrary | None = None
+
+
+def library() -> KernelLibrary:
+    """The process-wide kernel library, built and loaded at first call."""
+    global _library
+    with _lock:
+        if _library is None:
+            path, _log = build()
+            _library = KernelLibrary(path)
+        return _library
+
+
+def ptr(t: torch.Tensor | None) -> int | None:
+    """Device pointer of a tensor (None for an absent optional buffer)."""
+    return None if t is None else t.data_ptr()
+
+
+def check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int) -> None:
+    """Validate a kernel input: on CUDA, of `dtype` and rank, contiguous."""
+    if not t.is_cuda:
+        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name} must have {ndim} dims, got shape {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
