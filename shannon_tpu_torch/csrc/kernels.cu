@@ -1,4 +1,6 @@
-// Hand-written Hopper (sm_90a) kernels of the shannon_tpu_torch port.
+// Hand-written Hopper (sm_90a) kernels of the shannon_tpu_torch port: the
+// k-mer kernels K1-K3 (threading's K4-K5 are in thread.cu, the sparse-flow
+// solver K6 in sparseflow.cu).
 //
 // Plain C interface, built with nvcc into build/kernels/libshannon_kernels.so
 // and bound with ctypes (shannon_tpu_torch/kernels.py).  Every entry point
@@ -10,15 +12,7 @@
 // [2(k-1-i), 2(k-1-i)+2).  k <= 31, so real keys are below 2^62 and the pad
 // key 2^63-1 sorts after every real key under signed comparison.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#define PAD_KEY 0x7FFFFFFFFFFFFFFFLL
-#define THREADS 256
-
-static inline unsigned int blocks_for(int64_t n) {
-  return (unsigned int)((n + THREADS - 1) / THREADS);
-}
+#include "common.cuh"
 
 // ---------------------------------------------------------------------------
 // K1: k-mer extraction from 2-bit packed reads.

@@ -1,7 +1,8 @@
 """Build, load and launch the port's hand-written CUDA kernels.
 
 The sources in ``shannon_tpu_torch/csrc/*.cu`` have a plain C interface.
-At first use they are compiled with ``nvcc`` for ``sm_90a`` into
+At first use each is compiled with ``nvcc`` for ``sm_90a`` (one process per
+source, all started together), linked into
 ``build/kernels/libshannon_kernels.so`` beside the package, and loaded with
 ``ctypes`` (the same pattern ``shannon_tpu/native`` uses for the ingest
 library).  The library is rebuilt whenever the hash of the sources changes.
@@ -32,10 +33,13 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 LIB_NAME = "libshannon_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-KERNELS = ("extract_kmers", "reduce_sorted", "lookup_sorted")
+KERNELS = (
+    "extract_kmers", "reduce_sorted", "lookup_sorted",
+    "thread_rows", "compact_rows", "sf_greedy",
+)
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -45,6 +49,10 @@ _ARGTYPES = {
     "shannon_run_start_flags": [_P, _I64, _P, _P],
     "shannon_reduce_runs": [_P, _P, _I64, _P, _I64, _P, _P, _P, _P],
     "shannon_lookup_sorted": [_P, _I64, _P, _I64, _P, _P, _P],
+    "shannon_thread_rows": [_P, _P, _P, _P, _P, _I64, _I, _I, *[_P] * 7, _P],
+    "shannon_row_counts": [_P, _I64, _I, _P, _P],
+    "shannon_compact_rows": [_P, _P, _I64, _I, _I, *[_P] * 8, _P],
+    "shannon_sf_greedy": [_P, _I64, _I, _I, *[_P] * 6, _P],
 }
 
 
@@ -54,7 +62,7 @@ def _sources() -> list[Path]:
 
 def _source_hash() -> str:
     h = hashlib.sha256()
-    for p in _sources():
+    for p in sorted(_CSRC.glob("*.cu*")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -83,16 +91,36 @@ def build(force: bool = False) -> tuple[Path, str]:
     if not force and lib.exists() and stamp.exists() and stamp.read_text() == digest:
         return lib, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
+    nvcc = _nvcc()
+    tag = os.getpid()
+    jobs = []
+    for src in _sources():
+        obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        jobs.append((src, obj, proc))
+    log, failed = [], []
+    for src, _obj, proc in jobs:
+        out, err = proc.communicate()
+        log.append(out + err)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {src.name} ({proc.returncode}):\n{out}\n{err}")
+    try:
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        tmp = BUILD_DIR / f"{LIB_NAME}.{tag}.tmp"
+        objs = [str(obj) for _src, obj, _proc in jobs]
+        proc = subprocess.run(
+            [nvcc, "-shared", "-o", str(tmp), *objs], capture_output=True, text=True
         )
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+    finally:
+        for _src, obj, _proc in jobs:
+            obj.unlink(missing_ok=True)
     os.replace(tmp, lib)  # atomic: concurrent builders never see half a file
     stamp.write_text(digest)
-    return lib, proc.stdout + proc.stderr
+    return lib, "".join(log)
 
 
 class KernelLibrary:

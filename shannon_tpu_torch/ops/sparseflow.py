@@ -1,11 +1,13 @@
 """Batched sparse-flow solver: per X-node greedy max-min transport with
 seeded restarts, bit-identical to the oracle solver.
 
-Counterpart of ``shannon_tpu/ops/sparseflow.py`` in plain PyTorch.  Nodes
-are padded to (MAXD, MAXD) = (8, 8) margins; each job is solved with
-sf_restarts + 1 seeds at once and the best restart is chosen on the
-device with the oracle's key.  Flows are float32 and the tie hash wraps at
-uint32, computed in int64 with a mask after every multiply and add.
+Counterpart of ``shannon_tpu/ops/sparseflow.py``.  Nodes are padded to
+(MAXD, MAXD) = (8, 8) margins; each job is solved with sf_restarts + 1
+seeds at once and the best restart is chosen on the device with the
+oracle's key.  On CUDA tensors this is kernel K6 (``csrc/sparseflow.cu``);
+on CPU tensors its plain twin, where flows are float32 and the tie hash
+wraps at uint32, computed in int64 with a mask after every multiply and
+add.
 
 One deliberate difference from the reference's device solver: pairings
 come back in the greedy's pick order, as the oracle's ``solve_node`` emits
@@ -23,6 +25,7 @@ import numpy as np
 import torch
 
 from shannon_tpu.oracle.sparseflow import SF_MAXD, _node_flows, fnv1a, node_blocks, solve_node
+from shannon_tpu_torch import kernels
 
 MAXD = SF_MAXD
 _M32 = 0xFFFFFFFF
@@ -85,13 +88,13 @@ def greedy_core(a, b, seeds, use_hash, max_steps: int):
     return F, picks
 
 
-def batched_greedy_packed(buf: torch.Tensor, k_restarts: int, max_steps: int = 2 * MAXD):
-    """Solve every job of buf [B, 2*MAXD+1] int32 (a bits | b bits | node
-    seed) with k_restarts + 1 seeded greedy runs.  Returns the winning
-    restart's flow tensors [B, MAXD, MAXD] and its picks [B, max_steps];
-    the winner minimizes (pairing count, uint64 support mask at stride
-    MAXD, restart index), as the oracle's _best_of_restarts
-    (ops/sparseflow.py:88 batched_greedy_packed)."""
+def batched_greedy_packed_plain(buf: torch.Tensor, k_restarts: int, max_steps: int = 2 * MAXD):
+    """Plain PyTorch K6: solve every job of buf [B, 2*MAXD+1] int32 (a
+    bits | b bits | node seed) with k_restarts + 1 seeded greedy runs.
+    Returns the winning restart's flow tensors [B, MAXD, MAXD] float32 and
+    its picks [B, max_steps] int64; the winner minimizes (pairing count,
+    uint64 support mask at stride MAXD, restart index), as the oracle's
+    _best_of_restarts (ops/sparseflow.py:88 batched_greedy_packed)."""
     B = buf.shape[0]
     K = k_restarts + 1
     dev = buf.device
@@ -125,12 +128,51 @@ def batched_greedy_packed(buf: torch.Tensor, k_restarts: int, max_steps: int = 2
     )
 
 
+def _batched_greedy_packed_cuda(buf: torch.Tensor, k_restarts: int, max_steps: int):
+    kernels.check_cuda("buf", buf, torch.int32, 2)
+    if buf.shape[1] != 2 * MAXD + 1:
+        raise ValueError(f"buf must be [B, {2 * MAXD + 1}], got {tuple(buf.shape)}")
+    if k_restarts < 0 or not 0 < max_steps <= 2 * MAXD:
+        raise ValueError(f"k_restarts={k_restarts}, max_steps={max_steps} out of range")
+    B = buf.shape[0]
+    K = k_restarts + 1
+    dev = buf.device
+    picks = torch.empty((B * K, max_steps), dtype=torch.int32, device=dev)
+    flows = torch.empty((B * K, max_steps), dtype=torch.float32, device=dev)
+    nnz = torch.empty(B * K, dtype=torch.int32, device=dev)
+    support = torch.empty(B * K, dtype=torch.int64, device=dev)
+    F = torch.empty((B, MAXD, MAXD), dtype=torch.float32, device=dev)
+    out_picks = torch.empty((B, max_steps), dtype=torch.int64, device=dev)
+    lib = kernels.library()
+    lib.call(
+        "shannon_sf_greedy", dev,
+        kernels.ptr(buf), B, K, max_steps,
+        *map(kernels.ptr, (picks, flows, nnz, support, F, out_picks)),
+    )
+    lib.count("sf_greedy")
+    return F, out_picks
+
+
+def batched_greedy_packed(buf: torch.Tensor, k_restarts: int, max_steps: int = 2 * MAXD):
+    """Solve every job of buf [B, 2*MAXD+1] int32 (a bits | b bits | node
+    seed) with k_restarts + 1 seeded greedy runs; returns the winning
+    restart's flow tensors [B, MAXD, MAXD] float32 and picks [B,
+    max_steps] int64 (the flat cell of each step's pairing, -1 once
+    nothing is left).  Kernel K6 on CUDA, the plain version on CPU."""
+    if buf.is_cuda:
+        return _batched_greedy_packed_cuda(buf, k_restarts, max_steps)
+    return batched_greedy_packed_plain(buf, k_restarts, max_steps)
+
+
 def solve_nodes_device(g, xs: list[int], config, edge_flows=None, *, device) -> dict[int, list]:
     """Batched solver for every X-node in xs, mirroring oracle solve_node
     (same block plan, margins, seeds, restart selection, threshold, and
-    pairing order); one job per (node, block).  Nodes of degree > MAXD, and rounds of at
-    most 32 jobs, go to the host solver, which gives identical pairings
-    (ops/sparseflow.py:143 solve_nodes_device)."""
+    pairing order); one job per (node, block).  Nodes of degree > MAXD go
+    to the host solver, which gives identical pairings
+    (ops/sparseflow.py:143 solve_nodes_device).  Unlike the reference,
+    small rounds stay on the device too: on an NVIDIA H100 80GB HBM3 at
+    700 W the batched solver beat the host loop about tenfold already at 8
+    jobs (chip_smoke.py's SF round timing; PERF.md)."""
     R = config.sf_restarts
     jobs = []  # (v, ins, outs, rows, cols, ab, bb, s, node_seed)
     result: dict[int, list] = {}
@@ -147,11 +189,6 @@ def solve_nodes_device(g, xs: list[int], config, edge_flows=None, *, device) -> 
         for rows, cols, ab, bb in node_blocks(a, b, config, s):
             jobs.append((v, ins, outs, rows, cols, ab, bb, s, node_seed))
     if not jobs:
-        return result
-    if len(jobs) <= 32:
-        for v, *_rest in jobs:
-            if not result[v]:
-                result[v] = solve_node(g, v, config, edge_flows)
         return result
     buf = np.zeros((len(jobs), 2 * MAXD + 1), np.int32)
     fbuf = buf[:, : 2 * MAXD].view(np.float32)

@@ -6,10 +6,14 @@ forward orientation, their node lanes from K3.  A run is a maximal stretch
 of windows that hit the node table; an event is recorded at a run start
 or where the window's contig offset is 0.
 
-The output for the host is the flat evidence of ``compact_thread_outputs``
-(every real event and run, in (read, position) order, plus per-read
-counts); ``rect`` rebuilds the per-read rows that ``runs_to_flat_paths``
-(copied from the reference) turns into evidence paths.
+Two kernels follow the lookup: K4 (``thread_windows``) scans each read row
+and writes its events and runs to the front of -1-padded rows, and K5
+(``compact_thread_outputs``) moves every real event and run of the batch
+to the front of flat arrays in (read, position) order, plus per-read
+counts.  On CPU tensors their plain twins run.  ``rect`` rebuilds the
+per-read rows on the host, which ``runs_to_flat_paths`` (single-end) or
+``paths_to_lists`` (paired; both copied from the reference) turn into
+evidence.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from shannon_tpu_torch import kernels
 from shannon_tpu_torch.ops.condense import ContigArrays
 from shannon_tpu_torch.ops.kmers import extract_kmers_packed
 from shannon_tpu_torch.ops.spectrum import lookup_sorted
@@ -37,15 +42,18 @@ def row_compact(flag: torch.Tensor, payloads: tuple, width: int) -> tuple:
     return tuple(out)
 
 
-def thread_windows(keys: torch.Tensor, valid: torch.Tensor, ca: ContigArrays):
-    """Threading body on window keys (ops/thread.py:104 _thread_windows).
-    Returns (ev_cid [N, W], ev_run [N, W], n_events [N], run_p0, run_p1,
-    run_o0, run_o1 [N, R]), -1-padded, R = (W + 1) // 2 + 1."""
-    N, W = keys.shape
-    idx, hit = lookup_sorted(ca.node_key, keys)
-    hit &= valid
-    cid = torch.where(hit, ca.node_cid[idx], -1)
-    off = torch.where(hit, ca.node_off[idx], -1)
+def max_runs(W: int) -> int:
+    """Runs a row of W windows can hold: R = (W + 1) // 2 + 1."""
+    return (W + 1) // 2 + 1
+
+
+def thread_windows_plain(idx, hit, valid, node_cid, node_off):
+    """Plain PyTorch K4: the threading body after the lookup
+    (ops/thread.py:104 _thread_windows, lines 115-174)."""
+    N, W = idx.shape
+    hit = hit & valid
+    cid = torch.where(hit, node_cid[idx], -1)
+    off = torch.where(hit, node_off[idx], -1)
 
     prev_hit = torch.zeros_like(hit)
     prev_hit[:, 1:] = hit[:, :-1]
@@ -58,11 +66,47 @@ def thread_windows(keys: torch.Tensor, valid: torch.Tensor, ca: ContigArrays):
     is_event = hit & (run_start | (off == 0))
     n_events = is_event.sum(1)
     ev_cid, ev_run = row_compact(is_event, (cid, run_id), W)
-    max_runs = (W + 1) // 2 + 1
-    col = torch.arange(W, device=keys.device).expand(N, W)
-    run_p0, run_o0 = row_compact(run_start, (col, off), max_runs)
-    run_p1, run_o1 = row_compact(run_end, (col, off), max_runs)
+    R = max_runs(W)
+    col = torch.arange(W, device=idx.device).expand(N, W)
+    run_p0, run_o0 = row_compact(run_start, (col, off), R)
+    run_p1, run_o1 = row_compact(run_end, (col, off), R)
     return ev_cid, ev_run, n_events, run_p0, run_p1, run_o0, run_o1
+
+
+def _thread_windows_cuda(idx, hit, valid, node_cid, node_off):
+    kernels.check_cuda("idx", idx, torch.int64, 2)
+    kernels.check_cuda("hit", hit, torch.bool, 2)
+    kernels.check_cuda("valid", valid, torch.bool, 2)
+    kernels.check_cuda("node_cid", node_cid, torch.int64, 1)
+    kernels.check_cuda("node_off", node_off, torch.int64, 1)
+    if hit.shape != idx.shape or valid.shape != idx.shape:
+        raise ValueError("idx, hit and valid disagree on shape")
+    N, W = idx.shape
+    R = max_runs(W)
+    dev = idx.device
+    ev = [torch.empty((N, W), dtype=torch.int64, device=dev) for _ in range(2)]
+    n_events = torch.empty(N, dtype=torch.int64, device=dev)
+    runs = [torch.empty((N, R), dtype=torch.int64, device=dev) for _ in range(4)]
+    lib = kernels.library()
+    lib.call(
+        "shannon_thread_rows", dev,
+        kernels.ptr(idx), kernels.ptr(hit), kernels.ptr(valid),
+        kernels.ptr(node_cid), kernels.ptr(node_off), N, W, R,
+        *map(kernels.ptr, ev), kernels.ptr(n_events), *map(kernels.ptr, runs),
+    )
+    lib.count("thread_rows")
+    return ev[0], ev[1], n_events, *runs
+
+
+def thread_windows(idx, hit, valid, node_cid, node_off):
+    """Per read row, from the node lookup of its windows (idx, hit [N, W];
+    idx meaningful only where hit) and their validity: the row's events
+    and run geometry.  Returns (ev_cid [N, W], ev_run [N, W], n_events
+    [N], run_p0, run_p1, run_o0, run_o1 [N, R]), int64, -1-padded,
+    R = (W + 1) // 2 + 1.  Kernel K4 on CUDA, the plain version on CPU."""
+    if idx.is_cuda:
+        return _thread_windows_cuda(idx, hit, valid, node_cid, node_off)
+    return thread_windows_plain(idx, hit, valid, node_cid, node_off)
 
 
 def thread_reads_device_packed(
@@ -74,17 +118,16 @@ def thread_reads_device_packed(
     mask: torch.Tensor | None = None,
 ):
     """Thread one packed read batch through the node table
-    (ops/thread.py:53 thread_reads_device_packed)."""
+    (ops/thread.py:53 thread_reads_device_packed): K1, K3, then K4."""
     keys, valid = extract_kmers_packed(
         words, lengths, k, canonical=False, length=length, mask=mask
     )
-    return thread_windows(keys, valid, ca)
+    idx, hit = lookup_sorted(ca.node_key, keys)
+    return thread_windows(idx, hit, valid, ca.node_cid, ca.node_off)
 
 
-def compact_thread_outputs(ev_cid, ev_run, n_events, run_p0, run_p1, run_o0, run_o1):
-    """Across-read compaction (ops/thread.py:178 compact_thread_outputs):
-    every real event and every real run in (read, position) order.
-    Returns (c_cid, c_run, c_p0, c_p1, c_o0, c_o1, n_events, n_runs)."""
+def compact_thread_outputs_plain(ev_cid, ev_run, n_events, run_p0, run_p1, run_o0, run_o1):
+    """Plain PyTorch K5 (ops/thread.py:178 compact_thread_outputs)."""
     ve = ev_cid >= 0
     vr = run_p0 >= 0
     return (
@@ -92,6 +135,50 @@ def compact_thread_outputs(ev_cid, ev_run, n_events, run_p0, run_p1, run_o0, run
         run_p0[vr], run_p1[vr], run_o0[vr], run_o1[vr],
         n_events, vr.sum(1),
     )
+
+
+def _compact_thread_outputs_cuda(ev_cid, ev_run, n_events, run_p0, run_p1, run_o0, run_o1):
+    rows_e, rows_r = (ev_cid, ev_run), (run_p0, run_p1, run_o0, run_o1)
+    for name, t in zip(("ev_cid", "ev_run", "run_p0", "run_p1", "run_o0", "run_o1"),
+                       rows_e + rows_r):
+        kernels.check_cuda(name, t, torch.int64, 2)
+    kernels.check_cuda("n_events", n_events, torch.int64, 1)
+    N, W = ev_cid.shape
+    R = run_p0.shape[1]
+    if ev_run.shape != (N, W) or any(t.shape != (N, R) for t in rows_r) or n_events.shape != (N,):
+        raise ValueError("threading rows disagree on shape")
+    dev = ev_cid.device
+    lib = kernels.library()
+    n_runs = torch.empty(N, dtype=torch.int64, device=dev)
+    lib.call("shannon_row_counts", dev, kernels.ptr(run_p0), N, R, kernels.ptr(n_runs))
+    end_e = torch.cumsum(n_events, 0)
+    end_r = torch.cumsum(n_runs, 0)
+    tot_e, tot_r = torch.stack([end_e[-1], end_r[-1]]).tolist() if N else (0, 0)
+    flat_e = [torch.empty(tot_e, dtype=torch.int64, device=dev) for _ in rows_e]
+    flat_r = [torch.empty(tot_r, dtype=torch.int64, device=dev) for _ in rows_r]
+    for counts, ends, width, rows, flat in (
+        (n_events, end_e, W, rows_e, flat_e), (n_runs, end_r, R, rows_r, flat_r)
+    ):
+        ins = [kernels.ptr(t) for t in rows] + [None] * (4 - len(rows))
+        outs = [kernels.ptr(t) for t in flat] + [None] * (4 - len(flat))
+        lib.call(
+            "shannon_compact_rows", dev,
+            kernels.ptr(counts), kernels.ptr(ends), N, width, len(rows), *ins, *outs,
+        )
+    lib.count("compact_rows")
+    return (*flat_e, *flat_r, n_events, n_runs)
+
+
+def compact_thread_outputs(ev_cid, ev_run, n_events, run_p0, run_p1, run_o0, run_o1):
+    """Across-read compaction (ops/thread.py:178 compact_thread_outputs):
+    every real event and every real run in (read, position) order.
+    Returns (c_cid, c_run, c_p0, c_p1, c_o0, c_o1, n_events, n_runs).
+    Kernel K5 on CUDA (copies each row's first n_events events and its
+    real runs, the layout K4 writes), the plain version on CPU."""
+    args = (ev_cid, ev_run, n_events, run_p0, run_p1, run_o0, run_o1)
+    if ev_cid.is_cuda:
+        return _compact_thread_outputs_cuda(*args)
+    return compact_thread_outputs_plain(*args)
 
 
 def rect(flat: np.ndarray, counts: np.ndarray, width: int) -> np.ndarray:
@@ -159,3 +246,61 @@ def runs_to_flat_paths(
     rev = flat[offs[path_id] + lens[path_id] - 1 - within]
     out[offs2[2 * path_id + 1] + within] = np.asarray(rc_pair, np.int64)[rev]
     return out, offs2, np.ones(2 * n_paths, np.int64)
+
+
+# copied from shannon_tpu/ops/thread.py:367 (host helper in a JAX module)
+def paths_to_lists(
+    ev_cid: np.ndarray,
+    ev_run: np.ndarray,
+    n_events: np.ndarray,
+    run_p0: np.ndarray,
+    run_p1: np.ndarray,
+    run_o0: np.ndarray,
+    run_o1: np.ndarray,
+    rescue: bool = True,
+) -> list[list]:
+    """Host conversion to per-read Run lists (aligned with batch rows;
+    [] = unthreadable read): [[Run0, Run1, ...], ...] with each Run
+    carrying (path, p0, p1, o0, o1) — see oracle.multibridge.Run.
+    rescue=False keeps only each read's longest run (by window count
+    p1 - p0 + 1, ties -> earliest)."""
+    from shannon_tpu.oracle.multibridge import Run
+
+    ev_cid = np.asarray(ev_cid)
+    ev_run = np.asarray(ev_run)
+    n_events = np.asarray(n_events)
+    run_p0 = np.asarray(run_p0)
+    run_p1 = np.asarray(run_p1)
+    run_o0 = np.asarray(run_o0)
+    run_o1 = np.asarray(run_o1)
+    out: list[list] = []
+    for i in range(ev_cid.shape[0]):
+        n = int(n_events[i])
+        if n == 0:
+            out.append([])
+            continue
+        cids = ev_cid[i, :n]
+        rids = ev_run[i, :n]
+        # split events into runs at run-id changes
+        cuts = np.nonzero(np.diff(rids))[0] + 1
+        paths = [seg.tolist() for seg in np.split(cids, cuts)]
+        run_ids = [int(rids[0])] + [int(rids[c]) for c in cuts]
+        runs = [
+            Run(
+                path=paths[t],
+                p0=int(run_p0[i, r]),
+                p1=int(run_p1[i, r]),
+                o0=int(run_o0[i, r]),
+                o1=int(run_o1[i, r]),
+            )
+            for t, r in enumerate(run_ids)
+        ]
+        if rescue:
+            out.append(runs)
+        else:
+            best = max(
+                range(len(runs)),
+                key=lambda t: (runs[t].p1 - runs[t].p0, -t),
+            )
+            out.append([runs[best]])
+    return out

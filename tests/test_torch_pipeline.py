@@ -105,8 +105,6 @@ def test_stage_timer_records_the_reference_stages(rng):
 
 def test_unported_options_raise():
     reads = ["ACGT" * 20]
-    with pytest.raises(NotImplementedError, match="item 12"):
-        assemble(reads, AssemblyConfig(k=21), device="cpu", paired=True)
     with pytest.raises(NotImplementedError, match="item 14"):
         assemble(reads, AssemblyConfig(k=21, n_devices=2), device="cpu")
     with pytest.raises(ValueError, match="1..31"):
@@ -114,8 +112,9 @@ def test_unported_options_raise():
 
 
 def test_port_never_imports_jax():
-    """Import every module of the port and assemble a tiny dataset in a
-    process where `import jax` fails."""
+    """Import every module of the port (ingest and cli included) and
+    assemble a tiny single-end and paired dataset in a process where
+    `import jax` fails."""
     code = textwrap.dedent(
         """
         import sys
@@ -127,12 +126,15 @@ def test_port_never_imports_jax():
         for m in pkgutil.walk_packages(shannon_tpu_torch.__path__, "shannon_tpu_torch."):
             importlib.import_module(m.name)
         from shannon_tpu.config import AssemblyConfig
-        from shannon_tpu.sim import sample_reads, simulate_transcripts
+        from shannon_tpu.sim import sample_paired_reads, sample_reads, simulate_transcripts
         from shannon_tpu_torch.pipeline import assemble
         rng = np.random.default_rng(0)
         ts = simulate_transcripts(rng, n=2, length=300)
         res = assemble(sample_reads(rng, ts, coverage=15, read_length=70),
                        AssemblyConfig(k=21, kmer_capacity=1 << 15), device="cpu")
+        assert res.stats["n_transcripts"] >= 2, res.stats
+        res = assemble(sample_paired_reads(rng, ts, coverage=15, read_length=70, insert_size=150),
+                       AssemblyConfig(k=21, kmer_capacity=1 << 15), device="cpu", paired=True)
         assert res.stats["n_transcripts"] >= 2, res.stats
         bad = sorted(m for m in set(sys.modules) - before
                      if m == "jax" or m.startswith(("jax.", "jaxlib"))

@@ -76,6 +76,39 @@ def test_batched_greedy_packed_matches_reference(integer, restarts):
         assert sorted(p.tolist()) == np.flatnonzero(row.reshape(-1) > 0).tolist()
 
 
+def degenerate_buffers(rng, B: int) -> np.ndarray:
+    """Jobs the greedy finds hardest to break ties on: all margins equal
+    (every cell ties at every step), zero margins (nothing to pair, as the
+    reference's padding rows), one side zero, and margins at the eps
+    threshold."""
+    buf = np.zeros((B, 2 * MAXD + 1), np.int32)
+    f = buf[:, : 2 * MAXD].view(np.float32)
+    for r in range(B):
+        M, N = int(rng.integers(1, MAXD + 1)), int(rng.integers(1, MAXD + 1))
+        kind = r % 4
+        if kind == 0:  # all ties
+            f[r, :M] = 2.0
+            f[r, MAXD : MAXD + N] = 2.0 * M / N
+        elif kind == 2:  # one side zero
+            f[r, :M] = rng.integers(1, 5, M)
+        elif kind == 3:  # tiny margins next to a large one
+            f[r, :M] = 1e-7
+            f[r, 0] = 3.0
+            f[r, MAXD : MAXD + N] = np.float32(3.0 + 1e-7 * (M - 1)) / N
+    buf[:, 2 * MAXD] = rng.integers(0, 1 << 31, B, dtype=np.int64).astype(np.int32)
+    return buf
+
+
+@pytest.mark.parametrize("restarts", [0, 4])
+def test_batched_greedy_packed_degenerate_margins_match_reference(restarts):
+    buf = degenerate_buffers(np.random.default_rng(restarts), 64)
+    want = np.asarray(ref_batched(jnp.asarray(buf), k_restarts=restarts))
+    got, picks = tsf.batched_greedy_packed(torch.from_numpy(buf), restarts)
+    np.testing.assert_array_equal(got.numpy().view(np.int32), want.view(np.int32))
+    assert (picks[1::4] == -1).all()  # zero margins pair nothing
+    assert (picks[0::4, 0] >= 0).all()
+
+
 def _x_node_graph(rng, n_x: int) -> tuple[NodeGraph, list[int]]:
     """n_x X-nodes u0,u1 -> v -> w0,w1 with varied, often tied abundances."""
     nodes: list[Node] = []
@@ -97,15 +130,30 @@ def _x_node_graph(rng, n_x: int) -> tuple[NodeGraph, list[int]]:
     return g, xs
 
 
-@pytest.mark.parametrize("n_x", [5, 40])
+@pytest.mark.parametrize("n_x", [1, 5, 40])
 def test_solve_nodes_device_matches_host_solver(n_x):
-    """5 jobs take the host path, 40 the batched solver."""
+    """Rounds of every size take the batched solver."""
     g, xs = _x_node_graph(np.random.default_rng(n_x), n_x)
     cfg = AssemblyConfig(k=21)
     got = tsf.solve_nodes_device(g, xs, cfg, device=torch.device("cpu"))
     assert sorted(got) == sorted(xs)
     for v in xs:
         assert got[v] == solve_node(g, v, cfg), v  # order included
+
+
+def test_small_rounds_take_the_batched_solver(monkeypatch):
+    """The reference solves rounds of at most 32 jobs on the host; the
+    port sends every round to the batched solver."""
+    g, xs = _x_node_graph(np.random.default_rng(8), 8)
+    cfg = AssemblyConfig(k=21)
+    calls = []
+    plain = tsf.batched_greedy_packed_plain
+    monkeypatch.setattr(tsf, "batched_greedy_packed_plain",
+                        lambda buf, *a: calls.append(len(buf)) or plain(buf, *a))
+    got = tsf.solve_nodes_device(g, xs, cfg, device=torch.device("cpu"))
+    assert len(calls) == 1 and 8 <= calls[0] <= 32  # one round, one job per block
+    for v in xs:
+        assert got[v] == solve_node(g, v, cfg), v
 
 
 def test_solver_hook_is_bound_to_device():

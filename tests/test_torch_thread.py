@@ -94,3 +94,78 @@ def test_rect_rebuilds_rows():
     flat = np.array([5, 6, 7, 8, 9])
     out = tth.rect(flat, np.array([2, 0, 3]), 4)
     assert out.tolist() == [[5, 6, -1, -1], [-1, -1, -1, -1], [7, 8, 9, -1]]
+
+
+def _window_rows(seed: int, N: int = 64, W: int = 9):
+    """Random lookups of N rows of W windows over a 40-lane node table:
+    about half the windows hit, a sixth are invalid, and a quarter of the
+    lanes are at contig offset 0; row 0 alternates hit and miss (the most
+    runs a row can hold), row 1 hits everywhere, row 2 nowhere."""
+    rng = np.random.default_rng(seed)
+    idx = torch.from_numpy(rng.integers(0, 40, (N, W)))
+    hit = torch.from_numpy(rng.random((N, W)) < 0.5)
+    valid = torch.from_numpy(rng.random((N, W)) < 5 / 6)
+    hit[0], valid[0] = torch.arange(W) % 2 == 0, True
+    hit[1], valid[1] = True, True
+    hit[2] = False
+    node_cid = torch.from_numpy(rng.integers(0, 12, 40))
+    node_off = torch.from_numpy(np.where(rng.random(40) < 0.25, 0, rng.integers(1, 30, 40)))
+    return idx, hit, valid, node_cid, node_off
+
+
+def _thread_rows_loop(idx, hit, valid, node_cid, node_off):
+    """The spec as one loop per row (oracle.multibridge.thread_read_runs on
+    lookups): events at run starts and offset-0 windows, runs (p0, p1, o0,
+    o1), every row -1-padded."""
+    N, W = idx.shape
+    R = tth.max_runs(W)
+    out = [np.full((N, W), -1), np.full((N, W), -1), np.zeros(N, np.int64)] + [
+        np.full((N, R), -1) for _ in range(4)
+    ]
+    ev_cid, ev_run, n_events, p0, p1, o0, o1 = out
+    for r in range(N):
+        h = [bool(hit[r, j] and valid[r, j]) for j in range(W)]
+        runs = -1
+        for j in range(W):
+            if not h[j]:
+                continue
+            cid, off = int(node_cid[idx[r, j]]), int(node_off[idx[r, j]])
+            start = j == 0 or not h[j - 1]
+            if start:
+                runs += 1
+                p0[r, runs], o0[r, runs] = j, off
+            if start or off == 0:
+                ev_cid[r, n_events[r]], ev_run[r, n_events[r]] = cid, runs
+                n_events[r] += 1
+            if j == W - 1 or not h[j + 1]:
+                p1[r, runs], o1[r, runs] = j, off
+    return out
+
+
+@pytest.mark.parametrize("W", [1, 2, 9, 105])
+def test_thread_windows_plain_matches_the_row_loop(W):
+    """K4's plain twin (the kernel's reference on the card) against the
+    per-row loop, including a row with the most runs R - 1."""
+    args = _window_rows(W, W=W)
+    got = tth.thread_windows(*args)
+    for g, w in zip(got, _thread_rows_loop(*args)):
+        assert g.dtype == torch.int64
+        np.testing.assert_array_equal(g.numpy(), w)
+    assert int((got[3][0] >= 0).sum()) == (W + 1) // 2
+
+
+@pytest.mark.parametrize("N", [0, 1, 7])
+def test_compact_thread_outputs_edge_rows_match_reference(N):
+    """Empty batches and rows without events (K5's plain twin against the
+    reference's sort compaction)."""
+    rows = tth.thread_windows(*(a[:N] if a.dim() == 2 else a for a in _window_rows(5, W=9)))
+    if N:
+        for t in rows:
+            t[N // 2] = -1 if t.dim() == 2 else 0  # one row without events or runs
+    ref = jth.compact_thread_outputs(*(jnp.asarray(t.numpy()) for t in rows))
+    tot_e, tot_r = (int(x) for x in np.asarray(ref[-1]))
+    got = tth.compact_thread_outputs(*rows)
+    for j, p in enumerate(got[:6]):
+        np.testing.assert_array_equal(p.numpy(), np.asarray(ref[j])[: tot_e if j < 2 else tot_r])
+    np.testing.assert_array_equal(got[6].numpy(), rows[2].numpy())
+    np.testing.assert_array_equal(got[7].numpy(), np.asarray(ref[6]))
