@@ -5,7 +5,7 @@
 
 Phases; any failure exits nonzero:
   0. versions, the card's name and power limit (nvidia-smi), and which
-     route parses input files (shannon_tpu.native: C++ or pure Python);
+     route parses input files (shannon_tpu_torch.native: C++ or pure Python);
   1. build the hand-written kernels from shannon_tpu_torch/csrc with nvcc
      (one nvcc per source, all started together);
   2. kernels, each against its plain PyTorch version on the card at the
@@ -14,10 +14,19 @@ Phases; any failure exits nonzero:
      65,536 reads of 100 bp at pad 128, k = 24, a 2^22-lane table; K4
      (threading run scan) and K5 (across-read compaction) on the first
      65,536 reads of the scale dataset against the contig arrays
-     spectrum_device builds from them; K6 (sparse-flow greedy) on 4,096
+     spectrum_device builds from them; K7 (probe lookup, both probe sets),
+     K8 (one rescue round from the cut counts), K9 (one prune round) and K10
+     (compaction of the final keep mask) on the counted, shrunk spectrum of
+     the whole single-end scale dataset at the default AssemblyConfig, then
+     the whole correct_spectrum there against its CPU run, and K9 on a
+     synthetic grid (every count 1..255 against every sibling maximum
+     1..4095, error_rate 0.01 and 0.02); K6 (sparse-flow greedy) on 4,096
      random jobs of 1-8 by 1-8 margins at sf_restarts = 4, and the batched
      solver (K6) against the host solve_node loop on rounds of 8, 32 and
-     128 X-nodes;
+     128 X-nodes.  Each kernel row also times the one PyTorch call that
+     computes the same function, where there is one (library_ms), and gives
+     the least time the card could take (bound_ms: bytes over 3.35 TB/s or
+     operations over 67 TFLOP/s, whichever is larger);
   3. parity: on 3,000 reads of the scale dataset, assemble on CUDA gives
      the same corrected spectrum, contig arrays and transcripts as on the
      CPU (plain versions), and the same canonical set as the pure-Python
@@ -35,11 +44,12 @@ Phases; any failure exits nonzero:
      out-dir, where every stage must be skipped (resume); fails below the
      reference's exact recall on this dataset (PAIRED_RECALL_GATE).
 Every kernel must launch at least once in each scale phase (counts set to
-0 just before the phase and read just after).
+0 just before the phase and read just after); K8 (dead-end rescue) runs only
+when the phase's auto abundance cut is above 1, and is exempt where it is 1.
 
 The last two lines of standard output are one JSON object with the kernels'
 launches, errors and times, and one JSON object {"ok": true, "device": ...}.
-Imports nothing of JAX.
+Imports nothing of JAX and nothing of the JAX package (shannon_tpu).
 """
 
 from __future__ import annotations
@@ -62,7 +72,7 @@ PARITY_PAIRS = 1500
 # last k-mers few reads, the auto abundance cut drops them at the lowest
 # abundances, and those transcripts come out 1-3 bases short (partial
 # recall stays 1.0).  The JAX package gives the same transcripts and 0.94
-# on a 100k-read cut of the dataset (PERF.md, "Paired quality gate").
+# on a 100k-read cut of the dataset (PERF.md, PR 2).
 PAIRED_RECALL_GATE = 0.94
 # Read batch of the main path (AssemblyConfig.batch_reads), the rows K4-K6's
 # phase threads.
@@ -76,7 +86,16 @@ REPLACES = {
     "thread_rows": ("shannon_tpu_torch/csrc/thread.cu", "shannon_tpu/ops/thread.py:104"),
     "compact_rows": ("shannon_tpu_torch/csrc/thread.cu", "shannon_tpu/ops/thread.py:178"),
     "sf_greedy": ("shannon_tpu_torch/csrc/sparseflow.cu", "shannon_tpu/ops/sparseflow.py:88"),
+    "probe_lookup": ("shannon_tpu_torch/csrc/correction.cu", "shannon_tpu/ops/correction.py:78"),
+    "rescue_round": ("shannon_tpu_torch/csrc/correction.cu", "shannon_tpu/ops/correction.py:143"),
+    "prune_round": ("shannon_tpu_torch/csrc/correction.cu", "shannon_tpu/ops/correction.py:184"),
+    "compact_keep": ("shannon_tpu_torch/csrc/correction.cu", "shannon_tpu/ops/correction.py:19"),
 }
+
+# Peak rates of one H100 SXM for bound_ms (NVIDIA's data sheet): device
+# memory bandwidth, and float32 / integer operations outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+OPS_PER_S = 67e12
 
 
 def _smi() -> str:
@@ -123,13 +142,36 @@ def _max_abs_err(got, want) -> float:
     return 0.0
 
 
+def _nbytes(*tensors) -> int:
+    return sum(x.numel() * x.element_size() for x in tensors)
+
+
+def _row(err: float, t: tuple[float, float], bytes_: float, ops: float,
+         library_ms: float | None) -> dict:
+    """One kernel's entry of the kernels line: exactness, kernel and plain
+    ms, the bound (bytes each input read once and each output written once
+    over the memory rate, or operations over the peak rate, the larger) and
+    the library call's ms (None where no one PyTorch call does the same)."""
+    by_bytes, by_ops = bytes_ / HBM_BYTES_PER_S * 1e3, ops / OPS_PER_S * 1e3
+    return {"max_abs_err": err, "ms": t[0], "plain_ms": t[1],
+            "bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "library_ms": library_ms}
+
+
+def _print_row(label: str, row: dict, smi: str) -> None:
+    lib = "none" if row["library_ms"] is None else f"{row['library_ms']:.4f} ms"
+    print(f"{label}: exact; kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+          f"library call {lib}, bound {row['bound_ms']:.4f} ms ({row['bound_by']}) [{smi}]")
+
+
 def _scale_dataset(n_reads: int, paired: bool = False):
     """The scale transcriptome (seed 11) and n_reads reads of it: 100 bp
     single-end reads, or 100 bp mates of 250 bp inserts interleaved
     [L0, R0, ...]; 1% substitution error."""
     import numpy as np
 
-    from shannon_tpu.sim import sample_paired_reads, sample_reads, simulate_transcripts
+    from shannon_tpu_torch.sim import sample_paired_reads, sample_reads, simulate_transcripts
 
     rng = np.random.default_rng(11)
     n_tr, tlen = 500, 1500
@@ -150,7 +192,7 @@ def _scale_dataset(n_reads: int, paired: bool = False):
 
 
 def _write_mates(reads, directory: Path) -> tuple[str, str]:
-    from shannon_tpu.io.fastx import write_fasta
+    from shannon_tpu_torch.io.fastx import write_fasta
 
     left, right = directory / "left.fasta", directory / "right.fasta"
     write_fasta(left, ((f"p{i}/1", s) for i, s in enumerate(reads[0::2])))
@@ -159,11 +201,15 @@ def _write_mates(reads, directory: Path) -> tuple[str, str]:
 
 
 def kernel_phase(dev, smi: str) -> dict:
-    """K1-K3 against their plain versions at the main path's shapes."""
+    """K1-K3 against their plain versions at the main path's shapes, with
+    the one PyTorch call that computes the same (torch.unique_consecutive
+    for K2, torch.searchsorted for K3)."""
+    import math
+
     import numpy as np
     import torch
 
-    from shannon_tpu.io.pack import invalid_mask_words, pack_words
+    from shannon_tpu_torch.io.pack import invalid_mask_words, pack_words
     from shannon_tpu_torch.ops.count import reduce_sorted, reduce_sorted_plain
     from shannon_tpu_torch.ops.kmers import extract_kmers_packed, extract_kmers_packed_plain
     from shannon_tpu_torch.ops.spectrum import lookup_sorted, lookup_sorted_plain
@@ -184,57 +230,62 @@ def kernel_phase(dev, smi: str) -> dict:
         return words, torch.from_numpy(lengths).to(dev), mask
 
     out = {}
-    errs, times = [], []
+    rows = []
     for canonical in (True, False):
         for with_n in (False, True):
             words, lengths, mask = batch(1, with_n)
             args = (words, lengths, k, canonical, pad, mask)
-            err = _max_abs_err(extract_kmers_packed(*args), extract_kmers_packed_plain(*args))
-            errs.append(err)
-            times.append(_alternate(
-                lambda: extract_kmers_packed(*args), lambda: extract_kmers_packed_plain(*args)
-            ))
-            print(f"K1 extract_kmers canonical={canonical} mask={with_n}: exact; "
-                  f"kernel {times[-1][0]:.4f} ms, plain {times[-1][1]:.4f} ms [{smi}]")
-    # the main path's case: canonical, no mask
-    out["extract_kmers"] = {"max_abs_err": max(errs), "ms": times[0][0], "plain_ms": times[0][1]}
+            got = extract_kmers_packed(*args)
+            err = _max_abs_err(got, extract_kmers_packed_plain(*args))
+            t = _alternate(lambda: extract_kmers_packed(*args),
+                           lambda: extract_kmers_packed_plain(*args))
+            inputs = (words, lengths) if mask is None else (words, lengths, mask)
+            # per window: k shift-ors of the forward key and k of its
+            # reverse complement
+            W = got[0].shape[1]
+            rows.append(_row(err, t, _nbytes(*inputs, *got), 2 * n * W * k, None))
+            _print_row(f"K1 extract_kmers canonical={canonical} mask={with_n}", rows[-1], smi)
+    # the main path's case: canonical, no mask; the error over all four
+    out["extract_kmers"] = {**rows[0], "max_abs_err": max(r["max_abs_err"] for r in rows)}
 
     words, lengths, _ = batch(1, False)
     keys_a = torch.sort(extract_kmers_packed(words, lengths, k, True, pad)[0].reshape(-1)).values
     words_b, lengths_b, _ = batch(2, False)
     keys_b = torch.sort(extract_kmers_packed(words_b, lengths_b, k, True, pad)[0].reshape(-1)).values
-    unit = (keys_a, None, cap)
-    got, want = reduce_sorted(*unit), reduce_sorted_plain(*unit)
-    if got[3] != want[3]:
-        raise AssertionError(f"K2 n {got[3]} != {want[3]}")
-    c = min(got[3], cap)
-    err = _max_abs_err((got[0], got[1], got[2][:c]), (want[0], want[1], want[2][:c]))
-    t_unit = _alternate(lambda: reduce_sorted(*unit), lambda: reduce_sorted_plain(*unit))
-    print(f"K2 reduce_sorted unit, {keys_a.numel()} keys -> {got[3]} runs: exact; "
-          f"kernel {t_unit[0]:.4f} ms, plain {t_unit[1]:.4f} ms [{smi}]")
-    table_a = got
+
+    def reduce_row(label, args):
+        got, want = reduce_sorted(*args), reduce_sorted_plain(*args)
+        if got[3] != want[3]:
+            raise AssertionError(f"K2 {label} n {got[3]} != {want[3]}")
+        c = min(got[3], cap)
+        err = _max_abs_err((got[0], got[1], got[2][:c]), (want[0], want[1], want[2][:c]))
+        t = _alternate(lambda: reduce_sorted(*args), lambda: reduce_sorted_plain(*args))
+        keys, counts = args[0], args[1]
+        inputs = (keys,) if counts is None else (keys, counts)
+        library = _time_ms(lambda: torch.unique_consecutive(keys, return_counts=True), 10)
+        row = _row(err, t, _nbytes(*inputs, *got[:3]), keys.numel(), library)
+        _print_row(f"K2 reduce_sorted {label}, {keys.numel()} keys -> {got[3]} runs", row, smi)
+        return got, row
+
+    table_a, row_unit = reduce_row("unit", (keys_a, None, cap))
     table_b = reduce_sorted(keys_b, None, cap)
     mkeys, order = torch.sort(torch.cat([table_a[0], table_b[0]]))
     mcounts = torch.cat([table_a[1], table_b[1]])[order]
-    merge = (mkeys, mcounts, cap)
-    got, want = reduce_sorted(*merge), reduce_sorted_plain(*merge)
-    if got[3] != want[3]:
-        raise AssertionError(f"K2 merge n {got[3]} != {want[3]}")
-    c = min(got[3], cap)
-    err = max(err, _max_abs_err((got[0], got[1], got[2][:c]), (want[0], want[1], want[2][:c])))
-    t_merge = _alternate(lambda: reduce_sorted(*merge), lambda: reduce_sorted_plain(*merge))
-    print(f"K2 reduce_sorted merge, {mkeys.numel()} keys -> {got[3]} runs: exact; "
-          f"kernel {t_merge[0]:.4f} ms, plain {t_merge[1]:.4f} ms [{smi}]")
-    out["reduce_sorted"] = {"max_abs_err": err, "ms": t_unit[0], "plain_ms": t_unit[1]}
+    _, row_merge = reduce_row("merge", (mkeys, mcounts, cap))
+    out["reduce_sorted"] = {**row_unit, "max_abs_err": max(row_unit["max_abs_err"],
+                                                            row_merge["max_abs_err"])}
 
     query = extract_kmers_packed(words, lengths, k, True, pad)[0]
     table = table_a[0]
     got, want = lookup_sorted(table, query), lookup_sorted_plain(table, query)
     err = _max_abs_err(got, want)
     t = _alternate(lambda: lookup_sorted(table, query), lambda: lookup_sorted_plain(table, query))
-    print(f"K3 lookup_sorted {query.numel()} queries in {table.numel()} lanes: exact; "
-          f"kernel {t[0]:.4f} ms, plain {t[1]:.4f} ms [{smi}]")
-    out["lookup_sorted"] = {"max_abs_err": err, "ms": t[0], "plain_ms": t[1]}
+    library = _time_ms(lambda: torch.searchsorted(table, query.reshape(-1)), 10)
+    steps = math.ceil(math.log2(table.numel())) + 1
+    out["lookup_sorted"] = _row(err, t, _nbytes(table, query, *got), query.numel() * steps,
+                                library)
+    _print_row(f"K3 lookup_sorted {query.numel()} queries in {table.numel()} lanes "
+               "(a binary search: latency-bound, not bandwidth-bound)", out["lookup_sorted"], smi)
     return out
 
 
@@ -243,9 +294,9 @@ def parity_phase(reads, n_parity: int, dev, smi: str) -> None:
     import numpy as np
     import torch
 
-    from shannon_tpu.config import AssemblyConfig
-    from shannon_tpu.io.pack import pack_reads
-    from shannon_tpu.oracle import assemble_oracle
+    from shannon_tpu_torch.config import AssemblyConfig
+    from shannon_tpu_torch.io.pack import pack_reads
+    from shannon_tpu_torch.oracle import assemble_oracle
     from shannon_tpu_torch.pipeline import assemble, spectrum_device
 
     rng = np.random.default_rng(3)
@@ -286,8 +337,8 @@ def thread_phase(reads, dev, smi: str) -> dict:
     scale dataset threaded through the graph built from them."""
     import torch
 
-    from shannon_tpu.config import AssemblyConfig
-    from shannon_tpu.io.pack import pack_reads
+    from shannon_tpu_torch.config import AssemblyConfig
+    from shannon_tpu_torch.io.pack import pack_reads
     from shannon_tpu_torch.ops import thread as tth
     from shannon_tpu_torch.ops.count import upload_words
     from shannon_tpu_torch.ops.kmers import extract_kmers_packed
@@ -310,15 +361,172 @@ def thread_phase(reads, dev, smi: str) -> dict:
     err = _max_abs_err(tth.thread_windows(*args), rows)
     t = _alternate(lambda: tth.thread_windows(*args), lambda: tth.thread_windows_plain(*args))
     N, W = idx.shape
-    print(f"K4 thread_rows {N} reads x {W} windows, {int(rows[2].sum())} events: exact; "
-          f"kernel {t[0]:.4f} ms, plain {t[1]:.4f} ms [{smi}]")
-    out = {"thread_rows": {"max_abs_err": err, "ms": t[0], "plain_ms": t[1]}}
-    err = _max_abs_err(tth.compact_thread_outputs(*rows), tth.compact_thread_outputs_plain(*rows))
+    # about ten operations per window: the run state and the row counters
+    out = {"thread_rows": _row(err, t, _nbytes(*args, *rows), 10 * N * W, None)}
+    _print_row(f"K4 thread_rows {N} reads x {W} windows, {int(rows[2].sum())} events",
+               out["thread_rows"], smi)
+    compacted = tth.compact_thread_outputs_plain(*rows)
+    err = _max_abs_err(tth.compact_thread_outputs(*rows), compacted)
     t = _alternate(lambda: tth.compact_thread_outputs(*rows),
                    lambda: tth.compact_thread_outputs_plain(*rows))
-    print(f"K5 compact_rows {N} rows: exact; kernel {t[0]:.4f} ms, plain {t[1]:.4f} ms [{smi}]")
-    out["compact_rows"] = {"max_abs_err": err, "ms": t[0], "plain_ms": t[1]}
+    out["compact_rows"] = _row(err, t, _nbytes(*rows, *compacted), sum(r.numel() for r in rows),
+                               None)
+    _print_row(f"K5 compact_rows {N} rows", out["compact_rows"], smi)
     return out
+
+
+def _prune_grid(dev, max_c: int = 255, max_m: int = 4095):
+    """K9's float grid: every count 1..max_c against every sibling maximum
+    1..max_m, on the right side and on the left.  Lanes [0, max_m) hold the
+    sibling counts 1..max_m and probe nothing; each later lane has count c,
+    one hit row of its side pointing at the lane of count m and one at a
+    lane of count m // 2 (the max must pick m)."""
+    import numpy as np
+    import torch
+
+    c, m = np.meshgrid(np.arange(1, max_c + 1), np.arange(1, max_m + 1), indexing="ij")
+    c, m = np.tile(c.ravel(), 2), np.tile(m.ravel(), 2)
+    side = np.repeat([0, 1], c.size // 2)
+    lanes = max_m + np.arange(c.size)
+    counts = np.concatenate([np.arange(1, max_m + 1), c]).astype(np.int32)
+    idx = np.zeros((8, max_m + c.size), np.int64)
+    hit = np.zeros(idx.shape, bool)
+    idx[side, lanes], hit[side, lanes] = m - 1, True
+    idx[side + 4, lanes], hit[side + 4, lanes] = np.maximum(m // 2, 1) - 1, True
+    return tuple(torch.from_numpy(x).to(dev) for x in (counts, idx, hit))
+
+
+def correction_phase(reads, dev, smi: str) -> tuple[dict, dict]:
+    """K7-K10 against their plain versions on the main path's input: the
+    counted, shrunk spectrum of the whole single-end scale dataset at the
+    default AssemblyConfig (k = 24, the auto cut, sibling ratio 0.1, the
+    default error_rate); then the whole correct_spectrum there against its
+    CPU run (the plain versions), and K9 on the float grid."""
+    import math
+
+    import torch
+
+    from shannon_tpu_torch.config import AssemblyConfig
+    from shannon_tpu_torch.io.pack import pack_reads
+    from shannon_tpu_torch.ops import correction as tcor
+    from shannon_tpu_torch.ops.count import Spectrum, count_reads_spectrum, shrink_spectrum
+
+    cfg = AssemblyConfig()
+    k, canonical = cfg.k, not cfg.strand_specific
+    spec = shrink_spectrum(count_reads_spectrum(
+        pack_reads(reads, pad_length=cfg.read_pad_length), k=k, capacity=cfg.kmer_capacity,
+        canonical=canonical, batch_reads=cfg.batch_reads, device=dev,
+    ))
+    cut = tcor.auto_min_abundance(spec)
+    C = spec.capacity
+    print(f"correction input: {spec.n} k-mers in {C} lanes, auto cut {cut}, k = {k}, "
+          f"error_rate {cfg.error_rate} [{smi}]")
+    out, probes = {}, {}
+    steps = math.ceil(math.log2(C)) + 1
+    for side in ("sib", "ext"):
+        def kernel():
+            return tcor.probe_resolve(spec, k, canonical, side)
+
+        def plain():
+            return tcor.probe_resolve_plain(spec, k, canonical, side)
+
+        probes[side] = kernel()
+        err = _max_abs_err(probes[side], plain())
+        t = _alternate(kernel, plain)
+        q = tcor.probe_keys(spec.key, k, side, canonical)  # materialized for the library call
+        library = _time_ms(lambda: torch.searchsorted(spec.key, q), 10)
+        del q
+        row = _row(err, t, _nbytes(spec.key, *probes[side]), 8 * C * steps, library)
+        _print_row(f"K7 probe_lookup side={side}, 8 x {C} probes (a binary search: "
+                   "latency-bound, not bandwidth-bound)", row, smi)
+        out.setdefault("probe_lookup", row)  # the sibling set is the row kept
+
+    sib, ext = probes["sib"], probes["ext"]
+    raw, counts = tcor.cut_counts(spec, cut)
+    got = tcor.rescue_round(counts, raw, *sib, *ext)
+    want = tcor.rescue_round_plain(counts, raw, *sib, *ext)
+    err = _max_abs_err(got[:1], want[:1])
+    if got[1] != want[1]:
+        raise AssertionError("K8 disagrees with its plain version on the changed flag")
+    t = _alternate(lambda: tcor.rescue_round(counts, raw, *sib, *ext),
+                   lambda: tcor.rescue_round_plain(counts, raw, *sib, *ext))
+    # only a lane the cut dropped reads its 16 probe rows and the idx of its hits
+    cand = (raw > 0) & (counts == 0)
+    n_cand = int(cand.sum())
+    n_hits = int(sib[1][:, cand].sum()) + int(ext[1][:, cand].sum())
+    out["rescue_round"] = _row(err, t, 12 * C + 16 * n_cand + 8 * n_hits,
+                               C + 48 * n_cand, None)
+    _print_row(f"K8 rescue_round {C} lanes, {n_cand} dropped by the cut, "
+               f"{int((got[0] != counts).sum())} rescued", out["rescue_round"], smi)
+    for _ in range(k + 2):  # the main path's rescue loop, to the K9 input
+        nxt, changed = tcor.rescue_round(counts, raw, *sib, *ext)
+        if not changed:
+            break
+        counts = nxt
+    del ext, probes["ext"]
+
+    ratio, eps3 = tcor.prune_constants(cfg.sibling_ratio, cfg.error_rate)
+    use_cap = cfg.error_rate > 0
+    got = tcor.prune_round(counts, *sib, ratio, eps3, use_cap)
+    want = tcor.prune_round_plain(counts, *sib, ratio, eps3, use_cap)
+    err = _max_abs_err(got[:1], want[:1])
+    if got[1] != want[1]:
+        raise AssertionError("K9 disagrees with its plain version on the changed flag")
+    t = _alternate(lambda: tcor.prune_round(counts, *sib, ratio, eps3, use_cap),
+                   lambda: tcor.prune_round_plain(counts, *sib, ratio, eps3, use_cap))
+    alive = counts > 0
+    n_alive, n_hits = int(alive.sum()), int(sib[1][:, alive].sum())
+    out["prune_round"] = _row(err, t, 8 * C + 8 * n_alive + 8 * n_hits, C + 20 * n_alive, None)
+    _print_row(f"K9 prune_round {C} lanes, {n_alive} alive, "
+               f"{int((got[0] != counts).sum())} pruned", out["prune_round"], smi)
+    for er in (0.01, 0.02):
+        g_counts, g_idx, g_hit = _prune_grid(dev)
+        g_ratio, g_eps3 = tcor.prune_constants(cfg.sibling_ratio, er)
+        got = tcor.prune_round(g_counts, g_idx, g_hit, g_ratio, g_eps3, True)
+        want = tcor.prune_round_plain(g_counts, g_idx, g_hit, g_ratio, g_eps3, True)
+        out["prune_round"]["max_abs_err"] = max(out["prune_round"]["max_abs_err"],
+                                                _max_abs_err(got[:1], want[:1]))
+        if got[1] != want[1] or not want[1]:
+            raise AssertionError("K9 float grid: changed flags differ or nothing pruned")
+        print(f"K9 prune_round float grid, error_rate {er}: counts 1..255 x sibling maxima "
+              f"1..4095 x 2 sides, {int((got[0] != g_counts).sum())} pruned: exact [{smi}]")
+        del g_counts, g_idx, g_hit
+    for _ in range(cfg.correction_rounds):  # the main path's prune loop, to K10's mask
+        nxt, changed = tcor.prune_round(counts, *sib, ratio, eps3, use_cap)
+        if not changed:
+            break
+        counts = nxt
+    del sib, probes
+
+    keep = counts > 0
+    got, want = tcor.compact(spec, keep), tcor.compact_plain(spec, keep)
+    if got.n != want.n:
+        raise AssertionError(f"K10 n {got.n} != {want.n}")
+    err = _max_abs_err((got.key, got.count), (want.key, want.count))
+    t = _alternate(lambda: tcor.compact(spec, keep), lambda: tcor.compact_plain(spec, keep))
+    library = _time_ms(lambda: torch.masked_select(spec.key, keep), 10)
+    out["compact_keep"] = _row(err, t, C + 12 * got.n + 12 * C, C, library)
+    _print_row(f"K10 compact_keep {C} lanes -> {got.n} kept", out["compact_keep"], smi)
+
+    args = (k, cut, cfg.sibling_ratio, cfg.correction_rounds, canonical, cfg.error_rate)
+    cpu = Spectrum(key=spec.key.cpu(), count=spec.count.cpu(), n=spec.n)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    first = tcor.correct_spectrum(spec, *args)
+    torch.cuda.synchronize(dev)
+    t1 = time.perf_counter()
+    res = tcor.correct_spectrum(cpu, *args)
+    t2 = time.perf_counter()
+    if res.n != first.n or not (torch.equal(res.key, first.key.cpu())
+                                and torch.equal(res.count, first.count.cpu())):
+        raise AssertionError("correct_spectrum on K7-K10 differs from its CPU run")
+    print(f"correct_spectrum: {spec.n} -> {first.n} k-mers, on K7-K10 {(t1 - t0) * 1e3:.1f} ms, "
+          f"on the host CPU {(t2 - t1) * 1e3:.1f} ms (host clock, one run each): equal [{smi}]")
+    stage = {"n_kmers": spec.n, "lanes": C, "auto_cut": cut, "n_corrected": first.n,
+             "ms": (t1 - t0) * 1e3, "cpu_ms": (t2 - t1) * 1e3}
+    del spec, cpu, first, res, keep, counts, raw
+    torch.cuda.empty_cache()
+    return out, stage
 
 
 def _sf_jobs(seed: int, n_jobs: int):
@@ -346,8 +554,8 @@ def _x_node_graph(seed: int, n_x: int):
     abundances: one sparse-flow job or more each (node_blocks)."""
     import numpy as np
 
-    from shannon_tpu.oracle.nodegraph import Node, NodeGraph
-    from shannon_tpu.sim import random_seq
+    from shannon_tpu_torch.oracle.nodegraph import Node, NodeGraph
+    from shannon_tpu_torch.sim import random_seq
 
     rng = np.random.default_rng(seed)
     nodes, xs = [], []
@@ -374,8 +582,8 @@ def sf_phase(dev, smi: str) -> dict:
     keeps rounds of at most 32 jobs on the host; the port does not)."""
     import torch
 
-    from shannon_tpu.config import AssemblyConfig
-    from shannon_tpu.oracle.sparseflow import _node_flows, node_blocks, solve_node
+    from shannon_tpu_torch.config import AssemblyConfig
+    from shannon_tpu_torch.oracle.sparseflow import _node_flows, node_blocks, solve_node
     from shannon_tpu_torch.ops import sparseflow as tsf
 
     cfg = AssemblyConfig()
@@ -386,9 +594,12 @@ def sf_phase(dev, smi: str) -> dict:
     err = _max_abs_err((got[0].view(torch.int32), got[1]), (want[0].view(torch.int32), want[1]))
     t = _alternate(lambda: tsf.batched_greedy_packed(buf, R),
                    lambda: tsf.batched_greedy_packed_plain(buf, R))
-    print(f"K6 sf_greedy {buf.shape[0]} jobs x {R + 1} restarts: exact (flows bitwise); "
-          f"kernel {t[0]:.4f} ms, plain {t[1]:.4f} ms [{smi}]")
-    out = {"sf_greedy": {"max_abs_err": err, "ms": t[0], "plain_ms": t[1]}, "sf_rounds": []}
+    # per (job, restart): at most 16 greedy steps, each a scan of the 64
+    # cells with about 4 operations per cell
+    ops = buf.shape[0] * (R + 1) * 16 * 64 * 4
+    out = {"sf_greedy": _row(err, t, _nbytes(buf, *got), ops, None), "sf_rounds": []}
+    _print_row(f"K6 sf_greedy {buf.shape[0]} jobs x {R + 1} restarts (flows bitwise)",
+               out["sf_greedy"], smi)
     for n_nodes in (8, 32, 128):
         g, xs = _x_node_graph(n_nodes, n_nodes)
         n_jobs = 0
@@ -420,9 +631,9 @@ def paired_parity_phase(reads, dev, smi: str) -> None:
     in-memory route."""
     import numpy as np
 
-    from shannon_tpu.config import AssemblyConfig
-    from shannon_tpu.io.fastx import write_fasta
-    from shannon_tpu.io.pack import pack_reads
+    from shannon_tpu_torch.config import AssemblyConfig
+    from shannon_tpu_torch.io.fastx import write_fasta
+    from shannon_tpu_torch.io.pack import pack_reads
     from shannon_tpu_torch.ingest import normalize_mate2
     from shannon_tpu_torch.pipeline import assemble, run_pipeline, spectrum_device
 
@@ -480,8 +691,14 @@ def _run_cli(argv: list[str], smi: str) -> None:
         raise AssertionError(f"the CLI exited with {rc}")
 
 
-def _launches_check(launches: dict, phase: str) -> None:
+def _launches_check(launches: dict, phase: str, cut: int) -> None:
+    """Every kernel launched in the phase; K8 only where the phase's auto
+    abundance cut is above 1."""
     missing = [name for name, count in launches.items() if count == 0]
+    if missing == ["rescue_round"] and cut == 1:
+        print(f"the {phase} scale phase launched no rescue_round (K8): its auto abundance "
+              "cut is 1, and dead-end rescue runs only when the cut drops k-mers")
+        return
     if missing:
         raise AssertionError(f"the {phase} scale phase launched no {missing} kernel")
 
@@ -489,9 +706,9 @@ def _launches_check(launches: dict, phase: str) -> None:
 def single_scale_phase(truth, reads, dev, lib, smi: str) -> dict:
     import torch
 
-    from shannon_tpu.config import AssemblyConfig
-    from shannon_tpu.eval import evaluate
-    from shannon_tpu.utils.timing import StageTimer
+    from shannon_tpu_torch.config import AssemblyConfig
+    from shannon_tpu_torch.eval import evaluate
+    from shannon_tpu_torch.utils.timing import StageTimer
     from shannon_tpu_torch.pipeline import assemble
 
     timer = StageTimer(echo=False)
@@ -511,7 +728,7 @@ def single_scale_phase(truth, reads, dev, lib, smi: str) -> dict:
     print("launches " + json.dumps(launches))
     if quality["recall_exact"] < 0.99:
         raise AssertionError(f"single-end exact recall {quality['recall_exact']} < 0.99")
-    _launches_check(launches, "single-end")
+    _launches_check(launches, "single-end", timer.stages["spectrum+graph"]["auto_min_abundance"])
     return {"n_reads": len(reads), "e2e_s": e2e, "reads_per_s": len(reads) / e2e,
             "max_memory_allocated_bytes": peak, "stages": timer.stages, "stats": res.stats,
             "quality": quality, "launches": launches}
@@ -521,8 +738,8 @@ def paired_scale_phase(truth, reads, dev, lib, smi: str) -> dict:
     """The CLI on two mate files, then again on the same out-dir (resume)."""
     import torch
 
-    from shannon_tpu.eval import evaluate
-    from shannon_tpu.io.fastx import read_fastx
+    from shannon_tpu_torch.eval import evaluate
+    from shannon_tpu_torch.io.fastx import read_fastx
 
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
@@ -540,6 +757,7 @@ def paired_scale_phase(truth, reads, dev, lib, smi: str) -> dict:
         launches = dict(lib.launches)
         peak = torch.cuda.max_memory_allocated(dev)
         stages = json.loads((out / "stats.json").read_text())["stages"]
+        _launches_check(launches, "paired", stages["spectrum+graph"]["auto_min_abundance"])
         seqs = [s for _, s in read_fastx(out / "transcripts.fasta")]
         t0 = time.perf_counter()
         _run_cli(argv, smi)
@@ -559,7 +777,6 @@ def paired_scale_phase(truth, reads, dev, lib, smi: str) -> dict:
         raise AssertionError(
             f"paired exact recall {quality['recall_exact']} < {PAIRED_RECALL_GATE}"
         )
-    _launches_check(launches, "paired")
     return {"n_reads": len(reads), "e2e_s": e2e, "reads_per_s": len(reads) / e2e,
             "resume_s": resume_s, "max_memory_allocated_bytes": peak, "stages": stages,
             "n_transcripts": len(seqs), "quality": quality, "launches": launches}
@@ -586,7 +803,7 @@ def main(argv=None) -> int:
     from shannon_tpu_torch import kernels
     from shannon_tpu_torch.ingest import native_route
 
-    print(f"input files parsed by the {native_route()} route of shannon_tpu.native")
+    print(f"input files parsed by the {native_route()} route of shannon_tpu_torch.native")
     t0 = time.perf_counter()
     _path, log = kernels.build(force=True)
     lib = kernels.library()
@@ -604,6 +821,8 @@ def main(argv=None) -> int:
     print(f"scale dataset: {len(reads)} reads simulated in {time.perf_counter() - t0:.1f} s "
           f"[{smi}]")
     report["kernels"].update(thread_phase(reads, dev, smi))
+    rows, report["correction"] = correction_phase(reads, dev, smi)
+    report["kernels"].update(rows)
     sf = sf_phase(dev, smi)
     report["sf_rounds"] = sf.pop("sf_rounds")
     report["kernels"].update(sf)

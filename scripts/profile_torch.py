@@ -26,8 +26,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import torch  # noqa: E402
 
 from chip_smoke import _scale_dataset, _smi  # noqa: E402
-from shannon_tpu.config import AssemblyConfig  # noqa: E402
-from shannon_tpu.utils.timing import StageTimer  # noqa: E402
+from shannon_tpu_torch.config import AssemblyConfig  # noqa: E402
+from shannon_tpu_torch.utils.timing import StageTimer  # noqa: E402
 from shannon_tpu_torch.pipeline import assemble  # noqa: E402
 
 

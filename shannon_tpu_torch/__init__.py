@@ -10,13 +10,16 @@ device=..., paired=...)`` in memory, ``pipeline.run_pipeline(config, ...,
 device=...)`` from files with stage checkpoints, and the CLI
 ``shannon-tpu-torch`` (``cli.py``).  On CUDA tensors the k-mer extraction
 (K1), sorted-run reduction (K2), sorted-table lookup (K3), threading run
-scan (K4) and compaction (K5) and the sparse-flow solver (K6) are
+scan (K4) and compaction (K5), the sparse-flow solver (K6) and the
+correction probe lookup, rescue and prune rounds and compaction (K7-K10) are
 hand-written kernels in ``csrc/*.cu``, built with nvcc at first use; on CPU
 tensors their plain PyTorch versions run.
 
-This package imports ``torch`` and never ``jax``.  From ``shannon_tpu`` it
-uses only the framework-free modules: ``config``, ``io``, ``oracle``,
-``sim``, ``eval`` and ``utils.timing``.
+This package imports ``torch`` and never ``jax``, and nothing of
+``shannon_tpu``: it owns copies of the reference's framework-free modules
+(``config``, ``io``, ``native``, ``oracle``, ``sim``, ``eval`` and
+``utils.timing``), each held equal to its source by
+``tests/test_torch_imports.py``.
 """
 
-from shannon_tpu.config import AssemblyConfig  # noqa: F401
+from shannon_tpu_torch.config import AssemblyConfig  # noqa: F401

@@ -15,7 +15,7 @@ import argparse
 import contextlib
 import sys
 
-from shannon_tpu.config import AssemblyConfig
+from shannon_tpu_torch.config import AssemblyConfig
 
 
 def build_parser() -> argparse.ArgumentParser:

@@ -3,21 +3,22 @@ bucket of weakly-connected components.
 
 Copied from ``shannon_tpu/parallel/components.py``, whose package imports
 JAX at import time (``shannon_tpu/parallel/__init__.py``).  The only
-change: the partition helpers come from ``shannon_tpu_torch.ops.partition``.
+change: the imports come from the port (its ``ops.partition`` and its
+copies of ``config`` and the oracle).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from shannon_tpu.config import AssemblyConfig
-from shannon_tpu.oracle.assemble import (
+from shannon_tpu_torch.config import AssemblyConfig
+from shannon_tpu_torch.oracle.assemble import (
     Transcript,
     enumerate_transcripts,
 )
-from shannon_tpu.oracle.multibridge import multibridge
-from shannon_tpu.oracle.nodegraph import Node, NodeGraph
-from shannon_tpu.oracle.sparseflow import sparse_flow
+from shannon_tpu_torch.oracle.multibridge import multibridge
+from shannon_tpu_torch.oracle.nodegraph import Node, NodeGraph
+from shannon_tpu_torch.oracle.sparseflow import sparse_flow
 
 
 def device_components(ca) -> list[list[int]]:

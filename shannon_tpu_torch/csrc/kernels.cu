@@ -1,6 +1,6 @@
 // Hand-written Hopper (sm_90a) kernels of the shannon_tpu_torch port: the
 // k-mer kernels K1-K3 (threading's K4-K5 are in thread.cu, the sparse-flow
-// solver K6 in sparseflow.cu).
+// solver K6 in sparseflow.cu, correction's K7-K10 in correction.cu).
 //
 // Plain C interface, built with nvcc into build/kernels/libshannon_kernels.so
 // and bound with ctypes (shannon_tpu_torch/kernels.py).  Every entry point
@@ -123,7 +123,8 @@ __global__ void finalize_runs_kernel(const int32_t* __restrict__ scan,
 // search (log2(C) steps of 8 bytes).  One thread per query; the first steps
 // of every search read the same few lanes, which stay in L1/L2, and the
 // 50 MB L2 holds a table of a few million keys whole.  idx is the lower bound
-// clamped to C - 1, so a miss still returns a valid lane.
+// clamped to C - 1, so a miss still returns a valid lane (lower_bound_hit in
+// common.cuh, shared with K7).
 // ---------------------------------------------------------------------------
 __global__ void lookup_sorted_kernel(const int64_t* __restrict__ table,
                                      int64_t table_len,
@@ -132,19 +133,10 @@ __global__ void lookup_sorted_kernel(const int64_t* __restrict__ table,
                                      uint8_t* __restrict__ hit) {
   int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= n_query) return;
-  int64_t key = query[t];
-  int64_t lo = 0, hi = table_len;
-  while (lo < hi) {
-    int64_t mid = lo + ((hi - lo) >> 1);
-    if (table[mid] < key) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
-    }
-  }
-  int64_t i = lo < table_len ? lo : table_len - 1;
+  int64_t i;
+  bool found = lower_bound_hit(table, table_len, query[t], &i);
   idx[t] = i;
-  hit[t] = table[i] == key ? 1 : 0;
+  hit[t] = found ? 1 : 0;
 }
 
 // ---------------------------------------------------------------------------

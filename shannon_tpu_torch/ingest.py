@@ -1,6 +1,6 @@
 """Paired-end ingest: interleave two mate files into one packed batch.
 
-Host code, numpy only.  Files are parsed by ``shannon_tpu.native.pack_file``
+Host code, numpy only.  Files are parsed by ``shannon_tpu_torch.native.pack_file``
 (the C++ parser, or its pure-Python route where no ``g++`` is found; that is
 host parsing, not a device fallback: :func:`native_route` says which runs).
 Every batch is interleaved [L0, R0, L1, R1, ...] with mate 2
@@ -12,9 +12,9 @@ from __future__ import annotations
 
 import numpy as np
 
-from shannon_tpu import native
-from shannon_tpu.io.dna import decode_seq, encode_seq, revcomp_code_rows
-from shannon_tpu.io.pack import ReadBatch
+from shannon_tpu_torch import native
+from shannon_tpu_torch.io.dna import decode_seq, encode_seq, revcomp_code_rows
+from shannon_tpu_torch.io.pack import ReadBatch
 
 
 def native_route() -> str:

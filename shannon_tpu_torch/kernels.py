@@ -39,11 +39,13 @@ NVCC_FLAGS = (
 KERNELS = (
     "extract_kmers", "reduce_sorted", "lookup_sorted",
     "thread_rows", "compact_rows", "sf_greedy",
+    "probe_lookup", "rescue_round", "prune_round", "compact_keep",
 )
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _I = ctypes.c_int
+_F = ctypes.c_float
 _ARGTYPES = {
     "shannon_extract_kmers": [_P, _P, _P, _I64, _I, _I, _I, _I, _I, _P, _P, _P],
     "shannon_run_start_flags": [_P, _I64, _P, _P],
@@ -53,6 +55,10 @@ _ARGTYPES = {
     "shannon_row_counts": [_P, _I64, _I, _P, _P],
     "shannon_compact_rows": [_P, _P, _I64, _I, _I, *[_P] * 8, _P],
     "shannon_sf_greedy": [_P, _I64, _I, _I, *[_P] * 6, _P],
+    "shannon_probe_lookup": [_P, _I64, _I, _I, _I, _P, _P, _P],
+    "shannon_rescue_round": [*[_P] * 6, _I64, _P, _P, _P],
+    "shannon_prune_round": [_P, _P, _P, _I64, _F, _F, _I, _P, _P, _P],
+    "shannon_compact_keep": [_P, _P, _P, _P, _I64, _P, _P, _P],
 }
 
 

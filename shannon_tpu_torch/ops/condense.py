@@ -278,7 +278,7 @@ def contig_sequences(ca: ContigArrays, k: int) -> list[str]:
 def to_contig_graph(ca: ContigArrays, k: int, config) -> "ContigGraph":
     """The oracle-format ContigGraph (sequences, edges, rc pairing) of
     the device arrays, for the host assembly stages."""
-    from shannon_tpu.oracle.graph import Contig, ContigGraph
+    from shannon_tpu_torch.oracle.graph import Contig, ContigGraph
     from shannon_tpu_torch.ops.tipclip import _adjacency_lists
 
     n = ca.n_contigs

@@ -219,7 +219,7 @@ def spectrum_from_arrays(
     kmers: np.ndarray,
     counts: np.ndarray,
     capacity: int | None = None,
-    device="cpu",
+    device="cuda",
 ) -> Spectrum:
     """Spectrum from sorted uint64 keys and counts
     (ops/count.py:345 spectrum_from_arrays)."""
@@ -246,7 +246,7 @@ def count_reads_spectrum(
     capacity: int = 1 << 22,
     canonical: bool = True,
     batch_reads: int = 1 << 16,
-    device="cpu",
+    device="cuda",
 ) -> Spectrum:
     """Stream a packed-resident ReadBatch through count_spectrum_packed,
     merging into one spectrum (ops/count.py:409 count_reads_spectrum).

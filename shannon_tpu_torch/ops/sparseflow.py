@@ -24,8 +24,8 @@ from functools import partial
 import numpy as np
 import torch
 
-from shannon_tpu.oracle.sparseflow import SF_MAXD, _node_flows, fnv1a, node_blocks, solve_node
 from shannon_tpu_torch import kernels
+from shannon_tpu_torch.oracle.sparseflow import SF_MAXD, _node_flows, fnv1a, node_blocks, solve_node
 
 MAXD = SF_MAXD
 _M32 = 0xFFFFFFFF

@@ -264,7 +264,7 @@ def paths_to_lists(
     carrying (path, p0, p1, o0, o1) — see oracle.multibridge.Run.
     rescue=False keeps only each read's longest run (by window count
     p1 - p0 + 1, ties -> earliest)."""
-    from shannon_tpu.oracle.multibridge import Run
+    from shannon_tpu_torch.oracle.multibridge import Run
 
     ev_cid = np.asarray(ev_cid)
     ev_run = np.asarray(ev_run)

@@ -84,7 +84,7 @@ def _doom_round1(
     Float semantics match _doom_check bit-for-bit: abundances and
     competitor maxima are float32, comparisons are
     float32(c) < rv * comp with comp starting at 0.0."""
-    from shannon_tpu.oracle.correction import error_cap
+    from shannon_tpu_torch.oracle.correction import error_cap
 
     n = len(klen)
     tip_klen = config.tip_klen_effective
@@ -251,7 +251,7 @@ def _host_clip_rounds(
         rv = np.full(n, ratio, np.float32)
     k1 = config.k - 1
 
-    from shannon_tpu.oracle.correction import error_cap
+    from shannon_tpu_torch.oracle.correction import error_cap
 
     er = config.error_rate
 

@@ -9,11 +9,12 @@ out-dir, resume), both on one device:
   condensation -> components -> threading -> multibridging -> sparse flow
   -> enumeration -> dedupe -> transcripts.
 
-Every tensor lives on the ``device`` passed in; on a CUDA device the
-hand-written kernels run (K1-K3 k-mers, K4-K5 threading, K6 sparse flow),
-on the CPU their plain versions.  The host stages (clip rounds,
-materialization, components, pair joining, MB, SF bookkeeping,
-enumeration) are the reference's own code or copies of it.
+Every tensor lives on the ``device`` passed in (the first CUDA card by
+default); on a CUDA device the hand-written kernels run (K1-K3 k-mers,
+K7-K10 correction, K4-K5 threading, K6 sparse flow), on the CPU their
+plain versions.  The host stages (clip rounds, materialization,
+components, pair joining, MB, SF bookkeeping, enumeration) are copies of
+the reference's code.
 """
 
 from __future__ import annotations
@@ -24,16 +25,12 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from shannon_tpu.config import AssemblyConfig
-from shannon_tpu.io.fastx import read_fastx, write_fasta
-from shannon_tpu.io.pack import ReadBatch, pack_reads
-from shannon_tpu.native import pack_file
-from shannon_tpu.oracle.assemble import AssemblyResult, Transcript, dedupe_and_filter
-from shannon_tpu.oracle.multibridge import expand_paths
-from shannon_tpu.oracle.nodegraph import NodeGraph, _lists_to_flat
-from shannon_tpu.utils.timing import StageTimer
 from shannon_tpu_torch.components import assemble_components, device_components
+from shannon_tpu_torch.config import AssemblyConfig
 from shannon_tpu_torch.ingest import ingest_paired_files, normalize_mate2
+from shannon_tpu_torch.io.fastx import read_fastx, write_fasta
+from shannon_tpu_torch.io.pack import ReadBatch, pack_reads
+from shannon_tpu_torch.native import pack_file
 from shannon_tpu_torch.ops.condense import ContigArrays, build_contig_arrays, to_contig_graph
 from shannon_tpu_torch.ops.correction import auto_min_abundance, correct_spectrum
 from shannon_tpu_torch.ops.count import (
@@ -53,6 +50,10 @@ from shannon_tpu_torch.ops.thread import (
     thread_reads_device_packed,
 )
 from shannon_tpu_torch.ops.tipclip import clip_tips_graph
+from shannon_tpu_torch.oracle.assemble import AssemblyResult, Transcript, dedupe_and_filter
+from shannon_tpu_torch.oracle.multibridge import expand_paths
+from shannon_tpu_torch.oracle.nodegraph import NodeGraph, _lists_to_flat
+from shannon_tpu_torch.utils.timing import StageTimer
 
 
 def _sync(device: torch.device) -> None:
@@ -78,7 +79,7 @@ def _check_config(config: AssemblyConfig, device) -> torch.device:
 def spectrum_device(
     batch: ReadBatch,
     config: AssemblyConfig,
-    device,
+    device="cuda",
     timer: StageTimer | None = None,
     clip: bool = True,
 ) -> tuple[Spectrum, ContigArrays | None]:
@@ -86,7 +87,7 @@ def spectrum_device(
     spectrum, post-clip ContigArrays or None) — None when clip=False or a
     merge closed a cycle, and the caller must condense the spectrum itself
     (pipeline.py:41 _spectrum_device)."""
-    device = torch.device(device)
+    device = _check_config(config, device)
     timer = timer or StageTimer(echo=False)
     canonical = not config.strand_specific
     t0 = time.perf_counter()
@@ -313,13 +314,14 @@ def assemble(
     reads: list[str],
     config: AssemblyConfig | None = None,
     *,
-    device,
+    device="cuda",
     timer: StageTimer | None = None,
     paired: bool = False,
 ) -> AssemblyResult:
     """In-memory end-to-end assembly on `device` (a torch.device or its
-    name).  paired: reads are interleaved [L0, R0, L1, R1, ...] with mate 2
-    as sequenced (it is orientation-normalized here).  Same stages, stage
+    name; the first CUDA card unless the caller asks for "cpu").  paired:
+    reads are interleaved [L0, R0, L1, R1, ...] with mate 2 as sequenced
+    (it is orientation-normalized here).  Same stages, stage
     names and output as shannon_tpu.pipeline.assemble(reads, config,
     backend="device") on one device."""
     config = config or AssemblyConfig()
@@ -396,7 +398,7 @@ def run_pipeline(
     left: str | None = None,
     right: str | None = None,
     *,
-    device,
+    device="cuda",
 ) -> AssemblyResult:
     """File in -> out-dir artifacts -> transcripts.fasta, on `device`
     (single-process counterpart of pipeline.py:719 run_pipeline).
@@ -448,7 +450,7 @@ def run_pipeline(
                 d = np.load(corrected_npz)
                 spec = spectrum_from_arrays(d["kmers"], d["counts"], device=device)
             else:
-                spec, _ = spectrum_device(batch, config, device, clip=False)
+                spec, _ = spectrum_device(batch, config, device, clip=False, timer=timer)
                 kmers, counts = _spectrum_arrays(spec)
                 np.savez_compressed(corrected_npz, kmers=kmers, counts=counts)
             spec, ca_live = clip_tips_graph(spec, config, canonical=canonical)

@@ -1,6 +1,6 @@
-"""The hand-written CUDA kernels K1-K6 against their plain PyTorch
-versions, and the port's assembly (single-end and paired) on CUDA against
-the CPU run.  Marked
+"""The hand-written CUDA kernels K1-K10 against their plain PyTorch
+versions, correction and the port's assembly (single-end and paired) on
+CUDA against the CPU run.  Marked
 `cuda`: these need an NVIDIA GPU and nvcc and skip without them.  Run on
 the card with
 
@@ -13,10 +13,13 @@ import numpy as np
 import pytest
 import torch
 
-from shannon_tpu.config import AssemblyConfig
-from shannon_tpu.io.pack import pack_reads
-from shannon_tpu.sim import sample_paired_reads, sample_reads, simulate_gene_isoforms
 from shannon_tpu_torch import kernels
+from shannon_tpu_torch.config import AssemblyConfig
+from shannon_tpu_torch.io.pack import pack_reads
+from shannon_tpu_torch.ops import correction as tcor
+from shannon_tpu_torch.ops.count import Spectrum, count_reads_spectrum
+from shannon_tpu_torch.sim import sample_paired_reads, sample_reads, simulate_gene_isoforms
+from shannon_tpu_torch.utils.timing import StageTimer
 from shannon_tpu_torch.ops import sparseflow as tsf
 from shannon_tpu_torch.ops import thread as tth
 from shannon_tpu_torch.ops.count import reduce_sorted, reduce_sorted_plain
@@ -213,6 +216,144 @@ def test_sf_greedy_kernel_validates_inputs(cuda):
         tsf.batched_greedy_packed(torch.zeros((4, 16), dtype=torch.int32, device=cuda), 4)
 
 
+def _assert_all_launched(launches: dict, timer: StageTimer) -> None:
+    """Every kernel launched; K8 (rescue) only runs when the auto cut is
+    above 1."""
+    cut = timer.stages["spectrum+graph"]["auto_min_abundance"]
+    missing = [n for n, c in launches.items() if c == 0 and not (n == "rescue_round" and cut == 1)]
+    assert not missing, launches
+
+
+def _spectrum(k: int, canonical: bool = True, seed: int = 0) -> Spectrum:
+    """A counted spectrum of simulated isoform reads, on the CPU."""
+    rng = np.random.default_rng(seed + k)
+    ts, _ = simulate_gene_isoforms(rng, n_genes=2)
+    reads = sample_reads(rng, ts, coverage=15, read_length=100, error_rate=0.01)
+    b = pack_reads(reads, pad_length=128)
+    return count_reads_spectrum(b, k=k, capacity=1 << 16, canonical=canonical, device="cpu")
+
+
+def _to(spec: Spectrum, dev) -> Spectrum:
+    return Spectrum(key=spec.key.to(dev), count=spec.count.to(dev), n=spec.n)
+
+
+@pytest.mark.parametrize("k", [5, 16, 24, 31])
+@pytest.mark.parametrize("side", ["sib", "ext"])
+@pytest.mark.parametrize("canonical", [True, False])
+def test_probe_lookup_kernel_matches_plain(cuda, k, side, canonical):
+    """K7 equals its plain version on all 8 x C lanes, pad lanes included."""
+    spec = _to(_spectrum(k, canonical), cuda)
+    got = tcor.probe_resolve(spec, k, canonical, side)
+    want = tcor.probe_resolve_plain(spec, k, canonical, side)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("k", [5, 16, 24, 31])
+@pytest.mark.parametrize("cut", [1, 2, 3])
+@pytest.mark.parametrize("error_rate", [0.0, 0.01])
+def test_round_kernels_match_plain(cuda, k, cut, error_rate):
+    """K8 and K9, every round of the loops correct_spectrum runs, from the
+    cut counts; and K10 on the final keep mask."""
+    spec = _to(_spectrum(k), cuda)
+    sib = tcor.probe_resolve_plain(spec, k, True, "sib")
+    ext = tcor.probe_resolve_plain(spec, k, True, "ext")
+    raw, counts = tcor.cut_counts(spec, cut)
+    for _ in range(k + 2):
+        got = tcor.rescue_round(counts, raw, *sib, *ext)
+        want = tcor.rescue_round_plain(counts, raw, *sib, *ext)
+        assert torch.equal(got[0], want[0]) and got[1] == want[1]
+        if not want[1]:
+            break
+        counts = want[0]
+    ratio, eps3 = tcor.prune_constants(0.1, error_rate)
+    for _ in range(8):
+        got = tcor.prune_round(counts, *sib, ratio, eps3, error_rate > 0)
+        want = tcor.prune_round_plain(counts, *sib, ratio, eps3, error_rate > 0)
+        assert torch.equal(got[0], want[0]) and got[1] == want[1]
+        if not want[1]:
+            break
+        counts = want[0]
+    got, want = tcor.compact(spec, counts > 0), tcor.compact_plain(spec, counts > 0)
+    assert got.n == want.n
+    assert torch.equal(got.key, want.key) and torch.equal(got.count, want.count)
+
+
+def prune_grid(max_c: int = 255, max_m: int = 4095):
+    """K9's float grid: every count 1..max_c against every sibling maximum
+    1..max_m, on the right side and on the left.  Lanes [0, max_m) hold the
+    sibling counts 1..max_m and probe nothing; each later lane has count c,
+    one hit row of its side pointing at the lane of count m and one at a
+    lane of count m // 2 (the max must pick m).  Returns the numpy (counts,
+    idx, hit) of K9's inputs and the (c, m) of the grid lanes."""
+    c, m = np.meshgrid(np.arange(1, max_c + 1), np.arange(1, max_m + 1), indexing="ij")
+    c, m = np.tile(c.ravel(), 2), np.tile(m.ravel(), 2)
+    side = np.repeat([0, 1], c.size // 2)
+    lanes = max_m + np.arange(c.size)
+    counts = np.concatenate([np.arange(1, max_m + 1), c]).astype(np.int32)
+    idx = np.zeros((8, max_m + c.size), np.int64)
+    hit = np.zeros(idx.shape, bool)
+    idx[side, lanes], hit[side, lanes] = m - 1, True
+    idx[side + 4, lanes], hit[side + 4, lanes] = np.maximum(m // 2, 1) - 1, True
+    return counts, idx, hit, c, m
+
+
+@pytest.mark.parametrize("error_rate", [0.0, 0.01, 0.02])
+def test_prune_round_kernel_float_grid(cuda, error_rate):
+    """K9 bit-exact with its plain version where an FMA or a square root
+    that is not correctly rounded would show: every count 1..255 against
+    every sibling maximum 1..4095."""
+    counts, idx, hit = (torch.from_numpy(a).to(cuda) for a in prune_grid()[:3])
+    ratio, eps3 = tcor.prune_constants(0.1, error_rate)
+    got = tcor.prune_round(counts, idx, hit, ratio, eps3, error_rate > 0)
+    want = tcor.prune_round_plain(counts, idx, hit, ratio, eps3, error_rate > 0)
+    assert torch.equal(got[0], want[0]) and got[1] == want[1]
+    assert want[1]  # the grid prunes some lanes
+
+
+@pytest.mark.parametrize("keep", ["none", "all", "random"])
+def test_compact_kernel_edge_masks(cuda, keep):
+    spec = _to(_spectrum(24), cuda)
+    mask = {
+        "none": torch.zeros(spec.capacity, dtype=torch.bool, device=cuda),
+        "all": torch.ones(spec.capacity, dtype=torch.bool, device=cuda),
+        "random": torch.from_numpy(np.random.default_rng(1).random(spec.capacity) < 0.3).to(cuda),
+    }[keep]
+    got, want = tcor.compact(spec, mask), tcor.compact_plain(spec, mask)
+    assert got.n == want.n
+    assert torch.equal(got.key, want.key) and torch.equal(got.count, want.count)
+
+
+@pytest.mark.parametrize("k", [5, 16, 24, 31])
+@pytest.mark.parametrize("min_abundance", [0, 1, 2])
+@pytest.mark.parametrize("canonical", [True, False])
+def test_correct_spectrum_on_cuda_matches_cpu(cuda, k, min_abundance, canonical):
+    """The whole stage on K7-K10 equals the CPU run (the plain versions)."""
+    spec = _spectrum(k, canonical)
+    args = (k, min_abundance, 0.1, 8, canonical, 0.01)
+    lib = kernels.library()
+    lib.reset_counts()
+    got = tcor.correct_spectrum(_to(spec, cuda), *args)
+    assert lib.launches["probe_lookup"] > 0 and lib.launches["prune_round"] > 0
+    assert lib.launches["compact_keep"] == 1
+    want = tcor.correct_spectrum(spec, *args)
+    assert got.n == want.n
+    assert torch.equal(got.key.cpu(), want.key) and torch.equal(got.count.cpu(), want.count)
+
+
+def test_correction_wrappers_validate_inputs(cuda):
+    counts = torch.zeros(4, dtype=torch.int32, device=cuda)
+    idx = torch.zeros((8, 4), dtype=torch.int64, device=cuda)
+    hit = torch.zeros((8, 4), dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError, match=r"\[8, 4\]"):
+        tcor.prune_round(counts, idx[:, :3].contiguous(), hit[:, :3].contiguous(), 0.1, 0.0, False)
+    with pytest.raises(TypeError, match="int32"):
+        tcor.rescue_round(counts.long(), counts, idx, hit, idx, hit)
+    with pytest.raises(ValueError, match="side"):
+        tcor.probe_resolve(Spectrum(key=idx[0], count=counts, n=0), 21, True, "up")
+
+
 def test_paired_assemble_on_cuda_matches_cpu(cuda):
     rng = np.random.default_rng(6)
     ts, _ = simulate_gene_isoforms(rng, n_genes=3)
@@ -221,8 +362,9 @@ def test_paired_assemble_on_cuda_matches_cpu(cuda):
     cfg = AssemblyConfig(k=24, kmer_capacity=1 << 16, batch_reads=2048)
     lib = kernels.library()
     lib.reset_counts()
-    gpu = assemble(reads, cfg, device=cuda, paired=True)
-    assert all(v > 0 for v in lib.launches.values()), lib.launches
+    timer = StageTimer(echo=False)
+    gpu = assemble(reads, cfg, device=cuda, paired=True, timer=timer)
+    _assert_all_launched(lib.launches, timer)
     cpu = assemble(reads, cfg, device="cpu", paired=True)
     assert [(t.seq, t.abundance) for t in gpu.transcripts] == [
         (t.seq, t.abundance) for t in cpu.transcripts
@@ -237,8 +379,9 @@ def test_assemble_on_cuda_matches_cpu_and_counts_launches(cuda):
     cfg = AssemblyConfig(k=24, kmer_capacity=1 << 16, batch_reads=2048)
     lib = kernels.library()
     lib.reset_counts()
-    gpu = assemble(reads, cfg, device=cuda)
-    assert all(v > 0 for v in lib.launches.values()), lib.launches
+    timer = StageTimer(echo=False)
+    gpu = assemble(reads, cfg, device=cuda, timer=timer)
+    _assert_all_launched(lib.launches, timer)
     cpu = assemble(reads, cfg, device="cpu")
     assert [t.seq for t in gpu.transcripts] == [t.seq for t in cpu.transcripts]
     assert [t.abundance for t in gpu.transcripts] == [t.abundance for t in cpu.transcripts]

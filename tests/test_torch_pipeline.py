@@ -114,19 +114,20 @@ def test_unported_options_raise():
 def test_port_never_imports_jax():
     """Import every module of the port (ingest and cli included) and
     assemble a tiny single-end and paired dataset in a process where
-    `import jax` fails."""
+    `import jax` and `import shannon_tpu` both fail: the port runs on its
+    own copies of the reference's framework-free modules."""
     code = textwrap.dedent(
         """
         import sys
-        before = set(sys.modules)
         sys.modules["jax"] = None
+        sys.modules["shannon_tpu"] = None
         import importlib, pkgutil
         import numpy as np
         import shannon_tpu_torch
         for m in pkgutil.walk_packages(shannon_tpu_torch.__path__, "shannon_tpu_torch."):
             importlib.import_module(m.name)
-        from shannon_tpu.config import AssemblyConfig
-        from shannon_tpu.sim import sample_paired_reads, sample_reads, simulate_transcripts
+        from shannon_tpu_torch.config import AssemblyConfig
+        from shannon_tpu_torch.sim import sample_paired_reads, sample_reads, simulate_transcripts
         from shannon_tpu_torch.pipeline import assemble
         rng = np.random.default_rng(0)
         ts = simulate_transcripts(rng, n=2, length=300)
@@ -136,12 +137,8 @@ def test_port_never_imports_jax():
         res = assemble(sample_paired_reads(rng, ts, coverage=15, read_length=70, insert_size=150),
                        AssemblyConfig(k=21, kmer_capacity=1 << 15), device="cpu", paired=True)
         assert res.stats["n_transcripts"] >= 2, res.stats
-        bad = sorted(m for m in set(sys.modules) - before
-                     if m == "jax" or m.startswith(("jax.", "jaxlib"))
-                     or m.startswith(("shannon_tpu.ops", "shannon_tpu.parallel",
-                                      "shannon_tpu.pipeline", "shannon_tpu.cli",
-                                      "shannon_tpu.utils.jax")))
-        bad = [m for m in bad if sys.modules[m] is not None]
+        bad = sorted(m for m, mod in sys.modules.items() if mod is not None and (
+            m in ("jax", "shannon_tpu") or m.startswith(("jax.", "jaxlib", "shannon_tpu."))))
         assert not bad, bad
         print("ok")
         """
@@ -151,3 +148,23 @@ def test_port_never_imports_jax():
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.strip().endswith("ok")
+
+
+def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
+    """assemble, run_pipeline and spectrum_device run on the card unless
+    the caller asks for the CPU: with no card and no device given they
+    refuse instead of falling back."""
+    import torch
+
+    from shannon_tpu.io.pack import pack_reads
+    from shannon_tpu_torch.pipeline import run_pipeline, spectrum_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = AssemblyConfig(k=21, kmer_capacity=1 << 15, out_dir=str(tmp_path))
+    reads = ["ACGT" * 20]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        assemble(reads, cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_pipeline(cfg, single=str(tmp_path / "x.fa"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        spectrum_device(pack_reads(reads, pad_length=96), cfg)

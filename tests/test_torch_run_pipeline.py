@@ -81,6 +81,7 @@ def test_artifacts_match_reference(mode, request, tmp_path):
     stats = json.loads((tmp_path / "port" / "stats.json").read_text())
     for stage in ("ingest", "spectrum", "graph", "partition", "threading", "assembly"):
         assert "wall_s" in stats["stages"][stage], stage
+    assert stats["stages"]["spectrum+graph"]["auto_min_abundance"] >= 1  # config's cut is auto
     assert stats["result"]["backend"] == "torch:cpu"
     assert (tmp_path / "port" / "timing.log").exists()
     assert json.loads((tmp_path / "port" / "config.json").read_text())["k"] == 21
