@@ -20,13 +20,22 @@ Phases; any failure exits nonzero:
      the whole single-end scale dataset at the default AssemblyConfig, then
      the whole correct_spectrum there against its CPU run, and K9 on a
      synthetic grid (every count 1..255 against every sibling maximum
-     1..4095, error_rate 0.01 and 0.02); K6 (sparse-flow greedy) on 4,096
-     random jobs of 1-8 by 1-8 margins at sf_restarts = 4, and the batched
-     solver (K6) against the host solve_node loop on rounds of 8, 32 and
-     128 X-nodes.  Each kernel row also times the one PyTorch call that
-     computes the same function, where there is one (library_ms), and gives
-     the least time the card could take (bound_ms: bytes over 3.35 TB/s or
-     operations over 67 TFLOP/s, whichever is larger);
+     1..4095, error_rate 0.01 and 0.02); K11-K15 (condensation: node table,
+     group-join links, pointer-doubling labels, per-contig reduction, base
+     streams) stage by stage on that corrected, shrunk spectrum, each
+     kernel's output feeding the next stage, and the whole
+     build_contig_arrays timed; K13's cycle cut (cycle_round) and every
+     other condensation stage again on a synthetic spectrum of isolated
+     cycles (tandem repeats and homopolymers); K6 (sparse-flow greedy) on
+     4,096 random jobs of 1-8 by 1-8 margins at sf_restarts = 4, and the
+     batched solver (K6) against the host solve_node loop on rounds of 8,
+     32 and 128 X-nodes.  Each kernel row also times the one PyTorch call
+     that computes the same function, where there is one (library_ms), and
+     gives the least time the card could take (bound_ms: bytes over 3.35
+     TB/s or operations over 67 TFLOP/s, whichever is larger).  The device
+     programs still in plain torch (count_histogram, the count merge, tip
+     clip's drop and remap) are timed at the main path's shapes too, with
+     their bound;
   3. parity: on 3,000 reads of the scale dataset, assemble on CUDA gives
      the same corrected spectrum, contig arrays and transcripts as on the
      CPU (plain versions), and the same canonical set as the pure-Python
@@ -45,7 +54,10 @@ Phases; any failure exits nonzero:
      reference's exact recall on this dataset (PAIRED_RECALL_GATE).
 Every kernel must launch at least once in each scale phase (counts set to
 0 just before the phase and read just after); K8 (dead-end rescue) runs only
-when the phase's auto abundance cut is above 1, and is exempt where it is 1.
+when the phase's auto abundance cut is above 1, and is exempt where it is 1;
+K13's cycle_round runs only when the labels find a cycle, and is exempt where
+they find none.  The calls of the plain device programs are counted in each
+scale phase as well.
 
 The last two lines of standard output are one JSON object with the kernels'
 launches, errors and times, and one JSON object {"ok": true, "device": ...}.
@@ -90,6 +102,24 @@ REPLACES = {
     "rescue_round": ("shannon_tpu_torch/csrc/correction.cu", "shannon_tpu/ops/correction.py:143"),
     "prune_round": ("shannon_tpu_torch/csrc/correction.cu", "shannon_tpu/ops/correction.py:184"),
     "compact_keep": ("shannon_tpu_torch/csrc/correction.cu", "shannon_tpu/ops/correction.py:19"),
+    "node_strands": ("shannon_tpu_torch/csrc/condense.cu", "shannon_tpu/ops/condense.py:82"),
+    "group_links": ("shannon_tpu_torch/csrc/condense.cu", "shannon_tpu/ops/condense.py:109"),
+    "label_round": ("shannon_tpu_torch/csrc/condense.cu", "shannon_tpu/ops/condense.py:232"),
+    "cycle_round": ("shannon_tpu_torch/csrc/condense.cu", "shannon_tpu/ops/condense.py:264"),
+    "contig_reduce": ("shannon_tpu_torch/csrc/condense.cu", "shannon_tpu/ops/condense.py:287"),
+    "base_streams": ("shannon_tpu_torch/csrc/condense.cu", "shannon_tpu/ops/condense.py:417"),
+}
+
+# The device programs of the main path that still run as plain torch:
+# (module, function) of the port, and the TPU program each stands for.
+PLAIN_PROGRAMS = {
+    "count_histogram": ("shannon_tpu_torch.ops.correction", "count_histogram",
+                        "shannon_tpu/ops/correction.py:32"),
+    "merge_at": ("shannon_tpu_torch.ops.count", "merge_at", "shannon_tpu/ops/count.py:257"),
+    "drop_contigs": ("shannon_tpu_torch.ops.tipclip", "_drop_contigs",
+                     "shannon_tpu/ops/tipclip.py:407"),
+    "device_clip_remap": ("shannon_tpu_torch.ops.tipclip", "_device_clip_remap",
+                          "shannon_tpu/ops/tipclip.py:423"),
 }
 
 # Peak rates of one H100 SXM for bound_ms (NVIDIA's data sheet): device
@@ -165,6 +195,45 @@ def _print_row(label: str, row: dict, smi: str) -> None:
           f"library call {lib}, bound {row['bound_ms']:.4f} ms ({row['bound_by']}) [{smi}]")
 
 
+def _plain_row(ms: float, bytes_: float, ops: float, shape: str) -> dict:
+    """One plain device program's entry: its time on the card and its bound
+    (as in _row)."""
+    row = _row(0.0, (ms, ms), bytes_, ops, None)
+    return {"plain_ms": ms, "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "shape": shape}
+
+
+class PlainCalls:
+    """Counts the calls of the plain device programs (PLAIN_PROGRAMS) by
+    wrapping each module function; while keep_args is set, the first call's
+    arguments of each are kept for timing it alone."""
+
+    def __init__(self):
+        import importlib
+
+        self.originals = {}
+        self.calls = {name: 0 for name in PLAIN_PROGRAMS}
+        self.first_args: dict = {}
+        self.keep_args = False
+        for name, (module, fn, _replaces) in PLAIN_PROGRAMS.items():
+            mod = importlib.import_module(module)
+            self.originals[name] = getattr(mod, fn)
+            setattr(mod, fn, self._wrap(name, self.originals[name]))
+
+    def _wrap(self, name: str, fn):
+        def wrapped(*args, **kwargs):
+            self.calls[name] += 1
+            if self.keep_args:
+                self.first_args.setdefault(name, (args, kwargs))
+            return fn(*args, **kwargs)
+
+        return wrapped
+
+    def reset(self) -> None:
+        self.calls = dict.fromkeys(self.calls, 0)
+        self.first_args.clear()
+
+
 def _scale_dataset(n_reads: int, paired: bool = False):
     """The scale transcriptome (seed 11) and n_reads reads of it: 100 bp
     single-end reads, or 100 bp mates of 250 bp inserts interleaved
@@ -200,17 +269,18 @@ def _write_mates(reads, directory: Path) -> tuple[str, str]:
     return str(left), str(right)
 
 
-def kernel_phase(dev, smi: str) -> dict:
+def kernel_phase(dev, smi: str, plain: dict) -> dict:
     """K1-K3 against their plain versions at the main path's shapes, with
     the one PyTorch call that computes the same (torch.unique_consecutive
-    for K2, torch.searchsorted for K3)."""
+    for K2, torch.searchsorted for K3); and the plain count merge of two
+    batch tables (into `plain`)."""
     import math
 
     import numpy as np
     import torch
 
     from shannon_tpu_torch.io.pack import invalid_mask_words, pack_words
-    from shannon_tpu_torch.ops.count import reduce_sorted, reduce_sorted_plain
+    from shannon_tpu_torch.ops.count import Spectrum, merge_at, reduce_sorted, reduce_sorted_plain
     from shannon_tpu_torch.ops.kmers import extract_kmers_packed, extract_kmers_packed_plain
     from shannon_tpu_torch.ops.spectrum import lookup_sorted, lookup_sorted_plain
 
@@ -274,6 +344,14 @@ def kernel_phase(dev, smi: str) -> dict:
     _, row_merge = reduce_row("merge", (mkeys, mcounts, cap))
     out["reduce_sorted"] = {**row_unit, "max_abs_err": max(row_unit["max_abs_err"],
                                                             row_merge["max_abs_err"])}
+    # the main path's first merge: two batch tables of the fixed capacity
+    spec_a = Spectrum(key=table_a[0], count=table_a[1], n=table_a[3])
+    spec_b = Spectrum(key=table_b[0], count=table_b[1], n=table_b[3])
+    ms = _time_ms(lambda: merge_at(spec_a, spec_b, cap), 10)
+    plain["merge_at"] = _plain_row(ms, _nbytes(spec_a.key, spec_a.count, spec_b.key, spec_b.count)
+                                   + 12 * cap, 2 * cap, f"two {cap}-lane tables -> {cap} lanes")
+    print(f"plain count merge (torch.sort + K2), two {cap}-lane tables: {ms:.4f} ms, bound "
+          f"{plain['merge_at']['bound_ms']:.4f} ms [{smi}]")
 
     query = extract_kmers_packed(words, lengths, k, True, pad)[0]
     table = table_a[0]
@@ -396,12 +474,15 @@ def _prune_grid(dev, max_c: int = 255, max_m: int = 4095):
     return tuple(torch.from_numpy(x).to(dev) for x in (counts, idx, hit))
 
 
-def correction_phase(reads, dev, smi: str) -> tuple[dict, dict]:
+def correction_phase(reads, dev, smi: str, plain: dict):
     """K7-K10 against their plain versions on the main path's input: the
     counted, shrunk spectrum of the whole single-end scale dataset at the
     default AssemblyConfig (k = 24, the auto cut, sibling ratio 0.1, the
     default error_rate); then the whole correct_spectrum there against its
-    CPU run (the plain versions), and K9 on the float grid."""
+    CPU run (the plain versions), and K9 on the float grid.  Also times the
+    plain count_histogram of the auto cut (into `plain`).  Returns (kernel
+    rows, the stage's numbers, the corrected spectrum shrunk as the main
+    path shrinks it)."""
     import math
 
     import torch
@@ -419,6 +500,11 @@ def correction_phase(reads, dev, smi: str) -> tuple[dict, dict]:
     ))
     cut = tcor.auto_min_abundance(spec)
     C = spec.capacity
+    ms = _time_ms(lambda: tcor.count_histogram(spec, 1024), 10)
+    plain["count_histogram"] = _plain_row(ms, _nbytes(spec.key, spec.count) + 4 * 1025, C,
+                                          f"{C} lanes, 1,025 bins")
+    print(f"plain count_histogram (torch.bincount), {C} lanes: {ms:.4f} ms, bound "
+          f"{plain['count_histogram']['bound_ms']:.4f} ms [{smi}]")
     print(f"correction input: {spec.n} k-mers in {C} lanes, auto cut {cut}, k = {k}, "
           f"error_rate {cfg.error_rate} [{smi}]")
     out, probes = {}, {}
@@ -524,9 +610,215 @@ def correction_phase(reads, dev, smi: str) -> tuple[dict, dict]:
           f"on the host CPU {(t2 - t1) * 1e3:.1f} ms (host clock, one run each): equal [{smi}]")
     stage = {"n_kmers": spec.n, "lanes": C, "auto_cut": cut, "n_corrected": first.n,
              "ms": (t1 - t0) * 1e3, "cpu_ms": (t2 - t1) * 1e3}
+    corrected = shrink_spectrum(first)
     del spec, cpu, first, res, keep, counts, raw
     torch.cuda.empty_cache()
-    return out, stage
+    return out, stage, corrected
+
+
+def _cycle_spectrum(dev, k: int, seed: int = 5):
+    """A canonical spectrum of isolated cycles: 3,000 tandem-repeat units of
+    30-300 random bases (the k-mers of a unit read around its circle form
+    one cycle on each strand), the homopolymers (one k-mer linked to itself)
+    and, beside them, 500 random 300-base chains; counts 1-60 at random."""
+    import numpy as np
+
+    from shannon_tpu_torch.ops.count import spectrum_from_arrays
+
+    rng = np.random.default_rng(seed)
+    weights = 4 ** np.arange(k - 1, -1, -1, dtype=np.int64)
+    parts = []
+
+    def add(codes):  # the canonical keys of every k-window of codes
+        win = np.lib.stride_tricks.sliding_window_view(codes, k)
+        parts.append(np.minimum(win @ weights, (3 - win[:, ::-1]) @ weights))
+
+    for _ in range(3000):
+        unit = rng.integers(0, 4, int(rng.integers(30, 301)))
+        add(np.concatenate([unit, unit[: k - 1]]))
+    for base in range(4):
+        add(np.full(k, base, dtype=np.int64))
+    for _ in range(500):
+        add(rng.integers(0, 4, 300))
+    keys = np.unique(np.concatenate(parts))
+    counts = rng.integers(1, 61, keys.shape[0]).astype(np.int32)
+    return spectrum_from_arrays(keys.astype(np.uint64), counts, device=dev)
+
+
+def _condense_chain(spec, k: int, canonical: bool, label: str, smi: str):
+    """K11-K15 stage by stage on one spectrum, each kernel's output feeding
+    the next stage, each against its plain version on the same CUDA inputs
+    (torch.equal over the full capacity) and both timed.  Returns (kernel
+    rows, the stage's numbers)."""
+    import math
+
+    from shannon_tpu_torch import kernels
+    from shannon_tpu_torch.ops import condense as tcd
+
+    lib = kernels.library()
+    rows = {}
+    C = spec.capacity
+
+    def nodes():
+        return tcd.nodes_stage(spec, k, canonical)
+
+    def nodes_plain():
+        return tcd.nodes_stage_plain(spec, k, canonical)
+
+    node_key, node_count, n_nodes = nodes()
+    want = nodes_plain()
+    if n_nodes != want[2]:
+        raise AssertionError(f"K11 [{label}] n_nodes {n_nodes} != {want[2]}")
+    C2 = node_key.shape[0]
+    steps = math.ceil(math.log2(max(C, 2))) + 1
+    # bytes: the spectrum in, the node table out; operations: a reverse
+    # complement and a binary search per node lane
+    rows["node_strands"] = _row(
+        _max_abs_err((node_key, node_count), want[:2]), _alternate(nodes, nodes_plain),
+        _nbytes(spec.key, spec.count, node_key, node_count), C2 * (10 + steps), None,
+    )
+    _print_row(f"K11 node_strands [{label}] {spec.n} k-mers in {C} lanes -> {n_nodes} nodes "
+               f"in {C2} lanes (torch.sort and K2 inside kernel and plain)",
+               rows["node_strands"], smi)
+
+    links = tcd.links_stage(node_key, k)
+    rows["group_links"] = _row(
+        _max_abs_err(links, tcd.links_stage_plain(node_key, k)),
+        _alternate(lambda: tcd.links_stage(node_key, k), lambda: tcd.links_stage_plain(node_key, k)),
+        _nbytes(node_key, *links), 16 * C2, None,
+    )
+    _print_row(f"K12 group_links [{label}] {2 * C2} link records (torch.sort inside kernel "
+               "and plain)", rows["group_links"], smi)
+    prev, rec_lane, first_p, p_cnt = links
+
+    before = lib.launches["label_round"]
+    ptr, dist, has_cycle = tcd.label_stage(prev)
+    rounds = lib.launches["label_round"] - before
+    want = tcd.label_stage_plain(prev)
+    if has_cycle != want[2]:
+        raise AssertionError(f"K13 [{label}] has_cycle {has_cycle} != {want[2]}")
+    # bytes: the links in, (pointer, offset) out; operations: a few a lane
+    # a round
+    rows["label_round"] = _row(
+        _max_abs_err((ptr, dist), want[:2]),
+        _alternate(lambda: tcd.label_stage(prev), lambda: tcd.label_stage_plain(prev)),
+        _nbytes(prev, ptr, dist), 4 * rounds * C2, None,
+    )
+    _print_row(f"K13 label_round [{label}] {C2} lanes, {rounds} rounds (one launch and one "
+               f"flag read each), has_cycle {has_cycle}", rows["label_round"], smi)
+    if has_cycle:
+        before = lib.launches["cycle_round"]
+        cut = tcd.cycle_fix(prev)
+        c_rounds = lib.launches["cycle_round"] - before
+        rows["cycle_round"] = _row(
+            _max_abs_err((cut,), (tcd.cycle_fix_plain(prev),)),
+            _alternate(lambda: tcd.cycle_fix(prev), lambda: tcd.cycle_fix_plain(prev)),
+            _nbytes(prev, cut), 4 * c_rounds * C2, None,
+        )
+        n_cut = int(((cut < 0) & (prev >= 0)).sum())
+        _print_row(f"K13 cycle_round [{label}] {C2} lanes, {c_rounds} rounds, {n_cut} cycles cut",
+                   rows["cycle_round"], smi)
+        prev = cut
+        ptr, dist, again = tcd.label_stage(prev)
+        want = tcd.label_stage_plain(prev)
+        _max_abs_err((ptr, dist), want[:2])
+        if again or want[2]:
+            raise AssertionError(f"K13 [{label}] a cycle survived the cut")
+
+    args = (node_key, node_count, n_nodes, prev, ptr, dist, rec_lane, first_p, p_cnt, k, canonical)
+    ca, want = tcd.reduce_stage(*args), tcd.reduce_stage_plain(*args)
+    if (ca.n_nodes, ca.n_contigs) != (want.n_nodes, want.n_contigs):
+        raise AssertionError(f"K14 [{label}] n_contigs {ca.n_contigs} != {want.n_contigs}")
+    fields = ("node_cid", "node_off", "klen", "abundance", "count_sum", "head_lane",
+              "tail_lane", "out_edges", "rc_pair")
+    n = ca.n_contigs
+    n_edges = int((ca.out_edges[:, :n] >= 0).sum())
+    # bytes: the labeled node table and the link directory in (the link
+    # records only at the tails' successor runs), the contig arrays out;
+    # operations: a few a lane and a binary search per contig twin
+    rows["contig_reduce"] = _row(
+        _max_abs_err([getattr(ca, f) for f in fields], [getattr(want, f) for f in fields]),
+        _alternate(lambda: tcd.reduce_stage(*args), lambda: tcd.reduce_stage_plain(*args)),
+        _nbytes(node_key, node_count, prev, ptr, dist, first_p, p_cnt) + 8 * n_edges
+        + _nbytes(*(getattr(ca, f) for f in fields)),
+        10 * C2 + n * (math.ceil(math.log2(max(C2, 2))) + 1), None,
+    )
+    _print_row(f"K14 contig_reduce [{label}] {C2} lanes -> {n} contigs, {n_edges} edges "
+               "(torch.cumsum inside)", rows["contig_reduce"], smi)
+
+    streams = tcd.contig_base_streams(ca, k)
+    rows["base_streams"] = _row(
+        _max_abs_err(streams, tcd.contig_base_streams_plain(ca, k)),
+        _alternate(lambda: tcd.contig_base_streams(ca, k),
+                   lambda: tcd.contig_base_streams_plain(ca, k)),
+        _nbytes(ca.node_key, ca.node_cid, ca.node_off, *streams) + 16 * n,
+        C2 + n * (k - 1), None,
+    )
+    _print_row(f"K15 base_streams [{label}] {streams[0].numel()} tail bases, {n} x {k - 1} head "
+               "bases (torch.cumsum inside)", rows["base_streams"], smi)
+
+    whole_ms = _time_ms(lambda: tcd.build_contig_arrays(spec, k, canonical), 3)
+    print(f"build_contig_arrays [{label}] on K11-K14: {whole_ms:.3f} ms (CUDA events, mean of 3) "
+          f"[{smi}]")
+    stage = {"n_kmers": spec.n, "lanes": C, "node_lanes": C2, "n_nodes": n_nodes,
+             "n_contigs": n, "label_rounds": rounds, "has_cycle": has_cycle,
+             "build_contig_arrays_ms": whole_ms}
+    return rows, stage
+
+
+def condense_phase(spec, dev, smi: str, plain: dict, calls: PlainCalls):
+    """K11-K15 on the main path's input (the corrected, shrunk spectrum of
+    the single-end scale dataset at the default AssemblyConfig), then on the
+    synthetic cycle spectrum, where cycle_round must run; every other
+    kernel's max_abs_err covers both inputs.  Then one tip clip of the main
+    input, whose drop and remap (plain torch, into `plain`) are timed alone
+    on the arguments that run gives them."""
+    import torch
+
+    from shannon_tpu_torch.config import AssemblyConfig
+    from shannon_tpu_torch.ops.tipclip import clip_tips_graph
+
+    cfg = AssemblyConfig()
+    k, canonical = cfg.k, not cfg.strand_specific
+    rows, stage = _condense_chain(spec, k, canonical, "main path", smi)
+    cyc_spec = _cycle_spectrum(dev, k)
+    cyc_rows, cyc_stage = _condense_chain(cyc_spec, k, canonical, "cycle input", smi)
+    if not cyc_stage["has_cycle"]:
+        raise AssertionError("the cycle input's labels found no cycle")
+    for name, row in cyc_rows.items():
+        if name in rows:
+            rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], row["max_abs_err"])
+        else:
+            rows[name] = row
+    del cyc_spec
+
+    calls.reset()
+    calls.keep_args = True
+    clip_tips_graph(spec, cfg, canonical)
+    calls.keep_args = False
+    for name in ("drop_contigs", "device_clip_remap"):
+        if name not in calls.first_args:
+            print(f"plain {name}: not called by this tip clip [{smi}]")
+            continue
+        args, kwargs = calls.first_args.pop(name)
+        fn = calls.originals[name]
+        ms = _time_ms(lambda: fn(*args, **kwargs), 10)
+        tensors = [a for a in args[1:] if isinstance(a, torch.Tensor)]
+        if name == "drop_contigs":  # (spec, ca, doomed): spectrum out
+            sp, ca = args[0], args[1]
+            bytes_ = _nbytes(sp.key, ca.node_key, ca.node_cid, *tensors, sp.key, sp.count)
+            shape = f"{sp.capacity} spectrum lanes, {ca.node_key.numel()} node lanes"
+        else:  # (ca, per-contig maps..., n_new, out_cap): node table out
+            ca, out_cap = args[0], args[-1]
+            bytes_ = (_nbytes(ca.node_key, ca.node_count, ca.node_cid, ca.node_off, *tensors)
+                      + 28 * out_cap + 36 * args[5].numel())
+            shape = f"{ca.node_key.numel()} -> {out_cap} node lanes, {args[-2]} contigs"
+        plain[name] = _plain_row(ms, bytes_, ca.node_key.numel(), shape)
+        print(f"plain {name}, {shape}: {ms:.4f} ms, bound {plain[name]['bound_ms']:.4f} ms "
+              f"[{smi}]")
+    calls.reset()
+    torch.cuda.empty_cache()
+    return rows, {"main": stage, "cycle_input": cyc_stage}
 
 
 def _sf_jobs(seed: int, n_jobs: int):
@@ -693,17 +985,22 @@ def _run_cli(argv: list[str], smi: str) -> None:
 
 def _launches_check(launches: dict, phase: str, cut: int) -> None:
     """Every kernel launched in the phase; K8 only where the phase's auto
-    abundance cut is above 1."""
+    abundance cut is above 1, K13's cycle_round only where its labels found
+    a cycle."""
     missing = [name for name, count in launches.items() if count == 0]
-    if missing == ["rescue_round"] and cut == 1:
+    if "rescue_round" in missing and cut == 1:
+        missing.remove("rescue_round")
         print(f"the {phase} scale phase launched no rescue_round (K8): its auto abundance "
               "cut is 1, and dead-end rescue runs only when the cut drops k-mers")
-        return
+    if "cycle_round" in missing:
+        missing.remove("cycle_round")
+        print(f"the {phase} scale phase launched no cycle_round (K13): its labels found no "
+              "cycle, and the cycle cut runs only when they find one")
     if missing:
         raise AssertionError(f"the {phase} scale phase launched no {missing} kernel")
 
 
-def single_scale_phase(truth, reads, dev, lib, smi: str) -> dict:
+def single_scale_phase(truth, reads, dev, lib, calls: PlainCalls, smi: str) -> dict:
     import torch
 
     from shannon_tpu_torch.config import AssemblyConfig
@@ -714,11 +1011,12 @@ def single_scale_phase(truth, reads, dev, lib, smi: str) -> dict:
     timer = StageTimer(echo=False)
     torch.cuda.reset_peak_memory_stats(dev)
     lib.reset_counts()
+    calls.reset()
     t0 = time.perf_counter()
     res = assemble(reads, AssemblyConfig(), device=dev, timer=timer)
     torch.cuda.synchronize(dev)
     e2e = time.perf_counter() - t0
-    launches = dict(lib.launches)
+    launches, plain_calls = dict(lib.launches), dict(calls.calls)
     quality = evaluate(truth, [t.seq for t in res.transcripts], k=24)
     peak = torch.cuda.max_memory_allocated(dev)
     print(f"single-end scale: {len(reads)} reads in {e2e:.2f} s = {len(reads) / e2e:.1f} reads/s, "
@@ -726,15 +1024,16 @@ def single_scale_phase(truth, reads, dev, lib, smi: str) -> dict:
     print("stages " + json.dumps(timer.stages) + f" [{smi}]")
     print("quality " + json.dumps(quality))
     print("launches " + json.dumps(launches))
+    print("plain program calls " + json.dumps(plain_calls))
     if quality["recall_exact"] < 0.99:
         raise AssertionError(f"single-end exact recall {quality['recall_exact']} < 0.99")
     _launches_check(launches, "single-end", timer.stages["spectrum+graph"]["auto_min_abundance"])
     return {"n_reads": len(reads), "e2e_s": e2e, "reads_per_s": len(reads) / e2e,
             "max_memory_allocated_bytes": peak, "stages": timer.stages, "stats": res.stats,
-            "quality": quality, "launches": launches}
+            "quality": quality, "launches": launches, "plain_calls": plain_calls}
 
 
-def paired_scale_phase(truth, reads, dev, lib, smi: str) -> dict:
+def paired_scale_phase(truth, reads, dev, lib, calls: PlainCalls, smi: str) -> dict:
     """The CLI on two mate files, then again on the same out-dir (resume)."""
     import torch
 
@@ -750,11 +1049,12 @@ def paired_scale_phase(truth, reads, dev, lib, smi: str) -> dict:
         argv = ["-o", str(out), "--left", left, "--right", right, "-K", "24", "--device", "cuda"]
         torch.cuda.reset_peak_memory_stats(dev)
         lib.reset_counts()
+        calls.reset()
         t0 = time.perf_counter()
         _run_cli(argv, smi)
         torch.cuda.synchronize(dev)
         e2e = time.perf_counter() - t0
-        launches = dict(lib.launches)
+        launches, plain_calls = dict(lib.launches), dict(calls.calls)
         peak = torch.cuda.max_memory_allocated(dev)
         stages = json.loads((out / "stats.json").read_text())["stages"]
         _launches_check(launches, "paired", stages["spectrum+graph"]["auto_min_abundance"])
@@ -773,13 +1073,15 @@ def paired_scale_phase(truth, reads, dev, lib, smi: str) -> dict:
     print("paired stages " + json.dumps(stages) + f" [{smi}]")
     print("paired quality " + json.dumps(quality))
     print("paired launches " + json.dumps(launches))
+    print("paired plain program calls " + json.dumps(plain_calls))
     if quality["recall_exact"] < PAIRED_RECALL_GATE:
         raise AssertionError(
             f"paired exact recall {quality['recall_exact']} < {PAIRED_RECALL_GATE}"
         )
     return {"n_reads": len(reads), "e2e_s": e2e, "reads_per_s": len(reads) / e2e,
             "resume_s": resume_s, "max_memory_allocated_bytes": peak, "stages": stages,
-            "n_transcripts": len(seqs), "quality": quality, "launches": launches}
+            "n_transcripts": len(seqs), "quality": quality, "launches": launches,
+            "plain_calls": plain_calls}
 
 
 def main(argv=None) -> int:
@@ -813,16 +1115,21 @@ def main(argv=None) -> int:
         if "ptxas info" in line and ("registers" in line or "Compiling" in line):
             print("  " + line.strip())
 
+    calls = PlainCalls()
+    plain: dict = {}
     report = {"card": smi, "build_s": build_s}
-    report["kernels"] = kernel_phase(dev, smi)
+    report["kernels"] = kernel_phase(dev, smi, plain)
 
     t0 = time.perf_counter()
     truth, reads = _scale_dataset(args.reads)
     print(f"scale dataset: {len(reads)} reads simulated in {time.perf_counter() - t0:.1f} s "
           f"[{smi}]")
     report["kernels"].update(thread_phase(reads, dev, smi))
-    rows, report["correction"] = correction_phase(reads, dev, smi)
+    rows, report["correction"], corrected = correction_phase(reads, dev, smi, plain)
     report["kernels"].update(rows)
+    rows, report["condense"] = condense_phase(corrected, dev, smi, plain, calls)
+    report["kernels"].update(rows)
+    del corrected
     sf = sf_phase(dev, smi)
     report["sf_rounds"] = sf.pop("sf_rounds")
     report["kernels"].update(sf)
@@ -833,9 +1140,15 @@ def main(argv=None) -> int:
           f"{time.perf_counter() - t0:.1f} s [{smi}]")
     paired_parity_phase(p_reads, dev, smi)
 
-    report["scale"] = single_scale_phase(truth, reads, dev, lib, smi)
+    report["scale"] = single_scale_phase(truth, reads, dev, lib, calls, smi)
     del reads
-    report["paired_scale"] = paired_scale_phase(p_truth, p_reads, dev, lib, smi)
+    report["paired_scale"] = paired_scale_phase(p_truth, p_reads, dev, lib, calls, smi)
+    report["plain_programs"] = {
+        name: {"replaces": replaces, **plain[name],
+               "calls_single_end": report["scale"]["plain_calls"][name],
+               "calls_paired": report["paired_scale"]["plain_calls"][name]}
+        for name, (_module, _fn, replaces) in PLAIN_PROGRAMS.items() if name in plain
+    }
     report["wall_s"] = time.perf_counter() - t_start
     if args.out:
         with open(args.out, "w") as fh:
@@ -849,6 +1162,7 @@ def main(argv=None) -> int:
          **report["kernels"][name]}
         for name, (source, replaces) in REPLACES.items()
     ]
+    print("plain programs " + json.dumps(report["plain_programs"]) + f" [{smi}]")
     print(f"total {report['wall_s']:.1f} s [{smi}]")
     print(smi)
     print(json.dumps({"kernels": rows}))

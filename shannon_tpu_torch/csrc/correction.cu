@@ -9,15 +9,6 @@
 
 #include "common.cuh"
 
-// Reverse complement of the low 2k bits of a key (k <= 31): complement,
-// reverse the 64 bits, swap the two bits of each base back, shift down.
-static __device__ __forceinline__ uint64_t revcomp_bits(uint64_t key, int k) {
-  const uint64_t mask = (1ull << (2 * k)) - 1;
-  uint64_t r = __brevll(~key & mask);
-  r = ((r >> 1) & 0x5555555555555555ull) | ((r & 0x5555555555555555ull) << 1);
-  return r >> (64 - 2 * k);
-}
-
 // ---------------------------------------------------------------------------
 // K7: probe lookup.
 // Replaces shannon_tpu/ops/correction.py:78 _probe_resolve (with
@@ -27,8 +18,8 @@ static __device__ __forceinline__ uint64_t revcomp_bits(uint64_t key, int k) {
 // i fastest, so the key loads and the idx/hit stores are coalesced.  The
 // probe is built in registers with the plain version's exact bit operations
 // (pad lanes included, whose probes keep the bits above 2k), so the [8, C]
-// probe tensor of the plain version is never stored; the search is K3's
-// (lower_bound_hit in common.cuh).
+// probe tensor of the plain version is never stored; the reverse complement
+// (revcomp_bits) and the search (K3's lower_bound_hit) are in common.cuh.
 // ---------------------------------------------------------------------------
 __global__ void probe_lookup_kernel(const int64_t* __restrict__ table,
                                     int64_t C, int k, int side_ext,

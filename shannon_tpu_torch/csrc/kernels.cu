@@ -1,6 +1,7 @@
 // Hand-written Hopper (sm_90a) kernels of the shannon_tpu_torch port: the
 // k-mer kernels K1-K3 (threading's K4-K5 are in thread.cu, the sparse-flow
-// solver K6 in sparseflow.cu, correction's K7-K10 in correction.cu).
+// solver K6 in sparseflow.cu, correction's K7-K10 in correction.cu,
+// condensation's K11-K15 in condense.cu).
 //
 // Plain C interface, built with nvcc into build/kernels/libshannon_kernels.so
 // and bound with ctypes (shannon_tpu_torch/kernels.py).  Every entry point

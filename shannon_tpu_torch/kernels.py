@@ -40,6 +40,8 @@ KERNELS = (
     "extract_kmers", "reduce_sorted", "lookup_sorted",
     "thread_rows", "compact_rows", "sf_greedy",
     "probe_lookup", "rescue_round", "prune_round", "compact_keep",
+    "node_strands", "group_links", "label_round", "cycle_round",
+    "contig_reduce", "base_streams",
 )
 
 _P = ctypes.c_void_p
@@ -59,6 +61,16 @@ _ARGTYPES = {
     "shannon_rescue_round": [*[_P] * 6, _I64, _P, _P, _P],
     "shannon_prune_round": [_P, _P, _P, _I64, _F, _F, _I, _P, _P, _P],
     "shannon_compact_keep": [_P, _P, _P, _P, _I64, _P, _P, _P],
+    "shannon_node_strands": [_P, _I64, _I, _P, _P],
+    "shannon_node_counts": [_P, _I64, _P, _P, _I64, _I, _P, _P],
+    "shannon_link_records": [_P, _I64, _I, _P, _P],
+    "shannon_group_links": [_P, _P, _I64, _P, _P, _P, _P, _P],
+    "shannon_label_round": [_P, _P, _P, _I64, _P, _P, _P, _P],
+    "shannon_label_roots": [_P, _P, _I64, _P, _P],
+    "shannon_cycle_round": [_P, _P, _P, _I64, _I, _P, _P, _P, _P],
+    "shannon_head_flags": [_P, _P, _I64, _P, _P],
+    "shannon_contig_reduce": [*[_P] * 9, _I64, _I, _I, *[_P] * 9, _P],
+    "shannon_base_streams": [_P, _P, _P, _I64, _P, _P, _P, _I64, _I, _P, _P, _P],
 }
 
 

@@ -3,14 +3,22 @@
 Counterpart of ``shannon_tpu/ops/condense.py``:
 
   1. oriented node table: both strands of every canonical k-mer, sorted,
-     palindromes deduped (K2 through ``unique_first_sorted``);
+     palindromes deduped (kernel K11, ``node_strands``, with K2);
   2. links: one sort of the 2*C2 suffix/prefix (k-1)-mer records groups
      every edge endpoint; a group with one source and one target is a
-     mergeable link, and each node's target run is its successor list;
+     mergeable link, and each node's target run is its successor list
+     (K12, ``group_links``);
   3. labels: pointer doubling to each chain's head, with a cycle check and
-     a min-propagation pass that cuts isolated cycles at their lowest lane;
+     a min-propagation pass that cuts isolated cycles at their lowest lane
+     (K13, ``label_round`` and ``cycle_round``, one launch per round);
   4. per-contig reduction (klen, exact count sum, float32 abundance, head
-     and tail lanes), contig edges, and the reverse-complement twin (K3).
+     and tail lanes), contig edges, and the reverse-complement twin (K14,
+     ``contig_reduce``);
+  5. the base streams materialization reads (K15, ``base_streams``).
+
+On CUDA tensors each stage launches its hand-written kernels in
+``csrc/condense.cu`` (around ``torch.sort`` and ``torch.cumsum``) or raises;
+on CPU tensors its ``_plain`` version runs.
 
 Node lanes: capacity C2; contig-indexed arrays are valid in [0, n_contigs).
 """
@@ -22,9 +30,10 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from shannon_tpu_torch.ops.count import Spectrum, unique_first_sorted
+from shannon_tpu_torch import kernels
+from shannon_tpu_torch.ops.count import Spectrum, reduce_sorted, unique_first_sorted
 from shannon_tpu_torch.ops.kmers import PAD, revcomp_key
-from shannon_tpu_torch.ops.spectrum import lookup_sorted
+from shannon_tpu_torch.ops.spectrum import lookup_sorted_plain
 
 
 @dataclass
@@ -48,8 +57,11 @@ class ContigArrays:
     n_contigs: int
 
 
-def nodes_stage(spec: Spectrum, k: int, canonical: bool):
-    """Oriented node table (ops/condense.py:82 _nodes_stage)."""
+# ---- K11: node table --------------------------------------------------------
+
+
+def nodes_stage_plain(spec: Spectrum, k: int, canonical: bool):
+    """Plain PyTorch K11 (ops/condense.py:82 _nodes_stage)."""
     if not canonical:
         return spec.key, spec.count, spec.n
     pad = spec.key == PAD
@@ -61,10 +73,45 @@ def nodes_stage(spec: Spectrum, k: int, canonical: bool):
     return key, count, n
 
 
-def links_stage(node_key: torch.Tensor, k: int):
-    """Mergeable links and successor directory from one (k-1)-mer group
-    join (ops/condense.py:109 _links_stage).  Returns (prev_link,
-    rec_lane, firstP, p_cnt); the reference's next_link has no reader."""
+def _nodes_stage_cuda(spec: Spectrum, k: int):
+    kernels.check_cuda("key", spec.key, torch.int64, 1)
+    kernels.check_cuda("count", spec.count, torch.int32, 1)
+    C = spec.capacity
+    if spec.count.shape[0] != C:
+        raise ValueError("key and count disagree on length")
+    dev = spec.key.device
+    both = torch.empty(2 * C, dtype=torch.int64, device=dev)
+    lib = kernels.library()
+    lib.call("shannon_node_strands", dev, kernels.ptr(spec.key), C, k, kernels.ptr(both))
+    keys = torch.sort(both).values
+    node_key, _, _, n = reduce_sorted(keys, None, 2 * C)
+    node_count = torch.empty(2 * C, dtype=torch.int32, device=dev)
+    lib.call(
+        "shannon_node_counts", dev,
+        kernels.ptr(node_key), 2 * C, kernels.ptr(spec.key), kernels.ptr(spec.count), C, k,
+        kernels.ptr(node_count),
+    )
+    lib.count("node_strands")
+    return node_key, node_count, n
+
+
+def nodes_stage(spec: Spectrum, k: int, canonical: bool):
+    """Oriented node table (ops/condense.py:82 _nodes_stage): (node_key
+    [2C] sorted, PAD past n; node_count [2C] int32; n).  The identity when
+    not canonical.  Kernel K11 on CUDA (the spectrum must hold canonical
+    keys, as canonical counting writes them), the plain version on CPU."""
+    if not canonical:
+        return spec.key, spec.count, spec.n
+    if spec.key.is_cuda:
+        return _nodes_stage_cuda(spec, k)
+    return nodes_stage_plain(spec, k, canonical)
+
+
+# ---- K12: links ---------------------------------------------------------------
+
+
+def links_stage_plain(node_key: torch.Tensor, k: int):
+    """Plain PyTorch K12 (ops/condense.py:109 _links_stage)."""
     C2 = node_key.shape[0]
     dev = node_key.device
     m = 2 * C2
@@ -112,11 +159,42 @@ def links_stage(node_key: torch.Tensor, k: int):
     return prev_link, lane_s, first_p_lane, p_cnt_lane
 
 
-def label_stage(prev_link: torch.Tensor):
-    """Pointer doubling to each chain head with early exit
-    (ops/condense.py:232 _label_stage).  Returns (head pointer, offset,
-    any-cycle flag); capped at log2(C2) rounds, after which only lanes on
-    cycles still see a predecessor at their root."""
+def _links_stage_cuda(node_key: torch.Tensor, k: int):
+    kernels.check_cuda("node_key", node_key, torch.int64, 1)
+    C2 = node_key.shape[0]
+    dev = node_key.device
+    sort_key = torch.empty(2 * C2, dtype=torch.int64, device=dev)
+    lib = kernels.library()
+    lib.call("shannon_link_records", dev, kernels.ptr(node_key), C2, k, kernels.ptr(sort_key))
+    skey, order = torch.sort(sort_key, stable=True)
+    prev_link = torch.empty(C2, dtype=torch.int64, device=dev)
+    rec_lane = torch.empty(2 * C2, dtype=torch.int64, device=dev)
+    first_p = torch.empty(C2, dtype=torch.int64, device=dev)
+    p_cnt = torch.empty(C2, dtype=torch.int64, device=dev)
+    lib.call(
+        "shannon_group_links", dev,
+        kernels.ptr(skey), kernels.ptr(order), C2, kernels.ptr(prev_link),
+        kernels.ptr(rec_lane), kernels.ptr(first_p), kernels.ptr(p_cnt),
+    )
+    lib.count("group_links")
+    return prev_link, rec_lane, first_p, p_cnt
+
+
+def links_stage(node_key: torch.Tensor, k: int):
+    """Mergeable links and successor directory from one (k-1)-mer group
+    join (ops/condense.py:109 _links_stage).  Returns (prev_link [C2],
+    rec_lane [2*C2], first_p [C2], p_cnt [C2]); the reference's next_link
+    has no reader.  Kernel K12 on CUDA, the plain version on CPU."""
+    if node_key.is_cuda:
+        return _links_stage_cuda(node_key, k)
+    return links_stage_plain(node_key, k)
+
+
+# ---- K13: labels and cycle cuts ---------------------------------------------
+
+
+def label_stage_plain(prev_link: torch.Tensor):
+    """Plain PyTorch K13 labels (ops/condense.py:232 _label_stage)."""
     C2 = prev_link.shape[0]
     has_prev = prev_link >= 0
     ptr = torch.where(has_prev, prev_link, torch.arange(C2, device=prev_link.device))
@@ -131,9 +209,50 @@ def label_stage(prev_link: torch.Tensor):
     return ptr, dist, bool((prev_link[ptr] >= 0).any())
 
 
-def cycle_fix(prev_link: torch.Tensor) -> torch.Tensor:
-    """Cut isolated cycles at their minimum lane (ops/condense.py:264
-    _cycle_fix): min-propagating pointer doubling, full log2(C2) rounds."""
+def _label_stage_cuda(prev_link: torch.Tensor):
+    kernels.check_cuda("prev_link", prev_link, torch.int64, 1)
+    C2 = prev_link.shape[0]
+    dev = prev_link.device
+    bufs = [
+        tuple(torch.empty(C2, dtype=torch.int64, device=dev) for _ in range(2))
+        for _ in range(2)
+    ]
+    changed = torch.empty(1, dtype=torch.int32, device=dev)
+    lib = kernels.library()
+    ptr = dist = None
+    for r in range(max(C2.bit_length(), 1)):
+        out_ptr, out_dist = bufs[r % 2]
+        lib.call(
+            "shannon_label_round", dev,
+            kernels.ptr(prev_link), kernels.ptr(ptr), kernels.ptr(dist), C2,
+            kernels.ptr(out_ptr), kernels.ptr(out_dist), kernels.ptr(changed),
+        )
+        lib.count("label_round")
+        ptr, dist = out_ptr, out_dist
+        if not changed.item():
+            break
+    has_cycle = torch.empty(1, dtype=torch.int32, device=dev)
+    lib.call(
+        "shannon_label_roots", dev,
+        kernels.ptr(prev_link), kernels.ptr(ptr), C2, kernels.ptr(has_cycle),
+    )
+    return ptr, dist, bool(has_cycle.item())
+
+
+def label_stage(prev_link: torch.Tensor):
+    """Pointer doubling to each chain head with early exit
+    (ops/condense.py:232 _label_stage).  Returns (head pointer, offset,
+    any-cycle flag); capped at log2(C2) rounds, after which only lanes on
+    cycles still see a predecessor at their root.  Kernel K13
+    (``label_round``, one launch per round and a read of its changed flag,
+    then one check of the roots) on CUDA, the plain version on CPU."""
+    if prev_link.is_cuda:
+        return _label_stage_cuda(prev_link)
+    return label_stage_plain(prev_link)
+
+
+def cycle_fix_plain(prev_link: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch K13 cycle cut (ops/condense.py:264 _cycle_fix)."""
     C2 = prev_link.shape[0]
     iota = torch.arange(C2, device=prev_link.device)
     ptr = torch.where(prev_link >= 0, prev_link, iota)
@@ -145,13 +264,52 @@ def cycle_fix(prev_link: torch.Tensor) -> torch.Tensor:
     return torch.where(cycle_head, -1, prev_link)
 
 
-def reduce_stage(
+def _cycle_fix_cuda(prev_link: torch.Tensor) -> torch.Tensor:
+    kernels.check_cuda("prev_link", prev_link, torch.int64, 1)
+    C2 = prev_link.shape[0]
+    dev = prev_link.device
+    bufs = [
+        tuple(torch.empty(C2, dtype=torch.int64, device=dev) for _ in range(2))
+        for _ in range(2)
+    ]
+    out = torch.empty(C2, dtype=torch.int64, device=dev)
+    lib = kernels.library()
+    ptr = mn = None
+    n_rounds = max(C2.bit_length(), 1)
+    for r in range(n_rounds):
+        out_ptr, out_mn = bufs[r % 2]
+        lib.call(
+            "shannon_cycle_round", dev,
+            kernels.ptr(prev_link), kernels.ptr(ptr), kernels.ptr(mn), C2,
+            int(r == n_rounds - 1), kernels.ptr(out_ptr), kernels.ptr(out_mn),
+            kernels.ptr(out),
+        )
+        lib.count("cycle_round")
+        ptr, mn = out_ptr, out_mn
+    return out
+
+
+def cycle_fix(prev_link: torch.Tensor) -> torch.Tensor:
+    """Cut isolated cycles at their minimum lane (ops/condense.py:264
+    _cycle_fix): min-propagating pointer doubling, the full log2(C2) rounds
+    (a cycle's minimum must travel the whole cycle).  Kernel K13
+    (``cycle_round``, one launch per round; the last writes the cut links)
+    on CUDA, the plain version on CPU."""
+    if prev_link.is_cuda:
+        return _cycle_fix_cuda(prev_link)
+    return cycle_fix_plain(prev_link)
+
+
+# ---- K14: per-contig reduction -----------------------------------------------
+
+
+def reduce_stage_plain(
     node_key, node_count, n_nodes, prev2, head_ptr, dist,
     rec_lane, first_p, p_cnt, k: int, canonical: bool,
 ) -> ContigArrays:
-    """Per-contig reductions, edges and rc twins from the labeled nodes
-    (ops/condense.py:287 _reduce_stage).  Offsets within a contig are
-    0..klen-1, so the reductions are scatters keyed by contig id."""
+    """Plain PyTorch K14 (ops/condense.py:287 _reduce_stage).  Offsets
+    within a contig are 0..klen-1, so the reductions are scatters keyed by
+    contig id."""
     C2 = node_key.shape[0]
     dev = node_key.device
     iota = torch.arange(C2, device=dev)
@@ -190,7 +348,7 @@ def reduce_stage(
 
     # rc twin: the contig whose head k-mer is revcomp(this tail k-mer)
     if canonical:
-        rc_idx, rc_hit = lookup_sorted(node_key, revcomp_key(node_key[tl], k))
+        rc_idx, rc_hit = lookup_sorted_plain(node_key, revcomp_key(node_key[tl], k))
         rc_is_head = dist[rc_idx] == 0
         rc_pair = torch.where(
             (tail_lane >= 0) & rc_hit & rc_is_head, node_cid[rc_idx], iota
@@ -214,9 +372,80 @@ def reduce_stage(
     )
 
 
+def _reduce_stage_cuda(
+    node_key, node_count, n_nodes, prev2, head_ptr, dist,
+    rec_lane, first_p, p_cnt, k: int, canonical: bool,
+) -> ContigArrays:
+    C2 = node_key.shape[0]
+    for name, t, dtype in (
+        ("node_key", node_key, torch.int64), ("node_count", node_count, torch.int32),
+        ("prev2", prev2, torch.int64), ("head_ptr", head_ptr, torch.int64),
+        ("dist", dist, torch.int64), ("rec_lane", rec_lane, torch.int64),
+        ("first_p", first_p, torch.int64), ("p_cnt", p_cnt, torch.int64),
+    ):
+        kernels.check_cuda(name, t, dtype, 1)
+        if t.shape[0] != (2 * C2 if name == "rec_lane" else C2):
+            raise ValueError(f"{name} has {t.shape[0]} lanes for a {C2}-lane node table")
+    if C2 >= 1 << 31:
+        raise ValueError(f"{C2} node lanes exceed the int32 head scan")
+    dev = node_key.device
+    lib = kernels.library()
+    flags = torch.empty(C2, dtype=torch.int32, device=dev)
+    lib.call("shannon_head_flags", dev, kernels.ptr(node_key), kernels.ptr(prev2), C2,
+             kernels.ptr(flags))
+    scan = torch.cumsum(flags, 0, dtype=torch.int32)
+
+    def lanes(dtype=torch.int64):
+        return torch.empty(C2, dtype=dtype, device=dev)
+
+    node_cid, node_off, klen, csum = lanes(), lanes(), lanes(), lanes()
+    head_lane, tail_lane, rc_pair = lanes(), lanes(), lanes()
+    abundance = lanes(torch.float32)
+    out_edges = torch.empty((4, C2), dtype=torch.int64, device=dev)
+    lib.call(
+        "shannon_contig_reduce", dev,
+        *(kernels.ptr(t) for t in (node_key, node_count, prev2, head_ptr, dist, rec_lane,
+                                    first_p, p_cnt, scan)),
+        C2, k, int(canonical),
+        *(kernels.ptr(t) for t in (node_cid, node_off, klen, csum, head_lane, tail_lane,
+                                    abundance, out_edges, rc_pair)),
+    )
+    lib.count("contig_reduce")
+    return ContigArrays(
+        node_key=node_key,
+        node_count=node_count,
+        node_cid=node_cid,
+        node_off=node_off,
+        klen=klen,
+        abundance=abundance,
+        count_sum=csum,
+        head_lane=head_lane,
+        tail_lane=tail_lane,
+        out_edges=out_edges,
+        rc_pair=rc_pair,
+        n_nodes=n_nodes,
+        n_contigs=int(scan[-1]) if C2 else 0,
+    )
+
+
+def reduce_stage(
+    node_key, node_count, n_nodes, prev2, head_ptr, dist,
+    rec_lane, first_p, p_cnt, k: int, canonical: bool,
+) -> ContigArrays:
+    """Per-contig reductions, edges and rc twins from the labeled nodes
+    (ops/condense.py:287 _reduce_stage).  Kernel K14 on CUDA (contig ids
+    from a torch.cumsum of the head flags), the plain version on CPU."""
+    args = (node_key, node_count, n_nodes, prev2, head_ptr, dist,
+            rec_lane, first_p, p_cnt, k, canonical)
+    if node_key.is_cuda:
+        return _reduce_stage_cuda(*args)
+    return reduce_stage_plain(*args)
+
+
 def build_contig_arrays(spec: Spectrum, k: int, canonical: bool = True) -> ContigArrays:
     """Condense a (corrected) spectrum into its contig graph
-    (ops/condense.py:202 build_contig_arrays)."""
+    (ops/condense.py:202 build_contig_arrays).  On CUDA every stage runs its
+    kernels (K11-K14)."""
     node_key, node_count, n_nodes = nodes_stage(spec, k, canonical)
     prev_link, rec_lane, first_p, p_cnt = links_stage(node_key, k)
     ptr, dist, has_cycle = label_stage(prev_link)
@@ -229,10 +458,11 @@ def build_contig_arrays(spec: Spectrum, k: int, canonical: bool = True) -> Conti
     )
 
 
-def contig_base_streams(ca: ContigArrays, k: int):
-    """(tails, heads): every node's last base in (cid, offset) order, and
-    each contig's k-1 leading bases [n_contigs, k-1]
-    (ops/condense.py:417 contig_base_streams)."""
+# ---- K15: base streams ----------------------------------------------------------
+
+
+def contig_base_streams_plain(ca: ContigArrays, k: int):
+    """Plain PyTorch K15 (ops/condense.py:417 contig_base_streams)."""
     C2 = ca.node_key.shape[0]
     lanes = torch.nonzero(ca.node_cid >= 0).flatten()
     order = torch.argsort(ca.node_cid[lanes] * C2 + ca.node_off[lanes])
@@ -241,6 +471,43 @@ def contig_base_streams(ca: ContigArrays, k: int):
     shifts = 2 * (k - 1 - torch.arange(k - 1, device=head.device))
     heads = ((head[:, None] >> shifts[None, :]) & 3).to(torch.uint8)
     return tails, heads
+
+
+def _contig_base_streams_cuda(ca: ContigArrays, k: int):
+    for name in ("node_key", "node_cid", "node_off", "klen", "head_lane"):
+        kernels.check_cuda(name, getattr(ca, name), torch.int64, 1)
+    C2 = ca.node_key.shape[0]
+    n = ca.n_contigs
+    if ca.node_cid.shape[0] != C2 or ca.node_off.shape[0] != C2:
+        raise ValueError("node_key, node_cid and node_off disagree on length")
+    if ca.klen.shape[0] < n or ca.head_lane.shape[0] < n:
+        raise ValueError(f"klen and head_lane must cover the {n} contigs")
+    dev = ca.node_key.device
+    # each contig's tail run starts at incl[cid] - klen[cid]
+    incl = torch.cumsum(ca.klen, 0)
+    total = int(incl[-1]) if incl.shape[0] else 0
+    tails = torch.empty(total, dtype=torch.uint8, device=dev)
+    heads = torch.empty((n, k - 1), dtype=torch.uint8, device=dev)
+    lib = kernels.library()
+    lib.call(
+        "shannon_base_streams", dev,
+        kernels.ptr(ca.node_key), kernels.ptr(ca.node_cid), kernels.ptr(ca.node_off), C2,
+        kernels.ptr(ca.klen), kernels.ptr(incl), kernels.ptr(ca.head_lane), n, k,
+        kernels.ptr(tails), kernels.ptr(heads),
+    )
+    lib.count("base_streams")
+    return tails, heads
+
+
+def contig_base_streams(ca: ContigArrays, k: int):
+    """(tails, heads): every node's last base in (cid, offset) order
+    [sum klen] uint8, and each contig's k-1 leading bases [n_contigs, k-1]
+    uint8 (ops/condense.py:417 contig_base_streams).  Kernel K15 on CUDA
+    (the slot of a node is its contig's start in a torch.cumsum of klen
+    plus its offset), the plain version on CPU."""
+    if ca.node_key.is_cuda:
+        return _contig_base_streams_cuda(ca, k)
+    return contig_base_streams_plain(ca, k)
 
 
 # host code below: copied from shannon_tpu/ops/condense.py:448

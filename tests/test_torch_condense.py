@@ -1,10 +1,13 @@
 """Port parity: condensation (node table, group-join links, pointer-doubling
 labels with cycle cuts, per-contig reduction, base streams and the host
 ContigGraph) against shannon_tpu.ops.condense on JAX-CPU.  Both packages
-condense the same spectrum (via convert).
+condense the same spectrum (via convert); the stage tests feed each plain
+stage of the port the JAX package's output of the stage before it.
 
 Tolerance: exact — every ContigArrays array equal over its full capacity
 (abundances bitwise), contig sequences and graphs equal."""
+
+import functools
 
 import numpy as np
 import pytest
@@ -13,9 +16,10 @@ import torch
 import jax.numpy as jnp
 
 from shannon_tpu.config import AssemblyConfig
+from shannon_tpu.io.dna import revcomp_str
 from shannon_tpu.io.pack import pack_reads
 from shannon_tpu.ops import condense as jcd
-from shannon_tpu.ops.count import count_spectrum_packed
+from shannon_tpu.ops.count import count_spectrum_packed, spectrum_from_arrays
 from shannon_tpu.sim import random_seq, sample_reads, simulate_isoforms, simulate_transcripts
 from shannon_tpu_torch import convert
 from shannon_tpu_torch.ops import condense as tcd
@@ -28,12 +32,24 @@ CASES = {
     )(*simulate_transcripts(rng, n=4, length=150), random_seq(rng, 60)),
     "cycle": lambda rng: [random_seq(rng, 50) * 4],  # tandem repeat -> cycle
     "homopolymer": lambda rng: ["A" * 120],  # self-loop k-mer
+    # a k-mer across the junction of h and revcomp(h) is its own reverse
+    # complement when k is even
+    "palindrome": lambda rng: (
+        lambda a, h, b: [a + h + revcomp_str(h) + b]
+    )(random_seq(rng, 80), random_seq(rng, 40), random_seq(rng, 80)),
+    # disjoint isolated cycles of three lengths beside two chains
+    "cycles": lambda rng: [random_seq(rng, n) * 4 for n in (37, 52, 71)]
+    + simulate_transcripts(rng, n=2, length=200),
+    "empty": lambda rng: [],
 }
 
 
 def _spectra(case: str, k: int, canonical: bool = True, error_rate: float = 0.0):
     rng = np.random.default_rng(len(case) * 31 + k)
     ts = CASES[case](rng)
+    if not ts:
+        ref = spectrum_from_arrays(np.zeros(0, np.uint64), np.zeros(0, np.int32), 1 << 13)
+        return convert.spectrum_from_numpy(ref.hi, ref.lo, ref.count, 0), ref
     reads = sample_reads(rng, ts, coverage=12, read_length=60, error_rate=error_rate)
     b = pack_reads(reads, pad_length=64)
     ref = count_spectrum_packed(
@@ -102,3 +118,125 @@ def test_contig_arrays_convert_round_trip():
     ca = tcd.build_contig_arrays(port, 17)
     for f in ("node_key", "node_cid", "node_off", "klen", "abundance", "out_edges", "rc_pair"):
         assert torch.equal(getattr(back, f), getattr(ca, f)), f
+
+
+# ---- stage by stage ---------------------------------------------------------
+
+STAGE_POINTS = [(c, k, True) for c in sorted(CASES) for k in (15, 24)] + [
+    (c, 21, False) for c in ("cycles", "palindrome", "repeat")
+]
+
+
+@functools.lru_cache(maxsize=None)
+def _reference_stages(case: str, k: int, canonical: bool) -> dict:
+    """Every stage output of the JAX package on one spectrum, as numpy (the
+    lanes, pointers and ids int64, node keys int64 with PAD)."""
+    port, ref = _spectra(case, k, canonical)
+    node_hi, node_lo, node_count, n_nodes = jcd._nodes_stage(ref, k, canonical)
+    _next, prev_link, rec_lane, first_p, p_cnt = jcd._links_stage(node_hi, node_lo, k)
+    ptr, dist, has_cycle = jcd._label_stage(prev_link)
+    cut = jcd._cycle_fix(prev_link)
+    prev2, ptr2, dist2 = prev_link, ptr, dist
+    if bool(has_cycle):
+        prev2 = cut
+        ptr2, dist2, _ = jcd._label_stage(cut)
+    ca = jcd._reduce_stage(
+        node_hi, node_lo, node_count, n_nodes, prev2, ptr2, dist2, rec_lane, first_p, p_cnt,
+        k, canonical,
+    )
+    tails, heads = jcd.contig_base_streams(ca, k)
+
+    def i64(x):
+        return np.asarray(x).astype(np.int64)
+
+    return dict(
+        spec=port, node_key=convert.hilo_to_key(node_hi, node_lo),
+        node_count=np.asarray(node_count), n_nodes=int(n_nodes),
+        prev_link=i64(prev_link), rec_lane=i64(rec_lane), first_p=i64(first_p),
+        p_cnt=i64(p_cnt), ptr=i64(ptr), dist=i64(dist), has_cycle=bool(has_cycle),
+        cut=i64(cut), prev2=i64(prev2), ptr2=i64(ptr2), dist2=i64(dist2), ca=ca,
+        tails=np.asarray(tails), heads=np.asarray(heads),
+    )
+
+
+def _t(a: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.array(a))
+
+
+def _eq(got: torch.Tensor, want: np.ndarray, what: str) -> None:
+    np.testing.assert_array_equal(got.numpy(), want, err_msg=what)
+    assert got.numpy().dtype == want.dtype, what
+
+
+def _check_nodes(r, k, canonical):
+    key, count, n = tcd.nodes_stage_plain(r["spec"], k, canonical)
+    _eq(key, r["node_key"], "node_key")
+    _eq(count, r["node_count"], "node_count")
+    assert n == r["n_nodes"]
+
+
+def _check_links(r, k, canonical):
+    got = tcd.links_stage_plain(_t(r["node_key"]), k)
+    for name, g in zip(("prev_link", "rec_lane", "first_p", "p_cnt"), got):
+        _eq(g, r[name], name)
+
+
+def _check_labels(r, k, canonical):
+    ptr, dist, has_cycle = tcd.label_stage_plain(_t(r["prev_link"]))
+    _eq(ptr, r["ptr"], "ptr")
+    _eq(dist, r["dist"], "dist")
+    assert has_cycle == r["has_cycle"]
+    # the cut on every input (the identity where nothing cycles), then the
+    # labels on the links the pipeline goes on with
+    _eq(tcd.cycle_fix_plain(_t(r["prev_link"])), r["cut"], "cut")
+    ptr2, dist2, again = tcd.label_stage_plain(_t(r["prev2"]))
+    _eq(ptr2, r["ptr2"], "ptr2")
+    _eq(dist2, r["dist2"], "dist2")
+    assert not again
+
+
+def _check_reduce(r, k, canonical):
+    ca = tcd.reduce_stage_plain(
+        _t(r["node_key"]), _t(r["node_count"]), r["n_nodes"], _t(r["prev2"]),
+        _t(r["ptr2"]), _t(r["dist2"]), _t(r["rec_lane"]), _t(r["first_p"]),
+        _t(r["p_cnt"]), k, canonical,
+    )
+    assert_contig_arrays_equal(ca, r["ca"])
+
+
+def _check_streams(r, k, canonical):
+    ca = convert.contig_arrays_from_numpy(*(np.asarray(x) for x in r["ca"].tree_flatten()[0]))
+    tails, heads = tcd.contig_base_streams_plain(ca, k)
+    assert tails.dtype == heads.dtype == torch.uint8
+    assert tails.shape[0] == int(ca.klen.sum())
+    _eq(tails, r["tails"][: tails.shape[0]], "tails")
+    _eq(heads, r["heads"][: ca.n_contigs], "heads")
+
+
+STAGES = {
+    "nodes": _check_nodes, "links": _check_links, "labels": _check_labels,
+    "reduce": _check_reduce, "streams": _check_streams,
+}
+
+
+@pytest.mark.parametrize("stage", list(STAGES))
+@pytest.mark.parametrize("case,k,canonical", STAGE_POINTS)
+def test_plain_stage_matches_reference(stage, case, k, canonical):
+    """Each plain stage of the port (the version its kernel is held to on
+    the card) equals the JAX stage on the JAX package's own inputs."""
+    STAGES[stage](_reference_stages(case, k, canonical), k, canonical)
+
+
+@pytest.mark.parametrize("case", ["palindrome", "cycles", "empty"])
+def test_stage_cases_hold_what_they_name(case):
+    """The palindrome case dedupes palindromic nodes at even k, the cycles
+    case cuts several cycles of both strands, the empty case has no contig."""
+    r = _reference_stages(case, 24, True)
+    n = r["spec"].n
+    if case == "palindrome":
+        assert 0 < r["n_nodes"] < 2 * n
+    elif case == "cycles":
+        assert r["has_cycle"]
+        assert int(((r["cut"] < 0) & (r["prev_link"] >= 0)).sum()) >= 6
+    else:
+        assert n == 0 and r["n_nodes"] == 0 and int(r["ca"].n_contigs) == 0

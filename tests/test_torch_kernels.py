@@ -1,6 +1,6 @@
-"""The hand-written CUDA kernels K1-K10 against their plain PyTorch
-versions, correction and the port's assembly (single-end and paired) on
-CUDA against the CPU run.  Marked
+"""The hand-written CUDA kernels K1-K15 against their plain PyTorch
+versions, correction, condensation and the port's assembly (single-end and
+paired) on CUDA against the CPU run.  Marked
 `cuda`: these need an NVIDIA GPU and nvcc and skip without them.  Run on
 the card with
 
@@ -15,10 +15,14 @@ import torch
 
 from shannon_tpu_torch import kernels
 from shannon_tpu_torch.config import AssemblyConfig
+from shannon_tpu_torch.io.dna import revcomp_str
 from shannon_tpu_torch.io.pack import pack_reads
+from shannon_tpu_torch.ops import condense as tcd
 from shannon_tpu_torch.ops import correction as tcor
-from shannon_tpu_torch.ops.count import Spectrum, count_reads_spectrum
-from shannon_tpu_torch.sim import sample_paired_reads, sample_reads, simulate_gene_isoforms
+from shannon_tpu_torch.ops.count import Spectrum, count_reads_spectrum, empty_spectrum
+from shannon_tpu_torch.sim import (
+    random_seq, sample_paired_reads, sample_reads, simulate_gene_isoforms,
+)
 from shannon_tpu_torch.utils.timing import StageTimer
 from shannon_tpu_torch.ops import sparseflow as tsf
 from shannon_tpu_torch.ops import thread as tth
@@ -218,9 +222,12 @@ def test_sf_greedy_kernel_validates_inputs(cuda):
 
 def _assert_all_launched(launches: dict, timer: StageTimer) -> None:
     """Every kernel launched; K8 (rescue) only runs when the auto cut is
-    above 1."""
+    above 1, and K13's cycle_round only when the labels found a cycle."""
     cut = timer.stages["spectrum+graph"]["auto_min_abundance"]
-    missing = [n for n, c in launches.items() if c == 0 and not (n == "rescue_round" and cut == 1)]
+    missing = [
+        n for n, c in launches.items()
+        if c == 0 and not (n == "rescue_round" and cut == 1) and n != "cycle_round"
+    ]
     assert not missing, launches
 
 
@@ -352,6 +359,107 @@ def test_correction_wrappers_validate_inputs(cuda):
         tcor.rescue_round(counts.long(), counts, idx, hit, idx, hit)
     with pytest.raises(ValueError, match="side"):
         tcor.probe_resolve(Spectrum(key=idx[0], count=counts, n=0), 21, True, "up")
+
+
+def _condense_spectrum(case: str, k: int, canonical: bool) -> Spectrum:
+    """A counted spectrum on the CPU: isoforms (branches), isolated cycles
+    of three lengths plus a homopolymer beside a chain, a palindromic
+    junction (palindromic k-mers at even k), or nothing."""
+    if case == "empty":
+        return empty_spectrum(1 << 10, "cpu")
+    rng = np.random.default_rng(k)
+    if case == "isoforms":
+        ts = simulate_gene_isoforms(rng, n_genes=2)[0]
+    elif case == "cycles":
+        ts = [random_seq(rng, n) * 4 for n in (37, 52, 71)] + [random_seq(rng, 300), "A" * 120]
+    else:
+        h = random_seq(rng, 40)
+        ts = [random_seq(rng, 80) + h + revcomp_str(h) + random_seq(rng, 80)]
+    reads = sample_reads(rng, ts, coverage=15, read_length=60)
+    b = pack_reads(reads, pad_length=64)
+    return count_reads_spectrum(b, k=k, capacity=1 << 14, canonical=canonical, device="cpu")
+
+
+def _equal(got, want, what: str) -> None:
+    assert got.dtype == want.dtype and got.shape == want.shape, what
+    assert torch.equal(got, want), what
+
+
+@pytest.mark.parametrize("case", ["isoforms", "cycles", "palindrome", "empty"])
+@pytest.mark.parametrize("k", [15, 24])
+@pytest.mark.parametrize("canonical", [True, False])
+def test_condense_kernels_match_plain(cuda, case, k, canonical):
+    """K11-K15 stage by stage, each kernel against its plain version on the
+    same CUDA inputs (the kernel's output feeds the next stage), then the
+    whole build_contig_arrays on CUDA against the CPU run."""
+    spec = _to(_condense_spectrum(case, k, canonical), cuda)
+    lib = kernels.library()
+    lib.reset_counts()
+    nodes = tcd.nodes_stage(spec, k, canonical)
+    if canonical:
+        want = tcd.nodes_stage_plain(spec, k, canonical)
+        _equal(nodes[0], want[0], "node_key")
+        _equal(nodes[1], want[1], "node_count")
+        assert nodes[2] == want[2]
+    node_key, node_count, n_nodes = nodes
+    links = tcd.links_stage(node_key, k)
+    for g, w, name in zip(links, tcd.links_stage_plain(node_key, k),
+                          ("prev_link", "rec_lane", "first_p", "p_cnt")):
+        _equal(g, w, name)
+    prev, rec_lane, first_p, p_cnt = links
+    ptr, dist, has_cycle = tcd.label_stage(prev)
+    want = tcd.label_stage_plain(prev)
+    _equal(ptr, want[0], "ptr")
+    _equal(dist, want[1], "dist")
+    assert has_cycle == want[2]
+    assert has_cycle == (case == "cycles")
+    if has_cycle:
+        cut = tcd.cycle_fix(prev)
+        _equal(cut, tcd.cycle_fix_plain(prev), "cut")
+        prev = cut
+        ptr, dist, again = tcd.label_stage(prev)
+        assert not again
+    args = (node_key, node_count, n_nodes, prev, ptr, dist, rec_lane, first_p, p_cnt, k, canonical)
+    ca, want = tcd.reduce_stage(*args), tcd.reduce_stage_plain(*args)
+    for f in ("node_cid", "node_off", "klen", "abundance", "count_sum", "head_lane",
+              "tail_lane", "out_edges", "rc_pair"):
+        _equal(getattr(ca, f), getattr(want, f), f)
+    assert (ca.n_nodes, ca.n_contigs) == (want.n_nodes, want.n_contigs)
+    for g, w, name in zip(tcd.contig_base_streams(ca, k), tcd.contig_base_streams_plain(ca, k),
+                          ("tails", "heads")):
+        _equal(g, w, name)
+    torch.cuda.synchronize()
+    launched = {n for n in ("node_strands", "group_links", "label_round", "cycle_round",
+                            "contig_reduce", "base_streams") if lib.launches[n]}
+    assert launched == {"group_links", "label_round", "contig_reduce", "base_streams"} | (
+        {"node_strands"} if canonical else set()) | ({"cycle_round"} if has_cycle else set())
+
+    whole = tcd.build_contig_arrays(spec, k, canonical)
+    cpu = tcd.build_contig_arrays(_to(spec, "cpu"), k, canonical)
+    for f in ("node_key", "node_count", "node_cid", "node_off", "klen", "abundance",
+              "count_sum", "head_lane", "tail_lane", "out_edges", "rc_pair"):
+        _equal(getattr(whole, f).cpu(), getattr(cpu, f), f)
+    assert (whole.n_nodes, whole.n_contigs) == (cpu.n_nodes, cpu.n_contigs)
+
+
+def test_condense_wrappers_validate_inputs(cuda):
+    key = torch.zeros(8, dtype=torch.int64, device=cuda)
+    count = torch.zeros(8, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError, match="int32"):
+        tcd.nodes_stage(Spectrum(key=key, count=key, n=0), 21, True)
+    with pytest.raises(TypeError, match="int64"):
+        tcd.links_stage(count, 21)
+    with pytest.raises(ValueError, match="dims"):
+        tcd.label_stage(key.reshape(2, 4))
+    with pytest.raises(TypeError, match="int64"):
+        tcd.cycle_fix(key.float())
+    rec = torch.zeros(16, dtype=torch.int64, device=cuda)
+    with pytest.raises(ValueError, match="CUDA"):
+        tcd.reduce_stage(key, count, 0, key.cpu(), key, key, rec, key, key, 21, True)
+    ca = tcd.build_contig_arrays(Spectrum(key=key[:4] + tcd.PAD, count=count[:4], n=0), 21)
+    ca.node_cid = ca.node_cid.int()
+    with pytest.raises(TypeError, match="int64"):
+        tcd.contig_base_streams(ca, 21)
 
 
 def test_paired_assemble_on_cuda_matches_cpu(cuda):
