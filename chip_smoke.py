@@ -17,25 +17,27 @@ Phases; any failure exits nonzero:
      spectrum_device builds from them; K7 (probe lookup, both probe sets),
      K8 (one rescue round from the cut counts), K9 (one prune round) and K10
      (compaction of the final keep mask) on the counted, shrunk spectrum of
-     the whole single-end scale dataset at the default AssemblyConfig, then
-     the whole correct_spectrum there against its CPU run, and K9 on a
-     synthetic grid (every count 1..255 against every sibling maximum
-     1..4095, error_rate 0.01 and 0.02); K11-K15 (condensation: node table,
-     group-join links, pointer-doubling labels, per-contig reduction, base
-     streams) stage by stage on that corrected, shrunk spectrum, each
-     kernel's output feeding the next stage, and the whole
-     build_contig_arrays timed; K13's cycle cut (cycle_round) and every
-     other condensation stage again on a synthetic spectrum of isolated
-     cycles (tandem repeats and homopolymers); K6 (sparse-flow greedy) on
-     4,096 random jobs of 1-8 by 1-8 margins at sf_restarts = 4, and the
-     batched solver (K6) against the host solve_node loop on rounds of 8,
-     32 and 128 X-nodes.  Each kernel row also times the one PyTorch call
-     that computes the same function, where there is one (library_ms), and
-     gives the least time the card could take (bound_ms: bytes over 3.35
-     TB/s or operations over 67 TFLOP/s, whichever is larger).  The device
-     programs still in plain torch (count_histogram, the count merge, tip
-     clip's drop and remap) are timed at the main path's shapes too, with
-     their bound;
+     the whole single-end scale dataset at the default AssemblyConfig, with
+     K16 (count histogram of the auto cut) on that spectrum and K17 (count
+     merge) on the first merge its count made; then the whole
+     correct_spectrum there against its CPU run, and K9 on a synthetic grid
+     (every count 1..255 against every sibling maximum 1..4095, error_rate
+     0.01 and 0.02); K11-K15 (condensation: node table, group-join links,
+     pointer-doubling labels, per-contig reduction, base streams) stage by
+     stage on that corrected, shrunk spectrum, each kernel's output feeding
+     the next stage, and the whole build_contig_arrays timed; K13's cycle
+     cut (cycle_round) and every other condensation stage again on a
+     synthetic spectrum of isolated cycles (tandem repeats and
+     homopolymers); K18 (tip clip's drop) and K19 (its remap of the node
+     table) on the arguments one clip of that spectrum gives them; K6
+     (sparse-flow greedy) on 4,096 random jobs of 1-8 by 1-8 margins at
+     sf_restarts = 4, and the batched solver (K6) against the host
+     solve_node loop on rounds of 8, 32 and 128 X-nodes.  Each kernel row
+     also times the one PyTorch call that computes the same function, where
+     there is one (library_ms), and gives the least time the card could
+     take (bound_ms: bytes over 3.35 TB/s or operations over 67 TFLOP/s,
+     whichever is larger).  Every device program of the main path is a
+     hand-written kernel;
   3. parity: on 3,000 reads of the scale dataset, assemble on CUDA gives
      the same corrected spectrum, contig arrays and transcripts as on the
      CPU (plain versions), and the same canonical set as the pure-Python
@@ -52,12 +54,16 @@ Phases; any failure exits nonzero:
      run by shannon_tpu_torch.cli.main on CUDA, then run again on the same
      out-dir, where every stage must be skipped (resume); fails below the
      reference's exact recall on this dataset (PAIRED_RECALL_GATE).
+In both scale phases each merge of the count is bracketed with CUDA events,
+and their sum is printed beside count_s.  scripts/scale_turns.py runs these
+two phases alone for several trees in turns (a parent against a change).
 Every kernel must launch at least once in each scale phase (counts set to
 0 just before the phase and read just after); K8 (dead-end rescue) runs only
 when the phase's auto abundance cut is above 1, and is exempt where it is 1;
 K13's cycle_round runs only when the labels find a cycle, and is exempt where
-they find none.  The calls of the plain device programs are counted in each
-scale phase as well.
+they find none; K18 and K19 run only when the clip dooms a contig, and are
+exempt where it dooms none, and K19 also where a merge of the clip closed a
+cycle (the caller then condenses the clipped spectrum anew).
 
 The last two lines of standard output are one JSON object with the kernels'
 launches, errors and times, and one JSON object {"ok": true, "device": ...}.
@@ -108,18 +114,11 @@ REPLACES = {
     "cycle_round": ("shannon_tpu_torch/csrc/condense.cu", "shannon_tpu/ops/condense.py:264"),
     "contig_reduce": ("shannon_tpu_torch/csrc/condense.cu", "shannon_tpu/ops/condense.py:287"),
     "base_streams": ("shannon_tpu_torch/csrc/condense.cu", "shannon_tpu/ops/condense.py:417"),
-}
-
-# The device programs of the main path that still run as plain torch:
-# (module, function) of the port, and the TPU program each stands for.
-PLAIN_PROGRAMS = {
-    "count_histogram": ("shannon_tpu_torch.ops.correction", "count_histogram",
+    "count_histogram": ("shannon_tpu_torch/csrc/correction.cu",
                         "shannon_tpu/ops/correction.py:32"),
-    "merge_at": ("shannon_tpu_torch.ops.count", "merge_at", "shannon_tpu/ops/count.py:257"),
-    "drop_contigs": ("shannon_tpu_torch.ops.tipclip", "_drop_contigs",
-                     "shannon_tpu/ops/tipclip.py:407"),
-    "device_clip_remap": ("shannon_tpu_torch.ops.tipclip", "_device_clip_remap",
-                          "shannon_tpu/ops/tipclip.py:423"),
+    "merge_spectra": ("shannon_tpu_torch/csrc/kernels.cu", "shannon_tpu/ops/count.py:257"),
+    "drop_contigs": ("shannon_tpu_torch/csrc/tipclip.cu", "shannon_tpu/ops/tipclip.py:407"),
+    "clip_remap": ("shannon_tpu_torch/csrc/tipclip.cu", "shannon_tpu/ops/tipclip.py:423"),
 }
 
 # Peak rates of one H100 SXM for bound_ms (NVIDIA's data sheet): device
@@ -195,42 +194,70 @@ def _print_row(label: str, row: dict, smi: str) -> None:
           f"library call {lib}, bound {row['bound_ms']:.4f} ms ({row['bound_by']}) [{smi}]")
 
 
-def _plain_row(ms: float, bytes_: float, ops: float, shape: str) -> dict:
-    """One plain device program's entry: its time on the card and its bound
-    (as in _row)."""
-    row = _row(0.0, (ms, ms), bytes_, ops, None)
-    return {"plain_ms": ms, "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-            "shape": shape}
+# The module functions Watch wraps: (module, function).
+WATCHED = {
+    "merge_at": ("shannon_tpu_torch.ops.count", "merge_at"),
+    "host_clip_rounds": ("shannon_tpu_torch.ops.tipclip", "_host_clip_rounds"),
+    "drop_contigs": ("shannon_tpu_torch.ops.tipclip", "_drop_contigs"),
+    "clip_remap": ("shannon_tpu_torch.ops.tipclip", "_device_clip_remap"),
+}
 
 
-class PlainCalls:
-    """Counts the calls of the plain device programs (PLAIN_PROGRAMS) by
-    wrapping each module function; while keep_args is set, the first call's
-    arguments of each are kept for timing it alone."""
+class Watch:
+    """Wraps the count merge and tip clip's steps (WATCHED) in their
+    modules.  It records, for each clip, whether its host rounds doomed a
+    contig and whether a merge closed a cycle (where K18 and K19 are
+    exempt), and brackets each merge with two CUDA events (merge_ms reads
+    them); while keep_args is set, it keeps the first call's arguments of
+    the merge, the drop and the remap, so that each kernel can be held
+    against its plain version on the main path's own arguments.  The
+    kernels are called through `originals`, never through a wrapper."""
 
     def __init__(self):
         import importlib
 
         self.originals = {}
-        self.calls = {name: 0 for name in PLAIN_PROGRAMS}
+        self.clips: list[tuple[bool, bool]] = []  # (any doomed, cycle merged)
+        self.merges: list = []  # (start, end) CUDA events of each merge
         self.first_args: dict = {}
         self.keep_args = False
-        for name, (module, fn, _replaces) in PLAIN_PROGRAMS.items():
+        for name, (module, fn) in WATCHED.items():
             mod = importlib.import_module(module)
             self.originals[name] = getattr(mod, fn)
             setattr(mod, fn, self._wrap(name, self.originals[name]))
 
     def _wrap(self, name: str, fn):
-        def wrapped(*args, **kwargs):
-            self.calls[name] += 1
+        import torch
+
+        def wrapped(*args):
             if self.keep_args:
-                self.first_args.setdefault(name, (args, kwargs))
-            return fn(*args, **kwargs)
+                self.first_args.setdefault(name, args)
+            if name == "merge_at":
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+                out = fn(*args)
+                end.record()
+                self.merges.append((start, end))
+                return out
+            out = fn(*args)
+            if name == "host_clip_rounds":
+                self.clips.append((bool(out.doomed.any()), bool(out.cycle_merged)))
+            return out
 
         return wrapped
 
+    def merge_ms(self) -> float:
+        """Milliseconds of the stream between the events around each merge
+        since the last reset, summed (the merge's launches and any gap
+        between them)."""
+        import torch
+
+        torch.cuda.synchronize()
+        return sum(start.elapsed_time(end) for start, end in self.merges)
+
     def reset(self) -> None:
-        self.calls = dict.fromkeys(self.calls, 0)
+        self.clips.clear()
+        self.merges.clear()
         self.first_args.clear()
 
 
@@ -269,18 +296,17 @@ def _write_mates(reads, directory: Path) -> tuple[str, str]:
     return str(left), str(right)
 
 
-def kernel_phase(dev, smi: str, plain: dict) -> dict:
+def kernel_phase(dev, smi: str) -> dict:
     """K1-K3 against their plain versions at the main path's shapes, with
     the one PyTorch call that computes the same (torch.unique_consecutive
-    for K2, torch.searchsorted for K3); and the plain count merge of two
-    batch tables (into `plain`)."""
+    for K2, torch.searchsorted for K3)."""
     import math
 
     import numpy as np
     import torch
 
     from shannon_tpu_torch.io.pack import invalid_mask_words, pack_words
-    from shannon_tpu_torch.ops.count import Spectrum, merge_at, reduce_sorted, reduce_sorted_plain
+    from shannon_tpu_torch.ops.count import reduce_sorted, reduce_sorted_plain
     from shannon_tpu_torch.ops.kmers import extract_kmers_packed, extract_kmers_packed_plain
     from shannon_tpu_torch.ops.spectrum import lookup_sorted, lookup_sorted_plain
 
@@ -344,14 +370,6 @@ def kernel_phase(dev, smi: str, plain: dict) -> dict:
     _, row_merge = reduce_row("merge", (mkeys, mcounts, cap))
     out["reduce_sorted"] = {**row_unit, "max_abs_err": max(row_unit["max_abs_err"],
                                                             row_merge["max_abs_err"])}
-    # the main path's first merge: two batch tables of the fixed capacity
-    spec_a = Spectrum(key=table_a[0], count=table_a[1], n=table_a[3])
-    spec_b = Spectrum(key=table_b[0], count=table_b[1], n=table_b[3])
-    ms = _time_ms(lambda: merge_at(spec_a, spec_b, cap), 10)
-    plain["merge_at"] = _plain_row(ms, _nbytes(spec_a.key, spec_a.count, spec_b.key, spec_b.count)
-                                   + 12 * cap, 2 * cap, f"two {cap}-lane tables -> {cap} lanes")
-    print(f"plain count merge (torch.sort + K2), two {cap}-lane tables: {ms:.4f} ms, bound "
-          f"{plain['merge_at']['bound_ms']:.4f} ms [{smi}]")
 
     query = extract_kmers_packed(words, lengths, k, True, pad)[0]
     table = table_a[0]
@@ -474,15 +492,37 @@ def _prune_grid(dev, max_c: int = 255, max_m: int = 4095):
     return tuple(torch.from_numpy(x).to(dev) for x in (counts, idx, hit))
 
 
-def correction_phase(reads, dev, smi: str, plain: dict):
-    """K7-K10 against their plain versions on the main path's input: the
-    counted, shrunk spectrum of the whole single-end scale dataset at the
-    default AssemblyConfig (k = 24, the auto cut, sibling ratio 0.1, the
-    default error_rate); then the whole correct_spectrum there against its
-    CPU run (the plain versions), and K9 on the float grid.  Also times the
-    plain count_histogram of the auto cut (into `plain`).  Returns (kernel
-    rows, the stage's numbers, the corrected spectrum shrunk as the main
-    path shrinks it)."""
+def _merge_row(watch: Watch, smi: str) -> dict:
+    """K17 on the first merge the count made (kept by `watch`): the merge
+    and K2 after it, against the plain torch.sort and K2's plain version."""
+    from shannon_tpu_torch.ops.count import merge_at_plain
+
+    a, b, cap = watch.first_args.pop("merge_at")
+    merge = watch.originals["merge_at"]
+    got, want = merge(a, b, cap), merge_at_plain(a, b, cap)
+    if got.n != want.n:
+        raise AssertionError(f"K17 n {got.n} != {want.n}")
+    err = _max_abs_err((got.key, got.count), (want.key, want.count))
+    t = _alternate(lambda: merge(a, b, cap), lambda: merge_at_plain(a, b, cap))
+    # bytes: the real lanes of both tables in (12 bytes each; each table's n
+    # says where its pads begin), the merged table of cap lanes out;
+    # operations: a merge is linear in the real lanes
+    real = min(a.n, a.capacity) + min(b.n, b.capacity)
+    row = _row(err, t, 12 * real + 12 * cap, real, None)
+    _print_row(f"K17 merge_spectra, the first merge: {a.capacity} + {b.capacity} lanes "
+               f"({a.n} + {b.n} keys) -> {got.n} keys in {cap} lanes (then K2, as in the plain "
+               "version)", row, smi)
+    return row
+
+
+def correction_phase(reads, dev, smi: str, watch: Watch):
+    """K7-K10 and K16 against their plain versions on the main path's input:
+    the counted, shrunk spectrum of the whole single-end scale dataset at
+    the default AssemblyConfig (k = 24, the auto cut, sibling ratio 0.1, the
+    default error_rate), and K17 on the first merge of that count; then the
+    whole correct_spectrum there against its CPU run (the plain versions),
+    and K9 on the float grid.  Returns (kernel rows, the stage's numbers,
+    the corrected spectrum shrunk as the main path shrinks it)."""
     import math
 
     import torch
@@ -491,23 +531,37 @@ def correction_phase(reads, dev, smi: str, plain: dict):
     from shannon_tpu_torch.io.pack import pack_reads
     from shannon_tpu_torch.ops import correction as tcor
     from shannon_tpu_torch.ops.count import Spectrum, count_reads_spectrum, shrink_spectrum
+    from shannon_tpu_torch.ops.kmers import PAD
 
     cfg = AssemblyConfig()
     k, canonical = cfg.k, not cfg.strand_specific
+    watch.reset()
+    watch.keep_args = True
     spec = shrink_spectrum(count_reads_spectrum(
         pack_reads(reads, pad_length=cfg.read_pad_length), k=k, capacity=cfg.kmer_capacity,
         canonical=canonical, batch_reads=cfg.batch_reads, device=dev,
     ))
+    watch.keep_args = False
+    out = {"merge_spectra": _merge_row(watch, smi)}
+    watch.reset()
     cut = tcor.auto_min_abundance(spec)
     C = spec.capacity
-    ms = _time_ms(lambda: tcor.count_histogram(spec, 1024), 10)
-    plain["count_histogram"] = _plain_row(ms, _nbytes(spec.key, spec.count) + 4 * 1025, C,
-                                          f"{C} lanes, 1,025 bins")
-    print(f"plain count_histogram (torch.bincount), {C} lanes: {ms:.4f} ms, bound "
-          f"{plain['count_histogram']['bound_ms']:.4f} ms [{smi}]")
+    hist = tcor.count_histogram(spec, 1024)
+    err = _max_abs_err((hist,), (tcor.count_histogram_plain(spec, 1024),))
+    t = _alternate(lambda: tcor.count_histogram(spec, 1024),
+                   lambda: tcor.count_histogram_plain(spec, 1024))
+    clamped = torch.where(spec.key == PAD, 0, spec.count.clamp(0, 1024)).long()
+    library = _time_ms(lambda: torch.bincount(clamped, minlength=1025), 10)
+    del clamped
+    # bytes: the counts of the real lanes in (n says where the pads begin,
+    # so no key need be read), the histogram out; operations: one a lane
+    n_real = min(spec.n, C)
+    out["count_histogram"] = _row(err, t, 4 * n_real + _nbytes(hist), n_real, library)
+    _print_row(f"K16 count_histogram {C} lanes, 1,025 bins, {int(hist[1])} entries of count 1",
+               out["count_histogram"], smi)
     print(f"correction input: {spec.n} k-mers in {C} lanes, auto cut {cut}, k = {k}, "
           f"error_rate {cfg.error_rate} [{smi}]")
-    out, probes = {}, {}
+    probes = {}
     steps = math.ceil(math.log2(C)) + 1
     for side in ("sib", "ext"):
         def kernel():
@@ -766,17 +820,89 @@ def _condense_chain(spec, k: int, canonical: bool, label: str, smi: str):
     return rows, stage
 
 
-def condense_phase(spec, dev, smi: str, plain: dict, calls: PlainCalls):
-    """K11-K15 on the main path's input (the corrected, shrunk spectrum of
-    the single-end scale dataset at the default AssemblyConfig), then on the
-    synthetic cycle spectrum, where cycle_round must run; every other
-    kernel's max_abs_err covers both inputs.  Then one tip clip of the main
-    input, whose drop and remap (plain torch, into `plain`) are timed alone
-    on the arguments that run gives them."""
+def _clip_rows(spec, watch: Watch, smi: str) -> dict:
+    """K18 and K19 against their plain versions on the arguments one clip
+    of `spec` at the default AssemblyConfig gives them (kept by `watch`)."""
+    import math
+
     import torch
 
     from shannon_tpu_torch.config import AssemblyConfig
-    from shannon_tpu_torch.ops.tipclip import clip_tips_graph
+    from shannon_tpu_torch.ops import tipclip
+
+    cfg = AssemblyConfig()
+    watch.reset()
+    watch.keep_args = True
+    tipclip.clip_tips_graph(spec, cfg, not cfg.strand_specific)
+    watch.keep_args = False
+    (doomed_any, cycle_merged), = watch.clips
+    if not doomed_any or cycle_merged:
+        raise AssertionError("the main path's clip doomed nothing or closed a cycle, so it gave "
+                             "the drop and the remap no arguments to check K18 and K19 on")
+    rows = {}
+
+    args = watch.first_args.pop("drop_contigs")
+    sp, ca, doomed = args
+    drop = watch.originals["drop_contigs"]
+    got, want = drop(*args), tipclip._drop_contigs_plain(*args)
+    if got.n != want.n:
+        raise AssertionError(f"K18 n {got.n} != {want.n}")
+    C, C2 = sp.capacity, ca.node_key.numel()
+    steps = math.ceil(math.log2(C2)) + 1
+    # bytes, what this clip's data needs: the real spectrum lanes in (12
+    # bytes), the keys of the real nodes (one pass, as a merge join reads
+    # them), the contig id at each real k-mer's node (every k-mer is a node:
+    # the table was condensed from this spectrum), one doom flag a contig,
+    # and the clipped table of C lanes out; operations: a binary search per
+    # real spectrum lane (pads do none)
+    n_sp = min(sp.n, C)
+    rows["drop_contigs"] = _row(
+        _max_abs_err((got.key, got.count), (want.key, want.count)),
+        _alternate(lambda: drop(*args), lambda: tipclip._drop_contigs_plain(*args)),
+        12 * n_sp + 8 * ca.n_nodes + 8 * n_sp + ca.n_contigs + 12 * C,
+        n_sp * steps, None,
+    )
+    _print_row(f"K18 drop_contigs {C} spectrum lanes in {C2} node lanes, "
+               f"{int(doomed.sum())} contigs doomed, {sp.n} -> {got.n} k-mers (then torch.cumsum "
+               "and K10, as in the plain version)", rows["drop_contigs"], smi)
+
+    args = watch.first_args.pop("clip_remap")
+    ca, new_cid, off_shift, hlane, tlane, klen, csum, _rc, _oe, n_new, out_cap = args
+    remap = watch.originals["clip_remap"]
+    got, want = remap(*args), tipclip._device_clip_remap_plain(*args)
+    if (got.n_nodes, got.n_contigs) != (want.n_nodes, want.n_contigs):
+        raise AssertionError(f"K19 n_nodes {got.n_nodes} != {want.n_nodes}")
+    fields = ("node_key", "node_count", "node_cid", "node_off", "head_lane", "tail_lane")
+    err = _max_abs_err([getattr(got, f) for f in fields] + [got.abundance.view(torch.int32)],
+                       [getattr(want, f) for f in fields] + [want.abundance.view(torch.int32)])
+    M = klen.numel()
+    # bytes, what this clip's data needs: the contig id of each real node
+    # lane, the two maps of each old contig, the key, count and offset (20
+    # bytes) of each kept lane that fits out_cap, and head lane, tail lane,
+    # k-mer count and count sum of each new contig in; the compacted node
+    # table (28 bytes a lane) and head, tail and abundance (20 bytes a
+    # contig lane) out; operations: a few a lane
+    n_moved = min(got.n_nodes, out_cap)
+    rows["clip_remap"] = _row(
+        err, _alternate(lambda: remap(*args), lambda: tipclip._device_clip_remap_plain(*args)),
+        8 * ca.n_nodes + 16 * ca.n_contigs + 20 * n_moved + 32 * n_new + 28 * out_cap + 20 * M,
+        ca.n_nodes + M, None,
+    )
+    _print_row(f"K19 clip_remap {ca.node_key.numel()} -> {out_cap} node lanes, {got.n_nodes} "
+               f"kept, {n_new} merged contigs (torch.cumsum inside)", rows["clip_remap"], smi)
+    watch.reset()
+    return rows
+
+
+def condense_phase(spec, dev, smi: str, watch: Watch):
+    """K11-K15 on the main path's input (the corrected, shrunk spectrum of
+    the single-end scale dataset at the default AssemblyConfig), then on the
+    synthetic cycle spectrum, where cycle_round must run; every other
+    kernel's max_abs_err covers both inputs.  Then K18 and K19 on the
+    arguments one clip of the main input gives them."""
+    import torch
+
+    from shannon_tpu_torch.config import AssemblyConfig
 
     cfg = AssemblyConfig()
     k, canonical = cfg.k, not cfg.strand_specific
@@ -791,32 +917,7 @@ def condense_phase(spec, dev, smi: str, plain: dict, calls: PlainCalls):
         else:
             rows[name] = row
     del cyc_spec
-
-    calls.reset()
-    calls.keep_args = True
-    clip_tips_graph(spec, cfg, canonical)
-    calls.keep_args = False
-    for name in ("drop_contigs", "device_clip_remap"):
-        if name not in calls.first_args:
-            print(f"plain {name}: not called by this tip clip [{smi}]")
-            continue
-        args, kwargs = calls.first_args.pop(name)
-        fn = calls.originals[name]
-        ms = _time_ms(lambda: fn(*args, **kwargs), 10)
-        tensors = [a for a in args[1:] if isinstance(a, torch.Tensor)]
-        if name == "drop_contigs":  # (spec, ca, doomed): spectrum out
-            sp, ca = args[0], args[1]
-            bytes_ = _nbytes(sp.key, ca.node_key, ca.node_cid, *tensors, sp.key, sp.count)
-            shape = f"{sp.capacity} spectrum lanes, {ca.node_key.numel()} node lanes"
-        else:  # (ca, per-contig maps..., n_new, out_cap): node table out
-            ca, out_cap = args[0], args[-1]
-            bytes_ = (_nbytes(ca.node_key, ca.node_count, ca.node_cid, ca.node_off, *tensors)
-                      + 28 * out_cap + 36 * args[5].numel())
-            shape = f"{ca.node_key.numel()} -> {out_cap} node lanes, {args[-2]} contigs"
-        plain[name] = _plain_row(ms, bytes_, ca.node_key.numel(), shape)
-        print(f"plain {name}, {shape}: {ms:.4f} ms, bound {plain[name]['bound_ms']:.4f} ms "
-              f"[{smi}]")
-    calls.reset()
+    rows.update(_clip_rows(spec, watch, smi))
     torch.cuda.empty_cache()
     return rows, {"main": stage, "cycle_input": cyc_stage}
 
@@ -983,10 +1084,11 @@ def _run_cli(argv: list[str], smi: str) -> None:
         raise AssertionError(f"the CLI exited with {rc}")
 
 
-def _launches_check(launches: dict, phase: str, cut: int) -> None:
+def _launches_check(launches: dict, phase: str, cut: int, clips: list) -> None:
     """Every kernel launched in the phase; K8 only where the phase's auto
     abundance cut is above 1, K13's cycle_round only where its labels found
-    a cycle."""
+    a cycle, K18 and K19 only where the phase's clip doomed a contig, and
+    K19 only where no merge of the clip closed a cycle."""
     missing = [name for name, count in launches.items() if count == 0]
     if "rescue_round" in missing and cut == 1:
         missing.remove("rescue_round")
@@ -996,11 +1098,23 @@ def _launches_check(launches: dict, phase: str, cut: int) -> None:
         missing.remove("cycle_round")
         print(f"the {phase} scale phase launched no cycle_round (K13): its labels found no "
               "cycle, and the cycle cut runs only when they find one")
+    doomed = any(d for d, _ in clips)
+    for name, label in (("drop_contigs", "K18"), ("clip_remap", "K19")):
+        if name in missing and not doomed:
+            missing.remove(name)
+            print(f"the {phase} scale phase launched no {name} ({label}): its tip clip doomed "
+                  "no contig, and the drop and the remap run only when it dooms one")
+    if "clip_remap" in missing and any(c for _, c in clips):
+        missing.remove("clip_remap")
+        print(f"the {phase} scale phase launched no clip_remap (K19): a merge of its tip clip "
+              "closed a cycle, and the caller then condenses the clipped spectrum anew")
     if missing:
         raise AssertionError(f"the {phase} scale phase launched no {missing} kernel")
+    print(f"the {phase} scale phase launched merge_spectra (K17) {launches['merge_spectra']} "
+          f"times; its clips (any doomed, cycle merged): {clips}")
 
 
-def single_scale_phase(truth, reads, dev, lib, calls: PlainCalls, smi: str) -> dict:
+def single_scale_phase(truth, reads, dev, lib, watch: Watch, smi: str) -> dict:
     import torch
 
     from shannon_tpu_torch.config import AssemblyConfig
@@ -1011,29 +1125,33 @@ def single_scale_phase(truth, reads, dev, lib, calls: PlainCalls, smi: str) -> d
     timer = StageTimer(echo=False)
     torch.cuda.reset_peak_memory_stats(dev)
     lib.reset_counts()
-    calls.reset()
+    watch.reset()
     t0 = time.perf_counter()
     res = assemble(reads, AssemblyConfig(), device=dev, timer=timer)
     torch.cuda.synchronize(dev)
     e2e = time.perf_counter() - t0
-    launches, plain_calls = dict(lib.launches), dict(calls.calls)
+    launches, clips = dict(lib.launches), list(watch.clips)
+    merges = {"calls": len(watch.merges), "ms": watch.merge_ms()}
     quality = evaluate(truth, [t.seq for t in res.transcripts], k=24)
     peak = torch.cuda.max_memory_allocated(dev)
     print(f"single-end scale: {len(reads)} reads in {e2e:.2f} s = {len(reads) / e2e:.1f} reads/s, "
           f"peak device memory {peak / 2**30:.2f} GiB [{smi}]")
     print("stages " + json.dumps(timer.stages) + f" [{smi}]")
+    print(f"merges (K17, then K2): {merges['calls']} calls, {merges['ms']:.3f} ms of the stream "
+          f"between CUDA events around them, inside count_s "
+          f"{timer.stages['spectrum+graph']['count_s']:.3f} s [{smi}]")
     print("quality " + json.dumps(quality))
     print("launches " + json.dumps(launches))
-    print("plain program calls " + json.dumps(plain_calls))
     if quality["recall_exact"] < 0.99:
         raise AssertionError(f"single-end exact recall {quality['recall_exact']} < 0.99")
-    _launches_check(launches, "single-end", timer.stages["spectrum+graph"]["auto_min_abundance"])
+    _launches_check(launches, "single-end", timer.stages["spectrum+graph"]["auto_min_abundance"],
+                    clips)
     return {"n_reads": len(reads), "e2e_s": e2e, "reads_per_s": len(reads) / e2e,
             "max_memory_allocated_bytes": peak, "stages": timer.stages, "stats": res.stats,
-            "quality": quality, "launches": launches, "plain_calls": plain_calls}
+            "quality": quality, "launches": launches, "clips": clips, "merges": merges}
 
 
-def paired_scale_phase(truth, reads, dev, lib, calls: PlainCalls, smi: str) -> dict:
+def paired_scale_phase(truth, reads, dev, lib, watch: Watch, smi: str) -> dict:
     """The CLI on two mate files, then again on the same out-dir (resume)."""
     import torch
 
@@ -1049,15 +1167,16 @@ def paired_scale_phase(truth, reads, dev, lib, calls: PlainCalls, smi: str) -> d
         argv = ["-o", str(out), "--left", left, "--right", right, "-K", "24", "--device", "cuda"]
         torch.cuda.reset_peak_memory_stats(dev)
         lib.reset_counts()
-        calls.reset()
+        watch.reset()
         t0 = time.perf_counter()
         _run_cli(argv, smi)
         torch.cuda.synchronize(dev)
         e2e = time.perf_counter() - t0
-        launches, plain_calls = dict(lib.launches), dict(calls.calls)
+        launches, clips = dict(lib.launches), list(watch.clips)
+        merges = {"calls": len(watch.merges), "ms": watch.merge_ms()}
         peak = torch.cuda.max_memory_allocated(dev)
         stages = json.loads((out / "stats.json").read_text())["stages"]
-        _launches_check(launches, "paired", stages["spectrum+graph"]["auto_min_abundance"])
+        _launches_check(launches, "paired", stages["spectrum+graph"]["auto_min_abundance"], clips)
         seqs = [s for _, s in read_fastx(out / "transcripts.fasta")]
         t0 = time.perf_counter()
         _run_cli(argv, smi)
@@ -1071,9 +1190,11 @@ def paired_scale_phase(truth, reads, dev, lib, calls: PlainCalls, smi: str) -> d
           f"reads/s, peak device memory {peak / 2**30:.2f} GiB; resume pass {resume_s:.2f} s, "
           f"every stage skipped [{smi}]")
     print("paired stages " + json.dumps(stages) + f" [{smi}]")
+    print(f"paired merges (K17, then K2): {merges['calls']} calls, {merges['ms']:.3f} ms of the "
+          f"stream between CUDA events around them, inside count_s "
+          f"{stages['spectrum+graph']['count_s']:.3f} s [{smi}]")
     print("paired quality " + json.dumps(quality))
     print("paired launches " + json.dumps(launches))
-    print("paired plain program calls " + json.dumps(plain_calls))
     if quality["recall_exact"] < PAIRED_RECALL_GATE:
         raise AssertionError(
             f"paired exact recall {quality['recall_exact']} < {PAIRED_RECALL_GATE}"
@@ -1081,7 +1202,7 @@ def paired_scale_phase(truth, reads, dev, lib, calls: PlainCalls, smi: str) -> d
     return {"n_reads": len(reads), "e2e_s": e2e, "reads_per_s": len(reads) / e2e,
             "resume_s": resume_s, "max_memory_allocated_bytes": peak, "stages": stages,
             "n_transcripts": len(seqs), "quality": quality, "launches": launches,
-            "plain_calls": plain_calls}
+            "clips": clips, "merges": merges}
 
 
 def main(argv=None) -> int:
@@ -1115,19 +1236,18 @@ def main(argv=None) -> int:
         if "ptxas info" in line and ("registers" in line or "Compiling" in line):
             print("  " + line.strip())
 
-    calls = PlainCalls()
-    plain: dict = {}
+    watch = Watch()
     report = {"card": smi, "build_s": build_s}
-    report["kernels"] = kernel_phase(dev, smi, plain)
+    report["kernels"] = kernel_phase(dev, smi)
 
     t0 = time.perf_counter()
     truth, reads = _scale_dataset(args.reads)
     print(f"scale dataset: {len(reads)} reads simulated in {time.perf_counter() - t0:.1f} s "
           f"[{smi}]")
     report["kernels"].update(thread_phase(reads, dev, smi))
-    rows, report["correction"], corrected = correction_phase(reads, dev, smi, plain)
+    rows, report["correction"], corrected = correction_phase(reads, dev, smi, watch)
     report["kernels"].update(rows)
-    rows, report["condense"] = condense_phase(corrected, dev, smi, plain, calls)
+    rows, report["condense"] = condense_phase(corrected, dev, smi, watch)
     report["kernels"].update(rows)
     del corrected
     sf = sf_phase(dev, smi)
@@ -1140,15 +1260,9 @@ def main(argv=None) -> int:
           f"{time.perf_counter() - t0:.1f} s [{smi}]")
     paired_parity_phase(p_reads, dev, smi)
 
-    report["scale"] = single_scale_phase(truth, reads, dev, lib, calls, smi)
+    report["scale"] = single_scale_phase(truth, reads, dev, lib, watch, smi)
     del reads
-    report["paired_scale"] = paired_scale_phase(p_truth, p_reads, dev, lib, calls, smi)
-    report["plain_programs"] = {
-        name: {"replaces": replaces, **plain[name],
-               "calls_single_end": report["scale"]["plain_calls"][name],
-               "calls_paired": report["paired_scale"]["plain_calls"][name]}
-        for name, (_module, _fn, replaces) in PLAIN_PROGRAMS.items() if name in plain
-    }
+    report["paired_scale"] = paired_scale_phase(p_truth, p_reads, dev, lib, watch, smi)
     report["wall_s"] = time.perf_counter() - t_start
     if args.out:
         with open(args.out, "w") as fh:
@@ -1162,7 +1276,6 @@ def main(argv=None) -> int:
          **report["kernels"][name]}
         for name, (source, replaces) in REPLACES.items()
     ]
-    print("plain programs " + json.dumps(report["plain_programs"]) + f" [{smi}]")
     print(f"total {report['wall_s']:.1f} s [{smi}]")
     print(smi)
     print(json.dumps({"kernels": rows}))

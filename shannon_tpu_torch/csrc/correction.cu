@@ -1,5 +1,5 @@
-// Error-correction kernels K7-K10 of the shannon_tpu_torch port (plain C
-// interface; see kernels.cu for the conventions every entry point follows).
+// Error-correction kernels K7-K10 and K16 of the shannon_tpu_torch port (plain
+// C interface; see kernels.cu for the conventions every entry point follows).
 //
 // The spectrum is a sorted table of C int64 keys with int32 counts, PAD past
 // its real entries.  A probe table is [8, C], entry i of probe row p at
@@ -187,6 +187,51 @@ __global__ void compact_keep_kernel(const int64_t* __restrict__ key,
 }
 
 // ---------------------------------------------------------------------------
+// K16: histogram of entry counts (the auto abundance cut's input).
+// Replaces shannon_tpu/ops/correction.py:32 count_histogram, which sorted the
+// clamped counts and found max_count + 2 bin boundaries by searchsorted to keep
+// a contended scatter off the TPU.  h[c] counts the real lanes with
+// clamp(count, 0, max_count) == c; pads and counts <= 0 fall in bin 0, which is
+// never counted, so h[0] stays 0 from the entry point's memset.
+// Bound: memory, one pass over keys and counts (12 bytes a lane).  A grid of a
+// few blocks per SM strides over the table; each block keeps a private
+// histogram of max_count + 1 bins in shared memory and adds its nonzero bins to
+// the global one once.  Most lanes hold count 1 (at 1M reads the cut drops two
+// thirds of the table), so the lanes of one warp mostly share a bin:
+// __match_any_sync groups the warp's lanes by bin and one lane of each group
+// adds the group's size, one shared atomic per distinct bin instead of 32 to
+// one address.
+// ---------------------------------------------------------------------------
+#define HIST_KERNEL_MAX_COUNT 8192
+
+__global__ void count_histogram_kernel(const int64_t* __restrict__ key,
+                                       const int32_t* __restrict__ count,
+                                       int64_t C, int max_count,
+                                       int32_t* __restrict__ hist) {
+  extern __shared__ int32_t bins[];
+  for (int b = threadIdx.x; b <= max_count; b += blockDim.x) bins[b] = 0;
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  // base is the same for every thread of the block, so all 32 lanes of a warp
+  // reach __match_any_sync together
+  for (int64_t base = (int64_t)blockIdx.x * blockDim.x; base < C; base += stride) {
+    const int64_t i = base + threadIdx.x;
+    int c = 0;
+    if (i < C && key[i] != PAD_KEY) {
+      const int32_t v = count[i];
+      c = v < 0 ? 0 : (v > max_count ? max_count : v);
+    }
+    const unsigned same = __match_any_sync(0xffffffffu, c);
+    if (c > 0 && lane == __ffs(same) - 1) atomicAdd(&bins[c], __popc(same));
+  }
+  __syncthreads();
+  for (int b = threadIdx.x + 1; b <= max_count; b += blockDim.x) {
+    if (bins[b] != 0) atomicAdd(&hist[b], bins[b]);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // C entry points
 // ---------------------------------------------------------------------------
 extern "C" {
@@ -224,6 +269,28 @@ int shannon_prune_round(const void* counts, const void* sidx, const void* shit,
     prune_round_kernel<<<blocks_for(C), THREADS, 0, (cudaStream_t)stream>>>(
         (const int32_t*)counts, (const int64_t*)sidx, (const uint8_t*)shit, C,
         ratio, eps3, use_cap, (int32_t*)out, (int32_t*)changed);
+  }
+  return (int)cudaGetLastError();
+}
+
+int shannon_count_histogram(const void* key, const void* count, int64_t C,
+                            int max_count, void* hist, void* stream) {
+  if (max_count < 0 || max_count > HIST_KERNEL_MAX_COUNT) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaMemsetAsync(hist, 0, sizeof(int32_t) * (max_count + 1),
+                                    (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
+  if (C > 0) {
+    int dev = 0, sms = 0;
+    err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) {
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    }
+    if (err != cudaSuccess) return (int)err;
+    const int64_t want = blocks_for(C);
+    const unsigned int grid = (unsigned int)(want < 8 * sms ? want : 8 * sms);
+    count_histogram_kernel<<<grid, THREADS, sizeof(int32_t) * (max_count + 1),
+                             (cudaStream_t)stream>>>(
+        (const int64_t*)key, (const int32_t*)count, C, max_count, (int32_t*)hist);
   }
   return (int)cudaGetLastError();
 }

@@ -1,7 +1,8 @@
 // Hand-written Hopper (sm_90a) kernels of the shannon_tpu_torch port: the
-// k-mer kernels K1-K3 (threading's K4-K5 are in thread.cu, the sparse-flow
-// solver K6 in sparseflow.cu, correction's K7-K10 in correction.cu,
-// condensation's K11-K15 in condense.cu).
+// k-mer kernels K1-K3 and the count merge K17 (threading's K4-K5 are in
+// thread.cu, the sparse-flow solver K6 in sparseflow.cu, correction's K7-K10
+// and K16 in correction.cu, condensation's K11-K15 in condense.cu, tip clip's
+// K18-K19 in tipclip.cu).
 //
 // Plain C interface, built with nvcc into build/kernels/libshannon_kernels.so
 // and bound with ctypes (shannon_tpu_torch/kernels.py).  Every entry point
@@ -141,6 +142,62 @@ __global__ void lookup_sorted_kernel(const int64_t* __restrict__ table,
 }
 
 // ---------------------------------------------------------------------------
+// K17: merge of two sorted count tables (the batch loop's merge).
+// Replaces shannon_tpu/ops/count.py:257 _merge_at (with :65 _sort3), which
+// re-sorted the concatenation of the two tables.  Both tables are sorted with
+// PAD last, so each lane's place in the merged order is its own index plus its
+// rank in the other table: a[i] goes to i + (lanes of b below a[i]), b[j] to
+// j + (lanes of a at or below b[j]).  These places are a permutation of
+// [0, Ca + Cb) (a key found in both tables lands a's lane just before b's), so
+// the merged keys equal the sorted concatenation exactly, and K2's run flags,
+// scan and reduction then sum the counts of equal keys.
+// Bound: memory (12 bytes read and written a lane); the rank is a binary
+// search of the other table, bounded by the latency of its dependent loads,
+// with neighbouring threads on neighbouring keys so the search paths share
+// cache lines.  A merge-path partition would make it linear.
+// ---------------------------------------------------------------------------
+static __device__ __forceinline__ int64_t rank_in(const int64_t* __restrict__ table,
+                                                  int64_t len, int64_t key,
+                                                  bool inclusive) {
+  int64_t lo = 0, hi = len;
+  while (lo < hi) {
+    const int64_t mid = lo + ((hi - lo) >> 1);
+    const int64_t v = table[mid];
+    if (v < key || (inclusive && v == key)) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  return lo;
+}
+
+__global__ void merge_tables_kernel(const int64_t* __restrict__ a_key,
+                                    const int32_t* __restrict__ a_count,
+                                    int64_t Ca,
+                                    const int64_t* __restrict__ b_key,
+                                    const int32_t* __restrict__ b_count,
+                                    int64_t Cb, int64_t* __restrict__ out_key,
+                                    int32_t* __restrict__ out_count) {
+  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= Ca + Cb) return;
+  int64_t key, pos;
+  int32_t c;
+  if (t < Ca) {
+    key = a_key[t];
+    c = a_count[t];
+    pos = t + rank_in(b_key, Cb, key, false);
+  } else {
+    const int64_t j = t - Ca;
+    key = b_key[j];
+    c = b_count[j];
+    pos = j + rank_in(a_key, Ca, key, true);
+  }
+  out_key[pos] = key;
+  out_count[pos] = c;
+}
+
+// ---------------------------------------------------------------------------
 // C entry points
 // ---------------------------------------------------------------------------
 extern "C" {
@@ -188,6 +245,17 @@ int shannon_reduce_runs(const void* keys, const void* scan, int64_t m,
                            (cudaStream_t)stream>>>(
         (const int32_t*)scan, m, (const int64_t*)prefix, capacity,
         (const int64_t*)start, (int64_t*)out_key, (int32_t*)out_count);
+  }
+  return (int)cudaGetLastError();
+}
+
+int shannon_merge_tables(const void* a_key, const void* a_count, int64_t Ca,
+                         const void* b_key, const void* b_count, int64_t Cb,
+                         void* out_key, void* out_count, void* stream) {
+  if (Ca + Cb > 0) {
+    merge_tables_kernel<<<blocks_for(Ca + Cb), THREADS, 0, (cudaStream_t)stream>>>(
+        (const int64_t*)a_key, (const int32_t*)a_count, Ca, (const int64_t*)b_key,
+        (const int32_t*)b_count, Cb, (int64_t*)out_key, (int32_t*)out_count);
   }
   return (int)cudaGetLastError();
 }

@@ -42,6 +42,7 @@ KERNELS = (
     "probe_lookup", "rescue_round", "prune_round", "compact_keep",
     "node_strands", "group_links", "label_round", "cycle_round",
     "contig_reduce", "base_streams",
+    "count_histogram", "merge_spectra", "drop_contigs", "clip_remap",
 )
 
 _P = ctypes.c_void_p
@@ -71,6 +72,11 @@ _ARGTYPES = {
     "shannon_head_flags": [_P, _P, _I64, _P, _P],
     "shannon_contig_reduce": [*[_P] * 9, _I64, _I, _I, *[_P] * 9, _P],
     "shannon_base_streams": [_P, _P, _P, _I64, _P, _P, _P, _I64, _I, _P, _P, _P],
+    "shannon_count_histogram": [_P, _P, _I64, _I, _P, _P],
+    "shannon_merge_tables": [_P, _P, _I64, _P, _P, _I64, _P, _P, _P],
+    "shannon_drop_keep": [_P, _I64, _P, _P, _I64, _P, _P, _P],
+    "shannon_remap_keep": [_P, _I64, _P, _I64, _P, _P],
+    "shannon_clip_remap": [*[_P] * 6, _I64, _P, _P, _I64, _I64, *[_P] * 8, _I64, *[_P] * 4],
 }
 
 

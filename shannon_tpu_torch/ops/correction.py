@@ -6,7 +6,8 @@ Counterpart of ``shannon_tpu/ops/correction.py`` (oracle spec in
 the rescue rounds (K8) and prune rounds (K9) then run as one host loop each,
 stopping at the first round that changes nothing (the reference split them
 into chunks only to stay inside a TPU worker's execution limit), and the
-kept entries are compacted (K10).  On CUDA tensors each of these launches its
+kept entries are compacted (K10).  The auto abundance cut reads the count
+histogram (K16).  On CUDA tensors each of these launches its
 hand-written kernel in ``csrc/correction.cu``; on CPU tensors its ``_plain``
 version runs.
 
@@ -70,14 +71,48 @@ def compact(spec: Spectrum, keep: torch.Tensor) -> Spectrum:
     return compact_plain(spec, keep)
 
 
-def count_histogram(spec: Spectrum, max_count: int = 64) -> torch.Tensor:
-    """[max_count + 1] int32 histogram of entry counts, clamped into the
-    top bin, h[0] = 0 (ops/correction.py:32 count_histogram)."""
+# The largest max_count kernel K16 takes: its block histogram of
+# max_count + 1 int32 bins must fit the 48 KB of shared memory a launch gets
+# without opting in (HIST_KERNEL_MAX_COUNT in csrc/correction.cu).
+HISTOGRAM_MAX_COUNT = 8192
+
+
+def count_histogram_plain(spec: Spectrum, max_count: int = 64) -> torch.Tensor:
+    """Plain PyTorch K16: torch.bincount of the clamped counts."""
     pad = spec.key == PAD
     c = torch.where(pad, 0, spec.count.clamp(0, max_count)).long()
     h = torch.bincount(c, minlength=max_count + 1)
     h[0] = 0
     return h.int()
+
+
+def _count_histogram_cuda(spec: Spectrum, max_count: int) -> torch.Tensor:
+    if not 0 <= max_count <= HISTOGRAM_MAX_COUNT:
+        raise ValueError(f"max_count must be in [0, {HISTOGRAM_MAX_COUNT}], got {max_count}")
+    kernels.check_cuda("key", spec.key, torch.int64, 1)
+    kernels.check_cuda("count", spec.count, torch.int32, 1)
+    C = spec.capacity
+    if spec.count.shape[0] != C:
+        raise ValueError("key and count disagree on length")
+    dev = spec.key.device
+    hist = torch.empty(max_count + 1, dtype=torch.int32, device=dev)
+    lib = kernels.library()
+    lib.call(
+        "shannon_count_histogram", dev,
+        kernels.ptr(spec.key), kernels.ptr(spec.count), C, max_count, kernels.ptr(hist),
+    )
+    lib.count("count_histogram")
+    return hist
+
+
+def count_histogram(spec: Spectrum, max_count: int = 64) -> torch.Tensor:
+    """[max_count + 1] int32 histogram of entry counts, clamped into the
+    top bin, h[0] = 0 (ops/correction.py:32 count_histogram).  Kernel K16
+    on CUDA, where max_count is at most HISTOGRAM_MAX_COUNT; the plain
+    version on CPU, at any max_count."""
+    if spec.key.is_cuda:
+        return _count_histogram_cuda(spec, max_count)
+    return count_histogram_plain(spec, max_count)
 
 
 def auto_min_abundance(spec: Spectrum) -> int:

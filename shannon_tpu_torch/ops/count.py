@@ -3,8 +3,10 @@
 Counterpart of ``shannon_tpu/ops/count.py``.  Per batch: extract window keys
 (K1), ``torch.sort`` them, and reduce runs of equal keys into a sorted
 table of unique keys and counts (kernel K2, ``reduce_sorted``).  Batches
-merge by concatenate, sort, reduce with counts.  The table stays sorted and
-PAD-filled past ``n`` so it is ready for binary search (K3).
+merge by rank (kernel K17, ``merge_at``: each lane's place in the merged
+order is its index plus its rank in the other table), then K2 sums the
+counts of equal keys.  The table stays sorted and PAD-filled past ``n`` so
+it is ready for binary search (K3).
 
 Overflow contract: a table never drops a key silently.  A batch with more
 distinct k-mers than ``capacity`` raises; a merge that does not fit the
@@ -166,13 +168,48 @@ def count_spectrum_packed(
     return Spectrum(key=key, count=count, n=n)
 
 
-def merge_at(a: Spectrum, b: Spectrum, capacity: int) -> Spectrum:
-    """Merge two spectra into `capacity` lanes (ops/count.py:256 _merge_at).
-    Equal keys sum their counts, so the sort needs no stability."""
+def merge_at_plain(a: Spectrum, b: Spectrum, capacity: int) -> Spectrum:
+    """Plain PyTorch K17: torch.sort of the concatenation, then K2's plain
+    version.  Equal keys sum their counts, so the sort needs no
+    stability."""
     keys, order = torch.sort(torch.cat([a.key, b.key]))
     counts = torch.cat([a.count, b.count])[order]
-    key, count, _, n = reduce_sorted(keys, counts, capacity)
+    key, count, _, n = reduce_sorted_plain(keys, counts, capacity)
     return Spectrum(key=key, count=count, n=n)
+
+
+def _merge_at_cuda(a: Spectrum, b: Spectrum, capacity: int) -> Spectrum:
+    for name, spec in (("a", a), ("b", b)):
+        kernels.check_cuda(f"{name}.key", spec.key, torch.int64, 1)
+        kernels.check_cuda(f"{name}.count", spec.count, torch.int32, 1)
+        if spec.count.shape[0] != spec.capacity:
+            raise ValueError(f"{name}: key and count disagree on length")
+    if a.device != b.device:
+        raise ValueError(f"the tables lie on {a.device} and {b.device}")
+    Ca, Cb = a.capacity, b.capacity
+    dev = a.device
+    keys = torch.empty(Ca + Cb, dtype=torch.int64, device=dev)
+    counts = torch.empty(Ca + Cb, dtype=torch.int32, device=dev)
+    lib = kernels.library()
+    lib.call(
+        "shannon_merge_tables", dev,
+        kernels.ptr(a.key), kernels.ptr(a.count), Ca, kernels.ptr(b.key), kernels.ptr(b.count),
+        Cb, kernels.ptr(keys), kernels.ptr(counts),
+    )
+    lib.count("merge_spectra")
+    key, count, _, n = _reduce_sorted_cuda(keys, counts, capacity)
+    return Spectrum(key=key, count=count, n=n)
+
+
+def merge_at(a: Spectrum, b: Spectrum, capacity: int) -> Spectrum:
+    """Merge two sorted spectra (PAD last; their capacities may differ)
+    into `capacity` lanes; equal keys sum their counts, and n counts every
+    distinct key even past `capacity` (ops/count.py:256 _merge_at).  Kernel
+    K17 (a merge by rank, no sort) and K2 on CUDA, the plain version on
+    CPU."""
+    if a.key.is_cuda:
+        return _merge_at_cuda(a, b, capacity)
+    return merge_at_plain(a, b, capacity)
 
 
 def _slice_spectrum(spec: Spectrum, cap: int) -> Spectrum:

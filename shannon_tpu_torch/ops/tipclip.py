@@ -4,7 +4,9 @@ are dominated at their attachment, then drop their k-mers.
 Counterpart of ``shannon_tpu/ops/tipclip.py``.  The k-mer-scale work
 (condensation, the drop of doomed k-mers, the renumbering of the node
 table) runs on the tensors' device; the clip-and-merge fixpoint runs on
-the host at contig granularity.  The host rounds (``ClipState``,
+the host at contig granularity.  On CUDA tensors the drop launches kernel
+K18 and then K10, the renumbering kernel K19 (``csrc/tipclip.cu``); on
+CPU tensors their ``_plain`` versions run.  The host rounds (``ClipState``,
 ``_adjacency_lists``, ``_doom_round1``, ``_host_clip_rounds``) and the host
 half of ``_remap_clipped`` are copied from the reference module, which
 imports JAX and so cannot be imported here.
@@ -18,6 +20,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from shannon_tpu_torch import kernels
 from shannon_tpu_torch.ops.condense import ContigArrays, build_contig_arrays
 from shannon_tpu_torch.ops.correction import compact
 from shannon_tpu_torch.ops.count import Spectrum, tight_capacity
@@ -400,9 +403,8 @@ def _host_clip_rounds(
 # ---- device half ------------------------------------------------------------
 
 
-def _drop_contigs(spec: Spectrum, ca: ContigArrays, doomed_c: torch.Tensor) -> Spectrum:
-    """Remove the k-mers of doomed contigs from the spectrum
-    (ops/tipclip.py:407 _drop_contigs)."""
+def _drop_contigs_plain(spec: Spectrum, ca: ContigArrays, doomed_c: torch.Tensor) -> Spectrum:
+    """Plain PyTorch K18: K3's lookup, torch gathers, then K10."""
     C2 = ca.node_key.shape[0]
     idx, hit = lookup_sorted(ca.node_key, spec.key)
     cid = torch.where(hit, ca.node_cid[idx], -1)
@@ -410,7 +412,39 @@ def _drop_contigs(spec: Spectrum, ca: ContigArrays, doomed_c: torch.Tensor) -> S
     return compact(spec, ~entry_doomed & (spec.key != PAD))
 
 
-def _device_clip_remap(
+def _drop_contigs_cuda(spec: Spectrum, ca: ContigArrays, doomed_c: torch.Tensor) -> Spectrum:
+    kernels.check_cuda("key", spec.key, torch.int64, 1)
+    kernels.check_cuda("node_key", ca.node_key, torch.int64, 1)
+    kernels.check_cuda("node_cid", ca.node_cid, torch.int64, 1)
+    kernels.check_cuda("doomed_c", doomed_c, torch.bool, 1)
+    C, C2 = spec.capacity, ca.node_key.shape[0]
+    if C2 == 0:
+        raise ValueError("lookup in an empty node table")
+    if ca.node_cid.shape[0] != C2 or doomed_c.shape[0] != C2:
+        raise ValueError(f"node_cid and doomed_c must have the node table's {C2} lanes")
+    dev = spec.key.device
+    keep = torch.empty(C, dtype=torch.bool, device=dev)
+    lib = kernels.library()
+    lib.call(
+        "shannon_drop_keep", dev,
+        kernels.ptr(spec.key), C, kernels.ptr(ca.node_key), kernels.ptr(ca.node_cid), C2,
+        kernels.ptr(doomed_c), kernels.ptr(keep),
+    )
+    lib.count("drop_contigs")
+    return compact(spec, keep)
+
+
+def _drop_contigs(spec: Spectrum, ca: ContigArrays, doomed_c: torch.Tensor) -> Spectrum:
+    """Remove the k-mers of doomed contigs from the spectrum
+    (ops/tipclip.py:407 _drop_contigs); doomed_c has one flag per node
+    lane.  Kernel K18 (lookup and doom test fused) and K10 on CUDA, the
+    plain version on CPU."""
+    if spec.key.is_cuda:
+        return _drop_contigs_cuda(spec, ca, doomed_c)
+    return _drop_contigs_plain(spec, ca, doomed_c)
+
+
+def _device_clip_remap_plain(
     ca: ContigArrays,
     new_cid_d: torch.Tensor,  # [n_pad] per ORIGINAL contig, -1 doomed
     off_shift_d: torch.Tensor,  # [n_pad] per original contig
@@ -423,9 +457,7 @@ def _device_clip_remap(
     n_new: int,
     out_cap: int,
 ) -> ContigArrays:
-    """Renumber the pre-clip node table to the merged contigs, drop
-    doomed nodes and front-compact the (still sorted) table to out_cap
-    lanes (ops/tipclip.py:423 _device_clip_remap)."""
+    """Plain PyTorch K19: torch gathers, torch.cumsum and torch.nonzero."""
     C2 = ca.node_key.shape[0]
     npad = new_cid_d.shape[0]
     oc = ca.node_cid.clamp(0, npad - 1)
@@ -460,6 +492,74 @@ def _device_clip_remap(
         n_nodes=n_keep,
         n_contigs=n_new,
     )
+
+
+def _device_clip_remap_cuda(
+    ca, new_cid_d, off_shift_d, hlane_orig, tlane_orig, new_klen, new_csum, rc_new,
+    out_e_new, n_new, out_cap,
+) -> ContigArrays:
+    for name, t in (("node_key", ca.node_key), ("node_cid", ca.node_cid),
+                    ("node_off", ca.node_off), ("new_cid_d", new_cid_d),
+                    ("off_shift_d", off_shift_d), ("hlane_orig", hlane_orig),
+                    ("tlane_orig", tlane_orig), ("new_klen", new_klen), ("new_csum", new_csum)):
+        kernels.check_cuda(name, t, torch.int64, 1)
+    kernels.check_cuda("node_count", ca.node_count, torch.int32, 1)
+    C2, npad, M = ca.node_key.shape[0], new_cid_d.shape[0], new_klen.shape[0]
+    if C2 == 0 or npad == 0:
+        raise ValueError("remap of an empty node table or contig map")
+    if C2 >= 1 << 31:
+        raise ValueError(f"{C2} node lanes exceed the int32 keep scan")
+    if any(t.shape[0] != C2 for t in (ca.node_count, ca.node_cid, ca.node_off)):
+        raise ValueError("the node table's fields disagree on length")
+    if off_shift_d.shape[0] != npad:
+        raise ValueError("new_cid_d and off_shift_d disagree on length")
+    if any(t.shape[0] != M for t in (hlane_orig, tlane_orig, new_csum)):
+        raise ValueError("the per-contig arrays disagree on length")
+    if out_cap < 0:
+        raise ValueError(f"out_cap must be >= 0, got {out_cap}")
+    dev = ca.node_key.device
+    keep = torch.empty(C2, dtype=torch.bool, device=dev)
+    lib = kernels.library()
+    lib.call(
+        "shannon_remap_keep", dev,
+        kernels.ptr(ca.node_cid), C2, kernels.ptr(new_cid_d), npad, kernels.ptr(keep),
+    )
+    scan = torch.cumsum(keep, 0, dtype=torch.int32)
+    node_key = torch.empty(out_cap, dtype=torch.int64, device=dev)
+    node_count = torch.empty(out_cap, dtype=torch.int32, device=dev)
+    node_cid = torch.empty(out_cap, dtype=torch.int64, device=dev)
+    node_off = torch.empty(out_cap, dtype=torch.int64, device=dev)
+    head = torch.empty(M, dtype=torch.int64, device=dev)
+    tail = torch.empty(M, dtype=torch.int64, device=dev)
+    abundance = torch.empty(M, dtype=torch.float32, device=dev)
+    lib.call(
+        "shannon_clip_remap", dev,
+        kernels.ptr(ca.node_key), kernels.ptr(ca.node_count), kernels.ptr(ca.node_cid),
+        kernels.ptr(ca.node_off), kernels.ptr(keep), kernels.ptr(scan), C2,
+        kernels.ptr(new_cid_d), kernels.ptr(off_shift_d), npad, out_cap,
+        kernels.ptr(node_key), kernels.ptr(node_count), kernels.ptr(node_cid),
+        kernels.ptr(node_off), kernels.ptr(hlane_orig), kernels.ptr(tlane_orig),
+        kernels.ptr(new_klen), kernels.ptr(new_csum), M, kernels.ptr(head), kernels.ptr(tail),
+        kernels.ptr(abundance),
+    )
+    lib.count("clip_remap")
+    return ContigArrays(
+        node_key=node_key, node_count=node_count, node_cid=node_cid, node_off=node_off,
+        klen=new_klen, abundance=abundance, count_sum=new_csum, head_lane=head,
+        tail_lane=tail, out_edges=out_e_new, rc_pair=rc_new, n_nodes=int(scan[-1]),
+        n_contigs=n_new,
+    )
+
+
+def _device_clip_remap(ca: ContigArrays, *args) -> ContigArrays:
+    """Renumber the pre-clip node table to the merged contigs, drop
+    doomed nodes and front-compact the (still sorted) table to out_cap
+    lanes (ops/tipclip.py:423 _device_clip_remap); the arguments are those
+    of _device_clip_remap_plain.  n_nodes counts every kept node, even past
+    out_cap.  Kernel K19 on CUDA, the plain version on CPU."""
+    if ca.node_key.is_cuda:
+        return _device_clip_remap_cuda(ca, *args)
+    return _device_clip_remap_plain(ca, *args)
 
 
 def _remap_clipped(

@@ -19,7 +19,7 @@ from shannon_tpu.ops import correction as jcor
 from shannon_tpu.ops.count import count_spectrum_packed
 from shannon_tpu.oracle.correction import choose_min_abundance
 from shannon_tpu.sim import sample_reads, simulate_isoforms, simulate_transcripts
-from shannon_tpu_torch import convert
+from shannon_tpu_torch import convert, kernels
 from shannon_tpu_torch.ops import correction as tcor
 from test_torch_kernels import prune_grid
 
@@ -50,12 +50,30 @@ def _assert_same(port, ref):
     np.testing.assert_array_equal(count, np.asarray(ref.count))
 
 
-@pytest.mark.parametrize("max_count", [8, 64])
+@pytest.mark.parametrize("max_count", [8, 64, 1024])
 def test_count_histogram_matches_reference(max_count):
+    """K16's plain version == count_histogram; 1024 is the auto cut's
+    width."""
     port, ref = _spectra(21)
     np.testing.assert_array_equal(
         tcor.count_histogram(port, max_count).numpy(),
         np.asarray(jcor.count_histogram(ref, max_count)),
+    )
+
+
+def test_count_histogram_runs_plain_on_cpu_and_bounds_max_count(monkeypatch):
+    """On CPU tensors count_histogram is its plain version and reaches no
+    kernel, so it takes a max_count past K16's limit as the reference does
+    (the CUDA wrapper raises there; test_torch_kernels holds that)."""
+    def no_library():
+        raise AssertionError("a CPU histogram reached the kernel library")
+
+    monkeypatch.setattr(kernels, "library", no_library)
+    port, ref = _spectra(21)
+    assert torch.equal(tcor.count_histogram(port, 1024), tcor.count_histogram_plain(port, 1024))
+    wide = tcor.HISTOGRAM_MAX_COUNT + 1
+    np.testing.assert_array_equal(
+        tcor.count_histogram(port, wide).numpy(), np.asarray(jcor.count_histogram(ref, wide))
     )
 
 

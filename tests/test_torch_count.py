@@ -14,9 +14,11 @@ from shannon_tpu.io.pack import pack_reads
 from shannon_tpu.ops import count as jc
 from shannon_tpu.ops.kmers import hilo_to_int
 from shannon_tpu.sim import sample_reads, simulate_transcripts
-from shannon_tpu_torch import convert
+from shannon_tpu_torch import convert, kernels
 from shannon_tpu_torch.ops import count as tc
 from shannon_tpu_torch.ops.kmers import PAD
+
+from test_torch_kernels import merge_case
 
 
 def _reads(seed: int, n_tr: int = 3, error_rate: float = 0.01) -> list[str]:
@@ -72,6 +74,39 @@ def test_merge_matches_reference():
     b_port, b_ref = _both_counts(pack_reads(_reads(3), pad_length=64), 19, 1 << 12)
     _assert_same(tc.merge_at(a_port, b_port, 1 << 13), jc._merge_at(a_ref, b_ref, 1 << 13))
     _assert_same(tc.merge_spectra_sized(a_port, b_port), jc.merge_spectra_sized(a_ref, b_ref))
+
+
+@pytest.mark.parametrize("case", ["unequal", "identical", "disjoint", "empty", "overflow"])
+def test_merge_at_cases_match_reference(case):
+    """K17's plain version == _merge_at: capacities that differ, a table
+    merged with itself, disjoint and interleaved tables, an empty table,
+    and an output capacity below the union (n counts every distinct key,
+    the table keeps the first `capacity` of them)."""
+    (ak, ac, acap), (bk, bc, bcap), cap = merge_case(case)
+    port = tc.merge_at(
+        tc.spectrum_from_arrays(ak, ac, acap, device="cpu"),
+        tc.spectrum_from_arrays(bk, bc, bcap, device="cpu"), cap,
+    )
+    ref = jc._merge_at(jc.spectrum_from_arrays(ak, ac, acap), jc.spectrum_from_arrays(bk, bc, bcap),
+                       cap)
+    _assert_same(port, ref)
+    union = len(np.union1d(ak, bk))
+    assert port.n == union and port.overflowed() == (union >= cap)
+    assert (case == "overflow") == (union > cap)
+
+
+def test_merge_at_runs_plain_on_cpu(monkeypatch):
+    """On CPU tensors merge_at is its plain version and reaches no kernel."""
+    def no_library():
+        raise AssertionError("a CPU merge reached the kernel library")
+
+    monkeypatch.setattr(kernels, "library", no_library)
+    (ak, ac, acap), (bk, bc, bcap), cap = merge_case("unequal")
+    a = tc.spectrum_from_arrays(ak, ac, acap, device="cpu")
+    b = tc.spectrum_from_arrays(bk, bc, bcap, device="cpu")
+    got, want = tc.merge_at(a, b, cap), tc.merge_at_plain(a, b, cap)
+    assert got.n == want.n
+    assert torch.equal(got.key, want.key) and torch.equal(got.count, want.count)
 
 
 @pytest.mark.parametrize("capacity", [1 << 11, 1 << 14])

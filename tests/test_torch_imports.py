@@ -14,7 +14,9 @@ import pytest
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "shannon_tpu_torch"
-PORT_FILES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "scripts" / "profile_torch.py"]
+PORT_FILES = sorted(PORT.rglob("*.py")) + [
+    REPO / "chip_smoke.py", REPO / "scripts" / "profile_torch.py", REPO / "scripts" / "scale_turns.py",
+]
 
 # The port's verbatim copies, by path inside each package.
 COPIES = [

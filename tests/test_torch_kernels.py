@@ -1,4 +1,4 @@
-"""The hand-written CUDA kernels K1-K15 against their plain PyTorch
+"""The hand-written CUDA kernels K1-K19 against their plain PyTorch
 versions, correction, condensation and the port's assembly (single-end and
 paired) on CUDA against the CPU run.  Marked
 `cuda`: these need an NVIDIA GPU and nvcc and skip without them.  Run on
@@ -19,7 +19,11 @@ from shannon_tpu_torch.io.dna import revcomp_str
 from shannon_tpu_torch.io.pack import pack_reads
 from shannon_tpu_torch.ops import condense as tcd
 from shannon_tpu_torch.ops import correction as tcor
-from shannon_tpu_torch.ops.count import Spectrum, count_reads_spectrum, empty_spectrum
+from shannon_tpu_torch.ops import tipclip as ttc
+from shannon_tpu_torch.ops.count import (
+    Spectrum, count_reads_spectrum, empty_spectrum, merge_at, merge_at_plain, spectrum_from_arrays,
+    tight_capacity,
+)
 from shannon_tpu_torch.sim import (
     random_seq, sample_paired_reads, sample_reads, simulate_gene_isoforms,
 )
@@ -222,8 +226,12 @@ def test_sf_greedy_kernel_validates_inputs(cuda):
 
 def _assert_all_launched(launches: dict, timer: StageTimer) -> None:
     """Every kernel launched; K8 (rescue) only runs when the auto cut is
-    above 1, and K13's cycle_round only when the labels found a cycle."""
-    cut = timer.stages["spectrum+graph"]["auto_min_abundance"]
+    above 1, K13's cycle_round only when the labels found a cycle.  These
+    datasets' clips doom contigs and close no cycle, so K18 and K19 must run
+    (the clip's notes say so: tc_drop_s and tc_remap_s)."""
+    notes = timer.stages["spectrum+graph"]
+    assert "tc_drop_s" in notes and "tc_remap_s" in notes, notes
+    cut = notes["auto_min_abundance"]
     missing = [
         n for n, c in launches.items()
         if c == 0 and not (n == "rescue_round" and cut == 1) and n != "cycle_round"
@@ -494,3 +502,218 @@ def test_assemble_on_cuda_matches_cpu_and_counts_launches(cuda):
     assert [t.seq for t in gpu.transcripts] == [t.seq for t in cpu.transcripts]
     assert [t.abundance for t in gpu.transcripts] == [t.abundance for t in cpu.transcripts]
     assert gpu.stats == {**cpu.stats, "backend": "torch:cuda"}
+
+
+# ---- K16-K19: count histogram, count merge, tip clip's drop and remap ------
+
+
+def _histogram_spectrum(case: str) -> Spectrum:
+    """A table on the CPU: counted reads; all pads; no lanes; or 2^20 lanes
+    of which nine in ten hold count 1 and the rest counts from -3 to 20,000
+    (some in bin 0, some past every max_count, a few pads among them)."""
+    if case == "counted":
+        return _spectrum(24)
+    if case == "all_pad":
+        return empty_spectrum(4096, "cpu")
+    if case == "no_lanes":
+        return empty_spectrum(0, "cpu")
+    rng = np.random.default_rng(2)
+    C = 1 << 20
+    count = np.where(rng.random(C) < 0.9, 1, rng.integers(-3, 20_000, C)).astype(np.int32)
+    key = np.sort(rng.integers(0, 1 << 48, C))
+    key[rng.random(C) < 0.01] = PAD
+    return Spectrum(key=torch.from_numpy(key), count=torch.from_numpy(count), n=C)
+
+
+@pytest.mark.parametrize("case", ["counted", "all_pad", "no_lanes", "count1_heavy"])
+@pytest.mark.parametrize("max_count", [0, 64, 1024, tcor.HISTOGRAM_MAX_COUNT])
+def test_count_histogram_kernel_matches_plain(cuda, case, max_count):
+    """K16: bin for bin, h[0] = 0."""
+    spec = _to(_histogram_spectrum(case), cuda)
+    lib = kernels.library()
+    before = lib.launches["count_histogram"]
+    got = tcor.count_histogram(spec, max_count)
+    assert lib.launches["count_histogram"] == before + 1
+    want = tcor.count_histogram_plain(spec, max_count)
+    torch.cuda.synchronize()
+    _equal(got, want, "histogram")
+    assert int(got[0]) == 0
+
+
+def merge_case(case: str):
+    """Two sorted tables of one merge case from numpy arrays made from a
+    seed, (keys, counts, capacity) each, and the merge's output capacity:
+    capacities that differ (half of b's keys in a as well), a table merged
+    with itself, interleaved disjoint tables, one empty table, a union past
+    the output capacity, and two all-pad tables."""
+    rng = np.random.default_rng(len(case))
+    pool = np.unique(rng.integers(0, 1 << 48, size=20_000, dtype=np.int64)).astype(np.uint64)
+
+    def table(keys, cap):
+        return np.sort(keys), rng.integers(1, 60, size=keys.shape[0]).astype(np.int32), cap
+
+    return {
+        "unequal": lambda: (table(pool[:3000], 4096),
+                            table(np.concatenate([pool[2500:3000], pool[5000:5500]]), 1536), 8192),
+        "identical": lambda: (table(pool[:3000], 4096),) * 2 + (4096,),
+        "disjoint": lambda: (table(pool[0:6000:2], 4096), table(pool[1:6000:2], 4096), 8192),
+        "empty": lambda: (table(pool[:0], 1024), table(pool[:700], 1024), 1024),
+        "overflow": lambda: (table(pool[:3000], 4096), table(pool[2000:5000], 4096), 3500),
+        "all_pad": lambda: (table(pool[:0], 1024), table(pool[:0], 512), 1024),
+    }[case]()
+
+
+def _merge_tables(case: str):
+    """merge_case's tables as spectra on the CPU, or two counted batch
+    tables ("counted"), and the merge's output capacity."""
+    if case == "counted":
+        a, b = _spectrum(24, seed=1), _spectrum(24, seed=2)
+        return a, b, a.capacity
+    *tables, cap = merge_case(case)
+    return tuple(spectrum_from_arrays(*t, device="cpu") for t in tables) + (cap,)
+
+
+@pytest.mark.parametrize(
+    "case", ["unequal", "identical", "disjoint", "empty", "overflow", "all_pad", "counted"]
+)
+def test_merge_kernel_matches_plain(cuda, case):
+    """K17 (then K2): keys, counts and n, n past the capacity included."""
+    a, b, cap = _merge_tables(case)
+    lib = kernels.library()
+    before = lib.launches["merge_spectra"]
+    got = merge_at(_to(a, cuda), _to(b, cuda), cap)
+    assert lib.launches["merge_spectra"] == before + 1
+    want = merge_at_plain(a, b, cap)
+    torch.cuda.synchronize()
+    assert got.n == want.n
+    assert (case == "overflow") == (want.n > cap)
+    _equal(got.key.cpu(), want.key, "key")
+    _equal(got.count.cpu(), want.count, "count")
+
+
+def _clip_inputs(cuda, k: int = 24):
+    """A counted spectrum on the card, its contig arrays (K11-K15) and one
+    clip's host state (the port's host rounds)."""
+    cfg = AssemblyConfig(k=k)
+    spec = _to(_spectrum(k), cuda)
+    ca = tcd.build_contig_arrays(spec, k)
+    n = ca.n_contigs
+    st = ttc._host_clip_rounds(
+        ca.klen[:n].cpu().numpy(), ca.count_sum[:n].cpu().numpy(),
+        ttc._adjacency_lists(ca.out_edges[:, :n].cpu().numpy(), n), cfg,
+    )
+    return spec, ca, st
+
+
+@pytest.mark.parametrize("doom", ["clip", "none", "all", "random"])
+def test_drop_contigs_kernel_matches_plain(cuda, doom):
+    """K18 (then K10) against its plain version on the same CUDA inputs."""
+    spec, ca, st = _clip_inputs(cuda)
+    n, C2 = ca.n_contigs, ca.node_key.shape[0]
+    doomed = torch.zeros(C2, dtype=torch.bool)
+    if doom == "clip":
+        assert st.doomed.any()
+        doomed[:n] = torch.from_numpy(st.doomed)
+    elif doom == "all":
+        doomed[:] = True
+    elif doom == "random":
+        doomed[:n] = torch.from_numpy(np.random.default_rng(4).random(n) < 0.3)
+    doomed = doomed.to(cuda)
+    lib = kernels.library()
+    before = lib.launches["drop_contigs"]
+    got = ttc._drop_contigs(spec, ca, doomed)
+    assert lib.launches["drop_contigs"] == before + 1
+    want = ttc._drop_contigs_plain(spec, ca, doomed)
+    torch.cuda.synchronize()
+    assert got.n == want.n
+    _equal(got.key, want.key, "key")
+    _equal(got.count, want.count, "count")
+    assert (want.n == 0) == (doom == "all") and (want.n == spec.n) == (doom == "none")
+
+
+def remap_args_of_clip(ca, st, klen, n2: int) -> tuple:
+    """The arguments the host half _remap_clipped hands to
+    _device_clip_remap for one clip (st) of contig arrays ca."""
+    captured = []
+    real = ttc._device_clip_remap
+    ttc._device_clip_remap = lambda *args: captured.append(args) or real(*args)
+    try:
+        ttc._remap_clipped(ca, st, klen, n2)
+    finally:
+        ttc._device_clip_remap = real
+    return captured[0]
+
+
+def _remap_args(cuda, doom: str):
+    """_device_clip_remap's arguments: those one clip gives it (captured
+    from _remap_clipped), or no contig doomed (every map the identity), or
+    every contig doomed."""
+    spec, ca, st = _clip_inputs(cuda)
+    if doom == "clip":
+        return remap_args_of_clip(ca, st, ca.klen[: ca.n_contigs].cpu().numpy(), spec.n)
+    n, C2 = ca.n_contigs, ca.node_key.shape[0]
+    npad = tight_capacity(n, minimum=1 << 15)
+    new_cid = torch.full((npad,), -1, dtype=torch.int64)
+    if doom == "none":
+        new_cid[:n] = torch.arange(n)
+    return (ca, new_cid.to(cuda), torch.zeros(npad, dtype=torch.int64, device=cuda),
+            ca.head_lane, ca.tail_lane, ca.klen, ca.count_sum, ca.rc_pair, ca.out_edges, n, C2)
+
+
+@pytest.mark.parametrize("doom", ["clip", "none", "all"])
+@pytest.mark.parametrize("cap", ["given", "below_kept", "above_table"])
+def test_clip_remap_kernel_matches_plain(cuda, doom, cap):
+    """K19 against its plain version on the same CUDA inputs: every field
+    over its full capacity, the float32 abundances bit for bit, n_nodes
+    counting every kept node even past out_cap."""
+    ca, *maps, n_new, out_cap = _remap_args(cuda, doom)
+    C2 = ca.node_key.shape[0]
+    if cap == "below_kept":
+        out_cap = max(int((ca.node_cid >= 0).sum()) // 3, 1)
+    elif cap == "above_table":
+        out_cap = C2 + 1000
+    args = (ca, *maps, n_new, out_cap)
+    lib = kernels.library()
+    before = lib.launches["clip_remap"]
+    got = ttc._device_clip_remap(*args)
+    assert lib.launches["clip_remap"] == before + 1
+    want = ttc._device_clip_remap_plain(*args)
+    torch.cuda.synchronize()
+    for f in ("node_key", "node_count", "node_cid", "node_off", "klen", "count_sum",
+              "head_lane", "tail_lane", "out_edges", "rc_pair"):
+        _equal(getattr(got, f), getattr(want, f), f)
+    _equal(got.abundance.view(torch.int32), want.abundance.view(torch.int32), "abundance")
+    assert (got.n_nodes, got.n_contigs) == (want.n_nodes, want.n_contigs)
+    if doom == "all":
+        assert want.n_nodes == 0
+    if doom == "none":
+        assert want.n_nodes == ca.n_nodes
+        if cap == "given":
+            _equal(want.node_cid, ca.node_cid, "identity remap")
+
+
+def test_clip_and_count_wrappers_validate_inputs(cuda):
+    key = torch.zeros(8, dtype=torch.int64, device=cuda)
+    count = torch.zeros(8, dtype=torch.int32, device=cuda)
+    spec = Spectrum(key=key, count=count, n=0)
+    with pytest.raises(ValueError, match="max_count"):
+        tcor.count_histogram(spec, tcor.HISTOGRAM_MAX_COUNT + 1)
+    with pytest.raises(TypeError, match="int32"):
+        tcor.count_histogram(Spectrum(key=key, count=key, n=0), 64)
+    with pytest.raises(TypeError, match="int64"):
+        merge_at(spec, Spectrum(key=count, count=count, n=0), 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        merge_at(spec, Spectrum(key=key.cpu(), count=count.cpu(), n=0), 16)
+    _, ca, _ = _clip_inputs(cuda)
+    C2 = ca.node_key.shape[0]
+    with pytest.raises(ValueError, match="lanes"):
+        ttc._drop_contigs(spec, ca, torch.zeros(C2 - 1, dtype=torch.bool, device=cuda))
+    with pytest.raises(TypeError, match="bool"):
+        ttc._drop_contigs(spec, ca, torch.zeros(C2, dtype=torch.int32, device=cuda))
+    ca_, *maps, n_new, out_cap = _remap_args(cuda, "none")
+    with pytest.raises(TypeError, match="int64"):
+        ttc._device_clip_remap(ca_, maps[0].int(), *maps[1:], n_new, out_cap)
+    with pytest.raises(ValueError, match="disagree"):
+        ttc._device_clip_remap(ca_, maps[0], maps[1][:-1].contiguous(), *maps[2:], n_new, out_cap)
+    with pytest.raises(ValueError, match="out_cap"):
+        ttc._device_clip_remap(ca_, *maps, n_new, -1)
