@@ -14,7 +14,8 @@ static inline unsigned int blocks_for(int64_t n) {
 // Reverse complement of the low 2k bits of a key (k <= 31): complement,
 // reverse the 64 bits, swap the two bits of each base back, shift down.  Bits
 // above 2k are ignored, as ops/kmers.revcomp_key ignores them.  K7
-// (probe_lookup) and K11/K14 (node_strands, contig_reduce) share it.
+// (probe_lookup), K11/K14 (node_strands, contig_reduce) and K22
+// (sibling_maxes, through probe_key) share it.
 static __device__ __forceinline__ uint64_t revcomp_bits(uint64_t key, int k) {
   const uint64_t mask = (1ull << (2 * k)) - 1;
   uint64_t r = __brevll(~key & mask);
@@ -24,8 +25,9 @@ static __device__ __forceinline__ uint64_t revcomp_bits(uint64_t key, int k) {
 
 // Binary search of `key` in the sorted table[0, table_len) (table_len >= 1):
 // the lower bound clamped to table_len - 1 goes to *idx, and the result says
-// whether that lane holds the key.  K3 (lookup_sorted) and K7 (probe_lookup)
-// share it, so both give the same (idx, hit) for the same query.
+// whether that lane holds the key.  K3 (lookup_sorted), K7 (probe_lookup),
+// K21 (lookup_counts) and K22 (sibling_maxes) share it, so all give the same
+// (idx, hit) for the same query.
 static __device__ __forceinline__ bool lower_bound_hit(
     const int64_t* __restrict__ table, int64_t table_len, int64_t key,
     int64_t* idx) {
@@ -41,4 +43,59 @@ static __device__ __forceinline__ bool lower_bound_hit(
   int64_t i = lo < table_len ? lo : table_len - 1;
   *idx = i;
   return table[i] == key;
+}
+
+// Probe p of key v, with the bit operations of probe_keys in
+// shannon_tpu_torch/ops/spectrum.py (pad keys included, whose probes keep the
+// bits above 2k): base b = p >> 1; even rows are right probes, odd rows left
+// ones.  Siblings are prefix.b = (v & ~3) | b and b.suffix = (v & (mask >> 2))
+// | b << 2(k-1); with side_ext, extensions suffix.b = ((v << 2) | b) & mask and
+// b.prefix = (v >> 2) | b << 2(k-1).  With canonical, the smaller of the probe
+// and its reverse complement.  K7 (probe_lookup) and K22 (sibling_maxes) share
+// it, so both search the same keys.
+static __device__ __forceinline__ int64_t probe_key(uint64_t v, int k, int p,
+                                                    int side_ext, int canonical) {
+  const uint64_t mask = (1ull << (2 * k)) - 1;
+  const uint64_t b = (uint64_t)(p >> 1);
+  const int hs = 2 * (k - 1);
+  const bool right = (p & 1) == 0;
+  uint64_t q;
+  if (side_ext) {
+    q = right ? (((v << 2) | b) & mask) : ((v >> 2) | (b << hs));
+  } else {
+    q = right ? ((v & ~3ull) | b) : ((v & (mask >> 2)) | (b << hs));
+  }
+  int64_t key = (int64_t)q;
+  if (canonical) {
+    const int64_t rc = (int64_t)revcomp_bits(q, k);
+    key = rc < key ? rc : key;
+  }
+  return key;
+}
+
+// The largest count of key v's right siblings (probe rows 0, 2, 4, 6) and of
+// its left siblings (rows 1, 3, 5, 7) in the sorted table: each probe is one
+// lower_bound_hit, and a miss counts 0, as in the reference's lookup_counts.
+// The eight searches are independent, so the unrolled loop keeps them in
+// flight together.  K22 (sibling_maxes) runs it once per real entry; a later
+// kernel can fuse it with K23's decision.
+static __device__ __forceinline__ void sibling_maxes_of(
+    const int64_t* __restrict__ table, const int32_t* __restrict__ count,
+    int64_t table_len, uint64_t v, int k, int canonical, int32_t* rmax,
+    int32_t* lmax) {
+  int32_t r = INT32_MIN, l = INT32_MIN;
+#pragma unroll
+  for (int p = 0; p < 8; ++p) {
+    int64_t lane;
+    const int32_t c = lower_bound_hit(table, table_len, probe_key(v, k, p, 0, canonical), &lane)
+                          ? count[lane]
+                          : 0;
+    if (p & 1) {
+      l = c > l ? c : l;
+    } else {
+      r = c > r ? c : r;
+    }
+  }
+  *rmax = r;
+  *lmax = l;
 }

@@ -1,10 +1,11 @@
-// Error-correction kernels K7-K10 and K16 of the shannon_tpu_torch port (plain
-// C interface; see kernels.cu for the conventions every entry point follows).
+// Error-correction kernels K7-K10, K16, K20 and K23 of the shannon_tpu_torch
+// port (plain C interface; see kernels.cu for the conventions every entry
+// point follows).
 //
 // The spectrum is a sorted table of C int64 keys with int32 counts, PAD past
 // its real entries.  A probe table is [8, C], entry i of probe row p at
 // p * C + i: row 2b is the right probe with base b, row 2b + 1 the left one
-// (the row order of probe_keys in shannon_tpu_torch/ops/correction.py).  Its
+// (the row order of probe_keys in shannon_tpu_torch/ops/spectrum.py).  Its
 // idx is meaningful only where hit, so K8 and K9 read idx only there.
 
 #include "common.cuh"
@@ -18,8 +19,8 @@
 // i fastest, so the key loads and the idx/hit stores are coalesced.  The
 // probe is built in registers with the plain version's exact bit operations
 // (pad lanes included, whose probes keep the bits above 2k), so the [8, C]
-// probe tensor of the plain version is never stored; the reverse complement
-// (revcomp_bits) and the search (K3's lower_bound_hit) are in common.cuh.
+// probe tensor of the plain version is never stored; the probe (probe_key,
+// shared with K22) and the search (K3's lower_bound_hit) are in common.cuh.
 // ---------------------------------------------------------------------------
 __global__ void probe_lookup_kernel(const int64_t* __restrict__ table,
                                     int64_t C, int k, int side_ext,
@@ -29,22 +30,7 @@ __global__ void probe_lookup_kernel(const int64_t* __restrict__ table,
   if (t >= 8 * C) return;
   int p = (int)(t / C);
   int64_t i = t - (int64_t)p * C;
-  const uint64_t v = (uint64_t)table[i];
-  const uint64_t mask = (1ull << (2 * k)) - 1;
-  const uint64_t b = (uint64_t)(p >> 1);
-  const int hs = 2 * (k - 1);
-  const bool right = (p & 1) == 0;
-  uint64_t q;
-  if (side_ext) {
-    q = right ? (((v << 2) | b) & mask) : ((v >> 2) | (b << hs));
-  } else {
-    q = right ? ((v & ~3ull) | b) : ((v & (mask >> 2)) | (b << hs));
-  }
-  int64_t key = (int64_t)q;
-  if (canonical) {
-    int64_t rc = (int64_t)revcomp_bits(q, k);
-    key = rc < key ? rc : key;
-  }
+  const int64_t key = probe_key((uint64_t)table[i], k, p, side_ext, canonical);
   int64_t lane;
   bool found = lower_bound_hit(table, C, key, &lane);
   idx[t] = lane;
@@ -200,9 +186,22 @@ __global__ void compact_keep_kernel(const int64_t* __restrict__ key,
 // thirds of the table), so the lanes of one warp mostly share a bin:
 // __match_any_sync groups the warp's lanes by bin and one lane of each group
 // adds the group's size, one shared atomic per distinct bin instead of 32 to
-// one address.
+// one address.  Above HIST_KERNEL_MAX_COUNT the block histogram would not fit
+// the 48 KB of shared memory a launch gets without opting in, so the global
+// variant below counts straight into the global bins instead, with the same
+// warp aggregation: one global atomic per distinct bin of each warp.
 // ---------------------------------------------------------------------------
 #define HIST_KERNEL_MAX_COUNT 8192
+
+// The bin of lane i, 0 for lanes past C, pads and counts <= 0 (bin 0 is never
+// counted); counts above max_count clamp into the top bin.
+static __device__ __forceinline__ int hist_bin(const int64_t* __restrict__ key,
+                                               const int32_t* __restrict__ count,
+                                               int64_t C, int64_t i, int64_t max_count) {
+  if (i >= C || key[i] == PAD_KEY) return 0;
+  const int32_t v = count[i];
+  return v < 0 ? 0 : (v > max_count ? (int)max_count : v);
+}
 
 __global__ void count_histogram_kernel(const int64_t* __restrict__ key,
                                        const int32_t* __restrict__ count,
@@ -216,12 +215,7 @@ __global__ void count_histogram_kernel(const int64_t* __restrict__ key,
   // base is the same for every thread of the block, so all 32 lanes of a warp
   // reach __match_any_sync together
   for (int64_t base = (int64_t)blockIdx.x * blockDim.x; base < C; base += stride) {
-    const int64_t i = base + threadIdx.x;
-    int c = 0;
-    if (i < C && key[i] != PAD_KEY) {
-      const int32_t v = count[i];
-      c = v < 0 ? 0 : (v > max_count ? max_count : v);
-    }
+    const int c = hist_bin(key, count, C, base + threadIdx.x, max_count);
     const unsigned same = __match_any_sync(0xffffffffu, c);
     if (c > 0 && lane == __ffs(same) - 1) atomicAdd(&bins[c], __popc(same));
   }
@@ -229,6 +223,76 @@ __global__ void count_histogram_kernel(const int64_t* __restrict__ key,
   for (int b = threadIdx.x + 1; b <= max_count; b += blockDim.x) {
     if (bins[b] != 0) atomicAdd(&hist[b], bins[b]);
   }
+}
+
+// K16's global variant, for max_count > HIST_KERNEL_MAX_COUNT: the same
+// strided walk and warp aggregation, with the group's size added to the
+// global bin (zeroed by the entry point's memset).
+__global__ void count_histogram_global_kernel(const int64_t* __restrict__ key,
+                                              const int32_t* __restrict__ count,
+                                              int64_t C, int64_t max_count,
+                                              int32_t* __restrict__ hist) {
+  const int lane = threadIdx.x & 31;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t base = (int64_t)blockIdx.x * blockDim.x; base < C; base += stride) {
+    const int c = hist_bin(key, count, C, base + threadIdx.x, max_count);
+    const unsigned same = __match_any_sync(0xffffffffu, c);
+    if (c > 0 && lane == __ffs(same) - 1) atomicAdd(&hist[c], __popc(same));
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K20: the abundance cut.
+// Replaces shannon_tpu/ops/correction.py:134 _cut_counts and the keep mask of
+// :54 abundance_filter.  One streaming pass over key and count, given the cut
+// m; it writes whichever outputs the caller passes non-null:
+//   raw  = key == PAD ? 0 : count        (int32)
+//   cut  = raw < m ? 0 : raw             (int32)
+//   keep = key != PAD && count >= m      (bool)
+// keep is not cut > 0: with m <= 0 a real lane of count 0 is kept, as the
+// reference keeps it.
+// Bound: memory; 12 bytes a lane in, up to 9 out.
+// ---------------------------------------------------------------------------
+__global__ void abundance_cut_kernel(const int64_t* __restrict__ key,
+                                     const int32_t* __restrict__ count,
+                                     int64_t C, int32_t m,
+                                     int32_t* __restrict__ raw,
+                                     int32_t* __restrict__ cut,
+                                     uint8_t* __restrict__ keep) {
+  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= C) return;
+  const bool real = key[i] != PAD_KEY;
+  const int32_t c = count[i];
+  const int32_t r = real ? c : 0;
+  if (raw) raw[i] = r;
+  if (cut) cut[i] = r < m ? 0 : r;
+  if (keep) keep[i] = (real && c >= m) ? 1 : 0;
+}
+
+// ---------------------------------------------------------------------------
+// K23: the keep flags of one sibling-prune round.
+// Replaces the decision of shannon_tpu/ops/correction.py:61
+// sibling_prune_round (lines 68-74); K22 gives the sibling maxima, and
+// torch.cumsum and K10 compact the kept lanes.  A lane is kept iff it is not
+// PAD and neither f < ratio * R nor f < ratio * L, with f, R, L the float32
+// values of its count and of its right and left sibling maxima.  Unlike K9
+// there is no count > 0 guard and no error cap: a real lane of count 0 beside
+// a positive sibling is dropped, as in the reference.  Each product is
+// __fmul_rn, so nvcc cannot contract it; ratio arrives as the float32 value
+// prune_constants rounds once.
+// Bound: memory; 16 bytes a lane in, one out.
+// ---------------------------------------------------------------------------
+__global__ void prune_keep_kernel(const int64_t* __restrict__ key,
+                                  const int32_t* __restrict__ count,
+                                  const int32_t* __restrict__ rmax,
+                                  const int32_t* __restrict__ lmax, int64_t C,
+                                  float ratio, uint8_t* __restrict__ keep) {
+  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= C) return;
+  const float f = __int2float_rn(count[i]);
+  const bool doomed = f < __fmul_rn(ratio, __int2float_rn(rmax[i])) ||
+                      f < __fmul_rn(ratio, __int2float_rn(lmax[i]));
+  keep[i] = (key[i] != PAD_KEY && !doomed) ? 1 : 0;
 }
 
 // ---------------------------------------------------------------------------
@@ -274,9 +338,9 @@ int shannon_prune_round(const void* counts, const void* sidx, const void* shit,
 }
 
 int shannon_count_histogram(const void* key, const void* count, int64_t C,
-                            int max_count, void* hist, void* stream) {
-  if (max_count < 0 || max_count > HIST_KERNEL_MAX_COUNT) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaMemsetAsync(hist, 0, sizeof(int32_t) * (max_count + 1),
+                            int64_t max_count, void* hist, void* stream) {
+  if (max_count < 0) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaMemsetAsync(hist, 0, sizeof(int32_t) * (size_t)(max_count + 1),
                                     (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
   if (C > 0) {
@@ -288,9 +352,14 @@ int shannon_count_histogram(const void* key, const void* count, int64_t C,
     if (err != cudaSuccess) return (int)err;
     const int64_t want = blocks_for(C);
     const unsigned int grid = (unsigned int)(want < 8 * sms ? want : 8 * sms);
-    count_histogram_kernel<<<grid, THREADS, sizeof(int32_t) * (max_count + 1),
-                             (cudaStream_t)stream>>>(
-        (const int64_t*)key, (const int32_t*)count, C, max_count, (int32_t*)hist);
+    if (max_count <= HIST_KERNEL_MAX_COUNT) {
+      count_histogram_kernel<<<grid, THREADS, sizeof(int32_t) * (max_count + 1),
+                               (cudaStream_t)stream>>>(
+          (const int64_t*)key, (const int32_t*)count, C, (int)max_count, (int32_t*)hist);
+    } else {
+      count_histogram_global_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+          (const int64_t*)key, (const int32_t*)count, C, max_count, (int32_t*)hist);
+    }
   }
   return (int)cudaGetLastError();
 }
@@ -302,6 +371,27 @@ int shannon_compact_keep(const void* key, const void* count, const void* keep,
     compact_keep_kernel<<<blocks_for(C), THREADS, 0, (cudaStream_t)stream>>>(
         (const int64_t*)key, (const int32_t*)count, (const uint8_t*)keep,
         (const int32_t*)scan, C, (int64_t*)out_key, (int32_t*)out_count);
+  }
+  return (int)cudaGetLastError();
+}
+
+int shannon_abundance_cut(const void* key, const void* count, int64_t C, int m,
+                          void* raw, void* cut, void* keep, void* stream) {
+  if (C > 0) {
+    abundance_cut_kernel<<<blocks_for(C), THREADS, 0, (cudaStream_t)stream>>>(
+        (const int64_t*)key, (const int32_t*)count, C, (int32_t)m, (int32_t*)raw,
+        (int32_t*)cut, (uint8_t*)keep);
+  }
+  return (int)cudaGetLastError();
+}
+
+int shannon_prune_keep(const void* key, const void* count, const void* rmax,
+                       const void* lmax, int64_t C, float ratio, void* keep,
+                       void* stream) {
+  if (C > 0) {
+    prune_keep_kernel<<<blocks_for(C), THREADS, 0, (cudaStream_t)stream>>>(
+        (const int64_t*)key, (const int32_t*)count, (const int32_t*)rmax,
+        (const int32_t*)lmax, C, ratio, (uint8_t*)keep);
   }
   return (int)cudaGetLastError();
 }

@@ -1,8 +1,9 @@
 // Hand-written Hopper (sm_90a) kernels of the shannon_tpu_torch port: the
 // k-mer kernels K1-K3 and the count merge K17 (threading's K4-K5 are in
-// thread.cu, the sparse-flow solver K6 in sparseflow.cu, correction's K7-K10
-// and K16 in correction.cu, condensation's K11-K15 in condense.cu, tip clip's
-// K18-K19 in tipclip.cu).
+// thread.cu, the sparse-flow solver K6 in sparseflow.cu, correction's K7-K10,
+// K16, K20 and K23 in correction.cu, condensation's K11-K15 in condense.cu,
+// tip clip's K18-K19 in tipclip.cu, the count lookups K21-K22 in
+// spectrum.cu).
 //
 // Plain C interface, built with nvcc into build/kernels/libshannon_kernels.so
 // and bound with ctypes (shannon_tpu_torch/kernels.py).  Every entry point

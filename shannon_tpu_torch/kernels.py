@@ -43,6 +43,7 @@ KERNELS = (
     "node_strands", "group_links", "label_round", "cycle_round",
     "contig_reduce", "base_streams",
     "count_histogram", "merge_spectra", "drop_contigs", "clip_remap",
+    "abundance_cut", "lookup_counts", "sibling_maxes", "prune_keep",
 )
 
 _P = ctypes.c_void_p
@@ -72,11 +73,15 @@ _ARGTYPES = {
     "shannon_head_flags": [_P, _P, _I64, _P, _P],
     "shannon_contig_reduce": [*[_P] * 9, _I64, _I, _I, *[_P] * 9, _P],
     "shannon_base_streams": [_P, _P, _P, _I64, _P, _P, _P, _I64, _I, _P, _P, _P],
-    "shannon_count_histogram": [_P, _P, _I64, _I, _P, _P],
+    "shannon_count_histogram": [_P, _P, _I64, _I64, _P, _P],
     "shannon_merge_tables": [_P, _P, _I64, _P, _P, _I64, _P, _P, _P],
     "shannon_drop_keep": [_P, _I64, _P, _P, _I64, _P, _P, _P],
     "shannon_remap_keep": [_P, _I64, _P, _I64, _P, _P],
     "shannon_clip_remap": [*[_P] * 6, _I64, _P, _P, _I64, _I64, *[_P] * 8, _I64, *[_P] * 4],
+    "shannon_abundance_cut": [_P, _P, _I64, _I, _P, _P, _P, _P],
+    "shannon_lookup_counts": [_P, _P, _I64, _P, _I64, _P, _P],
+    "shannon_sibling_maxes": [_P, _P, _I64, _I, _I, _P, _P, _P],
+    "shannon_prune_keep": [_P, _P, _P, _P, _I64, _F, _P, _P],
 }
 
 

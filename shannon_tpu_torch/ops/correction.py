@@ -2,14 +2,17 @@
 sibling pruning over the sorted spectrum.
 
 Counterpart of ``shannon_tpu/ops/correction.py`` (oracle spec in
-``shannon_tpu/oracle/correction.py``).  Probe sets resolve once (kernel K7);
-the rescue rounds (K8) and prune rounds (K9) then run as one host loop each,
-stopping at the first round that changes nothing (the reference split them
-into chunks only to stay inside a TPU worker's execution limit), and the
-kept entries are compacted (K10).  The auto abundance cut reads the count
-histogram (K16).  On CUDA tensors each of these launches its
-hand-written kernel in ``csrc/correction.cu``; on CPU tensors its ``_plain``
-version runs.
+``shannon_tpu/oracle/correction.py``).  The abundance cut is one pass (kernel
+K20).  Probe sets resolve once (K7); the rescue rounds (K8) and prune rounds
+(K9) then run as one host loop each, stopping at the first round that
+changes nothing (the reference split them into chunks only to stay inside a
+TPU worker's execution limit), and the kept entries are compacted (K10).
+The auto abundance cut reads the count histogram (K16).  The reference's
+single-round steps ``abundance_filter`` (K20's keep flags) and
+``sibling_prune_round`` (the sibling maxima of K22, then K23's keep flags)
+compact through K10 as well.  On CUDA tensors each of these launches its
+hand-written kernel in ``csrc/correction.cu`` or ``csrc/spectrum.cu``; on
+CPU tensors its ``_plain`` version runs.
 
 Decision arithmetic is float32 throughout, with every constant a float32
 value rounded as the reference rounds it, so the tests ``c < ratio * max_sib``
@@ -23,8 +26,8 @@ import torch
 
 from shannon_tpu_torch import kernels
 from shannon_tpu_torch.ops.count import Spectrum
-from shannon_tpu_torch.ops.kmers import PAD, canonical_key
-from shannon_tpu_torch.ops.spectrum import lookup_sorted_plain
+from shannon_tpu_torch.ops.kmers import PAD
+from shannon_tpu_torch.ops.spectrum import lookup_sorted_plain, probe_keys, sibling_maxes
 from shannon_tpu_torch.oracle.correction import choose_min_abundance
 
 
@@ -71,9 +74,10 @@ def compact(spec: Spectrum, keep: torch.Tensor) -> Spectrum:
     return compact_plain(spec, keep)
 
 
-# The largest max_count kernel K16 takes: its block histogram of
-# max_count + 1 int32 bins must fit the 48 KB of shared memory a launch gets
-# without opting in (HIST_KERNEL_MAX_COUNT in csrc/correction.cu).
+# The largest max_count for which kernel K16 keeps a block histogram of
+# max_count + 1 int32 bins in the 48 KB of shared memory a launch gets without
+# opting in (HIST_KERNEL_MAX_COUNT in csrc/correction.cu); above it K16 counts
+# into the global bins.  A switch point, not a limit.
 HISTOGRAM_MAX_COUNT = 8192
 
 
@@ -87,8 +91,8 @@ def count_histogram_plain(spec: Spectrum, max_count: int = 64) -> torch.Tensor:
 
 
 def _count_histogram_cuda(spec: Spectrum, max_count: int) -> torch.Tensor:
-    if not 0 <= max_count <= HISTOGRAM_MAX_COUNT:
-        raise ValueError(f"max_count must be in [0, {HISTOGRAM_MAX_COUNT}], got {max_count}")
+    if max_count < 0:
+        raise ValueError(f"max_count must be >= 0, got {max_count}")
     kernels.check_cuda("key", spec.key, torch.int64, 1)
     kernels.check_cuda("count", spec.count, torch.int32, 1)
     C = spec.capacity
@@ -108,8 +112,8 @@ def _count_histogram_cuda(spec: Spectrum, max_count: int) -> torch.Tensor:
 def count_histogram(spec: Spectrum, max_count: int = 64) -> torch.Tensor:
     """[max_count + 1] int32 histogram of entry counts, clamped into the
     top bin, h[0] = 0 (ops/correction.py:32 count_histogram).  Kernel K16
-    on CUDA, where max_count is at most HISTOGRAM_MAX_COUNT; the plain
-    version on CPU, at any max_count."""
+    on CUDA (its shared-memory histogram up to HISTOGRAM_MAX_COUNT, its
+    global one above), the plain version on CPU."""
     if spec.key.is_cuda:
         return _count_histogram_cuda(spec, max_count)
     return count_histogram_plain(spec, max_count)
@@ -118,24 +122,6 @@ def count_histogram(spec: Spectrum, max_count: int = 64) -> torch.Tensor:
 def auto_min_abundance(spec: Spectrum) -> int:
     """The auto abundance cut (min_abundance == 0), from the histogram."""
     return choose_min_abundance(count_histogram(spec, 1024).cpu().numpy())
-
-
-def probe_keys(key: torch.Tensor, k: int, side: str, canonical: bool) -> torch.Tensor:
-    """[8, C] probes per entry, rows (right, left) x base 0..3: siblings
-    prefix.b / b.suffix for side='sib', extensions suffix.b / b.prefix
-    for side='ext'."""
-    mask = (1 << (2 * k)) - 1
-    hs = 2 * (k - 1)
-    rows = []
-    for b in range(4):
-        if side == "sib":
-            rows.append((key & ~3) | b)
-            rows.append((key & (mask >> 2)) | (b << hs))
-        else:
-            rows.append(((key << 2) | b) & mask)
-            rows.append((key >> 2) | (b << hs))
-    probes = torch.stack(rows)
-    return canonical_key(probes, k) if canonical else probes
 
 
 def probe_resolve_plain(spec: Spectrum, k: int, canonical: bool, side: str):
@@ -173,10 +159,73 @@ def probe_resolve(spec: Spectrum, k: int, canonical: bool, side: str):
     return probe_resolve_plain(spec, k, canonical, side)
 
 
+def abundance_cut_plain(
+    spec: Spectrum, min_abundance: int, raw: bool = True, cut: bool = True, keep: bool = True
+):
+    """Plain PyTorch K20: torch.where and compares."""
+    r = torch.where(spec.key == PAD, 0, spec.count)
+    return (
+        r if raw else None,
+        torch.where(r < min_abundance, 0, r) if cut else None,
+        (spec.key != PAD) & (spec.count >= min_abundance) if keep else None,
+    )
+
+
+def _abundance_cut_cuda(spec: Spectrum, min_abundance: int, raw: bool, cut: bool, keep: bool):
+    kernels.check_cuda("key", spec.key, torch.int64, 1)
+    kernels.check_cuda("count", spec.count, torch.int32, 1)
+    C = spec.capacity
+    if spec.count.shape[0] != C:
+        raise ValueError("key and count disagree on length")
+    if not -(1 << 31) <= min_abundance < 1 << 31:
+        raise ValueError(f"min_abundance {min_abundance} is not an int32")
+    dev = spec.key.device
+    outs = (
+        torch.empty(C, dtype=torch.int32, device=dev) if raw else None,
+        torch.empty(C, dtype=torch.int32, device=dev) if cut else None,
+        torch.empty(C, dtype=torch.bool, device=dev) if keep else None,
+    )
+    if C and (raw or cut or keep):
+        lib = kernels.library()
+        lib.call(
+            "shannon_abundance_cut", dev,
+            kernels.ptr(spec.key), kernels.ptr(spec.count), C, min_abundance,
+            *(kernels.ptr(o) for o in outs),
+        )
+        lib.count("abundance_cut")
+    return outs
+
+
+def abundance_cut(
+    spec: Spectrum, min_abundance: int, raw: bool = True, cut: bool = True, keep: bool = True
+):
+    """(raw, cut, keep) of one pass over the table, each None where not
+    asked for: raw = count with pads zeroed, cut = raw where raw >=
+    min_abundance else 0 (ops/correction.py:134 _cut_counts), keep = real
+    lanes of count >= min_abundance (the mask of :54 abundance_filter; with
+    min_abundance <= 0 it keeps real lanes of count 0, which cut > 0 would
+    not).  Kernel K20 on CUDA, the plain version on CPU."""
+    if spec.key.is_cuda:
+        return _abundance_cut_cuda(spec, min_abundance, raw, cut, keep)
+    return abundance_cut_plain(spec, min_abundance, raw, cut, keep)
+
+
+def cut_counts_plain(spec: Spectrum, min_abundance: int):
+    """Plain PyTorch K20 in its cut mode."""
+    return abundance_cut_plain(spec, min_abundance, keep=False)[:2]
+
+
 def cut_counts(spec: Spectrum, min_abundance: int):
-    """(raw counts with pads zeroed, counts after the abundance cut)."""
-    raw = torch.where(spec.key == PAD, 0, spec.count)
-    return raw, torch.where(raw < min_abundance, 0, raw)
+    """(raw counts with pads zeroed, counts after the abundance cut), K20
+    in its cut mode."""
+    return abundance_cut(spec, min_abundance, keep=False)[:2]
+
+
+def abundance_filter(spec: Spectrum, min_abundance: int) -> Spectrum:
+    """Drop the PAD lanes and the k-mers of count < min_abundance
+    (ops/correction.py:54 abundance_filter): K20's keep flags, then
+    torch.cumsum and K10."""
+    return compact(spec, abundance_cut(spec, min_abundance, raw=False, cut=False)[2])
 
 
 def _check_round(counts, probe_sets) -> None:
@@ -295,6 +344,56 @@ def prune_round(counts, sidx, shit, ratio: float, eps3: float, use_cap: bool):
     return prune_round_plain(counts, sidx, shit, ratio, eps3, use_cap)
 
 
+def prune_keep_plain(spec: Spectrum, rmax: torch.Tensor, lmax: torch.Tensor, ratio: float):
+    """Plain PyTorch K23: float32 products and compares."""
+    r = torch.tensor(ratio, dtype=torch.float32, device=spec.key.device)
+    cf = spec.count.float()
+    doomed = (cf < r * rmax.float()) | (cf < r * lmax.float())
+    return (spec.key != PAD) & ~doomed
+
+
+def _prune_keep_cuda(spec: Spectrum, rmax, lmax, ratio: float):
+    kernels.check_cuda("key", spec.key, torch.int64, 1)
+    for name, t in (("count", spec.count), ("rmax", rmax), ("lmax", lmax)):
+        kernels.check_cuda(name, t, torch.int32, 1)
+        if t.shape[0] != spec.capacity:
+            raise ValueError(f"key and {name} disagree on length")
+    C = spec.capacity
+    keep = torch.empty(C, dtype=torch.bool, device=spec.key.device)
+    if C:
+        lib = kernels.library()
+        lib.call(
+            "shannon_prune_keep", spec.key.device,
+            kernels.ptr(spec.key), kernels.ptr(spec.count), kernels.ptr(rmax),
+            kernels.ptr(lmax), C, ratio, kernels.ptr(keep),
+        )
+        lib.count("prune_keep")
+    return keep
+
+
+def prune_keep(spec: Spectrum, rmax: torch.Tensor, lmax: torch.Tensor, ratio: float):
+    """Keep flags of one sibling-prune round (ops/correction.py:61
+    sibling_prune_round, lines 68-74): real lanes where neither f32(count)
+    < ratio * f32(rmax) nor f32(count) < ratio * f32(lmax).  No count > 0
+    guard and no error cap, unlike prune_round: a real lane of count 0
+    beside a positive sibling is dropped.  ratio is the float32 value from
+    prune_constants.  Kernel K23 on CUDA, the plain version on CPU."""
+    if spec.key.is_cuda:
+        return _prune_keep_cuda(spec, rmax, lmax, ratio)
+    return prune_keep_plain(spec, rmax, lmax, ratio)
+
+
+def sibling_prune_round(
+    spec: Spectrum, k: int, sibling_ratio: float, canonical: bool = True
+) -> Spectrum:
+    """One Jacobi round of sibling-ratio pruning, then compaction
+    (ops/correction.py:61 sibling_prune_round): K22's sibling maxima, K23's
+    keep flags with f32(sibling_ratio), then torch.cumsum and K10."""
+    rmax, lmax = sibling_maxes(spec, k, canonical)
+    ratio, _ = prune_constants(sibling_ratio, 0.0)
+    return compact(spec, prune_keep(spec, rmax, lmax, ratio))
+
+
 def correct_spectrum(
     spec: Spectrum,
     k: int,
@@ -308,11 +407,11 @@ def correct_spectrum(
     error-capped pruning rounds to a fixpoint (ops/correction.py:240
     correct_spectrum).  min_abundance == 0 means auto, as in
     AssemblyConfig; the reference resolved it only in its pipeline.  On
-    CUDA every step launches its kernel (K7-K10)."""
+    CUDA every step launches its kernel (K7-K10, K16, K20)."""
     if min_abundance == 0:
         min_abundance = auto_min_abundance(spec)
     if sibling_ratio <= 0.0:
-        return compact(spec, (spec.count >= min_abundance) & (spec.key != PAD))
+        return abundance_filter(spec, min_abundance)
     sidx, shit = probe_resolve(spec, k, canonical, "sib")
     raw, counts = cut_counts(spec, min_abundance)
     if min_abundance > 1:

@@ -1,8 +1,12 @@
-"""Sorted-table lookup (kernel K3).
+"""Sorted-table lookups: exact hits (kernel K3), counts (K21) and sibling
+maxima (K22).
 
-Counterpart of ``shannon_tpu/ops/spectrum.py:137 lookup_hilo``.  The TPU
-switched between a sort-merge join and a binary search by a cost model of
-that chip; here every lookup is one binary search per query.
+Counterpart of ``shannon_tpu/ops/spectrum.py`` (``lookup_hilo``,
+``lookup_counts``, ``sibling_maxes``).  The TPU switched between a
+sort-merge join and a binary search by a cost model of that chip; here every
+lookup is one binary search per query.  On CUDA tensors each function
+launches its hand-written kernel (``csrc/kernels.cu``, ``csrc/spectrum.cu``);
+on CPU tensors its ``_plain`` version runs.
 
 Contract (as in the reference): ``idx`` is meaningful only where ``hit``.
 """
@@ -12,6 +16,8 @@ from __future__ import annotations
 import torch
 
 from shannon_tpu_torch import kernels
+from shannon_tpu_torch.ops.count import Spectrum
+from shannon_tpu_torch.ops.kmers import PAD, canonical_key
 
 
 def lookup_sorted_plain(
@@ -53,3 +59,102 @@ def lookup_sorted(
     if table.is_cuda:
         return _lookup_sorted_cuda(table, query)
     return lookup_sorted_plain(table, query)
+
+
+def lookup_counts_plain(spec: Spectrum, query: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch K21: K3's plain version and a gather."""
+    if spec.capacity == 0:
+        return torch.zeros(query.shape, dtype=torch.int32, device=query.device)
+    idx, hit = lookup_sorted_plain(spec.key, query)
+    return torch.where(hit, spec.count[idx], 0)
+
+
+def _lookup_counts_cuda(spec: Spectrum, query: torch.Tensor) -> torch.Tensor:
+    kernels.check_cuda("key", spec.key, torch.int64, 1)
+    kernels.check_cuda("count", spec.count, torch.int32, 1)
+    if spec.count.shape[0] != spec.capacity:
+        raise ValueError("key and count disagree on length")
+    if query.device != spec.key.device or query.dtype != torch.int64:
+        raise ValueError("query must be int64 on the table's device")
+    q = query.contiguous()
+    out = torch.zeros(q.shape, dtype=torch.int32, device=q.device)
+    if spec.capacity == 0 or q.numel() == 0:
+        return out
+    lib = kernels.library()
+    lib.call(
+        "shannon_lookup_counts", spec.key.device,
+        kernels.ptr(spec.key), kernels.ptr(spec.count), spec.capacity, kernels.ptr(q),
+        q.numel(), kernels.ptr(out),
+    )
+    lib.count("lookup_counts")
+    return out
+
+
+def lookup_counts(spec: Spectrum, query: torch.Tensor) -> torch.Tensor:
+    """int32 count of each int64 query key (any shape) in the sorted table,
+    0 where absent (ops/spectrum.py:60 lookup_counts).  Queries must be in
+    the table's orientation (canonical for a canonical spectrum).  Kernel
+    K21 on CUDA, the plain version on CPU."""
+    if spec.key.is_cuda:
+        return _lookup_counts_cuda(spec, query)
+    return lookup_counts_plain(spec, query)
+
+
+def probe_keys(key: torch.Tensor, k: int, side: str, canonical: bool) -> torch.Tensor:
+    """[8, C] probes per entry, rows (right, left) x base 0..3: siblings
+    prefix.b / b.suffix for side='sib', extensions suffix.b / b.prefix
+    for side='ext'."""
+    mask = (1 << (2 * k)) - 1
+    hs = 2 * (k - 1)
+    rows = []
+    for b in range(4):
+        if side == "sib":
+            rows.append((key & ~3) | b)
+            rows.append((key & (mask >> 2)) | (b << hs))
+        else:
+            rows.append(((key << 2) | b) & mask)
+            rows.append((key >> 2) | (b << hs))
+    probes = torch.stack(rows)
+    return canonical_key(probes, k) if canonical else probes
+
+
+def sibling_maxes_plain(spec: Spectrum, k: int, canonical: bool = True):
+    """Plain PyTorch K22: the [8, C] probe tensor, K21's plain version and
+    a max over each side's rows."""
+    counts = lookup_counts_plain(spec, probe_keys(spec.key, k, "sib", canonical))
+    pad = spec.key == PAD
+    return (
+        torch.where(pad, 0, counts[0::2].amax(0)),
+        torch.where(pad, 0, counts[1::2].amax(0)),
+    )
+
+
+def _sibling_maxes_cuda(spec: Spectrum, k: int, canonical: bool):
+    kernels.check_cuda("key", spec.key, torch.int64, 1)
+    kernels.check_cuda("count", spec.count, torch.int32, 1)
+    C = spec.capacity
+    if spec.count.shape[0] != C:
+        raise ValueError("key and count disagree on length")
+    rmax = torch.empty(C, dtype=torch.int32, device=spec.key.device)
+    lmax = torch.empty(C, dtype=torch.int32, device=spec.key.device)
+    if C == 0:
+        return rmax, lmax
+    lib = kernels.library()
+    lib.call(
+        "shannon_sibling_maxes", spec.key.device,
+        kernels.ptr(spec.key), kernels.ptr(spec.count), C, k, int(canonical),
+        kernels.ptr(rmax), kernels.ptr(lmax),
+    )
+    lib.count("sibling_maxes")
+    return rmax, lmax
+
+
+def sibling_maxes(spec: Spectrum, k: int, canonical: bool = True):
+    """(right_sib_max, left_sib_max), int32 [C]: the largest count among
+    each entry's right siblings prefix.b and among its left siblings
+    b.suffix, canonicalized when `canonical`; PAD lanes give 0
+    (ops/spectrum.py:166 sibling_maxes).  Kernel K22 on CUDA, the plain
+    version on CPU."""
+    if spec.key.is_cuda:
+        return _sibling_maxes_cuda(spec, k, canonical)
+    return sibling_maxes_plain(spec, k, canonical)

@@ -1,8 +1,10 @@
-"""Port parity: error correction (histogram, probe tables, one rescue
-round, one error-capped prune round, compaction, the whole stage) against
-shannon_tpu.ops.correction on JAX-CPU.  Both packages start from the same
-counted spectrum (via convert).  The plain versions run here (CPU tensors);
-tests/test_torch_kernels.py holds kernels K7-K10 against them on the card.
+"""Port parity: error correction (histogram, abundance cut, probe tables,
+one rescue round, one error-capped prune round, compaction, the whole
+stage, and the single-round steps abundance_filter and sibling_prune_round)
+against shannon_tpu.ops.correction on JAX-CPU.  Both packages start from
+the same counted spectrum (via convert).  The plain versions run here (CPU
+tensors); tests/test_torch_kernels.py holds kernels K7-K10, K16, K20 and
+K23 against them on the card.
 
 Tolerance: exact — corrected keys and counts equal over the whole table;
 probe tables equal on real lanes where hit (idx is a contract only
@@ -16,11 +18,14 @@ import jax.numpy as jnp
 
 from shannon_tpu.io.pack import pack_reads
 from shannon_tpu.ops import correction as jcor
-from shannon_tpu.ops.count import count_spectrum_packed
+from shannon_tpu.ops.count import Spectrum as JSpectrum, count_spectrum_packed
 from shannon_tpu.oracle.correction import choose_min_abundance
 from shannon_tpu.sim import sample_reads, simulate_isoforms, simulate_transcripts
 from shannon_tpu_torch import convert, kernels
 from shannon_tpu_torch.ops import correction as tcor
+from shannon_tpu_torch.ops.count import Spectrum
+from shannon_tpu_torch.ops.kmers import PAD, canonical_key
+from shannon_tpu_torch.ops.spectrum import probe_keys
 from test_torch_kernels import prune_grid
 
 
@@ -216,3 +221,80 @@ def test_prune_round_float_edges_match_reference(error_rate):
         jnp.float32(0.1), jnp.float32(error_rate) / jnp.float32(3.0), rounds=1, use_cap=True,
     )
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
+
+@pytest.mark.parametrize("cut", [0, 1, 2, 5])
+def test_cut_counts_matches_reference(cut):
+    """K20's cut mode == _cut_counts: (raw, counts after the cut)."""
+    port, ref = _spectra(24, seed=9)
+    want = [np.asarray(x) for x in jcor._cut_counts(ref, cut)]
+    got = tcor.cut_counts(port, cut)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int32
+        np.testing.assert_array_equal(g.numpy(), w)
+    assert torch.equal(got[1], tcor.cut_counts_plain(port, cut)[1])
+
+
+@pytest.mark.parametrize("min_abundance", [0, 1, 2, 3])
+def test_abundance_filter_matches_reference(min_abundance):
+    port, ref = _spectra(24, seed=10)
+    got = tcor.abundance_filter(port, min_abundance)
+    _assert_same(got, jcor.abundance_filter(ref, min_abundance))
+    assert got.n == int((port.count[: port.n] >= min_abundance).sum())
+
+
+@pytest.mark.parametrize("k", [5, 16, 24, 31])
+@pytest.mark.parametrize("canonical", [True, False])
+@pytest.mark.parametrize("ratio", [0.0, 0.1, 0.5])
+def test_sibling_prune_round_matches_reference(k, canonical, ratio):
+    """One round: K22's sibling maxima, K23's keep flags, compaction."""
+    port, ref = _spectra(k, seed=k + 20, canonical=canonical)
+    want = jcor.sibling_prune_round(ref, k, jnp.float32(ratio), canonical)
+    _assert_same(tcor.sibling_prune_round(port, k, ratio, canonical), want)
+    if ratio == 0.0:
+        assert int(want.n) == port.n  # nothing is below 0 x its siblings
+    else:
+        assert int(want.n) < port.n
+
+
+def _zero_count_table(canonical: bool):
+    """k = 5, both packages: a real lane of count 0 whose right sibling has
+    count 5 (doomed by any positive ratio), a real lane of count 0 with no
+    sibling in the table (kept: 0 < ratio x 0 is false), and lanes of
+    counts 1 and 3; keys canonical when `canonical`."""
+    k = 5
+
+    def orient(v: int) -> int:
+        return int(canonical_key(torch.tensor([v]), k)[0]) if canonical else v
+
+    x = orient(0b0110110100)
+    probes = probe_keys(torch.tensor([x]), k, "sib", canonical)[0::2, 0].tolist()
+    sib = next(p for p in probes if p != x)
+    keys = [x, sib, orient(0b1111000011), orient(0b0001111000), orient(0b0100000110)]
+    counts = [0, 5, 0, 1, 3]
+    assert len(set(keys)) == len(keys)
+    order = np.argsort(keys)
+    cap = 16
+    key = np.full(cap, PAD, np.int64)
+    key[: len(keys)] = np.asarray(keys, np.int64)[order]
+    count = np.zeros(cap, np.int32)
+    count[: len(keys)] = np.asarray(counts, np.int32)[order]
+    port = Spectrum(key=torch.from_numpy(key), count=torch.from_numpy(count), n=len(keys))
+    hi, lo = convert.key_to_hilo(key)
+    ref = JSpectrum(hi=jnp.asarray(hi), lo=jnp.asarray(lo), count=jnp.asarray(count),
+                    n=jnp.int32(len(keys)))
+    return k, port, ref
+
+
+@pytest.mark.parametrize("canonical", [True, False])
+def test_count_zero_lanes_match_reference(canonical):
+    """Hazard 1 of K23: no count > 0 guard, so a real lane of count 0
+    beside a positive sibling is dropped; K20's keep at min_abundance 0
+    keeps real lanes of count 0, which counts > 0 would not."""
+    k, port, ref = _zero_count_table(canonical)
+    got = tcor.sibling_prune_round(port, k, 0.1, canonical)
+    _assert_same(got, jcor.sibling_prune_round(ref, k, jnp.float32(0.1), canonical))
+    assert 0 in got.count[: got.n].tolist() and got.n < port.n
+    kept = tcor.abundance_filter(port, 0)
+    _assert_same(kept, jcor.abundance_filter(ref, 0))
+    assert kept.n == port.n

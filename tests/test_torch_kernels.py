@@ -1,6 +1,7 @@
-"""The hand-written CUDA kernels K1-K19 against their plain PyTorch
-versions, correction, condensation and the port's assembly (single-end and
-paired) on CUDA against the CPU run.  Marked
+"""The hand-written CUDA kernels K1-K23 against their plain PyTorch
+versions, correction, condensation, the flagship count-and-correct step and
+the port's assembly (single-end and paired) on CUDA against the CPU run.
+Marked
 `cuda`: these need an NVIDIA GPU and nvcc and skip without them.  Run on
 the card with
 
@@ -29,6 +30,7 @@ from shannon_tpu_torch.sim import (
 )
 from shannon_tpu_torch.utils.timing import StageTimer
 from shannon_tpu_torch.ops import sparseflow as tsf
+from shannon_tpu_torch.ops import spectrum as tsp
 from shannon_tpu_torch.ops import thread as tth
 from shannon_tpu_torch.ops.count import reduce_sorted, reduce_sorted_plain
 from shannon_tpu_torch.ops.kmers import PAD, extract_kmers_packed, extract_kmers_packed_plain
@@ -224,17 +226,23 @@ def test_sf_greedy_kernel_validates_inputs(cuda):
         tsf.batched_greedy_packed(torch.zeros((4, 16), dtype=torch.int32, device=cuda), 4)
 
 
+# Kernels of the flagship step alone (shannon_tpu_torch.entry): assembly
+# never launches them.
+ENTRY_ONLY = ("lookup_counts", "sibling_maxes", "prune_keep")
+
+
 def _assert_all_launched(launches: dict, timer: StageTimer) -> None:
-    """Every kernel launched; K8 (rescue) only runs when the auto cut is
-    above 1, K13's cycle_round only when the labels found a cycle.  These
-    datasets' clips doom contigs and close no cycle, so K18 and K19 must run
-    (the clip's notes say so: tc_drop_s and tc_remap_s)."""
+    """Every kernel of assembly launched; K8 (rescue) only runs when the
+    auto cut is above 1, K13's cycle_round only when the labels found a
+    cycle.  These datasets' clips doom contigs and close no cycle, so K18
+    and K19 must run (the clip's notes say so: tc_drop_s and tc_remap_s)."""
     notes = timer.stages["spectrum+graph"]
     assert "tc_drop_s" in notes and "tc_remap_s" in notes, notes
     cut = notes["auto_min_abundance"]
     missing = [
         n for n, c in launches.items()
         if c == 0 and not (n == "rescue_round" and cut == 1) and n != "cycle_round"
+        and n not in ENTRY_ONLY
     ]
     assert not missing, launches
 
@@ -510,7 +518,8 @@ def test_assemble_on_cuda_matches_cpu_and_counts_launches(cuda):
 def _histogram_spectrum(case: str) -> Spectrum:
     """A table on the CPU: counted reads; all pads; no lanes; or 2^20 lanes
     of which nine in ten hold count 1 and the rest counts from -3 to 20,000
-    (some in bin 0, some past every max_count, a few pads among them)."""
+    (some in bin 0, some past every max_count, a few pads among them), or
+    to 100,000 for the case "wide"."""
     if case == "counted":
         return _spectrum(24)
     if case == "all_pad":
@@ -519,7 +528,8 @@ def _histogram_spectrum(case: str) -> Spectrum:
         return empty_spectrum(0, "cpu")
     rng = np.random.default_rng(2)
     C = 1 << 20
-    count = np.where(rng.random(C) < 0.9, 1, rng.integers(-3, 20_000, C)).astype(np.int32)
+    top = 100_000 if case == "wide" else 20_000
+    count = np.where(rng.random(C) < 0.9, 1, rng.integers(-3, top, C)).astype(np.int32)
     key = np.sort(rng.integers(0, 1 << 48, C))
     key[rng.random(C) < 0.01] = PAD
     return Spectrum(key=torch.from_numpy(key), count=torch.from_numpy(count), n=C)
@@ -538,6 +548,19 @@ def test_count_histogram_kernel_matches_plain(cuda, case, max_count):
     torch.cuda.synchronize()
     _equal(got, want, "histogram")
     assert int(got[0]) == 0
+
+
+@pytest.mark.parametrize("max_count", [tcor.HISTOGRAM_MAX_COUNT, tcor.HISTOGRAM_MAX_COUNT + 1, 65_536])
+def test_count_histogram_kernel_at_any_max_count(cuda, max_count):
+    """K16's shared variant up to HISTOGRAM_MAX_COUNT, its global variant
+    above, on counts drawn up to 100,000."""
+    spec = _to(_histogram_spectrum("wide"), cuda)
+    got = tcor.count_histogram(spec, max_count)
+    want = tcor.count_histogram_plain(spec, max_count)
+    torch.cuda.synchronize()
+    assert got.shape == (max_count + 1,)
+    _equal(got, want, "histogram")
+    assert int(got[0]) == 0 and int(got[max_count]) > 0
 
 
 def merge_case(case: str):
@@ -697,7 +720,7 @@ def test_clip_and_count_wrappers_validate_inputs(cuda):
     count = torch.zeros(8, dtype=torch.int32, device=cuda)
     spec = Spectrum(key=key, count=count, n=0)
     with pytest.raises(ValueError, match="max_count"):
-        tcor.count_histogram(spec, tcor.HISTOGRAM_MAX_COUNT + 1)
+        tcor.count_histogram(spec, -1)
     with pytest.raises(TypeError, match="int32"):
         tcor.count_histogram(Spectrum(key=key, count=key, n=0), 64)
     with pytest.raises(TypeError, match="int64"):
@@ -717,3 +740,156 @@ def test_clip_and_count_wrappers_validate_inputs(cuda):
         ttc._device_clip_remap(ca_, maps[0], maps[1][:-1].contiguous(), *maps[2:], n_new, out_cap)
     with pytest.raises(ValueError, match="out_cap"):
         ttc._device_clip_remap(ca_, *maps, n_new, -1)
+
+
+# ---- K20-K23: abundance cut, count lookup, sibling maxima, prune keep ------
+
+
+@pytest.mark.parametrize("case", ["counted", "count1_heavy", "all_pad", "no_lanes"])
+@pytest.mark.parametrize("outputs", [
+    (True, True, True), (True, True, False), (True, False, True), (False, True, True),
+    (True, False, False), (False, True, False), (False, False, True), (False, False, False),
+])
+@pytest.mark.parametrize("min_abundance", [-1, 0, 1, 3])
+def test_abundance_cut_kernel_matches_plain(cuda, case, outputs, min_abundance):
+    """K20 in every combination of its outputs; absent outputs stay None.
+    count1_heavy holds real lanes of count 0 and below, which keep takes at
+    min_abundance <= 0 and cut > 0 would not."""
+    spec = _to(_histogram_spectrum(case), cuda)
+    got = tcor.abundance_cut(spec, min_abundance, *outputs)
+    want = tcor.abundance_cut_plain(spec, min_abundance, *outputs)
+    torch.cuda.synchronize()
+    for asked, g, w in zip(outputs, got, want):
+        assert (g is None) == (w is None) == (not asked)
+        if asked:
+            _equal(g, w, "abundance cut")
+
+
+def test_cut_counts_and_abundance_filter_launch_k20(cuda):
+    spec = _to(_spectrum(24), cuda)
+    lib = kernels.library()
+    before = lib.launches["abundance_cut"]
+    got = tcor.cut_counts(spec, 2)
+    assert lib.launches["abundance_cut"] == before + 1
+    for g, w in zip(got, tcor.cut_counts_plain(spec, 2)):
+        _equal(g, w, "cut counts")
+    got = tcor.abundance_filter(spec, 2)
+    assert lib.launches["abundance_cut"] == before + 2
+    want = tcor.abundance_filter(_to(spec, "cpu"), 2)
+    assert got.n == want.n
+    _equal(got.key.cpu(), want.key, "filtered keys")
+    _equal(got.count.cpu(), want.count, "filtered counts")
+
+
+@pytest.mark.parametrize("k", [5, 24, 31])
+def test_lookup_counts_kernel_matches_plain(cuda, k):
+    """K21 on [Q] queries (hits, misses, PAD) and on the [8, C] sibling
+    probes of the whole table (at k = 5 the table is dense and every
+    probe hits)."""
+    spec = _to(_spectrum(k), cuda)
+    rng = np.random.default_rng(k)
+    real = spec.key[: spec.n].cpu().numpy()
+    flat = np.concatenate([rng.choice(real, 5000), rng.integers(0, 1 << (2 * k), 5000), [PAD]])
+    for query in (torch.from_numpy(flat).to(cuda), tsp.probe_keys(spec.key, k, "sib", True)):
+        got = tsp.lookup_counts(spec, query)
+        want = tsp.lookup_counts_plain(spec, query)
+        torch.cuda.synchronize()
+        assert got.shape == query.shape
+        _equal(got, want, "counts")
+        assert (got > 0).any()
+    flat_counts = tsp.lookup_counts(spec, torch.from_numpy(flat).to(cuda))
+    assert (flat_counts == 0).any() and int(flat_counts[-1]) == 0  # misses; the PAD query
+    assert tsp.lookup_counts(spec, torch.empty((0, 3), dtype=torch.int64, device=cuda)).shape == (0, 3)
+
+
+@pytest.mark.parametrize("k", [5, 16, 17, 24, 31])
+@pytest.mark.parametrize("canonical", [True, False])
+def test_sibling_maxes_kernel_matches_plain(cuda, k, canonical):
+    """K22 on every lane, pad lanes (0, 0) included."""
+    spec = _to(_spectrum(k, canonical), cuda)
+    got = tsp.sibling_maxes(spec, k, canonical)
+    want = tsp.sibling_maxes_plain(spec, k, canonical)
+    torch.cuda.synchronize()
+    _equal(got[0], want[0], "right sibling maxima")
+    _equal(got[1], want[1], "left sibling maxima")
+    assert (got[0][spec.n:] == 0).all() and (got[1][spec.n:] == 0).all()
+
+
+@pytest.mark.parametrize("ratio", [0.1, 0.3, 0.5])
+def test_prune_keep_kernel_float_grid(cuda, ratio):
+    """K23 bit-exact where an FMA would show: every count 0..255 against
+    every sibling maximum 0..4095 on the right (the left maximum half of
+    it), and the same with the sides swapped; a few PAD lanes."""
+    c, m = np.meshgrid(np.arange(256), np.arange(4096), indexing="ij")
+    c, m = np.tile(c.ravel(), 2), np.tile(m.ravel(), 2)
+    half = c.size // 2
+    rmax = np.concatenate([m[:half], m[half:] // 2]).astype(np.int32)
+    lmax = np.concatenate([m[:half] // 2, m[half:]]).astype(np.int32)
+    key = np.arange(c.size, dtype=np.int64)
+    key[-7:] = PAD
+    spec = Spectrum(key=torch.from_numpy(key).to(cuda),
+                    count=torch.from_numpy(c.astype(np.int32)).to(cuda), n=c.size - 7)
+    r, l = torch.from_numpy(rmax).to(cuda), torch.from_numpy(lmax).to(cuda)
+    ratio32, _ = tcor.prune_constants(ratio, 0.0)
+    got = tcor.prune_keep(spec, r, l, ratio32)
+    want = tcor.prune_keep_plain(spec, r, l, ratio32)
+    torch.cuda.synchronize()
+    _equal(got, want, "keep")
+    assert not got[-7:].any() and (~got).sum() > 7 and got.any()
+
+
+@pytest.mark.parametrize("k", [5, 16, 24, 31])
+@pytest.mark.parametrize("canonical", [True, False])
+@pytest.mark.parametrize("ratio", [0.0, 0.1, 0.5])
+def test_sibling_prune_round_on_cuda_matches_cpu(cuda, k, canonical, ratio):
+    """K22, K23 and K10 in one round equal the CPU run."""
+    spec = _spectrum(k, canonical)
+    lib = kernels.library()
+    lib.reset_counts()
+    got = tcor.sibling_prune_round(_to(spec, cuda), k, ratio, canonical)
+    for name in ("sibling_maxes", "prune_keep", "compact_keep"):
+        assert lib.launches[name] == 1, lib.launches
+    want = tcor.sibling_prune_round(spec, k, ratio, canonical)
+    assert got.n == want.n
+    _equal(got.key.cpu(), want.key, "keys")
+    _equal(got.count.cpu(), want.count, "counts")
+
+
+@pytest.mark.parametrize("k", [24, 31])
+def test_entry_step_on_cuda_matches_cpu(cuda, k):
+    """The flagship step at 512 reads, capacity 2^15, correction capacity
+    2^14: the CUDA run launches K1, K2, K20, K10, K22 and K23 and equals
+    the CPU run."""
+    from shannon_tpu_torch import entry as tentry
+    from shannon_tpu_torch.ops.count import upload_words
+
+    batch = tentry.example_batch(512, tentry.READ_LEN)
+    step = tentry.make_step(k, 1 << 15, 1 << 14, tentry.READ_LEN)
+    lib = kernels.library()
+    lib.reset_counts()
+    key, count, n = step(upload_words(batch.words, cuda), torch.from_numpy(batch.lengths).to(cuda))
+    for name in ("extract_kmers", "reduce_sorted", "abundance_cut", "compact_keep",
+                 "sibling_maxes", "prune_keep"):
+        assert lib.launches[name] > 0, lib.launches
+    c_key, c_count, c_n = step(upload_words(batch.words, "cpu"), torch.from_numpy(batch.lengths))
+    assert n == c_n
+    _equal(key.cpu(), c_key, "keys")
+    _equal(count.cpu(), c_count, "counts")
+
+
+def test_entry_kernel_wrappers_validate_inputs(cuda):
+    key = torch.zeros(8, dtype=torch.int64, device=cuda)
+    count = torch.zeros(8, dtype=torch.int32, device=cuda)
+    spec = Spectrum(key=key, count=count, n=0)
+    with pytest.raises(ValueError, match="int32"):
+        tcor.abundance_cut(spec, 1 << 31)
+    with pytest.raises(TypeError, match="int32"):
+        tcor.abundance_cut(Spectrum(key=key, count=key, n=0), 1)
+    with pytest.raises(ValueError, match="int64"):
+        tsp.lookup_counts(spec, count)
+    with pytest.raises(ValueError, match="disagree"):
+        tsp.sibling_maxes(Spectrum(key=key, count=count[:4], n=0), 24)
+    with pytest.raises(ValueError, match="rmax"):
+        tcor.prune_keep(spec, count[:4], count, 0.1)
+    with pytest.raises(ValueError, match="CUDA"):
+        tcor.prune_keep(spec, count.cpu(), count, 0.1)

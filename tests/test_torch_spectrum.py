@@ -1,10 +1,13 @@
 """Port parity: sorted-table lookup (K3's plain version) against
 shannon_tpu.ops.spectrum.lookup_hilo on JAX-CPU, in both of the
 reference's regimes (binary search for few queries, sort-merge join for
-many).
+many); count lookups (K21's plain version) against lookup_counts, and
+sibling maxima (K22's plain version) against sibling_maxes, on spectra
+both packages counted from the same reads (via convert).
 
 Tolerance: exact — hit masks equal, idx equal where hit (the contract of
-both packages; on a miss the reference's two kernels differ)."""
+both packages; on a miss the reference's two kernels differ); counts and
+sibling maxima equal on every lane."""
 
 import numpy as np
 import pytest
@@ -12,10 +15,12 @@ import torch
 
 import jax.numpy as jnp
 
+from shannon_tpu.ops import spectrum as jspec
 from shannon_tpu.ops.spectrum import lookup_hilo
 from shannon_tpu_torch.convert import key_to_hilo
 from shannon_tpu_torch.ops.kmers import PAD
-from shannon_tpu_torch.ops.spectrum import lookup_sorted
+from shannon_tpu_torch.ops.spectrum import lookup_counts, lookup_sorted, probe_keys, sibling_maxes
+from test_torch_correction import _spectra
 
 
 def _table(rng, k: int, n: int, cap: int) -> np.ndarray:
@@ -57,3 +62,47 @@ def test_lookup_keeps_query_shape_and_clamps():
 def test_lookup_in_empty_table_is_refused():
     with pytest.raises(ValueError, match="empty"):
         lookup_sorted(torch.empty(0, dtype=torch.int64), torch.tensor([1]))
+
+
+@pytest.mark.parametrize("shape", ["flat", "probes"])
+def test_lookup_counts_matches_reference(shape):
+    """[Q] queries (hits, misses and PAD) and the [8, C] sibling probes of
+    the whole table, pad lanes' probes included."""
+    port, ref = _spectra(24, seed=7)
+    rng = np.random.default_rng(8)
+    real = port.key[: port.n].numpy()
+    if shape == "flat":
+        query = np.concatenate([
+            rng.choice(real, 300), rng.integers(0, 1 << 48, 300, dtype=np.int64), [PAD, PAD],
+        ])
+        rng.shuffle(query)
+    else:
+        query = probe_keys(port.key, 24, "sib", True).numpy()
+    qhi, qlo = key_to_hilo(query)
+    want = np.asarray(jspec.lookup_counts(ref, jnp.asarray(qhi), jnp.asarray(qlo)))
+    got = lookup_counts(port, torch.from_numpy(query))
+    assert got.shape == query.shape and got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (want > 0).any() and (want == 0).any()
+    assert (got.numpy()[query == PAD] == 0).all()
+
+
+def test_lookup_counts_in_an_empty_table_misses():
+    port, _ = _spectra(24)
+    empty = type(port)(key=port.key[:0], count=port.count[:0], n=0)
+    assert lookup_counts(empty, torch.tensor([[1, PAD]])).tolist() == [[0, 0]]
+
+
+@pytest.mark.parametrize("k", [5, 16, 17, 24, 31])
+@pytest.mark.parametrize("canonical", [True, False])
+def test_sibling_maxes_matches_reference(k, canonical):
+    """16 and 17 straddle the reference's hs >= 32 branch."""
+    port, ref = _spectra(k, canonical=canonical)
+    want_r, want_l = (np.asarray(x) for x in jspec.sibling_maxes(ref, k, canonical))
+    got_r, got_l = sibling_maxes(port, k, canonical)
+    assert got_r.dtype == got_l.dtype == torch.int32
+    np.testing.assert_array_equal(got_r.numpy(), want_r)
+    np.testing.assert_array_equal(got_l.numpy(), want_l)
+    n = port.n
+    assert (got_r[:n] > port.count[:n]).any() and (got_l[:n] > port.count[:n]).any()
+    assert (got_r[n:] == 0).all() and (got_l[n:] == 0).all()
