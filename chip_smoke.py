@@ -11,7 +11,9 @@ Phases; any failure exits nonzero:
   2. kernels, each against its plain PyTorch version on the card at the
      main path's shapes, exact equality, both timed: K1 (k-mer
      extraction), K2 (sorted-run reduction) and K3 (sorted-table lookup) on
-     65,536 reads of 100 bp at pad 128, k = 24, a 2^22-lane table; K4
+     65,536 reads of 100 bp at pad 128, k = 24, a 2^22-lane table, and K24
+     (k-mer extraction from uint8 codes, with and without N codes) on the
+     same reads as codes, also held equal to K1 on them packed; K4
      (threading run scan) and K5 (across-read compaction) on the first
      65,536 reads of the scale dataset against the contig arrays
      spectrum_device builds from them; K7 (probe lookup, both probe sets),
@@ -59,6 +61,15 @@ Phases; any failure exits nonzero:
      (k = 24) on the dataset of scripts/measure_e2e.py (seed 11, 500
      transcripts x 1,500 bp, log-normal abundance sigma 1, 100 bp reads, 1%
      error); fails below 0.99 exact recall;
+  4b. sharded, 8 shards on the one card: dryrun_multichip(8) (its figures
+     == the JAX package's, DRYRUN_FIGURES; K24 and K25 launched); K25
+     (owner bucketing) against its plain version on shard 0's local
+     spectrum of the scale dataset's first batch (2^22 lanes, 8 owners x
+     2^20), and at a bucket_cap one below the widest owner, where the flag
+     must go up; count_reads_spectrum_sharded on the scale dataset at the
+     default config == count_reads_spectrum (both timed, in turns; K1, K2,
+     K17 and K25 launched); assemble at n_devices = 8 == the single-end
+     phase's transcripts, recall >= 0.99, count_s printed;
   5. paired scale, through the CLI: the same transcriptome sampled as
      100 bp mates with insert 250 (1% error), written as two FASTA files,
      run by shannon_tpu_torch.cli.main on CUDA, then run again on the same
@@ -67,18 +78,20 @@ Phases; any failure exits nonzero:
 In both scale phases each merge of the count is bracketed with CUDA events,
 and their sum is printed beside count_s.  scripts/scale_turns.py runs these
 two phases alone for several trees in turns (a parent against a change).
-Every kernel must launch at least once in each scale phase (counts set to
-0 just before the phase and read just after), but K21-K23, which assembly
+Every kernel must launch at least once in each scale phase (counts set to 0
+just before the phase and read just after), but K21-K23, which assembly
 never runs (the flagship step runs K22 and K23; K21's work on it is inside
-K22); K8 (dead-end rescue) runs only when the phase's auto abundance cut is
-above 1, and is exempt where it is 1; K13's cycle_round runs only when the
-labels find a cycle, and is exempt where they find none; K18 and K19 run
-only when the clip dooms a contig, and are exempt where it dooms none, and
-K19 also where a merge of the clip closed a cycle (the caller then condenses
-the clipped spectrum anew).
+K22), K24, which assembly never runs (it counts packed words; the dry run
+runs K24), and K25 where the count is not sharded; K8 (dead-end rescue) runs
+only when the phase's auto abundance cut is above 1, and is exempt where it
+is 1; K13's cycle_round runs only when the labels find a cycle, and is
+exempt where they find none; K18 and K19 run only when the clip dooms a
+contig, and are exempt where it dooms none, and K19 also where a merge of
+the clip closed a cycle (the caller then condenses the clipped spectrum
+anew).
 
 The last two lines of standard output are one JSON object with the kernels'
-launches (single-end, paired and entry), errors and times, and one JSON
+launches (single-end, paired, entry and sharded), errors and times, and one JSON
 object {"ok": true, "device": ...}.
 Imports nothing of JAX and nothing of the JAX package (shannon_tpu).
 """
@@ -137,6 +150,9 @@ REPLACES = {
     "lookup_counts": ("shannon_tpu_torch/csrc/spectrum.cu", "shannon_tpu/ops/spectrum.py:60"),
     "sibling_maxes": ("shannon_tpu_torch/csrc/spectrum.cu", "shannon_tpu/ops/spectrum.py:166"),
     "prune_keep": ("shannon_tpu_torch/csrc/correction.cu", "shannon_tpu/ops/correction.py:61"),
+    "extract_codes": ("shannon_tpu_torch/csrc/kernels.cu", "shannon_tpu/ops/kmers.py:116"),
+    "owner_buckets": ("shannon_tpu_torch/csrc/distributed.cu",
+                      "shannon_tpu/parallel/distributed.py:126"),
 }
 # Kernels that assembly never launches: K22 and K23 run in the flagship step
 # alone, and K21 on no path (its work on the flagship step is inside K22).
@@ -151,6 +167,15 @@ ENTRY_FIGURES = {"n": 163_705, "count_sum": 4_980_529, "capacity": 2_097_152,
 # Kernels the flagship step must launch.
 ENTRY_KERNELS = ("extract_kmers", "reduce_sorted", "abundance_cut", "compact_keep",
                  "sibling_maxes", "prune_keep")
+
+# dryrun_multichip(8)'s figures: those __graft_entry__.dryrun_multichip(8)
+# prints on JAX-CPU (8 virtual devices).
+DRYRUN_FIGURES = {"corrected_kmers": 22_820, "contigs": 2_506, "threading_events": 4_155,
+                  "transcripts": 233}
+# Shards of the sharded phase (the reference's dry-run width), all on the one
+# card, and the kernels its count must launch.
+SHARDS = 8
+SHARDED_KERNELS = ("extract_kmers", "reduce_sorted", "merge_spectra", "owner_buckets")
 
 # Peak rates of one H100 SXM for bound_ms (NVIDIA's data sheet): device
 # memory bandwidth, and float32 / integer operations outside the tensor cores.
@@ -328,8 +353,8 @@ def _write_mates(reads, directory: Path) -> tuple[str, str]:
 
 
 def kernel_phase(dev, smi: str) -> dict:
-    """K1-K3 against their plain versions at the main path's shapes, with
-    the one PyTorch call that computes the same (torch.unique_consecutive
+    """K1-K3 and K24 against their plain versions at the main path's shapes,
+    with the one PyTorch call that computes the same (torch.unique_consecutive
     for K2, torch.searchsorted for K3)."""
     import math
 
@@ -338,12 +363,14 @@ def kernel_phase(dev, smi: str) -> dict:
 
     from shannon_tpu_torch.io.pack import invalid_mask_words, pack_words
     from shannon_tpu_torch.ops.count import reduce_sorted, reduce_sorted_plain
-    from shannon_tpu_torch.ops.kmers import extract_kmers_packed, extract_kmers_packed_plain
+    from shannon_tpu_torch.ops.kmers import (
+        extract_kmers, extract_kmers_packed, extract_kmers_packed_plain, extract_kmers_plain,
+    )
     from shannon_tpu_torch.ops.spectrum import lookup_sorted, lookup_sorted_plain
 
     n, pad, k, cap = 65_536, 128, 24, 1 << 22
 
-    def batch(seed: int, with_n: bool):
+    def batch(seed: int, with_n: bool, codes_too: bool = False):
         rng = np.random.default_rng(seed)
         codes = np.full((n, pad), 4, np.uint8)
         codes[:, :100] = rng.integers(0, 4, (n, 100))
@@ -354,7 +381,8 @@ def kernel_phase(dev, smi: str) -> dict:
         words = torch.from_numpy(pack_words(codes).view(np.int32)).to(dev)
         m = invalid_mask_words(codes, lengths)
         mask = None if m is None else torch.from_numpy(m.view(np.int32)).to(dev)
-        return words, torch.from_numpy(lengths).to(dev), mask
+        packed = (words, torch.from_numpy(lengths).to(dev), mask)
+        return (*packed, torch.from_numpy(codes).to(dev)) if codes_too else packed
 
     out = {}
     rows = []
@@ -374,6 +402,21 @@ def kernel_phase(dev, smi: str) -> dict:
             _print_row(f"K1 extract_kmers canonical={canonical} mask={with_n}", rows[-1], smi)
     # the main path's case: canonical, no mask; the error over all four
     out["extract_kmers"] = {**rows[0], "max_abs_err": max(r["max_abs_err"] for r in rows)}
+
+    rows = []
+    for with_n in (False, True):
+        words, lengths, mask, codes = batch(1, with_n, codes_too=True)
+        args = (codes, lengths, k, True)
+        got = extract_kmers(*args)
+        err = _max_abs_err(got, extract_kmers_plain(*args))
+        if _max_abs_err(got, extract_kmers_packed(words, lengths, k, True, pad, mask)):
+            raise AssertionError("K24 disagrees with K1 on the same reads packed")
+        t = _alternate(lambda: extract_kmers(*args), lambda: extract_kmers_plain(*args))
+        W = got[0].shape[1]
+        rows.append(_row(err, t, _nbytes(codes, lengths, *got), 2 * n * W * k, None))
+        _print_row(f"K24 extract_codes canonical N={with_n}, {n} x {pad} uint8 codes (== K1 on "
+                   "them packed)", rows[-1], smi)
+    out["extract_codes"] = {**rows[0], "max_abs_err": max(r["max_abs_err"] for r in rows)}
 
     words, lengths, _ = batch(1, False)
     keys_a = torch.sort(extract_kmers_packed(words, lengths, k, True, pad)[0].reshape(-1)).values
@@ -1268,11 +1311,13 @@ def _run_cli(argv: list[str], smi: str) -> None:
         raise AssertionError(f"the CLI exited with {rc}")
 
 
-def _launches_check(launches: dict, phase: str, cut: int, clips: list) -> None:
-    """Every kernel launched in the phase but K21-K23 (ENTRY_ONLY); K8 only
-    where the phase's auto abundance cut is above 1, K13's cycle_round only
-    where its labels found a cycle, K18 and K19 only where the phase's clip
-    doomed a contig, and K19 only where no merge of the clip closed a
+def _launches_check(launches: dict, phase: str, cut: int, clips: list,
+                    sharded: bool = False) -> None:
+    """Every kernel launched in the phase but K21-K23 (ENTRY_ONLY) and K24
+    (assembly counts packed words); K25 only where the count is sharded; K8
+    only where the phase's auto abundance cut is above 1, K13's cycle_round
+    only where its labels found a cycle, K18 and K19 only where the phase's
+    clip doomed a contig, and K19 only where no merge of the clip closed a
     cycle."""
     missing = [name for name, count in launches.items() if count == 0]
     for name, label in ENTRY_ONLY.items():
@@ -1281,6 +1326,14 @@ def _launches_check(launches: dict, phase: str, cut: int, clips: list) -> None:
             print(f"the {phase} scale phase launched no {name} ({label}): assembly never runs it "
                   "(the entry phase checks K22 and K23 in the flagship step; K21's work there is "
                   "inside K22)")
+    if "extract_codes" in missing:
+        missing.remove("extract_codes")
+        print(f"the {phase} scale phase launched no extract_codes (K24): assembly counts and "
+              "threads packed words; dryrun_multichip runs K24 (the sharded phase checks it)")
+    if "owner_buckets" in missing and not sharded:
+        missing.remove("owner_buckets")
+        print(f"the {phase} scale phase launched no owner_buckets (K25): its count is not "
+              "sharded (one shard on one card; the sharded phase checks K25)")
     if "rescue_round" in missing and cut == 1:
         missing.remove("rescue_round")
         print(f"the {phase} scale phase launched no rescue_round (K8): its auto abundance "
@@ -1339,7 +1392,146 @@ def single_scale_phase(truth, reads, dev, lib, watch: Watch, smi: str) -> dict:
                     clips)
     return {"n_reads": len(reads), "e2e_s": e2e, "reads_per_s": len(reads) / e2e,
             "max_memory_allocated_bytes": peak, "stages": timer.stages, "stats": res.stats,
-            "quality": quality, "launches": launches, "clips": clips, "merges": merges}
+            "quality": quality, "launches": launches, "clips": clips, "merges": merges}, res
+
+
+def owner_row(batch, dev, smi: str) -> dict:
+    """K25 against its plain version at the sharded count's shape: shard 0's
+    local spectrum of the scale dataset's first batch (its first 1/SHARDS
+    rows, the default config: k = 24, capacity 2^22), bucketed for SHARDS
+    owners at the default bucket_cap (2^20); then at the widest owner's key
+    count less one, where the flag must go up."""
+    import torch
+
+    from shannon_tpu_torch.config import AssemblyConfig
+    from shannon_tpu_torch.ops.count import count_window_keys, upload_words
+    from shannon_tpu_torch.ops.kmers import extract_kmers_packed
+    from shannon_tpu_torch.parallel import distributed as td
+
+    cfg = AssemblyConfig()
+    rows = cfg.batch_reads // SHARDS
+    m = batch.mask_rows(0, rows)
+    keys, _ = extract_kmers_packed(
+        upload_words(batch.words[:rows], dev), torch.from_numpy(batch.lengths[:rows]).to(dev),
+        cfg.k, True, batch.pad_length, None if m is None else upload_words(m, dev),
+    )
+    local = count_window_keys(keys, cfg.kmer_capacity)
+    n_real = min(local.n, local.capacity)
+    bucket_cap = td.default_bucket_cap(cfg.kmer_capacity, SHARDS)
+    widest = int(torch.bincount(td.owner_of(local.key[:n_real], SHARDS)).max())
+    errs = []
+    for cap, overflows in ((bucket_cap, False), (widest - 1, True)):
+        args = (local.key, local.count, SHARDS, cap)
+        got = td.owner_buckets(*args)
+        errs.append(_max_abs_err(got, td.owner_buckets_plain(*args)))
+        if bool(got[2]) != overflows:
+            raise AssertionError(f"K25 at bucket_cap {cap}: overflow flag {bool(got[2])}")
+    args = (local.key, local.count, SHARDS, bucket_cap)
+    t = _alternate(lambda: td.owner_buckets(*args), lambda: td.owner_buckets_plain(*args))
+    # bytes: the real lanes' keys and counts in, the [D, bucket_cap] keys and
+    # counts out; operations: a hash and a rank a real lane
+    row = _row(max(errs), t, 12 * n_real + 12 * SHARDS * bucket_cap, 8 * n_real, None)
+    _print_row(f"K25 owner_buckets, shard 0 of the first batch: {local.capacity} lanes, {n_real} "
+               f"real, {SHARDS} owners x {bucket_cap} (widest owner {widest} keys; at "
+               f"bucket_cap {widest - 1} the flag is up)", row, smi)
+    return row
+
+
+def sharded_phase(truth, reads, single, dev, lib, watch: Watch, smi: str) -> tuple[dict, dict]:
+    """The multi-device counting path on SHARDS shards of the one card:
+    dryrun_multichip(SHARDS) (its figures == DRYRUN_FIGURES, K24 and K25
+    launched); count_reads_spectrum_sharded on the scale dataset at the
+    default config == count_reads_spectrum, both timed in turns (single,
+    sharded, sharded, single); assemble at n_devices = SHARDS == the
+    single-end scale phase's transcripts (`single`), recall >= 0.99.  Each
+    step's launches are counted from 0 just before it and read just after.
+    Returns (the phase's numbers, K25's row)."""
+    import torch
+
+    from shannon_tpu_torch.config import AssemblyConfig
+    from shannon_tpu_torch.entry import dryrun_multichip
+    from shannon_tpu_torch.eval import evaluate
+    from shannon_tpu_torch.io.pack import pack_reads
+    from shannon_tpu_torch.ops.count import count_reads_spectrum
+    from shannon_tpu_torch.parallel.distributed import count_reads_spectrum_sharded
+    from shannon_tpu_torch.parallel.mesh import make_mesh
+    from shannon_tpu_torch.pipeline import assemble
+    from shannon_tpu_torch.utils.timing import StageTimer
+
+    launches = {}
+
+    def counted(step: str, fn):
+        lib.reset_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize(dev)
+        launches[step] = dict(lib.launches)
+        return out, time.perf_counter() - t0
+
+    figures, dry_s = counted("dryrun", lambda: _with_card(
+        lambda: dryrun_multichip(SHARDS, device=dev), smi))
+    if figures != DRYRUN_FIGURES:
+        raise AssertionError(f"dryrun_multichip gave {figures}, the reference {DRYRUN_FIGURES}")
+    for name in ("extract_codes", "owner_buckets"):
+        if launches["dryrun"][name] == 0:
+            raise AssertionError(f"dryrun_multichip launched no {name}")
+    print(f"dryrun_multichip({SHARDS}): {dry_s:.2f} s, figures == the reference's [{smi}]")
+
+    cfg = AssemblyConfig()
+    batch = pack_reads(reads, pad_length=cfg.read_pad_length)
+    row = owner_row(batch, dev, smi)
+    mesh = make_mesh(SHARDS, dev)
+    steps = {
+        "single": lambda: count_reads_spectrum(batch, cfg.k, cfg.kmer_capacity, True,
+                                               cfg.batch_reads, device=dev),
+        "sharded_count": lambda: count_reads_spectrum_sharded(batch, cfg.k, cfg.kmer_capacity,
+                                                              mesh, True, cfg.batch_reads),
+    }
+    times = {name: [] for name in steps}
+    out = {}
+    for name in ("single", "sharded_count", "sharded_count", "single"):
+        out[name], secs = counted(name, steps[name])
+        times[name].append(secs)
+    spec, overflowed = out["sharded_count"]
+    one = out["single"]
+    if overflowed or spec.n != one.n or not (
+        torch.equal(spec.key, one.key) and torch.equal(spec.count, one.count)
+    ):
+        raise AssertionError(f"the sharded count (overflowed {overflowed}) != the single count")
+    missing = [name for name in SHARDED_KERNELS if launches["sharded_count"][name] == 0]
+    if missing:
+        raise AssertionError(f"the sharded count launched no {missing}")
+    print(f"sharded count: {len(reads)} reads, {SHARDS} shards on one card, k = {cfg.k}, "
+          f"{cfg.kmer_capacity} lanes a shard: {spec.n} k-mers == the single count; "
+          f"sharded {', '.join(f'{x:.3f}' for x in times['sharded_count'])} s, single "
+          f"{', '.join(f'{x:.3f}' for x in times['single'])} s (host clock, synchronized) [{smi}]")
+    print("sharded count launches " + json.dumps({k: v for k, v in
+                                                  launches["sharded_count"].items() if v}))
+    del spec, one, out, batch
+
+    timer = StageTimer(echo=False)
+    watch.reset()
+    res, e2e = counted("sharded_scale", lambda: assemble(
+        reads, AssemblyConfig(n_devices=SHARDS), device=dev, timer=timer))
+    notes = timer.stages["spectrum+graph"]
+    _launches_check(launches["sharded_scale"], "sharded", notes["auto_min_abundance"],
+                    list(watch.clips), sharded=True)
+    if res.canonical_set() != single.canonical_set():
+        raise AssertionError("the n_devices = 8 assembly differs from the single-end phase's")
+    quality = evaluate(truth, [t.seq for t in res.transcripts], k=24)
+    if quality["recall_exact"] < 0.99:
+        raise AssertionError(f"sharded exact recall {quality['recall_exact']} < 0.99")
+    print(f"sharded scale: {len(reads)} reads at n_devices = {SHARDS} in {e2e:.2f} s, count_s "
+          f"{notes['count_s']:.3f} s, the single-end phase's {len(res.transcripts)} transcripts, "
+          f"recall {quality['recall_exact']} [{smi}]")
+    print("sharded launches " + json.dumps({k: v for k, v in
+                                            launches["sharded_scale"].items() if v}))
+    path = {name: sum(launches[step][name] for step in ("dryrun", "sharded_count",
+                                                         "sharded_scale"))
+            for name in launches["dryrun"]}
+    return {"dryrun_s": dry_s, "dryrun_figures": figures, "count_s": times,
+            "e2e_s": e2e, "stages": timer.stages, "quality": quality, "launches": path,
+            "launches_by_step": launches}, row
 
 
 def paired_scale_phase(truth, reads, dev, lib, watch: Watch, smi: str) -> dict:
@@ -1458,8 +1650,10 @@ def main(argv=None) -> int:
           f"{time.perf_counter() - t0:.1f} s [{smi}]")
     paired_parity_phase(p_reads, dev, smi)
 
-    report["scale"] = single_scale_phase(truth, reads, dev, lib, watch, smi)
-    del reads
+    report["scale"], single = single_scale_phase(truth, reads, dev, lib, watch, smi)
+    report["sharded"], report["kernels"]["owner_buckets"] = sharded_phase(
+        truth, reads, single, dev, lib, watch, smi)
+    del reads, single
     report["paired_scale"] = paired_scale_phase(p_truth, p_reads, dev, lib, watch, smi)
     report["wall_s"] = time.perf_counter() - t_start
     if args.out:
@@ -1468,7 +1662,8 @@ def main(argv=None) -> int:
 
     paths = {"launches_single_end": report["scale"]["launches"],
              "launches_paired": report["paired_scale"]["launches"],
-             "launches_entry": report["entry"]["launches"]}
+             "launches_entry": report["entry"]["launches"],
+             "launches_sharded": report["sharded"]["launches"]}
     rows = [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": sum(counts[name] for counts in paths.values()),

@@ -5,8 +5,9 @@ with ``--device`` in place of ``--backend``.
     shannon-tpu-torch -o OUT --left l.fastq --right r.fastq --device cuda
     python -m shannon_tpu_torch.cli ...
 
-Runs :func:`shannon_tpu_torch.pipeline.run_pipeline` on one device.  The
-pure-Python oracle stays in the reference's CLI.
+Runs :func:`shannon_tpu_torch.pipeline.run_pipeline` in one process; ``-p
+N`` counts in N shards.  The pure-Python oracle stays in the reference's
+CLI.
 """
 
 from __future__ import annotations
@@ -31,8 +32,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-K", "-k", "--kmer-size", type=int, default=24, dest="k")
     p.add_argument(
         "-p", "--partitions", type=int, default=0,
-        help="device count to shard across; the port runs on one device "
-        "(0 or 1), more raises",
+        help="shards to count across (0 = every visible card); shards beyond "
+        "the cards share them round robin",
     )
     p.add_argument("--ss", "--strand-specific", action="store_true",
                    dest="strand_specific", help="strand-specific protocol")
@@ -108,10 +109,6 @@ def main(argv: list[str] | None = None) -> int:
         print("error: --left and --right must be given together",
               file=sys.stderr)
         return 2
-    if args.partitions > 1:
-        raise NotImplementedError(
-            "multi-device counting is not ported yet (ROADMAP Queue 1, item 14)"
-        )
     config = AssemblyConfig(
         k=args.k,
         min_abundance=args.min_abundance,

@@ -1,9 +1,10 @@
 // Hand-written Hopper (sm_90a) kernels of the shannon_tpu_torch port: the
-// k-mer kernels K1-K3 and the count merge K17 (threading's K4-K5 are in
-// thread.cu, the sparse-flow solver K6 in sparseflow.cu, correction's K7-K10,
-// K16, K20 and K23 in correction.cu, condensation's K11-K15 in condense.cu,
-// tip clip's K18-K19 in tipclip.cu, the count lookups K21-K22 in
-// spectrum.cu).
+// k-mer kernels K1-K3 and K24 and the count merge K17 (threading's K4-K5 are
+// in thread.cu, the sparse-flow solver K6 in sparseflow.cu, correction's
+// K7-K10, K16, K20 and K23 in correction.cu, condensation's K11-K15 in
+// condense.cu, tip clip's K18-K19 in tipclip.cu, the count lookups K21-K22
+// in spectrum.cu, the sharded count's owner bucketing K25 in
+// distributed.cu).
 //
 // Plain C interface, built with nvcc into build/kernels/libshannon_kernels.so
 // and bound with ctypes (shannon_tpu_torch/kernels.py).  Every entry point
@@ -53,6 +54,44 @@ __global__ void extract_kmers_kernel(const uint32_t* __restrict__ words,
         ((mask[r * mask_words_per_row + (p >> 5)] >> (p & 31)) & 1u)) {
       ok = false;
     }
+  }
+  uint64_t v = (canonical && rc < fwd) ? rc : fwd;
+  keys[t] = ok ? (int64_t)v : PAD_KEY;
+  valid[t] = ok ? 1 : 0;
+}
+
+// ---------------------------------------------------------------------------
+// K24: k-mer extraction from [N, L] uint8 base codes.
+// Replaces shannon_tpu/ops/kmers.py:116 extract_kmers (with _windows_from_c32
+// :78, revcomp_hilo :49, canonical_hilo :69).  K1's design with a byte per
+// base: one thread per (read, window), consecutive threads on consecutive
+// windows, forward key and reverse complement in one k-step loop.  A code >= 4
+// (N) invalidates its windows before its low 2 bits are read
+// (ops/kmers.py:127-128), so an N never reads as A.  The loop is K1's own,
+// written out again: one template for both code sources cost K1's unmasked
+// case a third of its speed on the H100 (PERF.md, section 6).
+// Bound: memory (k bytes read a window, shared with the neighbours through
+// L1; 9 bytes written).
+// ---------------------------------------------------------------------------
+__global__ void extract_codes_kernel(const uint8_t* __restrict__ codes,
+                                     const int32_t* __restrict__ lengths,
+                                     int64_t n_reads, int row_len, int n_windows,
+                                     int k, int canonical,
+                                     int64_t* __restrict__ keys,
+                                     uint8_t* __restrict__ valid) {
+  int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= n_reads * (int64_t)n_windows) return;
+  int64_t r = t / n_windows;
+  int j = (int)(t - r * n_windows);
+  const uint8_t* row = codes + r * row_len;
+  bool ok = j + k <= lengths[r];
+  uint64_t fwd = 0, rc = 0;
+  for (int i = 0; i < k; ++i) {
+    const uint32_t code = row[j + i];
+    if (code > 3u) ok = false;
+    const uint64_t c = code & 3u;
+    fwd = (fwd << 2) | c;
+    rc |= (3ull - c) << (2 * i);
   }
   uint64_t v = (canonical && rc < fwd) ? rc : fwd;
   keys[t] = ok ? (int64_t)v : PAD_KEY;
@@ -219,6 +258,18 @@ int shannon_extract_kmers(const void* words, const void* lengths,
         (const uint32_t*)words, (const int32_t*)lengths,
         (const uint32_t*)mask, n_reads, words_per_row, mask_words_per_row,
         n_windows, k, canonical, (int64_t*)keys, (uint8_t*)valid);
+  }
+  return (int)cudaGetLastError();
+}
+
+int shannon_extract_codes(const void* codes, const void* lengths, int64_t n_reads,
+                          int row_len, int n_windows, int k, int canonical,
+                          void* keys, void* valid, void* stream) {
+  int64_t total = n_reads * (int64_t)n_windows;
+  if (total > 0) {
+    extract_codes_kernel<<<blocks_for(total), THREADS, 0, (cudaStream_t)stream>>>(
+        (const uint8_t*)codes, (const int32_t*)lengths, n_reads, row_len, n_windows,
+        k, canonical, (int64_t*)keys, (uint8_t*)valid);
   }
   return (int)cudaGetLastError();
 }

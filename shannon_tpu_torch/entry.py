@@ -1,27 +1,43 @@
-"""The flagship count-and-correct step, on one GPU.
+"""The flagship count-and-correct step on one GPU, and the sharded dry run.
 
-Counterpart of ``__graft_entry__.py:18-71`` (``_example_batch``,
-``entry``): count the k-mers of one batch of 2-bit packed reads (K1,
-``torch.sort``, K2), slice the table to the correction capacity, drop the
-k-mers below the abundance cut (K20's keep flags, ``torch.cumsum``, K10) and
-run one sibling-prune round (K22's sibling maxima, K23's keep flags,
-``torch.cumsum``, K10).  ``entry()`` gives the step and its arguments at the
-reference's flagship shape: 65,536 reads of 100 bp, k = 24, a 2^22-lane
-count table sliced to 2^21 lanes.
+Counterpart of ``__graft_entry__.py`` (``_example_batch``, ``entry``,
+``dryrun_multichip``).  ``entry()`` gives the step and its arguments at the
+reference's flagship shape: count the k-mers of one batch of 2-bit packed
+reads (K1, ``torch.sort``, K2), slice the table to the correction capacity,
+drop the k-mers below the abundance cut (K20's keep flags, ``torch.cumsum``,
+K10) and run one sibling-prune round (K22's sibling maxima, K23's keep flags,
+``torch.cumsum``, K10), at 65,536 reads of 100 bp, k = 24, a 2^22-lane count
+table sliced to 2^21 lanes.  ``dryrun_multichip(n)`` runs one full sharded
+step on an n-shard mesh (``parallel.mesh.make_mesh``) and holds each part
+against the same work on one device.
 
     python -m shannon_tpu_torch.entry
 
-runs the step once on the card and prints the number of k-mers it keeps.
+runs the step once on the card and prints the number of k-mers it keeps,
+then ``dryrun_multichip(8)``: 8 shards, on the one card where there is one.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
+from shannon_tpu_torch.config import AssemblyConfig
 from shannon_tpu_torch.io.pack import ReadBatch, pack_reads
+from shannon_tpu_torch.ops.condense import ContigArrays, build_contig_arrays
 from shannon_tpu_torch.ops.correction import abundance_filter, sibling_prune_round
-from shannon_tpu_torch.ops.count import _slice_spectrum, count_spectrum_packed, upload_words
+from shannon_tpu_torch.ops.count import (
+    _slice_spectrum,
+    count_spectrum,
+    count_spectrum_packed,
+    upload_words,
+)
+from shannon_tpu_torch.ops.thread import thread_reads_device
+from shannon_tpu_torch.parallel.distributed import count_spectrum_sharded
+from shannon_tpu_torch.parallel.mesh import make_mesh
+from shannon_tpu_torch.pipeline import assemble
 from shannon_tpu_torch.sim import random_seq, sample_reads, simulate_transcripts
 
 K = 24
@@ -81,7 +97,83 @@ def entry(device="cuda"):
     return make_step(K, CAPACITY, CORRECT_CAP, READ_LEN), args
 
 
+def _contig_arrays_to(ca: ContigArrays, device) -> ContigArrays:
+    return dataclasses.replace(ca, **{
+        f.name: getattr(ca, f.name).to(device)
+        for f in dataclasses.fields(ca) if isinstance(getattr(ca, f.name), torch.Tensor)
+    })
+
+
+def dryrun_multichip(n_devices: int, device="cuda") -> dict:
+    """One full sharded step on make_mesh(n_devices, device), held against
+    the same work on one device (``__graft_entry__.py:74-166``): 256 reads
+    a shard of example_batch, k = 24, 2^15 lanes.  The sharded count
+    (K24, sort, K2, K25, the exchange) followed by abundance_filter(1) and
+    sibling_prune_round(0.1) must equal count_spectrum (K24, sort, K2)
+    followed by the same; threading each shard's reads on its own device
+    must give the unsharded threading's events; assemble at n_devices =
+    n must give the transcripts of n_devices = 1.  Returns the figures it
+    prints."""
+    mesh = make_mesh(n_devices, device)
+    home = mesh[0]
+    n_reads = 256 * n_devices
+    batch = example_batch(n_reads, READ_LEN)
+    codes = torch.from_numpy(batch.codes).to(home)
+    lengths = torch.from_numpy(batch.lengths).to(home)
+    dry_cap = 1 << 15
+
+    spec, overflowed = count_spectrum_sharded(codes, lengths, K, dry_cap, mesh)
+    spec = sibling_prune_round(abundance_filter(spec, MIN_ABUNDANCE), K, SIBLING_RATIO)
+    if overflowed:
+        raise AssertionError("sharded count overflowed in dryrun")
+    if spec.n == 0:
+        raise AssertionError("dryrun produced an empty spectrum")
+    single = count_spectrum(codes, lengths, K, dry_cap)
+    single = sibling_prune_round(abundance_filter(single, MIN_ABUNDANCE), K, SIBLING_RATIO)
+    if spec.to_dict() != single.to_dict():
+        raise AssertionError("sharded != single-device spectrum")
+
+    # condensation on the gathered table, then data-parallel threading of
+    # the same read shards, each on its own device
+    ca = build_contig_arrays(spec, K, canonical=True)
+    rows = n_reads // len(mesh)
+    n_events = torch.cat([
+        thread_reads_device(
+            codes[i * rows : (i + 1) * rows].to(dev), lengths[i * rows : (i + 1) * rows].to(dev),
+            _contig_arrays_to(ca, dev), K,
+        )[2].to(home)
+        for i, dev in enumerate(mesh)
+    ])
+    n_events_one = thread_reads_device(codes, lengths, ca, K)[2]
+    if not torch.equal(n_events, n_events_one):
+        raise AssertionError("sharded threading != single-device threading")
+    if int(n_events.sum()) == 0:
+        raise AssertionError("threading produced no events")
+
+    # the whole pipeline with the sharded count against one device
+    reads = batch.sequences()
+    multi, one = (
+        assemble(reads, AssemblyConfig(
+            k=K, kmer_capacity=dry_cap, n_devices=n, min_transcript_length=30,
+            min_output_abundance=0.0, batch_reads=max(16, n_reads),
+        ), device=device)
+        for n in (n_devices, 1)
+    )
+    if not multi.transcripts:
+        raise AssertionError("full sharded step emitted nothing")
+    if multi.canonical_set() != one.canonical_set():
+        raise AssertionError("sharded full pipeline != single-device transcripts")
+    figures = {"corrected_kmers": spec.n, "contigs": ca.n_contigs,
+               "threading_events": int(n_events.sum()), "transcripts": len(multi.transcripts)}
+    print(f"dryrun_multichip({n_devices}): ok — {figures['corrected_kmers']} corrected "
+          f"k-mers, {figures['contigs']} contigs, {figures['threading_events']} threading "
+          f"events, {figures['transcripts']} transcripts; sharded == single-device through "
+          "MB+SF+enumeration")
+    return figures
+
+
 if __name__ == "__main__":
     fn, args = entry()
     _key, _count, n = fn(*args)
     print("entry(): ok —", n, "k-mers")
+    dryrun_multichip(8)

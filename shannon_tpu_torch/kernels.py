@@ -44,6 +44,7 @@ KERNELS = (
     "contig_reduce", "base_streams",
     "count_histogram", "merge_spectra", "drop_contigs", "clip_remap",
     "abundance_cut", "lookup_counts", "sibling_maxes", "prune_keep",
+    "extract_codes", "owner_buckets",
 )
 
 _P = ctypes.c_void_p
@@ -52,6 +53,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _ARGTYPES = {
     "shannon_extract_kmers": [_P, _P, _P, _I64, _I, _I, _I, _I, _I, _P, _P, _P],
+    "shannon_extract_codes": [_P, _P, _I64, _I, _I, _I, _I, _P, _P, _P],
     "shannon_run_start_flags": [_P, _I64, _P, _P],
     "shannon_reduce_runs": [_P, _P, _I64, _P, _I64, _P, _P, _P, _P],
     "shannon_lookup_sorted": [_P, _I64, _P, _I64, _P, _P, _P],
@@ -82,6 +84,8 @@ _ARGTYPES = {
     "shannon_lookup_counts": [_P, _P, _I64, _P, _I64, _P, _P],
     "shannon_sibling_maxes": [_P, _P, _I64, _I, _I, _P, _P, _P],
     "shannon_prune_keep": [_P, _P, _P, _P, _I64, _F, _P, _P],
+    "shannon_owner_counts": [_P, _I64, _I, _P, _P],
+    "shannon_owner_scatter": [_P, _P, _I64, _I, _I64, *[_P] * 5, _P],
 }
 
 

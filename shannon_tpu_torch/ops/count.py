@@ -1,8 +1,9 @@
 """k-mer counting: sort + run reduction into a capacity-padded spectrum.
 
 Counterpart of ``shannon_tpu/ops/count.py``.  Per batch: extract window keys
-(K1), ``torch.sort`` them, and reduce runs of equal keys into a sorted
-table of unique keys and counts (kernel K2, ``reduce_sorted``).  Batches
+(K1 from packed words, K24 from uint8 codes), ``torch.sort`` them, and
+reduce runs of equal keys into a sorted table of unique keys and counts
+(kernel K2, ``reduce_sorted``).  Batches
 merge by rank (kernel K17, ``merge_at``: each lane's place in the merged
 order is its index plus its rank in the other table), then K2 sums the
 counts of equal keys.  The table stays sorted and PAD-filled past ``n`` so
@@ -21,7 +22,7 @@ import numpy as np
 import torch
 
 from shannon_tpu_torch import kernels
-from shannon_tpu_torch.ops.kmers import PAD, extract_kmers_packed
+from shannon_tpu_torch.ops.kmers import PAD, extract_kmers, extract_kmers_packed
 
 
 @dataclass
@@ -151,6 +152,24 @@ def unique_first_sorted(
     return key, tuple(out), n
 
 
+def count_window_keys(keys: torch.Tensor, capacity: int) -> Spectrum:
+    """Count window keys (PAD where invalid) into a sorted Spectrum:
+    torch.sort, then K2 with unit counts (ops/count.py:196
+    _spectrum_from_windows).  Past `capacity` distinct keys the table keeps
+    the first `capacity` and n counts them all."""
+    keys = torch.sort(keys.reshape(-1)).values
+    key, count, _, n = reduce_sorted(keys, None, capacity)
+    return Spectrum(key=key, count=count, n=n)
+
+
+def count_spectrum(
+    codes: torch.Tensor, lengths: torch.Tensor, k: int, capacity: int, canonical: bool = True
+) -> Spectrum:
+    """Count every k-mer of one batch of [n, L] uint8 codes into a sorted
+    Spectrum (ops/count.py:215 count_spectrum): K24, sort, K2."""
+    return count_window_keys(extract_kmers(codes, lengths, k, canonical)[0], capacity)
+
+
 def count_spectrum_packed(
     words: torch.Tensor,
     lengths: torch.Tensor,
@@ -161,11 +180,9 @@ def count_spectrum_packed(
     mask: torch.Tensor | None = None,
 ) -> Spectrum:
     """Count every k-mer of one packed read batch into a sorted Spectrum
-    (ops/count.py:227 count_spectrum_packed)."""
+    (ops/count.py:227 count_spectrum_packed): K1, sort, K2."""
     keys, _ = extract_kmers_packed(words, lengths, k, canonical, length, mask)
-    keys = torch.sort(keys.reshape(-1)).values
-    key, count, _, n = reduce_sorted(keys, None, capacity)
-    return Spectrum(key=key, count=count, n=n)
+    return count_window_keys(keys, capacity)
 
 
 def merge_at_plain(a: Spectrum, b: Spectrum, capacity: int) -> Spectrum:
@@ -309,11 +326,18 @@ def count_reads_spectrum(
                 f"a read batch produced more than capacity={capacity} "
                 "distinct k-mers; raise kmer_capacity or lower batch_reads"
             )
-        if total is None:
-            total = part
-        elif total.capacity == part.capacity:
-            merged = merge_spectra_fixed(total, part)
-            total = merge_spectra_sized(total, part) if merged.overflowed() else merged
-        else:
-            total = merge_spectra_sized(total, part)
+        total = merge_batch(total, part)
     return total if total is not None else empty_spectrum(capacity, device)
+
+
+def merge_batch(total: Spectrum | None, part: Spectrum) -> Spectrum:
+    """The batch loop's merge of a batch's table into the running total:
+    at the fixed capacity while it fits, else at a grown, tight capacity
+    (ops/count.py:409 count_reads_spectrum, parallel/distributed.py:196
+    count_reads_spectrum_sharded)."""
+    if total is None:
+        return part
+    if total.capacity == part.capacity:
+        merged = merge_spectra_fixed(total, part)
+        return merge_spectra_sized(total, part) if merged.overflowed() else merged
+    return merge_spectra_sized(total, part)

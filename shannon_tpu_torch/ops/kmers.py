@@ -1,6 +1,6 @@
-"""k-mer keys and windowed extraction from 2-bit packed reads.
+"""k-mer keys and windowed extraction from 2-bit packed reads or uint8 codes.
 
-Counterpart of ``shannon_tpu/ops/kmers.py`` (packed format only).  A k-mer
+Counterpart of ``shannon_tpu/ops/kmers.py``.  A k-mer
 is one ``int64`` key instead of the TPU's ``(hi, lo)`` uint32 pair: base i of
 a window sits at bits ``[2(k-1-i), 2(k-1-i)+2)``, so the integer order of keys
 is the lexicographic ``(hi, lo)`` order of the reference.  The device path
@@ -12,9 +12,10 @@ Packed read words arrive as ``int32`` bit patterns (``np.uint32`` viewed as
 ``np.int32``); plain code widens them to int64 and masks with ``0xFFFFFFFF``
 instead of using ``torch.uint32`` arithmetic.
 
-``extract_kmers_packed`` is kernel K1: on CUDA tensors it launches the
-hand-written kernel in ``csrc/kernels.cu``; on CPU tensors it runs
-``extract_kmers_packed_plain``.
+``extract_kmers_packed`` is kernel K1 and ``extract_kmers`` (uint8 codes,
+the sharded counter's and ``dryrun_multichip``'s input) kernel K24: on CUDA
+tensors each launches its hand-written kernel in ``csrc/kernels.cu``; on CPU
+tensors it runs its plain version.
 """
 
 from __future__ import annotations
@@ -80,6 +81,27 @@ def unpack_mask(mask: torch.Tensor, length: int) -> torch.Tensor:
     return b.reshape(n, wm * 32)[:, :length].bool()
 
 
+def _windows_plain(codes, bad, lengths, k: int, canonical: bool):
+    """Every window's key from [n, L] codes (only their low 2 bits count)
+    and an optional [n, L] invalid-position mask: k shifted ORs
+    (ops/kmers.py:78 _windows_from_c32)."""
+    n, L = codes.shape
+    W = L - k + 1
+    if W <= 0:
+        raise ValueError(f"pad_length {L} < k {k}")
+    key = torch.zeros((n, W), dtype=torch.int64, device=codes.device)
+    valid = torch.ones((n, W), dtype=torch.bool, device=codes.device)
+    for i in range(k):
+        key = (key << 2) | (codes[:, i : i + W] & 3)
+        if bad is not None:
+            valid &= ~bad[:, i : i + W]
+    col = torch.arange(W, device=codes.device)
+    valid &= (col[None, :] + k) <= lengths[:, None].long()
+    if canonical:
+        key = canonical_key(key, k)
+    return torch.where(valid, key, PAD), valid
+
+
 def extract_kmers_packed_plain(
     words: torch.Tensor,
     lengths: torch.Tensor,
@@ -88,27 +110,20 @@ def extract_kmers_packed_plain(
     length: int | None = None,
     mask: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch K1: k shifted ORs over the unpacked code plane
-    (ops/kmers.py:78 _windows_from_c32)."""
+    """Plain PyTorch K1: the windows of the unpacked code plane."""
     if length is None:
         length = 16 * words.shape[1]
-    codes = unpack_words(words, length)
-    n, L = codes.shape
-    W = L - k + 1
-    if W <= 0:
-        raise ValueError(f"pad_length {L} < k {k}")
     bad = None if mask is None else unpack_mask(mask, length)
-    key = torch.zeros((n, W), dtype=torch.int64, device=words.device)
-    valid = torch.ones((n, W), dtype=torch.bool, device=words.device)
-    for i in range(k):
-        key = (key << 2) | codes[:, i : i + W]
-        if bad is not None:
-            valid &= ~bad[:, i : i + W]
-    col = torch.arange(W, device=words.device)
-    valid &= (col[None, :] + k) <= lengths[:, None].long()
-    if canonical:
-        key = canonical_key(key, k)
-    return torch.where(valid, key, PAD), valid
+    return _windows_plain(unpack_words(words, length), bad, lengths, k, canonical)
+
+
+def extract_kmers_plain(
+    codes: torch.Tensor, lengths: torch.Tensor, k: int, canonical: bool = True
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch K24: a code >= 4 invalidates every window that touches
+    it before the low 2 bits are read (ops/kmers.py:127-128)."""
+    c = codes.long()
+    return _windows_plain(c, c >= 4, lengths, k, canonical)
 
 
 def _extract_kmers_cuda(words, lengths, k, canonical, length, mask):
@@ -159,3 +174,37 @@ def extract_kmers_packed(
     if words.is_cuda:
         return _extract_kmers_cuda(words, lengths, k, canonical, length, mask)
     return extract_kmers_packed_plain(words, lengths, k, canonical, length, mask)
+
+
+def _extract_codes_cuda(codes, lengths, k, canonical):
+    kernels.check_cuda("codes", codes, torch.uint8, 2)
+    kernels.check_cuda("lengths", lengths, torch.int32, 1)
+    n, L = codes.shape
+    if lengths.shape[0] != n:
+        raise ValueError("codes and lengths disagree on the read count")
+    W = L - k + 1
+    if W <= 0:
+        raise ValueError(f"pad_length {L} < k {k}")
+    keys = torch.empty((n, W), dtype=torch.int64, device=codes.device)
+    valid = torch.empty((n, W), dtype=torch.bool, device=codes.device)
+    lib = kernels.library()
+    lib.call(
+        "shannon_extract_codes", codes.device,
+        kernels.ptr(codes), kernels.ptr(lengths), n, L, W, k, int(canonical),
+        kernels.ptr(keys), kernels.ptr(valid),
+    )
+    lib.count("extract_codes")
+    return keys, valid
+
+
+def extract_kmers(
+    codes: torch.Tensor, lengths: torch.Tensor, k: int, canonical: bool = True
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Every window's k-mer key of [n, L] uint8 base codes (>= 4 invalid).
+    Returns (key [n, W] int64, valid [n, W] bool), W = L - k + 1; windows
+    past the read length or touching a code >= 4 hold PAD.  Kernel K24 on
+    CUDA, the plain version on CPU (ops/kmers.py:116 extract_kmers)."""
+    check_k(k)
+    if codes.is_cuda:
+        return _extract_codes_cuda(codes, lengths, k, canonical)
+    return extract_kmers_plain(codes, lengths, k, canonical)

@@ -4,7 +4,9 @@ Counterpart of ``shannon_tpu/ops/thread.py`` (spec in its module
 docstring; matches oracle thread_read_runs).  Window keys come from K1 in
 forward orientation, their node lanes from K3.  A run is a maximal stretch
 of windows that hit the node table; an event is recorded at a run start
-or where the window's contig offset is 0.
+or where the window's contig offset is 0.  Packed reads go through K1
+(``thread_reads_device_packed``, the pipeline's route), uint8 codes through
+K24 (``thread_reads_device``, ``dryrun_multichip``'s).
 
 Two kernels follow the lookup: K4 (``thread_windows``) scans each read row
 and writes its events and runs to the front of -1-padded rows, and K5
@@ -23,7 +25,7 @@ import torch
 
 from shannon_tpu_torch import kernels
 from shannon_tpu_torch.ops.condense import ContigArrays
-from shannon_tpu_torch.ops.kmers import extract_kmers_packed
+from shannon_tpu_torch.ops.kmers import extract_kmers, extract_kmers_packed
 from shannon_tpu_torch.ops.spectrum import lookup_sorted
 
 
@@ -122,6 +124,14 @@ def thread_reads_device_packed(
     keys, valid = extract_kmers_packed(
         words, lengths, k, canonical=False, length=length, mask=mask
     )
+    idx, hit = lookup_sorted(ca.node_key, keys)
+    return thread_windows(idx, hit, valid, ca.node_cid, ca.node_off)
+
+
+def thread_reads_device(codes: torch.Tensor, lengths: torch.Tensor, ca: ContigArrays, k: int):
+    """Thread one batch of uint8 codes through the node table
+    (ops/thread.py:40 thread_reads_device): K24, K3, then K4."""
+    keys, valid = extract_kmers(codes, lengths, k, canonical=False)
     idx, hit = lookup_sorted(ca.node_key, keys)
     return thread_windows(idx, hit, valid, ca.node_cid, ca.node_off)
 

@@ -1,9 +1,9 @@
-"""Assembly on one device: the port's entry points.
+"""Assembly in one process: the port's entry points.
 
 Counterparts of ``shannon_tpu.pipeline.assemble(reads, config,
 backend="device")`` (in memory, single-end or paired) and of
 ``shannon_tpu.pipeline.run_pipeline`` (files in, stage checkpoints in an
-out-dir, resume), both on one device:
+out-dir, resume), in one process:
 
   ingest -> count -> auto abundance cut -> correction -> tip clip +
   condensation -> components -> threading -> multibridging -> sparse flow
@@ -12,7 +12,10 @@ out-dir, resume), both on one device:
 Every tensor lives on the ``device`` passed in (the first CUDA card by
 default); on a CUDA device the hand-written kernels run (K1-K3 k-mers,
 K7-K10 correction, K4-K5 threading, K6 sparse flow), on the CPU their
-plain versions.  The host stages (clip rounds, materialization,
+plain versions.  With ``config.n_devices`` resolving to more than one shard
+(``parallel.mesh.make_mesh``: 0 = every visible card), counting runs
+sharded (``parallel.distributed``, K1, K2, K25 and K17), and the stages
+after it run on ``device``.  The host stages (clip rounds, materialization,
 components, pair joining, MB, SF bookkeeping, enumeration) are copies of
 the reference's code.
 """
@@ -50,6 +53,8 @@ from shannon_tpu_torch.ops.thread import (
     thread_reads_device_packed,
 )
 from shannon_tpu_torch.ops.tipclip import clip_tips_graph
+from shannon_tpu_torch.parallel.distributed import count_reads_spectrum_sharded
+from shannon_tpu_torch.parallel.mesh import make_mesh
 from shannon_tpu_torch.oracle.assemble import AssemblyResult, Transcript, dedupe_and_filter
 from shannon_tpu_torch.oracle.multibridge import expand_paths
 from shannon_tpu_torch.oracle.nodegraph import NodeGraph, _lists_to_flat
@@ -65,10 +70,6 @@ def _sync(device: torch.device) -> None:
 def _check_config(config: AssemblyConfig, device) -> torch.device:
     """Refuse what the port does not run, and name the device to use.  A
     CUDA device without a card raises: there is no CPU fallback."""
-    if config.n_devices > 1:
-        raise NotImplementedError(
-            "multi-device counting is not ported yet (ROADMAP Queue 1, item 14)"
-        )
     check_k(config.k)
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -91,15 +92,28 @@ def spectrum_device(
     timer = timer or StageTimer(echo=False)
     canonical = not config.strand_specific
     t0 = time.perf_counter()
-    spec = count_reads_spectrum(
-        batch,
-        k=config.k,
-        capacity=config.kmer_capacity,
-        canonical=canonical,
-        batch_reads=config.batch_reads,
-        device=device,
-    )
-    if spec.overflowed():
+    mesh = make_mesh(config.n_devices, device)
+    if len(mesh) > 1:
+        spec, overflowed = count_reads_spectrum_sharded(
+            batch,
+            k=config.k,
+            capacity=config.kmer_capacity,
+            mesh=mesh,
+            canonical=canonical,
+            batch_reads=config.batch_reads,
+        )
+        overflowed = overflowed or spec.overflowed()
+    else:
+        spec = count_reads_spectrum(
+            batch,
+            k=config.k,
+            capacity=config.kmer_capacity,
+            canonical=canonical,
+            batch_reads=config.batch_reads,
+            device=device,
+        )
+        overflowed = spec.overflowed()
+    if overflowed:
         raise RuntimeError(
             f"kmer_capacity={config.kmer_capacity} overflowed; raise "
             "AssemblyConfig.kmer_capacity"

@@ -1,5 +1,6 @@
-"""Port parity: counting (K2's plain version), merges, the batch driver
-and the convert round trip, against shannon_tpu.ops.count on JAX-CPU.
+"""Port parity: counting (K2's plain version, from packed words and from
+uint8 codes), merges, the batch driver and the convert round trip, against
+shannon_tpu.ops.count on JAX-CPU.
 
 Tolerance: exact — keys (as (hi, lo)), counts and n equal over the whole
 capacity."""
@@ -58,6 +59,20 @@ def test_count_spectrum_packed_matches_reference(k, canonical):
     batch = pack_reads(_reads(k) + ["ACGTNACGTACGTAAACCCGGGTTT" * 3], pad_length=96)
     port, ref = _both_counts(batch, k, 1 << 13, canonical)
     assert not port.overflowed() and not ref.overflowed()
+    _assert_same(port, ref)
+
+
+@pytest.mark.parametrize("k", [15, 24, 31])
+@pytest.mark.parametrize("canonical", [True, False])
+def test_count_spectrum_matches_reference(k, canonical):
+    """The uint8 route (K24, sort, K2) == ops/count.py:215 count_spectrum,
+    N codes and reads shorter than k included."""
+    batch = pack_reads(_reads(k) + ["ACGTNACGTACGTAAACCCGGGTTT" * 3, "ACGTN"], pad_length=96)
+    ref = jc.count_spectrum(jnp.asarray(batch.codes), jnp.asarray(batch.lengths), k, 1 << 13,
+                            canonical)
+    port = tc.count_spectrum(torch.from_numpy(batch.codes), torch.from_numpy(batch.lengths), k,
+                             1 << 13, canonical)
+    assert not port.overflowed() and port.n > 0
     _assert_same(port, ref)
 
 

@@ -1,12 +1,15 @@
 """Port parity: the flagship count-and-correct step (shannon_tpu_torch.entry)
 against __graft_entry__.py's batch and the same composition of the JAX
 package on JAX-CPU (count_spectrum_packed, _slice_spectrum,
-abundance_filter(1), sibling_prune_round(f32(0.1))), at 512 reads.  The
+abundance_filter(1), sibling_prune_round(f32(0.1))), at 512 reads; and
+dryrun_multichip against the reference's on 2 and 8 virtual devices.  The
 plain versions run here (CPU tensors); chip_smoke.py holds the step on the
 card against the flagship's reference figures and its CPU run.
 
 Tolerance: exact — words and lengths equal; corrected keys, counts and n
 equal over the whole table."""
+
+import re
 
 import numpy as np
 import pytest
@@ -73,3 +76,24 @@ def test_entry_without_a_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tentry.entry()
+
+
+@pytest.mark.parametrize("n_devices", [2, 8])
+def test_dryrun_multichip_matches_reference(n_devices, capsys):
+    """The port's dry run on n CPU shards passes its own checks, and its
+    figures (corrected k-mers, contigs, threading events, transcripts)
+    equal those the reference's prints for n virtual devices."""
+    graft.dryrun_multichip(n_devices)
+    line = capsys.readouterr().out
+    want = re.search(r"(\d+) corrected k-mers, (\d+) contigs, (\d+) threading events, "
+                     r"(\d+) transcripts", line)
+    assert want, line
+    got = tentry.dryrun_multichip(n_devices, device="cpu")
+    assert [got[key] for key in ("corrected_kmers", "contigs", "threading_events",
+                                 "transcripts")] == [int(x) for x in want.groups()]
+
+
+def test_dryrun_multichip_without_a_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tentry.dryrun_multichip(8)

@@ -1,6 +1,7 @@
-"""The hand-written CUDA kernels K1-K23 against their plain PyTorch
-versions, correction, condensation, the flagship count-and-correct step and
-the port's assembly (single-end and paired) on CUDA against the CPU run.
+"""The hand-written CUDA kernels K1-K25 against their plain PyTorch
+versions, correction, condensation, the flagship count-and-correct step,
+the sharded count and dryrun_multichip, and the port's assembly (single-end,
+paired and sharded) on CUDA against the CPU run.
 Marked
 `cuda`: these need an NVIDIA GPU and nvcc and skip without them.  Run on
 the card with
@@ -226,23 +227,25 @@ def test_sf_greedy_kernel_validates_inputs(cuda):
         tsf.batched_greedy_packed(torch.zeros((4, 16), dtype=torch.int32, device=cuda), 4)
 
 
-# Kernels of the flagship step alone (shannon_tpu_torch.entry): assembly
-# never launches them.
-ENTRY_ONLY = ("lookup_counts", "sibling_maxes", "prune_keep")
+# Kernels assembly never launches: those of the flagship step alone
+# (shannon_tpu_torch.entry) and K24, whose uint8 codes only dryrun_multichip
+# counts and threads.
+NOT_IN_ASSEMBLY = ("lookup_counts", "sibling_maxes", "prune_keep", "extract_codes")
 
 
-def _assert_all_launched(launches: dict, timer: StageTimer) -> None:
+def _assert_all_launched(launches: dict, timer: StageTimer, sharded: bool = False) -> None:
     """Every kernel of assembly launched; K8 (rescue) only runs when the
     auto cut is above 1, K13's cycle_round only when the labels found a
-    cycle.  These datasets' clips doom contigs and close no cycle, so K18
-    and K19 must run (the clip's notes say so: tc_drop_s and tc_remap_s)."""
+    cycle, K25 only when the count is sharded.  These datasets' clips doom
+    contigs and close no cycle, so K18 and K19 must run (the clip's notes
+    say so: tc_drop_s and tc_remap_s)."""
     notes = timer.stages["spectrum+graph"]
     assert "tc_drop_s" in notes and "tc_remap_s" in notes, notes
     cut = notes["auto_min_abundance"]
     missing = [
         n for n, c in launches.items()
         if c == 0 and not (n == "rescue_round" and cut == 1) and n != "cycle_round"
-        and n not in ENTRY_ONLY
+        and n not in NOT_IN_ASSEMBLY and not (n == "owner_buckets" and not sharded)
     ]
     assert not missing, launches
 
@@ -483,7 +486,7 @@ def test_paired_assemble_on_cuda_matches_cpu(cuda):
     ts, _ = simulate_gene_isoforms(rng, n_genes=3)
     reads = sample_paired_reads(rng, ts, coverage=20, read_length=80, insert_size=250,
                                 error_rate=0.01)
-    cfg = AssemblyConfig(k=24, kmer_capacity=1 << 16, batch_reads=2048)
+    cfg = AssemblyConfig(k=24, kmer_capacity=1 << 16, batch_reads=2048, n_devices=1)
     lib = kernels.library()
     lib.reset_counts()
     timer = StageTimer(echo=False)
@@ -500,7 +503,7 @@ def test_assemble_on_cuda_matches_cpu_and_counts_launches(cuda):
     rng = np.random.default_rng(5)
     ts, _ = simulate_gene_isoforms(rng, n_genes=3)
     reads = sample_reads(rng, ts, coverage=20, read_length=80, error_rate=0.01)
-    cfg = AssemblyConfig(k=24, kmer_capacity=1 << 16, batch_reads=2048)
+    cfg = AssemblyConfig(k=24, kmer_capacity=1 << 16, batch_reads=2048, n_devices=1)
     lib = kernels.library()
     lib.reset_counts()
     timer = StageTimer(echo=False)
@@ -893,3 +896,137 @@ def test_entry_kernel_wrappers_validate_inputs(cuda):
         tcor.prune_keep(spec, count[:4], count, 0.1)
     with pytest.raises(ValueError, match="CUDA"):
         tcor.prune_keep(spec, count.cpu(), count, 0.1)
+
+
+# ---- K24-K25: uint8 extraction, owner bucketing; the sharded count ---------
+
+
+def _codes_batch(seed: int, n: int = 3000) -> tuple[torch.Tensor, torch.Tensor]:
+    """_batch's reads as uint8 codes, plus codes >= 4 that no encoder
+    writes (5, 7, 255), which must invalidate as N does."""
+    b = _batch(seed, n)
+    codes = b.codes.copy()
+    rng = np.random.default_rng(seed)
+    hot = rng.random(codes.shape) < 0.002
+    codes[hot] = rng.choice(np.array([4, 5, 7, 255], np.uint8), size=int(hot.sum()))
+    return torch.from_numpy(codes), torch.from_numpy(b.lengths)
+
+
+@pytest.mark.parametrize("k", [5, 16, 24, 31])
+@pytest.mark.parametrize("canonical", [True, False])
+def test_extract_codes_kernel_matches_plain(cuda, k, canonical):
+    from shannon_tpu_torch.ops.kmers import extract_kmers, extract_kmers_plain
+
+    codes, lengths = _codes_batch(k)
+    want = extract_kmers_plain(codes, lengths, k, canonical)
+    got = extract_kmers(codes.to(cuda), lengths.to(cuda), k, canonical)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+def owner_table(seed: int, n: int = 5000, pad: int = 300):
+    """A sorted table of about n distinct keys below 2^48, PAD-filled, with
+    counts (PAD lanes 0), as numpy int64 and int32."""
+    rng = np.random.default_rng(seed)
+    key = np.unique(rng.integers(0, 1 << 48, size=n, dtype=np.int64))
+    key = np.concatenate([key, np.full(pad, PAD, np.int64)])
+    count = np.where(key == PAD, 0, rng.integers(1, 100, size=key.shape[0])).astype(np.int32)
+    return key, count
+
+
+@pytest.mark.parametrize("n_dev", [1, 2, 3, 8, 64, 1024])
+@pytest.mark.parametrize("slack", ["roomy", "margin", "over"])
+@pytest.mark.parametrize("n", [5000, (1 << 20) + 77])
+def test_owner_buckets_kernel_matches_plain(cuda, n_dev, slack, n):
+    from shannon_tpu_torch.parallel import distributed as td
+
+    key, count = (torch.from_numpy(a) for a in owner_table(n_dev, n=n))
+    widest = int(torch.bincount(td.owner_of(key[key != PAD], n_dev)).max())
+    bucket_cap = {"roomy": 2 * widest, "margin": widest, "over": widest - 1}[slack]
+    want = td.owner_buckets_plain(key, count, n_dev, bucket_cap)
+    got = td.owner_buckets(key.to(cuda), count.to(cuda), n_dev, bucket_cap)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+    assert bool(got[2]) == bool(want[2]) == (slack == "over")
+
+
+@pytest.mark.parametrize("table", ["empty", "all_pad"])
+def test_owner_buckets_kernel_edge_tables(cuda, table):
+    from shannon_tpu_torch.parallel import distributed as td
+
+    key = torch.full((0 if table == "empty" else 1000,), PAD, dtype=torch.int64)
+    count = torch.zeros(key.shape[0], dtype=torch.int32)
+    want = td.owner_buckets_plain(key, count, 8, 16)
+    got = td.owner_buckets(key.to(cuda), count.to(cuda), 8, 16)
+    assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+    assert not bool(got[2]) and not bool(want[2])
+
+
+def test_sharded_wrappers_validate_inputs(cuda):
+    from shannon_tpu_torch.ops.kmers import extract_kmers
+    from shannon_tpu_torch.parallel import distributed as td
+
+    key = torch.zeros(8, dtype=torch.int64, device=cuda)
+    count = torch.zeros(8, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="1..1024"):
+        td.owner_buckets(key, count, 1025, 4)
+    with pytest.raises(ValueError, match="bucket_cap"):
+        td.owner_buckets(key, count, 8, 0)
+    with pytest.raises(TypeError, match="int32"):
+        td.owner_buckets(key, key, 8, 4)
+    with pytest.raises(TypeError, match="uint8"):
+        extract_kmers(count.view(2, 4), count[:2], 3)
+
+
+@pytest.mark.parametrize("n_dev, n_reads", [(1, 4800), (3, 4608), (8, 4800)])
+def test_sharded_count_on_cuda_matches_cpu(cuda, n_dev, n_reads):
+    """count_reads_spectrum_sharded on n_dev shards of the card (one card:
+    they share it) == the CPU run: table, n and flag; K1, K2, K25 and K17
+    launch.  4,800 reads end in a short batch (padded to 256 rows); 3
+    shards take 4,608, three whole batches."""
+    from shannon_tpu_torch.parallel.distributed import count_reads_spectrum_sharded
+    from shannon_tpu_torch.parallel.mesh import make_mesh
+
+    rng = np.random.default_rng(n_dev)
+    ts, _ = simulate_gene_isoforms(rng, n_genes=3)
+    reads = sample_reads(rng, ts, coverage=45, read_length=100, error_rate=0.01)[:n_reads]
+    assert len(reads) == n_reads
+    b = pack_reads(reads, pad_length=128)
+    lib = kernels.library()
+    lib.reset_counts()
+    got, flag = count_reads_spectrum_sharded(b, 24, 1 << 16, make_mesh(n_dev, cuda),
+                                             batch_reads=1536)
+    torch.cuda.synchronize()
+    for name in ("extract_kmers", "reduce_sorted", "owner_buckets", "merge_spectra"):
+        assert lib.launches[name] > 0, lib.launches
+    want, want_flag = count_reads_spectrum_sharded(b, 24, 1 << 16, make_mesh(n_dev, "cpu"),
+                                                   batch_reads=1536)
+    assert flag == want_flag is False and got.n == want.n
+    assert torch.equal(got.key.cpu(), want.key) and torch.equal(got.count.cpu(), want.count)
+
+
+def test_sharded_assemble_on_cuda_matches_cpu(cuda):
+    rng = np.random.default_rng(7)
+    ts, _ = simulate_gene_isoforms(rng, n_genes=3)
+    reads = sample_reads(rng, ts, coverage=20, read_length=80, error_rate=0.01)
+    cfg = AssemblyConfig(k=24, kmer_capacity=1 << 16, batch_reads=2048, n_devices=8)
+    lib = kernels.library()
+    lib.reset_counts()
+    timer = StageTimer(echo=False)
+    gpu = assemble(reads, cfg, device=cuda, timer=timer)
+    _assert_all_launched(lib.launches, timer, sharded=True)
+    cpu = assemble(reads, cfg, device="cpu")
+    assert [(t.seq, t.abundance) for t in gpu.transcripts] == [
+        (t.seq, t.abundance) for t in cpu.transcripts
+    ]
+
+
+def test_dryrun_multichip_on_cuda_matches_cpu(cuda):
+    from shannon_tpu_torch.entry import dryrun_multichip
+
+    lib = kernels.library()
+    lib.reset_counts()
+    got = dryrun_multichip(8, device=cuda)
+    assert lib.launches["extract_codes"] > 0 and lib.launches["owner_buckets"] > 0
+    assert got == dryrun_multichip(8, device="cpu")

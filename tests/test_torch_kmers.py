@@ -1,5 +1,6 @@
-"""Port parity: k-mer keys and packed window extraction (K1's plain
-version) against shannon_tpu.ops.kmers on JAX-CPU.
+"""Port parity: k-mer keys, packed window extraction (K1's plain version)
+and uint8 window extraction (K24's) against shannon_tpu.ops.kmers on
+JAX-CPU.
 
 Tolerance: exact.  Keys compare through their (hi, lo) view, valid masks
 elementwise."""
@@ -11,7 +12,7 @@ import torch
 import jax.numpy as jnp
 
 from shannon_tpu.io.pack import pack_reads
-from shannon_tpu.ops.kmers import canonical_hilo, extract_kmers_packed, revcomp_hilo
+from shannon_tpu.ops.kmers import canonical_hilo, extract_kmers, extract_kmers_packed, revcomp_hilo
 from shannon_tpu_torch.convert import hilo_to_key, key_to_hilo
 from shannon_tpu_torch.ops import kmers as tk
 
@@ -57,6 +58,40 @@ def test_extract_kmers_packed_matches_reference(k, canonical, with_n):
     np.testing.assert_array_equal(pvalid.numpy(), np.asarray(valid))
 
 
+def _codes(seed: int) -> tuple[np.ndarray, np.ndarray]:
+    """uint8 codes of _reads(seed) at pad 100, with N (4) codes and short
+    reads, plus codes >= 4 that no encoder writes (a code's low 2 bits must
+    never be read where it is >= 4)."""
+    batch = pack_reads(_reads(seed), pad_length=100)
+    codes = batch.codes.copy()
+    rng = np.random.default_rng(seed)
+    hot = rng.random(codes.shape) < 0.005
+    codes[hot] = rng.choice(np.array([4, 5, 7, 255], np.uint8), size=int(hot.sum()))
+    return codes, batch.lengths
+
+
+@pytest.mark.parametrize("k", [15, 24, 31])
+@pytest.mark.parametrize("canonical", [True, False])
+def test_extract_kmers_matches_reference(k, canonical):
+    codes, lengths = _codes(k)
+    assert (codes >= 4).any() and (lengths < k).any()
+    hi, lo, valid = extract_kmers(jnp.asarray(codes), jnp.asarray(lengths), k, canonical)
+    key, pvalid = tk.extract_kmers(torch.from_numpy(codes), torch.from_numpy(lengths), k, canonical)
+    phi, plo = key_to_hilo(key)
+    np.testing.assert_array_equal(phi, np.asarray(hi))
+    np.testing.assert_array_equal(plo, np.asarray(lo))
+    np.testing.assert_array_equal(pvalid.numpy(), np.asarray(valid))
+
+
+def test_extract_kmers_equals_packed_extraction():
+    """K24 on the codes == K1 on the words and mask packed from them."""
+    batch = pack_reads(_reads(3), pad_length=128)
+    words, lengths, mask = _port_inputs(batch)
+    want = tk.extract_kmers_packed(words, lengths, 24, True, 128, mask)
+    got = tk.extract_kmers(torch.from_numpy(batch.codes), lengths, 24)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
 @pytest.mark.parametrize("k", [5, 16, 17, 24, 31])
 def test_revcomp_and_canonical_match_reference(k):
     rng = np.random.default_rng(k)
@@ -89,6 +124,8 @@ def test_k32_is_refused():
     words, lengths, _ = _port_inputs(batch)
     with pytest.raises(ValueError, match="1..31"):
         tk.extract_kmers_packed(words, lengths, 32)
+    with pytest.raises(ValueError, match="1..31"):
+        tk.extract_kmers(torch.from_numpy(batch.codes), lengths, 32)
 
 
 def test_short_pad_is_refused():
@@ -96,3 +133,5 @@ def test_short_pad_is_refused():
     words, lengths, _ = _port_inputs(batch)
     with pytest.raises(ValueError, match="pad_length"):
         tk.extract_kmers_packed(words, lengths, 20, length=16)
+    with pytest.raises(ValueError, match="pad_length"):
+        tk.extract_kmers(torch.from_numpy(batch.codes), lengths, 20)

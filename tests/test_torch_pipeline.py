@@ -14,6 +14,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from shannon_tpu.config import AssemblyConfig
 from shannon_tpu.io.dna import revcomp_str
@@ -26,6 +27,7 @@ from shannon_tpu.sim import (
     simulate_transcripts,
 )
 from shannon_tpu.utils.timing import StageTimer
+from shannon_tpu_torch import pipeline as tpipe
 from shannon_tpu_torch.pipeline import assemble
 
 REPO = Path(__file__).resolve().parent.parent
@@ -103,12 +105,23 @@ def test_stage_timer_records_the_reference_stages(rng):
         assert key in notes, key
 
 
-def test_unported_options_raise():
-    reads = ["ACGT" * 20]
-    with pytest.raises(NotImplementedError, match="item 14"):
-        assemble(reads, AssemblyConfig(k=21, n_devices=2), device="cpu")
+def test_unported_options_raise(rng, monkeypatch):
+    """k = 32 raises; n_devices = 2 (once refused) counts in two shards and
+    gives the single-shard transcripts."""
+    ts = simulate_transcripts(rng, n=2, length=300)
+    reads = sample_reads(rng, ts, coverage=20, read_length=70, error_rate=0.005)
+    meshes = []
+    sharded = tpipe.count_reads_spectrum_sharded
+    monkeypatch.setattr(tpipe, "count_reads_spectrum_sharded",
+                        lambda *a, **kw: meshes.append(kw["mesh"]) or sharded(*a, **kw))
+    two = assemble(reads, AssemblyConfig(k=21, kmer_capacity=1 << 15, n_devices=2), device="cpu")
+    assert meshes == [(torch.device("cpu"),) * 2]
+    one = assemble(reads, AssemblyConfig(k=21, kmer_capacity=1 << 15, n_devices=1), device="cpu")
+    assert len(meshes) == 1
+    assert [t.seq for t in two.transcripts] == [t.seq for t in one.transcripts]
+    assert two.canonical_set() >= {min(t, revcomp_str(t)) for t in ts}
     with pytest.raises(ValueError, match="1..31"):
-        assemble(reads, AssemblyConfig(k=32), device="cpu")
+        assemble(reads[:1], AssemblyConfig(k=32), device="cpu")
 
 
 def test_port_never_imports_jax():
@@ -154,8 +167,6 @@ def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
     """assemble, run_pipeline and spectrum_device run on the card unless
     the caller asks for the CPU: with no card and no device given they
     refuse instead of falling back."""
-    import torch
-
     from shannon_tpu.io.pack import pack_reads
     from shannon_tpu_torch.pipeline import run_pipeline, spectrum_device
 

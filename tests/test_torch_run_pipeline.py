@@ -144,11 +144,22 @@ def test_reference_resumes_from_port_spectrum(single, tmp_path):
     ).read_bytes()
 
 
-def test_run_pipeline_refuses_what_it_cannot_run(tmp_path, monkeypatch):
+def test_run_pipeline_refuses_what_it_cannot_run(single, tmp_path, monkeypatch):
+    """No input and no card raise; n_devices = 2 (once refused) counts in
+    two shards and writes the single-shard transcripts."""
     with pytest.raises(ValueError, match="--single or --left/--right"):
         tpipe.run_pipeline(_cfg(tmp_path / "a"), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tpipe.run_pipeline(_cfg(tmp_path / "b", n_devices=2), single="x.fa", device="cpu")
+    _, files = single
+    meshes = []
+    sharded = tpipe.count_reads_spectrum_sharded
+    monkeypatch.setattr(tpipe, "count_reads_spectrum_sharded",
+                        lambda *a, **kw: meshes.append(len(kw["mesh"])) or sharded(*a, **kw))
+    tpipe.run_pipeline(_cfg(tmp_path / "b", n_devices=2), **files, device="cpu")
+    tpipe.run_pipeline(_cfg(tmp_path / "b1", n_devices=1), **files, device="cpu")
+    assert meshes == [2]
+    assert (tmp_path / "b" / "transcripts.fasta").read_bytes() == (
+        tmp_path / "b1" / "transcripts.fasta"
+    ).read_bytes()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tpipe.run_pipeline(_cfg(tmp_path / "c"), single="x.fa", device="cuda")
@@ -207,7 +218,7 @@ def test_cli_pair_knobs_flow_to_config(tmp_path, monkeypatch):
     assert seen["kw"] == {"single": None, "left": "l.fa", "right": "r.fa", "device": "cpu"}
 
 
-def test_cli_arg_errors(tmp_path, capsys):
+def test_cli_arg_errors(tmp_path, capsys, monkeypatch):
     assert main(["-o", str(tmp_path)]) == 2  # no input
     assert main(["-o", str(tmp_path), "--left", "x.fa"]) == 2  # no right
     assert main(["-o", str(tmp_path), "--right", "x.fa"]) == 2  # no left
@@ -216,8 +227,11 @@ def test_cli_arg_errors(tmp_path, capsys):
               "--right", "c.fa"]) == 2
     )  # both modes
     assert "exactly one of --single" in capsys.readouterr().err
-    with pytest.raises(NotImplementedError, match="item 14"):
-        main(["-o", str(tmp_path), "--single", "a.fa", "-p", "2", "--device", "cpu"])
+    seen = []
+    monkeypatch.setattr(tpipe, "run_pipeline", lambda config, **kw: seen.append(
+        config.n_devices) or tpipe.AssemblyResult(transcripts=[], stats={}))
+    assert main(["-o", str(tmp_path), "--single", "a.fa", "-p", "2", "--device", "cpu"]) == 0
+    assert seen == [2]  # -p 2 (once refused) reaches the pipeline as n_devices
 
 
 def test_cli_runs_as_a_module(tmp_path):

@@ -1,5 +1,5 @@
-"""Port parity: read threading (K1 forward keys + K3 node lookup, run scan,
-row compaction), the across-read compaction and the single-end evidence
+"""Port parity: read threading (K1 or K24 forward keys + K3 node lookup, run
+scan, row compaction), the across-read compaction and the single-end evidence
 driver, against shannon_tpu.ops.thread and the single-end branch of
 shannon_tpu.pipeline._thread_device on JAX-CPU.  Both packages thread
 through the same ContigArrays (via convert).
@@ -72,6 +72,27 @@ def test_thread_reads_matches_reference(k, with_n):
         np.testing.assert_array_equal(p.numpy(), np.asarray(r_comp[j])[:tot])
     np.testing.assert_array_equal(p_comp[6].numpy(), np.asarray(ref[2]))
     np.testing.assert_array_equal(p_comp[7].numpy(), np.asarray(r_comp[6]))
+
+
+@pytest.mark.parametrize("k", [15, 24, 31])
+@pytest.mark.parametrize("with_n", [False, True])
+def test_thread_reads_from_codes_matches_reference(k, with_n):
+    """The uint8 route (K24, K3, K4) == ops/thread.py:40
+    thread_reads_device, and == the packed route on the same reads."""
+    cfg, b, ref_ca, port_ca = _setup(k, seed=k + 1, with_n=with_n)
+    codes = b.codes
+    ref = jth.thread_reads_device(jnp.asarray(codes), jnp.asarray(b.lengths), ref_ca, k)
+    lengths = torch.from_numpy(b.lengths)
+    port = tth.thread_reads_device(torch.from_numpy(codes), lengths, port_ca, k)
+    packed = tth.thread_reads_device_packed(
+        torch.from_numpy(b.words.view(np.int32)), lengths, port_ca, k, b.pad_length,
+        None if b.mask is None else torch.from_numpy(b.mask.view(np.int32)),
+    )
+    names = "ev_cid ev_run n_events run_p0 run_p1 run_o0 run_o1".split()
+    for name, p, r, q in zip(names, port, ref, packed):
+        np.testing.assert_array_equal(p.numpy(), np.asarray(r), err_msg=name)
+        assert torch.equal(p, q), name
+    assert int(port[2].sum()) > 0
 
 
 @pytest.mark.parametrize("strand_specific", [False, True])
