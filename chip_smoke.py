@@ -70,6 +70,25 @@ Phases; any failure exits nonzero:
      default config == count_reads_spectrum (both timed, in turns; K1, K2,
      K17 and K25 launched); assemble at n_devices = 8 == the single-end
      phase's transcripts, recall >= 0.99, count_s printed;
+  4c. multi-process, groups of ranks under torchrun
+     (scripts/multihost_smoke_torch.py's child mode; on the one card they
+     share it over gloo, and "nccl: not run (one card)" is printed): the
+     scale dataset's single-end reads as one FASTA (explicit pad 128), 2
+     ranks, 'ownership' back half: every rank's transcripts and rank 0's
+     transcripts.fasta == the single-end phase's, every rank's replicated
+     spectrum == count_reads_spectrum of the reads here; on its first
+     250,000 reads, 'replicate' at 2 ranks and 'ownership' at 4 ranks, and
+     on the paired dataset's first 250,000 reads as two mate files
+     (ingest_paired_files_range) 'ownership' at 2 ranks, each == run_pipeline
+     of the same files in this process; K1, K2, K25 and K17 launched in
+     every rank, K26 and K27 in every rank of every 'ownership' group; K26
+     (evidence-ownership pack) and K27 (its unpack) against their plain
+     versions on rank 0's local evidence and owner table of the 2-rank
+     full-width run.  The three 2-rank runs share one launch, so each group
+     pays its processes' start once.  A rank that exits nonzero, a missing
+     marker or a group past GROUP_TIMEOUT kills the group and fails the
+     phase.  With two cards or more, one more 2-rank group at 250,000 reads
+     runs over nccl;
   5. paired scale, through the CLI: the same transcriptome sampled as
      100 bp mates with insert 250 (1% error), written as two FASTA files,
      run by shannon_tpu_torch.cli.main on CUDA, then run again on the same
@@ -82,7 +101,8 @@ Every kernel must launch at least once in each scale phase (counts set to 0
 just before the phase and read just after), but K21-K23, which assembly
 never runs (the flagship step runs K22 and K23; K21's work on it is inside
 K22), K24, which assembly never runs (it counts packed words; the dry run
-runs K24), and K25 where the count is not sharded; K8 (dead-end rescue) runs
+runs K24), K25 where the count is not sharded, K26 and K27, which run only in
+a multi-process 'ownership' run (phase 4c); K8 (dead-end rescue) runs
 only when the phase's auto abundance cut is above 1, and is exempt where it
 is 1; K13's cycle_round runs only when the labels find a cycle, and is
 exempt where they find none; K18 and K19 run only when the clip dooms a
@@ -91,7 +111,8 @@ the clip closed a cycle (the caller then condenses the clipped spectrum
 anew).
 
 The last two lines of standard output are one JSON object with the kernels'
-launches (single-end, paired, entry and sharded), errors and times, and one JSON
+launches (single-end, paired, entry, sharded and multi-process, the last
+summed over every rank of every group), errors and times, and one JSON
 object {"ok": true, "device": ...}.
 Imports nothing of JAX and nothing of the JAX package (shannon_tpu).
 """
@@ -153,6 +174,10 @@ REPLACES = {
     "extract_codes": ("shannon_tpu_torch/csrc/kernels.cu", "shannon_tpu/ops/kmers.py:116"),
     "owner_buckets": ("shannon_tpu_torch/csrc/distributed.cu",
                       "shannon_tpu/parallel/distributed.py:126"),
+    "ownership_pack": ("shannon_tpu_torch/csrc/multihost.cu",
+                       "shannon_tpu/parallel/multihost.py:115"),
+    "ownership_unpack": ("shannon_tpu_torch/csrc/multihost.cu",
+                         "shannon_tpu/parallel/multihost.py:115"),
 }
 # Kernels that assembly never launches: K22 and K23 run in the flagship step
 # alone, and K21 on no path (its work on the flagship step is inside K22).
@@ -176,6 +201,15 @@ DRYRUN_FIGURES = {"corrected_kmers": 22_820, "contigs": 2_506, "threading_events
 # card, and the kernels its count must launch.
 SHARDS = 8
 SHARDED_KERNELS = ("extract_kmers", "reduce_sorted", "merge_spectra", "owner_buckets")
+# Kernels that run only in a multi-process run in 'ownership' mode (K26, K27).
+OWNERSHIP_KERNELS = {"ownership_pack": "K26", "ownership_unpack": "K27"}
+# Reads of the multi-process phase's smaller groups, and the read pad of its
+# files (explicit, as byte-range ingest needs; 100 bp reads pack at 128, as
+# the auto pad of the in-memory runs gives).
+MULTIHOST_SMALL = 250_000
+MULTIHOST_PAD = 128
+# Seconds a group of ranks may run before it is killed and the phase fails.
+GROUP_TIMEOUT = 420
 
 # Peak rates of one H100 SXM for bound_ms (NVIDIA's data sheet): device
 # memory bandwidth, and float32 / integer operations outside the tensor cores.
@@ -1334,6 +1368,12 @@ def _launches_check(launches: dict, phase: str, cut: int, clips: list,
         missing.remove("owner_buckets")
         print(f"the {phase} scale phase launched no owner_buckets (K25): its count is not "
               "sharded (one shard on one card; the sharded phase checks K25)")
+    for name, label in OWNERSHIP_KERNELS.items():
+        if name in missing:
+            missing.remove(name)
+            print(f"the {phase} scale phase launched no {name} ({label}): it runs in one process, "
+                  "and K26 and K27 run only in a multi-process run in 'ownership' mode (the "
+                  "multi-process phase checks them)")
     if "rescue_round" in missing and cut == 1:
         missing.remove("rescue_round")
         print(f"the {phase} scale phase launched no rescue_round (K8): its auto abundance "
@@ -1534,6 +1574,195 @@ def sharded_phase(truth, reads, single, dev, lib, watch: Watch, smi: str) -> tup
             "launches_by_step": launches}, row
 
 
+def _group_script():
+    """scripts/multihost_smoke_torch.py of this tree (its child mode and
+    launch_group)."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parent / "scripts" / "multihost_smoke_torch.py"
+    spec = importlib.util.spec_from_file_location("multihost_smoke_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _ownership_rows(evidence: Path, n_ranks: int, dev, smi: str) -> dict:
+    """K26 and K27 against their plain versions on rank 0's local evidence
+    and owner table of the full-width run, as route_evidence_ownership got
+    them (K26 packs them for n_ranks ranks at rank 0's own widest bucket;
+    K27 unpacks that buffer, an [H, cap] buffer as an exchange delivers)."""
+    import numpy as np
+    import torch
+
+    from shannon_tpu_torch.parallel import multihost as tmh
+
+    ev = np.load(evidence)
+    args = [torch.from_numpy(ev[name].astype(np.int32)).to(dev)
+            for name in ("flat", "offs", "weights", "owner")]
+    n_paths, n_flat = args[1].shape[0] - 1, args[0].shape[0]
+    plain_args = [a.cpu() for a in args]
+    got = tmh.ownership_pack(*args, n_ranks)
+    err = _max_abs_err([x.cpu() for x in got], tmh.ownership_pack_plain(*plain_args, n_ranks))
+    send = got[0]
+    t = _alternate(lambda: tmh.ownership_pack(*args, n_ranks),
+                   lambda: tmh.ownership_pack_plain(*args, n_ranks))
+    # bytes: flat, offs and weights in, one owner a path, the [H, cap] buffer out
+    rows = {"ownership_pack": _row(err, t, 4 * (n_flat + 3 * n_paths + 1) + 4 * send.numel(),
+                                   0, None)}
+    _print_row(f"K26 ownership_pack, rank 0's evidence of the full-width run: {n_paths} paths, "
+               f"{n_flat} node ids, {n_ranks} ranks x {send.shape[1]} words", rows["ownership_pack"],
+               smi)
+    got = tmh.ownership_unpack(send)
+    err = _max_abs_err([x.cpu() for x in got], tmh.ownership_unpack_plain(send.cpu()))
+    t = _alternate(lambda: tmh.ownership_unpack(send), lambda: tmh.ownership_unpack_plain(send))
+    # bytes: the [H, cap] buffer in; int64 flat, offs and weights out
+    rows["ownership_unpack"] = _row(err, t, 4 * send.numel() + 8 * (n_flat + 2 * n_paths + 1),
+                                    0, None)
+    _print_row(f"K27 ownership_unpack of that buffer: {n_paths} paths, {n_flat} node ids",
+               rows["ownership_unpack"], smi)
+    return rows
+
+
+def multihost_phase(reads, p_reads, single, dev, smi: str) -> tuple[dict, dict]:
+    """The multi-process path: groups of ranks under torchrun
+    (scripts/multihost_smoke_torch.py's child mode), each rank on one card
+    (LOCAL_RANK mod the visible cards; CUDA_VISIBLE_DEVICES=0 here, so they
+    share card 0 over gloo, as init_distributed's rule picks).  One group of
+    2 ranks runs, in order: full width, the scale dataset's single-end reads
+    as a FASTA in 'ownership' mode, whose transcripts (every rank's, and
+    rank 0's transcripts.fasta) must be the single-end phase's and whose
+    replicated spectrum count_reads_spectrum's of the reads here; at
+    MULTIHOST_SMALL reads (the first), 'replicate'; the paired dataset's
+    first MULTIHOST_SMALL reads as two mate files (ingest_paired_files_range)
+    in 'ownership' mode.  One group of 4 ranks runs the MULTIHOST_SMALL reads
+    in 'ownership' mode (batches of 32,768 reads a rank, so that K17
+    merges).  Each smaller run must equal run_pipeline of its files in this
+    process.  K1, K2, K25 and K17 must launch in every rank in every run,
+    K26 and K27 in every rank in every 'ownership' run.  Then K26 and K27
+    against their plain versions on rank 0's evidence of the full-width
+    run.  With two cards or more, one more group of 2 ranks on two cards at
+    MULTIHOST_SMALL reads, over nccl.  Returns (the phase's numbers with its
+    launches summed over every rank and run, K26's and K27's rows)."""
+    import numpy as np
+    import torch
+
+    from shannon_tpu_torch.config import AssemblyConfig
+    from shannon_tpu_torch.io.dna import revcomp_str
+    from shannon_tpu_torch.io.fastx import read_fastx, write_fasta
+    from shannon_tpu_torch.io.pack import pack_reads
+    from shannon_tpu_torch.ops.count import count_reads_spectrum
+    from shannon_tpu_torch.pipeline import run_pipeline
+
+    script = _group_script()
+    torch.cuda.empty_cache()
+    report, launches = {"groups": {}}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        full, small = tmp / "reads.fasta", tmp / "small.fasta"
+        write_fasta(full, ((f"r{i}", s) for i, s in enumerate(reads)))
+        write_fasta(small, ((f"r{i}", s) for i, s in enumerate(reads[:MULTIHOST_SMALL])))
+        left, right = _write_mates(p_reads[:MULTIHOST_SMALL], tmp)
+        print(f"multi-process: inputs written in {time.perf_counter() - t0:.1f} s [{smi}]")
+
+        def one_process(name: str, **inputs) -> set:
+            cfg = AssemblyConfig(read_pad_length=MULTIHOST_PAD, out_dir=str(tmp / name))
+            t0 = time.perf_counter()
+            res = _with_card(lambda: run_pipeline(cfg, device=dev, **inputs), smi)
+            print(f"multi-process: the one-process run_pipeline of the {name} files in "
+                  f"{time.perf_counter() - t0:.2f} s, {len(res.transcripts)} transcripts [{smi}]")
+            return res.canonical_set()
+
+        def group(label: str, n_ranks: int, runs: list, extra: tuple = (),
+                  visible: str = "0") -> list[dict]:
+            """One group of n_ranks ranks; runs: (name, mode, input, the
+            expected canonical transcript set)."""
+            work = tmp / label
+            t0 = time.perf_counter()
+            markers, _out = script.launch_group(n_ranks, [
+                *(x for name, mode, source, _ in runs for x in ("--job", name, mode, source)),
+                "--device", dev.type, "--pad", str(MULTIHOST_PAD),
+                "--capacity", str(AssemblyConfig.kmer_capacity), *extra,
+            ], work, timeout=GROUP_TIMEOUT, env_extra={"CUDA_VISIBLE_DEVICES": visible})
+            wall = time.perf_counter() - t0
+            backends = sorted({m["backend"] for m in markers})
+            cards = sorted({m.get("card", m["device"]) for m in markers})
+            for name, mode, _source, want in runs:
+                need = list(SHARDED_KERNELS)
+                if mode == "ownership":
+                    need += list(OWNERSHIP_KERNELS)
+                for m in markers:
+                    rec = m["runs"][name]
+                    missing = [k for k in need if rec["launches"][k] == 0]
+                    if missing:
+                        raise AssertionError(f"{name}: rank {m['rank']} launched no {missing}")
+                    if set(rec["transcripts"]) != want:
+                        raise AssertionError(f"{name}: rank {m['rank']}'s transcripts differ "
+                                             f"({len(rec['transcripts'])} against {len(want)})")
+                    for kernel, count in rec["launches"].items():
+                        launches[kernel] = launches.get(kernel, 0) + count
+                got = {min(s, revcomp_str(s)) for _h, s in read_fastx(work / name /
+                                                                    "transcripts.fasta")}
+                if got != want:
+                    raise AssertionError(f"{name}: rank 0's transcripts.fasta differs")
+                recs = [m["runs"][name] for m in markers]
+                print(f"multi-process {name}: {n_ranks} ranks over {'/'.join(backends)} on "
+                      f"{cards}, '{mode}', run_pipeline "
+                      f"{', '.join(f'{r['wall_s']:.2f}' for r in recs)} s (rank 0's count_s "
+                      f"{recs[0]['stages']['spectrum+graph']['count_s']:.3f} s), "
+                      f"{recs[0]['n_transcripts']} transcripts == the reference run's; local "
+                      f"reads {[r['local_reads'] for r in recs]}; volumes of rank 0 "
+                      f"{recs[0]['volumes']} [{smi}]")
+                report["groups"][name] = {
+                    "ranks": n_ranks, "mode": mode, "backend": backends,
+                    "pipeline_s": [r["wall_s"] for r in recs], "stages": recs[0]["stages"],
+                    "local_reads": [r["local_reads"] for r in recs],
+                    "volumes": [r["volumes"] for r in recs],
+                    "launches": [r["launches"] for r in recs],
+                }
+            clocks = [m["clock"] for m in markers]
+            print(f"multi-process group {label}: {wall:.1f} s from launch to exit; seconds from "
+                  f"the launch to each rank's start, joining, runs' end, end: "
+                  f"{[[round(c[k], 1) for k in ('start', 'joined', 'runs_done', 'end')] for c in clocks]}, "
+                  f"the group's exit {clocks[0]['exited']:.1f} [{smi}]")
+            report["groups"][label] = {"wall_s": wall, "clocks": clocks}
+            return markers
+
+        small_set = one_process("small single-end", single=str(small))
+        paired_set = one_process("small paired", left=left, right=right)
+        group("two", 2, [
+            ("full-width", "ownership", str(full), single.canonical_set()),
+            ("small-replicate", "replicate", str(small), small_set),
+            ("small-paired", "ownership", f"{left},{right}", paired_set),
+        ], ("--save-evidence", "full-width"))
+        cfg = AssemblyConfig()
+        one = count_reads_spectrum(pack_reads(reads, pad_length=MULTIHOST_PAD), cfg.k,
+                                   cfg.kmer_capacity, True, cfg.batch_reads, device=dev)
+        kmers = one.key[: one.n].cpu().numpy().astype(np.uint64)
+        counts = one.count[: one.n].cpu().numpy()
+        for r in range(2):
+            got = np.load(tmp / "two" / f"full-width.spectrum.p{r}.npz")
+            if not (np.array_equal(got["kmers"], kmers) and np.array_equal(got["counts"], counts)):
+                raise AssertionError(f"full-width: rank {r}'s spectrum != the one-process count")
+        print(f"multi-process full-width: {len(reads)} reads, the replicated spectrum of every "
+              f"rank == count_reads_spectrum here ({one.n} k-mers) [{smi}]")
+        del one
+        group("four", 4, [("small-ownership", "ownership", str(small), small_set)],
+              ("--batch-reads", "32768"))
+        if torch.cuda.device_count() < 2:
+            print("nccl: not run (one card)")
+            report["nccl"] = "not run (one card)"
+        else:
+            markers = group("nccl", 2, [("small-nccl", "ownership", str(small), small_set)],
+                            visible="0,1")
+            if {m["backend"] for m in markers} != {"nccl"}:
+                raise AssertionError("the group on two cards did not run over nccl")
+            report["nccl"] = "passed"
+        rows = _ownership_rows(tmp / "two" / "full-width.evidence.p0.npz", 2, dev, smi)
+    report["launches"] = {name: launches.get(name, 0) for name in REPLACES}
+    return report, rows
+
+
 def paired_scale_phase(truth, reads, dev, lib, watch: Watch, smi: str) -> dict:
     """The CLI on two mate files, then again on the same out-dir (resume)."""
     import torch
@@ -1653,6 +1882,11 @@ def main(argv=None) -> int:
     report["scale"], single = single_scale_phase(truth, reads, dev, lib, watch, smi)
     report["sharded"], report["kernels"]["owner_buckets"] = sharded_phase(
         truth, reads, single, dev, lib, watch, smi)
+    t0 = time.perf_counter()
+    report["multihost"], rows = multihost_phase(reads, p_reads, single, dev, smi)
+    report["multihost"]["wall_s"] = time.perf_counter() - t0
+    report["kernels"].update(rows)
+    print(f"multi-process phase: {report['multihost']['wall_s']:.1f} s [{smi}]")
     del reads, single
     report["paired_scale"] = paired_scale_phase(p_truth, p_reads, dev, lib, watch, smi)
     report["wall_s"] = time.perf_counter() - t_start
@@ -1663,7 +1897,8 @@ def main(argv=None) -> int:
     paths = {"launches_single_end": report["scale"]["launches"],
              "launches_paired": report["paired_scale"]["launches"],
              "launches_entry": report["entry"]["launches"],
-             "launches_sharded": report["sharded"]["launches"]}
+             "launches_sharded": report["sharded"]["launches"],
+             "launches_multihost": report["multihost"]["launches"]}
     rows = [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": sum(counts[name] for counts in paths.values()),

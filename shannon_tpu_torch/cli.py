@@ -5,9 +5,15 @@ with ``--device`` in place of ``--backend``.
     shannon-tpu-torch -o OUT --left l.fastq --right r.fastq --device cuda
     python -m shannon_tpu_torch.cli ...
 
-Runs :func:`shannon_tpu_torch.pipeline.run_pipeline` in one process; ``-p
-N`` counts in N shards.  The pure-Python oracle stays in the reference's
-CLI.
+Runs :func:`shannon_tpu_torch.pipeline.run_pipeline`; ``-p N`` counts in N
+shards of one process.  Under torchrun it runs as one rank of a process
+group (``parallel.multihost.init_distributed``), each rank on its share of
+the input, with an explicit ``--read-pad-length`` for byte-range ingest:
+
+    python -m torch.distributed.run --nproc-per-node N -m shannon_tpu_torch.cli \
+        -o OUT --single reads.fasta --read-pad-length 128
+
+The pure-Python oracle stays in the reference's CLI.
 """
 
 from __future__ import annotations
@@ -128,12 +134,17 @@ def main(argv: list[str] | None = None) -> int:
         seed=args.seed,
     )
     from shannon_tpu_torch import pipeline
+    from shannon_tpu_torch.parallel.multihost import init_distributed, leave_distributed
 
+    init_distributed(args.device)
     profiler = _profiler(args.out_dir, args.device) if args.profile else contextlib.nullcontext()
-    with profiler:
-        result = pipeline.run_pipeline(
-            config, single=args.single, left=args.left, right=args.right, device=args.device
-        )
+    try:
+        with profiler:
+            result = pipeline.run_pipeline(
+                config, single=args.single, left=args.left, right=args.right, device=args.device
+            )
+    finally:
+        leave_distributed()
     print(
         f"done: {len(result.transcripts)} transcripts -> "
         f"{config.out_dir}/transcripts.fasta"

@@ -5,7 +5,8 @@ Host code, numpy only.  Files are parsed by ``shannon_tpu_torch.native.pack_file
 host parsing, not a device fallback: :func:`native_route` says which runs).
 Every batch is interleaved [L0, R0, L1, R1, ...] with mate 2
 reverse-complemented into transcript orientation (FR protocol), so counting
-and threading see both mates on one strand.
+and threading see both mates on one strand.  In a multi-process run,
+:func:`ingest_paired_files_range` reads only this rank's pair-aligned share.
 """
 
 from __future__ import annotations
@@ -55,6 +56,34 @@ def ingest_paired_files(left: str, right: str, pad_length: int = 0) -> ReadBatch
     br = native.pack_file(right, pad_length=pad_length)
     if bl.n_reads != br.n_reads:
         raise ValueError(f"paired inputs differ in length: {bl.n_reads} vs {br.n_reads}")
+    return _interleave_pair_batches(bl, br)
+
+
+def ingest_paired_files_range(left: str, right: str, pad_length: int) -> ReadBatch:
+    """This rank's pair-aligned share of a paired library
+    (shannon_tpu/pipeline.py:581 ingest_paired_files_range): the LEFT file's
+    byte range for this rank (parallel.multihost.host_byte_range) becomes a
+    record range by the native line scan, and both mate files are read at
+    that record range (native.pack_file_records), so each rank parses about
+    1/H of the pairs and every pair lands whole on one rank.  Two files
+    cannot be byte-split apart: their ranges could cut different pairs.
+
+    On gzip input, or where the native parser does not load, this takes the
+    reference's host route instead (shannon_tpu/pipeline.py:793-812): both
+    files parsed whole, then this rank's contiguous, pair-aligned record
+    slice (host_read_slice).  That is a choice of parser, made before any
+    parsing, not a fallback from a failure."""
+    from shannon_tpu_torch.parallel.multihost import host_byte_range, host_read_slice
+
+    gz = str(left).endswith(".gz") or str(right).endswith(".gz")
+    if gz or native.load() is None:
+        batch = ingest_paired_files(left, right, pad_length=pad_length)
+        return batch.rows(host_read_slice(batch.n_reads))
+    lo, hi = host_byte_range(left)
+    skip = native.count_records_in_range(left, 0, lo)
+    n = native.count_records_in_range(left, lo, hi)
+    bl = native.pack_file_records(left, skip, n, pad_length)
+    br = native.pack_file_records(right, skip, n, pad_length)
     return _interleave_pair_batches(bl, br)
 
 

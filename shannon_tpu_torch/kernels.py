@@ -44,7 +44,7 @@ KERNELS = (
     "contig_reduce", "base_streams",
     "count_histogram", "merge_spectra", "drop_contigs", "clip_remap",
     "abundance_cut", "lookup_counts", "sibling_maxes", "prune_keep",
-    "extract_codes", "owner_buckets",
+    "extract_codes", "owner_buckets", "ownership_pack", "ownership_unpack",
 )
 
 _P = ctypes.c_void_p
@@ -86,6 +86,9 @@ _ARGTYPES = {
     "shannon_prune_keep": [_P, _P, _P, _P, _I64, _F, _P, _P],
     "shannon_owner_counts": [_P, _I64, _I, _P, _P],
     "shannon_owner_scatter": [_P, _P, _I64, _I, _I64, *[_P] * 5, _P],
+    "shannon_ownership_counts": [_P, _P, _I64, _P, _I, _P, _P, _P, _P],
+    "shannon_ownership_scatter": [_P, _P, _P, _I64, _P, _I, _I64, *[_P] * 5, _P],
+    "shannon_ownership_unpack": [_P, _I, _I64, *[_P] * 5, _P],
 }
 
 

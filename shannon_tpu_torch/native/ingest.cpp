@@ -1,4 +1,4 @@
-// Copied from native/ingest.cpp; equal to it apart from this line.
+// Copied from native/ingest.cpp; equal to it apart from this line and the early return at the record count in sti_parse_pack_records.
 // Native ingest: FASTA/FASTQ parsing + base encoding at memory
 // bandwidth, feeding the TPU pipeline's packed read batches.
 //
@@ -297,6 +297,7 @@ long sti_parse_pack_records(const char* path, long skip, int32_t pad_len,
                 if (in_rec) {
                     if (rec >= max_records) return rec;
                     close_rec();
+                    if (rec >= max_records) return rec;  // stop at the count, not at EOF
                 }
                 in_rec = seen >= skip && rec < max_records;
                 ++seen;

@@ -153,25 +153,42 @@ def sharded_tail(key: torch.Tensor, n_dev: int, capacity: int, bucket_cap: int):
     return owner_buckets(local.key, local.count, n_dev, bucket_cap)
 
 
+def owner_slice(keys: torch.Tensor, counts: torch.Tensor, bucket_cap: int):
+    """One owner's merge (parallel/distributed.py:162-180): its received
+    bucket lanes (every shard's row for it) sorted, equal keys summed by K2.
+    Returns (the first bucket_cap keys, their counts, n: the owner's distinct
+    keys, which may exceed bucket_cap)."""
+    keys, order = torch.sort(keys)
+    key, count, _, n = reduce_sorted(keys, counts[order], keys.shape[0])
+    return key[:bucket_cap], count[:bucket_cap], n
+
+
+def gathered_spectrum(keys: torch.Tensor, counts: torch.Tensor, n_real: int,
+                      capacity: int) -> Spectrum:
+    """The gather's table (parallel/distributed.py:182-194): the owners'
+    slices, concatenated, sorted and cut to capacity.  The slices are
+    disjoint, so the sort needs no reduction."""
+    key, order = torch.sort(keys)
+    return Spectrum(key=key[:capacity], count=counts[order][:capacity], n=n_real)
+
+
 def _gather(buckets: list, mesh: Mesh, capacity: int, bucket_cap: int) -> tuple[Spectrum, bool]:
     """The exchange, each owner's merge and the gather
     (parallel/distributed.py:162-194) over every shard's buckets."""
-    n_dev, home = len(mesh), mesh[0]
+    home = mesh[0]
     slices, n_real, overflowed = [], 0, False
     for j, dev in enumerate(mesh):
         keys = torch.cat([bk[j].to(dev, non_blocking=True) for bk, _, _ in buckets])
         counts = torch.cat([bc[j].to(dev, non_blocking=True) for _, bc, _ in buckets])
-        keys, order = torch.sort(keys)
-        key, count, _, n = reduce_sorted(keys, counts[order], n_dev * bucket_cap)
+        key, count, n = owner_slice(keys, counts, bucket_cap)
         overflowed |= n > bucket_cap
         n_real += min(n, bucket_cap)
-        slices.append((key[:bucket_cap].to(home), count[:bucket_cap].to(home)))
-    # the slices are disjoint, so the sorted gather needs no reduction
-    key, order = torch.sort(torch.cat([k for k, _ in slices]))
-    count = torch.cat([c for _, c in slices])[order]
+        slices.append((key.to(home), count.to(home)))
     flags = torch.stack([flag.to(home) for _, _, flag in buckets])
     overflowed = overflowed or n_real > capacity or bool(flags.any())
-    return Spectrum(key=key[:capacity], count=count[:capacity], n=n_real), overflowed
+    spec = gathered_spectrum(torch.cat([k for k, _ in slices]), torch.cat([c for _, c in slices]),
+                             n_real, capacity)
+    return spec, overflowed
 
 
 def _shard_rows(tensors: tuple, mesh: Mesh) -> list[list[torch.Tensor]]:

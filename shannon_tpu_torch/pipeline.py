@@ -15,9 +15,14 @@ K7-K10 correction, K4-K5 threading, K6 sparse flow), on the CPU their
 plain versions.  With ``config.n_devices`` resolving to more than one shard
 (``parallel.mesh.make_mesh``: 0 = every visible card), counting runs
 sharded (``parallel.distributed``, K1, K2, K25 and K17), and the stages
-after it run on ``device``.  The host stages (clip rounds, materialization,
-components, pair joining, MB, SF bookkeeping, enumeration) are copies of
-the reference's code.
+after it run on ``device``.  In a process group of more than one rank
+(``parallel.multihost``, torchrun), each rank ingests its own slice of the
+input, counts it as one shard of the group's count, continues on the
+replicated spectrum, and the back half either gathers every rank's evidence
+('replicate') or routes each path to the rank that owns its component
+('ownership', K26 and K27); rank 0 writes the shared artifacts.  The host
+stages (clip rounds, materialization, components, pair joining, MB, SF
+bookkeeping, enumeration) are copies of the reference's code.
 """
 
 from __future__ import annotations
@@ -30,10 +35,14 @@ import torch
 
 from shannon_tpu_torch.components import assemble_components, device_components
 from shannon_tpu_torch.config import AssemblyConfig
-from shannon_tpu_torch.ingest import ingest_paired_files, normalize_mate2
+from shannon_tpu_torch.ingest import (
+    ingest_paired_files,
+    ingest_paired_files_range,
+    normalize_mate2,
+)
 from shannon_tpu_torch.io.fastx import read_fastx, write_fasta
 from shannon_tpu_torch.io.pack import ReadBatch, pack_reads
-from shannon_tpu_torch.native import pack_file
+from shannon_tpu_torch.native import pack_file, pack_file_range
 from shannon_tpu_torch.ops.condense import ContigArrays, build_contig_arrays, to_contig_graph
 from shannon_tpu_torch.ops.correction import auto_min_abundance, correct_spectrum
 from shannon_tpu_torch.ops.count import (
@@ -53,6 +62,7 @@ from shannon_tpu_torch.ops.thread import (
     thread_reads_device_packed,
 )
 from shannon_tpu_torch.ops.tipclip import clip_tips_graph
+from shannon_tpu_torch.parallel import multihost
 from shannon_tpu_torch.parallel.distributed import count_reads_spectrum_sharded
 from shannon_tpu_torch.parallel.mesh import make_mesh
 from shannon_tpu_torch.oracle.assemble import AssemblyResult, Transcript, dedupe_and_filter
@@ -87,13 +97,27 @@ def spectrum_device(
     """Count + correct (+ tip-clip unless clip=False).  Returns (corrected
     spectrum, post-clip ContigArrays or None) — None when clip=False or a
     merge closed a cycle, and the caller must condense the spectrum itself
-    (pipeline.py:41 _spectrum_device)."""
+    (pipeline.py:41 _spectrum_device).  In a process group of more than
+    one rank, `batch` is this rank's slice, and the count is the group's."""
     device = _check_config(config, device)
     timer = timer or StageTimer(echo=False)
     canonical = not config.strand_specific
     t0 = time.perf_counter()
-    mesh = make_mesh(config.n_devices, device)
-    if len(mesh) > 1:
+    if multihost.world()[1] > 1:
+        # one shard a rank; every rank continues on the replicated spectrum
+        # (the graph stages are deterministic, so every rank builds the same
+        # graph; evidence meets again in the back half)
+        spec, overflowed = multihost.count_reads_spectrum_multihost(
+            batch,
+            k=config.k,
+            capacity=config.kmer_capacity,
+            canonical=canonical,
+            batch_reads=config.batch_reads,
+            device=device,
+        )
+        spec = multihost.localize_spectrum(spec, device)
+        overflowed = overflowed or spec.overflowed()
+    elif len(mesh := make_mesh(config.n_devices, device)) > 1:
         spec, overflowed = count_reads_spectrum_sharded(
             batch,
             k=config.k,
@@ -303,8 +327,32 @@ def _paired_evidence(parts: list[dict], cgraph, config: AssemblyConfig, timer: S
 
 
 def _assemble_backhalf(cgraph, comps, evidence, config: AssemblyConfig, device, timer: StageTimer):
-    """NodeGraph build, bucket-scheduled MB + SF + enumeration, dedupe
-    (single-process branch of pipeline.py:459 _assemble_device_backhalf)."""
+    """Evidence distribution (multi-process), NodeGraph build,
+    bucket-scheduled MB + SF + enumeration, the union over ranks, dedupe
+    (pipeline.py:459 _assemble_device_backhalf).
+
+    In a process group of H > 1 ranks (config.multihost_backhalf):
+      * 'ownership': component c belongs to rank c[0] mod H; each path goes
+        to its component's owner (route_evidence_ownership: K26, one
+        all_to_all_single, K27), each rank assembles the components it
+        owns, and the raw transcripts are gathered before the dedupe, which
+        does not depend on their order;
+      * 'replicate': every rank gathers all evidence and assembles every
+        component."""
+    rank, n_ranks = multihost.world()
+    ownership = n_ranks > 1 and config.multihost_backhalf == "ownership"
+    my_comps = comps
+    if ownership:
+        owner = np.zeros(cgraph.n, np.int64)
+        for comp in comps:
+            owner[comp] = comp[0] % n_ranks
+        vol: dict = {}
+        evidence = multihost.route_evidence_ownership(*evidence, owner, device, volumes=vol)
+        my_comps = [c for c in comps if c[0] % n_ranks == rank]
+        timer.note("assembly", owned_components=len(my_comps), **vol)
+    elif n_ranks > 1:
+        evidence = multihost.gather_evidence(*evidence)
+        timer.note("assembly", gathered_paths=len(evidence[2]))
     t0 = time.perf_counter()
     g = NodeGraph.from_contig_graph(cgraph)
     t1 = time.perf_counter()
@@ -315,10 +363,14 @@ def _assemble_backhalf(cgraph, comps, evidence, config: AssemblyConfig, device, 
         evidence_s=round(time.perf_counter() - t1, 3),
     )
     transcripts, n_mb, n_sf, truncated, phase_s = assemble_components(
-        g, comps, config, solver=make_solver(device)
+        g, my_comps, config, solver=make_solver(device)
     )
     for name, secs in phase_s.items():
         timer.note(name, wall_s=round(secs, 3))
+    if ownership:
+        transcripts = multihost.gather_transcripts(transcripts)
+        n_mb, n_sf, any_truncated = multihost.allreduce_stats(n_mb, n_sf, int(truncated))
+        truncated = bool(any_truncated)
     with timer.stage("dedupe"):
         final = dedupe_and_filter(transcripts, config)
     return final, n_mb, n_sf, truncated
@@ -378,12 +430,31 @@ def assemble(
 # ---------------------------------------------------------------------
 
 
-def _ingest(single: str | None, left: str | None, right: str | None, pad_length: int) -> ReadBatch:
+def _ingest(single: str | None, left: str | None, right: str | None, pad_length: int,
+            multi: bool) -> ReadBatch:
+    """The reads of this process: all of them, or in a process group this
+    rank's share (pipeline.py:756-830): a byte range of a single-end file
+    (pack_file_range; an explicit pad, so every rank packs one shape), a
+    pair-aligned record range of two mate files (ingest_paired_files_range),
+    or, for gzip and for paired files without an explicit pad, a contiguous
+    pair-aligned record slice of the whole input."""
     if single is not None:
-        return pack_file(single, pad_length=pad_length)
-    if left is not None and right is not None:
-        return ingest_paired_files(left, right, pad_length=pad_length)
-    raise ValueError("provide --single or --left/--right")
+        if multi and not str(single).endswith(".gz"):
+            if pad_length == 0:
+                raise ValueError(
+                    "multi-process byte-range ingest needs an explicit read_pad_length "
+                    "(auto sizing would let ranks disagree on shapes)"
+                )
+            lo, hi = multihost.host_byte_range(single)
+            return pack_file_range(single, lo, hi, pad_length=pad_length)
+        batch = pack_file(single, pad_length=pad_length)
+    elif left is not None and right is not None:
+        if multi and pad_length:
+            return ingest_paired_files_range(left, right, pad_length)
+        batch = ingest_paired_files(left, right, pad_length=pad_length)
+    else:
+        raise ValueError("provide --single or --left/--right")
+    return batch.rows(multihost.host_read_slice(batch.n_reads)) if multi else batch
 
 
 def _load_reads(path: Path) -> ReadBatch:
@@ -415,7 +486,7 @@ def run_pipeline(
     device="cuda",
 ) -> AssemblyResult:
     """File in -> out-dir artifacts -> transcripts.fasta, on `device`
-    (single-process counterpart of pipeline.py:719 run_pipeline).
+    (pipeline.py:719 run_pipeline).
 
     Stage artifacts, each skipped on re-run when present and
     config.resume, and the same in both packages, so either can resume
@@ -424,21 +495,30 @@ def run_pipeline(
       spectrum_corrected.npz  counted + corrected spectrum (before tip clip)
       spectrum.npz            final spectrum (kmers uint64, counts int64)
       transcripts.fasta       the output
-    plus config.json, timing.log and stats.json."""
+    plus config.json, timing.log and stats.json.
+
+    In a process group of more than one rank, each rank keeps its own reads
+    checkpoint, reads.p{rank}.npz; every other artifact is the same on
+    every rank and rank 0 alone writes it."""
     device = _check_config(config, device)
+    rank, n_ranks = multihost.world()
+    multi = n_ranks > 1
     out = Path(config.out_dir)
     out.mkdir(parents=True, exist_ok=True)
-    (out / "config.json").write_text(config.to_json())
-    timer = StageTimer(out_dir=out)
+    if rank == 0:
+        (out / "config.json").write_text(config.to_json())
+    timer = StageTimer(out_dir=out if rank == 0 else None)
+    if multi:
+        timer.note("distributed", backend=multihost.backend(), world_size=n_ranks)
     canonical = not config.strand_specific
 
-    reads_npz = out / "reads.npz"
+    reads_npz = out / (f"reads.p{rank}.npz" if multi else "reads.npz")
     if config.resume and reads_npz.exists():
         batch = _load_reads(reads_npz)
         timer.note("ingest", skipped=True, n_reads=batch.n_reads)
     else:
         with timer.stage("ingest"):
-            batch = _ingest(single, left, right, config.read_pad_length)
+            batch = _ingest(single, left, right, config.read_pad_length, multi)
             np.savez_compressed(
                 reads_npz,
                 words=batch.words,
@@ -465,11 +545,13 @@ def run_pipeline(
                 spec = spectrum_from_arrays(d["kmers"], d["counts"], device=device)
             else:
                 spec, _ = spectrum_device(batch, config, device, clip=False, timer=timer)
-                kmers, counts = _spectrum_arrays(spec)
-                np.savez_compressed(corrected_npz, kmers=kmers, counts=counts)
+                if rank == 0:
+                    kmers, counts = _spectrum_arrays(spec)
+                    np.savez_compressed(corrected_npz, kmers=kmers, counts=counts)
             spec, ca_live = clip_tips_graph(spec, config, canonical=canonical)
             keys, vals = _spectrum_arrays(spec)
-        np.savez_compressed(spectrum_npz, kmers=keys, counts=vals)
+        if rank == 0:
+            np.savez_compressed(spectrum_npz, kmers=keys, counts=vals)
         timer.note("spectrum", n_kmers=len(keys))
 
     fasta = out / "transcripts.fasta"
@@ -499,10 +581,12 @@ def run_pipeline(
             final, n_mb, n_sf, truncated = _assemble_backhalf(
                 cgraph, comps, evidence, config, device, timer
             )
-        write_fasta(
-            fasta,
-            [(f"shannon_tpu_{i} abundance={t.abundance:.4f}", t.seq) for i, t in enumerate(final)],
-        )
+        if rank == 0:  # every rank holds the same transcripts
+            write_fasta(
+                fasta,
+                [(f"shannon_tpu_{i} abundance={t.abundance:.4f}", t.seq)
+                 for i, t in enumerate(final)],
+            )
         result = AssemblyResult(
             transcripts=final,
             stats={

@@ -1,4 +1,4 @@
-"""The hand-written CUDA kernels K1-K25 against their plain PyTorch
+"""The hand-written CUDA kernels K1-K27 against their plain PyTorch
 versions, correction, condensation, the flagship count-and-correct step,
 the sharded count and dryrun_multichip, and the port's assembly (single-end,
 paired and sharded) on CUDA against the CPU run.
@@ -231,12 +231,16 @@ def test_sf_greedy_kernel_validates_inputs(cuda):
 # (shannon_tpu_torch.entry) and K24, whose uint8 codes only dryrun_multichip
 # counts and threads.
 NOT_IN_ASSEMBLY = ("lookup_counts", "sibling_maxes", "prune_keep", "extract_codes")
+# Kernels that run only in a multi-process run in 'ownership' mode (K26, K27);
+# these assemblies run in one process.
+MULTIHOST_ONLY = ("ownership_pack", "ownership_unpack")
 
 
 def _assert_all_launched(launches: dict, timer: StageTimer, sharded: bool = False) -> None:
     """Every kernel of assembly launched; K8 (rescue) only runs when the
     auto cut is above 1, K13's cycle_round only when the labels found a
-    cycle, K25 only when the count is sharded.  These datasets' clips doom
+    cycle, K25 only when the count is sharded, K26 and K27 (MULTIHOST_ONLY)
+    only in a multi-process run.  These datasets' clips doom
     contigs and close no cycle, so K18 and K19 must run (the clip's notes
     say so: tc_drop_s and tc_remap_s)."""
     notes = timer.stages["spectrum+graph"]
@@ -246,6 +250,7 @@ def _assert_all_launched(launches: dict, timer: StageTimer, sharded: bool = Fals
         n for n, c in launches.items()
         if c == 0 and not (n == "rescue_round" and cut == 1) and n != "cycle_round"
         and n not in NOT_IN_ASSEMBLY and not (n == "owner_buckets" and not sharded)
+        and n not in MULTIHOST_ONLY
     ]
     assert not missing, launches
 
@@ -1030,3 +1035,79 @@ def test_dryrun_multichip_on_cuda_matches_cpu(cuda):
     got = dryrun_multichip(8, device=cuda)
     assert lib.launches["extract_codes"] > 0 and lib.launches["owner_buckets"] > 0
     assert got == dryrun_multichip(8, device="cpu")
+
+
+# ---- K26-K27: the evidence-ownership pack and unpack ------------------------
+
+
+OWNERSHIP_CASES = [
+    (n_ranks, case, n_paths)
+    for n_ranks in (1, 2, 3, 4, 8)
+    for case, n_paths in (("random", 700), ("random", 0), ("random", 1), ("single", 300),
+                          ("skew", 400))
+] + [(2, "random", 1_000_000), (8, "skew", 1_000_000), (512, "random", 100_000)]
+
+
+@pytest.mark.parametrize("n_ranks, case, n_paths", OWNERSHIP_CASES)
+def test_ownership_kernels_match_plain(cuda, n_ranks, case, n_paths):
+    """K26's buffer and bucket lengths and K27's (flat, offs, weights) ==
+    the plain versions' (test_torch_ownership holds those to the
+    reference's pack and unpack): empty evidence, single-node paths, every
+    path to one rank, about 1M paths."""
+    from shannon_tpu_torch.parallel import multihost as tmh
+    from test_torch_ownership import evidence
+
+    ev = evidence(n_ranks + n_paths, n_paths, 4 * n_paths + 90, n_ranks, case)
+    args = [torch.from_numpy(a.astype(np.int32)) for a in ev]
+    want = tmh.ownership_pack_plain(*args, n_ranks)
+    got = tmh.ownership_pack(*(a.to(cuda) for a in args), n_ranks)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+    unpacked = tmh.ownership_unpack(got[0])
+    torch.cuda.synchronize()
+    for g, w in zip(unpacked, tmh.ownership_unpack_plain(want[0])):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("n_ranks", [2, 4])
+def test_ownership_unpack_kernel_on_an_exchange(cuda, n_ranks):
+    """K27 on what rank r receives: row r of every rank's buffer, at the
+    widest bucket of all ranks (the agreed cap)."""
+    from shannon_tpu_torch.parallel import multihost as tmh
+    from test_torch_ownership import evidence
+
+    evs = [[torch.from_numpy(a.astype(np.int32))
+            for a in evidence(9 * r + n_ranks, 300 * (r + 1), 500, n_ranks, "random")]
+           for r in range(n_ranks)]
+    widest = max(int(tmh.ownership_pack_plain(*e, n_ranks)[1].max()) for e in evs)
+    sends = [tmh.ownership_pack(*(a.to(cuda) for a in e), n_ranks, agree=lambda c: widest)[0]
+             for e in evs]
+    for r in range(n_ranks):
+        recv = torch.stack([s[r] for s in sends])
+        want = tmh.ownership_unpack_plain(recv.cpu())
+        for g, w in zip(tmh.ownership_unpack(recv), want):
+            assert torch.equal(g.cpu(), w)
+
+
+def test_ownership_wrappers_validate_and_raise(cuda):
+    from shannon_tpu_torch.parallel import multihost as tmh
+
+    flat = torch.zeros(4, dtype=torch.int32, device=cuda)
+    offs = torch.arange(5, dtype=torch.int32, device=cuda)
+    weights = torch.ones(4, dtype=torch.int32, device=cuda)
+    owner = torch.zeros(1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="1..512"):
+        tmh.ownership_pack(flat, offs, weights, owner, 513)
+    with pytest.raises(TypeError, match="int32"):
+        tmh.ownership_pack(flat.long(), offs, weights, owner, 2)
+    with pytest.raises(ValueError, match="path count"):
+        tmh.ownership_pack(flat, offs, weights[:3], owner, 2)
+    with pytest.raises(TypeError, match="int32"):
+        tmh.ownership_unpack(torch.zeros((2, 4), dtype=torch.int64, device=cuda))
+    # a launch the kernel refuses raises, with the entry point's CUDA status
+    counts = torch.zeros((513, 1), dtype=torch.int32, device=cuda)
+    lib = kernels.library()
+    with pytest.raises(RuntimeError, match="shannon_ownership_counts failed"):
+        lib.call("shannon_ownership_counts", cuda, kernels.ptr(flat), kernels.ptr(offs), 4,
+                 kernels.ptr(owner), 513, kernels.ptr(flat), kernels.ptr(counts),
+                 kernels.ptr(counts))
