@@ -21,8 +21,10 @@ Phases; any failure exits nonzero:
      (compaction of the final keep mask) on the counted, shrunk spectrum of
      the whole single-end scale dataset at the default AssemblyConfig, with
      K16 (count histogram of the auto cut; its global variant at max_count
-     65,536 printed beside it) and K20 (the abundance cut, its cut mode) on
-     that spectrum and K17 (count merge) on the first merge its count made;
+     65,536 printed beside it), K20 (the abundance cut, its cut mode) and
+     K28 (neighbor counts: 8 extension and 8 sibling probes a lane, k = 24,
+     canonical) on that spectrum and K17 (count merge) on the first merge
+     its count made;
      then the whole correct_spectrum there against its CPU run, and K9 on a
      synthetic grid (every count 1..255 against every sibling maximum
      1..4095, error_rate 0.01 and 0.02); K11-K15 (condensation: node table, group-join links,
@@ -34,13 +36,17 @@ Phases; any failure exits nonzero:
      homopolymers); K18 (tip clip's drop) and K19 (its remap of the node
      table) on the arguments one clip of that spectrum gives them; K6
      (sparse-flow greedy) on 4,096 random jobs of 1-8 by 1-8 margins at
-     sf_restarts = 4, and the batched solver (K6) against the host
-     solve_node loop on rounds of 8, 32 and 128 X-nodes.  Each kernel row
+     sf_restarts = 4, K29 (the unpacked greedy, one decomposition a row) on
+     those jobs expanded to their 5 seeded restart rows (20,480 rows), each
+     job's winning row also held equal to K6's flows, and the batched solver
+     (K6) against the host solve_node loop on rounds of 8, 32 and 128
+     X-nodes.  Each kernel row
      also times the one PyTorch call that computes the same function, where
      there is one (library_ms), and gives the least time the card could
      take (bound_ms: bytes over 3.35 TB/s or operations over 67 TFLOP/s,
-     whichever is larger).  Every device program of the main path is a
-     hand-written kernel;
+     whichever is larger).  Every device program of the JAX package is a
+     hand-written kernel: those of the main path, and K28 and K29, which
+     the reference runs in its tests only;
   2b. the flagship count-and-correct step (shannon_tpu_torch.entry: 65,536
      reads x 100 bp, k = 24, a 2^22-lane count table sliced to 2^21 lanes,
      abundance_filter(1), one sibling_prune_round(0.1)), run once to warm,
@@ -53,8 +59,9 @@ Phases; any failure exits nonzero:
   3. parity: on 3,000 reads of the scale dataset, assemble on CUDA gives
      the same corrected spectrum, contig arrays and transcripts as on the
      CPU (plain versions), and the same canonical set as the pure-Python
-     oracle; on 1,500 pairs of the paired scale dataset, assemble(paired=
-     True) on CUDA gives the CPU's transcripts, and run_pipeline on CUDA
+     oracle (assemble(backend="oracle")); on 1,500 pairs of the paired
+     scale dataset, assemble(paired=True) on CUDA gives the CPU's
+     transcripts, and run_pipeline on CUDA
      from two mate files gives the in-memory route's spectrum and
      transcripts;
   4. single-end scale: assemble on CUDA at the default AssemblyConfig
@@ -93,13 +100,22 @@ Phases; any failure exits nonzero:
      100 bp mates with insert 250 (1% error), written as two FASTA files,
      run by shannon_tpu_torch.cli.main on CUDA, then run again on the same
      out-dir, where every stage must be skipped (resume); fails below the
-     reference's exact recall on this dataset (PAIRED_RECALL_GATE).
+     reference's exact recall on this dataset (PAIRED_RECALL_GATE);
+  6. quality: shannon_tpu_torch.quality's four sections on CUDA at the
+     reference's sizes (pinned 30,255 reads; paired bridging 3,920 reads,
+     pairs off and on; splicing 20,877 reads and its paired variant; the
+     sweep at coverages 5, 10 and 20), each section's transcript sets and
+     metrics held to the reference's figures (QUALITY_FIGURES, from a fresh
+     run of scripts/quality.py's sections on JAX-CPU, not the committed
+     QUALITY.md), each section's wall seconds printed.
 In both scale phases each merge of the count is bracketed with CUDA events,
 and their sum is printed beside count_s.  scripts/scale_turns.py runs these
 two phases alone for several trees in turns (a parent against a change).
-Every kernel must launch at least once in each scale phase (counts set to 0
-just before the phase and read just after), but K21-K23, which assembly
-never runs (the flagship step runs K22 and K23; K21's work on it is inside
+Every kernel must launch at least once in each scale phase and in the
+quality phase (counts set to 0 just before the phase and read just after),
+but K28 and K29 (TESTS_ONLY), which no path runs (the reference runs them in
+its tests only), K17 in the quality phase, whose counts each fit one batch,
+K21-K23, which assembly never runs (the flagship step runs K22 and K23; K21's work on it is inside
 K22), K24, which assembly never runs (it counts packed words; the dry run
 runs K24), K25 where the count is not sharded, K26 and K27, which run only in
 a multi-process 'ownership' run (phase 4c); K8 (dead-end rescue) runs
@@ -111,9 +127,9 @@ the clip closed a cycle (the caller then condenses the clipped spectrum
 anew).
 
 The last two lines of standard output are one JSON object with the kernels'
-launches (single-end, paired, entry, sharded and multi-process, the last
-summed over every rank of every group), errors and times, and one JSON
-object {"ok": true, "device": ...}.
+launches (single-end, paired, entry, sharded, multi-process, the last
+summed over every rank of every group, and quality), errors and times, and
+one JSON object {"ok": true, "device": ...}.
 Imports nothing of JAX and nothing of the JAX package (shannon_tpu).
 """
 
@@ -178,10 +194,17 @@ REPLACES = {
                        "shannon_tpu/parallel/multihost.py:115"),
     "ownership_unpack": ("shannon_tpu_torch/csrc/multihost.cu",
                          "shannon_tpu/parallel/multihost.py:115"),
+    "neighbor_counts": ("shannon_tpu_torch/csrc/spectrum.cu", "shannon_tpu/ops/spectrum.py:212"),
+    "sf_jobs": ("shannon_tpu_torch/csrc/sparseflow.cu", "shannon_tpu/ops/sparseflow.py:38"),
 }
 # Kernels that assembly never launches: K22 and K23 run in the flagship step
-# alone, and K21 on no path (its work on the flagship step is inside K22).
+# alone, and K21 on no path (its work on the flagship step is inside K22);
+# K28 and K29 (TESTS_ONLY) run on no path either.
 ENTRY_ONLY = {"lookup_counts": "K21", "sibling_maxes": "K22", "prune_keep": "K23"}
+# Kernels no path runs: the reference runs neighbor_counts and the unpacked
+# batched_greedy in its tests only.  The kernel phase holds them against
+# their plain versions; every path's launch check exempts them.
+TESTS_ONLY = {"neighbor_counts": "K28", "sf_jobs": "K29"}
 
 # The flagship step's output at entry()'s shape: the JAX package's figures
 # for __graft_entry__.entry() on JAX-CPU.  The hashes are the first 16 hex
@@ -210,6 +233,30 @@ MULTIHOST_SMALL = 250_000
 MULTIHOST_PAD = 128
 # Seconds a group of ranks may run before it is killed and the phase fails.
 GROUP_TIMEOUT = 420
+
+# The reference's quality gates: scripts/quality.py's four sections at its own
+# sizes on JAX-CPU, with each of its backends.  Per section and backend:
+# (transcript_sha256 of the section's assemblies, section_sha256 of every
+# metric, dataset field and assembly statistic), from
+#   JAX_PLATFORMS=cpu python scripts/reference_quality.py
+QUALITY_FIGURES = {
+    "pinned": {"device": ("ef72396a56a6708c", "15c11b41d6091577"),
+               "oracle": ("66ff8b74121bd637", "15c11b41d6091577")},
+    "paired_bridging": {"device": ("5009e9d6e2c0efdb", "5ac178bf8cd50063"),
+                        "oracle": ("5009e9d6e2c0efdb", "5ac178bf8cd50063")},
+    "splicing": {"device": ("81a0501f54e31dea", "72fe5241d0564dbf"),
+                 "oracle": ("81a0501f54e31dea", "72fe5241d0564dbf")},
+    "sweep": {"device": ("325d56a158501c20", "42d4f99e58b6e0df"),
+              "oracle": ("a5e1905d71f8b623", "7d291ecf76d05eca")},
+}
+# The reference backend the port's device backend must equal in every
+# section.  The two differ on pinned and the sweep, where the reference's
+# batched sparse-flow solver returns each node's pairings in row-major cell
+# order and sparse_flow numbers the split copies in that order; the port's
+# solver keeps the oracle's pick order (ops/sparseflow.py; with the oracle's
+# host solver in its device backend, scripts/reference_quality.py
+# --host-solver, the reference gives the oracle's figures).
+QUALITY_BACKEND = "oracle"
 
 # Peak rates of one H100 SXM for bound_ms (NVIDIA's data sheet): device
 # memory bandwidth, and float32 / integer operations outside the tensor cores.
@@ -290,6 +337,7 @@ WATCHED = {
     "host_clip_rounds": ("shannon_tpu_torch.ops.tipclip", "_host_clip_rounds"),
     "drop_contigs": ("shannon_tpu_torch.ops.tipclip", "_drop_contigs"),
     "clip_remap": ("shannon_tpu_torch.ops.tipclip", "_device_clip_remap"),
+    "auto_cut": ("shannon_tpu_torch.pipeline", "auto_min_abundance"),
 }
 
 
@@ -297,7 +345,8 @@ class Watch:
     """Wraps the count merge and tip clip's steps (WATCHED) in their
     modules.  It records, for each clip, whether its host rounds doomed a
     contig and whether a merge closed a cycle (where K18 and K19 are
-    exempt), and brackets each merge with two CUDA events (merge_ms reads
+    exempt), and each assembly's auto abundance cut (K8 is exempt where
+    every cut is 1), and brackets each merge with two CUDA events (merge_ms reads
     them); while keep_args is set, it keeps the first call's arguments of
     the merge, the drop and the remap, so that each kernel can be held
     against its plain version on the main path's own arguments.  The
@@ -308,6 +357,7 @@ class Watch:
 
         self.originals = {}
         self.clips: list[tuple[bool, bool]] = []  # (any doomed, cycle merged)
+        self.cuts: list[int] = []  # each assembly's auto abundance cut
         self.merges: list = []  # (start, end) CUDA events of each merge
         self.first_args: dict = {}
         self.keep_args = False
@@ -332,6 +382,8 @@ class Watch:
             out = fn(*args)
             if name == "host_clip_rounds":
                 self.clips.append((bool(out.doomed.any()), bool(out.cycle_merged)))
+            elif name == "auto_cut":
+                self.cuts.append(out)
             return out
 
         return wrapped
@@ -347,6 +399,7 @@ class Watch:
 
     def reset(self) -> None:
         self.clips.clear()
+        self.cuts.clear()
         self.merges.clear()
         self.first_args.clear()
 
@@ -628,13 +681,13 @@ def entry_phase(dev, lib, smi: str) -> tuple[dict, dict]:
 
 
 def parity_phase(reads, n_parity: int, dev, smi: str) -> None:
-    """CUDA == CPU (plain versions) == oracle on a subset of the reads."""
+    """CUDA == CPU (plain versions) == the oracle backend on a subset of the
+    reads."""
     import numpy as np
     import torch
 
     from shannon_tpu_torch.config import AssemblyConfig
     from shannon_tpu_torch.io.pack import pack_reads
-    from shannon_tpu_torch.oracle import assemble_oracle
     from shannon_tpu_torch.pipeline import assemble, spectrum_device
 
     rng = np.random.default_rng(3)
@@ -662,11 +715,11 @@ def parity_phase(reads, n_parity: int, dev, smi: str) -> None:
     ]:
         raise AssertionError("transcripts differ between CUDA and CPU")
     t0 = time.perf_counter()
-    orc = assemble_oracle(sub, cfg)
+    orc = assemble(sub, cfg, backend="oracle")
     if gpu.canonical_set() != orc.canonical_set():
-        raise AssertionError("transcripts differ between CUDA and the oracle")
+        raise AssertionError("transcripts differ between CUDA and the oracle backend")
     print(f"parity: {n_parity} reads, {g_spec.n} corrected k-mers, "
-          f"{len(gpu.transcripts)} transcripts: CUDA == CPU == oracle "
+          f"{len(gpu.transcripts)} transcripts: CUDA == CPU == oracle backend "
           f"(oracle {time.perf_counter() - t0:.1f} s on the host) [{smi}]")
 
 
@@ -758,8 +811,9 @@ def _merge_row(watch: Watch, smi: str) -> dict:
 
 
 def correction_phase(reads, dev, smi: str, watch: Watch):
-    """K7-K10, K16 (and its global variant at max_count 65,536) and K20 (cut
-    mode) against their plain versions on the main path's input: the
+    """K7-K10, K16 (and its global variant at max_count 65,536), K20 (cut
+    mode) and K28 (neighbor counts, which no path runs) against their plain
+    versions on the main path's input: the
     counted, shrunk spectrum of the whole single-end scale dataset at the
     default AssemblyConfig (k = 24, the auto cut, sibling ratio 0.1, the
     default error_rate), and K17 on the first merge of that count; then the
@@ -773,6 +827,7 @@ def correction_phase(reads, dev, smi: str, watch: Watch):
     from shannon_tpu_torch.config import AssemblyConfig
     from shannon_tpu_torch.io.pack import pack_reads
     from shannon_tpu_torch.ops import correction as tcor
+    from shannon_tpu_torch.ops import spectrum as tsp
     from shannon_tpu_torch.ops.count import Spectrum, count_reads_spectrum, shrink_spectrum
     from shannon_tpu_torch.ops.kmers import PAD
 
@@ -834,6 +889,24 @@ def correction_phase(reads, dev, smi: str, watch: Watch):
         _print_row(f"K7 probe_lookup side={side}, 8 x {C} probes (a binary search: "
                    "latency-bound, not bandwidth-bound)", row, smi)
         out.setdefault("probe_lookup", row)  # the sibling set is the row kept
+
+    def neighbors():
+        return tsp.neighbor_counts(spec, k, canonical)
+
+    def neighbors_plain():
+        return tsp.neighbor_counts_plain(spec, k, canonical)
+
+    err = _max_abs_err(neighbors(), neighbors_plain())
+    t = _alternate(neighbors, neighbors_plain)
+    q = torch.cat([tcor.probe_keys(spec.key, k, side, canonical) for side in ("ext", "sib")])
+    library = _time_ms(lambda: torch.searchsorted(spec.key, q), 10)
+    del q
+    # bytes: each lane's key and count in (12), its 8 extension counts and 2
+    # sibling maxima out (40); operations: 16 binary searches a real lane
+    # (pads search nothing)
+    out["neighbor_counts"] = _row(err, t, 52 * C, 16 * n_real * steps, library)
+    _print_row(f"K28 neighbor_counts {C} lanes, {n_real} real x 16 probes (16 binary "
+               "searches a lane: latency-bound, not bandwidth-bound)", out["neighbor_counts"], smi)
 
     sib, ext = probes["sib"], probes["ext"]
     raw, counts = tcor.cut_counts(spec, cut)
@@ -1231,7 +1304,10 @@ def _x_node_graph(seed: int, n_x: int):
 
 
 def sf_phase(dev, smi: str) -> dict:
-    """K6 against its plain version on 4,096 jobs; then the batched solver
+    """K6 against its plain version on 4,096 jobs; K29 (the unpacked greedy,
+    which no path runs) on the same jobs expanded to their seeded restart
+    rows, against its plain version and, row chosen by row, against K6;
+    then the batched solver
     (K6) against the host solve_node loop at small rounds (the reference
     keeps rounds of at most 32 jobs on the host; the port does not)."""
     import torch
@@ -1254,6 +1330,21 @@ def sf_phase(dev, smi: str) -> dict:
     out = {"sf_greedy": _row(err, t, _nbytes(buf, *got), ops, None), "sf_rounds": []}
     _print_row(f"K6 sf_greedy {buf.shape[0]} jobs x {R + 1} restarts (flows bitwise)",
                out["sf_greedy"], smi)
+    rows = tsf.restart_rows(buf, R)  # each job's R + 1 seeded rows, as K6 expands them
+    flows = tsf.batched_greedy(*rows)
+    err = _max_abs_err((flows.view(torch.int32),),
+                       (tsf.batched_greedy_plain(*rows).view(torch.int32),))
+    per_job = flows.reshape(buf.shape[0], R + 1, tsf.MAXD, tsf.MAXD)
+    won = per_job[torch.arange(buf.shape[0], device=dev), tsf.best_restart(per_job)]
+    if not torch.equal(won.view(torch.int32), got[0].view(torch.int32)):
+        raise AssertionError("K29's winning restart rows differ from K6's flow tensors")
+    t = _alternate(lambda: tsf.batched_greedy(*rows), lambda: tsf.batched_greedy_plain(*rows))
+    # per row: at most 16 greedy steps of about 4 operations on each of the
+    # 64 cells, as K6's rows
+    out["sf_jobs"] = _row(err, t, _nbytes(*rows, flows), rows[0].shape[0] * 16 * 64 * 4, None)
+    _print_row(f"K29 sf_jobs {rows[0].shape[0]} rows ({buf.shape[0]} jobs x {R + 1} seeded "
+               "restarts; flows bitwise; each job's winning row == K6's flows)",
+               out["sf_jobs"], smi)
     for n_nodes in (8, 32, 128):
         g, xs = _x_node_graph(n_nodes, n_nodes)
         n_jobs = 0
@@ -1346,55 +1437,65 @@ def _run_cli(argv: list[str], smi: str) -> None:
 
 
 def _launches_check(launches: dict, phase: str, cut: int, clips: list,
-                    sharded: bool = False) -> None:
-    """Every kernel launched in the phase but K21-K23 (ENTRY_ONLY) and K24
-    (assembly counts packed words); K25 only where the count is sharded; K8
-    only where the phase's auto abundance cut is above 1, K13's cycle_round
-    only where its labels found a cycle, K18 and K19 only where the phase's
-    clip doomed a contig, and K19 only where no merge of the clip closed a
-    cycle."""
+                    sharded: bool = False, merged: bool = True) -> None:
+    """Every kernel launched in the phase but K21-K23 (ENTRY_ONLY), K24
+    (assembly counts packed words) and K28-K29 (TESTS_ONLY); K25 only where
+    the count is sharded; K17 only where the count merged (merged: its
+    reads filled more than one batch); K8 only where the phase's auto
+    abundance cut is above 1, K13's cycle_round only where its labels found
+    a cycle, K18 and K19 only where the phase's clip doomed a contig, and
+    K19 only where no merge of the clip closed a cycle."""
     missing = [name for name, count in launches.items() if count == 0]
+    for name, label in TESTS_ONLY.items():
+        if name in missing:
+            missing.remove(name)
+            print(f"the {phase} phase launched no {name} ({label}): no path runs it; the "
+                  "reference runs it in its tests only (the kernel phase checks it)")
+    if "merge_spectra" in missing and not merged:
+        missing.remove("merge_spectra")
+        print(f"the {phase} phase launched no merge_spectra (K17): each of its counts fit one "
+              f"batch of {BATCH_READS} reads, so none merged")
     for name, label in ENTRY_ONLY.items():
         if name in missing:
             missing.remove(name)
-            print(f"the {phase} scale phase launched no {name} ({label}): assembly never runs it "
+            print(f"the {phase} phase launched no {name} ({label}): assembly never runs it "
                   "(the entry phase checks K22 and K23 in the flagship step; K21's work there is "
                   "inside K22)")
     if "extract_codes" in missing:
         missing.remove("extract_codes")
-        print(f"the {phase} scale phase launched no extract_codes (K24): assembly counts and "
+        print(f"the {phase} phase launched no extract_codes (K24): assembly counts and "
               "threads packed words; dryrun_multichip runs K24 (the sharded phase checks it)")
     if "owner_buckets" in missing and not sharded:
         missing.remove("owner_buckets")
-        print(f"the {phase} scale phase launched no owner_buckets (K25): its count is not "
+        print(f"the {phase} phase launched no owner_buckets (K25): its count is not "
               "sharded (one shard on one card; the sharded phase checks K25)")
     for name, label in OWNERSHIP_KERNELS.items():
         if name in missing:
             missing.remove(name)
-            print(f"the {phase} scale phase launched no {name} ({label}): it runs in one process, "
+            print(f"the {phase} phase launched no {name} ({label}): it runs in one process, "
                   "and K26 and K27 run only in a multi-process run in 'ownership' mode (the "
                   "multi-process phase checks them)")
     if "rescue_round" in missing and cut == 1:
         missing.remove("rescue_round")
-        print(f"the {phase} scale phase launched no rescue_round (K8): its auto abundance "
+        print(f"the {phase} phase launched no rescue_round (K8): its auto abundance "
               "cut is 1, and dead-end rescue runs only when the cut drops k-mers")
     if "cycle_round" in missing:
         missing.remove("cycle_round")
-        print(f"the {phase} scale phase launched no cycle_round (K13): its labels found no "
+        print(f"the {phase} phase launched no cycle_round (K13): its labels found no "
               "cycle, and the cycle cut runs only when they find one")
     doomed = any(d for d, _ in clips)
     for name, label in (("drop_contigs", "K18"), ("clip_remap", "K19")):
         if name in missing and not doomed:
             missing.remove(name)
-            print(f"the {phase} scale phase launched no {name} ({label}): its tip clip doomed "
+            print(f"the {phase} phase launched no {name} ({label}): its tip clip doomed "
                   "no contig, and the drop and the remap run only when it dooms one")
     if "clip_remap" in missing and any(c for _, c in clips):
         missing.remove("clip_remap")
-        print(f"the {phase} scale phase launched no clip_remap (K19): a merge of its tip clip "
+        print(f"the {phase} phase launched no clip_remap (K19): a merge of its tip clip "
               "closed a cycle, and the caller then condenses the clipped spectrum anew")
     if missing:
-        raise AssertionError(f"the {phase} scale phase launched no {missing} kernel")
-    print(f"the {phase} scale phase launched merge_spectra (K17) {launches['merge_spectra']} "
+        raise AssertionError(f"the {phase} phase launched no {missing} kernel")
+    print(f"the {phase} phase launched merge_spectra (K17) {launches['merge_spectra']} "
           f"times; its clips (any doomed, cycle merged): {clips}")
 
 
@@ -1428,8 +1529,8 @@ def single_scale_phase(truth, reads, dev, lib, watch: Watch, smi: str) -> dict:
     print("launches " + json.dumps(launches))
     if quality["recall_exact"] < 0.99:
         raise AssertionError(f"single-end exact recall {quality['recall_exact']} < 0.99")
-    _launches_check(launches, "single-end", timer.stages["spectrum+graph"]["auto_min_abundance"],
-                    clips)
+    _launches_check(launches, "single-end scale",
+                    timer.stages["spectrum+graph"]["auto_min_abundance"], clips)
     return {"n_reads": len(reads), "e2e_s": e2e, "reads_per_s": len(reads) / e2e,
             "max_memory_allocated_bytes": peak, "stages": timer.stages, "stats": res.stats,
             "quality": quality, "launches": launches, "clips": clips, "merges": merges}, res
@@ -1554,7 +1655,7 @@ def sharded_phase(truth, reads, single, dev, lib, watch: Watch, smi: str) -> tup
     res, e2e = counted("sharded_scale", lambda: assemble(
         reads, AssemblyConfig(n_devices=SHARDS), device=dev, timer=timer))
     notes = timer.stages["spectrum+graph"]
-    _launches_check(launches["sharded_scale"], "sharded", notes["auto_min_abundance"],
+    _launches_check(launches["sharded_scale"], "sharded scale", notes["auto_min_abundance"],
                     list(watch.clips), sharded=True)
     if res.canonical_set() != single.canonical_set():
         raise AssertionError("the n_devices = 8 assembly differs from the single-end phase's")
@@ -1788,7 +1889,8 @@ def paired_scale_phase(truth, reads, dev, lib, watch: Watch, smi: str) -> dict:
         merges = {"calls": len(watch.merges), "ms": watch.merge_ms()}
         peak = torch.cuda.max_memory_allocated(dev)
         stages = json.loads((out / "stats.json").read_text())["stages"]
-        _launches_check(launches, "paired", stages["spectrum+graph"]["auto_min_abundance"], clips)
+        _launches_check(launches, "paired scale", stages["spectrum+graph"]["auto_min_abundance"],
+                        clips)
         seqs = [s for _, s in read_fastx(out / "transcripts.fasta")]
         t0 = time.perf_counter()
         _run_cli(argv, smi)
@@ -1815,6 +1917,43 @@ def paired_scale_phase(truth, reads, dev, lib, watch: Watch, smi: str) -> dict:
             "resume_s": resume_s, "max_memory_allocated_bytes": peak, "stages": stages,
             "n_transcripts": len(seqs), "quality": quality, "launches": launches,
             "clips": clips, "merges": merges}
+
+
+def quality_phase(dev, lib, watch: Watch, smi: str) -> dict:
+    """The quality gates on the card: shannon_tpu_torch.quality's four
+    sections at the reference's sizes, on CUDA, each held to the reference
+    backend QUALITY_BACKEND's figures (QUALITY_FIGURES); launches counted
+    from 0 over the four and checked as a scale phase's."""
+    import torch
+
+    from shannon_tpu_torch import quality
+
+    lib.reset_counts()
+    watch.reset()
+    out = {"sections": {}}
+    for name, run in quality.SECTIONS.items():
+        t0 = time.perf_counter()
+        section = run("device", dev)
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        got = (section["sha256"], quality.section_sha256(section))
+        figures = QUALITY_FIGURES[name]
+        if got != figures[QUALITY_BACKEND]:
+            raise AssertionError(f"quality {name}: {got} != the reference {QUALITY_BACKEND} "
+                                 f"backend's {figures[QUALITY_BACKEND]}")
+        equal = [b for b, f in figures.items() if f == got]
+        print(f"quality {name}: {wall:.1f} s, transcripts {got[0]}, section {got[1]} == the "
+              f"reference's {' and '.join(equal)} backend(s); " + json.dumps(
+                  quality.headline(name, section)) + f" [{smi}]")
+        out["sections"][name] = {"wall_s": wall, "sha256": got[0], "section_sha256": got[1],
+                                 "equals": equal, **quality.headline(name, section)}
+    launches = dict(lib.launches)
+    print("quality launches " + json.dumps(launches))
+    _launches_check(launches, "quality", max(watch.cuts), list(watch.clips),
+                    merged=bool(watch.merges))
+    out["launches"] = launches
+    out["wall_s"] = sum(x["wall_s"] for x in out["sections"].values())
+    return out
 
 
 def main(argv=None) -> int:
@@ -1889,6 +2028,9 @@ def main(argv=None) -> int:
     print(f"multi-process phase: {report['multihost']['wall_s']:.1f} s [{smi}]")
     del reads, single
     report["paired_scale"] = paired_scale_phase(p_truth, p_reads, dev, lib, watch, smi)
+    del p_reads
+    report["quality"] = quality_phase(dev, lib, watch, smi)
+    print(f"quality phase: {report['quality']['wall_s']:.1f} s [{smi}]")
     report["wall_s"] = time.perf_counter() - t_start
     if args.out:
         with open(args.out, "w") as fh:
@@ -1898,7 +2040,8 @@ def main(argv=None) -> int:
              "launches_paired": report["paired_scale"]["launches"],
              "launches_entry": report["entry"]["launches"],
              "launches_sharded": report["sharded"]["launches"],
-             "launches_multihost": report["multihost"]["launches"]}
+             "launches_multihost": report["multihost"]["launches"],
+             "launches_quality": report["quality"]["launches"]}
     rows = [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": sum(counts[name] for counts in paths.values()),

@@ -1,19 +1,23 @@
 """CLI of the PyTorch/CUDA port: the argument surface of ``shannon_tpu.cli``
-with ``--device`` in place of ``--backend``.
+plus ``--device``.
 
     shannon-tpu-torch -o OUT --single reads.fasta -K 24
     shannon-tpu-torch -o OUT --left l.fastq --right r.fastq --device cuda
+    shannon-tpu-torch -o OUT --single reads.fasta --backend oracle
     python -m shannon_tpu_torch.cli ...
 
-Runs :func:`shannon_tpu_torch.pipeline.run_pipeline`; ``-p N`` counts in N
-shards of one process.  Under torchrun it runs as one rank of a process
-group (``parallel.multihost.init_distributed``), each rank on its share of
-the input, with an explicit ``--read-pad-length`` for byte-range ingest:
+Runs :func:`shannon_tpu_torch.pipeline.run_pipeline`.  ``--backend device``
+(the default) runs on ``--device`` (cuda unless asked for cpu); ``--backend
+oracle`` runs the pure-Python oracle on the host, as the reference's
+``--backend oracle`` does.  ``-p N`` counts in N shards of one process.
+Under torchrun the device backend runs as one rank of a process group
+(``parallel.multihost.init_distributed``), each rank on its share of the
+input, with an explicit ``--read-pad-length`` for byte-range ingest:
 
     python -m torch.distributed.run --nproc-per-node N -m shannon_tpu_torch.cli \
         -o OUT --single reads.fasta --read-pad-length 128
 
-The pure-Python oracle stays in the reference's CLI.
+The oracle backend joins no process group, as in the reference.
 """
 
 from __future__ import annotations
@@ -78,6 +82,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "longest read (32-base grid, never truncates)")
     p.add_argument("--no-resume", action="store_true",
                    help="recompute every stage even if artifacts exist")
+    p.add_argument("--backend", choices=["device", "oracle"], default="device",
+                   help="'oracle' = pure-Python reference-semantics path on the host")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default cuda; no CPU "
                         "fallback: cuda without a card raises)")
@@ -136,12 +142,15 @@ def main(argv: list[str] | None = None) -> int:
     from shannon_tpu_torch import pipeline
     from shannon_tpu_torch.parallel.multihost import init_distributed, leave_distributed
 
-    init_distributed(args.device)
-    profiler = _profiler(args.out_dir, args.device) if args.profile else contextlib.nullcontext()
+    if args.backend == "device":
+        init_distributed(args.device)
+    traced = args.device if args.backend == "device" else "cpu"
+    profiler = _profiler(args.out_dir, traced) if args.profile else contextlib.nullcontext()
     try:
         with profiler:
             result = pipeline.run_pipeline(
-                config, single=args.single, left=args.left, right=args.right, device=args.device
+                config, single=args.single, left=args.left, right=args.right,
+                backend=args.backend, device=args.device,
             )
     finally:
         leave_distributed()

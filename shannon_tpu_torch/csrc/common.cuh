@@ -52,7 +52,8 @@ static __device__ __forceinline__ bool lower_bound_hit(
 // | b << 2(k-1); with side_ext, extensions suffix.b = ((v << 2) | b) & mask and
 // b.prefix = (v >> 2) | b << 2(k-1).  With canonical, the smaller of the probe
 // and its reverse complement.  K7 (probe_lookup) and K22 (sibling_maxes) share
-// it, so both search the same keys.
+// it, so both search the same keys; K28 (neighbor_counts) searches the
+// extension probes too.
 static __device__ __forceinline__ int64_t probe_key(uint64_t v, int k, int p,
                                                     int side_ext, int canonical) {
   const uint64_t mask = (1ull << (2 * k)) - 1;
@@ -77,8 +78,8 @@ static __device__ __forceinline__ int64_t probe_key(uint64_t v, int k, int p,
 // its left siblings (rows 1, 3, 5, 7) in the sorted table: each probe is one
 // lower_bound_hit, and a miss counts 0, as in the reference's lookup_counts.
 // The eight searches are independent, so the unrolled loop keeps them in
-// flight together.  K22 (sibling_maxes) runs it once per real entry; a later
-// kernel can fuse it with K23's decision.
+// flight together.  K22 (sibling_maxes) and K28 (neighbor_counts) run it once
+// per real entry; a later kernel can fuse it with K23's decision.
 static __device__ __forceinline__ void sibling_maxes_of(
     const int64_t* __restrict__ table, const int32_t* __restrict__ count,
     int64_t table_len, uint64_t v, int k, int canonical, int32_t* rmax,

@@ -1,5 +1,5 @@
-// Count lookups in the sorted spectrum: kernels K21 (lookup_counts) and K22
-// (sibling_maxes) of the shannon_tpu_torch port (plain C interface; see
+// Count lookups in the sorted spectrum: kernels K21 (lookup_counts), K22
+// (sibling_maxes) and K28 (neighbor_counts) of the shannon_tpu_torch port (plain C interface; see
 // kernels.cu for the conventions every entry point follows).
 //
 // The spectrum is a sorted table of C int64 keys with int32 counts, PAD (with
@@ -55,6 +55,52 @@ __global__ void sibling_maxes_kernel(const int64_t* __restrict__ key,
 }
 
 // ---------------------------------------------------------------------------
+// K28: the counts of each entry's 4 right extensions (suffix.b) and 4 left
+// extensions (b.prefix), and K22's two sibling maxima.
+// Replaces shannon_tpu/ops/spectrum.py:212 neighbor_counts (its [16, C] probe
+// tensor, canonical_hilo and the lookup_counts of the probes).  K22's design:
+// one thread per entry builds its 8 extension probes in registers
+// (probe_key with side_ext), searches each with lower_bound_hit, then takes
+// the sibling maxima with sibling_maxes_of, so no [16, C] tensor is stored.
+// Row b of each [4, C] output is written at b * C + i: consecutive threads
+// store consecutive words.  A PAD lane writes zeros without searching.
+// Bound: the latency of 16 binary searches per real lane, not bandwidth
+// (12 bytes read and 40 written a lane).
+// ---------------------------------------------------------------------------
+__global__ void neighbor_counts_kernel(const int64_t* __restrict__ key,
+                                       const int32_t* __restrict__ count,
+                                       int64_t C, int k, int canonical,
+                                       int32_t* __restrict__ rext,
+                                       int32_t* __restrict__ lext,
+                                       int32_t* __restrict__ rmax,
+                                       int32_t* __restrict__ lmax) {
+  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= C) return;
+  const int64_t v = key[i];
+  int32_t e[8];
+  int32_t r = 0, l = 0;
+#pragma unroll
+  for (int p = 0; p < 8; ++p) e[p] = 0;
+  if (v != PAD_KEY) {
+#pragma unroll
+    for (int p = 0; p < 8; ++p) {
+      int64_t lane;
+      if (lower_bound_hit(key, C, probe_key((uint64_t)v, k, p, 1, canonical), &lane)) {
+        e[p] = count[lane];
+      }
+    }
+    sibling_maxes_of(key, count, C, (uint64_t)v, k, canonical, &r, &l);
+  }
+#pragma unroll
+  for (int b = 0; b < 4; ++b) {
+    rext[b * C + i] = e[2 * b];
+    lext[b * C + i] = e[2 * b + 1];
+  }
+  rmax[i] = r;
+  lmax[i] = l;
+}
+
+// ---------------------------------------------------------------------------
 // C entry points
 // ---------------------------------------------------------------------------
 extern "C" {
@@ -76,6 +122,17 @@ int shannon_sibling_maxes(const void* key, const void* count, int64_t C, int k,
     sibling_maxes_kernel<<<blocks_for(C), THREADS, 0, (cudaStream_t)stream>>>(
         (const int64_t*)key, (const int32_t*)count, C, k, canonical,
         (int32_t*)rmax, (int32_t*)lmax);
+  }
+  return (int)cudaGetLastError();
+}
+
+int shannon_neighbor_counts(const void* key, const void* count, int64_t C, int k,
+                            int canonical, void* rext, void* lext, void* rmax,
+                            void* lmax, void* stream) {
+  if (C > 0) {
+    neighbor_counts_kernel<<<blocks_for(C), THREADS, 0, (cudaStream_t)stream>>>(
+        (const int64_t*)key, (const int32_t*)count, C, k, canonical,
+        (int32_t*)rext, (int32_t*)lext, (int32_t*)rmax, (int32_t*)lmax);
   }
   return (int)cudaGetLastError();
 }

@@ -45,6 +45,7 @@ KERNELS = (
     "count_histogram", "merge_spectra", "drop_contigs", "clip_remap",
     "abundance_cut", "lookup_counts", "sibling_maxes", "prune_keep",
     "extract_codes", "owner_buckets", "ownership_pack", "ownership_unpack",
+    "neighbor_counts", "sf_jobs",
 )
 
 _P = ctypes.c_void_p
@@ -61,6 +62,7 @@ _ARGTYPES = {
     "shannon_row_counts": [_P, _I64, _I, _P, _P],
     "shannon_compact_rows": [_P, _P, _I64, _I, _I, *[_P] * 8, _P],
     "shannon_sf_greedy": [_P, _I64, _I, _I, *[_P] * 6, _P],
+    "shannon_sf_jobs": [_P, _P, _P, _P, _I64, _I, _I, _I, _P, _P],
     "shannon_probe_lookup": [_P, _I64, _I, _I, _I, _P, _P, _P],
     "shannon_rescue_round": [*[_P] * 6, _I64, _P, _P, _P],
     "shannon_prune_round": [_P, _P, _P, _I64, _F, _F, _I, _P, _P, _P],
@@ -83,6 +85,7 @@ _ARGTYPES = {
     "shannon_abundance_cut": [_P, _P, _I64, _I, _P, _P, _P, _P],
     "shannon_lookup_counts": [_P, _P, _I64, _P, _I64, _P, _P],
     "shannon_sibling_maxes": [_P, _P, _I64, _I, _I, _P, _P, _P],
+    "shannon_neighbor_counts": [_P, _P, _I64, _I, _I, *[_P] * 4, _P],
     "shannon_prune_keep": [_P, _P, _P, _P, _I64, _F, _P, _P],
     "shannon_owner_counts": [_P, _I64, _I, _P, _P],
     "shannon_owner_scatter": [_P, _P, _I64, _I, _I64, *[_P] * 5, _P],

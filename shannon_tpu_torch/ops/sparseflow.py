@@ -4,8 +4,9 @@ seeded restarts, bit-identical to the oracle solver.
 Counterpart of ``shannon_tpu/ops/sparseflow.py``.  Nodes are padded to
 (MAXD, MAXD) = (8, 8) margins; each job is solved with sf_restarts + 1
 seeds at once and the best restart is chosen on the device with the
-oracle's key.  On CUDA tensors this is kernel K6 (``csrc/sparseflow.cu``);
-on CPU tensors its plain twin, where flows are float32 and the tie hash
+oracle's key.  On CUDA tensors this is kernel K6 (``csrc/sparseflow.cu``),
+and the unpacked form without restarts (``batched_greedy``) kernel K29;
+on CPU tensors their plain twins, where flows are float32 and the tie hash
 wraps at uint32, computed in int64 with a mask after every multiply and
 add.
 
@@ -88,6 +89,81 @@ def greedy_core(a, b, seeds, use_hash, max_steps: int):
     return F, picks
 
 
+def batched_greedy_plain(a, b, seeds, use_hash, max_steps: int = 2 * MAXD):
+    """Plain PyTorch K29: greedy_core's flow tensors."""
+    return greedy_core(a, b, seeds.long() & _M32, use_hash, max_steps)[0]
+
+
+def _batched_greedy_cuda(a, b, seeds, use_hash, max_steps: int):
+    kernels.check_cuda("a", a, torch.float32, 2)
+    kernels.check_cuda("b", b, torch.float32, 2)
+    (B, M), N = a.shape, b.shape[1]
+    if b.shape[0] != B or seeds.shape != (B,) or use_hash.shape != (B,):
+        raise ValueError(f"a, b, seeds and use_hash disagree on the jobs: {B}")
+    if not (0 < M <= MAXD and 0 < N <= MAXD and 0 < max_steps <= 2 * MAXD):
+        raise ValueError(f"M={M}, N={N}, max_steps={max_steps} out of range (MAXD = {MAXD})")
+    seeds = seeds.to(device=a.device, dtype=torch.int64).contiguous()
+    use_hash = use_hash.to(device=a.device, dtype=torch.bool).contiguous()
+    F = torch.empty((B, M, N), dtype=torch.float32, device=a.device)
+    lib = kernels.library()
+    lib.call(
+        "shannon_sf_jobs", a.device,
+        *map(kernels.ptr, (a, b, seeds, use_hash)), B, M, N, max_steps, kernels.ptr(F),
+    )
+    lib.count("sf_jobs")
+    return F
+
+
+def batched_greedy(a, b, seeds, use_hash, max_steps: int = 2 * MAXD):
+    """Flow tensors F [B, M, N] float32 of one greedy max-min decomposition
+    per job of margins a [B, M], b [B, N] float32, no restarts and no
+    selection (ops/sparseflow.py:38 batched_greedy).  seeds [B]: uint32
+    values carried as int64 in [0, 2^32), or their int32 bit pattern;
+    use_hash [B] bool: hashed ties (else lexicographic).  Kernel K29 on CUDA
+    (M, N <= MAXD, 0 < max_steps <= 2 * MAXD), the plain version on CPU (any
+    shape, as the reference)."""
+    if a.is_cuda:
+        return _batched_greedy_cuda(a, b, seeds, use_hash, max_steps)
+    return batched_greedy_plain(a, b, seeds, use_hash, max_steps)
+
+
+def best_restart(F: torch.Tensor) -> torch.Tensor:
+    """The winning restart of each job of F [B, K, MAXD, MAXD]: the least
+    (pairing count, uint64 support mask at stride MAXD), then the earliest,
+    as the oracle's _best_of_restarts."""
+    B, K = F.shape[:2]
+    nz = F > 0
+    counts = nz.sum(dim=(2, 3))
+    cell = torch.arange(MAXD * MAXD, device=F.device).reshape(MAXD, MAXD)
+    one_bit = torch.ones_like(cell)
+    lo_bit = torch.where(cell < 32, one_bit << cell.clamp(max=31), 0)
+    hi_bit = torch.where(cell >= 32, one_bit << (cell - 32).clamp(min=0), 0)
+    lo_mask = torch.where(nz, lo_bit, 0).sum(dim=(2, 3))
+    hi_mask = torch.where(nz, hi_bit, 0).sum(dim=(2, 3))
+    cand = counts == counts.amin(1, keepdim=True)
+    hi_m = torch.where(cand, hi_mask, _M32)
+    cand &= hi_m == hi_m.amin(1, keepdim=True)
+    lo_m = torch.where(cand, lo_mask, _M32)
+    cand &= lo_m == lo_m.amin(1, keepdim=True)
+    return torch.argmax(cand.int(), dim=1)  # first True
+
+
+def restart_rows(buf: torch.Tensor, k_restarts: int):
+    """Each job of buf [B, 2*MAXD+1] int32 expanded to its k_restarts + 1
+    seeded rows, as batched_greedy_packed expands them: (a [B*K, MAXD],
+    b [B*K, MAXD], seeds [B*K] int64, use_hash [B*K] bool); row r of a job
+    has seed node_seed + r mod 2^32 and hashed ties where r > 0 (seed 0,
+    lexicographic ties at r = 0)."""
+    B = buf.shape[0]
+    K = k_restarts + 1
+    a = buf[:, :MAXD].contiguous().view(torch.float32).repeat_interleave(K, 0)
+    b = buf[:, MAXD : 2 * MAXD].contiguous().view(torch.float32).repeat_interleave(K, 0)
+    node_seed = buf[:, 2 * MAXD].long() & _M32
+    r = torch.arange(K, device=buf.device).repeat(B)
+    seeds = torch.where(r > 0, (node_seed.repeat_interleave(K) + r) & _M32, 0)
+    return a, b, seeds, r > 0
+
+
 def batched_greedy_packed_plain(buf: torch.Tensor, k_restarts: int, max_steps: int = 2 * MAXD):
     """Plain PyTorch K6: solve every job of buf [B, 2*MAXD+1] int32 (a
     bits | b bits | node seed) with k_restarts + 1 seeded greedy runs.
@@ -97,31 +173,9 @@ def batched_greedy_packed_plain(buf: torch.Tensor, k_restarts: int, max_steps: i
     _best_of_restarts (ops/sparseflow.py:88 batched_greedy_packed)."""
     B = buf.shape[0]
     K = k_restarts + 1
-    dev = buf.device
-    a1 = buf[:, :MAXD].contiguous().view(torch.float32)
-    b1 = buf[:, MAXD : 2 * MAXD].contiguous().view(torch.float32)
-    node_seed = buf[:, 2 * MAXD].long() & _M32
-    a = a1.repeat_interleave(K, 0)
-    b = b1.repeat_interleave(K, 0)
-    r = torch.arange(K, device=dev).repeat(B)
-    seeds = torch.where(r > 0, (node_seed.repeat_interleave(K) + r) & _M32, 0)
-    F, picks = greedy_core(a, b, seeds, r > 0, max_steps)  # [B*K, M, N]
-
-    nz = F > 0
-    counts = nz.sum(dim=(1, 2)).reshape(B, K)
-    cell = torch.arange(MAXD * MAXD, device=dev).reshape(MAXD, MAXD)
-    one_bit = torch.ones_like(cell)
-    lo_bit = torch.where(cell < 32, one_bit << cell.clamp(max=31), 0)
-    hi_bit = torch.where(cell >= 32, one_bit << (cell - 32).clamp(min=0), 0)
-    lo_mask = torch.where(nz, lo_bit, 0).sum(dim=(1, 2)).reshape(B, K)
-    hi_mask = torch.where(nz, hi_bit, 0).sum(dim=(1, 2)).reshape(B, K)
-    cand = counts == counts.amin(1, keepdim=True)
-    hi_m = torch.where(cand, hi_mask, _M32)
-    cand &= hi_m == hi_m.amin(1, keepdim=True)
-    lo_m = torch.where(cand, lo_mask, _M32)
-    cand &= lo_m == lo_m.amin(1, keepdim=True)
-    best_r = torch.argmax(cand.int(), dim=1)  # first True
-    rows = torch.arange(B, device=dev)
+    F, picks = greedy_core(*restart_rows(buf, k_restarts), max_steps)  # [B*K, M, N]
+    best_r = best_restart(F.reshape(B, K, MAXD, MAXD))
+    rows = torch.arange(B, device=buf.device)
     return (
         F.reshape(B, K, MAXD, MAXD)[rows, best_r],
         picks.reshape(B, K, max_steps)[rows, best_r],

@@ -1,10 +1,10 @@
-"""Sorted-table lookups: exact hits (kernel K3), counts (K21) and sibling
-maxima (K22).
+"""Sorted-table lookups: exact hits (kernel K3), counts (K21), sibling
+maxima (K22) and neighbor counts (K28).
 
 Counterpart of ``shannon_tpu/ops/spectrum.py`` (``lookup_hilo``,
-``lookup_counts``, ``sibling_maxes``).  The TPU switched between a
-sort-merge join and a binary search by a cost model of that chip; here every
-lookup is one binary search per query.  On CUDA tensors each function
+``lookup_counts``, ``sibling_maxes``, ``neighbor_counts``).  The TPU
+switched between a sort-merge join and a binary search by a cost model of
+that chip; here every lookup is one binary search per query.  On CUDA tensors each function
 launches its hand-written kernel (``csrc/kernels.cu``, ``csrc/spectrum.cu``);
 on CPU tensors its ``_plain`` version runs.
 
@@ -17,7 +17,7 @@ import torch
 
 from shannon_tpu_torch import kernels
 from shannon_tpu_torch.ops.count import Spectrum
-from shannon_tpu_torch.ops.kmers import PAD, canonical_key
+from shannon_tpu_torch.ops.kmers import PAD, canonical_key, check_k
 
 
 def lookup_sorted_plain(
@@ -158,3 +158,54 @@ def sibling_maxes(spec: Spectrum, k: int, canonical: bool = True):
     if spec.key.is_cuda:
         return _sibling_maxes_cuda(spec, k, canonical)
     return sibling_maxes_plain(spec, k, canonical)
+
+
+def neighbor_counts_plain(spec: Spectrum, k: int, canonical: bool = True):
+    """Plain PyTorch K28: the [8, C] extension and sibling probe tensors,
+    K21's plain version on each, and a max over each side's sibling rows."""
+    ext = lookup_counts_plain(spec, probe_keys(spec.key, k, "ext", canonical))
+    sib = lookup_counts_plain(spec, probe_keys(spec.key, k, "sib", canonical))
+    pad = spec.key == PAD
+    return (
+        torch.where(pad, 0, ext[0::2]),
+        torch.where(pad, 0, ext[1::2]),
+        torch.where(pad, 0, sib[0::2].amax(0)),
+        torch.where(pad, 0, sib[1::2].amax(0)),
+    )
+
+
+def _neighbor_counts_cuda(spec: Spectrum, k: int, canonical: bool):
+    kernels.check_cuda("key", spec.key, torch.int64, 1)
+    kernels.check_cuda("count", spec.count, torch.int32, 1)
+    C = spec.capacity
+    if spec.count.shape[0] != C:
+        raise ValueError("key and count disagree on length")
+    dev = spec.key.device
+    rext = torch.empty((4, C), dtype=torch.int32, device=dev)
+    lext = torch.empty((4, C), dtype=torch.int32, device=dev)
+    rmax = torch.empty(C, dtype=torch.int32, device=dev)
+    lmax = torch.empty(C, dtype=torch.int32, device=dev)
+    if C == 0:
+        return rext, lext, rmax, lmax
+    lib = kernels.library()
+    lib.call(
+        "shannon_neighbor_counts", dev,
+        kernels.ptr(spec.key), kernels.ptr(spec.count), C, k, int(canonical),
+        *map(kernels.ptr, (rext, lext, rmax, lmax)),
+    )
+    lib.count("neighbor_counts")
+    return rext, lext, rmax, lmax
+
+
+def neighbor_counts(spec: Spectrum, k: int, canonical: bool = True):
+    """(right_ext [4, C], left_ext [4, C], right_sib_max [C], left_sib_max
+    [C]), int32, base axis first: the counts of each entry's right
+    extensions suffix.b and left extensions b.prefix, and the largest count
+    among its right siblings prefix.b and its left siblings b.suffix, all
+    canonicalized when `canonical`; PAD lanes give 0
+    (ops/spectrum.py:212 neighbor_counts).  Kernel K28 on CUDA, the plain
+    version on CPU."""
+    check_k(k)
+    if spec.key.is_cuda:
+        return _neighbor_counts_cuda(spec, k, canonical)
+    return neighbor_counts_plain(spec, k, canonical)

@@ -685,3 +685,12 @@ def clip_tips_graph(
     if notes is not None:
         notes["tc_remap_s"] = round(time.perf_counter() - t4, 3)
     return out, ca2
+
+
+def clip_tips_spectrum(
+    spec: Spectrum, config, canonical: bool = True, notes: dict | None = None
+) -> Spectrum:
+    """The clipped spectrum alone, for callers that need only the k-mer
+    table (ops/tipclip.py:654 clip_tips_spectrum)."""
+    out, _ca = clip_tips_graph(spec, config, canonical, notes)
+    return out

@@ -1,16 +1,20 @@
-"""Assembly in one process: the port's entry points.
+"""The port's entry points: assembly in memory and from files.
 
-Counterparts of ``shannon_tpu.pipeline.assemble(reads, config,
-backend="device")`` (in memory, single-end or paired) and of
-``shannon_tpu.pipeline.run_pipeline`` (files in, stage checkpoints in an
-out-dir, resume), in one process:
+Counterparts of ``shannon_tpu.pipeline.assemble`` (in memory, single-end
+or paired) and of ``shannon_tpu.pipeline.run_pipeline`` (files in, stage
+checkpoints in an out-dir, resume), with the reference's two backends:
 
   ingest -> count -> auto abundance cut -> correction -> tip clip +
   condensation -> components -> threading -> multibridging -> sparse flow
   -> enumeration -> dedupe -> transcripts.
 
-Every tensor lives on the ``device`` passed in (the first CUDA card by
-default); on a CUDA device the hand-written kernels run (K1-K3 k-mers,
+backend="device" (the default) runs that chain on a torch device;
+backend="oracle" runs the reference's pure-Python oracle branches on the
+port's copies of ``oracle/*``, on the host, with no device: it is the
+caller's explicit choice, never a fallback of the device backend.
+
+On the device backend, every tensor lives on the ``device`` passed in (the
+first CUDA card by default); on a CUDA device the hand-written kernels run (K1-K3 k-mers,
 K7-K10 correction, K4-K5 threading, K6 sparse flow), on the CPU their
 plain versions.  With ``config.n_devices`` resolving to more than one shard
 (``parallel.mesh.make_mesh``: 0 = every visible card), counting runs
@@ -65,9 +69,19 @@ from shannon_tpu_torch.ops.tipclip import clip_tips_graph
 from shannon_tpu_torch.parallel import multihost
 from shannon_tpu_torch.parallel.distributed import count_reads_spectrum_sharded
 from shannon_tpu_torch.parallel.mesh import make_mesh
-from shannon_tpu_torch.oracle.assemble import AssemblyResult, Transcript, dedupe_and_filter
-from shannon_tpu_torch.oracle.multibridge import expand_paths
+from shannon_tpu_torch.io.dna import encode_seq
+from shannon_tpu_torch.oracle.assemble import (
+    AssemblyResult,
+    Transcript,
+    dedupe_and_filter,
+    enumerate_transcripts,
+)
+from shannon_tpu_torch.oracle.correction import clip_tips, correct_kmers
+from shannon_tpu_torch.oracle.counting import count_kmers
+from shannon_tpu_torch.oracle.graph import build_contigs
+from shannon_tpu_torch.oracle.multibridge import expand_paths, multibridge, thread_reads
 from shannon_tpu_torch.oracle.nodegraph import NodeGraph, _lists_to_flat
+from shannon_tpu_torch.oracle.sparseflow import sparse_flow
 from shannon_tpu_torch.utils.timing import StageTimer
 
 
@@ -376,40 +390,96 @@ def _assemble_backhalf(cgraph, comps, evidence, config: AssemblyConfig, device, 
     return final, n_mb, n_sf, truncated
 
 
+BACKENDS = ("device", "oracle")
+
+
+def _check_backend(backend: str) -> None:
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}")
+
+
+def _spectrum_oracle(reads: list[str], config: AssemblyConfig) -> dict[int, int]:
+    """The oracle's counted, corrected and clipped spectrum (pipeline.py:423
+    _spectrum_oracle, then clip_tips)."""
+    counts = count_kmers(reads, config.k, config.strand_specific)
+    return clip_tips(correct_kmers(counts, config), config)
+
+
+def _thread_oracle(reads: list[str], cgraph, config: AssemblyConfig, paired: bool):
+    """The oracle's evidence: (paths, path weights) of every read."""
+    return thread_reads([encode_seq(s) for s in reads], cgraph, config, paired=paired)
+
+
+def _backhalf_oracle(cgraph, paths, path_weights, config: AssemblyConfig, timer: StageTimer):
+    """The oracle's back half on the whole graph, each step a stage of
+    `timer`: MB, SF with the host solver, enumeration, dedupe
+    (pipeline.py:686-697)."""
+    g = NodeGraph.from_contig_graph(cgraph, paths, path_weights)
+    with timer.stage("multibridge"):
+        n_mb = multibridge(g, config)
+    with timer.stage("sparseflow"):
+        n_sf = sparse_flow(g, config, solver=None)
+    with timer.stage("enumerate"):
+        transcripts, truncated = enumerate_transcripts(g, config)
+    with timer.stage("dedupe"):
+        final = dedupe_and_filter(transcripts, config)
+    return final, n_mb, n_sf, truncated
+
+
 def assemble(
     reads: list[str],
     config: AssemblyConfig | None = None,
     *,
+    backend: str = "device",
     device="cuda",
     timer: StageTimer | None = None,
     paired: bool = False,
 ) -> AssemblyResult:
-    """In-memory end-to-end assembly on `device` (a torch.device or its
-    name; the first CUDA card unless the caller asks for "cpu").  paired:
+    """In-memory end-to-end assembly (pipeline.py:635 assemble).  backend:
+    "device" runs on `device` (a torch.device or its name; the first CUDA
+    card unless the caller asks for "cpu"), "oracle" the pure-Python oracle
+    on the host (`device` unused); any other raises ValueError.  paired:
     reads are interleaved [L0, R0, L1, R1, ...] with mate 2 as sequenced
-    (it is orientation-normalized here).  Same stages, stage
-    names and output as shannon_tpu.pipeline.assemble(reads, config,
-    backend="device") on one device."""
+    (it is orientation-normalized here).  Same stages, stage names and
+    output as shannon_tpu.pipeline.assemble(reads, config, backend) on one
+    device."""
     config = config or AssemblyConfig()
-    device = _check_config(config, device)
+    _check_backend(backend)
     timer = timer or StageTimer(echo=False)
     if paired:
         reads = normalize_mate2(reads)
 
-    with timer.stage("spectrum+graph", n_reads=len(reads)):
-        t0 = time.perf_counter()
-        batch = pack_reads(reads, pad_length=config.read_pad_length, paired=paired)
-        timer.note("spectrum+graph", ingest_s=round(time.perf_counter() - t0, 3))
-        cgraph, n_alive, ca = _graph_device(batch, config, device, timer)
-    with timer.stage("partition"):
-        comps = device_components(ca)
-    with timer.stage("threading"):
-        evidence = _thread_device(batch, ca, cgraph, config, device, timer)
-    del ca  # threading was the last consumer of the node tables
-    with timer.stage("assembly"):
-        final, n_mb, n_sf, truncated = _assemble_backhalf(
-            cgraph, comps, evidence, config, device, timer
-        )
+    if backend == "oracle":
+        with timer.stage("spectrum", n_reads=len(reads)):
+            alive = _spectrum_oracle(reads, config)
+            n_alive = len(alive)
+        with timer.stage("graph"):
+            cgraph = build_contigs(alive, config)
+            comps = cgraph.components()
+        with timer.stage("threading"):
+            paths, path_weights = _thread_oracle(reads, cgraph, config, paired)
+        with timer.stage("assembly"):
+            final, n_mb, n_sf, truncated = _backhalf_oracle(
+                cgraph, paths, path_weights, config, timer
+            )
+        label = backend
+    else:
+        device = _check_config(config, device)
+        with timer.stage("spectrum+graph", n_reads=len(reads)):
+            t0 = time.perf_counter()
+            batch = pack_reads(reads, pad_length=config.read_pad_length, paired=paired)
+            timer.note("spectrum+graph", ingest_s=round(time.perf_counter() - t0, 3))
+            cgraph, n_alive, ca = _graph_device(batch, config, device, timer)
+        with timer.stage("partition"):
+            comps = device_components(ca)
+        with timer.stage("threading"):
+            evidence = _thread_device(batch, ca, cgraph, config, device, timer)
+        del ca  # threading was the last consumer of the node tables
+        with timer.stage("assembly"):
+            final, n_mb, n_sf, truncated = _assemble_backhalf(
+                cgraph, comps, evidence, config, device, timer
+            )
+        label = f"torch:{device.type}"
     stats = {
         "n_reads": len(reads),
         "n_kmers_final": n_alive,
@@ -419,7 +489,7 @@ def assemble(
         "n_sf_splits": n_sf,
         "n_transcripts": len(final),
         "truncated": truncated,
-        "backend": f"torch:{device.type}",
+        "backend": label,
     }
     timer.note("assembly", **{k: v for k, v in stats.items() if k != "backend"})
     return AssemblyResult(transcripts=final, stats=stats)
@@ -477,30 +547,64 @@ def _spectrum_arrays(spec: Spectrum) -> tuple[np.ndarray, np.ndarray]:
     )
 
 
+def _write_result(fasta: Path, final, rank: int, n_reads: int, n_kmers: int, cgraph, comps,
+                  n_mb: int, n_sf: int, truncated: bool, backend: str) -> AssemblyResult:
+    """transcripts.fasta (rank 0 writes it) and the run's AssemblyResult."""
+    if rank == 0:
+        write_fasta(
+            fasta,
+            [(f"shannon_tpu_{i} abundance={t.abundance:.4f}", t.seq)
+             for i, t in enumerate(final)],
+        )
+    return AssemblyResult(
+        transcripts=final,
+        stats={
+            "n_reads": n_reads,
+            "n_kmers_final": n_kmers,
+            "n_contigs": cgraph.n,
+            "n_components": len(comps),
+            "n_mb_splits": n_mb,
+            "n_sf_splits": n_sf,
+            "n_transcripts": len(final),
+            "truncated": truncated,
+            "backend": backend,
+        },
+    )
+
+
 def run_pipeline(
     config: AssemblyConfig,
     single: str | None = None,
     left: str | None = None,
     right: str | None = None,
     *,
+    backend: str = "device",
     device="cuda",
 ) -> AssemblyResult:
-    """File in -> out-dir artifacts -> transcripts.fasta, on `device`
-    (pipeline.py:719 run_pipeline).
+    """File in -> out-dir artifacts -> transcripts.fasta
+    (pipeline.py:719 run_pipeline), on `device` with backend="device", on
+    the host with backend="oracle" (`device` unused); any other backend
+    raises ValueError.
 
     Stage artifacts, each skipped on re-run when present and
-    config.resume, and the same in both packages, so either can resume
-    from the other's out-dir:
+    config.resume, and the same in both packages for the same backend, so
+    either can resume from the other's out-dir:
       reads.npz               ingested, packed reads
-      spectrum_corrected.npz  counted + corrected spectrum (before tip clip)
+      spectrum_corrected.npz  counted + corrected spectrum (before tip
+                              clip; the device backend only)
       spectrum.npz            final spectrum (kmers uint64, counts int64)
       transcripts.fasta       the output
     plus config.json, timing.log and stats.json.
 
     In a process group of more than one rank, each rank keeps its own reads
-    checkpoint, reads.p{rank}.npz; every other artifact is the same on
-    every rank and rank 0 alone writes it."""
-    device = _check_config(config, device)
+    checkpoint, reads.p{rank}.npz; every other artifact rank 0 alone
+    writes.  On the device backend those are the same on every rank; the
+    oracle backend, as the reference's, assembles each rank's own reads and
+    rank 0 writes its own."""
+    _check_backend(backend)
+    oracle = backend == "oracle"
+    if not oracle:
+        device = _check_config(config, device)
     rank, n_ranks = multihost.world()
     multi = n_ranks > 1
     out = Path(config.out_dir)
@@ -531,10 +635,21 @@ def run_pipeline(
 
     spectrum_npz = out / "spectrum.npz"
     ca_live = None  # post-clip ContigArrays when the clip ran in-process
+    alive = None  # the oracle's spectrum when it ran in-process
     if config.resume and spectrum_npz.exists():
         data = np.load(spectrum_npz)
         keys, vals = data["kmers"], data["counts"]
         timer.note("spectrum", skipped=True, n_kmers=len(keys))
+    elif oracle:
+        with timer.stage("spectrum", n_reads=batch.n_reads):
+            alive = _spectrum_oracle(batch.sequences(), config)
+            keys = np.fromiter(alive.keys(), dtype=np.uint64, count=len(alive))
+            vals = np.fromiter(alive.values(), dtype=np.int64, count=len(alive))
+            order = np.argsort(keys)
+            keys, vals = keys[order], vals[order]
+        if rank == 0:
+            np.savez_compressed(spectrum_npz, kmers=keys, counts=vals)
+        timer.note("spectrum", n_kmers=len(keys))
     else:
         with timer.stage("spectrum", n_reads=batch.n_reads):
             # checkpoint between counting + correction and tip clipping, so
@@ -562,6 +677,22 @@ def run_pipeline(
         ]
         result = AssemblyResult(transcripts=transcripts, stats={"resumed": True})
         timer.note("assembly", skipped=True, n_transcripts=len(transcripts))
+    elif oracle:
+        with timer.stage("graph"):
+            if alive is None:
+                alive = {int(k): int(c) for k, c in zip(keys, vals)}
+            cgraph = build_contigs(alive, config)
+            comps = cgraph.components()
+        with timer.stage("threading"):
+            paths, path_weights = _thread_oracle(batch.sequences(), cgraph, config, batch.paired)
+        with timer.stage("assembly"):
+            # the reference times the back half as one stage here
+            final, n_mb, n_sf, truncated = _backhalf_oracle(
+                cgraph, paths, path_weights, config, StageTimer(echo=False)
+            )
+        result = _write_result(fasta, final, rank, batch.n_reads, len(keys), cgraph, comps,
+                               n_mb, n_sf, truncated, backend)
+        timer.note("assembly", n_transcripts=len(final))
     else:
         with timer.stage("graph"):
             if ca_live is not None:  # the clip already condensed it
@@ -581,26 +712,8 @@ def run_pipeline(
             final, n_mb, n_sf, truncated = _assemble_backhalf(
                 cgraph, comps, evidence, config, device, timer
             )
-        if rank == 0:  # every rank holds the same transcripts
-            write_fasta(
-                fasta,
-                [(f"shannon_tpu_{i} abundance={t.abundance:.4f}", t.seq)
-                 for i, t in enumerate(final)],
-            )
-        result = AssemblyResult(
-            transcripts=final,
-            stats={
-                "n_reads": batch.n_reads,
-                "n_kmers_final": len(keys),
-                "n_contigs": cgraph.n,
-                "n_components": len(comps),
-                "n_mb_splits": n_mb,
-                "n_sf_splits": n_sf,
-                "n_transcripts": len(final),
-                "truncated": truncated,
-                "backend": f"torch:{device.type}",
-            },
-        )
+        result = _write_result(fasta, final, rank, batch.n_reads, len(keys), cgraph, comps,
+                               n_mb, n_sf, truncated, f"torch:{device.type}")
         timer.note("assembly", n_transcripts=len(final))
     timer.flush_stats(extra={"result": result.stats})
     return result

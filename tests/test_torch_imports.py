@@ -16,7 +16,7 @@ REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "shannon_tpu_torch"
 PORT_FILES = sorted(PORT.rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "scripts" / "profile_torch.py", REPO / "scripts" / "scale_turns.py",
-    REPO / "scripts" / "multihost_smoke_torch.py",
+    REPO / "scripts" / "multihost_smoke_torch.py", REPO / "scripts" / "kernel_turns.py",
 ]
 
 # The port's verbatim copies, by path inside each package.

@@ -1,4 +1,4 @@
-"""The hand-written CUDA kernels K1-K27 against their plain PyTorch
+"""The hand-written CUDA kernels K1-K29 against their plain PyTorch
 versions, correction, condensation, the flagship count-and-correct step,
 the sharded count and dryrun_multichip, and the port's assembly (single-end,
 paired and sharded) on CUDA against the CPU run.
@@ -220,6 +220,62 @@ def test_sf_greedy_kernel_matches_plain(cuda, restarts):
     assert got[1].dtype == torch.int64 and got[0].dtype == torch.float32
 
 
+def _greedy_jobs(kind: str, B: int = 2048, M: int = tsf.MAXD, N: int = tsf.MAXD):
+    """K29's inputs: random real margins, degenerate ties (all equal small
+    integers) or near-zero margins beside a large one; a seed each, hashed
+    ties on every other job."""
+    rng = np.random.default_rng(len(kind) * 100 + M * 10 + N)
+    if kind == "random":
+        a = rng.uniform(0.1, 50, (B, M)).astype(np.float32)
+        b = rng.uniform(0.1, 50, (B, N)).astype(np.float32)
+    elif kind == "ties":
+        a = np.full((B, M), 2.0, np.float32)
+        b = np.full((B, N), np.float32(2.0 * M / N), np.float32)
+    else:
+        a = np.full((B, M), 1e-7, np.float32)
+        a[:, 0] = 3.0
+        b = np.full((B, N), np.float32(1e-8), np.float32)
+        b[:, -1] = np.float32(3.0 + 1e-7 * (M - 1))
+    seeds = torch.from_numpy(rng.integers(0, 1 << 32, B, dtype=np.int64))
+    return torch.from_numpy(a), torch.from_numpy(b), seeds, torch.arange(B) % 2 == 1
+
+
+@pytest.mark.parametrize("kind", ["random", "ties", "tiny"])
+@pytest.mark.parametrize("shape", [(8, 8), (3, 5), (1, 8)])
+@pytest.mark.parametrize("max_steps", [16, 4])
+def test_sf_jobs_kernel_matches_plain(cuda, kind, shape, max_steps):
+    """K29: flow tensors bit-equal to the plain version's."""
+    args = _greedy_jobs(kind, M=shape[0], N=shape[1])
+    got = tsf.batched_greedy(*(x.to(cuda) for x in args), max_steps)
+    want = tsf.batched_greedy_plain(*args, max_steps)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (2048, *shape)
+    assert torch.equal(got.view(torch.int32).cpu(), want.view(torch.int32))
+    assert (want > 0).any()
+
+
+def test_sf_jobs_winning_rows_equal_k6(cuda):
+    """K29 on each job's K = 5 restart rows (restart_rows), the winner
+    chosen by best_restart, equals K6's flow tensors."""
+    buf = torch.from_numpy(_sf_jobs(4, 4096)).to(cuda)
+    F = tsf.batched_greedy(*tsf.restart_rows(buf, 4)).reshape(4096, 5, tsf.MAXD, tsf.MAXD)
+    want, _picks = tsf.batched_greedy_packed(buf, 4)
+    got = F[torch.arange(4096, device=cuda), tsf.best_restart(F)]
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_sf_jobs_kernel_validates_inputs(cuda):
+    a, b, seeds, use_hash = (x.to(cuda) for x in _greedy_jobs("random", B=4))
+    wide = torch.ones((4, tsf.MAXD + 1), device=cuda)
+    for bad in ((wide, b, seeds, use_hash, 16), (a, wide, seeds, use_hash, 16),
+                (a, b, seeds, use_hash, 0), (a, b, seeds, use_hash, 2 * tsf.MAXD + 1),
+                (a, b, seeds[:3], use_hash, 16)):
+        with pytest.raises(ValueError):
+            tsf.batched_greedy(*bad)
+    with pytest.raises(TypeError, match="float32"):
+        tsf.batched_greedy(a.double(), b, seeds, use_hash)
+
+
 def test_sf_greedy_kernel_validates_inputs(cuda):
     with pytest.raises(TypeError, match="int32"):
         tsf.batched_greedy_packed(torch.zeros((4, 17), dtype=torch.int64, device=cuda), 4)
@@ -228,9 +284,11 @@ def test_sf_greedy_kernel_validates_inputs(cuda):
 
 
 # Kernels assembly never launches: those of the flagship step alone
-# (shannon_tpu_torch.entry) and K24, whose uint8 codes only dryrun_multichip
-# counts and threads.
-NOT_IN_ASSEMBLY = ("lookup_counts", "sibling_maxes", "prune_keep", "extract_codes")
+# (shannon_tpu_torch.entry), K24, whose uint8 codes only dryrun_multichip
+# counts and threads, and K28 and K29, which the reference runs in its tests
+# only.
+NOT_IN_ASSEMBLY = ("lookup_counts", "sibling_maxes", "prune_keep", "extract_codes",
+                   "neighbor_counts", "sf_jobs")
 # Kernels that run only in a multi-process run in 'ownership' mode (K26, K27);
 # these assemblies run in one process.
 MULTIHOST_ONLY = ("ownership_pack", "ownership_unpack")
@@ -821,6 +879,30 @@ def test_sibling_maxes_kernel_matches_plain(cuda, k, canonical):
     _equal(got[0], want[0], "right sibling maxima")
     _equal(got[1], want[1], "left sibling maxima")
     assert (got[0][spec.n:] == 0).all() and (got[1][spec.n:] == 0).all()
+
+
+@pytest.mark.parametrize("k", [13, 24, 31])
+@pytest.mark.parametrize("canonical", [True, False])
+def test_neighbor_counts_kernel_matches_plain(cuda, k, canonical):
+    """K28 on every lane of all four outputs, pad lanes (zeros) included;
+    13 puts the left probes' top base below bit 32, 24 and 31 above it."""
+    spec = _to(_spectrum(k, canonical), cuda)
+    got = tsp.neighbor_counts(spec, k, canonical)
+    want = tsp.neighbor_counts_plain(spec, k, canonical)
+    torch.cuda.synchronize()
+    for g, w, what in zip(got, want, ("right ext", "left ext", "right sib max", "left sib max")):
+        _equal(g, w, what)
+    assert (got[0][:, : spec.n] > 0).any() and (got[0][:, spec.n:] == 0).all()
+    assert (got[3][spec.n:] == 0).all()
+
+
+def test_neighbor_counts_kernel_on_an_all_pad_table(cuda):
+    spec = Spectrum(key=torch.full((1000,), PAD, dtype=torch.int64, device=cuda),
+                    count=torch.zeros(1000, dtype=torch.int32, device=cuda), n=0)
+    got = tsp.neighbor_counts(spec, 24)
+    torch.cuda.synchronize()
+    assert [tuple(x.shape) for x in got] == [(4, 1000), (4, 1000), (1000,), (1000,)]
+    assert all((x == 0).all() for x in got)
 
 
 @pytest.mark.parametrize("ratio", [0.1, 0.3, 0.5])

@@ -1,8 +1,9 @@
 """Port parity: the whole single-end assembly.  The port's
 assemble(device="cpu") against shannon_tpu.pipeline.assemble(
 backend="device") on one JAX-CPU device and against the pure-Python oracle,
-on the pinned simulations of tests/test_pipeline.py.  Also: the port never
-imports jax.
+on the pinned simulations of tests/test_pipeline.py; the port's
+assemble(backend="oracle") against the reference's, single-end and paired.
+Also: the port never imports jax.
 
 Tolerance: exact — the same transcript list (sequence order included) as
 the reference device path, and the same canonical set as the oracle."""
@@ -21,6 +22,7 @@ from shannon_tpu.io.dna import revcomp_str
 from shannon_tpu.oracle import assemble_oracle
 from shannon_tpu.pipeline import assemble as ref_assemble
 from shannon_tpu.sim import (
+    sample_paired_reads,
     sample_reads,
     simulate_gene_isoforms,
     simulate_isoforms,
@@ -122,6 +124,53 @@ def test_unported_options_raise(rng, monkeypatch):
     assert two.canonical_set() >= {min(t, revcomp_str(t)) for t in ts}
     with pytest.raises(ValueError, match="1..31"):
         assemble(reads[:1], AssemblyConfig(k=32), device="cpu")
+
+
+def _oracle_dataset(paired: bool):
+    rng = np.random.default_rng(17)
+    ts = simulate_transcripts(rng, n=2, length=400) + simulate_isoforms(rng, exon_length=150)
+    if paired:
+        return ts, sample_paired_reads(rng, ts, coverage=25, read_length=70, error_rate=0.005)
+    return ts, sample_reads(rng, ts, abundances=[1, 3, 4, 1], coverage=25, read_length=70,
+                            error_rate=0.005)
+
+
+@pytest.mark.parametrize("paired", [False, True])
+def test_oracle_backend_matches_reference_oracle(paired):
+    """assemble(backend="oracle") == the reference's: transcripts (order and
+    abundances), stats but the backend's label, and the stages."""
+    ts, reads = _oracle_dataset(paired)
+    cfg = AssemblyConfig(k=21, kmer_capacity=1 << 15)
+    timer = StageTimer(echo=False)
+    port = assemble(reads, cfg, backend="oracle", timer=timer, paired=paired)
+    ref = ref_assemble(reads, cfg, backend="oracle", paired=paired)
+    assert [(t.seq, t.abundance) for t in port.transcripts] == [
+        (t.seq, t.abundance) for t in ref.transcripts
+    ]
+    assert port.stats == ref.stats and port.stats["backend"] == "oracle"
+    for stage in ("spectrum", "graph", "threading", "assembly", "multibridge", "sparseflow",
+                  "enumerate", "dedupe"):
+        assert "wall_s" in timer.stages[stage], stage
+    assert {min(t, revcomp_str(t)) for t in ts} <= port.canonical_set()
+    if not paired:
+        orc = assemble_oracle(reads, cfg)
+        assert [(t.seq, t.abundance) for t in port.transcripts] == [
+            (t.seq, t.abundance) for t in orc.transcripts
+        ]
+
+
+def test_oracle_backend_needs_no_card_and_unknown_backends_raise(monkeypatch):
+    """The oracle backend runs on the host whatever `device` says; an
+    unknown backend raises, as in the reference."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    _, reads = _oracle_dataset(False)
+    cfg = AssemblyConfig(k=21, kmer_capacity=1 << 15)
+    assert assemble(reads[:400], cfg, backend="oracle").stats["backend"] == "oracle"
+    for backend in ("tpu", "cuda", ""):
+        with pytest.raises(ValueError, match="unknown backend"):
+            assemble(reads[:10], cfg, backend=backend, device="cpu")
+        with pytest.raises(ValueError, match="unknown backend"):
+            ref_assemble(reads[:10], cfg, backend=backend)
 
 
 def test_port_never_imports_jax():

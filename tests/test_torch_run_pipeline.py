@@ -2,8 +2,10 @@
 run_pipeline(device="cpu") against shannon_tpu.pipeline.run_pipeline(
 backend="device") on JAX-CPU, single-end and paired, on the datasets of
 tests/test_pipeline.py: the same artifacts, the same resume and skip rules,
-and each package resuming from the other's out-dir.  The port's CLI:
-end to end, the pair knobs, and the argument errors (exit code 2).
+and each package resuming from the other's out-dir; the same with
+backend="oracle" against the reference's oracle backend.  The port's CLI:
+end to end (both backends), the pair knobs, and the argument errors (exit
+code 2).
 
 Tolerance: exact — reads.npz, spectrum_corrected.npz and spectrum.npz
 array-equal (dtypes included), transcripts.fasta byte-equal."""
@@ -215,7 +217,69 @@ def test_cli_pair_knobs_flow_to_config(tmp_path, monkeypatch):
     assert cfg.insert_size == 300
     assert cfg.insert_size_std == 25.0
     assert cfg.strand_specific and not cfg.resume and cfg.k == 25
-    assert seen["kw"] == {"single": None, "left": "l.fa", "right": "r.fa", "device": "cpu"}
+    assert seen["kw"] == {"single": None, "left": "l.fa", "right": "r.fa", "backend": "device",
+                          "device": "cpu"}
+
+
+ORACLE_ARTIFACTS = ("reads.npz", "spectrum.npz")
+
+
+@pytest.mark.parametrize("mode", ["single", "paired"])
+def test_oracle_artifacts_match_reference(mode, request, tmp_path):
+    """run_pipeline(backend="oracle") writes the reference oracle's files,
+    equal, and no device checkpoint."""
+    ts, files = request.getfixturevalue(mode)
+    port = tpipe.run_pipeline(_cfg(tmp_path / "port"), **files, backend="oracle")
+    ref = ref_run_pipeline(_cfg(tmp_path / "ref"), **files, backend="oracle")
+    _assert_same_artifacts(tmp_path / "port", tmp_path / "ref", ORACLE_ARTIFACTS)
+    assert not (tmp_path / "port" / "spectrum_corrected.npz").exists()
+    assert port.stats == ref.stats and port.stats["backend"] == "oracle"
+    assert {min(t, revcomp_str(t)) for t in ts} <= port.canonical_set()
+    stats = json.loads((tmp_path / "port" / "stats.json").read_text())
+    for stage in ("ingest", "spectrum", "graph", "threading", "assembly"):
+        assert "wall_s" in stats["stages"][stage], stage
+    assert stats["result"]["backend"] == "oracle"
+
+
+def test_oracle_cross_resume(single, tmp_path):
+    """Each package's oracle run resumes from the other's reads.npz and
+    spectrum.npz (graph onward recomputed) and writes the same
+    transcripts."""
+    _, files = single
+    ref_out, port_out = tmp_path / "ref", tmp_path / "port"
+    ref_run_pipeline(_cfg(ref_out), **files, backend="oracle")
+    tpipe.run_pipeline(_cfg(port_out), **files, backend="oracle")
+    for src, dst, run in ((ref_out, tmp_path / "p2", tpipe.run_pipeline),
+                          (port_out, tmp_path / "r2", ref_run_pipeline)):
+        dst.mkdir()
+        for name in ORACLE_ARTIFACTS:
+            shutil.copy(src / name, dst / name)
+        run(_cfg(dst), backend="oracle")  # no input: reads and spectrum resumed
+        stages = json.loads((dst / "stats.json").read_text())["stages"]
+        assert stages["ingest"]["skipped"] is True and stages["spectrum"]["skipped"] is True
+        _assert_same_artifacts(dst, src, ORACLE_ARTIFACTS)
+
+
+def test_cli_oracle_backend(single, tmp_path, monkeypatch):
+    """--backend oracle runs the oracle on the host: no process group is
+    joined and no card is needed; the transcripts are the reference
+    oracle's."""
+    from shannon_tpu_torch.parallel import multihost
+
+    ts, files = single
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(multihost, "init_distributed", lambda *a: pytest.fail("joined a group"))
+    out = tmp_path / "cli_out"
+    rc = main(["-o", str(out), "--single", files["single"], "-K", "21",
+               "--kmer-capacity", str(1 << 15), "--backend", "oracle"])
+    assert rc == 0
+    ref_run_pipeline(_cfg(tmp_path / "ref"), **files, backend="oracle")
+    assert (out / "transcripts.fasta").read_bytes() == (
+        tmp_path / "ref" / "transcripts.fasta"
+    ).read_bytes()
+    assert json.loads((out / "stats.json").read_text())["result"]["backend"] == "oracle"
+    with pytest.raises(SystemExit):
+        main(["-o", str(out), "--single", files["single"], "--backend", "tpu"])
 
 
 def test_cli_arg_errors(tmp_path, capsys, monkeypatch):

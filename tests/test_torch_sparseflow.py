@@ -1,5 +1,6 @@
 """Port parity: the batched sparse-flow solver (tie hash, greedy max-min
-restarts, restart selection, node-level solver) against
+restarts, restart selection, node-level solver) and the unpadded greedy
+without restarts (batched_greedy, K29's plain version) against
 shannon_tpu.ops.sparseflow on JAX-CPU and the oracle's host solver, and
 the one deliberate departure from the reference (pairing order).
 
@@ -13,6 +14,7 @@ import jax.numpy as jnp
 
 from shannon_tpu.config import AssemblyConfig
 from shannon_tpu.io.pack import pack_reads
+from shannon_tpu.ops.sparseflow import batched_greedy as ref_greedy
 from shannon_tpu.ops.sparseflow import batched_greedy_packed as ref_batched
 from shannon_tpu.ops.sparseflow import solve_nodes_device as ref_solve_nodes_device
 from shannon_tpu.oracle.assemble import AssemblyResult, dedupe_and_filter
@@ -74,6 +76,105 @@ def test_batched_greedy_packed_matches_reference(integer, restarts):
         p = p[p >= 0]
         assert len(set(p.tolist())) == len(p)
         assert sorted(p.tolist()) == np.flatnonzero(row.reshape(-1) > 0).tolist()
+
+
+# The reference's own cases (tests/test_sparseflow_ops.py CASES).
+GREEDY_CASES = [
+    ([5.0, 3.0], [5.0, 3.0]),
+    ([5.0, 3.0], [4.0, 4.0]),
+    ([10.0, 1.0, 1.0], [6.0, 6.0]),
+    ([2.0, 2.0, 2.0], [2.0, 2.0, 2.0]),
+    ([7.5, 2.5], [2.5, 2.5, 5.0]),
+    ([1e-8, 5.0], [5.0, 1e-8]),
+    ([4.0], [1.0, 1.0, 1.0, 1.0]),
+]
+
+
+def _greedy_both(a, b, seeds, use_hash, max_steps=2 * MAXD):
+    """(port F, reference F) of batched_greedy on the same jobs; seeds are
+    given to the port as int64 uint32 values."""
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    seeds, use_hash = np.asarray(seeds, np.uint32), np.asarray(use_hash, bool)
+    want = np.asarray(ref_greedy(jnp.asarray(a), jnp.asarray(b), jnp.asarray(seeds),
+                                 jnp.asarray(use_hash), max_steps=max_steps))
+    got = tsf.batched_greedy(torch.from_numpy(a), torch.from_numpy(b),
+                             torch.from_numpy(seeds.astype(np.int64)),
+                             torch.from_numpy(use_hash), max_steps)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    return got.numpy(), want
+
+
+@pytest.mark.parametrize("case", range(len(GREEDY_CASES)))
+@pytest.mark.parametrize("seed", [None, 1, 123456789])
+def test_batched_greedy_matches_reference_on_its_cases(case, seed):
+    """Each case padded to MAXD, as the reference's test pads it, and
+    unpadded (M, N < MAXD)."""
+    a, b = GREEDY_CASES[case]
+    M, N = len(a), len(b)
+    ap = np.zeros((1, MAXD), np.float32)
+    bp = np.zeros((1, MAXD), np.float32)
+    ap[0, :M], bp[0, :N] = a, b
+    got, want = _greedy_both(ap, bp, [seed or 0], [seed is not None])
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    got, want = _greedy_both([a], [b], [seed or 0], [seed is not None])
+    assert got.shape == (1, M, N)
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    assert got.sum() > 0
+
+
+@pytest.mark.parametrize("shape", ["padded", "unpadded"])
+@pytest.mark.parametrize("max_steps", [2 * MAXD, 3])
+def test_batched_greedy_matches_reference_on_random_jobs(shape, max_steps):
+    """30 random jobs as in the reference's test (integer margins scaled to
+    equal totals), with a seed each and hashed ties on every other job;
+    padded to MAXD or all at one unpadded M x N < MAXD; all steps or only
+    the first 3."""
+    rng = np.random.default_rng(max_steps)
+    n_jobs = 30
+    width = MAXD if shape == "padded" else None
+    Mu, Nu = 5, 3
+    a = np.zeros((n_jobs, width or Mu), np.float32)
+    b = np.zeros((n_jobs, width or Nu), np.float32)
+    for r in range(n_jobs):
+        M = int(rng.integers(1, MAXD + 1)) if width else Mu
+        N = int(rng.integers(1, MAXD + 1)) if width else Nu
+        x = rng.integers(1, 20, size=M).astype(np.float32)
+        y = rng.integers(1, 20, size=N).astype(np.float32)
+        s = 0.5 * (x.sum() + y.sum())
+        a[r, :M] = x * (s / x.sum())
+        b[r, :N] = y * (s / y.sum())
+    seeds = rng.integers(0, 2**32, n_jobs, dtype=np.int64).astype(np.uint32)
+    use_hash = np.arange(n_jobs) % 2 == 1
+    got, want = _greedy_both(a, b, seeds, use_hash, max_steps)
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    nnz = (got > 0).sum(axis=(1, 2))
+    assert nnz.max() > 3 if max_steps > 3 else nnz.max() == 3
+
+
+def test_batched_greedy_takes_int32_seed_bits():
+    """A seed above 2^31 given as its int32 bit pattern is the same seed."""
+    rng = np.random.default_rng(5)
+    a = rng.integers(1, 4, (16, MAXD)).astype(np.float32)
+    b = a[:, ::-1].copy()
+    seeds = np.full(16, 0xF0000001, np.uint32)
+    use_hash = torch.ones(16, dtype=torch.bool)
+    as_int64 = tsf.batched_greedy(torch.from_numpy(a), torch.from_numpy(b),
+                                  torch.from_numpy(seeds.astype(np.int64)), use_hash)
+    as_int32 = tsf.batched_greedy(torch.from_numpy(a), torch.from_numpy(b),
+                                  torch.from_numpy(seeds.view(np.int32)), use_hash)
+    assert torch.equal(as_int64, as_int32)
+
+
+def test_restart_rows_feed_batched_greedy_to_k6():
+    """batched_greedy on restart_rows' rows, then best_restart, is K6's
+    plain version: the unpacked greedy and the packed solver agree."""
+    buf = torch.from_numpy(_buffers(np.random.default_rng(3), 64, integer=True))
+    R = 4
+    F = tsf.batched_greedy(*tsf.restart_rows(buf, R)).reshape(64, R + 1, MAXD, MAXD)
+    best = tsf.best_restart(F)
+    want, _picks = tsf.batched_greedy_packed(buf, R)
+    assert torch.equal(F[torch.arange(64), best], want)
+    assert (best > 0).any()
 
 
 def degenerate_buffers(rng, B: int) -> np.ndarray:

@@ -1,13 +1,14 @@
 """Port parity: sorted-table lookup (K3's plain version) against
 shannon_tpu.ops.spectrum.lookup_hilo on JAX-CPU, in both of the
 reference's regimes (binary search for few queries, sort-merge join for
-many); count lookups (K21's plain version) against lookup_counts, and
-sibling maxima (K22's plain version) against sibling_maxes, on spectra
-both packages counted from the same reads (via convert).
+many); count lookups (K21's plain version) against lookup_counts,
+sibling maxima (K22's plain version) against sibling_maxes, and neighbor
+counts (K28's plain version) against neighbor_counts, on spectra both
+packages counted from the same reads (via convert).
 
 Tolerance: exact — hit masks equal, idx equal where hit (the contract of
-both packages; on a miss the reference's two kernels differ); counts and
-sibling maxima equal on every lane."""
+both packages; on a miss the reference's two kernels differ); counts,
+sibling maxima and neighbor counts equal on every lane."""
 
 import numpy as np
 import pytest
@@ -19,7 +20,9 @@ from shannon_tpu.ops import spectrum as jspec
 from shannon_tpu.ops.spectrum import lookup_hilo
 from shannon_tpu_torch.convert import key_to_hilo
 from shannon_tpu_torch.ops.kmers import PAD
-from shannon_tpu_torch.ops.spectrum import lookup_counts, lookup_sorted, probe_keys, sibling_maxes
+from shannon_tpu_torch.ops.spectrum import (
+    lookup_counts, lookup_sorted, neighbor_counts, probe_keys, sibling_maxes,
+)
 from test_torch_correction import _spectra
 
 
@@ -106,3 +109,52 @@ def test_sibling_maxes_matches_reference(k, canonical):
     n = port.n
     assert (got_r[:n] > port.count[:n]).any() and (got_l[:n] > port.count[:n]).any()
     assert (got_r[n:] == 0).all() and (got_l[n:] == 0).all()
+
+
+def _assert_neighbor_counts_equal(port, ref, k, canonical):
+    want = [np.asarray(x) for x in jspec.neighbor_counts(ref, k, canonical)]
+    got = neighbor_counts(port, k, canonical)
+    assert [tuple(g.shape) for g in got] == [(4, port.capacity)] * 2 + [(port.capacity,)] * 2
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int32
+        np.testing.assert_array_equal(g.numpy(), w)
+    return got
+
+
+@pytest.mark.parametrize("k", [13, 17, 24])
+@pytest.mark.parametrize("canonical", [True, False])
+def test_neighbor_counts_matches_reference(k, canonical):
+    """K28's plain version == neighbor_counts on every lane of all four
+    outputs.  2k = 26, 34 and 48: 17 and 24 put the left probes' top base
+    in the reference's hi word (hs = 2(k-1) >= 32), 13 in its lo word."""
+    port, ref = _spectra(k, canonical=canonical)
+    rext, lext, rmax, lmax = _assert_neighbor_counts_equal(port, ref, k, canonical)
+    n = port.n
+    assert n < port.capacity  # PAD lanes are compared too, and give zeros
+    for x in (rext[:, n:], lext[:, n:], rmax[n:], lmax[n:]):
+        assert (x == 0).all()
+    # the table holds its k-mers' neighbors: most entries extend both ways
+    assert (rext[:, :n] > 0).any(0).float().mean() > 0.5
+    assert (lext[:, :n] > 0).any(0).float().mean() > 0.5
+    assert (rmax[:n] >= port.count[:n]).all() and (lmax[:n] >= port.count[:n]).all()
+
+
+@pytest.mark.parametrize("kmer", ["ACGTTGCAACGTAGC", "AAAAAAAAAAAAAAA"])
+@pytest.mark.parametrize("canonical", [True, False])
+def test_neighbor_counts_of_a_one_entry_table(kmer, canonical):
+    """One real entry in 8 lanes: a homopolymer is its own extension and
+    sibling; any other k-mer finds only itself among its siblings."""
+    from shannon_tpu.ops.count import spectrum_from_arrays as ref_from_arrays
+    from shannon_tpu_torch.ops.count import spectrum_from_arrays
+    from shannon_tpu_torch.oracle.counting import canon_kmer, str_to_kmer
+
+    k = len(kmer)
+    key = str_to_kmer(kmer)
+    if canonical:
+        key = canon_kmer(key, k)
+    keys, counts = np.array([key], np.uint64), np.array([7], np.int64)
+    port = spectrum_from_arrays(keys, counts, capacity=8, device="cpu")
+    ref = ref_from_arrays(keys, counts, capacity=8)
+    rext, lext, rmax, lmax = _assert_neighbor_counts_equal(port, ref, k, canonical)
+    assert rmax[0] == lmax[0] == 7 and (rmax[1:] == 0).all()
+    assert int(rext[:, 0].sum()) == int(lext[:, 0].sum()) == (7 if kmer[0] == kmer[1] else 0)

@@ -1,9 +1,9 @@
 """Port parity: tip clipping (condensation, host clip rounds, drop of
 doomed k-mers, renumbering of the node table) against
-shannon_tpu.ops.tipclip.clip_tips_graph on JAX-CPU, from the same
-corrected spectrum; and the drop and the renumbering alone (the plain
-versions of K18 and K19) against _drop_contigs and _device_clip_remap on
-the same inputs.
+shannon_tpu.ops.tipclip.clip_tips_graph and its spectrum-only view
+clip_tips_spectrum on JAX-CPU, from the same corrected spectrum; and the
+drop and the renumbering alone (the plain versions of K18 and K19)
+against _drop_contigs and _device_clip_remap on the same inputs.
 
 Tolerance: exact — clipped spectrum and post-clip ContigArrays equal over
 their full capacity."""
@@ -93,6 +93,23 @@ def test_clip_tips_graph_strand_specific_matches_reference():
     cfg = AssemblyConfig(k=21, strand_specific=True)
     port, ref = _corrected(cfg, seed=11, error_rate=0.02)
     _assert_clip_same(cfg, port, ref)
+
+
+@pytest.mark.parametrize("strand_specific", [False, True])
+def test_clip_tips_spectrum_matches_reference(strand_specific):
+    """The spectrum-only view == jtc.clip_tips_spectrum, notes included."""
+    cfg = AssemblyConfig(k=21, strand_specific=strand_specific)
+    port, ref = _corrected(cfg, seed=13, error_rate=0.02)
+    canonical = not strand_specific
+    notes: dict = {}
+    got = ttc.clip_tips_spectrum(port, cfg, canonical, notes)
+    want = jtc.clip_tips_spectrum(ref, cfg, canonical)
+    hi, lo, count, n = convert.spectrum_to_numpy(got)
+    assert n == int(want.n) < port.n
+    np.testing.assert_array_equal(hi, np.asarray(want.hi))
+    np.testing.assert_array_equal(lo, np.asarray(want.lo))
+    np.testing.assert_array_equal(count, np.asarray(want.count))
+    assert notes["tc_contigs"] > 0
 
 
 # ---- stage by stage: the drop (K18) and the remap (K19) --------------------
