@@ -13,7 +13,9 @@ Phases; any failure exits nonzero:
      extraction), K2 (sorted-run reduction) and K3 (sorted-table lookup) on
      65,536 reads of 100 bp at pad 128, k = 24, a 2^22-lane table, and K24
      (k-mer extraction from uint8 codes, with and without N codes) on the
-     same reads as codes, also held equal to K1 on them packed; K4
+     same reads as codes, also held equal to K1 on them packed; K2 again on
+     the sorted window keys of the scale dataset's first read batch (what
+     the main path gives it); K4
      (threading run scan) and K5 (across-read compaction) on the first
      65,536 reads of the scale dataset against the contig arrays
      spectrum_device builds from them; K7 (probe lookup, both probe sets),
@@ -158,6 +160,8 @@ PAIRED_RECALL_GATE = 0.94
 # Read batch of the main path (AssemblyConfig.batch_reads), the rows K4-K6's
 # phase threads.
 BATCH_READS = 65_536
+# Random reads (100 bp, padded) and k of the kernel phase's K1-K3 and K24 rows.
+KERNEL_READS, KERNEL_PAD, KERNEL_K = 65_536, 128, 24
 
 # The TPU program each kernel replaces (PERF.md section 6).
 REPLACES = {
@@ -439,43 +443,113 @@ def _write_mates(reads, directory: Path) -> tuple[str, str]:
     return str(left), str(right)
 
 
+def _random_batch(seed: int, with_n: bool, dev, codes_too: bool = False):
+    """KERNEL_READS random reads of 100 bp at pad KERNEL_PAD, packed (words,
+    lengths, N mask or None), and their uint8 codes with codes_too; with_n
+    puts one N in the middle of every other read."""
+    import numpy as np
+    import torch
+
+    from shannon_tpu_torch.io.pack import invalid_mask_words, pack_words
+
+    n, pad = KERNEL_READS, KERNEL_PAD
+    rng = np.random.default_rng(seed)
+    codes = np.full((n, pad), 4, np.uint8)
+    codes[:, :100] = rng.integers(0, 4, (n, 100))
+    if with_n:
+        rows = np.arange(0, n, 2)
+        codes[rows, rng.integers(20, 80, rows.shape[0])] = 4
+    lengths = np.full(n, 100, np.int32)
+    words = torch.from_numpy(pack_words(codes).view(np.int32)).to(dev)
+    m = invalid_mask_words(codes, lengths)
+    mask = None if m is None else torch.from_numpy(m.view(np.int32)).to(dev)
+    packed = (words, torch.from_numpy(lengths).to(dev), mask)
+    return (*packed, torch.from_numpy(codes).to(dev)) if codes_too else packed
+
+
+def window_keys(dev, seed: int | None = None, reads=None):
+    """The sorted window keys K2's rows are held on: those of
+    _random_batch(seed, False) (k = KERNEL_K, canonical) or, given the scale
+    dataset's `reads`, those of its first read batch (BATCH_READS reads at the
+    default AssemblyConfig, packed as count_reads_spectrum packs them)."""
+    import torch
+
+    from shannon_tpu_torch.config import AssemblyConfig
+    from shannon_tpu_torch.io.pack import pack_reads
+    from shannon_tpu_torch.ops.count import upload_words
+    from shannon_tpu_torch.ops.kmers import extract_kmers_packed
+
+    if reads is None:
+        words, lengths, _ = _random_batch(seed, False, dev)
+        keys, _ = extract_kmers_packed(words, lengths, KERNEL_K, True, KERNEL_PAD)
+    else:
+        cfg = AssemblyConfig()
+        batch = pack_reads(reads[:BATCH_READS], pad_length=cfg.read_pad_length)
+        m = batch.mask_rows(0, batch.n_reads)
+        keys, _ = extract_kmers_packed(
+            upload_words(batch.words, dev), torch.from_numpy(batch.lengths).to(dev), cfg.k,
+            not cfg.strand_specific, length=batch.pad_length,
+            mask=None if m is None else upload_words(m, dev),
+        )
+    return torch.sort(keys.reshape(-1)).values
+
+
+def _reduce_row(label: str, args: tuple, smi: str):
+    """K2 on (keys, counts or None, capacity) against its plain version, with
+    torch.unique_consecutive (keys and run lengths) as the library call.
+    Bytes: the keys (and counts) in, the key and count tables out, and the
+    starts of the runs that fit."""
+    import torch
+
+    from shannon_tpu_torch.ops.count import reduce_sorted, reduce_sorted_plain
+
+    keys, counts, cap = args
+    got, want = reduce_sorted(*args), reduce_sorted_plain(*args)
+    if got[3] != want[3]:
+        raise AssertionError(f"K2 {label} n {got[3]} != {want[3]}")
+    c = min(got[3], cap)
+    err = _max_abs_err((got[0], got[1], got[2][:c]), (want[0], want[1], want[2][:c]))
+    t = _alternate(lambda: reduce_sorted(*args), lambda: reduce_sorted_plain(*args))
+    inputs = (keys,) if counts is None else (keys, counts)
+    library = _time_ms(lambda: torch.unique_consecutive(keys, return_counts=True), 10)
+    row = _row(err, t, _nbytes(*inputs, *got[:2]) + 8 * c, keys.numel(), library)
+    _print_row(f"K2 reduce_sorted {label}, {keys.numel()} keys -> {got[3]} runs in {cap} lanes",
+               row, smi)
+    return got, row
+
+
+def batch_reduce_row(reads, dev, smi: str) -> dict:
+    """K2 on what the main path gives it: the sorted window keys of the first
+    read batch of the scale dataset (BATCH_READS reads at the default
+    AssemblyConfig, packed as count_reads_spectrum packs them) into the
+    default kmer_capacity."""
+    from shannon_tpu_torch.config import AssemblyConfig
+
+    _, row = _reduce_row("unit, the scale dataset's first read batch",
+                         (window_keys(dev, reads=reads), None, AssemblyConfig().kmer_capacity), smi)
+    return row
+
+
 def kernel_phase(dev, smi: str) -> dict:
     """K1-K3 and K24 against their plain versions at the main path's shapes,
     with the one PyTorch call that computes the same (torch.unique_consecutive
     for K2, torch.searchsorted for K3)."""
     import math
 
-    import numpy as np
     import torch
 
-    from shannon_tpu_torch.io.pack import invalid_mask_words, pack_words
-    from shannon_tpu_torch.ops.count import reduce_sorted, reduce_sorted_plain
+    from shannon_tpu_torch.ops.count import reduce_sorted
     from shannon_tpu_torch.ops.kmers import (
         extract_kmers, extract_kmers_packed, extract_kmers_packed_plain, extract_kmers_plain,
     )
     from shannon_tpu_torch.ops.spectrum import lookup_sorted, lookup_sorted_plain
 
-    n, pad, k, cap = 65_536, 128, 24, 1 << 22
-
-    def batch(seed: int, with_n: bool, codes_too: bool = False):
-        rng = np.random.default_rng(seed)
-        codes = np.full((n, pad), 4, np.uint8)
-        codes[:, :100] = rng.integers(0, 4, (n, 100))
-        if with_n:  # one N in the middle of every other read
-            rows = np.arange(0, n, 2)
-            codes[rows, rng.integers(20, 80, rows.shape[0])] = 4
-        lengths = np.full(n, 100, np.int32)
-        words = torch.from_numpy(pack_words(codes).view(np.int32)).to(dev)
-        m = invalid_mask_words(codes, lengths)
-        mask = None if m is None else torch.from_numpy(m.view(np.int32)).to(dev)
-        packed = (words, torch.from_numpy(lengths).to(dev), mask)
-        return (*packed, torch.from_numpy(codes).to(dev)) if codes_too else packed
-
+    n, pad, k, cap = KERNEL_READS, KERNEL_PAD, KERNEL_K, 1 << 22
     out = {}
     rows = []
     for canonical in (True, False):
         for with_n in (False, True):
-            words, lengths, mask = batch(1, with_n)
+            words, lengths, mask = _random_batch(1, with_n, dev)
             args = (words, lengths, k, canonical, pad, mask)
             got = extract_kmers_packed(*args)
             err = _max_abs_err(got, extract_kmers_packed_plain(*args))
@@ -492,7 +566,7 @@ def kernel_phase(dev, smi: str) -> dict:
 
     rows = []
     for with_n in (False, True):
-        words, lengths, mask, codes = batch(1, with_n, codes_too=True)
+        words, lengths, mask, codes = _random_batch(1, with_n, dev, codes_too=True)
         args = (codes, lengths, k, True)
         got = extract_kmers(*args)
         err = _max_abs_err(got, extract_kmers_plain(*args))
@@ -505,30 +579,14 @@ def kernel_phase(dev, smi: str) -> dict:
                    "them packed)", rows[-1], smi)
     out["extract_codes"] = {**rows[0], "max_abs_err": max(r["max_abs_err"] for r in rows)}
 
-    words, lengths, _ = batch(1, False)
-    keys_a = torch.sort(extract_kmers_packed(words, lengths, k, True, pad)[0].reshape(-1)).values
-    words_b, lengths_b, _ = batch(2, False)
-    keys_b = torch.sort(extract_kmers_packed(words_b, lengths_b, k, True, pad)[0].reshape(-1)).values
+    words, lengths, _ = _random_batch(1, False, dev)
+    keys_a, keys_b = window_keys(dev, seed=1), window_keys(dev, seed=2)
 
-    def reduce_row(label, args):
-        got, want = reduce_sorted(*args), reduce_sorted_plain(*args)
-        if got[3] != want[3]:
-            raise AssertionError(f"K2 {label} n {got[3]} != {want[3]}")
-        c = min(got[3], cap)
-        err = _max_abs_err((got[0], got[1], got[2][:c]), (want[0], want[1], want[2][:c]))
-        t = _alternate(lambda: reduce_sorted(*args), lambda: reduce_sorted_plain(*args))
-        keys, counts = args[0], args[1]
-        inputs = (keys,) if counts is None else (keys, counts)
-        library = _time_ms(lambda: torch.unique_consecutive(keys, return_counts=True), 10)
-        row = _row(err, t, _nbytes(*inputs, *got[:3]), keys.numel(), library)
-        _print_row(f"K2 reduce_sorted {label}, {keys.numel()} keys -> {got[3]} runs", row, smi)
-        return got, row
-
-    table_a, row_unit = reduce_row("unit", (keys_a, None, cap))
+    table_a, row_unit = _reduce_row("unit", (keys_a, None, cap), smi)
     table_b = reduce_sorted(keys_b, None, cap)
     mkeys, order = torch.sort(torch.cat([table_a[0], table_b[0]]))
     mcounts = torch.cat([table_a[1], table_b[1]])[order]
-    _, row_merge = reduce_row("merge", (mkeys, mcounts, cap))
+    _, row_merge = _reduce_row("merge", (mkeys, mcounts, cap), smi)
     out["reduce_sorted"] = {**row_unit, "max_abs_err": max(row_unit["max_abs_err"],
                                                             row_merge["max_abs_err"])}
 
@@ -1998,6 +2056,10 @@ def main(argv=None) -> int:
     print(f"scale dataset: {len(reads)} reads simulated in {time.perf_counter() - t0:.1f} s "
           f"[{smi}]")
     report["kernels"].update(thread_phase(reads, dev, smi))
+    row = batch_reduce_row(reads, dev, smi)
+    report["kernels"]["reduce_sorted_batch"] = row
+    report["kernels"]["reduce_sorted"]["max_abs_err"] = max(
+        report["kernels"]["reduce_sorted"]["max_abs_err"], row["max_abs_err"])
     rows, report["correction"], corrected = correction_phase(reads, dev, smi, watch)
     report["kernels"].update(rows)
     # K20's row is the main path's cut mode; its error covers the flagship

@@ -9,6 +9,7 @@
 // idx is meaningful only where hit, so K8 and K9 read idx only there.
 
 #include "common.cuh"
+#include "scan.cuh"
 
 // ---------------------------------------------------------------------------
 // K7: probe lookup.
@@ -145,30 +146,70 @@ __global__ void prune_round_kernel(const int32_t* __restrict__ counts,
 // ---------------------------------------------------------------------------
 // K10: compaction of the kept entries.
 // Replaces shannon_tpu/ops/correction.py:19 _compact (a 3-key sort of the
-// whole table that moved the dropped lanes to the back).  scan is the
-// inclusive torch.cumsum of the keep flags, taken between the caller's mask
-// and this launch.  A kept lane moves to slot scan - 1, so the kept keys stay
-// in table order and the table stays sorted without a sort; lanes from
-// n = scan[C - 1] on are filled with PAD / 0.  The two writes never meet:
-// every kept slot is below n.
-// Bound: memory; one streaming pass.
+// whole table that moved the dropped lanes to the back).  A kept lane moves to
+// slot = the number of kept lanes before it, so the kept entries stay in table
+// order and the table stays sorted without a sort; lanes from n on get PAD / 0.
+// Bound: memory.  The function must read the C keep flags and the key and
+// count of each kept lane and write all C lanes of the output (12 bytes each):
+// C + 12 n + 12 C bytes.  One pass over the flags with the single-pass scan of
+// scan.cuh: a tile of 4,096 lanes reads its flags 16 to a thread as one
+// uint4, counts them in registers, publishes its count, compacts its kept
+// lanes' offsets into shared memory while its first warp looks back for the
+// tile's first slot, then copies the kept keys and counts out, consecutive
+// threads on consecutive slots (coalesced stores, gathers in lane order).  No
+// C-length scan array exists and no flag is read twice.  The PAD / 0 tail
+// [n, C) is the second launch (scan_fill_tail), which reads n from the last
+// tile's status word; it cannot be fused into the tiles (scan.cuh).
 // ---------------------------------------------------------------------------
-__global__ void compact_keep_kernel(const int64_t* __restrict__ key,
-                                    const int32_t* __restrict__ count,
-                                    const uint8_t* __restrict__ keep,
-                                    const int32_t* __restrict__ scan, int64_t C,
-                                    int64_t* __restrict__ out_key,
-                                    int32_t* __restrict__ out_count) {
-  int64_t s = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= C) return;
-  if (keep[s]) {
-    const int64_t slot = (int64_t)scan[s] - 1;
-    out_key[slot] = key[s];
-    out_count[slot] = count[s];
+
+// Bit j of the result is lane first + j's keep flag (lanes past C read 0).
+static __device__ __forceinline__ unsigned keep_bits(const uint8_t* __restrict__ keep,
+                                                     int64_t first, int64_t C) {
+  unsigned bits = 0;
+  if (first + SCAN_ITEMS <= C && ((uintptr_t)(keep + first) & 15) == 0) {
+    const uint4 v = *reinterpret_cast<const uint4*>(keep + first);
+    const unsigned words[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      // one bit a nonzero byte: byte b of the word to bit b
+      const unsigned t = __vcmpne4(words[q], 0u) & 0x08040201u;
+      bits |= ((t | (t >> 8) | (t >> 16) | (t >> 24)) & 0xFu) << (4 * q);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < SCAN_ITEMS; ++j) {
+      if (first + j < C && keep[first + j]) bits |= 1u << j;
+    }
   }
-  if (s >= (int64_t)scan[C - 1]) {
-    out_key[s] = PAD_KEY;
-    out_count[s] = 0;
+  return bits;
+}
+
+__global__ void __launch_bounds__(SCAN_THREADS)
+    compact_keep_kernel(const int64_t* __restrict__ key, const int32_t* __restrict__ count,
+                        const uint8_t* __restrict__ keep, int64_t C,
+                        unsigned long long* __restrict__ scratch,
+                        int64_t* __restrict__ out_key, int32_t* __restrict__ out_count) {
+  __shared__ ScanShared sh;
+  __shared__ unsigned s_warp[SCAN_WARPS];
+  __shared__ uint16_t s_lane[SCAN_TILE];  // tile offsets of the kept lanes, in order
+  unsigned long long* status = scratch + 1;
+  const long long tile = scan_ticket(scratch, &sh);
+  const int64_t base = (int64_t)tile * SCAN_TILE;
+  const int first = threadIdx.x * SCAN_ITEMS;
+  unsigned bits = keep_bits(keep, base + first, C);
+  unsigned kept;
+  unsigned r = block_exclusive_scan((unsigned)__popc(bits), s_warp, &kept);
+  scan_publish_aggregate(status, tile, kept);
+  while (bits) {
+    const int j = __ffs(bits) - 1;
+    bits &= bits - 1;
+    s_lane[r++] = (uint16_t)(first + j);
+  }
+  const int64_t prefix = (int64_t)scan_tile_prefix(status, tile, kept, &sh);
+  for (unsigned q = threadIdx.x; q < kept; q += SCAN_THREADS) {
+    const int64_t i = base + s_lane[q];
+    out_key[prefix + q] = key[i];
+    out_count[prefix + q] = count[i];
   }
 }
 
@@ -364,14 +405,21 @@ int shannon_count_histogram(const void* key, const void* count, int64_t C,
   return (int)cudaGetLastError();
 }
 
-int shannon_compact_keep(const void* key, const void* count, const void* keep,
-                         const void* scan, int64_t C, void* out_key,
+// scratch: exactly tiles + 1 zeroed words (scan.cuh), tiles = ceil(C /
+// SCAN_TILE); any other size means the caller's tile is not SCAN_TILE, and
+// the call is refused.
+int shannon_compact_keep(const void* key, const void* count, const void* keep, int64_t C,
+                         void* scratch, int64_t scratch_words, void* out_key,
                          void* out_count, void* stream) {
-  if (C > 0) {
-    compact_keep_kernel<<<blocks_for(C), THREADS, 0, (cudaStream_t)stream>>>(
-        (const int64_t*)key, (const int32_t*)count, (const uint8_t*)keep,
-        (const int32_t*)scan, C, (int64_t*)out_key, (int32_t*)out_count);
+  const long long tiles = scan_tiles(C);
+  if (scratch_words != tiles + 1) return (int)cudaErrorInvalidValue;
+  if (tiles > 0) {
+    compact_keep_kernel<<<(unsigned int)tiles, SCAN_THREADS, 0, (cudaStream_t)stream>>>(
+        (const int64_t*)key, (const int32_t*)count, (const uint8_t*)keep, C,
+        (unsigned long long*)scratch, (int64_t*)out_key, (int32_t*)out_count);
   }
+  scan_fill_tail((const unsigned long long*)scratch, tiles, C, (int64_t*)out_key,
+                 (int32_t*)out_count, (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }
 

@@ -17,6 +17,7 @@
 // key 2^63-1 sorts after every real key under signed comparison.
 
 #include "common.cuh"
+#include "scan.cuh"
 
 // ---------------------------------------------------------------------------
 // K1: k-mer extraction from 2-bit packed reads.
@@ -100,61 +101,130 @@ __global__ void extract_codes_kernel(const uint8_t* __restrict__ codes,
 
 // ---------------------------------------------------------------------------
 // K2: run reduction of a sorted key array into a capacity-padded table.
-// Replaces shannon_tpu/ops/count.py:196-211 _spectrum_from_windows ->
-// :158 _unique_reduce_unit (unit counts) and :110 _unique_reduce (merge:
-// counts as prefix-sum differences).  The sort itself stays torch.sort.
-// Bound: memory; three streaming passes over the sorted keys with a
-// torch.cumsum of the run-start flags between the first two.  The TPU
-// compacted with a second sort because scatters were slow there; here the
-// run starts scatter straight to their slot (slot = inclusive scan - 1).
+// Replaces shannon_tpu/ops/count.py:196 _spectrum_from_windows ->
+// :158 _unique_reduce_unit (unit counts) and :110 _unique_reduce (summed
+// counts, as prefix-sum differences).  The TPU compacted with a second sort
+// because scatters were slow there; here each run start goes straight to its
+// slot.  The sort itself stays torch.sort.
+// Bound: memory.  The function must read the m keys (and the m int32 counts
+// when merging) and write the three capacity-lane outputs: 8 m (+ 4 m) + 20
+// capacity bytes.  One pass over the keys with the single-pass scan of
+// scan.cuh.  A tile of 4,096 keys, 16 consecutive keys a thread (loaded as
+// longlong2, the counts as int4): a lane is a run start when it is real and
+// differs from its left neighbour (a thread reads the key before its first
+// lane, the tile's left halo for thread 0).  The tile scans its start flags
+// (the look-back gives each start its slot) and the lanes' weights (1 or the
+// lane's count, 0 for PAD) in one block scan, and records each start's tile
+// offset and the weight before it in shared memory; a run's count is then the
+// difference of two neighbouring records (unsigned, so a sum wraps modulo 2^32
+// as the plain version's int32 cast does).  The starts are written out with
+// consecutive threads on consecutive slots.  A run that crosses a tile edge is
+// summed with integer atomicAdd into out_count, which the wrapper zeroed: the
+// tile where it starts adds its part (the right halo key says whether the run
+// goes on), and each later tile adds the weight of its lanes before its first
+// start into slot prefix - 1 (a tile wholly inside a run adds all of its
+// weight).  Integer adds commute, so the counts are exact and the same on
+// every run.  Only slots below capacity are written; n counts every run.  The
+// PAD tail [n, capacity) of out_key is the second launch (scan_fill_tail);
+// out_count is zero there already.  No m-length flag, scan or prefix array.
 // ---------------------------------------------------------------------------
-__global__ void run_start_flags_kernel(const int64_t* __restrict__ keys,
-                                       int64_t m, int32_t* __restrict__ flags) {
-  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= m) return;
-  int64_t key = keys[i];
-  flags[i] = (key != PAD_KEY && (i == 0 || keys[i - 1] != key)) ? 1 : 0;
-}
+__global__ void __launch_bounds__(SCAN_THREADS)
+    reduce_runs_kernel(const int64_t* __restrict__ keys, const int32_t* __restrict__ counts,
+                       int64_t m, int64_t capacity, unsigned long long* __restrict__ scratch,
+                       int64_t* __restrict__ out_key, int32_t* __restrict__ out_count,
+                       int64_t* __restrict__ start) {
+  __shared__ ScanShared sh;
+  __shared__ unsigned s_warp_starts[SCAN_WARPS];
+  __shared__ unsigned s_warp_weight[SCAN_WARPS];
+  __shared__ uint16_t s_lane[SCAN_TILE];  // tile offset of each start, in order
+  __shared__ unsigned s_before[SCAN_TILE];  // the tile's weight before each start
+  unsigned long long* status = scratch + 1;
+  const long long tile = scan_ticket(scratch, &sh);
+  const int64_t base = (int64_t)tile * SCAN_TILE;
+  const int first = threadIdx.x * SCAN_ITEMS;
+  const int64_t i0 = base + first;
 
-// start has capacity + 1 lanes: start[s] is the first lane of run s, and
-// start[n] (when n <= capacity) is one past the last real lane.
-__global__ void scatter_runs_kernel(const int64_t* __restrict__ keys,
-                                    const int32_t* __restrict__ scan,
-                                    int64_t m, int64_t capacity,
-                                    int64_t* __restrict__ out_key,
-                                    int64_t* __restrict__ start) {
-  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= m) return;
-  int64_t key = keys[i];
-  if (key == PAD_KEY) return;
-  int64_t slot = (int64_t)scan[i] - 1;
-  if (i == 0 || keys[i - 1] != key) {
-    if (slot < capacity) out_key[slot] = key;
-    if (slot <= capacity) start[slot] = i;
-  }
-  if ((i == m - 1 || keys[i + 1] == PAD_KEY) && slot + 1 <= capacity) {
-    start[slot + 1] = i + 1;
-  }
-}
-
-// prefix: exclusive prefix sum of the per-lane counts, m + 1 lanes, or
-// null for unit counts (every real lane counts one).
-__global__ void finalize_runs_kernel(const int32_t* __restrict__ scan,
-                                     int64_t m,
-                                     const int64_t* __restrict__ prefix,
-                                     int64_t capacity,
-                                     const int64_t* __restrict__ start,
-                                     int64_t* __restrict__ out_key,
-                                     int32_t* __restrict__ out_count) {
-  int64_t s = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= capacity) return;
-  int64_t n = m > 0 ? (int64_t)scan[m - 1] : 0;
-  if (s < n) {
-    int64_t a = start[s], b = start[s + 1];
-    out_count[s] = (int32_t)(prefix != nullptr ? prefix[b] - prefix[a] : b - a);
+  int64_t k[SCAN_ITEMS];
+  unsigned w[SCAN_ITEMS];
+  if (i0 + SCAN_ITEMS <= m && ((uintptr_t)(keys + i0) & 15) == 0) {
+    const longlong2* kv = reinterpret_cast<const longlong2*>(keys + i0);
+#pragma unroll
+    for (int q = 0; q < SCAN_ITEMS / 2; ++q) {
+      const longlong2 v = kv[q];
+      k[2 * q] = v.x;
+      k[2 * q + 1] = v.y;
+    }
   } else {
-    out_key[s] = PAD_KEY;
-    out_count[s] = 0;
+#pragma unroll
+    for (int j = 0; j < SCAN_ITEMS; ++j) k[j] = i0 + j < m ? keys[i0 + j] : PAD_KEY;
+  }
+  if (counts == nullptr) {
+#pragma unroll
+    for (int j = 0; j < SCAN_ITEMS; ++j) w[j] = 1u;
+  } else if (i0 + SCAN_ITEMS <= m && ((uintptr_t)(counts + i0) & 15) == 0) {
+    const int4* cv = reinterpret_cast<const int4*>(counts + i0);
+#pragma unroll
+    for (int q = 0; q < SCAN_ITEMS / 4; ++q) {
+      const int4 v = cv[q];
+      w[4 * q] = (unsigned)v.x;
+      w[4 * q + 1] = (unsigned)v.y;
+      w[4 * q + 2] = (unsigned)v.z;
+      w[4 * q + 3] = (unsigned)v.w;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < SCAN_ITEMS; ++j) w[j] = i0 + j < m ? (unsigned)counts[i0 + j] : 0u;
+  }
+  // PAD (and lanes past m, read as PAD) weigh 0 and start no run; the key
+  // before lane 0 reads as PAD, so a real lane 0 starts a run
+  int64_t prev = (i0 > 0 && i0 <= m) ? keys[i0 - 1] : PAD_KEY;
+  unsigned bits = 0, weight = 0;
+#pragma unroll
+  for (int j = 0; j < SCAN_ITEMS; ++j) {
+    const bool real = k[j] != PAD_KEY;
+    if (real && k[j] != prev) bits |= 1u << j;
+    if (!real) w[j] = 0u;
+    weight += w[j];
+    prev = k[j];
+  }
+
+  unsigned starts, tile_weight;
+  unsigned r = block_exclusive_scan((unsigned)__popc(bits), s_warp_starts, &starts);
+  unsigned before = block_exclusive_scan(weight, s_warp_weight, &tile_weight);
+  scan_publish_aggregate(status, tile, starts);
+#pragma unroll
+  for (int j = 0; j < SCAN_ITEMS; ++j) {
+    if ((bits >> j) & 1u) {
+      s_lane[r] = (uint16_t)(first + j);
+      s_before[r] = before;
+      ++r;
+    }
+    before += w[j];
+  }
+  const int64_t prefix = (int64_t)scan_tile_prefix(status, tile, starts, &sh);
+
+  // the lanes before the tile's first start continue run prefix - 1
+  if (threadIdx.x == 0 && prefix > 0 && prefix - 1 < capacity) {
+    const unsigned lead = starts > 0 ? s_before[0] : tile_weight;
+    if (lead != 0u) atomicAdd((unsigned*)out_count + (prefix - 1), lead);
+  }
+  for (unsigned q = threadIdx.x; q < starts; q += SCAN_THREADS) {
+    const int64_t g = prefix + q;
+    if (g >= capacity) break;
+    const int64_t i = base + s_lane[q];
+    out_key[g] = keys[i];
+    start[g] = i;
+    if (q + 1 < starts) {
+      out_count[g] = (int32_t)(s_before[q + 1] - s_before[q]);
+    } else {
+      const unsigned c = tile_weight - s_before[q];
+      const int64_t end = base + SCAN_TILE;
+      if (end < m && keys[end] != PAD_KEY && keys[end] == keys[end - 1]) {
+        atomicAdd((unsigned*)out_count + g, c);  // the run goes on into the next tile
+      } else {
+        out_count[g] = (int32_t)c;
+      }
+    }
   }
 }
 
@@ -189,8 +259,8 @@ __global__ void lookup_sorted_kernel(const int64_t* __restrict__ table,
 // rank in the other table: a[i] goes to i + (lanes of b below a[i]), b[j] to
 // j + (lanes of a at or below b[j]).  These places are a permutation of
 // [0, Ca + Cb) (a key found in both tables lands a's lane just before b's), so
-// the merged keys equal the sorted concatenation exactly, and K2's run flags,
-// scan and reduction then sum the counts of equal keys.
+// the merged keys equal the sorted concatenation exactly, and K2's single pass
+// then sums the counts of equal keys.
 // Bound: memory (12 bytes read and written a lane); the rank is a binary
 // search of the other table, bounded by the latency of its dependent loads,
 // with neighbouring threads on neighbouring keys so the search paths share
@@ -274,30 +344,23 @@ int shannon_extract_codes(const void* codes, const void* lengths, int64_t n_read
   return (int)cudaGetLastError();
 }
 
-int shannon_run_start_flags(const void* keys, int64_t m, void* flags,
-                            void* stream) {
-  if (m > 0) {
-    run_start_flags_kernel<<<blocks_for(m), THREADS, 0,
-                             (cudaStream_t)stream>>>((const int64_t*)keys, m,
-                                                     (int32_t*)flags);
+// counts: null for unit counts.  out_count must be zeroed (a run that crosses
+// a tile edge is summed by atomicAdd); scratch: exactly tiles + 1 zeroed
+// words (scan.cuh), tiles = ceil(m / SCAN_TILE), or the call is refused.
+// Lanes of start past n are left as they were.
+int shannon_reduce_sorted(const void* keys, const void* counts, int64_t m, int64_t capacity,
+                          void* scratch, int64_t scratch_words, void* out_key,
+                          void* out_count, void* start, void* stream) {
+  const long long tiles = scan_tiles(m);
+  if (scratch_words != tiles + 1) return (int)cudaErrorInvalidValue;
+  if (tiles > 0) {
+    reduce_runs_kernel<<<(unsigned int)tiles, SCAN_THREADS, 0, (cudaStream_t)stream>>>(
+        (const int64_t*)keys, (const int32_t*)counts, m, capacity,
+        (unsigned long long*)scratch, (int64_t*)out_key, (int32_t*)out_count,
+        (int64_t*)start);
   }
-  return (int)cudaGetLastError();
-}
-
-int shannon_reduce_runs(const void* keys, const void* scan, int64_t m,
-                        const void* prefix, int64_t capacity, void* out_key,
-                        void* out_count, void* start, void* stream) {
-  if (m > 0) {
-    scatter_runs_kernel<<<blocks_for(m), THREADS, 0, (cudaStream_t)stream>>>(
-        (const int64_t*)keys, (const int32_t*)scan, m, capacity,
-        (int64_t*)out_key, (int64_t*)start);
-  }
-  if (capacity > 0) {
-    finalize_runs_kernel<<<blocks_for(capacity), THREADS, 0,
-                           (cudaStream_t)stream>>>(
-        (const int32_t*)scan, m, (const int64_t*)prefix, capacity,
-        (const int64_t*)start, (int64_t*)out_key, (int32_t*)out_count);
-  }
+  scan_fill_tail((const unsigned long long*)scratch, tiles, capacity, (int64_t*)out_key,
+                 nullptr, (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }
 

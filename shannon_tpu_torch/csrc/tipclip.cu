@@ -16,9 +16,9 @@
 // spectrum lane finds the lane's key in the node table by K3's binary search
 // (lower_bound_hit), reads the contig id at the hit and tests that contig's
 // doom flag with the reference's clamp of the id to [0, C2 - 1]; a pad lane or
-// a doomed contig's k-mer is dropped.  The keep flags then go through a
-// torch.cumsum and K10's compact_keep_kernel, so no idx / hit / cid array
-// of the plain version is ever stored.
+// a doomed contig's k-mer is dropped.  The keep flags then go through K10's
+// compact_keep_kernel, so no idx / hit / cid array of the plain version is
+// ever stored.
 // Bound: latency of the dependent loads of the binary search (log2(C2) steps
 // of 8 bytes); the spectrum is sorted, so neighbouring threads walk nearly
 // the same path through the node table and share its cache lines.

@@ -55,8 +55,7 @@ _F = ctypes.c_float
 _ARGTYPES = {
     "shannon_extract_kmers": [_P, _P, _P, _I64, _I, _I, _I, _I, _I, _P, _P, _P],
     "shannon_extract_codes": [_P, _P, _I64, _I, _I, _I, _I, _P, _P, _P],
-    "shannon_run_start_flags": [_P, _I64, _P, _P],
-    "shannon_reduce_runs": [_P, _P, _I64, _P, _I64, _P, _P, _P, _P],
+    "shannon_reduce_sorted": [_P, _P, _I64, _I64, _P, _I64, _P, _P, _P, _P],
     "shannon_lookup_sorted": [_P, _I64, _P, _I64, _P, _P, _P],
     "shannon_thread_rows": [_P, _P, _P, _P, _P, _I64, _I, _I, *[_P] * 7, _P],
     "shannon_row_counts": [_P, _I64, _I, _P, _P],
@@ -66,7 +65,7 @@ _ARGTYPES = {
     "shannon_probe_lookup": [_P, _I64, _I, _I, _I, _P, _P, _P],
     "shannon_rescue_round": [*[_P] * 6, _I64, _P, _P, _P],
     "shannon_prune_round": [_P, _P, _P, _I64, _F, _F, _I, _P, _P, _P],
-    "shannon_compact_keep": [_P, _P, _P, _P, _I64, _P, _P, _P],
+    "shannon_compact_keep": [_P, _P, _P, _I64, _P, _I64, _P, _P, _P],
     "shannon_node_strands": [_P, _I64, _I, _P, _P],
     "shannon_node_counts": [_P, _I64, _P, _P, _I64, _I, _P, _P],
     "shannon_link_records": [_P, _I64, _I, _P, _P],
@@ -211,6 +210,26 @@ def library() -> KernelLibrary:
 def ptr(t: torch.Tensor | None) -> int | None:
     """Device pointer of a tensor (None for an absent optional buffer)."""
     return None if t is None else t.data_ptr()
+
+
+# Lanes a tile of the single-pass scan takes (SCAN_TILE in csrc/scan.cuh; the
+# entry points refuse a scratch sized for any other tile).
+SCAN_TILE = 4096
+_SCAN_VALUE_MASK = (1 << 62) - 1
+
+
+def scan_scratch(lanes: int, device) -> torch.Tensor:
+    """Zeroed scratch of the single-pass scan over `lanes` lanes (K2, K10):
+    a ticket word and one status word a tile (csrc/scan.cuh)."""
+    return torch.zeros(-(-lanes // SCAN_TILE) + 1, dtype=torch.int64, device=device)
+
+
+def scan_total(scratch: torch.Tensor) -> int:
+    """The scan's total, read back once after the launch: the value of the
+    last tile's inclusive status word (0 with no tile)."""
+    if scratch.shape[0] == 1:
+        return 0
+    return int(scratch[-1]) & _SCAN_VALUE_MASK
 
 
 def check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int) -> None:

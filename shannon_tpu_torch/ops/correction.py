@@ -50,19 +50,19 @@ def _compact_cuda(spec: Spectrum, keep: torch.Tensor) -> Spectrum:
     if spec.count.shape[0] != C or keep.shape[0] != C:
         raise ValueError("key, count and keep disagree on length")
     if C >= 1 << 31:
-        raise ValueError(f"{C} lanes exceed the int32 keep scan")
+        raise ValueError(f"{C} lanes exceed the 2^31 that K10 takes (the reference's int32 n)")
     dev = spec.key.device
-    scan = torch.cumsum(keep, 0, dtype=torch.int32)
     key = torch.empty_like(spec.key)
     count = torch.empty_like(spec.count)
+    scratch = kernels.scan_scratch(C, dev)
     lib = kernels.library()
     lib.call(
         "shannon_compact_keep", dev,
-        kernels.ptr(spec.key), kernels.ptr(spec.count), kernels.ptr(keep),
-        kernels.ptr(scan), C, kernels.ptr(key), kernels.ptr(count),
+        kernels.ptr(spec.key), kernels.ptr(spec.count), kernels.ptr(keep), C,
+        kernels.ptr(scratch), scratch.shape[0], kernels.ptr(key), kernels.ptr(count),
     )
     lib.count("compact_keep")
-    return Spectrum(key=key, count=count, n=int(scan[-1]) if C else 0)
+    return Spectrum(key=key, count=count, n=kernels.scan_total(scratch))
 
 
 def compact(spec: Spectrum, keep: torch.Tensor) -> Spectrum:
@@ -223,8 +223,7 @@ def cut_counts(spec: Spectrum, min_abundance: int):
 
 def abundance_filter(spec: Spectrum, min_abundance: int) -> Spectrum:
     """Drop the PAD lanes and the k-mers of count < min_abundance
-    (ops/correction.py:54 abundance_filter): K20's keep flags, then
-    torch.cumsum and K10."""
+    (ops/correction.py:54 abundance_filter): K20's keep flags, then K10."""
     return compact(spec, abundance_cut(spec, min_abundance, raw=False, cut=False)[2])
 
 
@@ -388,7 +387,7 @@ def sibling_prune_round(
 ) -> Spectrum:
     """One Jacobi round of sibling-ratio pruning, then compaction
     (ops/correction.py:61 sibling_prune_round): K22's sibling maxima, K23's
-    keep flags with f32(sibling_ratio), then torch.cumsum and K10."""
+    keep flags with f32(sibling_ratio), then K10."""
     rmax, lmax = sibling_maxes(spec, k, canonical)
     ratio, _ = prune_constants(sibling_ratio, 0.0)
     return compact(spec, prune_keep(spec, rmax, lmax, ratio))

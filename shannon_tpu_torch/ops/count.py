@@ -94,33 +94,24 @@ def _reduce_sorted_cuda(keys, counts, capacity):
     kernels.check_cuda("keys", keys, torch.int64, 1)
     m = keys.shape[0]
     if m >= 1 << 31:
-        raise ValueError(f"{m} keys exceed the int32 run scan")
+        raise ValueError(f"{m} keys exceed the 2^31 that K2 takes (the reference's int32 n)")
     dev = keys.device
-    prefix = None
     if counts is not None:
         kernels.check_cuda("counts", counts, torch.int32, 1)
         if counts.shape[0] != m:
             raise ValueError("keys and counts disagree on length")
-        prefix = torch.zeros(m + 1, dtype=torch.int64, device=dev)
-        prefix[1:] = torch.cumsum(counts, 0, dtype=torch.int64)
-    flags = torch.empty(m, dtype=torch.int32, device=dev)
     out_key = torch.empty(capacity, dtype=torch.int64, device=dev)
-    out_count = torch.empty(capacity, dtype=torch.int32, device=dev)
-    start = torch.empty(capacity + 1, dtype=torch.int64, device=dev)
+    out_count = torch.zeros(capacity, dtype=torch.int32, device=dev)
+    start = torch.empty(capacity, dtype=torch.int64, device=dev)
+    scratch = kernels.scan_scratch(m, dev)
     lib = kernels.library()
     lib.call(
-        "shannon_run_start_flags", dev,
-        kernels.ptr(keys), m, kernels.ptr(flags),
-    )
-    scan = torch.cumsum(flags, 0, dtype=torch.int32)
-    lib.call(
-        "shannon_reduce_runs", dev,
-        kernels.ptr(keys), kernels.ptr(scan), m, kernels.ptr(prefix), capacity,
-        kernels.ptr(out_key), kernels.ptr(out_count), kernels.ptr(start),
+        "shannon_reduce_sorted", dev,
+        kernels.ptr(keys), kernels.ptr(counts), m, capacity, kernels.ptr(scratch),
+        scratch.shape[0], kernels.ptr(out_key), kernels.ptr(out_count), kernels.ptr(start),
     )
     lib.count("reduce_sorted")
-    n = int(scan[-1]) if m else 0
-    return out_key, out_count, start[:capacity], n
+    return out_key, out_count, start, kernels.scan_total(scratch)
 
 
 def reduce_sorted(

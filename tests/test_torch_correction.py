@@ -26,7 +26,7 @@ from shannon_tpu_torch.ops import correction as tcor
 from shannon_tpu_torch.ops.count import Spectrum
 from shannon_tpu_torch.ops.kmers import PAD, canonical_key
 from shannon_tpu_torch.ops.spectrum import probe_keys
-from test_torch_kernels import prune_grid
+from test_torch_kernels import EDGE_SIZES, keep_case, prune_grid
 
 
 def _spectra(k: int, seed: int = 0, error_rate: float = 0.01, canonical: bool = True):
@@ -189,6 +189,20 @@ def test_compact_matches_reference(k, cut):
     keep = (np.asarray(ref.count) >= cut) & (np.arange(port.capacity) % 3 != 0)
     keep &= np.arange(port.capacity) < port.n
     _assert_same(tcor.compact(port, torch.from_numpy(keep)), jcor._compact(ref, jnp.asarray(keep)))
+
+
+@pytest.mark.parametrize("C", EDGE_SIZES)
+@pytest.mark.parametrize("keep", ["all", "none", "random"])
+def test_compact_plain_at_tile_edges_matches_reference(C, keep):
+    """K10's plain version == _compact at the sizes that pin the
+    single-pass scan's tile edges (K10's cuda tests use the same inputs):
+    every lane kept, none, or 30% of the real lanes."""
+    keys, counts, mask = keep_case(C, keep)
+    hi, lo = convert.key_to_hilo(keys)
+    ref = JSpectrum(hi=jnp.asarray(hi), lo=jnp.asarray(lo), count=jnp.asarray(counts),
+                    n=jnp.int32(int((keys != PAD).sum())))
+    port = Spectrum(key=torch.from_numpy(keys), count=torch.from_numpy(counts), n=C)
+    _assert_same(tcor.compact(port, torch.from_numpy(mask)), jcor._compact(ref, jnp.asarray(mask)))
 
 
 @pytest.mark.parametrize("error_rate", [0.01, 0.02])

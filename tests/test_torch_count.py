@@ -19,7 +19,7 @@ from shannon_tpu_torch import convert, kernels
 from shannon_tpu_torch.ops import count as tc
 from shannon_tpu_torch.ops.kmers import PAD
 
-from test_torch_kernels import merge_case
+from test_torch_kernels import EDGE_SIZES, RUN_SHAPES, merge_case, run_case
 
 
 def _reads(seed: int, n_tr: int = 3, error_rate: float = 0.01) -> list[str]:
@@ -165,6 +165,46 @@ def test_reduce_sorted_plain_contract():
     assert n == 4
     assert key.tolist() == [3, 5, 7, 9, PAD, PAD]
     assert count.tolist() == [3, 3, 15, 7, 0, 0]
+
+
+def _reduce_matches_reference(keys, counts, cap, merge: bool) -> int:
+    """K2's plain version == _unique_reduce (merge) or _unique_reduce_unit
+    on the same keys: keys, counts and n over the whole capacity."""
+    hi, lo = convert.key_to_hilo(keys)
+    if merge:
+        ref = jc._unique_reduce(jnp.asarray(hi), jnp.asarray(lo), jnp.asarray(counts), cap)
+    else:
+        ref = jc._unique_reduce_unit(jnp.asarray(hi), jnp.asarray(lo), cap)
+    key, count, _, n = tc.reduce_sorted_plain(
+        torch.from_numpy(keys), torch.from_numpy(counts) if merge else None, cap
+    )
+    _assert_same(tc.Spectrum(key=key, count=count, n=n), ref)
+    return n
+
+
+@pytest.mark.parametrize("m", [m for m in EDGE_SIZES if m > 0])
+@pytest.mark.parametrize("merge", [False, True])
+def test_reduce_sorted_plain_at_tile_edges_matches_reference(m, merge):
+    """The sizes that pin the single-pass scan's tile edges (K2's cuda
+    tests use the same inputs); m = 0 is the contract case below, since
+    the reference reads the last lane of its count prefix."""
+    keys, counts, cap = run_case("random", m)
+    _reduce_matches_reference(keys, counts, cap, merge)
+
+
+def test_reduce_sorted_plain_on_no_keys():
+    key, count, start, n = tc.reduce_sorted_plain(torch.zeros(0, dtype=torch.int64), None, 4)
+    assert n == 0 and key.tolist() == [PAD] * 4 and count.tolist() == [0] * 4
+
+
+@pytest.mark.parametrize("shape", RUN_SHAPES)
+@pytest.mark.parametrize("merge", [False, True])
+def test_reduce_sorted_plain_run_shapes_match_reference(shape, merge):
+    """Runs over tile edges, a run ending on one, all PAD, and n past a
+    capacity inside a tile (counts that wrap int32 in the long run)."""
+    keys, counts, cap = run_case(shape)
+    n = _reduce_matches_reference(keys, counts, cap, merge)
+    assert (shape == "overflow_inside_tile") == (n > cap)
 
 
 @pytest.mark.parametrize("n", [0, 1, 1 << 19, 3_000_000])

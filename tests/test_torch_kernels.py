@@ -107,6 +107,120 @@ def test_reduce_sorted_kernel_edge_cases(cuda, keys):
     assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
 
 
+# Lanes a tile of K2's and K10's single-pass scan takes, and the sizes that
+# pin its edges: empty, one lane, a tile less one, one tile, one tile and
+# one lane, three tiles and one lane.
+TILE = kernels.SCAN_TILE
+EDGE_SIZES = [0, 1, TILE - 1, TILE, TILE + 1, 3 * TILE + 1]
+RUN_SHAPES = ["all_pad", "one_key_three_tiles", "run_ends_on_tile_edge",
+              "overflow_inside_tile"]
+
+
+def run_case(shape: str, m: int = 0, seed: int = 0):
+    """Sorted int64 keys (PAD last), int32 counts (0 on PAD lanes) and an
+    output capacity, as numpy arrays made from a seed.  "random": m keys in
+    runs of a few lanes with a PAD tail, capacity m + 3; "all_pad": 3 tiles
+    and a lane of PAD; "one_key_three_tiles": one key over lanes [5, 3 TILE
+    + 40), counts near 2^20 so its sum needs more than a tile's worth;
+    "run_ends_on_tile_edge": one key over tile 0 exactly, then runs of 64
+    lanes, the last ending on tile 2's edge; "overflow_inside_tile": runs of
+    two lanes over 3 tiles and a lane, capacity inside tile 2's slots, so n
+    > capacity."""
+    rng = np.random.default_rng(seed + m + len(shape))
+    if shape == "random":
+        keys = np.sort(rng.integers(0, max(m // 3, 1), size=m)).astype(np.int64)
+        keys[m - m // 7:] = PAD
+        cap = m + 3
+    elif shape == "all_pad":
+        keys, cap = np.full(3 * TILE + 1, PAD, np.int64), 100
+    elif shape == "one_key_three_tiles":
+        keys = np.concatenate([np.arange(5), np.full(3 * TILE + 35, 77),
+                               100 + np.arange(TILE // 2), np.full(100, PAD)]).astype(np.int64)
+        cap = TILE
+    elif shape == "run_ends_on_tile_edge":
+        keys = np.concatenate([np.full(TILE, 7), 8 + np.arange(2 * TILE) // 64,
+                               np.full(77, PAD)]).astype(np.int64)
+        cap = 3 * TILE
+    elif shape == "overflow_inside_tile":
+        keys = (np.arange(3 * TILE + 1) // 2).astype(np.int64)
+        cap = 2 * (TILE // 2) + 1000
+    else:
+        raise ValueError(shape)
+    big = shape == "one_key_three_tiles"
+    counts = rng.integers((1 << 20) - 9 if big else 1, (1 << 20) if big else 10,
+                          size=keys.shape[0]).astype(np.int32)
+    counts[keys == PAD] = 0
+    return keys, counts, cap
+
+
+def _reduce_both(cuda, keys, counts, cap):
+    """K2 on the card against its plain version on the same CUDA inputs:
+    keys, counts and n over the whole capacity, starts below min(n, cap)."""
+    lib = kernels.library()
+    before = lib.launches["reduce_sorted"]
+    got = reduce_sorted(keys, counts, cap)
+    assert lib.launches["reduce_sorted"] == before + 1
+    want = reduce_sorted_plain(keys, counts, cap)
+    torch.cuda.synchronize()
+    assert got[3] == want[3]
+    _equal(got[0], want[0], "key")
+    _equal(got[1], want[1], "count")
+    c = min(want[3], cap)
+    _equal(got[2][:c], want[2][:c], "start")
+    return want[3]
+
+
+@pytest.mark.parametrize("m", EDGE_SIZES)
+@pytest.mark.parametrize("merge", [False, True])
+def test_reduce_sorted_kernel_at_tile_edges(cuda, m, merge):
+    keys, counts, cap = run_case("random", m)
+    _reduce_both(cuda, torch.from_numpy(keys).to(cuda),
+                 torch.from_numpy(counts).to(cuda) if merge else None, cap)
+
+
+@pytest.mark.parametrize("shape", RUN_SHAPES)
+@pytest.mark.parametrize("merge", [False, True])
+def test_reduce_sorted_kernel_run_shapes(cuda, shape, merge):
+    """Runs over tile edges (a run longer than two tiles, a run ending on an
+    edge), all PAD, and n > capacity with the capacity inside a tile."""
+    keys, counts, cap = run_case(shape)
+    n = _reduce_both(cuda, torch.from_numpy(keys).to(cuda),
+                     torch.from_numpy(counts).to(cuda) if merge else None, cap)
+    assert (shape == "overflow_inside_tile") == (n > cap)
+
+
+def _stress_inputs(cuda, lanes: int = 1 << 24):
+    rng = np.random.default_rng(24)
+    keys = torch.sort(torch.from_numpy(rng.integers(0, lanes // 3, size=lanes)).to(cuda)).values
+    keys[-lanes // 9:] = PAD
+    counts = torch.from_numpy(rng.integers(1, 50, size=lanes).astype(np.int32)).to(cuda)
+    counts[keys == PAD] = 0
+    keep = torch.from_numpy(rng.random(lanes) < 0.3).to(cuda)
+    return keys, counts, keep
+
+
+def test_scan_kernels_stress(cuda):
+    """50 calls each of K2 (unit and merge) and K10 at 2^24 lanes, each held
+    to the plain version: a race in the look-back shows as one call that
+    differs."""
+    keys, counts, keep = _stress_inputs(cuda)
+    cap = keys.shape[0]
+    spec = Spectrum(key=keys, count=counts, n=cap)
+    wants = [reduce_sorted_plain(keys, None, cap), reduce_sorted_plain(keys, counts, cap)]
+    want_c = tcor.compact_plain(spec, keep)
+    for _ in range(50):
+        for c, want in zip((None, counts), wants):
+            got = reduce_sorted(keys, c, cap)
+            assert got[3] == want[3]
+            _equal(got[0], want[0], "key")
+            _equal(got[1], want[1], "count")
+            _equal(got[2][:want[3]], want[2][:want[3]], "start")
+        got_c = tcor.compact(spec, keep)
+        assert got_c.n == want_c.n
+        _equal(got_c.key, want_c.key, "compacted key")
+        _equal(got_c.count, want_c.count, "compacted count")
+
+
 def test_lookup_kernel_matches_plain(cuda):
     rng = np.random.default_rng(3)
     table = np.unique(rng.integers(0, 1 << 48, size=100_000, dtype=np.int64))
@@ -412,6 +526,80 @@ def test_compact_kernel_edge_masks(cuda, keep):
     got, want = tcor.compact(spec, mask), tcor.compact_plain(spec, mask)
     assert got.n == want.n
     assert torch.equal(got.key, want.key) and torch.equal(got.count, want.count)
+
+
+def keep_case(C: int, keep: str, seed: int = 0):
+    """A sorted table of C lanes (int64 keys, int32 counts) and a keep mask,
+    as numpy arrays made from a seed: "all" keeps every lane of a table with
+    no PAD; "none" and "random" (30% of the real lanes) run on a table whose
+    last C // 5 lanes are PAD."""
+    rng = np.random.default_rng(seed + C + len(keep))
+    n_real = C if keep == "all" else C - C // 5
+    keys = np.full(C, PAD, np.int64)
+    keys[:n_real] = np.sort(rng.choice(1 << 40, size=n_real, replace=False))
+    counts = np.where(keys == PAD, 0, rng.integers(1, 100, size=C)).astype(np.int32)
+    mask = {"all": np.ones(C, bool), "none": np.zeros(C, bool),
+            "random": (rng.random(C) < 0.3) & (keys != PAD)}[keep]
+    return keys, counts, mask
+
+
+@pytest.mark.parametrize("C", EDGE_SIZES)
+@pytest.mark.parametrize("keep", ["all", "none", "random"])
+def test_compact_kernel_at_tile_edges(cuda, C, keep):
+    """K10 at the tile-edge sizes, every lane kept, none or 30%."""
+    keys, counts, mask = keep_case(C, keep)
+    spec = Spectrum(key=torch.from_numpy(keys).to(cuda),
+                    count=torch.from_numpy(counts).to(cuda), n=C)
+    mask = torch.from_numpy(mask).to(cuda)
+    lib = kernels.library()
+    before = lib.launches["compact_keep"]
+    got = tcor.compact(spec, mask)
+    assert lib.launches["compact_keep"] == before + 1
+    want = tcor.compact_plain(spec, mask)
+    torch.cuda.synchronize()
+    assert got.n == want.n
+    _equal(got.key, want.key, "key")
+    _equal(got.count, want.count, "count")
+
+
+def test_scan_kernels_on_unaligned_views(cuda):
+    """K10 and K2 on views that start one lane into their storage, where the
+    kernels cannot take 16 bytes a load."""
+    keys, counts, mask = keep_case(3 * TILE + 1, "random")
+    k = torch.from_numpy(np.concatenate([[0], keys])).to(cuda)[1:]
+    c = torch.from_numpy(np.concatenate([[0], counts]).astype(np.int32)).to(cuda)[1:]
+    m = torch.from_numpy(np.concatenate([[False], mask])).to(cuda)[1:]
+    spec = Spectrum(key=k, count=c, n=k.shape[0])
+    got, want = tcor.compact(spec, m), tcor.compact_plain(spec, m)
+    assert got.n == want.n
+    _equal(got.key, want.key, "key")
+    _equal(got.count, want.count, "count")
+    keys, counts, cap = run_case("one_key_three_tiles")
+    k = torch.from_numpy(np.concatenate([[0], keys])).to(cuda)[1:]
+    c = torch.from_numpy(np.concatenate([[0], counts]).astype(np.int32)).to(cuda)[1:]
+    _reduce_both(cuda, k, None, cap)
+    _reduce_both(cuda, k, c, cap)
+
+
+@pytest.mark.parametrize("extra", [-1, 1])
+def test_scan_entry_points_refuse_missized_scratch(cuda, extra):
+    """K10's and K2's entry points take a scratch of exactly tiles + 1 words
+    and refuse any other, so a tile size that differs between the wrapper
+    and scan.cuh raises instead of returning a wrong n."""
+    C = 3 * TILE + 1
+    key = torch.zeros(C, dtype=torch.int64, device=cuda)
+    count = torch.zeros(C, dtype=torch.int32, device=cuda)
+    keep = torch.ones(C, dtype=torch.bool, device=cuda)
+    scratch = torch.zeros(4 + 1 + extra, dtype=torch.int64, device=cuda)
+    out_key, start = torch.empty_like(key), torch.empty_like(key)
+    out_count = torch.zeros_like(count)
+    lib, p = kernels.library(), kernels.ptr
+    with pytest.raises(RuntimeError, match="shannon_compact_keep failed"):
+        lib.call("shannon_compact_keep", cuda, p(key), p(count), p(keep), C, p(scratch),
+                 scratch.shape[0], p(out_key), p(out_count))
+    with pytest.raises(RuntimeError, match="shannon_reduce_sorted failed"):
+        lib.call("shannon_reduce_sorted", cuda, p(key), None, C, C, p(scratch),
+                 scratch.shape[0], p(out_key), p(out_count), p(start))
 
 
 @pytest.mark.parametrize("k", [5, 16, 24, 31])
