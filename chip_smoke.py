@@ -342,6 +342,7 @@ WATCHED = {
     "drop_contigs": ("shannon_tpu_torch.ops.tipclip", "_drop_contigs"),
     "clip_remap": ("shannon_tpu_torch.ops.tipclip", "_device_clip_remap"),
     "auto_cut": ("shannon_tpu_torch.pipeline", "auto_min_abundance"),
+    "thread_lookup": ("shannon_tpu_torch.ops.thread", "lookup_sorted"),
 }
 
 
@@ -351,10 +352,11 @@ class Watch:
     contig and whether a merge closed a cycle (where K18 and K19 are
     exempt), and each assembly's auto abundance cut (K8 is exempt where
     every cut is 1), and brackets each merge with two CUDA events (merge_ms reads
-    them); while keep_args is set, it keeps the first call's arguments of
-    the merge, the drop and the remap, so that each kernel can be held
-    against its plain version on the main path's own arguments.  The
-    kernels are called through `originals`, never through a wrapper."""
+    them); it keeps the first call's arguments of each function named in
+    keep_args (the merge, the drop, the remap, threading's lookup), so that
+    each kernel can be held against its plain version on the main path's
+    own arguments.  The kernels are called through `originals`, never
+    through a wrapper."""
 
     def __init__(self):
         import importlib
@@ -364,7 +366,7 @@ class Watch:
         self.cuts: list[int] = []  # each assembly's auto abundance cut
         self.merges: list = []  # (start, end) CUDA events of each merge
         self.first_args: dict = {}
-        self.keep_args = False
+        self.keep_args: tuple = ()
         for name, (module, fn) in WATCHED.items():
             mod = importlib.import_module(module)
             self.originals[name] = getattr(mod, fn)
@@ -374,7 +376,7 @@ class Watch:
         import torch
 
         def wrapped(*args):
-            if self.keep_args:
+            if name in self.keep_args:
                 self.first_args.setdefault(name, args)
             if name == "merge_at":
                 start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -599,8 +601,8 @@ def kernel_phase(dev, smi: str) -> dict:
     steps = math.ceil(math.log2(table.numel())) + 1
     out["lookup_sorted"] = _row(err, t, _nbytes(table, query, *got), query.numel() * steps,
                                 library)
-    _print_row(f"K3 lookup_sorted {query.numel()} queries in {table.numel()} lanes "
-               "(a binary search: latency-bound, not bandwidth-bound)", out["lookup_sorted"], smi)
+    _print_row(f"K3 lookup_sorted {query.numel()} queries in {table.numel()} lanes (a walk of "
+               "the 16-ary index: latency-bound, not bandwidth-bound)", out["lookup_sorted"], smi)
     return out
 
 
@@ -892,12 +894,12 @@ def correction_phase(reads, dev, smi: str, watch: Watch):
     cfg = AssemblyConfig()
     k, canonical = cfg.k, not cfg.strand_specific
     watch.reset()
-    watch.keep_args = True
+    watch.keep_args = ("merge_at",)
     spec = shrink_spectrum(count_reads_spectrum(
         pack_reads(reads, pad_length=cfg.read_pad_length), k=k, capacity=cfg.kmer_capacity,
         canonical=canonical, batch_reads=cfg.batch_reads, device=dev,
     ))
-    watch.keep_args = False
+    watch.keep_args = ()
     out = {"merge_spectra": _merge_row(watch, smi)}
     watch.reset()
     cut = tcor.auto_min_abundance(spec)
@@ -944,8 +946,9 @@ def correction_phase(reads, dev, smi: str, watch: Watch):
         library = _time_ms(lambda: torch.searchsorted(spec.key, q), 10)
         del q
         row = _row(err, t, _nbytes(spec.key, *probes[side]), 8 * C * steps, library)
-        _print_row(f"K7 probe_lookup side={side}, 8 x {C} probes (a binary search: "
-                   "latency-bound, not bandwidth-bound)", row, smi)
+        _print_row(f"K7 probe_lookup side={side}, 8 x {C} probes (walks of the 16-ary index "
+                   "and the PAD and probe-group shortcuts: latency-bound, not bandwidth-bound)",
+                   row, smi)
         out.setdefault("probe_lookup", row)  # the sibling set is the row kept
 
     def neighbors():
@@ -1224,9 +1227,9 @@ def _clip_rows(spec, watch: Watch, smi: str) -> dict:
 
     cfg = AssemblyConfig()
     watch.reset()
-    watch.keep_args = True
+    watch.keep_args = ("drop_contigs", "clip_remap")
     tipclip.clip_tips_graph(spec, cfg, not cfg.strand_specific)
-    watch.keep_args = False
+    watch.keep_args = ()
     (doomed_any, cycle_merged), = watch.clips
     if not doomed_any or cycle_merged:
         raise AssertionError("the main path's clip doomed nothing or closed a cycle, so it gave "
@@ -1569,10 +1572,12 @@ def single_scale_phase(truth, reads, dev, lib, watch: Watch, smi: str) -> dict:
     torch.cuda.reset_peak_memory_stats(dev)
     lib.reset_counts()
     watch.reset()
+    watch.keep_args = ("thread_lookup",)  # for main_lookup_row
     t0 = time.perf_counter()
     res = assemble(reads, AssemblyConfig(), device=dev, timer=timer)
     torch.cuda.synchronize(dev)
     e2e = time.perf_counter() - t0
+    watch.keep_args = ()
     launches, clips = dict(lib.launches), list(watch.clips)
     merges = {"calls": len(watch.merges), "ms": watch.merge_ms()}
     quality = evaluate(truth, [t.seq for t in res.transcripts], k=24)
@@ -1592,6 +1597,31 @@ def single_scale_phase(truth, reads, dev, lib, watch: Watch, smi: str) -> dict:
     return {"n_reads": len(reads), "e2e_s": e2e, "reads_per_s": len(reads) / e2e,
             "max_memory_allocated_bytes": peak, "stages": timer.stages, "stats": res.stats,
             "quality": quality, "launches": launches, "clips": clips, "merges": merges}, res
+
+
+def main_lookup_row(watch: Watch, smi: str) -> dict:
+    """K3 on what the main path gives it (kept by `watch` in the single-end
+    scale phase): threading's first lookup, the first read batch's
+    non-canonical windows in the node table after tip clip, against its
+    plain version, with torch.searchsorted as the library call."""
+    import math
+
+    import torch
+
+    from shannon_tpu_torch.ops.spectrum import lookup_sorted_plain
+
+    table, query = watch.first_args.pop("thread_lookup")
+    lookup = watch.originals["thread_lookup"]
+    got, want = lookup(table, query), lookup_sorted_plain(table, query)
+    err = _max_abs_err(got, want)
+    t = _alternate(lambda: lookup(table, query), lambda: lookup_sorted_plain(table, query))
+    library = _time_ms(lambda: torch.searchsorted(table, query.reshape(-1)), 10)
+    steps = math.ceil(math.log2(table.numel())) + 1
+    row = _row(err, t, _nbytes(table, query, *got), query.numel() * steps, library)
+    _print_row(f"K3 lookup_sorted, the main path's: the first read batch's {query.numel()} "
+               f"windows in the {table.numel()}-lane node table ({int(got[1].sum())} hits)",
+               row, smi)
+    return row
 
 
 def owner_row(batch, dev, smi: str) -> dict:
@@ -2081,6 +2111,10 @@ def main(argv=None) -> int:
     paired_parity_phase(p_reads, dev, smi)
 
     report["scale"], single = single_scale_phase(truth, reads, dev, lib, watch, smi)
+    row = main_lookup_row(watch, smi)
+    report["kernels"]["lookup_sorted_main"] = row
+    report["kernels"]["lookup_sorted"]["max_abs_err"] = max(
+        report["kernels"]["lookup_sorted"]["max_abs_err"], row["max_abs_err"])
     report["sharded"], report["kernels"]["owner_buckets"] = sharded_phase(
         truth, reads, single, dev, lib, watch, smi)
     t0 = time.perf_counter()

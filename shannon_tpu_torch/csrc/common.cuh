@@ -25,9 +25,12 @@ static __device__ __forceinline__ uint64_t revcomp_bits(uint64_t key, int k) {
 
 // Binary search of `key` in the sorted table[0, table_len) (table_len >= 1):
 // the lower bound clamped to table_len - 1 goes to *idx, and the result says
-// whether that lane holds the key.  K3 (lookup_sorted), K7 (probe_lookup),
-// K21 (lookup_counts) and K22 (sibling_maxes) share it, so all give the same
-// (idx, hit) for the same query.
+// whether that lane holds the key.  The kernels that search inside other
+// work use it: K11 and K14 (condense.cu), K18 (tipclip.cu), K21
+// (lookup_counts) and K22 / K28 (through sibling_maxes_of).  K3
+// (lookup_sorted) and K7 (probe_lookup) walk the 16-ary index of search.cuh
+// instead; every searcher returns the same exact clamped lower bound, so all
+// give the same (idx, hit) for the same query.
 static __device__ __forceinline__ bool lower_bound_hit(
     const int64_t* __restrict__ table, int64_t table_len, int64_t key,
     int64_t* idx) {

@@ -10,32 +10,233 @@
 
 #include "common.cuh"
 #include "scan.cuh"
+#include "search.cuh"
 
 // ---------------------------------------------------------------------------
 // K7: probe lookup.
 // Replaces shannon_tpu/ops/correction.py:78 _probe_resolve (with
 // ops/kmers.py:69 canonical_hilo and ops/spectrum.py:137 lookup_hilo).
-// Bound: latency of the dependent loads of a binary search (log2(C) steps of
-// 8 bytes per probe), not bandwidth.  One thread per (probe row p, entry i),
-// i fastest, so the key loads and the idx/hit stores are coalesced.  The
+// Bound: scattered-load passes and their latency, as K3 (search.cuh), and a
+// table (12,582,912 lanes, 100 MB on the main path) that does not fit in L2;
+// the bytes it must move are the keys read once and the [8, C] idx and hit
+// written once (906 MB there), which no search can come near.
+// Design.  The entry point builds the table's 16-ary index; persistent
+// blocks walk it (search.cuh).  A warp takes 32 consecutive lanes, each lane
+// its 8 probes together, so the stores of every probe row stay coalesced
+// (streaming stores, so the answers do not push the table out of L2).  The
 // probe is built in registers with the plain version's exact bit operations
-// (pad lanes included, whose probes keep the bits above 2k), so the [8, C]
-// probe tensor of the plain version is never stored; the probe (probe_key,
-// shared with K22) and the search (K3's lower_bound_hit) are in common.cuh.
+// (probe_key, shared with K22), and three shortcuts cut the walks:
+//  - PAD lanes.  Their probes depend only on PAD, so the 8 answers are
+//    walked once per block (warp 0, before the lanes) and copied to every
+//    PAD lane.
+//  - A lane's own group.  A probe x with x & ~3 == v & ~3 (a right sibling
+//    kept in forward form, (v & ~3) | b) has its lower bound within lanes
+//    i - 3 .. i + 3 of a table of distinct keys (or C): stepped to from i.
+//  - Shared groups.  sib's four left siblings in reverse-complement form,
+//    (rc(v) & ~3) | comp(b), share one group; so do ext's four right
+//    extensions in forward form, ((v << 2) | b) & mask, and its four left
+//    extensions in reverse-complement form, ((rc(v) << 2) & mask) | comp(b).
+//    One walk per group gives lb(g); a member x steps up from it past the
+//    keys in [g, x), at most 3.
+// Which form a probe takes is the plain version's per-probe choice (key =
+// min(q, rc(q)) when canonical), and a probe takes a shortcut only where its
+// key lies in that group, so every answer is the exact lower bound for any
+// sorted table; the steps are few only because a spectrum's keys are
+// distinct.  Every other probe walks: on a canonical spectrum 37% of sib's
+// probes and half of ext's, plus about one group walk a lane (sib) or two
+// (ext).  Each lane leaves its probe keys in its group's job slots (shared
+// memory, slot p of lane l for job p: probes 0-7, the shared groups 8 and
+// 9) with the node below the top of each of its walks (search_top); each
+// group of 8 lanes queues its walks as one 80-bit mask (bit 8 p + l) and
+// walks them PROBE_Q at a time in job order, so the forward probes of
+// consecutive lanes, which are sorted in lane order, walk one after another
+// through the same nodes; each answer goes back to its slot.
 // ---------------------------------------------------------------------------
-__global__ void probe_lookup_kernel(const int64_t* __restrict__ table,
-                                    int64_t C, int k, int side_ext,
-                                    int canonical, int64_t* __restrict__ idx,
-                                    uint8_t* __restrict__ hit) {
-  int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= 8 * C) return;
-  int p = (int)(t / C);
-  int64_t i = t - (int64_t)p * C;
-  const int64_t key = probe_key((uint64_t)table[i], k, p, side_ext, canonical);
-  int64_t lane;
-  bool found = lower_bound_hit(table, C, key, &lane);
-  idx[t] = lane;
-  hit[t] = found ? 1 : 0;
+#define PROBE_JOBS 10
+#define PROBE_HIT (1ll << 62)  // beside a lower bound (<= C < 2^62)
+
+// Group job g of lane key v (its low two bits 0): g = 0 is sib's
+// reverse-complement left-sibling group rc(v) & ~3 or ext's forward
+// right-extension group (v << 2) & mask, g = 1 ext's reverse-complement
+// left-extension group (rc(v) << 2) & mask.
+static __device__ __forceinline__ int64_t probe_group(uint64_t v, int k, int side_ext, int g) {
+  const uint64_t mask = (1ull << (2 * k)) - 1;
+  const uint64_t rc = revcomp_bits(v, k);
+  if (g == 0) return (int64_t)(side_ext ? ((v << 2) & mask) : (rc & ~3ull));
+  return (int64_t)((rc << 2) & mask);
+}
+
+// How a real lane of key v resolves probe key x: 0 in its own group, 1 or 2
+// from group job 8 (ga) or 9 (gb, ext only), 3 by its own walk.
+static __device__ __forceinline__ int probe_route(int64_t x, int64_t v, int64_t ga,
+                                                  int64_t gb, int side_ext) {
+  const int64_t g = x & ~3ll;
+  if (g == (v & ~3ll)) return 0;
+  if (g == ga) return 1;
+  if (side_ext && g == gb) return 2;
+  return 3;
+}
+
+// The lower bound of x in table[0, C), stepping up from lane j (at or below
+// it); *hit whether that lane holds x.
+static __device__ __forceinline__ int64_t step_up(const int64_t* __restrict__ table, int64_t C,
+                                                  int64_t j, int64_t x, bool* hit) {
+  int64_t t = x;
+  while (j < C) {
+    t = table[j];
+    if (t >= x) break;
+    ++j;
+  }
+  *hit = j < C && t == x;
+  return j;
+}
+
+// The lower bound of x, stepping down from lane j, whose key t is >= x.
+static __device__ __forceinline__ int64_t step_down(const int64_t* __restrict__ table, int64_t j,
+                                                    int64_t t, int64_t x, bool* hit) {
+  while (j > 0) {
+    const int64_t u = table[j - 1];
+    if (u < x) break;
+    --j;
+    t = u;
+  }
+  *hit = t == x;
+  return j;
+}
+
+// The lowest queued job, removed from the mask; -1 when none is left.  Job
+// p of lane l of a group is bit 8 p + l: probes 0-7 in jobs[0], the shared
+// groups 8-9 in jobs[1].
+static __device__ __forceinline__ int take_job(uint64_t (&jobs)[2]) {
+#pragma unroll
+  for (int w = 0; w < 2; ++w) {
+    if (jobs[w] != 0) {
+      const int b = __ffsll((long long)jobs[w]) - 1;
+      jobs[w] &= jobs[w] - 1;
+      return 64 * w + b;
+    }
+  }
+  return -1;
+}
+
+#define PROBE_Q 4
+#define PROBE_GROUPS (SEARCH_THREADS / SEARCH_GROUP)
+
+__global__ void __launch_bounds__(SEARCH_THREADS)
+    probe_lookup_kernel(const int64_t* __restrict__ table, int C,
+                        const int64_t* __restrict__ index, SearchIndex ix, int k,
+                        int side_ext, int canonical, int64_t* __restrict__ idx,
+                        uint8_t* __restrict__ hit) {
+  extern __shared__ int64_t top[];
+  __shared__ int64_t s_pad[8];  // the PAD lanes' answers, lower bound | PROBE_HIT
+  // each group's job slots: the key, then the answer (lower bound |
+  // PROBE_HIT), and the node below the top
+  __shared__ int64_t s_key[PROBE_GROUPS][PROBE_JOBS][SEARCH_GROUP];
+  __shared__ int s_node[PROBE_GROUPS][PROBE_JOBS][SEARCH_GROUP];
+  search_load_top(ix, index, top);
+  const int lane = threadIdx.x & 31;
+  const int gl = lane & (SEARCH_GROUP - 1), gbase = lane & ~(SEARCH_GROUP - 1);
+  const int group = threadIdx.x / SEARCH_GROUP;
+  const bool table_vec = ((uintptr_t)table & 15) == 0;
+  if (threadIdx.x < 32) {  // warp 0 walks PAD's 8 probes, 2 a group
+    int64_t q[2];
+    int node[2], lb[2];
+    bool h[2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      q[j] = probe_key((uint64_t)PAD_KEY, k, 2 * (lane >> 3) + j, side_ext, canonical);
+      node[j] = search_top(ix, top, q[j]);
+    }
+    search_walk<2>(ix, index, table, C, table_vec, q, node, lb, h);
+    if (gl == 0) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) s_pad[2 * (lane >> 3) + j] = lb[j] | (h[j] ? PROBE_HIT : 0);
+    }
+  }
+  __syncthreads();
+  int64_t(*key_slot)[SEARCH_GROUP] = s_key[group];
+  int(*node_slot)[SEARCH_GROUP] = s_node[group];
+  const int64_t chunks = (C + 31) / 32;
+  const int64_t warp = (int64_t)blockIdx.x * (SEARCH_THREADS / 32) + (threadIdx.x >> 5);
+  const int64_t warps = (int64_t)gridDim.x * (SEARCH_THREADS / 32);
+  for (int64_t c = warp; c < chunks; c += warps) {
+    const int64_t i64 = c * 32 + lane;
+    const bool live = i64 < C;
+    const int i = (int)i64;
+    const int64_t v = live ? table[i] : PAD_KEY;
+    const bool real = v != PAD_KEY;
+    const int64_t ga = probe_group((uint64_t)v, k, side_ext, 0);
+    const int64_t gb = probe_group((uint64_t)v, k, side_ext, 1);
+    unsigned routes = 0;  // 2 bits a probe
+    unsigned mine = 0;    // the jobs this lane walks: bit p
+#pragma unroll
+    for (int p = 0; p < 8; ++p) {
+      const int64_t x = probe_key((uint64_t)v, k, p, side_ext, canonical);
+      const int route = real ? probe_route(x, v, ga, gb, side_ext) : 0;
+      routes |= (unsigned)route << (2 * p);
+      key_slot[p][gl] = x;
+      if (real) mine |= route == 3 ? 1u << p : route == 1 ? 1u << 8 : route == 2 ? 1u << 9 : 0u;
+    }
+    key_slot[8][gl] = ga;
+    key_slot[9][gl] = gb;
+    // each job's node below the top, all lanes in step over their own jobs
+    for (unsigned left = mine; left != 0; left &= left - 1) {
+      const int p = __ffs(left) - 1;
+      node_slot[p][gl] = search_top(ix, top, key_slot[p][gl]);
+    }
+    uint64_t jobs[2] = {0, 0};
+#pragma unroll
+    for (int p = 0; p < PROBE_JOBS; ++p) {
+      const uint64_t m = (__ballot_sync(SEARCH_FULL_MASK, (mine >> p) & 1u) >> gbase) & 0xffu;
+      jobs[p >> 3] |= m << (8 * (p & 7));
+    }
+    __syncwarp();
+    while (__any_sync(SEARCH_FULL_MASK, (jobs[0] | jobs[1]) != 0)) {
+      int pick[PROBE_Q], node[PROBE_Q], lb[PROBE_Q];
+      int64_t q[PROBE_Q];
+      bool h[PROBE_Q];
+#pragma unroll
+      for (int j = 0; j < PROBE_Q; ++j) {
+        pick[j] = take_job(jobs);
+        // a group with no job left walks key 0 from node 0
+        q[j] = pick[j] < 0 ? 0 : key_slot[pick[j] >> 3][pick[j] & 7];
+        node[j] = pick[j] < 0 ? 0 : node_slot[pick[j] >> 3][pick[j] & 7];
+      }
+      search_walk<PROBE_Q>(ix, index, table, C, table_vec, q, node, lb, h);
+#pragma unroll
+      for (int j = 0; j < PROBE_Q; ++j) {
+        if (pick[j] >= 0 && gl == 0) {
+          key_slot[pick[j] >> 3][pick[j] & 7] = (int64_t)lb[j] | (h[j] ? PROBE_HIT : 0);
+        }
+      }
+    }
+    __syncwarp();
+    if (!live) continue;
+#pragma unroll
+    for (int p = 0; p < 8; ++p) {
+      int64_t lb;
+      bool found;
+      const int route = (routes >> (2 * p)) & 3;
+      if (!real) {
+        lb = s_pad[p] & ~PROBE_HIT;
+        found = (s_pad[p] & PROBE_HIT) != 0;
+      } else if (route == 3) {
+        lb = key_slot[p][gl] & ~PROBE_HIT;
+        found = (key_slot[p][gl] & PROBE_HIT) != 0;
+      } else {
+        const int64_t x = key_slot[p][gl];
+        if (route == 0) {
+          lb = x <= v ? step_down(table, i, v, x, &found) : step_up(table, C, i + 1, x, &found);
+        } else {
+          lb = step_up(table, C, key_slot[route == 1 ? 8 : 9][gl] & ~PROBE_HIT, x, &found);
+        }
+      }
+      // streaming stores: the 906 MB of answers should not push the table
+      // out of L2
+      __stcs(reinterpret_cast<long long*>(idx) + (int64_t)p * C + i, (long long)(lb < C ? lb : C - 1));
+      __stcs(hit + (int64_t)p * C + i, (uint8_t)(found ? 1 : 0));
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -341,13 +542,33 @@ __global__ void prune_keep_kernel(const int64_t* __restrict__ key,
 // ---------------------------------------------------------------------------
 extern "C" {
 
-int shannon_probe_lookup(const void* table, int64_t C, int k, int side_ext,
-                         int canonical, void* idx, void* hit, void* stream) {
-  if (C > 0) {
-    probe_lookup_kernel<<<blocks_for(8 * C), THREADS, 0, (cudaStream_t)stream>>>(
-        (const int64_t*)table, C, k, side_ext, canonical, (int64_t*)idx,
-        (uint8_t*)hit);
+// layout: SEARCH_LAYOUT_WORDS host words (ops/spectrum.py search_layout);
+// scratch: exactly the index's words, or the call is refused.
+int shannon_probe_lookup(const void* table, int64_t C, int k, int side_ext, int canonical,
+                         void* scratch, int64_t scratch_words, const void* layout, void* idx,
+                         void* hit, void* stream) {
+  SearchIndex ix;
+  if (!search_index_from((const int64_t*)layout, C, scratch_words, &ix)) {
+    return (int)cudaErrorInvalidValue;
   }
+  cudaError_t err = search_build((const int64_t*)table, C, ix, scratch_words,
+                                 (int64_t*)scratch, (cudaStream_t)stream);
+  // the top goes beside the job slots' 30 KB of static shared memory, past
+  // the 48 KB a block gets without opting in
+  const size_t smem = sizeof(int64_t) * (size_t)ix.top_size;
+  unsigned int grid = 0;
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute((const void*)probe_lookup_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  }
+  if (err == cudaSuccess) {
+    err = search_grid((const void*)probe_lookup_kernel, smem,
+                      (C + SEARCH_THREADS - 1) / SEARCH_THREADS, &grid);
+  }
+  if (err != cudaSuccess) return (int)err;
+  probe_lookup_kernel<<<grid, SEARCH_THREADS, smem, (cudaStream_t)stream>>>(
+      (const int64_t*)table, (int)C, (const int64_t*)scratch, ix, k, side_ext, canonical,
+      (int64_t*)idx, (uint8_t*)hit);
   return (int)cudaGetLastError();
 }
 

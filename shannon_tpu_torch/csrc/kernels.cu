@@ -18,6 +18,7 @@
 
 #include "common.cuh"
 #include "scan.cuh"
+#include "search.cuh"
 
 // ---------------------------------------------------------------------------
 // K1: k-mer extraction from 2-bit packed reads.
@@ -231,24 +232,68 @@ __global__ void __launch_bounds__(SCAN_THREADS)
 // ---------------------------------------------------------------------------
 // K3: exact-hit lookup of query keys in a sorted table.
 // Replaces shannon_tpu/ops/spectrum.py:137 lookup_hilo (:71 join_lookup_hilo,
-// :28 lower_bound_hilo).  Bound: latency of the dependent loads of a binary
-// search (log2(C) steps of 8 bytes).  One thread per query; the first steps
-// of every search read the same few lanes, which stay in L1/L2, and the
-// 50 MB L2 holds a table of a few million keys whole.  idx is the lower bound
-// clamped to C - 1, so a miss still returns a valid lane (lower_bound_hit in
-// common.cuh, shared with K7).
+// :28 lower_bound_hilo).  Bound: L1 passes and the latency of scattered
+// loads (search.cuh); the bytes it must move are the table and the queries
+// read once and idx and hit written once.  The entry point builds the
+// 16-ary index of the table (search_build_kernel), then this kernel walks
+// it: persistent blocks, a warp takes 32 consecutive queries (one coalesced
+// load), each lane finds its own query's node below the top in shared
+// memory, and each group of 8 lanes walks its lanes' 8 queries LOOKUP_Q at a
+// time down to their leaf lines; the warp then writes their idx and hit
+// coalesced.  The main path's queries (read windows against the node table)
+// have no order to exploit, so every query walks.  idx is the lower bound
+// clamped to C - 1, so a miss still returns a valid lane, as
+// lower_bound_hit gives it.
 // ---------------------------------------------------------------------------
-__global__ void lookup_sorted_kernel(const int64_t* __restrict__ table,
-                                     int64_t table_len,
-                                     const int64_t* __restrict__ query,
-                                     int64_t n_query, int64_t* __restrict__ idx,
-                                     uint8_t* __restrict__ hit) {
-  int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= n_query) return;
-  int64_t i;
-  bool found = lower_bound_hit(table, table_len, query[t], &i);
-  idx[t] = i;
-  hit[t] = found ? 1 : 0;
+#define LOOKUP_Q 4
+
+// 6 blocks an SM (40 registers): more queries in flight beat the registers
+// the compiler would take otherwise (80 at 3 blocks an SM, 4% slower).
+__global__ void __launch_bounds__(SEARCH_THREADS, 6)
+    lookup_sorted_kernel(const int64_t* __restrict__ table, int table_len,
+                         const int64_t* __restrict__ index, SearchIndex ix,
+                         const int64_t* __restrict__ query, int64_t n_query,
+                         int64_t* __restrict__ idx, uint8_t* __restrict__ hit) {
+  extern __shared__ int64_t top[];
+  search_load_top(ix, index, top);
+  const int lane = threadIdx.x & 31;
+  const int gl = lane & (SEARCH_GROUP - 1), gbase = lane & ~(SEARCH_GROUP - 1);
+  const bool table_vec = ((uintptr_t)table & 15) == 0;
+  const int64_t chunks = (n_query + 31) / 32;
+  const int64_t warp = (int64_t)blockIdx.x * (SEARCH_THREADS / 32) + (threadIdx.x >> 5);
+  const int64_t warps = (int64_t)gridDim.x * (SEARCH_THREADS / 32);
+  for (int64_t c = warp; c < chunks; c += warps) {
+    const int64_t i = c * 32 + lane;
+    const bool live = i < n_query;
+    const int64_t mine = live ? query[i] : 0;
+    const int my_node = search_top(ix, top, mine);
+    int my_lb = 0;
+    bool my_hit = false;
+#pragma unroll
+    for (int b = 0; b < SEARCH_GROUP / LOOKUP_Q; ++b) {
+      int64_t q[LOOKUP_Q];
+      int node[LOOKUP_Q], lb[LOOKUP_Q];
+      bool h[LOOKUP_Q];
+#pragma unroll
+      for (int j = 0; j < LOOKUP_Q; ++j) {
+        const int src = gbase + b * LOOKUP_Q + j;
+        q[j] = __shfl_sync(SEARCH_FULL_MASK, mine, src);
+        node[j] = __shfl_sync(SEARCH_FULL_MASK, my_node, src);
+      }
+      search_walk<LOOKUP_Q>(ix, index, table, table_len, table_vec, q, node, lb, h);
+#pragma unroll
+      for (int j = 0; j < LOOKUP_Q; ++j) {
+        if (gl == b * LOOKUP_Q + j) {
+          my_lb = lb[j];
+          my_hit = h[j];
+        }
+      }
+    }
+    if (live) {
+      idx[i] = my_lb < table_len ? my_lb : table_len - 1;
+      hit[i] = my_hit ? 1 : 0;
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -375,15 +420,28 @@ int shannon_merge_tables(const void* a_key, const void* a_count, int64_t Ca,
   return (int)cudaGetLastError();
 }
 
-int shannon_lookup_sorted(const void* table, int64_t table_len,
-                          const void* query, int64_t n_query, void* idx,
-                          void* hit, void* stream) {
-  if (n_query > 0) {
-    lookup_sorted_kernel<<<blocks_for(n_query), THREADS, 0,
-                           (cudaStream_t)stream>>>(
-        (const int64_t*)table, table_len, (const int64_t*)query, n_query,
-        (int64_t*)idx, (uint8_t*)hit);
+// layout: SEARCH_LAYOUT_WORDS host words (ops/spectrum.py search_layout);
+// scratch: exactly the index's words, or the call is refused.
+int shannon_lookup_sorted(const void* table, int64_t table_len, const void* query,
+                          int64_t n_query, void* scratch, int64_t scratch_words,
+                          const void* layout, void* idx, void* hit, void* stream) {
+  SearchIndex ix;
+  if (!search_index_from((const int64_t*)layout, table_len, scratch_words, &ix)) {
+    return (int)cudaErrorInvalidValue;
   }
+  if (n_query == 0) return (int)cudaGetLastError();
+  cudaError_t err = search_build((const int64_t*)table, table_len, ix, scratch_words,
+                                 (int64_t*)scratch, (cudaStream_t)stream);
+  const size_t smem = sizeof(int64_t) * (size_t)ix.top_size;
+  unsigned int grid = 0;
+  if (err == cudaSuccess) {
+    err = search_grid((const void*)lookup_sorted_kernel, smem,
+                      (n_query + SEARCH_THREADS - 1) / SEARCH_THREADS, &grid);
+  }
+  if (err != cudaSuccess) return (int)err;
+  lookup_sorted_kernel<<<grid, SEARCH_THREADS, smem, (cudaStream_t)stream>>>(
+      (const int64_t*)table, (int)table_len, (const int64_t*)scratch, ix, (const int64_t*)query,
+      n_query, (int64_t*)idx, (uint8_t*)hit);
   return (int)cudaGetLastError();
 }
 

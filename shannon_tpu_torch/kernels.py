@@ -56,13 +56,13 @@ _ARGTYPES = {
     "shannon_extract_kmers": [_P, _P, _P, _I64, _I, _I, _I, _I, _I, _P, _P, _P],
     "shannon_extract_codes": [_P, _P, _I64, _I, _I, _I, _I, _P, _P, _P],
     "shannon_reduce_sorted": [_P, _P, _I64, _I64, _P, _I64, _P, _P, _P, _P],
-    "shannon_lookup_sorted": [_P, _I64, _P, _I64, _P, _P, _P],
+    "shannon_lookup_sorted": [_P, _I64, _P, _I64, _P, _I64, _P, _P, _P, _P],
     "shannon_thread_rows": [_P, _P, _P, _P, _P, _I64, _I, _I, *[_P] * 7, _P],
     "shannon_row_counts": [_P, _I64, _I, _P, _P],
     "shannon_compact_rows": [_P, _P, _I64, _I, _I, *[_P] * 8, _P],
     "shannon_sf_greedy": [_P, _I64, _I, _I, *[_P] * 6, _P],
     "shannon_sf_jobs": [_P, _P, _P, _P, _I64, _I, _I, _I, _P, _P],
-    "shannon_probe_lookup": [_P, _I64, _I, _I, _I, _P, _P, _P],
+    "shannon_probe_lookup": [_P, _I64, _I, _I, _I, _P, _I64, _P, _P, _P, _P],
     "shannon_rescue_round": [*[_P] * 6, _I64, _P, _P, _P],
     "shannon_prune_round": [_P, _P, _P, _I64, _F, _F, _I, _P, _P, _P],
     "shannon_compact_keep": [_P, _P, _P, _I64, _P, _I64, _P, _P, _P],

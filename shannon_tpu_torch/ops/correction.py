@@ -27,7 +27,9 @@ import torch
 from shannon_tpu_torch import kernels
 from shannon_tpu_torch.ops.count import Spectrum
 from shannon_tpu_torch.ops.kmers import PAD
-from shannon_tpu_torch.ops.spectrum import lookup_sorted_plain, probe_keys, sibling_maxes
+from shannon_tpu_torch.ops.spectrum import (
+    lookup_sorted_plain, probe_keys, search_args, sibling_maxes,
+)
 from shannon_tpu_torch.oracle.correction import choose_min_abundance
 
 
@@ -137,11 +139,12 @@ def _probe_lookup_cuda(spec: Spectrum, k: int, canonical: bool, side: str):
     dev = spec.key.device
     idx = torch.empty((8, C), dtype=torch.int64, device=dev)
     hit = torch.empty((8, C), dtype=torch.bool, device=dev)
+    scratch, layout = search_args(C, dev)
     lib = kernels.library()
     lib.call(
         "shannon_probe_lookup", dev,
         kernels.ptr(spec.key), C, k, int(side == "ext"), int(canonical),
-        kernels.ptr(idx), kernels.ptr(hit),
+        kernels.ptr(scratch), scratch.shape[0], layout, kernels.ptr(idx), kernels.ptr(hit),
     )
     lib.count("probe_lookup")
     return idx, hit
@@ -149,9 +152,11 @@ def _probe_lookup_cuda(spec: Spectrum, k: int, canonical: bool, side: str):
 
 def probe_resolve(spec: Spectrum, k: int, canonical: bool, side: str):
     """(idx, hit) [8, C] of one probe set (ops/correction.py:78
-    _probe_resolve); idx is the lower bound clamped to C - 1, meaningful
-    only where hit.  Probe targets never change across rounds, so each set
-    resolves once.  Kernel K7 on CUDA, the plain version on CPU."""
+    _probe_resolve); idx is the lower bound clamped to C - 1, on a miss
+    too (the reference promised it only where hit).  Probe targets never
+    change across rounds, so each set resolves once.  Kernel K7 on CUDA
+    (the index build and its walk, with the PAD and probe-group shortcuts),
+    the plain version on CPU."""
     if side not in ("sib", "ext"):
         raise ValueError(f"side must be 'sib' or 'ext', got {side!r}")
     if spec.key.is_cuda:

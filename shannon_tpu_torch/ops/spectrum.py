@@ -1,23 +1,98 @@
 """Sorted-table lookups: exact hits (kernel K3), counts (K21), sibling
-maxima (K22) and neighbor counts (K28).
+maxima (K22) and neighbor counts (K28), and the layout of the 16-ary search
+index that K3 and K7 walk.
 
 Counterpart of ``shannon_tpu/ops/spectrum.py`` (``lookup_hilo``,
 ``lookup_counts``, ``sibling_maxes``, ``neighbor_counts``).  The TPU
 switched between a sort-merge join and a binary search by a cost model of
-that chip; here every lookup is one binary search per query.  On CUDA tensors each function
-launches its hand-written kernel (``csrc/kernels.cu``, ``csrc/spectrum.cu``);
-on CPU tensors its ``_plain`` version runs.
+that chip; here every lookup is one search per query: K3 walks the index of
+``csrc/search.cuh`` (built in the same call), K21, K22 and K28 a binary
+search.  On CUDA tensors each function launches its hand-written kernel
+(``csrc/kernels.cu``, ``csrc/spectrum.cu``); on CPU tensors its ``_plain``
+version runs.
 
-Contract (as in the reference): ``idx`` is meaningful only where ``hit``.
+Contract: ``idx`` is the lower bound clamped to ``len(table) - 1`` on every
+lane, a miss included (the reference promised ``idx`` only where ``hit``).
 """
 
 from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
 
 import torch
 
 from shannon_tpu_torch import kernels
 from shannon_tpu_torch.ops.count import Spectrum
 from shannon_tpu_torch.ops.kmers import PAD, canonical_key, check_k
+
+
+# The 16-ary search index of K3 and K7 (csrc/search.cuh, whose constants of
+# the same names these must equal): SEARCH_FANOUT entries a node, levels up
+# to the first of at most SEARCH_TOP_WORDS entries (the top, which each
+# block holds in shared memory), at most SEARCH_MAX_LEVELS levels.
+SEARCH_FANOUT = 16
+SEARCH_MAX_LEVELS = 8
+SEARCH_TOP_WORDS = 4096
+
+
+class SearchLayout(NamedTuple):
+    """The index of a table of n lanes.  Level 0 is the table; sizes[t]
+    entries make level t + 1 and start at offsets[t] of the scratch, the
+    top level (the last) at 0 and each level at a multiple of
+    SEARCH_FANOUT entries; words in all."""
+
+    sizes: tuple[int, ...]
+    offsets: tuple[int, ...]
+    words: int
+
+
+def search_layout(n: int) -> SearchLayout:
+    """Each level holds the last entry of every group of SEARCH_FANOUT
+    entries of the level below; levels stop at the first of at most
+    SEARCH_TOP_WORDS entries (no level at all for n <= SEARCH_FANOUT)."""
+    if n < 1:
+        raise ValueError("lookup in an empty table")
+    if n >= 1 << 31:
+        raise ValueError(f"{n} lanes: the search index takes tables below 2^31 lanes")
+    sizes = []
+    m = n
+    while m > (SEARCH_TOP_WORDS if sizes else SEARCH_FANOUT):
+        m = -(-m // SEARCH_FANOUT)
+        sizes.append(m)
+    offsets = [0] * len(sizes)
+    words = 0
+    for t in reversed(range(len(sizes))):
+        offsets[t] = words
+        words += -(-sizes[t] // SEARCH_FANOUT) * SEARCH_FANOUT
+    return SearchLayout(tuple(sizes), tuple(offsets), words)
+
+
+def search_index_plain(table: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch twin of the index build (search_build_kernel): entry j
+    of level t + 1 is table[min(16^(t+1) (j + 1), n) - 1], the last key of
+    its subtree; the words that round a level up to whole nodes are PAD."""
+    n = table.shape[0]
+    layout = search_layout(n)
+    index = torch.full((layout.words,), PAD, dtype=torch.int64, device=table.device)
+    for t, (size, off) in enumerate(zip(layout.sizes, layout.offsets)):
+        span = SEARCH_FANOUT ** (t + 1)
+        last = torch.arange(1, size + 1, device=table.device) * span - 1
+        index[off:off + size] = table[last.clamp_(max=n - 1)]
+    return index
+
+
+def search_args(n: int, device) -> tuple[torch.Tensor, ctypes.Array]:
+    """What a search entry point (K3, K7) takes beside its table: the index
+    scratch, which the entry point fills, and the layout as the host words
+    it checks (SEARCH_LAYOUT_WORDS: the number of levels, then the sizes
+    and the offsets, each padded to SEARCH_MAX_LEVELS)."""
+    lay = search_layout(n)
+    pad = (0,) * (SEARCH_MAX_LEVELS - len(lay.sizes))
+    words = (ctypes.c_int64 * (1 + 2 * SEARCH_MAX_LEVELS))(
+        len(lay.sizes), *lay.sizes, *pad, *lay.offsets, *pad
+    )
+    return torch.empty(lay.words, dtype=torch.int64, device=device), words
 
 
 def lookup_sorted_plain(
@@ -37,11 +112,12 @@ def _lookup_sorted_cuda(table, query):
     q = query.contiguous()
     idx = torch.empty(q.shape, dtype=torch.int64, device=q.device)
     hit = torch.empty(q.shape, dtype=torch.bool, device=q.device)
+    scratch, layout = search_args(table.shape[0], table.device)
     lib = kernels.library()
     lib.call(
         "shannon_lookup_sorted", table.device,
         kernels.ptr(table), table.shape[0], kernels.ptr(q), q.numel(),
-        kernels.ptr(idx), kernels.ptr(hit),
+        kernels.ptr(scratch), scratch.shape[0], layout, kernels.ptr(idx), kernels.ptr(hit),
     )
     lib.count("lookup_sorted")
     return idx, hit
@@ -52,8 +128,8 @@ def lookup_sorted(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Exact-hit lookup of int64 query keys (any shape) in a sorted int64
     table.  Returns (idx, hit) in the query's shape: idx is the lower
-    bound clamped to len(table) - 1, valid where hit.  Kernel K3 on
-    CUDA, the plain version on CPU."""
+    bound clamped to len(table) - 1, on a miss too.  Kernel K3 on CUDA
+    (the index build and its walk), the plain version on CPU."""
     if table.shape[0] == 0:
         raise ValueError("lookup in an empty table")
     if table.is_cuda:

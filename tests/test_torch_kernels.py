@@ -602,6 +602,231 @@ def test_scan_entry_points_refuse_missized_scratch(cuda, extra):
                  scratch.shape[0], p(out_key), p(out_count), p(start))
 
 
+# Table lengths that pin the edges of the 16-ary search index K3 and K7 walk
+# (csrc/search.cuh): one lane, a leaf line less one, one line, a line and a
+# lane, the span of a level-1 node and of a level-2 node either side, the
+# largest table whose top is level 1 either side, and the smallest with two
+# levels below the top.
+SEARCH_SIZES = [1, 15, 16, 17, 255, 256, 257, 4095, 4096, 4097, 65_535, 65_536, 65_537,
+                1_048_577]
+SEARCH_TABLES = ["random", "pad_tail", "all_pad", "edge_keys"]
+PROBE_TABLES = ["dense", "palindromic", "edge_keys"]
+
+
+def _revcomp_np(x: np.ndarray, k: int) -> np.ndarray:
+    """Reverse complement of the low 2k bits of int64 keys (numpy)."""
+    x = x.astype(np.int64)
+    r = np.zeros_like(x)
+    for i in range(k):
+        r = (r << 2) | (3 - ((x >> (2 * i)) & 3))
+    return r
+
+
+def search_table(n: int, kind: str, k: int = 24, seed: int = 0) -> np.ndarray:
+    """A sorted int64 table of n lanes, made from a seed: "random" distinct
+    k-mer keys; "pad_tail" the same with its last third PAD; "all_pad";
+    "edge_keys" keys 0 and 4^k - 1 (the largest real key) among random
+    ones, with a PAD tail of a fifth."""
+    rng = np.random.default_rng(seed + 31 * n + len(kind) + k)
+    top = 1 << (2 * k)
+    real = {"random": n, "pad_tail": n - n // 3, "all_pad": 0, "edge_keys": n - n // 5}[kind]
+    keys = 1 + rng.choice(top - 2, size=real, replace=False)
+    if kind == "edge_keys":
+        keys[:2] = [0, top - 1][:real]
+    return np.concatenate([np.sort(keys), np.full(n - real, PAD)]).astype(np.int64)
+
+
+def search_queries(table: np.ndarray, k: int = 24, seed: int = 0) -> np.ndarray:
+    """Queries for a table: its own keys, random k-mers, each key + 1 and
+    - 1 (k-mers all: none below 0), 0, 4^k - 1 and PAD."""
+    rng = np.random.default_rng(seed + len(table))
+    own = table[rng.integers(0, len(table), 500)]
+    near = np.concatenate([own[own != PAD] + 1, own[(own != PAD) & (own > 0)] - 1])
+    return np.concatenate([own, rng.integers(0, 1 << (2 * k), 500), near,
+                           [0, (1 << (2 * k)) - 1, PAD, PAD]]).astype(np.int64)
+
+
+def probe_table(kind: str, k: int, canonical: bool, C: int = 3000, seed: int = 0) -> np.ndarray:
+    """A spectrum-like table of C lanes (distinct keys, canonical when
+    `canonical`, PAD last), made from a seed, on which K7's probes hit:
+    "dense" every k-mer of a few random sequences and its last base
+    changed; "palindromic" keys whose second half is the reverse
+    complement of the first (palindromes at even k, one middle base free at
+    odd k) with their right and left siblings; "edge_keys" search_table's."""
+    rng = np.random.default_rng(seed + k + 7 * canonical + len(kind))
+    mask = (1 << (2 * k)) - 1
+    if kind == "edge_keys":
+        keys = search_table(C, "edge_keys", k, seed)
+        keys = keys[keys != PAD]
+    elif kind == "dense":
+        codes = rng.integers(0, 4, (C // 40, 60))
+        win = np.lib.stride_tricks.sliding_window_view(codes, k, axis=1).reshape(-1, k)
+        v = np.zeros(len(win), np.int64)
+        for j in range(k):
+            v = (v << 2) | win[:, j]
+        keys = np.concatenate([v, v ^ 1, v ^ (2 << (2 * (k - 1)))])
+    else:
+        h = k // 2
+        first = rng.integers(0, 1 << (2 * h), C // 10)
+        v = (first << (2 * (k - h))) | _revcomp_np(first, h)
+        if k % 2:
+            v |= rng.integers(0, 4, len(v)) << (2 * h)
+        b = np.arange(4)[:, None]
+        keys = np.concatenate([v, ((v & ~3) | b).ravel(),
+                               ((v & (mask >> 2)) | (b << (2 * (k - 1)))).ravel()])
+    if canonical:
+        keys = np.minimum(keys, _revcomp_np(keys, k))
+    keys = np.unique(keys)[:C]
+    return np.concatenate([keys, np.full(C - len(keys), PAD)]).astype(np.int64)
+
+
+def _lookup_both(cuda, table: torch.Tensor, query: torch.Tensor) -> None:
+    """K3 on the card against its plain version on the same CUDA inputs:
+    idx (the clamped lower bound, misses included) and hit."""
+    got, want = lookup_sorted(table, query), lookup_sorted_plain(table, query)
+    torch.cuda.synchronize()
+    _equal(got[0], want[0], "idx")
+    _equal(got[1], want[1], "hit")
+
+
+@pytest.mark.parametrize("n", SEARCH_SIZES)
+@pytest.mark.parametrize("kind", SEARCH_TABLES)
+def test_lookup_kernel_on_edge_tables(cuda, n, kind):
+    """K3 == its plain version on every edge of the index, and on the same
+    table as a view that starts one lane into its storage (odd lane, no
+    16-byte alignment)."""
+    table = search_table(n, kind)
+    query = torch.from_numpy(search_queries(table)).to(cuda)
+    _lookup_both(cuda, torch.from_numpy(table).to(cuda), query)
+    view = torch.from_numpy(np.concatenate([[0], table]).astype(np.int64)).to(cuda)[1:]
+    assert view.data_ptr() % 16 == 8
+    _lookup_both(cuda, view, query)
+
+
+@pytest.mark.parametrize("kind", PROBE_TABLES)
+@pytest.mark.parametrize("k", [15, 24, 31])
+@pytest.mark.parametrize("side", ["sib", "ext"])
+@pytest.mark.parametrize("canonical", [True, False])
+def test_probe_lookup_kernel_on_edge_tables(cuda, kind, k, side, canonical):
+    """K7 == its plain version, idx on misses included, where its PAD and
+    probe-group shortcuts meet the table's edges: dense sibling groups,
+    (near-)palindromes, keys 0 and 4^k - 1, the first PAD lane; and on a
+    view of the table one lane into its storage."""
+    table = probe_table(kind, k, canonical)
+    for key in (torch.from_numpy(table).to(cuda),
+                torch.from_numpy(np.concatenate([[0], table]).astype(np.int64)).to(cuda)[1:]):
+        spec = Spectrum(key=key, count=torch.ones(len(table), dtype=torch.int32, device=cuda),
+                        n=int((table != PAD).sum()))
+        got = tcor.probe_resolve(spec, k, canonical, side)
+        want = tcor.probe_resolve_plain(spec, k, canonical, side)
+        torch.cuda.synchronize()
+        _equal(got[0], want[0], "idx")
+        _equal(got[1], want[1], "hit")
+
+
+@pytest.mark.parametrize("side", ["sib", "ext"])
+@pytest.mark.parametrize("canonical", [True, False])
+def test_probe_lookup_kernel_on_a_dense_table_with_index_levels(cuda, side, canonical):
+    """K7 == its plain version on a dense spectrum of 2^21 lanes, where two
+    index levels lie below the top and most probes hit."""
+    C = 1 << 21
+    assert len(tsp.search_layout(C).sizes) == 3
+    table = probe_table("dense", 24, canonical, C=C)
+    spec = Spectrum(key=torch.from_numpy(table).to(cuda),
+                    count=torch.ones(C, dtype=torch.int32, device=cuda), n=C)
+    got = tcor.probe_resolve(spec, 24, canonical, side)
+    want = tcor.probe_resolve_plain(spec, 24, canonical, side)
+    torch.cuda.synchronize()
+    _equal(got[0], want[0], "idx")
+    _equal(got[1], want[1], "hit")
+    assert want[1].float().mean() > 0.1
+
+
+@pytest.mark.parametrize("n", [1, 16, 17, 4097, 12_582_912])
+@pytest.mark.parametrize("side", ["sib", "ext"])
+def test_probe_lookup_kernel_on_pad_tables(cuda, n, side):
+    """K7 on tables with no real key and with one: every lane takes the
+    block's PAD answers, or all but one."""
+    table = np.full(n, PAD, np.int64)
+    for real in (0, 1):
+        table[:real] = 12345
+        spec = Spectrum(key=torch.from_numpy(table).to(cuda),
+                        count=torch.ones(n, dtype=torch.int32, device=cuda), n=real)
+        got = tcor.probe_resolve(spec, 24, True, side)
+        want = tcor.probe_resolve_plain(spec, 24, True, side)
+        torch.cuda.synchronize()
+        _equal(got[0], want[0], "idx")
+        _equal(got[1], want[1], "hit")
+
+
+def test_search_kernels_on_a_table_above_2_24_lanes(cuda):
+    """K3 and K7 on 2^24 + 2^20 lanes, where four index levels stay in
+    global memory below the shared-memory ones."""
+    C = (1 << 24) + (1 << 20)
+    assert len(tsp.search_layout(C).sizes) - 1 == 3
+    rng = np.random.default_rng(24)
+    real = C - C // 7
+    table = np.full(C, PAD, np.int64)
+    table[:real] = np.sort(rng.choice(1 << 48, size=real, replace=False))
+    key = torch.from_numpy(table).to(cuda)
+    query = torch.from_numpy(np.concatenate([
+        table[rng.integers(0, C, 1 << 20)], rng.integers(0, 1 << 48, 1 << 20),
+        table[:4096] + 1, [PAD, 0]])).to(cuda)
+    _lookup_both(cuda, key, query)
+    spec = Spectrum(key=key, count=torch.ones(C, dtype=torch.int32, device=cuda), n=real)
+    got = tcor.probe_resolve(spec, 24, True, "sib")
+    want = tcor.probe_resolve_plain(spec, 24, True, "sib")
+    torch.cuda.synchronize()
+    _equal(got[0], want[0], "idx")
+    _equal(got[1], want[1], "hit")
+
+
+@pytest.mark.parametrize("n", SEARCH_SIZES + [(1 << 24) + 3])
+def test_search_index_matches_plain(cuda, n):
+    """The index the K3 entry point builds into the caller's scratch ==
+    search_index_plain, level by level."""
+    table = torch.from_numpy(search_table(n, "pad_tail")).to(cuda)
+    scratch, layout = tsp.search_args(n, cuda)
+    query = table[:1].clone()
+    idx = torch.empty(1, dtype=torch.int64, device=cuda)
+    hit = torch.empty(1, dtype=torch.bool, device=cuda)
+    p = kernels.ptr
+    kernels.library().call("shannon_lookup_sorted", cuda, p(table), n, p(query), 1, p(scratch),
+                           scratch.shape[0], layout, p(idx), p(hit))
+    torch.cuda.synchronize()
+    _equal(scratch, tsp.search_index_plain(table), "index")
+
+
+@pytest.mark.parametrize("fault", ["short", "long", "levels", "size", "offset"])
+def test_search_entry_points_refuse_wrong_layouts(cuda, fault):
+    """K3's and K7's entry points check the layout and the scratch they are
+    given against the table's length and refuse any other, so a layout rule
+    that differs between ops/spectrum.py and search.cuh raises."""
+    C = 70_000
+    key = torch.from_numpy(search_table(C, "random")).to(cuda)
+    scratch, layout = tsp.search_args(C, cuda)
+    words = scratch.shape[0]
+    if fault == "short":
+        words -= 1
+    elif fault == "long":
+        scratch, words = torch.empty(words + 1, dtype=torch.int64, device=cuda), words + 1
+    elif fault == "levels":
+        layout[0] -= 1
+    elif fault == "size":
+        layout[1] += 1
+    else:
+        layout[1 + tsp.SEARCH_MAX_LEVELS] += tsp.SEARCH_FANOUT
+    idx = torch.empty((8, C), dtype=torch.int64, device=cuda)
+    hit = torch.empty((8, C), dtype=torch.bool, device=cuda)
+    lib, p = kernels.library(), kernels.ptr
+    with pytest.raises(RuntimeError, match="shannon_lookup_sorted failed"):
+        lib.call("shannon_lookup_sorted", cuda, p(key), C, p(key), C, p(scratch), words, layout,
+                 p(idx), p(hit))
+    with pytest.raises(RuntimeError, match="shannon_probe_lookup failed"):
+        lib.call("shannon_probe_lookup", cuda, p(key), C, 24, 0, 1, p(scratch), words, layout,
+                 p(idx), p(hit))
+
+
 @pytest.mark.parametrize("k", [5, 16, 24, 31])
 @pytest.mark.parametrize("min_abundance", [0, 1, 2])
 @pytest.mark.parametrize("canonical", [True, False])

@@ -1,0 +1,217 @@
+"""The 16-ary search index that K3 (lookup_sorted) and K7 (probe_lookup)
+walk on the card (csrc/search.cuh), on the CPU:
+
+1. the index: its layout (ops/spectrum.search_layout) and its plain build
+   (search_index_plain), walked by a numpy transcription of the kernels'
+   walk, equal to np.searchsorted plus the clamp on tables that pin every
+   edge of the index;
+2. K7's probe-group rule (csrc/correction.cu probe_route): the probes that
+   resolve from a shared group are that group's key with their own base,
+   and their lower bounds lie within 3 lanes of the group's; a forward
+   right sibling's lies within 3 lanes of its own key's;
+3. the plain twins (lookup_sorted_plain, probe_resolve_plain) equal to the
+   JAX package's lower_bound_hilo on the same tables, idx on misses
+   included.
+
+Inputs are made from seeds with numpy.  Tolerance: exact."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from shannon_tpu.ops.spectrum import lower_bound_hilo
+from shannon_tpu_torch.convert import key_to_hilo
+from shannon_tpu_torch.ops import correction as tcor
+from shannon_tpu_torch.ops import spectrum as tsp
+from shannon_tpu_torch.ops.count import Spectrum
+from shannon_tpu_torch.ops.kmers import PAD
+from test_torch_kernels import (
+    PROBE_TABLES, SEARCH_SIZES, SEARCH_TABLES, _revcomp_np, probe_table, search_queries,
+    search_table,
+)
+
+F = tsp.SEARCH_FANOUT
+
+
+def walk(table: np.ndarray, index: np.ndarray, layout: tsp.SearchLayout, q: np.ndarray):
+    """numpy transcription of search_top and search_walk: each query's
+    lower bound in the top level (a lane's binary search in shared memory)
+    clamped to the top's last entry is its node one level down; at each
+    level below, the 16 entries of its node (a level's last node filled up
+    with PAD), the rank (a ballot's popcount) picks the child, clamped to
+    the level's last entry; at the leaf line, where lanes past the table's
+    end compare greater than every query, the rank gives the lower bound in
+    [0, n] and the equality ballot's bit at that rank gives hit."""
+    n, lane = len(table), np.arange(F)
+    node = np.zeros(len(q), np.int64)
+    if layout.sizes:
+        top = index[:layout.sizes[-1]]
+        node = np.minimum(np.searchsorted(top, q, side="left"), len(top) - 1)
+    for size, off in zip(reversed(layout.sizes[:-1]), reversed(layout.offsets[:-1])):
+        e = index[off + node[:, None] * F + lane]
+        node = np.minimum(node * F + (e < q[:, None]).sum(1), size - 1)
+    pos = node[:, None] * F + lane
+    ok = pos < n
+    e = table[np.minimum(pos, n - 1)]
+    r = (ok & (e < q[:, None])).sum(1)
+    equal = np.concatenate([ok & (e == q[:, None]), np.zeros((len(q), 1), bool)], axis=1)
+    return node * F + r, equal[np.arange(len(q)), r]
+
+
+def test_layout_levels_and_offsets():
+    """Levels of ceil(size / 16) up to the first of at most
+    SEARCH_TOP_WORDS entries (the top, at offset 0 of the scratch), each
+    rounded up to whole nodes of 16: the main path's two tables as the
+    index was designed."""
+    assert tsp.search_layout(16) == tsp.SearchLayout((), (), 0)
+    assert tsp.search_layout(17) == tsp.SearchLayout((2,), (0,), 16)
+    assert tsp.search_layout(16 * 4096) == tsp.SearchLayout((4096,), (0,), 4096)
+    assert tsp.search_layout(16 * 4096 + 1) == tsp.SearchLayout((4097, 257), (272, 0), 4384)
+    lay = tsp.search_layout(4_194_304)  # K3's node table: a top of 1,024 keys
+    assert lay == tsp.SearchLayout((262_144, 16_384, 1_024), (17_408, 1_024, 0), 279_552)
+    lay = tsp.search_layout(12_582_912)  # K7's correction input: a top of 3,072
+    assert lay.sizes == (786_432, 49_152, 3_072) and lay.offsets == (52_224, 3_072, 0)
+    with pytest.raises(ValueError, match="empty"):
+        tsp.search_layout(0)
+    with pytest.raises(ValueError, match="2\\^31"):
+        tsp.search_layout(1 << 31)
+    scratch, words = tsp.search_args(16 * 4096 + 1, "cpu")
+    assert scratch.shape == (4384,)
+    assert list(words) == [2, 4097, 257] + [0] * 6 + [272, 0] + [0] * 6
+
+
+@pytest.mark.parametrize("n", SEARCH_SIZES)
+@pytest.mark.parametrize("kind", SEARCH_TABLES)
+def test_walk_of_the_index_is_the_clamped_lower_bound(n, kind):
+    """The walk over search_index_plain == np.searchsorted plus
+    the clamp (idx on misses too) on edge tables: all PAD, a PAD tail, keys
+    0 and 4^k - 1, queries equal to PAD; and every index entry is the last
+    key of its subtree."""
+    table = search_table(n, kind)
+    layout = tsp.search_layout(n)
+    index = tsp.search_index_plain(torch.from_numpy(table)).numpy()
+    for t, (size, off) in enumerate(zip(layout.sizes, layout.offsets)):
+        j = np.arange(-(-size // F) * F)
+        np.testing.assert_array_equal(
+            index[off:off + len(j)],
+            np.where(j < size, table[np.minimum(F ** (t + 1) * (j + 1), n) - 1], PAD))
+    q = search_queries(table)
+    lb, hit = walk(table, index, layout, q)
+    want = np.searchsorted(table, q, side="left")
+    np.testing.assert_array_equal(lb, want)
+    idx = np.minimum(want, n - 1)
+    np.testing.assert_array_equal(hit, table[idx] == q)
+    got = tsp.lookup_sorted(torch.from_numpy(table), torch.from_numpy(q))
+    np.testing.assert_array_equal(got[0].numpy(), idx)
+    np.testing.assert_array_equal(got[1].numpy(), table[idx] == q)
+
+
+def _routes(table: np.ndarray, k: int, side: str, canonical: bool):
+    """numpy transcription of K7's probe_route: per [8, C] probe, 0 where it
+    lies in its lane's own group (x & ~3 == v & ~3), 1 in group job 8, 2 in
+    group job 9 (ext only), 3 a walk of its own, -1 on a PAD lane; with the
+    probe keys, their forward forms and the group keys."""
+    mask = (1 << (2 * k)) - 1
+    keys = tsp.probe_keys(torch.from_numpy(table), k, side, canonical).numpy()
+    fwd = tsp.probe_keys(torch.from_numpy(table), k, side, False).numpy()
+    rc = _revcomp_np(table, k)
+    ga = ((table << 2) & mask) if side == "ext" else (rc & ~3)
+    gb = (rc << 2) & mask
+    g = keys & ~3
+    route = np.where(g == (table & ~3), 0,
+                     np.where(g == ga, 1, np.where((side == "ext") & (g == gb), 2, 3)))
+    return np.where(table == PAD, -1, route), keys, fwd, ga, gb
+
+
+@pytest.mark.parametrize("kind", PROBE_TABLES + ["random"])
+@pytest.mark.parametrize("k", [15, 24, 31])
+@pytest.mark.parametrize("side", ["sib", "ext"])
+@pytest.mark.parametrize("canonical", [True, False])
+def test_probe_group_rule(kind, k, side, canonical):
+    """Each probe K7 resolves from a shared group is that group's key with
+    its own base set, and its lower bound lies in lb(g) .. lb(g) + 3; each
+    forward right sibling resolves in its own group, within lanes i - 3 ..
+    i + 3 (or at C, before the clamp); the shortcuts are taken wherever the
+    form says."""
+    if kind == "random":  # distinct random keys, canonical where the spectrum is
+        keys = search_table(1500, "pad_tail", k)
+        keys = keys[keys != PAD]
+        keys = np.unique(np.minimum(keys, _revcomp_np(keys, k)) if canonical else keys)
+        table = np.concatenate([keys, np.full(1500 - len(keys), PAD)])
+    else:
+        table = probe_table(kind, k, canonical, C=1500)
+    mask = (1 << (2 * k)) - 1
+    route, keys, fwd, ga, gb = _routes(table, k, side, canonical)
+    real = table != PAD
+    C = len(table)
+    lane = np.arange(C)
+    lb = np.searchsorted(table, keys, side="left")
+    b = (np.arange(8) >> 1)[:, None]
+    right = (np.arange(8) % 2 == 0)[:, None]
+    is_fwd = keys == fwd
+    rc = _revcomp_np(table, k)
+    if side == "sib":
+        expect_a = real & ~right & ~is_fwd
+        np.testing.assert_array_equal(keys[expect_a], ((rc & ~3) | (3 - b))[expect_a])
+        own = real & right & is_fwd
+        np.testing.assert_array_equal(keys[own], ((table & ~3) | b)[own])
+        assert (route[own] == 0).all()
+        assert ((np.abs(lb - lane) <= 3) | (lb == C))[own].all()
+        expect_b = np.zeros_like(expect_a)
+    else:
+        expect_a = real & right & is_fwd
+        np.testing.assert_array_equal(keys[expect_a], (((table << 2) & mask) | b)[expect_a])
+        expect_b = real & ~right & ~is_fwd
+        np.testing.assert_array_equal(keys[expect_b],
+                                      (((rc << 2) & mask) | (3 - b))[expect_b])
+    # the form's shortcut is taken, unless the probe lies in the lane's own
+    # group or, where the two groups are one (a palindrome), in group A
+    assert np.isin(route[expect_a], (0, 1)).all()
+    assert ((route == 0) | (route == 2) | ((route == 1) & (ga == gb)))[expect_b].all()
+    for r, g in ((1, ga), (2, gb)):
+        sel = route == r
+        lb_g = np.broadcast_to(np.searchsorted(table, g, side="left"), keys.shape)
+        assert ((keys & ~3) == g)[sel].all()
+        assert ((lb[sel] >= lb_g[sel]) & (lb[sel] <= lb_g[sel] + 3)).all()
+    own = route == 0
+    assert ((np.abs(lb - lane) <= 3) | (lb == C))[own].all()
+
+
+def _hilo_lower_bound(table: np.ndarray, q: np.ndarray):
+    thi, tlo = key_to_hilo(table)
+    qhi, qlo = key_to_hilo(q.reshape(-1))
+    idx, hit = lower_bound_hilo(jnp.asarray(thi), jnp.asarray(tlo), jnp.asarray(qhi),
+                                jnp.asarray(qlo))
+    return np.asarray(idx).astype(np.int64).reshape(q.shape), np.asarray(hit).reshape(q.shape)
+
+
+@pytest.mark.parametrize("n", SEARCH_SIZES)
+@pytest.mark.parametrize("kind", SEARCH_TABLES)
+def test_plain_lookup_matches_reference_lower_bound(n, kind):
+    """lookup_sorted_plain == the reference's lower_bound_hilo on the edge
+    tables: idx on every lane (both are the clamped lower bound) and hit."""
+    table = search_table(n, kind)
+    q = search_queries(table)
+    want = _hilo_lower_bound(table, q)
+    got = tsp.lookup_sorted_plain(torch.from_numpy(table), torch.from_numpy(q))
+    np.testing.assert_array_equal(got[0].numpy(), want[0])
+    np.testing.assert_array_equal(got[1].numpy(), want[1])
+
+
+@pytest.mark.parametrize("kind", PROBE_TABLES)
+@pytest.mark.parametrize("side", ["sib", "ext"])
+@pytest.mark.parametrize("canonical", [True, False])
+def test_plain_probe_resolve_matches_reference_lower_bound(kind, side, canonical):
+    """probe_resolve_plain == lower_bound_hilo on the same probes, idx on
+    misses included, at k = 24."""
+    k = 24
+    table = probe_table(kind, k, canonical, C=1500)
+    spec = Spectrum(key=torch.from_numpy(table), count=torch.ones(len(table), dtype=torch.int32),
+                    n=int((table != PAD).sum()))
+    got = tcor.probe_resolve_plain(spec, k, canonical, side)
+    q = tsp.probe_keys(spec.key, k, side, canonical).numpy()
+    want = _hilo_lower_bound(table, q)
+    np.testing.assert_array_equal(got[0].numpy(), want[0])
+    np.testing.assert_array_equal(got[1].numpy(), want[1])
