@@ -19,7 +19,9 @@ Phases; any failure exits nonzero:
      (threading run scan) and K5 (across-read compaction) on the first
      65,536 reads of the scale dataset against the contig arrays
      spectrum_device builds from them; K7 (probe lookup, both probe sets),
-     K8 (one rescue round from the cut counts), K9 (one prune round) and K10
+     K8 (the dead-end rescue from the cut counts: one round, and the whole
+     loop at the oracle's cap of k + 2 rounds, with its rounds run and each
+     round's frontier), K9 (one prune round) and K10
      (compaction of the final keep mask) on the counted, shrunk spectrum of
      the whole single-end scale dataset at the default AssemblyConfig, with
      K16 (count histogram of the auto cut; its global variant at max_count
@@ -172,7 +174,7 @@ REPLACES = {
     "compact_rows": ("shannon_tpu_torch/csrc/thread.cu", "shannon_tpu/ops/thread.py:178"),
     "sf_greedy": ("shannon_tpu_torch/csrc/sparseflow.cu", "shannon_tpu/ops/sparseflow.py:88"),
     "probe_lookup": ("shannon_tpu_torch/csrc/correction.cu", "shannon_tpu/ops/correction.py:78"),
-    "rescue_round": ("shannon_tpu_torch/csrc/correction.cu", "shannon_tpu/ops/correction.py:143"),
+    "rescue_rounds": ("shannon_tpu_torch/csrc/rescue.cu", "shannon_tpu/ops/correction.py:143"),
     "prune_round": ("shannon_tpu_torch/csrc/correction.cu", "shannon_tpu/ops/correction.py:184"),
     "compact_keep": ("shannon_tpu_torch/csrc/correction.cu", "shannon_tpu/ops/correction.py:19"),
     "node_strands": ("shannon_tpu_torch/csrc/condense.cu", "shannon_tpu/ops/condense.py:82"),
@@ -978,26 +980,44 @@ def correction_phase(reads, dev, smi: str, watch: Watch):
     out["abundance_cut"] = _row(err, t, 4 * n_real + 8 * C, n_real, None)
     _print_row(f"K20 abundance_cut (cut mode, the main path's) {C} lanes, cut {cut}, "
                f"{int((counts > 0).sum())} left", out["abundance_cut"], smi)
-    got = tcor.rescue_round(counts, raw, *sib, *ext)
-    want = tcor.rescue_round_plain(counts, raw, *sib, *ext)
-    err = _max_abs_err(got[:1], want[:1])
-    if got[1] != want[1]:
-        raise AssertionError("K8 disagrees with its plain version on the changed flag")
-    t = _alternate(lambda: tcor.rescue_round(counts, raw, *sib, *ext),
-                   lambda: tcor.rescue_round_plain(counts, raw, *sib, *ext))
-    # only a lane the cut dropped reads its 16 probe rows and the idx of its hits
+    # K8 at rounds = 1 (one round, comparable with a one-round kernel), then
+    # the main path's call: the whole loop at the oracle's cap k + 2
     cand = (raw > 0) & (counts == 0)
-    n_cand = int(cand.sum())
-    n_hits = int(sib[1][:, cand].sum()) + int(ext[1][:, cand].sum())
-    out["rescue_round"] = _row(err, t, 12 * C + 16 * n_cand + 8 * n_hits,
-                               C + 48 * n_cand, None)
-    _print_row(f"K8 rescue_round {C} lanes, {n_cand} dropped by the cut, "
-               f"{int((got[0] != counts).sum())} rescued", out["rescue_round"], smi)
-    for _ in range(k + 2):  # the main path's rescue loop, to the K9 input
-        nxt, changed = tcor.rescue_round(counts, raw, *sib, *ext)
-        if not changed:
-            break
-        counts = nxt
+    alive = counts > 0
+    ext_alive = ext[1] & alive[ext[0]]
+    rext, lext = ext_alive[0::2].any(0) & cand, ext_alive[1::2].any(0) & cand
+    n_cand, n_r, n_l = int(cand.sum()), int(rext.sum()), int(lext.sum())
+    # bytes: counts and raw in, counts out (12 a lane); each cut lane's 8
+    # extension hit bytes and the idx of its hits; then, for a lane with an
+    # alive left (right) extension, its right (left) sibling rows' hit bytes
+    # and the idx of their hits
+    round1 = (12 * C + 8 * n_cand + 8 * int(ext[1][:, cand].sum())
+              + 4 * (n_l + n_r) + 8 * int(sib[1][0::2][:, lext].sum())
+              + 8 * int(sib[1][1::2][:, rext].sum()))
+    sib_hits = int(sib[1][:, cand].sum())
+    del ext_alive, alive
+    for rounds in (1, k + 2):
+        info, want_info = {}, {}
+        got = tcor.rescue_rounds(counts, raw, *sib, *ext, rounds, info)
+        want = tcor.rescue_rounds_plain(counts, raw, *sib, *ext, rounds, want_info)
+        err = _max_abs_err(got[:1], want[:1])
+        if got[1] != want[1] or info["rescued"] != want_info["rescued"]:
+            raise AssertionError("K8 disagrees with its plain version on the changed flag "
+                                 "or a round's rescues")
+        t = _alternate(lambda r=rounds: tcor.rescue_rounds(counts, raw, *sib, *ext, r),
+                       lambda r=rounds: tcor.rescue_rounds_plain(counts, raw, *sib, *ext, r))
+        # a later round's lane reads its sibling rows' hit bytes and the idx of
+        # its sibling hits (as many as a cut lane's on average)
+        later = sum(info["frontier"][1:]) * (8 + 8 * sib_hits / max(n_cand, 1))
+        row = _row(err, t, round1 + later, C + 48 * n_cand, None)
+        row.update(rounds=rounds, rounds_run=info["rounds_run"], frontier=info["frontier"],
+                   rescued=info["rescued"])
+        name = "rescue_rounds" if rounds > 1 else "rescue_rounds_1"
+        out[name] = row
+        _print_row(f"K8 rescue_rounds rounds={rounds} {C} lanes, {n_cand} dropped by the cut: "
+                   f"{info['rounds_run']} rounds run, last changed {got[1]}, frontier a round "
+                   f"{info['frontier']}, rescued a round {info['rescued']}", row, smi)
+    counts = got[0]  # the main path's rescue, to the K9 input
     del ext, probes["ext"]
 
     ratio, eps3 = tcor.prune_constants(cfg.sibling_ratio, cfg.error_rate)
@@ -1536,9 +1556,9 @@ def _launches_check(launches: dict, phase: str, cut: int, clips: list,
             print(f"the {phase} phase launched no {name} ({label}): it runs in one process, "
                   "and K26 and K27 run only in a multi-process run in 'ownership' mode (the "
                   "multi-process phase checks them)")
-    if "rescue_round" in missing and cut == 1:
-        missing.remove("rescue_round")
-        print(f"the {phase} phase launched no rescue_round (K8): its auto abundance "
+    if "rescue_rounds" in missing and cut == 1:
+        missing.remove("rescue_rounds")
+        print(f"the {phase} phase launched no rescue_rounds (K8): its auto abundance "
               "cut is 1, and dead-end rescue runs only when the cut drops k-mers")
     if "cycle_round" in missing:
         missing.remove("cycle_round")

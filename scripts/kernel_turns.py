@@ -1,8 +1,9 @@
 """Time kernels of several trees in turns on one card: K6 (sf_greedy, the
 sparse-flow greedy with restarts), K22 (sibling_maxes), K10 (compact_keep),
-K2 (reduce_sorted, three inputs), K7 (probe_lookup, both probe sets) and K3
-(lookup_sorted, two inputs), on the same inputs for every tree, so a change
-to a kernel's source can be held against its parent within one call.
+K2 (reduce_sorted, three inputs), K7 (probe_lookup, both probe sets), K3
+(lookup_sorted, two inputs), K4 (thread_rows) and K8 (the dead-end rescue,
+one round and the main path's loop), on the same inputs for every tree, so a
+change to a kernel's source can be held against its parent within one call.
 
     python scripts/kernel_turns.py --trees OLD NEW NEW OLD [--out FILE]
 
@@ -31,13 +32,22 @@ its first read batch's non-canonical windows, as threading queries it; and
 K3 ("lookup_random") on chip_smoke.py's kernel-phase row (the canonical
 windows of 65,536 random reads in the unit table of K2's input).  Beside
 each, torch.searchsorted on the same table and queries (K7's probes
-materialized by probe_keys), timed in the same process.  Times: CUDA events
-around 200 calls (20 for K7 and its searchsorted), the median of 5 such
-windows, after a warm-up.  After the timings each tree traces 20 calls of
-K10, of each K2 input and of each K7 and K3 input and its searchsorted with
+materialized by probe_keys), timed in the same process.  K4 on the rows
+threading gives it for that first batch (K3's answers for its windows);
+K8 on the counted spectrum's probe tables (resolved by each tree's K7) and
+its counts after the auto abundance cut: "rescue_1" one round,
+"rescue_loop" the main path's call, k + 2 rounds with the break (a tree
+without rescue_rounds runs its correct_spectrum's loop of rescue_round
+calls, a host read of the changed flag a round).  Times: CUDA events
+around 200 calls (20 for K7 and its searchsorted and for the rescue loop),
+the median of 5 such windows, after a warm-up.  After the timings each tree
+traces 20 calls (5 of the rescue loop) of K10, of each K2 input, of each K7
+and K3 input and its searchsorted, of K4 and of both K8 rows with
 torch.profiler and reports the device time a call of every kernel and copy
 they launched ("device_us"), so the window's time splits into device work
-and the card's idle gaps.  Prints one JSON line per tree and, with --out,
+and the card's idle gaps; for one call of the rescue loop it also lists
+every launch's device time in order ("rescue_loop_launch_us": a round a
+launch).  Prints one JSON line per tree and, with --out,
 writes them all.
 """
 
@@ -63,7 +73,9 @@ def _search_inputs() -> dict:
     from shannon_tpu_torch.io.pack import pack_reads
     from shannon_tpu_torch.ops.count import count_reads_spectrum, reduce_sorted, shrink_spectrum
     from shannon_tpu_torch.ops.count import upload_words
+    from shannon_tpu_torch.ops.correction import auto_min_abundance
     from shannon_tpu_torch.ops.kmers import extract_kmers_packed
+    from shannon_tpu_torch.ops.spectrum import lookup_sorted
     from shannon_tpu_torch.pipeline import spectrum_device
 
     dev, cfg = torch.device("cuda", 0), AssemblyConfig()
@@ -75,16 +87,19 @@ def _search_inputs() -> dict:
     _spec, ca = spectrum_device(pack_reads(reads, pad_length=cfg.read_pad_length), cfg, dev)
     batch = pack_reads(reads[:BATCH_READS], pad_length=128)
     m = batch.mask_rows(0, batch.n_reads)
-    windows, _ = extract_kmers_packed(
+    windows, valid = extract_kmers_packed(
         upload_words(batch.words, dev), torch.from_numpy(batch.lengths).to(dev), cfg.k, False,
         batch.pad_length, None if m is None else upload_words(m, dev),
     )
     words, lengths, _ = _random_batch(1, False, dev)
     r_query = extract_kmers_packed(words, lengths, KERNEL_K, True, KERNEL_PAD)[0]
     r_table = reduce_sorted(window_keys(dev, seed=1), None, 1 << 22)[0]
-    out = {"p_key": spec.key, "node_key": ca.node_key, "windows": windows,
-           "r_table": r_table, "r_query": r_query}
+    t_idx, t_hit = lookup_sorted(ca.node_key, windows)
+    out = {"p_key": spec.key, "p_count": spec.count, "node_key": ca.node_key,
+           "windows": windows, "r_table": r_table, "r_query": r_query, "t_idx": t_idx,
+           "t_hit": t_hit, "t_valid": valid, "node_cid": ca.node_cid, "node_off": ca.node_off}
     out = {name: x.cpu().numpy() for name, x in out.items()}
+    out["cut"], out["k"] = auto_min_abundance(spec), cfg.k
     torch.cuda.empty_cache()
     return out
 
@@ -152,13 +167,30 @@ def _device_us(fn, calls: int = 20) -> dict:
     return out
 
 
+def _launch_us(fn) -> list:
+    """(kernel or copy, device us) of every launch of one call of fn, in
+    launch order, from a torch.profiler trace after a warm-up."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [(evt.name[:40], evt.device_time) for evt in prof.events()
+            if evt.device_type == torch.autograd.DeviceType.CUDA]
+
+
 def _child(tree: str, inputs: str) -> None:
     sys.path.insert(0, tree)
     import numpy as np
     import torch
 
     import shannon_tpu_torch
+    from shannon_tpu_torch.ops import correction as tcor
     from shannon_tpu_torch.ops.correction import compact, probe_resolve
+    from shannon_tpu_torch.ops.thread import thread_windows
     from shannon_tpu_torch.ops.count import Spectrum, reduce_sorted
     from shannon_tpu_torch.ops.sparseflow import batched_greedy_packed
     from shannon_tpu_torch.ops.spectrum import lookup_sorted, probe_keys, sibling_maxes
@@ -204,6 +236,31 @@ def _child(tree: str, inputs: str) -> None:
     for name, (keys, queries) in lookups.items():
         search[name] = (lambda t=keys, q=queries: lookup_sorted(t, q),
                         lambda t=keys, q=queries: torch.searchsorted(t, q.reshape(-1)), 200)
+    # K4 on the first batch's rows; K8 from the 1M spectrum's cut counts, at
+    # one round and as the main path's loop (a tree without rescue_rounds
+    # runs its own loop of rescue_round calls, as its correct_spectrum did)
+    threading = [on_card(x) for x in ("t_idx", "t_hit", "t_valid", "node_cid", "node_off")]
+    k, cut = int(d["k"]), int(d["cut"])
+    counted = Spectrum(key=p_key, count=on_card("p_count"), n=probes.n)
+    sib = probe_resolve(counted, k, True, "sib")
+    ext = probe_resolve(counted, k, True, "ext")
+    raw, counts = tcor.cut_counts(counted, cut)
+    if hasattr(tcor, "rescue_rounds"):
+        def rescue(rounds):
+            return tcor.rescue_rounds(counts, raw, *sib, *ext, rounds)[0]
+    else:
+        def rescue(rounds):
+            c = counts
+            for _ in range(rounds):
+                nxt, changed = tcor.rescue_round(c, raw, *sib, *ext)
+                if not changed:
+                    break
+                c = nxt
+            return c
+    loops = {"thread_rows": (lambda: thread_windows(*threading), 200),
+             "rescue_1": (lambda: rescue(1), 200),
+             "rescue_loop": (lambda: rescue(k + 2), 20)}
+
     search_ms = {}
     for name, (fn, library, reps) in search.items():
         search_ms[f"{name}_ms"] = median_ms(fn, reps)
@@ -222,6 +279,10 @@ def _child(tree: str, inputs: str) -> None:
         "reduce_sorted_n": [reduce_sorted(x, c, cap)[3]
                             for x, c in ((unit, None), (mkeys, mcounts), (bkeys, None))],
         **search_ms,
+        **{f"{name}_ms": median_ms(fn, reps) for name, (fn, reps) in loops.items()},
+        "rescue_loop_rescued": int((rescue(k + 2) != counts).sum()),
+        "rescue_loop_launch_us": _launch_us(lambda: rescue(k + 2)),
+        "thread_rows_events": int(thread_windows(*threading)[2].sum()),
         "card": torch.cuda.get_device_name(0),
         # after the timings, so the traces cannot disturb them
         "device_us": {
@@ -230,6 +291,8 @@ def _child(tree: str, inputs: str) -> None:
             "reduce_sorted_merge": _device_us(lambda: reduce_sorted(mkeys, mcounts, cap)),
             "reduce_sorted_batch": _device_us(lambda: reduce_sorted(bkeys, None, cap)),
             **{name: _device_us(fn) for name, (fn, _lib, _reps) in search.items()},
+            **{name: _device_us(fn, 5 if name == "rescue_loop" else 20)
+               for name, (fn, _reps) in loops.items()},
             **{f"{name}_searchsorted": _device_us(lib) for name, (_fn, lib, _r) in search.items()},
         },
     }

@@ -1,12 +1,14 @@
-// Error-correction kernels K7-K10, K16, K20 and K23 of the shannon_tpu_torch
-// port (plain C interface; see kernels.cu for the conventions every entry
-// point follows).
+// Error-correction kernels K7, K9, K10, K16, K20 and K23 of the
+// shannon_tpu_torch port (plain C interface; see kernels.cu for the
+// conventions every entry point follows).  K8, the dead-end rescue, is in
+// rescue.cu.
 //
 // The spectrum is a sorted table of C int64 keys with int32 counts, PAD past
 // its real entries.  A probe table is [8, C], entry i of probe row p at
 // p * C + i: row 2b is the right probe with base b, row 2b + 1 the left one
 // (the row order of probe_keys in shannon_tpu_torch/ops/spectrum.py).  Its
-// idx is meaningful only where hit, so K8 and K9 read idx only there.
+// idx is meaningful only where hit, so K8 (rescue.cu) and K9 read idx only
+// there.
 
 #include "common.cuh"
 #include "scan.cuh"
@@ -239,51 +241,6 @@ __global__ void __launch_bounds__(SEARCH_THREADS)
   }
 }
 
-// ---------------------------------------------------------------------------
-// K8: one dead-end rescue round.
-// Replaces one round of shannon_tpu/ops/correction.py:143 _rescue_chunk (the
-// loop body, lines 161-175).  A Jacobi round: it reads only the previous
-// round's counts and writes a second buffer, so every lane decides on the
-// same state, as the reference does.
-// Bound: memory.  Only a lane that the cut dropped (raw > 0, counts == 0) can
-// be rescued, and only such a lane reads its 16 probe rows and gathers the
-// counts of the hits; every other lane copies its count through.  `changed`
-// is set to 1 by any rescuing thread (the entry point zeroes it first).
-// ---------------------------------------------------------------------------
-__global__ void rescue_round_kernel(const int32_t* __restrict__ counts,
-                                    const int32_t* __restrict__ raw,
-                                    const int64_t* __restrict__ sidx,
-                                    const uint8_t* __restrict__ shit,
-                                    const int64_t* __restrict__ eidx,
-                                    const uint8_t* __restrict__ ehit,
-                                    int64_t C, int32_t* __restrict__ out,
-                                    int32_t* __restrict__ changed) {
-  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= C) return;
-  const int32_t c = counts[i];
-  const int32_t r = raw[i];
-  bool resc = false;
-  if (r > 0 && c == 0) {
-    bool rsib = false, lsib = false, rext = false, lext = false;
-#pragma unroll
-    for (int p = 0; p < 8; ++p) {
-      const int64_t l = (int64_t)p * C + i;
-      const bool s = shit[l] && counts[sidx[l]] > 0;
-      const bool e = ehit[l] && counts[eidx[l]] > 0;
-      if (p & 1) {
-        lsib |= s;
-        lext |= e;
-      } else {
-        rsib |= s;
-        rext |= e;
-      }
-    }
-    resc = (lext && !rsib) || (rext && !lsib);
-  }
-  out[i] = resc ? r : c;
-  if (resc) *changed = 1;
-}
-
 // The error cap of a sibling maximum F: max(3, (lam + 4 sqrt(lam)) + 1) with
 // lam = eps3 * F, in the reference's order.  Every operation is an explicit
 // round-to-nearest intrinsic, so nvcc cannot contract a multiply and an add
@@ -297,7 +254,8 @@ static __device__ __forceinline__ float error_cap(float F, float eps3) {
 // ---------------------------------------------------------------------------
 // K9: one sibling-prune round.
 // Replaces one round of shannon_tpu/ops/correction.py:184 _prune_chunk (the
-// loop body, lines 205-217).  Jacobi, like K8.  A lane with count c > 0 takes
+// loop body, lines 205-217).  A Jacobi round: it reads only the previous
+// round's counts and writes a second buffer.  A lane with count c > 0 takes
 // the largest sibling count where hit on the right rows (0, 2, 4, 6) and on
 // the left rows (1, 3, 5, 7) and is pruned when, on either side,
 // f32(c) < ratio * f32(max) and, when use_cap, f32(c) <= error_cap(f32(max)).
@@ -569,20 +527,6 @@ int shannon_probe_lookup(const void* table, int64_t C, int k, int side_ext, int 
   probe_lookup_kernel<<<grid, SEARCH_THREADS, smem, (cudaStream_t)stream>>>(
       (const int64_t*)table, (int)C, (const int64_t*)scratch, ix, k, side_ext, canonical,
       (int64_t*)idx, (uint8_t*)hit);
-  return (int)cudaGetLastError();
-}
-
-int shannon_rescue_round(const void* counts, const void* raw, const void* sidx,
-                         const void* shit, const void* eidx, const void* ehit,
-                         int64_t C, void* out, void* changed, void* stream) {
-  cudaError_t err = cudaMemsetAsync(changed, 0, sizeof(int32_t), (cudaStream_t)stream);
-  if (err != cudaSuccess) return (int)err;
-  if (C > 0) {
-    rescue_round_kernel<<<blocks_for(C), THREADS, 0, (cudaStream_t)stream>>>(
-        (const int32_t*)counts, (const int32_t*)raw, (const int64_t*)sidx,
-        (const uint8_t*)shit, (const int64_t*)eidx, (const uint8_t*)ehit, C,
-        (int32_t*)out, (int32_t*)changed);
-  }
   return (int)cudaGetLastError();
 }
 

@@ -10,12 +10,32 @@
 // ids, events, and the three flat compaction sorts that moved each row's
 // events and runs to its front.
 // Bound: memory.  Each window is read once (8 + 2 bytes) and each output
-// lane written once.  One thread walks one read row in window order and keeps
-// the run state in registers, so the row compaction is a running counter
-// instead of a sort; the thread's loads walk consecutive addresses, which L1
-// serves a cache line at a time.  idx is read only where the window hits (the
-// lookup's contract: idx is meaningful only there).
+// lane written once; most of the output is -1 padding (about 4 events in a
+// row of 105 windows on the main path).
+// Design.  One warp takes one read row (THREAD_ROWS_PER_BLOCK rows a block)
+// and walks it in chunks of 32 windows, lane j on window j of the chunk, so
+// every load and store of the row is coalesced.  __ballot_sync turns the
+// chunk's hits into a mask; the previous chunk's last bit and the next
+// chunk's first bit (loaded one chunk ahead) give each window's prev and
+// next, hence the run starts (cur & ~prev) and ends (cur & ~next).  Only hit
+// lanes load idx and gather node_cid / node_off (the lookup's contract: idx
+// is meaningful only where the window hits), 32 independent gathers a warp.
+// An event is a hit at a run start or at contig offset 0; its slot is the
+// row's running count plus the events of the lower lanes (__popc of the
+// event mask below the lane), and a run's start and end slots come the same
+// way from the start and end masks, kept below R.  So the compacted entries
+// of a chunk land on consecutive addresses, and the -1 tails of the five
+// padded rows are written by the whole warp, lane q on slot q.
 // ---------------------------------------------------------------------------
+#define THREAD_ROWS_PER_BLOCK (THREADS / 32)
+#define THREAD_FULL_MASK 0xffffffffu
+
+static __device__ __forceinline__ bool window_hits(const uint8_t* __restrict__ hit,
+                                                   const uint8_t* __restrict__ valid,
+                                                   int64_t base, int j, int W) {
+  return j < W && hit[base + j] && valid[base + j];
+}
+
 __global__ void thread_rows_kernel(
     const int64_t* __restrict__ idx, const uint8_t* __restrict__ hit,
     const uint8_t* __restrict__ valid, const int64_t* __restrict__ node_cid,
@@ -24,56 +44,68 @@ __global__ void thread_rows_kernel(
     int64_t* __restrict__ n_events, int64_t* __restrict__ run_p0,
     int64_t* __restrict__ run_p1, int64_t* __restrict__ run_o0,
     int64_t* __restrict__ run_o1) {
-  int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= n_rows) return;
+  const int lane = threadIdx.x & 31;
+  const int64_t r = (int64_t)blockIdx.x * THREAD_ROWS_PER_BLOCK + (threadIdx.x >> 5);
+  if (r >= n_rows) return;  // the whole warp
   const int64_t base = r * W;
   const int64_t rbase = r * R;
+  const unsigned me = 1u << lane;
+  const unsigned below = me - 1;
   int n_ev = 0, n_start = 0, n_end = 0;
-  bool prev = false;
-  bool cur = W > 0 && hit[base] && valid[base];
-  for (int j = 0; j < W; ++j) {
-    bool next = j + 1 < W && hit[base + j + 1] && valid[base + j + 1];
-    if (cur) {
-      int64_t lane = idx[base + j];
-      int64_t cid = node_cid[lane];
-      int64_t off = node_off[lane];
-      bool start = !prev;
-      if (start) {
-        if (n_start < R) {
-          run_p0[rbase + n_start] = j;
-          run_o0[rbase + n_start] = off;
-        }
-        ++n_start;
-      }
-      if (start || off == 0) {
-        ev_cid[base + n_ev] = cid;
-        ev_run[base + n_ev] = n_start - 1;
-        ++n_ev;
-      }
-      if (!next) {
-        if (n_end < R) {
-          run_p1[rbase + n_end] = j;
-          run_o1[rbase + n_end] = off;
-        }
-        ++n_end;
+  unsigned carry = 0;  // hit bit of the window before the chunk
+  unsigned cur = __ballot_sync(THREAD_FULL_MASK, window_hits(hit, valid, base, lane, W));
+  for (int j0 = 0; j0 < W; j0 += 32) {
+    const int j = j0 + lane;
+    const unsigned nxt =
+        __ballot_sync(THREAD_FULL_MASK, window_hits(hit, valid, base, j + 32, W));
+    const unsigned start = cur & ~((cur << 1) | carry);
+    const unsigned end = cur & ~((cur >> 1) | (nxt << 31));
+    const bool h = (cur & me) != 0;
+    int64_t cid = 0, off = 0;
+    if (h) {
+      const int64_t lane_of = idx[base + j];
+      cid = node_cid[lane_of];
+      off = node_off[lane_of];
+    }
+    const unsigned ev = __ballot_sync(THREAD_FULL_MASK, h && ((start & me) || off == 0));
+    if (ev & me) {
+      const int64_t slot = base + n_ev + __popc(ev & below);
+      ev_cid[slot] = cid;
+      ev_run[slot] = n_start + __popc(start & (below | me)) - 1;
+    }
+    if (start & me) {
+      const int q = n_start + __popc(start & below);
+      if (q < R) {
+        run_p0[rbase + q] = j;
+        run_o0[rbase + q] = off;
       }
     }
-    prev = cur;
-    cur = next;
+    if (end & me) {
+      const int q = n_end + __popc(end & below);
+      if (q < R) {
+        run_p1[rbase + q] = j;
+        run_o1[rbase + q] = off;
+      }
+    }
+    n_ev += __popc(ev);
+    n_start += __popc(start);
+    n_end += __popc(end);
+    carry = cur >> 31;
+    cur = nxt;
   }
-  for (int j = n_ev; j < W; ++j) {
-    ev_cid[base + j] = -1;
-    ev_run[base + j] = -1;
+  for (int q = n_ev + lane; q < W; q += 32) {
+    ev_cid[base + q] = -1;
+    ev_run[base + q] = -1;
   }
-  for (int q = min(n_start, R); q < R; ++q) {
+  for (int q = min(n_start, R) + lane; q < R; q += 32) {
     run_p0[rbase + q] = -1;
     run_o0[rbase + q] = -1;
   }
-  for (int q = min(n_end, R); q < R; ++q) {
+  for (int q = min(n_end, R) + lane; q < R; q += 32) {
     run_p1[rbase + q] = -1;
     run_o1[rbase + q] = -1;
   }
-  n_events[r] = n_ev;
+  if (lane == 0) n_events[r] = n_ev;
 }
 
 // ---------------------------------------------------------------------------
@@ -125,8 +157,8 @@ int shannon_thread_rows(const void* idx, const void* hit, const void* valid,
                         void* run_p1, void* run_o0, void* run_o1,
                         void* stream) {
   if (n_rows > 0) {
-    thread_rows_kernel<<<blocks_for(n_rows), THREADS, 0,
-                         (cudaStream_t)stream>>>(
+    const int64_t blocks = (n_rows + THREAD_ROWS_PER_BLOCK - 1) / THREAD_ROWS_PER_BLOCK;
+    thread_rows_kernel<<<(unsigned int)blocks, THREADS, 0, (cudaStream_t)stream>>>(
         (const int64_t*)idx, (const uint8_t*)hit, (const uint8_t*)valid,
         (const int64_t*)node_cid, (const int64_t*)node_off, n_rows, W, R,
         (int64_t*)ev_cid, (int64_t*)ev_run, (int64_t*)n_events,

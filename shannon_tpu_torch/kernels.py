@@ -39,7 +39,7 @@ NVCC_FLAGS = (
 KERNELS = (
     "extract_kmers", "reduce_sorted", "lookup_sorted",
     "thread_rows", "compact_rows", "sf_greedy",
-    "probe_lookup", "rescue_round", "prune_round", "compact_keep",
+    "probe_lookup", "rescue_rounds", "prune_round", "compact_keep",
     "node_strands", "group_links", "label_round", "cycle_round",
     "contig_reduce", "base_streams",
     "count_histogram", "merge_spectra", "drop_contigs", "clip_remap",
@@ -63,7 +63,7 @@ _ARGTYPES = {
     "shannon_sf_greedy": [_P, _I64, _I, _I, *[_P] * 6, _P],
     "shannon_sf_jobs": [_P, _P, _P, _P, _I64, _I, _I, _I, _P, _P],
     "shannon_probe_lookup": [_P, _I64, _I, _I, _I, _P, _I64, _P, _P, _P, _P],
-    "shannon_rescue_round": [*[_P] * 6, _I64, _P, _P, _P],
+    "shannon_rescue_rounds": [*[_P] * 6, _I64, _I, _P, _P, _P, _I64, _P, _P, _P],
     "shannon_prune_round": [_P, _P, _P, _I64, _F, _F, _I, _P, _P, _P],
     "shannon_compact_keep": [_P, _P, _P, _I64, _P, _I64, _P, _P, _P],
     "shannon_node_strands": [_P, _I64, _I, _P, _P],

@@ -3,16 +3,17 @@ sibling pruning over the sorted spectrum.
 
 Counterpart of ``shannon_tpu/ops/correction.py`` (oracle spec in
 ``shannon_tpu/oracle/correction.py``).  The abundance cut is one pass (kernel
-K20).  Probe sets resolve once (K7); the rescue rounds (K8) and prune rounds
-(K9) then run as one host loop each, stopping at the first round that
-changes nothing (the reference split them into chunks only to stay inside a
-TPU worker's execution limit), and the kept entries are compacted (K10).
-The auto abundance cut reads the count histogram (K16).  The reference's
-single-round steps ``abundance_filter`` (K20's keep flags) and
+K20).  Probe sets resolve once (K7); the rescue rounds then run as one call
+of K8, which enqueues every round on the card and reads one flag at the end,
+and the prune rounds (K9) as a host loop, each stopping at the first round
+that changes nothing (the reference split them into chunks only to stay
+inside a TPU worker's execution limit); the kept entries are compacted
+(K10).  The auto abundance cut reads the count histogram (K16).  The
+reference's single-round steps ``abundance_filter`` (K20's keep flags) and
 ``sibling_prune_round`` (the sibling maxima of K22, then K23's keep flags)
 compact through K10 as well.  On CUDA tensors each of these launches its
-hand-written kernel in ``csrc/correction.cu`` or ``csrc/spectrum.cu``; on
-CPU tensors its ``_plain`` version runs.
+hand-written kernel in ``csrc/correction.cu``, ``csrc/rescue.cu`` or
+``csrc/spectrum.cu``; on CPU tensors its ``_plain`` version runs.
 
 Decision arithmetic is float32 throughout, with every constant a float32
 value rounded as the reference rounds it, so the tests ``c < ratio * max_sib``
@@ -242,8 +243,9 @@ def _check_round(counts, probe_sets) -> None:
             raise ValueError(f"probe tables must be [8, {C}], got {tuple(idx.shape)}")
 
 
-def rescue_round_plain(counts, raw, sidx, shit, eidx, ehit):
-    """Plain PyTorch K8 (one round of ops/correction.py:143 _rescue_chunk)."""
+def _rescue_round_plain(counts, raw, sidx, shit, eidx, ehit):
+    """One Jacobi round of ops/correction.py:143 _rescue_chunk (lines
+    161-175): (new counts, lanes rescued)."""
     alive = counts > 0
     pa_s = shit & alive[sidx]
     pa_e = ehit & alive[eidx]
@@ -256,36 +258,81 @@ def rescue_round_plain(counts, raw, sidx, shit, eidx, ehit):
         & (counts == 0)
         & ((lext_any & rsib_dead) | (rext_any & lsib_dead))
     )
-    return torch.where(resc, raw, counts), bool(resc.any())
+    return torch.where(resc, raw, counts), int(resc.sum())
 
 
-def _rescue_round_cuda(counts, raw, sidx, shit, eidx, ehit):
+def rescue_rounds_plain(counts, raw, sidx, shit, eidx, ehit, rounds: int, info=None):
+    """Plain PyTorch K8: the loop of plain Jacobi rounds, each over every
+    lane, stopping after the first that rescues nothing."""
+    changed, rescued = True, []
+    while changed and len(rescued) < rounds:
+        counts, n = _rescue_round_plain(counts, raw, sidx, shit, eidx, ehit)
+        rescued.append(n)
+        changed = n > 0
+    if info is not None:
+        info.update(rounds_run=len(rescued), rescued=rescued)
+    return counts, changed
+
+
+# Rounds one launch sequence of K8 takes: its state byte stamps a lane rescued
+# in round t with t + 1 below 255 (RESCUE_MAX_ROUNDS in csrc/rescue.cu).  A
+# longer call runs in chunks, each starting from the last one's counts, as the
+# reference's own host loop chunks the rounds.
+RESCUE_MAX_ROUNDS = 253
+
+
+def _rescue_rounds_cuda(counts, raw, sidx, shit, eidx, ehit, rounds: int, info):
     _check_round(counts, ((sidx, shit), (eidx, ehit)))
     kernels.check_cuda("raw", raw, torch.int32, 1)
     if raw.shape != counts.shape:
         raise ValueError("raw and counts disagree on length")
+    C = counts.shape[0]
+    if C >= 1 << 31:
+        raise ValueError(f"{C} lanes exceed the 2^31 that K8's int32 lane indices take")
     dev = counts.device
-    out = torch.empty_like(counts)
-    changed = torch.empty(1, dtype=torch.int32, device=dev)
     lib = kernels.library()
-    lib.call(
-        "shannon_rescue_round", dev,
-        kernels.ptr(counts), kernels.ptr(raw), kernels.ptr(sidx), kernels.ptr(shit),
-        kernels.ptr(eidx), kernels.ptr(ehit), counts.shape[0], kernels.ptr(out),
-        kernels.ptr(changed),
-    )
-    lib.count("rescue_round")
-    return out, bool(changed.item())
+    words = -(-C // 32)
+    state = torch.empty(C, dtype=torch.uint8, device=dev)
+    hits = torch.empty(C, dtype=torch.int16, device=dev)  # a cut lane's 16 hit flags
+    bits = torch.empty(2 * words, dtype=torch.int32, device=dev)
+    changed, frontier, rescued = True, [], []
+    while changed and len(rescued) < rounds:
+        r = min(rounds - len(rescued), RESCUE_MAX_ROUNDS)
+        out = torch.empty_like(counts)
+        ctl = torch.empty(2 * (r + 2), dtype=torch.int32, device=dev)
+        lib.call(
+            "shannon_rescue_rounds", dev,
+            kernels.ptr(counts), kernels.ptr(raw), kernels.ptr(sidx), kernels.ptr(shit),
+            kernels.ptr(eidx), kernels.ptr(ehit), C, r, kernels.ptr(state), kernels.ptr(hits),
+            kernels.ptr(bits), words, kernels.ptr(ctl), kernels.ptr(out),
+        )
+        lib.count("rescue_rounds")
+        ctl = ctl.tolist()  # the one host read of the chunk
+        per_round = ctl[r + 3 : 2 * r + 3]
+        run = next((t for t, n in enumerate(per_round, 1) if n == 0), r)
+        frontier += ctl[1 : run + 1]
+        rescued += per_round[:run]
+        changed = per_round[run - 1] > 0
+        counts = out
+    if info is not None:
+        info.update(rounds_run=len(rescued), rescued=rescued, frontier=frontier)
+    return counts, changed
 
 
-def rescue_round(counts, raw, sidx, shit, eidx, ehit):
-    """One Jacobi dead-end rescue round (oracle.correction.dead_end_rescue):
-    a dropped k-mer revives iff it extends an alive k-mer that is otherwise
-    dead on that side.  Returns (new counts, whether any lane changed); the
-    input is never written.  Kernel K8 on CUDA, the plain version on CPU."""
+def rescue_rounds(counts, raw, sidx, shit, eidx, ehit, rounds: int, info=None):
+    """Up to `rounds` Jacobi dead-end rescue rounds (ops/correction.py:143
+    _rescue_chunk; oracle.correction.dead_end_rescue): a dropped k-mer
+    (raw > 0, counts == 0) revives to its raw count iff it extends an alive
+    k-mer that is otherwise dead on that side.  Stops after the first round
+    that rescues nothing.  Returns (counts, whether the last round run
+    rescued a lane; True when rounds < 1, as the reference's loop returns);
+    the input is never written.  With a dict `info`, also the rounds run and
+    each one's rescues (and, from K8, each one's frontier: the lanes it
+    evaluated).  Kernel K8 on CUDA (every round enqueued at once, one host
+    read at the end), the plain version on CPU."""
     if counts.is_cuda:
-        return _rescue_round_cuda(counts, raw, sidx, shit, eidx, ehit)
-    return rescue_round_plain(counts, raw, sidx, shit, eidx, ehit)
+        return _rescue_rounds_cuda(counts, raw, sidx, shit, eidx, ehit, rounds, info)
+    return rescue_rounds_plain(counts, raw, sidx, shit, eidx, ehit, rounds, info)
 
 
 def prune_constants(sibling_ratio: float, error_rate: float) -> tuple[float, float]:
@@ -420,11 +467,8 @@ def correct_spectrum(
     raw, counts = cut_counts(spec, min_abundance)
     if min_abundance > 1:
         eidx, ehit = probe_resolve(spec, k, canonical, "ext")
-        for _ in range(k + 2):  # the oracle's dead_end_rescue round cap
-            nxt, changed = rescue_round(counts, raw, sidx, shit, eidx, ehit)
-            if not changed:
-                break
-            counts = nxt
+        # the oracle's dead_end_rescue round cap
+        counts, _ = rescue_rounds(counts, raw, sidx, shit, eidx, ehit, k + 2)
         del eidx, ehit
     ratio, eps3 = prune_constants(sibling_ratio, error_rate)
     for _ in range(correction_rounds):

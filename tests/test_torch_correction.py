@@ -1,7 +1,8 @@
 """Port parity: error correction (histogram, abundance cut, probe tables,
-one rescue round, one error-capped prune round, compaction, the whole
+the rescue rounds, one error-capped prune round, compaction, the whole
 stage, and the single-round steps abundance_filter and sibling_prune_round)
-against shannon_tpu.ops.correction on JAX-CPU.  Both packages start from
+against shannon_tpu.ops.correction on JAX-CPU, and a transcription of K8's
+frontier schedule with the probe symmetry it rests on.  Both packages start from
 the same counted spectrum (via convert).  The plain versions run here (CPU
 tensors); tests/test_torch_kernels.py holds kernels K7-K10, K16, K20 and
 K23 against them on the card.
@@ -150,17 +151,153 @@ def _round_inputs(k: int, cut: int):
     return (jcounts, jraw, jsib, jext), (tcounts, traw, tsib, text)
 
 
+def _rounds(spec: str, k: int) -> int:
+    return k + 2 if spec == "k+2" else int(spec)
+
+
 @pytest.mark.parametrize("k", [5, 16, 24, 31])
 @pytest.mark.parametrize("cut", [1, 2])
-def test_rescue_round_matches_reference(k, cut):
-    """One Jacobi rescue round (K8's plain version) == _rescue_chunk(rounds=1)."""
+@pytest.mark.parametrize("rounds", ["1", "2", "3", "k+2"])
+def test_rescue_round_matches_reference(k, cut, rounds):
+    """Up to `rounds` Jacobi rescue rounds (K8's plain version) ==
+    _rescue_chunk(rounds=...), counts and the last round's changed flag;
+    k + 2 is the oracle's cap, which correct_spectrum passes."""
     (jcounts, jraw, jsib, jext), (tcounts, traw, tsib, text) = _round_inputs(k, cut)
-    want, w_changed = jcor._rescue_chunk(jcounts, jraw, *jsib, *jext, rounds=1)
+    r = _rounds(rounds, k)
+    want, w_changed = jcor._rescue_chunk(jcounts, jraw, *jsib, *jext, rounds=r)
     before = tcounts.clone()
-    got, changed = tcor.rescue_round(tcounts, traw, *tsib, *text)
+    got, changed = tcor.rescue_rounds(tcounts, traw, *tsib, *text, r)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     assert changed == bool(w_changed)
-    assert torch.equal(tcounts, before)  # Jacobi: the round writes a new buffer
+    assert torch.equal(tcounts, before)  # the input is never written
+
+
+def _chain_table(k: int, canonical: bool, n_alive: int = 10, n_chain: int = 40):
+    """Both packages' tables of one random sequence's k-mers: the first
+    n_alive of count 5, then a chain of n_chain of count 1 running off the
+    last alive one.  At cut 2 each chain k-mer is rescued one round after
+    the one before it (its left extension), so the chain needs n_chain
+    rounds, more than the cap k + 2."""
+    rng = np.random.default_rng(k)
+    seq = rng.integers(0, 4, n_alive + n_chain + k - 1)
+    keys = []
+    for i in range(n_alive + n_chain):
+        v = 0
+        for b in seq[i : i + k]:
+            v = (v << 2) | int(b)
+        keys.append(int(canonical_key(torch.tensor([v]), k)[0]) if canonical else v)
+    counts = [5] * n_alive + [1] * n_chain
+    assert len(set(keys)) == len(keys)
+    order = np.argsort(keys)
+    cap = 128
+    key = np.full(cap, PAD, np.int64)
+    key[: len(keys)] = np.asarray(keys, np.int64)[order]
+    count = np.zeros(cap, np.int32)
+    count[: len(keys)] = np.asarray(counts, np.int32)[order]
+    port = Spectrum(key=torch.from_numpy(key), count=torch.from_numpy(count), n=len(keys))
+    hi, lo = convert.key_to_hilo(key)
+    ref = JSpectrum(hi=jnp.asarray(hi), lo=jnp.asarray(lo), count=jnp.asarray(count),
+                    n=jnp.int32(len(keys)))
+    return port, ref
+
+
+def _chain_inputs(k: int, canonical: bool):
+    port, ref = _chain_table(k, canonical)
+    jsib = jcor._probe_resolve(ref, k, canonical, "sib")
+    jext = jcor._probe_resolve(ref, k, canonical, "ext")
+    tsib = tcor.probe_resolve(port, k, canonical, "sib")
+    text = tcor.probe_resolve(port, k, canonical, "ext")
+    return (*jcor._cut_counts(ref, 2), jsib, jext), (*tcor.cut_counts(port, 2), tsib, text)
+
+
+@pytest.mark.parametrize("k", [16, 24, 31])
+@pytest.mark.parametrize("canonical", [True, False])
+def test_rescue_rounds_past_the_cap_match_reference(k, canonical):
+    """A chain that needs more rounds than the cap: at k + 2 rounds the
+    last round still rescues (changed stays True) and the chain's tail stays
+    cut; with rounds to spare the whole chain comes back.  Both == the
+    reference."""
+    (jraw, jcounts, jsib, jext), (traw, tcounts, tsib, text) = _chain_inputs(k, canonical)
+    for r in (k + 2, 64):
+        want, w_changed = jcor._rescue_chunk(jcounts, jraw, *jsib, *jext, rounds=r)
+        info = {}
+        got, changed = tcor.rescue_rounds(tcounts, traw, *tsib, *text, r, info)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        assert changed == bool(w_changed) == (r == k + 2)
+        assert info["rounds_run"] == min(r, 41) and info["rescued"][: min(r, 40)] == [1] * min(r, 40)
+
+
+@pytest.mark.parametrize("k", [5, 16, 24, 31])
+@pytest.mark.parametrize("canonical", [True, False])
+def test_probe_relation_is_symmetric(k, canonical):
+    """What K8's frontier rests on (csrc/rescue.cu): for every hit x -> y of
+    a real lane in one probe family (siblings, extensions), y has a hit
+    y -> x in the same family, on canonical and strand-specific tables."""
+    port, _ = _spectra(k, canonical=canonical)
+    n = port.n
+    for side in ("sib", "ext"):
+        idx, hit = (x.numpy() for x in tcor.probe_resolve(port, k, canonical, side))
+        p, x = np.nonzero(hit[:, :n])
+        y = idx[p, x]
+        assert len(x) > n and (y < n).all()
+        back = hit[:, y] & (idx[:, y] == x)
+        assert back.any(0).all(), f"{int((~back.any(0)).sum())} one-way {side} hits"
+
+
+def _frontier_rescue(counts, raw, sidx, shit, eidx, ehit, rounds: int, seed: int):
+    """A numpy transcription of K8's schedule (csrc/rescue.cu): one state
+    byte a lane (0 cut, 1 alive, t + 1 rescued in round t, 255 never), the
+    rounds in place in a random lane order, round 1 over every lane and
+    round t + 1 over the cut extension targets of round t's rescues, each
+    listed once.  Returns (counts, last round's changed, frontier sizes)."""
+    rng = np.random.default_rng(seed)
+    C = counts.shape[0]
+    state = np.full(C, 255, np.int64)
+    state[(counts == 0) & (raw > 0)] = 0
+    state[counts > 0] = 1
+    out = counts.copy()
+    frontier, sizes, changed = np.arange(C), [], True
+    while changed and len(sizes) < rounds:
+        t = len(sizes) + 1
+        sizes.append(len(frontier))
+        pushed, n_resc = {}, 0
+        for i in rng.permutation(frontier):
+            if state[i] != 0:
+                continue
+            ext = [bool(ehit[p, i]) and 1 <= state[eidx[p, i]] <= t for p in range(8)]
+            sib = [bool(shit[p, i]) and 1 <= state[sidx[p, i]] <= t for p in range(8)]
+            rext, lext, rsib, lsib = any(ext[0::2]), any(ext[1::2]), any(sib[0::2]), any(sib[1::2])
+            if not ((lext and not rsib) or (rext and not lsib)):
+                continue
+            state[i], out[i] = t + 1, raw[i]
+            n_resc += 1
+            for p in range(8):
+                if ehit[p, i] and state[eidx[p, i]] == 0:
+                    pushed.setdefault(int(eidx[p, i]), None)
+        frontier = np.fromiter(pushed, np.int64, len(pushed))
+        changed = n_resc > 0
+    return out, changed, sizes
+
+
+@pytest.mark.parametrize("table", ["reads", "chain"])
+@pytest.mark.parametrize("k", [16, 24, 31])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_frontier_schedule_matches_reference(table, k, seed):
+    """The transcription of K8's frontier schedule == _rescue_chunk at 1, 3
+    and k + 2 rounds, whatever the lane order (two seeds); after round 1 it
+    evaluates a small fraction of the cut lanes."""
+    if table == "reads":
+        (jcounts, jraw, jsib, jext), _ = _round_inputs(k, 2)
+    else:
+        (jraw, jcounts, jsib, jext), _ = _chain_inputs(k, True)
+    np_in = [np.asarray(x) for x in (jcounts, jraw, *jsib, *jext)]
+    for r in (1, 3, k + 2):
+        want, w_changed = jcor._rescue_chunk(jcounts, jraw, *jsib, *jext, rounds=r)
+        got, changed, sizes = _frontier_rescue(*np_in, r, seed)
+        np.testing.assert_array_equal(got, np.asarray(want))
+        assert changed == bool(w_changed)
+    n_cut = int(((np_in[0] == 0) & (np_in[1] > 0)).sum())
+    assert len(sizes) > 1 and max(sizes[1:]) < n_cut / 10
 
 
 @pytest.mark.parametrize("k", [5, 16, 24, 31])

@@ -34,7 +34,9 @@ from shannon_tpu_torch.ops import sparseflow as tsf
 from shannon_tpu_torch.ops import spectrum as tsp
 from shannon_tpu_torch.ops import thread as tth
 from shannon_tpu_torch.ops.count import reduce_sorted, reduce_sorted_plain
-from shannon_tpu_torch.ops.kmers import PAD, extract_kmers_packed, extract_kmers_packed_plain
+from shannon_tpu_torch.ops.kmers import (
+    PAD, canonical_key, extract_kmers_packed, extract_kmers_packed_plain,
+)
 from shannon_tpu_torch.ops.spectrum import lookup_sorted, lookup_sorted_plain
 from shannon_tpu_torch.pipeline import assemble, spectrum_device
 
@@ -297,6 +299,48 @@ def test_thread_kernels_edge_shapes(cuda):
             assert torch.equal(g, w)
 
 
+def _thread_case(N: int, W: int, pattern: str, seed: int):
+    """[N, W] window rows of one hit pattern against a random 50-lane node
+    table (a fifth of its offsets 0): "random" (70% hits, 5% invalid),
+    "none", "all" (runs broken only by offset 0) or "alternate" (R - 1 runs
+    a row).  Returns (idx, hit, valid, node_cid, node_off) and the clamped
+    idx the plain version gathers: the kernel's idx is out of range wherever
+    the window misses, where the lookup's contract makes it meaningless."""
+    rng = np.random.default_rng(seed)
+    if pattern == "random":
+        hit = rng.random((N, W)) < 0.7
+    elif pattern == "none":
+        hit = np.zeros((N, W), bool)
+    elif pattern == "all":
+        hit = np.ones((N, W), bool)
+    else:
+        hit = np.zeros((N, W), bool)
+        hit[:, 0::2] = True
+    valid = rng.random((N, W)) < 0.95 if pattern == "random" else np.ones((N, W), bool)
+    lanes = rng.integers(0, 50, (N, W))
+    idx = np.where(hit, lanes, rng.integers(1 << 40, 1 << 41, (N, W)))
+    cid = rng.integers(0, 1000, 50)
+    off = np.where(rng.random(50) < 0.2, 0, rng.integers(1, 60, 50))
+    return [torch.from_numpy(x) for x in (idx, hit, valid, cid, off, np.where(hit, lanes, 0))]
+
+
+@pytest.mark.parametrize("W", [1, 2, 31, 32, 33, 64, 105, 160])
+@pytest.mark.parametrize("N", [0, 1, 7, 9])
+@pytest.mark.parametrize("pattern", ["random", "none", "all", "alternate"])
+def test_thread_rows_kernel_shapes(cuda, W, N, pattern):
+    """K4 (a warp a row, chunks of 32 windows) at widths on both sides of
+    the chunk edges, row counts that leave a block's warps idle, and rows
+    with no hit, every hit, and R - 1 runs."""
+    idx, hit, valid, cid, off, clamped = _thread_case(N, W, pattern, 1000 * W + N)
+    want = tth.thread_windows_plain(clamped, hit, valid, cid, off)
+    got = tth.thread_windows(*(x.to(cuda) for x in (idx, hit, valid, cid, off)))
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g.cpu(), w)
+    if pattern == "alternate" and N:
+        assert int((want[3] >= 0).sum(1).max()) == tth.max_runs(W) - 1
+
+
 def _sf_jobs(seed: int, B: int) -> np.ndarray:
     """Random 1-8 x 1-8 margins; every fourth job all ties, every fourth
     zero margins (nothing to pair), the rest real-valued or small integers."""
@@ -420,7 +464,7 @@ def _assert_all_launched(launches: dict, timer: StageTimer, sharded: bool = Fals
     cut = notes["auto_min_abundance"]
     missing = [
         n for n, c in launches.items()
-        if c == 0 and not (n == "rescue_round" and cut == 1) and n != "cycle_round"
+        if c == 0 and not (n == "rescue_rounds" and cut == 1) and n != "cycle_round"
         and n not in NOT_IN_ASSEMBLY and not (n == "owner_buckets" and not sharded)
         and n not in MULTIHOST_ONLY
     ]
@@ -457,19 +501,17 @@ def test_probe_lookup_kernel_matches_plain(cuda, k, side, canonical):
 @pytest.mark.parametrize("cut", [1, 2, 3])
 @pytest.mark.parametrize("error_rate", [0.0, 0.01])
 def test_round_kernels_match_plain(cuda, k, cut, error_rate):
-    """K8 and K9, every round of the loops correct_spectrum runs, from the
-    cut counts; and K10 on the final keep mask."""
+    """K8 (the whole rescue loop, k + 2 rounds) and K9 (every round of the
+    prune loop) as correct_spectrum runs them, from the cut counts; and K10
+    on the final keep mask."""
     spec = _to(_spectrum(k), cuda)
     sib = tcor.probe_resolve_plain(spec, k, True, "sib")
     ext = tcor.probe_resolve_plain(spec, k, True, "ext")
     raw, counts = tcor.cut_counts(spec, cut)
-    for _ in range(k + 2):
-        got = tcor.rescue_round(counts, raw, *sib, *ext)
-        want = tcor.rescue_round_plain(counts, raw, *sib, *ext)
-        assert torch.equal(got[0], want[0]) and got[1] == want[1]
-        if not want[1]:
-            break
-        counts = want[0]
+    got = tcor.rescue_rounds(counts, raw, *sib, *ext, k + 2)
+    want = tcor.rescue_rounds_plain(counts, raw, *sib, *ext, k + 2)
+    assert torch.equal(got[0], want[0]) and got[1] == want[1]
+    counts = want[0]
     ratio, eps3 = tcor.prune_constants(0.1, error_rate)
     for _ in range(8):
         got = tcor.prune_round(counts, *sib, ratio, eps3, error_rate > 0)
@@ -844,6 +886,81 @@ def test_correct_spectrum_on_cuda_matches_cpu(cuda, k, min_abundance, canonical)
     assert torch.equal(got.key.cpu(), want.key) and torch.equal(got.count.cpu(), want.count)
 
 
+def _rescue_case(k: int, case: str, cuda):
+    """K8's inputs on the card: a counted spectrum cut to C = n + 77 lanes
+    (not a multiple of the block) or a chain of 40 cut k-mers running off
+    10 alive ones (which needs 40 rounds), its plain probe tables and
+    (raw, counts): the cut at 2 or 3, no lane cut ("none_cut", so round 1
+    has no cut lane), every lane cut ("all_cut"), or every lane but each
+    97th cut ("sparse_alive": long rescue chains from the seeds)."""
+    canonical = case != "strand"
+    if case == "chain":
+        rng = np.random.default_rng(k)
+        seq = rng.integers(0, 4, 50 + k - 1)
+        keys = [sum(int(b) << 2 * (k - 1 - j) for j, b in enumerate(seq[i : i + k]))
+                for i in range(50)]
+        keys = canonical_key(torch.tensor(keys), k)
+        assert len(set(keys.tolist())) == 50
+        counts = torch.tensor([5] * 10 + [1] * 40, dtype=torch.int32)
+        order = torch.argsort(keys)
+        key = torch.full((128,), PAD, dtype=torch.int64)
+        count = torch.zeros(128, dtype=torch.int32)
+        key[:50], count[:50] = keys[order], counts[order]
+        spec = Spectrum(key=key, count=count, n=50)
+    else:
+        full = _spectrum(k, canonical)
+        C = full.n + 77
+        spec = Spectrum(key=full.key[:C].clone(), count=full.count[:C].clone(), n=full.n)
+    spec = _to(spec, cuda)
+    sib = tcor.probe_resolve_plain(spec, k, canonical, "sib")
+    ext = tcor.probe_resolve_plain(spec, k, canonical, "ext")
+    cut = {"cut3": 3, "none_cut": 1, "all_cut": 1 << 30}.get(case, 2)
+    raw, counts = tcor.cut_counts(spec, cut)
+    if case == "sparse_alive":
+        lane = torch.arange(spec.capacity, device=cuda)
+        counts = torch.where(lane % 97 == 0, raw, 0).to(torch.int32)
+    return counts, raw, sib, ext
+
+
+RESCUE_CASES = ["cut2", "cut3", "strand", "none_cut", "all_cut", "sparse_alive", "chain"]
+
+
+@pytest.mark.parametrize(
+    "k, case",  # k = 5 has too few distinct k-mers for the chain
+    [(k, c) for k in (5, 16, 24, 31) for c in RESCUE_CASES if (k, c) != (5, "chain")],
+)
+@pytest.mark.parametrize("rounds", ["1", "3", "k+2"])
+def test_rescue_rounds_kernel_matches_plain(cuda, k, case, rounds):
+    """K8 (every round enqueued at once, frontier lists after round 1) ==
+    its plain loop: counts, the last round's flag and each round's rescues."""
+    counts, raw, sib, ext = _rescue_case(k, case, cuda)
+    r = k + 2 if rounds == "k+2" else int(rounds)
+    before = counts.clone()
+    got_info, want_info = {}, {}
+    got = tcor.rescue_rounds(counts, raw, *sib, *ext, r, got_info)
+    want = tcor.rescue_rounds_plain(counts, raw, *sib, *ext, r, want_info)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and got[1] == want[1]
+    assert got_info["rescued"] == want_info["rescued"]
+    assert len(got_info["frontier"]) == got_info["rounds_run"]
+    assert torch.equal(counts, before)
+    if case == "chain":
+        assert got[1] == (r < 40)
+
+
+def test_rescue_rounds_kernel_repeats(cuda):
+    """50 calls of K8 on long rescue chains (frontier lists built with
+    atomics, in an order that changes from call to call) give one answer."""
+    counts, raw, sib, ext = _rescue_case(24, "sparse_alive", cuda)
+    want = tcor.rescue_rounds_plain(counts, raw, *sib, *ext, 26)
+    assert int((want[0] != counts).sum()) > 0
+    for _ in range(50):
+        info = {}
+        got = tcor.rescue_rounds(counts, raw, *sib, *ext, 26, info)
+        assert torch.equal(got[0], want[0]) and got[1] == want[1]
+        assert info["rounds_run"] > 1
+
+
 def test_correction_wrappers_validate_inputs(cuda):
     counts = torch.zeros(4, dtype=torch.int32, device=cuda)
     idx = torch.zeros((8, 4), dtype=torch.int64, device=cuda)
@@ -851,7 +968,7 @@ def test_correction_wrappers_validate_inputs(cuda):
     with pytest.raises(ValueError, match=r"\[8, 4\]"):
         tcor.prune_round(counts, idx[:, :3].contiguous(), hit[:, :3].contiguous(), 0.1, 0.0, False)
     with pytest.raises(TypeError, match="int32"):
-        tcor.rescue_round(counts.long(), counts, idx, hit, idx, hit)
+        tcor.rescue_rounds(counts.long(), counts, idx, hit, idx, hit, 3)
     with pytest.raises(ValueError, match="side"):
         tcor.probe_resolve(Spectrum(key=idx[0], count=counts, n=0), 21, True, "up")
 
