@@ -27,8 +27,8 @@ Phases; any failure exits nonzero:
      K16 (count histogram of the auto cut; its global variant at max_count
      65,536 printed beside it), K20 (the abundance cut, its cut mode) and
      K28 (neighbor counts: 8 extension and 8 sibling probes a lane, k = 24,
-     canonical) on that spectrum and K17 (count merge) on the first merge
-     its count made;
+     canonical) on that spectrum and K17 (count merge) on the first and
+     the largest (the last) merge its count made;
      then the whole correct_spectrum there against its CPU run, and K9 on a
      synthetic grid (every count 1..255 against every sibling maximum
      1..4095, error_rate 0.01 and 0.02); K11-K15 (condensation: node table, group-join links,
@@ -354,10 +354,10 @@ class Watch:
     contig and whether a merge closed a cycle (where K18 and K19 are
     exempt), and each assembly's auto abundance cut (K8 is exempt where
     every cut is 1), and brackets each merge with two CUDA events (merge_ms reads
-    them); it keeps the first call's arguments of each function named in
-    keep_args (the merge, the drop, the remap, threading's lookup), so that
-    each kernel can be held against its plain version on the main path's
-    own arguments.  The kernels are called through `originals`, never
+    them); it keeps the first and the last call's arguments of each function
+    named in keep_args (the merge, the drop, the remap, threading's lookup),
+    so that each kernel can be held against its plain version on the main
+    path's own arguments.  The kernels are called through `originals`, never
     through a wrapper."""
 
     def __init__(self):
@@ -368,6 +368,7 @@ class Watch:
         self.cuts: list[int] = []  # each assembly's auto abundance cut
         self.merges: list = []  # (start, end) CUDA events of each merge
         self.first_args: dict = {}
+        self.last_args: dict = {}
         self.keep_args: tuple = ()
         for name, (module, fn) in WATCHED.items():
             mod = importlib.import_module(module)
@@ -380,6 +381,7 @@ class Watch:
         def wrapped(*args):
             if name in self.keep_args:
                 self.first_args.setdefault(name, args)
+                self.last_args[name] = args
             if name == "merge_at":
                 start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
                 start.record()
@@ -410,6 +412,7 @@ class Watch:
         self.cuts.clear()
         self.merges.clear()
         self.first_args.clear()
+        self.last_args.clear()
 
 
 def _scale_dataset(n_reads: int, paired: bool = False):
@@ -850,26 +853,33 @@ def _prune_grid(dev, max_c: int = 255, max_m: int = 4095):
 
 
 def _merge_row(watch: Watch, smi: str) -> dict:
-    """K17 on the first merge the count made (kept by `watch`): the merge
-    and K2 after it, against the plain torch.sort and K2's plain version."""
+    """K17 on the first and on the largest (the last) merge the count made
+    (kept by `watch`), each against merge_at_plain (torch.sort of both
+    tables, then K2's plain version): keys, counts and n exact.  Returns
+    the first merge's row, its error over both, and the largest merge's
+    row."""
     from shannon_tpu_torch.ops.count import merge_at_plain
 
-    a, b, cap = watch.first_args.pop("merge_at")
     merge = watch.originals["merge_at"]
-    got, want = merge(a, b, cap), merge_at_plain(a, b, cap)
-    if got.n != want.n:
-        raise AssertionError(f"K17 n {got.n} != {want.n}")
-    err = _max_abs_err((got.key, got.count), (want.key, want.count))
-    t = _alternate(lambda: merge(a, b, cap), lambda: merge_at_plain(a, b, cap))
-    # bytes: the real lanes of both tables in (12 bytes each; each table's n
-    # says where its pads begin), the merged table of cap lanes out;
-    # operations: a merge is linear in the real lanes
-    real = min(a.n, a.capacity) + min(b.n, b.capacity)
-    row = _row(err, t, 12 * real + 12 * cap, real, None)
-    _print_row(f"K17 merge_spectra, the first merge: {a.capacity} + {b.capacity} lanes "
-               f"({a.n} + {b.n} keys) -> {got.n} keys in {cap} lanes (then K2, as in the plain "
-               "version)", row, smi)
-    return row
+    rows = {}
+    for label, (a, b, cap) in (("first", watch.first_args.pop("merge_at")),
+                               ("largest", watch.last_args.pop("merge_at"))):
+        got, want = merge(a, b, cap), merge_at_plain(a, b, cap)
+        if got.n != want.n:
+            raise AssertionError(f"K17 {label} merge: n {got.n} != {want.n}")
+        err = _max_abs_err((got.key, got.count), (want.key, want.count))
+        t = _alternate(lambda: merge(a, b, cap), lambda: merge_at_plain(a, b, cap))
+        # bytes: the real lanes of both tables in (12 bytes each; each
+        # table's n says where its pads begin), the merged table of cap
+        # lanes out; operations: a merge is linear in the real lanes
+        real = min(a.n, a.capacity) + min(b.n, b.capacity)
+        rows[label] = _row(err, t, 12 * real + 12 * cap, real, None)
+        _print_row(f"K17 merge_spectra, the {label} merge: {a.capacity} + {b.capacity} lanes "
+                   f"({a.n} + {b.n} keys) -> {got.n} keys in {cap} lanes (one pass)",
+                   rows[label], smi)
+    err = max(row["max_abs_err"] for row in rows.values())
+    return {"merge_spectra": {**rows["first"], "max_abs_err": err},
+            "merge_spectra_largest": rows["largest"]}
 
 
 def correction_phase(reads, dev, smi: str, watch: Watch):
@@ -878,7 +888,8 @@ def correction_phase(reads, dev, smi: str, watch: Watch):
     versions on the main path's input: the
     counted, shrunk spectrum of the whole single-end scale dataset at the
     default AssemblyConfig (k = 24, the auto cut, sibling ratio 0.1, the
-    default error_rate), and K17 on the first merge of that count; then the
+    default error_rate), and K17 on the first and the largest merge of that
+    count; then the
     whole correct_spectrum there against its CPU run (the plain versions),
     and K9 on the float grid.  Returns (kernel rows, the stage's numbers,
     the corrected spectrum shrunk as the main path shrinks it)."""
@@ -902,7 +913,7 @@ def correction_phase(reads, dev, smi: str, watch: Watch):
         canonical=canonical, batch_reads=cfg.batch_reads, device=dev,
     ))
     watch.keep_args = ()
-    out = {"merge_spectra": _merge_row(watch, smi)}
+    out = _merge_row(watch, smi)
     watch.reset()
     cut = tcor.auto_min_abundance(spec)
     C = spec.capacity
@@ -1605,7 +1616,7 @@ def single_scale_phase(truth, reads, dev, lib, watch: Watch, smi: str) -> dict:
     print(f"single-end scale: {len(reads)} reads in {e2e:.2f} s = {len(reads) / e2e:.1f} reads/s, "
           f"peak device memory {peak / 2**30:.2f} GiB [{smi}]")
     print("stages " + json.dumps(timer.stages) + f" [{smi}]")
-    print(f"merges (K17, then K2): {merges['calls']} calls, {merges['ms']:.3f} ms of the stream "
+    print(f"merges (K17): {merges['calls']} calls, {merges['ms']:.3f} ms of the stream "
           f"between CUDA events around them, inside count_s "
           f"{timer.stages['spectrum+graph']['count_s']:.3f} s [{smi}]")
     print("quality " + json.dumps(quality))
@@ -2012,7 +2023,7 @@ def paired_scale_phase(truth, reads, dev, lib, watch: Watch, smi: str) -> dict:
           f"reads/s, peak device memory {peak / 2**30:.2f} GiB; resume pass {resume_s:.2f} s, "
           f"every stage skipped [{smi}]")
     print("paired stages " + json.dumps(stages) + f" [{smi}]")
-    print(f"paired merges (K17, then K2): {merges['calls']} calls, {merges['ms']:.3f} ms of the "
+    print(f"paired merges (K17): {merges['calls']} calls, {merges['ms']:.3f} ms of the "
           f"stream between CUDA events around them, inside count_s "
           f"{stages['spectrum+graph']['count_s']:.3f} s [{smi}]")
     print("paired quality " + json.dumps(quality))

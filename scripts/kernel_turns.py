@@ -47,8 +47,22 @@ torch.profiler and reports the device time a call of every kernel and copy
 they launched ("device_us"), so the window's time splits into device work
 and the card's idle gaps; for one call of the rescue loop it also lists
 every launch's device time in order ("rescue_loop_launch_us": a round a
-launch).  Prints one JSON line per tree and, with --out,
-writes them all.
+launch).  K1 (extract_kmers) on three inputs: the 1,000,000-read scale
+dataset's first read batch packed as the count packs it (65,536 x 128 pad,
+k = 24, no mask), canonical as the count extracts it ("extract_count") and
+non-canonical as threading does ("extract_thread"), and chip_smoke.py's
+masked kernel-phase batch (_random_batch(1, True), canonical:
+"extract_masked").  K17 (merge_at, the count's merge) on the batch tables
+of that dataset's count at the default AssemblyConfig, built once on the
+card by this checkout's kernels (each is exact against its plain version,
+so every tree merges the same arrays): the count's first merge
+("merge_first", two 4,194,304-lane batch tables), its largest, the last
+merge_spectra_sized call ("merge_largest": the running total near 12.6M
+lanes and the last batch), and all of the count's merges replayed through
+ops.count.merge_batch from its 16 batch tables ("merge_replay", 20
+replays a window, the host reads of n included).  Each K1 and K17 row has
+its device_us.  Prints one JSON line per tree and, with --out, writes them
+all.
 """
 
 from __future__ import annotations
@@ -100,7 +114,68 @@ def _search_inputs() -> dict:
            "t_hit": t_hit, "t_valid": valid, "node_cid": ca.node_cid, "node_off": ca.node_off}
     out = {name: x.cpu().numpy() for name, x in out.items()}
     out["cut"], out["k"] = auto_min_abundance(spec), cfg.k
+    out.update(_merge_inputs(reads, cfg, dev))
     torch.cuda.empty_cache()
+    return out
+
+
+def _merge_inputs(reads, cfg, dev) -> dict:
+    """K1's and K17's inputs (numpy): the first read batch of `reads` packed
+    as count_reads_spectrum packs it, chip_smoke.py's masked kernel-phase
+    batch, the count's batch tables (their real lanes and n), and the
+    arguments of its last merge_at call, recorded while the batch tables
+    are merged through merge_batch here."""
+    import numpy as np
+    import torch
+
+    from chip_smoke import _random_batch
+    from shannon_tpu_torch.io.pack import pack_reads
+    from shannon_tpu_torch.ops import count as tcount
+
+    batch = pack_reads(reads, pad_length=cfg.read_pad_length)
+    first = min(cfg.batch_reads, batch.n_reads)
+    if batch.mask_rows(0, first) is not None:
+        raise RuntimeError("the scale dataset's first read batch has a mask")
+    out = {"e_words": batch.words[:first].view(np.int32), "e_lengths": batch.lengths[:first],
+           "e_pad": batch.pad_length}
+    words, lengths, mask = _random_batch(1, True, torch.device("cpu"))
+    out.update(m_words=words.numpy(), m_lengths=lengths.numpy(), m_mask=mask.numpy())
+
+    parts = []
+    for s in range(0, batch.n_reads, cfg.batch_reads):
+        e = min(s + cfg.batch_reads, batch.n_reads)
+        m = batch.mask_rows(s, e)
+        parts.append(tcount.count_spectrum_packed(
+            tcount.upload_words(batch.words[s:e], dev),
+            torch.from_numpy(batch.lengths[s:e]).to(dev), cfg.k, cfg.kmer_capacity,
+            not cfg.strand_specific, length=batch.pad_length,
+            mask=None if m is None else tcount.upload_words(m, dev),
+        ))
+    calls, merge_at = [], tcount.merge_at
+
+    def recorded(a, b, cap):
+        calls.append((a, b, cap))
+        return merge_at(a, b, cap)
+
+    tcount.merge_at = recorded
+    try:
+        total = None
+        for part in parts:
+            total = tcount.merge_batch(total, part)
+    finally:
+        tcount.merge_at = merge_at
+    a, b, cap = calls[-1]
+
+    def real(name: str, specs) -> dict:
+        n = [min(x.n, x.capacity) for x in specs]
+        return {f"{name}_key": np.concatenate([x.key[:c].cpu().numpy() for x, c in zip(specs, n)]),
+                f"{name}_count": np.concatenate([x.count[:c].cpu().numpy()
+                                                 for x, c in zip(specs, n)]),
+                f"{name}_n": np.array([x.n for x in specs]),
+                f"{name}_cap": np.array([x.capacity for x in specs])}
+
+    out.update(**real("parts", parts), **real("largest", (a, b)), largest_out=cap,
+               merge_calls=len(calls), replay_n=total.n)
     return out
 
 
@@ -191,7 +266,10 @@ def _child(tree: str, inputs: str) -> None:
     from shannon_tpu_torch.ops import correction as tcor
     from shannon_tpu_torch.ops.correction import compact, probe_resolve
     from shannon_tpu_torch.ops.thread import thread_windows
-    from shannon_tpu_torch.ops.count import Spectrum, reduce_sorted
+    from shannon_tpu_torch.ops import count as count_module
+    from shannon_tpu_torch.ops.count import Spectrum, merge_at, merge_at_plain, merge_batch
+    from shannon_tpu_torch.ops.count import reduce_sorted
+    from shannon_tpu_torch.ops.kmers import extract_kmers_packed
     from shannon_tpu_torch.ops.sparseflow import batched_greedy_packed
     from shannon_tpu_torch.ops.spectrum import lookup_sorted, probe_keys, sibling_maxes
 
@@ -213,6 +291,59 @@ def _child(tree: str, inputs: str) -> None:
                       n=int((d["p_key"] != (1 << 63) - 1).sum()))
     lookups = {"lookup_main": (on_card("node_key"), on_card("windows")),
                "lookup_random": (on_card("r_table"), on_card("r_query"))}
+
+    def spectra(name: str) -> list:
+        """The tables _merge_inputs saved under `name`, PAD past n."""
+        out, at = [], 0
+        for n, cap in zip(d[f"{name}_n"].tolist(), d[f"{name}_cap"].tolist()):
+            c = min(n, cap)
+            key = torch.full((cap,), (1 << 63) - 1, dtype=torch.int64, device=dev)
+            count = torch.zeros(cap, dtype=torch.int32, device=dev)
+            key[:c] = torch.from_numpy(d[f"{name}_key"][at:at + c]).to(dev)
+            count[:c] = torch.from_numpy(d[f"{name}_count"][at:at + c]).to(dev)
+            out.append(Spectrum(key=key, count=count, n=n))
+            at += c
+        return out
+
+    # K1 on the count's and threading's first batch and the masked batch;
+    # K17 on the count's first and largest merges and its whole replay
+    e_args = (on_card("e_words"), on_card("e_lengths"), int(d["k"]))
+    extracts = {
+        "extract_count": (*e_args, True, int(d["e_pad"]), None),
+        "extract_thread": (*e_args, False, int(d["e_pad"]), None),
+        "extract_masked": (on_card("m_words"), on_card("m_lengths"), 24, True, 128,
+                           on_card("m_mask")),
+    }
+    parts = spectra("parts")
+    merges = {"merge_first": (parts[0], parts[1], parts[0].capacity),
+              "merge_largest": (*spectra("largest"), int(d["largest_out"]))}
+
+    def replay() -> Spectrum:
+        total = None
+        for part in parts:
+            total = merge_batch(total, part)
+        return total
+
+    calls = 0
+
+    def counted_merge(*args):
+        nonlocal calls
+        calls += 1
+        return merge_at(*args)
+
+    count_module.merge_at = counted_merge
+    try:
+        replayed = replay()
+    finally:
+        count_module.merge_at = merge_at
+    if (calls, replayed.n) != (int(d["merge_calls"]), int(d["replay_n"])):
+        raise AssertionError(f"the replay made {calls} merges to n = {replayed.n}, not "
+                             f"{int(d['merge_calls'])} to {int(d['replay_n'])}")
+    for name, args in merges.items():
+        got, want = merge_at(*args), merge_at_plain(*args)
+        if got.n != want.n or not (torch.equal(got.key, want.key)
+                                   and torch.equal(got.count, want.count)):
+            raise AssertionError(f"{name}: K17 disagrees with merge_at_plain")
 
     def median_ms(fn, reps: int = 200, windows: int = 5) -> float:
         fn()
@@ -283,6 +414,12 @@ def _child(tree: str, inputs: str) -> None:
         "rescue_loop_rescued": int((rescue(k + 2) != counts).sum()),
         "rescue_loop_launch_us": _launch_us(lambda: rescue(k + 2)),
         "thread_rows_events": int(thread_windows(*threading)[2].sum()),
+        **{f"{name}_ms": median_ms(lambda a=args: extract_kmers_packed(*a))
+           for name, args in extracts.items()},
+        **{f"{name}_ms": median_ms(lambda a=args: merge_at(*a)) for name, args in merges.items()},
+        "merge_replay_ms": median_ms(replay, 20),
+        "merge_n": [merge_at(*args).n for args in merges.values()] + [replayed.n],
+        "merge_replay_calls": calls,
         "card": torch.cuda.get_device_name(0),
         # after the timings, so the traces cannot disturb them
         "device_us": {
@@ -294,6 +431,10 @@ def _child(tree: str, inputs: str) -> None:
             **{name: _device_us(fn, 5 if name == "rescue_loop" else 20)
                for name, (fn, _reps) in loops.items()},
             **{f"{name}_searchsorted": _device_us(lib) for name, (_fn, lib, _r) in search.items()},
+            **{name: _device_us(lambda a=args: extract_kmers_packed(*a))
+               for name, args in extracts.items()},
+            **{name: _device_us(lambda a=args: merge_at(*a)) for name, args in merges.items()},
+            "merge_replay": _device_us(replay, 5),
         },
     }
     print(json.dumps(row), flush=True)

@@ -15,7 +15,8 @@ same again in the same process (its allocator now holds blocks of every
 size the run asks for), and the CLI on N paired reads (N / 2 pairs) from
 two FASTA files.  Each merge of the count (ops.count.merge_at) is bracketed
 with two CUDA events, so a run reports how much of count_s the merges hold
-on the device stream.
+on the device stream; each line also gives threading's kernel_s (K1, K3,
+K4 and K5 a batch).
 
 Prints one line a run, with the card's name and power limit, and writes
 the runs so far as JSON to --out after each run.  Imports nothing of JAX.
@@ -123,8 +124,8 @@ def child(tree: Path, n_reads: int) -> dict:
 def _single(se: dict) -> str:
     sg = se["stages"]["spectrum+graph"]
     return (f"{se['e2e_s']:.2f} s (count_s {sg['count_s']:.3f}, merges {se['merges']['calls']} x = "
-            f"{se['merges']['ms']:.3f} ms, tipclip_s {sg['tipclip_s']:.3f}, recall "
-            f"{se['recall']:.4f})")
+            f"{se['merges']['ms']:.3f} ms, tipclip_s {sg['tipclip_s']:.3f}, threading kernel_s "
+            f"{se['stages']['threading']['kernel_s']:.3f}, recall {se['recall']:.4f})")
 
 
 def _line(run: dict, smi: str) -> str:
@@ -133,7 +134,9 @@ def _line(run: dict, smi: str) -> str:
     return (f"{run['tree']}: single-end {_single(run['single'])}, again "
             f"{_single(run['single_again'])}; paired CLI {pe['e2e_s']:.2f} s "
             f"(count_s {psg['count_s']:.3f}, merges {pe['merges']['calls']} x = "
-            f"{pe['merges']['ms']:.3f} ms, dedup_s {pe['stages']['threading']['dedup_s']:.3f}, "
+            f"{pe['merges']['ms']:.3f} ms, threading kernel_s "
+            f"{pe['stages']['threading']['kernel_s']:.3f}, "
+            f"dedup_s {pe['stages']['threading']['dedup_s']:.3f}, "
             f"recall {pe['recall']:.4f}) [{smi}]")
 
 

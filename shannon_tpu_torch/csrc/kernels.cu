@@ -25,53 +25,96 @@
 // Replaces shannon_tpu/ops/kmers.py:151 extract_kmers_packed (with
 // unpack_words_device :131, unpack_mask_device :142, _windows_from_c32 :78,
 // revcomp_hilo :49, canonical_hilo :69).
-// Bound: memory.  Each window writes 9 bytes (key + valid) and reads a few
-// words of its read row, which neighbouring threads share through L1.  One
-// thread per (read, window), consecutive threads on consecutive windows of a
-// row, so the key and valid stores are coalesced; the forward key and its
-// reverse complement are built in the same k-step loop, so canonical mode
-// costs no second pass.
+// Bound: memory.  Each window writes 9 bytes (key + valid); the read rows
+// are 4 bytes a 16 bases.  A block stages a run of read rows (their words,
+// mask words and lengths) in shared memory with coalesced loads, then its
+// threads walk the block's flat windows, consecutive threads on consecutive
+// windows across row ends, so every key and valid store is coalesced.  A
+// thread finds its first window's row with one 32-bit division and steps
+// row and offset by constants after that.  Base p of a row sits at bits
+// 2(p & 15) of word p >> 4, so a window is one funnel shift of the (at most
+// three) words holding bases [j, j + k): S, base j in its low bits.  That
+// is the reverse complement with its bases complemented, so rc = ~S & mask
+// and fwd = revcomp_bits(rc, k); no per-base loop.  The mask bits of
+// [j, j + k) are one funnel shift of at most two mask words.  Rows too
+// long to stage in EXTRACT_SMEM bytes are read from device memory in
+// place, a row a block.
 // ---------------------------------------------------------------------------
-__global__ void extract_kmers_kernel(const uint32_t* __restrict__ words,
-                                     const int32_t* __restrict__ lengths,
-                                     const uint32_t* __restrict__ mask,
-                                     int64_t n_reads, int words_per_row,
-                                     int mask_words_per_row, int n_windows,
-                                     int k, int canonical,
-                                     int64_t* __restrict__ keys,
-                                     uint8_t* __restrict__ valid) {
-  int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= n_reads * (int64_t)n_windows) return;
-  int64_t r = t / n_windows;
-  int j = (int)(t - r * n_windows);
-  const uint32_t* row = words + r * words_per_row;
-  bool ok = j + k <= lengths[r];
-  uint64_t fwd = 0, rc = 0;
-  for (int i = 0; i < k; ++i) {
-    int p = j + i;
-    uint64_t c = (row[p >> 4] >> (2 * (p & 15))) & 3u;
-    fwd = (fwd << 2) | c;
-    rc |= (3ull - c) << (2 * i);
-    if (mask != nullptr &&
-        ((mask[r * mask_words_per_row + (p >> 5)] >> (p & 31)) & 1u)) {
-      ok = false;
+#define EXTRACT_ROWS 32
+#define EXTRACT_SMEM (48 * 1024)
+
+__global__ void __launch_bounds__(THREADS)
+    extract_kmers_kernel(const uint32_t* __restrict__ words, const int32_t* __restrict__ lengths,
+                         const uint32_t* __restrict__ mask, int64_t n_reads, int words_per_row,
+                         int mask_words_per_row, int n_windows, int k, int canonical,
+                         int rows_per_block, int staged, int64_t* __restrict__ keys,
+                         uint8_t* __restrict__ valid) {
+  extern __shared__ uint32_t s_rows[];
+  const int64_t r0 = (int64_t)blockIdx.x * rows_per_block;
+  const int rows = (int)(n_reads - r0 < rows_per_block ? n_reads - r0 : rows_per_block);
+  const int wm = mask != nullptr ? mask_words_per_row : 0;
+  const int n_words = rows * words_per_row, n_mask = rows * wm;
+  const uint32_t* row_words = words + r0 * words_per_row;
+  const uint32_t* row_mask = mask != nullptr ? mask + r0 * wm : nullptr;
+  int32_t* s_len = (int32_t*)s_rows;
+  for (int i = threadIdx.x; i < rows; i += blockDim.x) s_len[i] = lengths[r0 + i];
+  if (staged) {
+    uint32_t* s_words = s_rows + rows_per_block;
+    uint32_t* s_mask = s_words + n_words;
+    for (int i = threadIdx.x; i < n_words; i += blockDim.x) s_words[i] = row_words[i];
+    for (int i = threadIdx.x; i < n_mask; i += blockDim.x) s_mask[i] = row_mask[i];
+    row_words = s_words;
+    row_mask = mask != nullptr ? s_mask : nullptr;
+  }
+  __syncthreads();
+
+  const uint64_t kmask = (1ull << (2 * k)) - 1;
+  const uint32_t bad_bits = 0xFFFFFFFFu >> (32 - k);
+  const int total = rows * n_windows;
+  const int step_r = blockDim.x / n_windows, step_j = blockDim.x - step_r * n_windows;
+  int r = threadIdx.x / n_windows;
+  int j = threadIdx.x - r * n_windows;
+  int64_t* out_key = keys + r0 * n_windows;
+  uint8_t* out_valid = valid + r0 * n_windows;
+  for (int f = threadIdx.x; f < total; f += blockDim.x) {
+    const uint32_t* row = row_words + r * words_per_row;
+    const int w0 = j >> 4, shift = 2 * (j & 15);
+    const uint32_t x0 = row[w0];
+    const uint32_t x1 = w0 + 1 < words_per_row ? row[w0 + 1] : 0u;
+    const uint32_t x2 = w0 + 2 < words_per_row ? row[w0 + 2] : 0u;
+    const uint64_t S = ((uint64_t)__funnelshift_r(x1, x2, shift) << 32) |
+                       (uint64_t)__funnelshift_r(x0, x1, shift);
+    const uint64_t rc = ~S & kmask;
+    const uint64_t fwd = revcomp_bits(rc, k);
+    bool ok = j + k <= s_len[r];
+    if (row_mask != nullptr) {
+      const uint32_t* mrow = row_mask + r * wm;
+      const int m0 = j >> 5;
+      const uint32_t y1 = m0 + 1 < wm ? mrow[m0 + 1] : 0u;
+      if (__funnelshift_r(mrow[m0], y1, j & 31) & bad_bits) ok = false;
+    }
+    const uint64_t v = (canonical && rc < fwd) ? rc : fwd;
+    out_key[f] = ok ? (int64_t)v : PAD_KEY;
+    out_valid[f] = ok ? 1 : 0;
+    j += step_j;
+    r += step_r;
+    if (j >= n_windows) {
+      j -= n_windows;
+      ++r;
     }
   }
-  uint64_t v = (canonical && rc < fwd) ? rc : fwd;
-  keys[t] = ok ? (int64_t)v : PAD_KEY;
-  valid[t] = ok ? 1 : 0;
 }
 
 // ---------------------------------------------------------------------------
 // K24: k-mer extraction from [N, L] uint8 base codes.
 // Replaces shannon_tpu/ops/kmers.py:116 extract_kmers (with _windows_from_c32
-// :78, revcomp_hilo :49, canonical_hilo :69).  K1's design with a byte per
-// base: one thread per (read, window), consecutive threads on consecutive
-// windows, forward key and reverse complement in one k-step loop.  A code >= 4
+// :78, revcomp_hilo :49, canonical_hilo :69).  One thread per (read,
+// window), consecutive threads on consecutive windows, forward key and
+// reverse complement in one k-step loop over the window's bytes.  A code >= 4
 // (N) invalidates its windows before its low 2 bits are read
-// (ops/kmers.py:127-128), so an N never reads as A.  The loop is K1's own,
-// written out again: one template for both code sources cost K1's unmasked
-// case a third of its speed on the H100 (PERF.md, section 6).
+// (ops/kmers.py:127-128), so an N never reads as A.  K1 builds each window
+// from one funnel shift of its packed row instead; K24 keeps its per-base
+// loop (ROADMAP: it should take K1's staged design next).
 // Bound: memory (k bytes read a window, shared with the neighbours through
 // L1; 9 bytes written).
 // ---------------------------------------------------------------------------
@@ -298,58 +341,265 @@ __global__ void __launch_bounds__(SEARCH_THREADS, 6)
 
 // ---------------------------------------------------------------------------
 // K17: merge of two sorted count tables (the batch loop's merge).
-// Replaces shannon_tpu/ops/count.py:257 _merge_at (with :65 _sort3), which
-// re-sorted the concatenation of the two tables.  Both tables are sorted with
-// PAD last, so each lane's place in the merged order is its own index plus its
-// rank in the other table: a[i] goes to i + (lanes of b below a[i]), b[j] to
-// j + (lanes of a at or below b[j]).  These places are a permutation of
-// [0, Ca + Cb) (a key found in both tables lands a's lane just before b's), so
-// the merged keys equal the sorted concatenation exactly, and K2's single pass
-// then sums the counts of equal keys.
-// Bound: memory (12 bytes read and written a lane); the rank is a binary
-// search of the other table, bounded by the latency of its dependent loads,
-// with neighbouring threads on neighbouring keys so the search paths share
-// cache lines.  A merge-path partition would make it linear.
+// Replaces shannon_tpu/ops/count.py:257 _merge_at (with :65 _sort3 and :110
+// _unique_reduce), which re-sorted the concatenation of the two tables and
+// summed the counts of equal keys.  One pass that merges and sums, on the
+// single-pass scan of scan.cuh, then the scan's tail fill.
+//  - Real lengths: every block finds the first PAD lane of a and of b (a
+//    32-ary search by one warp each), so the merge reads only real lanes and
+//    its result depends on the keys alone.
+//  - Tiles: persistent blocks take SCAN_TILE merged lanes at a time by
+//    ticket, until a ticket lies past na + nb.  A tile finds the merge-path
+//    split of its two diagonals (a 32-ary search by one warp each), loads its
+//    runs of a and b, keys and counts, coalesced into shared memory (one pad
+//    slot every 32, so the threads' merge heads fall on different banks),
+//    and each thread merges its SCAN_ITEMS lanes from a binary search of its
+//    own diagonal there.  Ties go to a, in the splits and in the merge alike;
+//    equal keys are summed, so any fixed rule gives the same table.
+//  - Then K2's tile logic (reduce_runs_kernel): start flags and weights,
+//    the two block scans, the look-back, each start's slot and the weight
+//    before it recorded in shared memory, and the copy-out from there.  A
+//    thread merges its lanes twice, for the flags and weights before the
+//    scans and for the records after them, so that no lane's key or count
+//    is held across the scans (3 blocks an SM).  The key before the tile is
+//    the larger of a[a0 - 1] and b[b0 - 1], the key after it the smaller of
+//    the two heads past the tile.  A run that crosses a
+//    tile edge is summed by atomicAdd into out_count, which the wrapper
+//    zeroed, as in K2; a run may be of any length (a table may repeat a key).
+//    Counts sum as unsigned, modulo 2^32, as the plain version's int32 cast.
+//  - n counts every distinct key, past capacity too.  The tile that holds
+//    the last merged lane also stores its inclusive word in the last status
+//    word of the scratch, where kernels.scan_total and the tail fill read n.
+// Bound: memory.  The function must read the real lanes of both tables, 12
+// bytes each, and write the capacity lanes of the merged table, 12 bytes
+// each.  No (Ca + Cb)-lane temporary, sort or scan array.
 // ---------------------------------------------------------------------------
-static __device__ __forceinline__ int64_t rank_in(const int64_t* __restrict__ table,
-                                                  int64_t len, int64_t key,
-                                                  bool inclusive) {
-  int64_t lo = 0, hi = len;
-  while (lo < hi) {
-    const int64_t mid = lo + ((hi - lo) >> 1);
-    const int64_t v = table[mid];
-    if (v < key || (inclusive && v == key)) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
+#define MERGE_SLOTS (SCAN_TILE + SCAN_TILE / 32)
+// The tile's keys and counts, then each start's weight before it and slot.
+#define MERGE_SMEM                                        \
+  (MERGE_SLOTS * (sizeof(int64_t) + sizeof(unsigned)) + \
+   SCAN_TILE * (sizeof(unsigned) + sizeof(uint16_t)))
+
+// The shared-memory slot of a tile's lane p: one pad slot every 32 lanes.
+static __device__ __forceinline__ int merge_slot(int p) { return p + (p >> 5); }
+
+// The first index in [lo, hi) where pred is false, or hi, where pred is true
+// on a prefix of the range.  One warp calls it together, with the same lo
+// and hi in every lane; each round tests 32 pivots that cut the range into
+// 33 parts, so a range of 2^24 lanes takes 5 rounds of one load a lane.
+template <typename Pred>
+static __device__ __forceinline__ int64_t warp_partition(int64_t lo, int64_t hi, Pred pred) {
+  const int lane = threadIdx.x & 31;
+  while (hi > lo) {
+    const int64_t span = hi - lo;
+    if (span <= 32) {
+      const bool t = lane < span && pred(lo + lane);
+      return lo + __popc(__ballot_sync(SCAN_FULL_MASK, t));
     }
+    const int64_t p = lo + span * (lane + 1) / 33;
+    const int c = __popc(__ballot_sync(SCAN_FULL_MASK, pred(p)));
+    const int64_t below = __shfl_sync(SCAN_FULL_MASK, p, c > 0 ? c - 1 : 0);
+    const int64_t above = __shfl_sync(SCAN_FULL_MASK, p, c < 32 ? c : 31);
+    if (c > 0) lo = below + 1;
+    if (c < 32) hi = above;
   }
   return lo;
 }
 
-__global__ void merge_tables_kernel(const int64_t* __restrict__ a_key,
-                                    const int32_t* __restrict__ a_count,
-                                    int64_t Ca,
-                                    const int64_t* __restrict__ b_key,
-                                    const int32_t* __restrict__ b_count,
-                                    int64_t Cb, int64_t* __restrict__ out_key,
-                                    int32_t* __restrict__ out_count) {
-  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= Ca + Cb) return;
-  int64_t key, pos;
-  int32_t c;
-  if (t < Ca) {
-    key = a_key[t];
-    c = a_count[t];
-    pos = t + rank_in(b_key, Cb, key, false);
-  } else {
-    const int64_t j = t - Ca;
-    key = b_key[j];
-    c = b_count[j];
-    pos = j + rank_in(a_key, Ca, key, true);
+// a's lanes among the first d lanes of the merge of a[0, na) and b[0, nb),
+// ties to a.  One warp calls it together.
+static __device__ __forceinline__ int64_t merge_split(const int64_t* __restrict__ a, int64_t na,
+                                                      const int64_t* __restrict__ b, int64_t nb,
+                                                      int64_t d) {
+  return warp_partition(d > nb ? d - nb : 0, d < na ? d : na,
+                        [&](int64_t i) { return a[i] <= b[d - 1 - i]; });
+}
+
+// Merges a thread's lanes [first, first + SCAN_ITEMS) of the tile (clipped
+// to L) from its split: ai of a's lanes before `first`, `prev` the merged
+// key before it.  visit(j, slot, start, count) for each lane in order, where
+// slot is the lane's shared-memory slot and start whether its key differs
+// from the one before (every lane below L is real).  Ties go to a.
+template <typename Visit>
+static __device__ __forceinline__ void merge_lanes(const int64_t* s_key, const unsigned* s_count,
+                                                   int la, int lb, int L, int first, int ai,
+                                                   int64_t prev, Visit visit) {
+  int bi = first - ai;
+  // a run's head reads as PAD once it is used up; real keys sort below PAD
+  int64_t ka = ai < la ? s_key[merge_slot(ai)] : PAD_KEY;
+  int64_t kb = bi < lb ? s_key[merge_slot(la + bi)] : PAD_KEY;
+#pragma unroll
+  for (int j = 0; j < SCAN_ITEMS; ++j) {
+    if (first + j >= L) break;
+    int slot;
+    int64_t key;
+    if (ka <= kb) {
+      key = ka;
+      slot = merge_slot(ai++);
+      ka = ai < la ? s_key[merge_slot(ai)] : PAD_KEY;
+    } else {
+      key = kb;
+      slot = merge_slot(la + bi++);
+      kb = bi < lb ? s_key[merge_slot(la + bi)] : PAD_KEY;
+    }
+    visit(j, slot, key != prev, s_count[slot]);
+    prev = key;
   }
-  out_key[pos] = key;
-  out_count[pos] = c;
+}
+
+__global__ void __launch_bounds__(SCAN_THREADS, 3)
+    merge_runs_kernel(const int64_t* __restrict__ a_key, const int32_t* __restrict__ a_count,
+                      int64_t Ca, const int64_t* __restrict__ b_key,
+                      const int32_t* __restrict__ b_count, int64_t Cb, int64_t capacity,
+                      unsigned long long* __restrict__ scratch, long long last_tile,
+                      int64_t* __restrict__ out_key, int32_t* __restrict__ out_count) {
+  extern __shared__ int64_t s_merge[];
+  int64_t* s_key = s_merge;  // the tile's keys: a's run, then b's
+  unsigned* s_count = (unsigned*)(s_key + MERGE_SLOTS);  // their counts
+  unsigned* s_before = s_count + MERGE_SLOTS;  // the tile's weight before each start
+  uint16_t* s_lane = (uint16_t*)(s_before + SCAN_TILE);  // each start's slot, in order
+  __shared__ ScanShared sh;
+  __shared__ unsigned s_warp_starts[SCAN_WARPS];
+  __shared__ unsigned s_warp_weight[SCAN_WARPS];
+  __shared__ int64_t s_len[2];    // na, nb
+  __shared__ int64_t s_split[2];  // a's lanes before the tile's two diagonals
+  __shared__ int64_t s_edge[2];   // the merged key before the tile, and after it
+  unsigned long long* status = scratch + 1;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int64_t lowest = -PAD_KEY - 1;
+
+  if (warp < 2) {
+    const int64_t* key = warp == 0 ? a_key : b_key;
+    const int64_t n = warp_partition(0, warp == 0 ? Ca : Cb,
+                                     [&](int64_t i) { return key[i] != PAD_KEY; });
+    if (lane == 0) s_len[warp] = n;
+  }
+  __syncthreads();
+  const int64_t na = s_len[0], nb = s_len[1], N = na + nb;
+
+  for (;;) {
+    const long long tile = scan_ticket(scratch, &sh);
+    const int64_t d0 = (int64_t)tile * SCAN_TILE;
+    if (d0 >= N) break;
+    const int64_t d1 = d0 + SCAN_TILE < N ? d0 + SCAN_TILE : N;
+    if (warp < 2) {
+      const int64_t i = merge_split(a_key, na, b_key, nb, warp == 0 ? d0 : d1);
+      if (lane == 0) s_split[warp] = i;
+    }
+    __syncthreads();
+    const int64_t a0 = s_split[0], a1 = s_split[1], b0 = d0 - a0, b1 = d1 - a1;
+    const int la = (int)(a1 - a0), L = (int)(d1 - d0), lb = L - la;
+
+    // the tile's runs of a and b into lanes [0, la) and [la, L), coalesced
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      int64_t kv[SCAN_ITEMS / 2];
+      unsigned cv[SCAN_ITEMS / 2];
+#pragma unroll
+      for (int q = 0; q < SCAN_ITEMS / 2; ++q) {
+        const int p = threadIdx.x + (h * SCAN_ITEMS / 2 + q) * SCAN_THREADS;
+        if (p < la) {
+          kv[q] = a_key[a0 + p];
+          cv[q] = (unsigned)a_count[a0 + p];
+        } else if (p < L) {
+          kv[q] = b_key[b0 + (p - la)];
+          cv[q] = (unsigned)b_count[b0 + (p - la)];
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < SCAN_ITEMS / 2; ++q) {
+        const int p = threadIdx.x + (h * SCAN_ITEMS / 2 + q) * SCAN_THREADS;
+        if (p < L) {
+          s_key[merge_slot(p)] = kv[q];
+          s_count[merge_slot(p)] = cv[q];
+        }
+      }
+    }
+    if (threadIdx.x == SCAN_THREADS - 1) {
+      int64_t before = PAD_KEY;  // before lane 0, as in K2: a real lane 0 starts a run
+      if (d0 > 0) {
+        const int64_t x = a0 > 0 ? a_key[a0 - 1] : lowest;
+        const int64_t y = b0 > 0 ? b_key[b0 - 1] : lowest;
+        before = x > y ? x : y;
+      }
+      const int64_t x = a1 < na ? a_key[a1] : PAD_KEY;
+      const int64_t y = b1 < nb ? b_key[b1] : PAD_KEY;
+      s_edge[0] = before;
+      s_edge[1] = x < y ? x : y;
+    }
+    __syncthreads();
+
+    // this thread's diagonal: its split by binary search in the tile, and
+    // the merged key before its first lane
+    const int first = threadIdx.x * SCAN_ITEMS;
+    int ai = 0;
+    int64_t prev = s_edge[0];
+    if (first < L) {
+      int lo = first > lb ? first - lb : 0, hi = first < la ? first : la;
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (s_key[merge_slot(mid)] <= s_key[merge_slot(la + first - 1 - mid)]) {
+          lo = mid + 1;
+        } else {
+          hi = mid;
+        }
+      }
+      ai = lo;
+      const int bi = first - lo;
+      if (first > 0) {
+        const int64_t x = ai > 0 ? s_key[merge_slot(ai - 1)] : lowest;
+        const int64_t y = bi > 0 ? s_key[merge_slot(la + bi - 1)] : lowest;
+        prev = x > y ? x : y;
+      }
+    }
+    unsigned bits = 0, weight = 0;
+    merge_lanes(s_key, s_count, la, lb, L, first, ai, prev,
+                [&](int j, int, bool start, unsigned c) {
+                  if (start) bits |= 1u << j;
+                  weight += c;
+                });
+
+    unsigned starts, tile_weight;
+    unsigned r = block_exclusive_scan((unsigned)__popc(bits), s_warp_starts, &starts);
+    unsigned before = block_exclusive_scan(weight, s_warp_weight, &tile_weight);
+    scan_publish_aggregate(status, tile, starts);
+    // the merge again, recording each start's slot and the weight before it
+    merge_lanes(s_key, s_count, la, lb, L, first, ai, prev,
+                [&](int, int slot, bool start, unsigned c) {
+                  if (start) {
+                    s_lane[r] = (uint16_t)slot;
+                    s_before[r] = before;
+                    ++r;
+                  }
+                  before += c;
+                });
+    const int64_t prefix = (int64_t)scan_tile_prefix(status, tile, starts, &sh);
+
+    // the lanes before the tile's first start continue run prefix - 1
+    if (threadIdx.x == 0 && prefix > 0 && prefix - 1 < capacity) {
+      const unsigned lead = starts > 0 ? s_before[0] : tile_weight;
+      if (lead != 0u) atomicAdd((unsigned*)out_count + (prefix - 1), lead);
+    }
+    for (unsigned q = threadIdx.x; q < starts; q += SCAN_THREADS) {
+      const int64_t g = prefix + q;
+      if (g >= capacity) break;
+      const int64_t key = s_key[s_lane[q]];
+      out_key[g] = key;
+      if (q + 1 < starts) {
+        out_count[g] = (int32_t)(s_before[q + 1] - s_before[q]);
+      } else {
+        const unsigned c = tile_weight - s_before[q];
+        if (s_edge[1] == key) {
+          atomicAdd((unsigned*)out_count + g, c);  // the run goes on into the next tile
+        } else {
+          out_count[g] = (int32_t)c;
+        }
+      }
+    }
+    if (threadIdx.x == 0 && d1 == N && tile != last_tile) {
+      scan_store(status + last_tile, SCAN_INCLUSIVE | (unsigned long long)(prefix + starts));
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -361,19 +611,26 @@ const char* shannon_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
+// A block stages up to EXTRACT_ROWS rows in EXTRACT_SMEM bytes of shared
+// memory; a row longer than that is read in place, a row a block.
 int shannon_extract_kmers(const void* words, const void* lengths,
                           const void* mask, int64_t n_reads, int words_per_row,
                           int mask_words_per_row, int n_windows, int k,
                           int canonical, void* keys, void* valid,
                           void* stream) {
-  int64_t total = n_reads * (int64_t)n_windows;
-  if (total > 0) {
-    extract_kmers_kernel<<<blocks_for(total), THREADS, 0,
-                           (cudaStream_t)stream>>>(
-        (const uint32_t*)words, (const int32_t*)lengths,
-        (const uint32_t*)mask, n_reads, words_per_row, mask_words_per_row,
-        n_windows, k, canonical, (int64_t*)keys, (uint8_t*)valid);
-  }
+  if (n_reads <= 0 || n_windows <= 0) return (int)cudaGetLastError();
+  const int64_t row_bytes =
+      4 * (1 + (int64_t)words_per_row + (mask != nullptr ? mask_words_per_row : 0));
+  int64_t rows = EXTRACT_SMEM / row_bytes;
+  const int staged = rows > 0;
+  if (rows > EXTRACT_ROWS) rows = EXTRACT_ROWS;
+  if (rows < 1) rows = 1;
+  const size_t smem = (size_t)(staged ? rows * row_bytes : 4 * rows);
+  extract_kmers_kernel<<<(unsigned int)((n_reads + rows - 1) / rows), THREADS, smem,
+                         (cudaStream_t)stream>>>(
+      (const uint32_t*)words, (const int32_t*)lengths, (const uint32_t*)mask, n_reads,
+      words_per_row, mask_words_per_row, n_windows, k, canonical, (int)rows, staged,
+      (int64_t*)keys, (uint8_t*)valid);
   return (int)cudaGetLastError();
 }
 
@@ -409,14 +666,34 @@ int shannon_reduce_sorted(const void* keys, const void* counts, int64_t m, int64
   return (int)cudaGetLastError();
 }
 
+// out_count must be zeroed (a run that crosses a tile edge is summed by
+// atomicAdd); scratch: exactly tiles + 1 zeroed words (scan.cuh), tiles =
+// ceil((Ca + Cb) / SCAN_TILE), or the call is refused.  The grid is the
+// blocks that fit on the card at once, at most tiles.
+static_assert(SEARCH_THREADS == SCAN_THREADS, "search_grid sizes K17's grid");
+
 int shannon_merge_tables(const void* a_key, const void* a_count, int64_t Ca,
                          const void* b_key, const void* b_count, int64_t Cb,
+                         int64_t capacity, void* scratch, int64_t scratch_words,
                          void* out_key, void* out_count, void* stream) {
-  if (Ca + Cb > 0) {
-    merge_tables_kernel<<<blocks_for(Ca + Cb), THREADS, 0, (cudaStream_t)stream>>>(
+  const long long tiles = scan_tiles(Ca + Cb);
+  if (scratch_words != tiles + 1) return (int)cudaErrorInvalidValue;
+  if (tiles > 0) {
+    unsigned int grid = 0;
+    cudaError_t err = cudaFuncSetAttribute((const void*)merge_runs_kernel,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)MERGE_SMEM);
+    if (err == cudaSuccess) {
+      err = search_grid((const void*)merge_runs_kernel, MERGE_SMEM, tiles, &grid);
+    }
+    if (err != cudaSuccess) return (int)err;
+    merge_runs_kernel<<<grid, SCAN_THREADS, MERGE_SMEM, (cudaStream_t)stream>>>(
         (const int64_t*)a_key, (const int32_t*)a_count, Ca, (const int64_t*)b_key,
-        (const int32_t*)b_count, Cb, (int64_t*)out_key, (int32_t*)out_count);
+        (const int32_t*)b_count, Cb, capacity, (unsigned long long*)scratch, tiles - 1,
+        (int64_t*)out_key, (int32_t*)out_count);
   }
+  scan_fill_tail((const unsigned long long*)scratch, tiles, capacity, (int64_t*)out_key,
+                 nullptr, (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }
 

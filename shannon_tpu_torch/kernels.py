@@ -77,7 +77,7 @@ _ARGTYPES = {
     "shannon_contig_reduce": [*[_P] * 9, _I64, _I, _I, *[_P] * 9, _P],
     "shannon_base_streams": [_P, _P, _P, _I64, _P, _P, _P, _I64, _I, _P, _P, _P],
     "shannon_count_histogram": [_P, _P, _I64, _I64, _P, _P],
-    "shannon_merge_tables": [_P, _P, _I64, _P, _P, _I64, _P, _P, _P],
+    "shannon_merge_tables": [_P, _P, _I64, _P, _P, _I64, _I64, _P, _I64, _P, _P, _P],
     "shannon_drop_keep": [_P, _I64, _P, _P, _I64, _P, _P, _P],
     "shannon_remap_keep": [_P, _I64, _P, _I64, _P, _P],
     "shannon_clip_remap": [*[_P] * 6, _I64, _P, _P, _I64, _I64, *[_P] * 8, _I64, *[_P] * 4],
@@ -219,7 +219,8 @@ _SCAN_VALUE_MASK = (1 << 62) - 1
 
 
 def scan_scratch(lanes: int, device) -> torch.Tensor:
-    """Zeroed scratch of the single-pass scan over `lanes` lanes (K2, K10):
+    """Zeroed scratch of the single-pass scan over `lanes` lanes (K2, K10,
+    K17):
     a ticket word and one status word a tile (csrc/scan.cuh)."""
     return torch.zeros(-(-lanes // SCAN_TILE) + 1, dtype=torch.int64, device=device)
 

@@ -4,10 +4,10 @@ Counterpart of ``shannon_tpu/ops/count.py``.  Per batch: extract window keys
 (K1 from packed words, K24 from uint8 codes), ``torch.sort`` them, and
 reduce runs of equal keys into a sorted table of unique keys and counts
 (kernel K2, ``reduce_sorted``).  Batches
-merge by rank (kernel K17, ``merge_at``: each lane's place in the merged
-order is its index plus its rank in the other table), then K2 sums the
-counts of equal keys.  The table stays sorted and PAD-filled past ``n`` so
-it is ready for binary search (K3).
+merge in one pass (kernel K17, ``merge_at``: a merge path over the real
+lanes of both tables that sums the counts of equal keys as it goes).  The
+table stays sorted and PAD-filled past ``n`` so it is ready for binary
+search (K3).
 
 Overflow contract: a table never drops a key silently.  A batch with more
 distinct k-mers than ``capacity`` raises; a merge that does not fit the
@@ -196,25 +196,27 @@ def _merge_at_cuda(a: Spectrum, b: Spectrum, capacity: int) -> Spectrum:
         raise ValueError(f"the tables lie on {a.device} and {b.device}")
     Ca, Cb = a.capacity, b.capacity
     dev = a.device
-    keys = torch.empty(Ca + Cb, dtype=torch.int64, device=dev)
-    counts = torch.empty(Ca + Cb, dtype=torch.int32, device=dev)
+    key = torch.empty(capacity, dtype=torch.int64, device=dev)
+    count = torch.zeros(capacity, dtype=torch.int32, device=dev)
+    scratch = kernels.scan_scratch(Ca + Cb, dev)
     lib = kernels.library()
     lib.call(
         "shannon_merge_tables", dev,
         kernels.ptr(a.key), kernels.ptr(a.count), Ca, kernels.ptr(b.key), kernels.ptr(b.count),
-        Cb, kernels.ptr(keys), kernels.ptr(counts),
+        Cb, capacity, kernels.ptr(scratch), scratch.shape[0], kernels.ptr(key),
+        kernels.ptr(count),
     )
     lib.count("merge_spectra")
-    key, count, _, n = _reduce_sorted_cuda(keys, counts, capacity)
-    return Spectrum(key=key, count=count, n=n)
+    return Spectrum(key=key, count=count, n=kernels.scan_total(scratch))
 
 
 def merge_at(a: Spectrum, b: Spectrum, capacity: int) -> Spectrum:
     """Merge two sorted spectra (PAD last; their capacities may differ)
     into `capacity` lanes; equal keys sum their counts, and n counts every
-    distinct key even past `capacity` (ops/count.py:256 _merge_at).  Kernel
-    K17 (a merge by rank, no sort) and K2 on CUDA, the plain version on
-    CPU."""
+    distinct key even past `capacity` (ops/count.py:256 _merge_at).  Only
+    the lanes before each table's first PAD are merged.  Kernel K17 (one
+    merge-path pass that sums equal keys, no sort) on CUDA, the plain
+    version on CPU."""
     if a.key.is_cuda:
         return _merge_at_cuda(a, b, capacity)
     return merge_at_plain(a, b, capacity)

@@ -19,7 +19,9 @@ from shannon_tpu_torch import convert, kernels
 from shannon_tpu_torch.ops import count as tc
 from shannon_tpu_torch.ops.kmers import PAD
 
-from test_torch_kernels import EDGE_SIZES, RUN_SHAPES, merge_case, run_case
+from test_torch_kernels import (
+    EDGE_SIZES, MERGE_OVERFLOW_CASES, MERGE_TILE_CASES, RUN_SHAPES, merge_case, run_case,
+)
 
 
 def _reads(seed: int, n_tr: int = 3, error_rate: float = 0.01) -> list[str]:
@@ -91,12 +93,15 @@ def test_merge_matches_reference():
     _assert_same(tc.merge_spectra_sized(a_port, b_port), jc.merge_spectra_sized(a_ref, b_ref))
 
 
-@pytest.mark.parametrize("case", ["unequal", "identical", "disjoint", "empty", "overflow"])
+@pytest.mark.parametrize(
+    "case", ["unequal", "identical", "disjoint", "empty", "overflow", *MERGE_TILE_CASES]
+)
 def test_merge_at_cases_match_reference(case):
     """K17's plain version == _merge_at: capacities that differ, a table
     merged with itself, disjoint and interleaved tables, an empty table,
     and an output capacity below the union (n counts every distinct key,
-    the table keeps the first `capacity` of them)."""
+    the table keeps the first `capacity` of them), and K17's tile cases
+    (repeated keys and wrapping counts among them)."""
     (ak, ac, acap), (bk, bc, bcap), cap = merge_case(case)
     port = tc.merge_at(
         tc.spectrum_from_arrays(ak, ac, acap, device="cpu"),
@@ -107,7 +112,7 @@ def test_merge_at_cases_match_reference(case):
     _assert_same(port, ref)
     union = len(np.union1d(ak, bk))
     assert port.n == union and port.overflowed() == (union >= cap)
-    assert (case == "overflow") == (union > cap)
+    assert (case in MERGE_OVERFLOW_CASES) == (union > cap)
 
 
 def test_merge_at_runs_plain_on_cpu(monkeypatch):
@@ -228,3 +233,129 @@ def test_spectrum_convert_round_trip():
         tc.spectrum_from_arrays(kmers, counts, device="cpu"), jc.spectrum_from_arrays(kmers, counts)
     )
     assert port.to_dict() == ref.to_dict()
+
+
+def _warp_partition(lo: int, hi: int, pred) -> int:
+    """csrc/kernels.cu warp_partition: the first index in [lo, hi) where
+    pred is false (pred true on a prefix), 32 pivots a round."""
+    while hi > lo:
+        span = hi - lo
+        if span <= 32:
+            return lo + sum(pred(lo + lane) for lane in range(span))
+        p = [lo + span * (lane + 1) // 33 for lane in range(32)]
+        t = [pred(x) for x in p]
+        c = sum(t)
+        assert t == [True] * c + [False] * (32 - c)
+        lo, hi = (p[c - 1] + 1 if c > 0 else lo), (p[c] if c < 32 else hi)
+    return lo
+
+
+def _k17_transcription(a_key, a_count, b_key, b_count, capacity, tile, threads):
+    """merge_runs_kernel (csrc/kernels.cu) in numpy, its tiles in ticket
+    order: real lengths by search for PAD, each tile's merge-path split on
+    its two diagonals, each thread's split of its own diagonal in the tile
+    and its merge (ties to a), K2's start flags, weights, records and
+    copy-out, the edge runs added as the kernel's atomicAdds add them, the
+    last real tile's total in the last status word, then the tail fill."""
+    items = tile // threads
+    Ca, Cb = len(a_key), len(b_key)
+    na = _warp_partition(0, Ca, lambda i: a_key[i] != PAD)
+    nb = _warp_partition(0, Cb, lambda i: b_key[i] != PAD)
+    N, tiles = na + nb, -(-(Ca + Cb) // tile)
+
+    def split(d):
+        return _warp_partition(max(0, d - nb), min(d, na), lambda i: a_key[i] <= b_key[d - 1 - i])
+
+    out_key = np.full(capacity, -7, np.int64)  # -7: never written
+    out_count = np.zeros(capacity, np.uint32)
+    status = np.zeros(tiles, np.int64)
+    for t in range(tiles):
+        d0 = t * tile
+        if d0 >= N:
+            break
+        d1 = min(d0 + tile, N)
+        a0, a1 = split(d0), split(d1)
+        b0, b1 = d0 - a0, d1 - a1
+        la, L = a1 - a0, d1 - d0
+        lb = L - la
+        sk = np.concatenate([a_key[a0:a1], b_key[b0:b1]])
+        sc = np.concatenate([a_count[a0:a1], b_count[b0:b1]]).astype(np.uint32)
+        lowest = -(1 << 63)
+        before = PAD if d0 == 0 else max(a_key[a0 - 1] if a0 else lowest,
+                                         b_key[b0 - 1] if b0 else lowest)
+        after = min(a_key[a1] if a1 < na else PAD, b_key[b1] if b1 < nb else PAD)
+        keys, weights, flags = [], [], []
+        for tid in range(threads):
+            first = tid * items
+            lo, hi = (0, 0) if first >= L else (max(0, first - lb), min(first, la))
+            while lo < hi:
+                mid = (lo + hi) >> 1
+                if sk[mid] <= sk[la + first - 1 - mid]:
+                    lo = mid + 1
+                else:
+                    hi = mid
+            ai, bi = lo, first - lo
+            prev = before
+            if 0 < first < L:
+                prev = max(sk[ai - 1] if ai else lowest, sk[la + bi - 1] if bi else lowest)
+            for j in range(items):
+                ka = sk[ai] if ai < la else PAD
+                kb = sk[la + bi] if bi < lb else PAD
+                if first + j >= L:
+                    k, w = PAD, 0
+                elif ka <= kb:
+                    k, w, ai = ka, sc[ai], ai + 1
+                else:
+                    k, w, bi = kb, sc[la + bi], bi + 1
+                flags.append(k != PAD and k != prev)
+                keys.append(k)
+                weights.append(w)
+                prev = k
+        assert keys[:L] == sorted(keys[:L])
+        w = np.array(weights, np.uint64)
+        excl = (np.cumsum(w) - w).astype(np.uint32)  # wraps modulo 2^32, as the kernel's sums
+        tile_weight = np.uint32(int(w.sum()) % (1 << 32))
+        start_at = np.flatnonzero(flags)
+        s_start, s_before = np.array(keys)[start_at], excl[start_at]
+        starts = len(start_at)
+        prefix = int(status[t - 1]) if t else 0
+        if prefix > 0 and prefix - 1 < capacity:
+            out_count[prefix - 1] += s_before[0] if starts else tile_weight
+        for q in range(starts):
+            g = prefix + q
+            if g >= capacity:
+                break
+            out_key[g] = s_start[q]
+            if q + 1 < starts:
+                out_count[g] = s_before[q + 1] - s_before[q]
+            elif after == s_start[q]:
+                out_count[g] += tile_weight - s_before[q]
+            else:
+                out_count[g] = tile_weight - s_before[q]
+        status[t] = prefix + starts
+        if d1 == N and t != tiles - 1:
+            status[tiles - 1] = status[t]
+    n = int(status[-1]) if tiles else 0
+    out_key[n:] = PAD
+    return tc.Spectrum(key=torch.from_numpy(out_key),
+                       count=torch.from_numpy(out_count.view(np.int32)), n=n)
+
+
+@pytest.mark.parametrize(
+    "case", ["unequal", "identical", "disjoint", "empty", "overflow", *MERGE_TILE_CASES]
+)
+@pytest.mark.parametrize("tile,threads", [(4096, 256), (64, 16)])
+def test_k17_merge_path_transcription_matches_reference(case, tile, threads):
+    """K17's one-pass merge, transcribed, equals the reference's _merge_at
+    on every merge case: at the kernel's tile, and at 64-lane tiles, where
+    the same tables cross many tile edges (runs over several tiles, equal
+    pairs split by a diagonal, a last tile short of its end)."""
+    (ak, ac, acap), (bk, bc, bcap), cap = merge_case(case)
+    a = tc.spectrum_from_arrays(ak, ac, acap, device="cpu")
+    b = tc.spectrum_from_arrays(bk, bc, bcap, device="cpu")
+    with np.errstate(over="ignore"):  # the counts' sums wrap modulo 2^32 on purpose
+        port = _k17_transcription(a.key.numpy(), a.count.numpy(), b.key.numpy(),
+                                  b.count.numpy(), cap, tile, threads)
+    ref = jc._merge_at(jc.spectrum_from_arrays(ak, ac, acap), jc.spectrum_from_arrays(bk, bc, bcap),
+                       cap)
+    _assert_same(port, ref)

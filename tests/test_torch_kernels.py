@@ -62,7 +62,7 @@ def _batch(seed: int, n: int = 3000):
     return pack_reads(reads, pad_length=128)
 
 
-@pytest.mark.parametrize("k", [5, 16, 24, 31])
+@pytest.mark.parametrize("k", [1, 5, 16, 24, 31])
 @pytest.mark.parametrize("canonical", [True, False])
 @pytest.mark.parametrize("with_mask", [True, False])
 def test_extract_kmers_kernel_matches_plain(cuda, k, canonical, with_mask):
@@ -78,6 +78,66 @@ def test_extract_kmers_kernel_matches_plain(cuda, k, canonical, with_mask):
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
+
+
+def extract_case(pad: int, k: int, n: int = 777, seed: int = 0):
+    """Packed reads for K1's shapes, as numpy arrays made from a seed: n rows
+    at `pad` bases (lengths 0..pad, some shorter than k), an N mask word a
+    row with bits at bases 31, 32, 63 and 64 where the pad has them and a
+    few at random, and the pad length K1 is asked for (the pad itself; W =
+    pad - k + 1 is not a multiple of 32 for most pads)."""
+    from shannon_tpu_torch.io.pack import pack_words
+
+    rng = np.random.default_rng(seed + pad + 100 * k)
+    codes = rng.integers(0, 4, (n, pad)).astype(np.uint8)
+    lengths = rng.integers(0, pad + 1, n).astype(np.int32)
+    lengths[: n // 4] = pad
+    lengths[n // 4 : n // 3] = rng.integers(0, k, n // 3 - n // 4)  # shorter than k
+    bad = np.zeros((n, pad), bool)
+    for i, p in enumerate(b for b in (31, 32, 63, 64) if b < pad):
+        bad[i::5, p] = True
+    bad[rng.random((n, pad)) < 0.002] = True
+    wm = -(-pad // 32)
+    bits = np.zeros((n, 32 * wm), np.uint32)
+    bits[:, :pad] = bad
+    shifts = np.arange(32 * wm, dtype=np.uint32) % 32
+    mask = (bits << shifts).reshape(n, wm, 32).sum(axis=2, dtype=np.uint32)
+    return pack_words(codes), lengths, mask, pad
+
+
+@pytest.mark.parametrize("pad", [64, 100, 150, 256])
+@pytest.mark.parametrize("k", [1, 16, 24, 31])
+@pytest.mark.parametrize("with_mask", [True, False])
+def test_extract_kmers_kernel_shapes(cuda, pad, k, with_mask):
+    """K1 at pad lengths 64-256 (rows of 4-16 words, W not a multiple of
+    32), reads shorter than k, mask bits on either side of the 32-base mask
+    words' edges, both canonical modes: keys and valid equal the plain
+    version's."""
+    words, lengths, mask, length = extract_case(pad, k)
+    args = [torch.from_numpy(words.view(np.int32)), torch.from_numpy(lengths)]
+    m = torch.from_numpy(mask.view(np.int32)) if with_mask else None
+    for canonical in (True, False):
+        want = extract_kmers_packed_plain(*args, k, canonical, length, m)
+        got = extract_kmers_packed(*(x.to(cuda) for x in args), k, canonical, length,
+                                   None if m is None else m.to(cuda))
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            _equal(g.cpu(), w, "keys and valid")
+
+
+def test_extract_kmers_kernel_long_rows(cuda):
+    """Rows too long for a block to stage (12,500 words and 6,250 mask words
+    a row) are read in place: still equal to the plain version."""
+    words, lengths, mask, length = extract_case(200_000, 31, n=3)
+    args = [torch.from_numpy(words.view(np.int32)), torch.from_numpy(lengths)]
+    m = torch.from_numpy(mask.view(np.int32))
+    for mm in (m, None):
+        want = extract_kmers_packed_plain(*args, 31, True, length, mm)
+        got = extract_kmers_packed(*(x.to(cuda) for x in args), 31, True, length,
+                                   None if mm is None else mm.to(cuda))
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            _equal(g.cpu(), w, "keys and valid")
 
 
 @pytest.mark.parametrize("capacity", [1, 1000, 1 << 16])
@@ -1159,17 +1219,65 @@ def test_count_histogram_kernel_at_any_max_count(cuda, max_count):
     assert int(got[0]) == 0 and int(got[max_count]) > 0
 
 
+# K17's merge cases beyond the first six: merged real lengths around one
+# and two scan tiles, an equal pair split across tile 0's last diagonal,
+# tables that repeat keys (a run longer than a tile among them), counts
+# whose sums wrap past 2^31 and 2^32, an output capacity inside tile 1's
+# slots, b all PAD under a table of three tiles, and capacities that are not
+# multiples of 16.
+MERGE_TILE_CASES = ["real_4095", "real_4096", "real_4097", "real_8191", "real_8193",
+                    "tie_on_diagonal", "repeated", "wrap", "below_union", "b_all_pad",
+                    "odd_capacities"]
+# Cases whose union of distinct keys exceeds the output capacity.
+MERGE_OVERFLOW_CASES = ("overflow", "below_union")
+
+
 def merge_case(case: str):
     """Two sorted tables of one merge case from numpy arrays made from a
     seed, (keys, counts, capacity) each, and the merge's output capacity:
     capacities that differ (half of b's keys in a as well), a table merged
     with itself, interleaved disjoint tables, one empty table, a union past
-    the output capacity, and two all-pad tables."""
+    the output capacity, two all-pad tables, and MERGE_TILE_CASES."""
     rng = np.random.default_rng(len(case))
     pool = np.unique(rng.integers(0, 1 << 48, size=20_000, dtype=np.int64)).astype(np.uint64)
 
-    def table(keys, cap):
-        return np.sort(keys), rng.integers(1, 60, size=keys.shape[0]).astype(np.int32), cap
+    def table(keys, cap, counts=None):
+        if counts is None:
+            counts = rng.integers(1, 60, size=keys.shape[0]).astype(np.int32)
+        order = np.argsort(keys, kind="stable")
+        return keys[order], counts[order], cap
+
+    def split(keys):
+        """keys dealt at random between a and b."""
+        to_a = rng.random(keys.shape[0]) < 0.5
+        return keys[to_a], keys[~to_a]
+
+    def real(n):  # disjoint tables of n real lanes in all, with PAD tails
+        a, b = split(pool[:n])
+        return table(a, a.shape[0] + 100), table(b, b.shape[0] + 37), n + 5
+
+    def tie_on_diagonal():  # key pool[4095] at merged lanes 4095 (a) and 4096 (b)
+        a, b = split(pool[:4095])
+        c, d = split(pool[4096:6000])
+        x = pool[4095:4096]
+        return (table(np.concatenate([a, x, c]), 3000), table(np.concatenate([b, x, d]), 3200),
+                6100)
+
+    def repeated():  # runs of 1-8 lanes in each table, one key on 5,000 + 3,000 lanes
+        a = np.concatenate([np.repeat(pool[:300], rng.integers(1, 9, 300)),
+                            np.full(5000, pool[150])])
+        b = np.concatenate([np.repeat(pool[100:400], rng.integers(1, 9, 300)),
+                            np.full(3000, pool[150])])
+        return table(a, a.shape[0] + 50), table(b, b.shape[0] + 3), 4500
+
+    def wrap():  # each key 3 lanes in a and 2 in b, counts near 2^30
+        keys = pool[:1500]
+        a, b = np.repeat(keys, 3), np.repeat(keys, 2)
+
+        def big(n):
+            return rng.integers((1 << 30) - 1000, (1 << 30) + 1000, n).astype(np.int32)
+
+        return table(a, 4600, big(a.shape[0])), table(b, 3001, big(b.shape[0])), 1500
 
     return {
         "unequal": lambda: (table(pool[:3000], 4096),
@@ -1179,6 +1287,17 @@ def merge_case(case: str):
         "empty": lambda: (table(pool[:0], 1024), table(pool[:700], 1024), 1024),
         "overflow": lambda: (table(pool[:3000], 4096), table(pool[2000:5000], 4096), 3500),
         "all_pad": lambda: (table(pool[:0], 1024), table(pool[:0], 512), 1024),
+        "real_4095": lambda: real(4095),
+        "real_4096": lambda: real(4096),
+        "real_4097": lambda: real(4097),
+        "real_8191": lambda: real(8191),
+        "real_8193": lambda: real(8193),
+        "tie_on_diagonal": tie_on_diagonal,
+        "repeated": repeated,
+        "wrap": wrap,
+        "below_union": lambda: (table(pool[:6000], 6001), table(pool[3000:9000], 6003), 5001),
+        "b_all_pad": lambda: (table(pool[:12_300], 12_307), table(pool[:0], 2048), 12_400),
+        "odd_capacities": lambda: (table(pool[:900], 1003), table(pool[500:5000], 4517), 5011),
     }[case]()
 
 
@@ -1193,19 +1312,23 @@ def _merge_tables(case: str):
 
 
 @pytest.mark.parametrize(
-    "case", ["unequal", "identical", "disjoint", "empty", "overflow", "all_pad", "counted"]
+    "case",
+    ["unequal", "identical", "disjoint", "empty", "overflow", "all_pad", "counted",
+     *MERGE_TILE_CASES],
 )
 def test_merge_kernel_matches_plain(cuda, case):
-    """K17 (then K2): keys, counts and n, n past the capacity included."""
+    """K17, one pass: keys, counts and n, n past the capacity included; it
+    launches no K2."""
     a, b, cap = _merge_tables(case)
     lib = kernels.library()
-    before = lib.launches["merge_spectra"]
+    before = dict(lib.launches)
     got = merge_at(_to(a, cuda), _to(b, cuda), cap)
-    assert lib.launches["merge_spectra"] == before + 1
+    assert lib.launches["merge_spectra"] == before["merge_spectra"] + 1
+    assert lib.launches["reduce_sorted"] == before["reduce_sorted"]
     want = merge_at_plain(a, b, cap)
     torch.cuda.synchronize()
     assert got.n == want.n
-    assert (case == "overflow") == (want.n > cap)
+    assert (case in MERGE_OVERFLOW_CASES) == (want.n > cap)
     _equal(got.key.cpu(), want.key, "key")
     _equal(got.count.cpu(), want.count, "count")
 

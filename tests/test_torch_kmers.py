@@ -135,3 +135,90 @@ def test_short_pad_is_refused():
         tk.extract_kmers_packed(words, lengths, 20, length=16)
     with pytest.raises(ValueError, match="pad_length"):
         tk.extract_kmers(torch.from_numpy(batch.codes), lengths, 20)
+
+
+_U32 = np.uint64(0xFFFFFFFF)
+
+
+def _funnel_r(lo, hi, shift):
+    """__funnelshift_r on uint64 arrays of 32-bit values, shift < 32."""
+    return (((hi << np.uint64(32)) | lo) >> shift.astype(np.uint64)) & _U32
+
+
+def _revcomp_bits(key, k: int):
+    """csrc/common.cuh revcomp_bits: complement, reverse the 64 bits, swap
+    each base's two bits back, shift down."""
+    r = ~key & np.uint64((1 << (2 * k)) - 1)
+    for s, m in ((1, 0x5555555555555555), (2, 0x3333333333333333), (4, 0x0F0F0F0F0F0F0F0F),
+                 (8, 0x00FF00FF00FF00FF), (16, 0x0000FFFF0000FFFF), (32, 0x00000000FFFFFFFF)):
+        s, m = np.uint64(s), np.uint64(m)
+        r = ((r >> s) & m) | ((r & m) << s)  # __brevll
+    m = np.uint64(0x5555555555555555)
+    r = ((r >> np.uint64(1)) & m) | ((r & m) << np.uint64(1))
+    return r >> np.uint64(64 - 2 * k)
+
+
+def _k1_transcription(words, lengths, mask, length, k, canonical, rows, threads):
+    """extract_kmers_kernel (csrc/kernels.cu) in numpy: blocks of `rows`
+    read rows; each thread walks the block's flat windows from one division,
+    stepping row and offset by constants (checked against the flat index);
+    each window is one funnel shift of the <= 3 words holding its bases
+    (words past the row read 0), rc = ~S & mask, fwd = revcomp_bits(rc),
+    and the mask bits of [j, j + k) are one funnel shift of <= 2 words."""
+    n, ww = words.shape
+    W = length - k + 1
+    w64 = np.concatenate([words.astype(np.uint64), np.zeros((n, 2), np.uint64)], axis=1)
+    m64 = None if mask is None else np.concatenate(
+        [mask.astype(np.uint64), np.zeros((n, 1), np.uint64)], axis=1)
+    keys = np.full((n, W), -1, np.int64)
+    valid = np.zeros((n, W), bool)
+    for r0 in range(0, n, rows):
+        total = min(rows, n - r0) * W
+        step_r, step_j = threads // W, threads - (threads // W) * W
+        walk = []
+        for t in range(threads):
+            r, j = t // W, t - (t // W) * W
+            for f in range(t, total, threads):
+                walk.append((f, r, j))
+                j, r = j + step_j, r + step_r
+                if j >= W:
+                    j, r = j - W, r + 1
+        f, r, j = (np.array(x, np.int64) for x in zip(*walk)) if walk else [np.zeros(0, int)] * 3
+        assert np.array_equal(np.sort(f), np.arange(total)) and np.array_equal(f, r * W + j)
+        row, w0 = r0 + r, j >> 4
+        shift = (2 * (j & 15)).astype(np.uint64)
+        x0, x1, x2 = (w64[row, w0 + i] for i in range(3))
+        S = (_funnel_r(x1, x2, shift) << np.uint64(32)) | _funnel_r(x0, x1, shift)
+        rc = ~S & np.uint64((1 << (2 * k)) - 1)
+        fwd = _revcomp_bits(rc, k)
+        ok = j + k <= lengths[row]
+        if m64 is not None:
+            bits = _funnel_r(m64[row, j >> 5], m64[row, (j >> 5) + 1], (j & 31).astype(np.uint64))
+            ok &= (bits & np.uint64(0xFFFFFFFF >> (32 - k))) == 0
+        v = np.where(canonical & (rc < fwd), rc, fwd).astype(np.int64)
+        keys[row, j] = np.where(ok, v, tk.PAD)
+        valid[row, j] = ok
+    return keys, valid
+
+
+@pytest.mark.parametrize("pad", [64, 100, 150, 256])
+@pytest.mark.parametrize("k", [1, 16, 24, 31])
+@pytest.mark.parametrize("rows,threads", [(32, 256), (3, 64)])
+def test_k1_funnel_transcription_matches_reference(pad, k, rows, threads):
+    """The funnel-shift design of K1, transcribed, equals the reference's
+    extract_kmers_packed at pads 64-256, reads shorter than k and mask bits
+    on either side of the mask words' edges, masked and not, both canonical
+    modes; at the kernel's block shape and at a small one whose blocks and
+    walks end mid-row."""
+    from test_torch_kernels import extract_case
+
+    words, lengths, mask, length = extract_case(pad, k, n=70)
+    for m in (mask, None):
+        for canonical in (True, False):
+            hi, lo, valid = extract_kmers_packed(
+                jnp.asarray(words), jnp.asarray(lengths), k, canonical, length,
+                None if m is None else jnp.asarray(m))
+            key, got_valid = _k1_transcription(words, lengths, m, length, k, canonical, rows,
+                                               threads)
+            np.testing.assert_array_equal(key, hilo_to_key(np.asarray(hi), np.asarray(lo)))
+            np.testing.assert_array_equal(got_valid, np.asarray(valid))
