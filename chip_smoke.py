@@ -318,6 +318,17 @@ def _nbytes(*tensors) -> int:
     return sum(x.numel() * x.element_size() for x in tensors)
 
 
+def _prefix_sectors(lanes, width: int) -> int:
+    """The 32-byte sectors that hold each row's first `lanes` lanes of an
+    [N, width] int64 array laid out row after row from a sector boundary
+    (the caching allocator aligns every block to 512 bytes)."""
+    import torch
+
+    start = torch.arange(lanes.numel(), device=lanes.device) * (8 * width)
+    end = start + 8 * lanes
+    return int(torch.where(lanes > 0, (end - 1) // 32 - start // 32 + 1, 0).sum())
+
+
 def _row(err: float, t: tuple[float, float], bytes_: float, ops: float,
          library_ms: float | None) -> dict:
     """One kernel's entry of the kernels line: exactness, kernel and plain
@@ -793,6 +804,7 @@ def thread_phase(reads, dev, smi: str) -> dict:
     scale dataset threaded through the graph built from them."""
     import torch
 
+    from shannon_tpu_torch import kernels
     from shannon_tpu_torch.config import AssemblyConfig
     from shannon_tpu_torch.io.pack import pack_reads
     from shannon_tpu_torch.ops import thread as tth
@@ -822,12 +834,29 @@ def thread_phase(reads, dev, smi: str) -> dict:
     _print_row(f"K4 thread_rows {N} reads x {W} windows, {int(rows[2].sum())} events",
                out["thread_rows"], smi)
     compacted = tth.compact_thread_outputs_plain(*rows)
+    lib = kernels.library()
+    before = dict(lib.launches)
     err = _max_abs_err(tth.compact_thread_outputs(*rows), compacted)
+    launched = {n: c - before[n] for n, c in lib.launches.items() if c != before[n]}
+    if launched != {"compact_rows": 1}:
+        raise AssertionError(f"K5 launched {launched} in one call, not one compact_rows")
     t = _alternate(lambda: tth.compact_thread_outputs(*rows),
                    lambda: tth.compact_thread_outputs_plain(*rows))
-    out["compact_rows"] = _row(err, t, _nbytes(*rows, *compacted), sum(r.numel() for r in rows),
-                               None)
-    _print_row(f"K5 compact_rows {N} rows", out["compact_rows"], smi)
+    # bytes: what the data needs, not the padding: n_events in; of each
+    # run_p0 row the 32-byte sectors up to and including its first -1 (the
+    # lane that ends its runs, or the row's end), which hold its real p0
+    # lanes too; the real events (16 bytes) in and out, the real runs' other
+    # 24 bytes in and their 32 out, n_runs out.  operations: a few for each
+    # run_p0 lane read and each entry copied
+    R = rows[3].shape[1]
+    tot_e, tot_r = compacted[0].numel(), compacted[2].numel()
+    p0_lanes = torch.clamp(compacted[7] + 1, max=R)
+    p0_sectors = _prefix_sectors(p0_lanes, R)
+    out["compact_rows"] = _row(
+        err, t, 8 * N + 32 * p0_sectors + 2 * 16 * tot_e + (24 + 32) * tot_r + 8 * N,
+        int(p0_lanes.sum()) + tot_e + tot_r, None)
+    _print_row(f"K5 compact_rows {N} rows -> {tot_e} events, {tot_r} runs, {p0_sectors} run_p0 "
+               "sectors (one launch, one host read a call)", out["compact_rows"], smi)
     return out
 
 
@@ -1172,20 +1201,25 @@ def _condense_chain(spec, k: int, canonical: bool, label: str, smi: str):
     prev, rec_lane, first_p, p_cnt = links
 
     before = lib.launches["label_round"]
-    ptr, dist, has_cycle = tcd.label_stage(prev)
-    rounds = lib.launches["label_round"] - before
+    info = {}
+    ptr, dist, has_cycle = tcd.label_stage(prev, info=info)
+    if lib.launches["label_round"] - before != 1:
+        raise AssertionError(f"K13 [{label}] the label stage counted "
+                             f"{lib.launches['label_round'] - before} launches, not one")
+    rounds, lane_rounds = info["rounds_run"], sum(info["frontier"])
     want = tcd.label_stage_plain(prev)
     if has_cycle != want[2]:
         raise AssertionError(f"K13 [{label}] has_cycle {has_cycle} != {want[2]}")
     # bytes: the links in, (pointer, offset) out; operations: a few a lane
-    # a round
+    # a round of the frontier
     rows["label_round"] = _row(
         _max_abs_err((ptr, dist), want[:2]),
         _alternate(lambda: tcd.label_stage(prev), lambda: tcd.label_stage_plain(prev)),
-        _nbytes(prev, ptr, dist), 4 * rounds * C2, None,
+        _nbytes(prev, ptr, dist), 4 * lane_rounds, None,
     )
-    _print_row(f"K13 label_round [{label}] {C2} lanes, {rounds} rounds (one launch and one "
-               f"flag read each), has_cycle {has_cycle}", rows["label_round"], smi)
+    _print_row(f"K13 label_round [{label}] {C2} lanes, {rounds} rounds, frontier a round "
+               f"{info['frontier']} ({lane_rounds} lane-rounds), {info['host_reads']} host read "
+               f"a call, has_cycle {has_cycle}", rows["label_round"], smi)
     if has_cycle:
         before = lib.launches["cycle_round"]
         cut = tcd.cycle_fix(prev)
@@ -1241,7 +1275,8 @@ def _condense_chain(spec, k: int, canonical: bool, label: str, smi: str):
     print(f"build_contig_arrays [{label}] on K11-K14: {whole_ms:.3f} ms (CUDA events, mean of 3) "
           f"[{smi}]")
     stage = {"n_kmers": spec.n, "lanes": C, "node_lanes": C2, "n_nodes": n_nodes,
-             "n_contigs": n, "label_rounds": rounds, "has_cycle": has_cycle,
+             "n_contigs": n, "label_rounds": rounds, "label_frontier": info["frontier"],
+             "has_cycle": has_cycle,
              "build_contig_arrays_ms": whole_ms}
     return rows, stage
 

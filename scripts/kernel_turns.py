@@ -61,8 +61,15 @@ merge_spectra_sized call ("merge_largest": the running total near 12.6M
 lanes and the last batch), and all of the count's merges replayed through
 ops.count.merge_batch from its 16 batch tables ("merge_replay", 20
 replays a window, the host reads of n included).  Each K1 and K17 row has
-its device_us.  Prints one JSON line per tree and, with --out, writes them
-all.
+its device_us.  K5 (compact_thread_outputs) on K4's rows of that first
+batch, and K13's label stage (label_stage) on the links of the 1M-read
+spectrum after correct_spectrum and shrink_spectrum (8,388,608 node lanes,
+chip_smoke.py's condensation input), each with its device_us and the
+card's idle time a call ("idle_us": the event time less the device time);
+the label stage also lists every launch of one call
+("label_stage_launch_us") and, where the tree's label_stage reports them,
+the rounds run and each round's frontier ("label_stage_info").  Prints
+one JSON line per tree and, with --out, writes them all.
 """
 
 from __future__ import annotations
@@ -87,7 +94,8 @@ def _search_inputs() -> dict:
     from shannon_tpu_torch.io.pack import pack_reads
     from shannon_tpu_torch.ops.count import count_reads_spectrum, reduce_sorted, shrink_spectrum
     from shannon_tpu_torch.ops.count import upload_words
-    from shannon_tpu_torch.ops.correction import auto_min_abundance
+    from shannon_tpu_torch.ops.condense import links_stage, nodes_stage
+    from shannon_tpu_torch.ops.correction import auto_min_abundance, correct_spectrum
     from shannon_tpu_torch.ops.kmers import extract_kmers_packed
     from shannon_tpu_torch.ops.spectrum import lookup_sorted
     from shannon_tpu_torch.pipeline import spectrum_device
@@ -109,7 +117,16 @@ def _search_inputs() -> dict:
     r_query = extract_kmers_packed(words, lengths, KERNEL_K, True, KERNEL_PAD)[0]
     r_table = reduce_sorted(window_keys(dev, seed=1), None, 1 << 22)[0]
     t_idx, t_hit = lookup_sorted(ca.node_key, windows)
+    # K13's input: the links of the corrected, shrunk spectrum, as
+    # chip_smoke.py's condensation phase gets them
+    k, canonical = cfg.k, not cfg.strand_specific
+    corrected = shrink_spectrum(correct_spectrum(
+        spec, k, auto_min_abundance(spec), cfg.sibling_ratio, cfg.correction_rounds, canonical,
+        cfg.error_rate,
+    ))
+    prev_link = links_stage(nodes_stage(corrected, k, canonical)[0], k)[0]
     out = {"p_key": spec.key, "p_count": spec.count, "node_key": ca.node_key,
+           "prev_link": prev_link,
            "windows": windows, "r_table": r_table, "r_query": r_query, "t_idx": t_idx,
            "t_hit": t_hit, "t_valid": valid, "node_cid": ca.node_cid, "node_off": ca.node_off}
     out = {name: x.cpu().numpy() for name, x in out.items()}
@@ -257,6 +274,17 @@ def _launch_us(fn) -> list:
             if evt.device_type == torch.autograd.DeviceType.CUDA]
 
 
+def _label_info(label_stage, prev_link) -> dict:
+    """The rounds run and each round's frontier of one label_stage call,
+    where the tree's label_stage reports them (its info argument)."""
+    import inspect
+
+    info = {}
+    if "info" in inspect.signature(label_stage).parameters:
+        label_stage(prev_link, info=info)
+    return info
+
+
 def _child(tree: str, inputs: str) -> None:
     sys.path.insert(0, tree)
     import numpy as np
@@ -265,7 +293,8 @@ def _child(tree: str, inputs: str) -> None:
     import shannon_tpu_torch
     from shannon_tpu_torch.ops import correction as tcor
     from shannon_tpu_torch.ops.correction import compact, probe_resolve
-    from shannon_tpu_torch.ops.thread import thread_windows
+    from shannon_tpu_torch.ops.condense import label_stage
+    from shannon_tpu_torch.ops.thread import compact_thread_outputs, thread_windows
     from shannon_tpu_torch.ops import count as count_module
     from shannon_tpu_torch.ops.count import Spectrum, merge_at, merge_at_plain, merge_batch
     from shannon_tpu_torch.ops.count import reduce_sorted
@@ -388,9 +417,15 @@ def _child(tree: str, inputs: str) -> None:
                     break
                 c = nxt
             return c
+    # K5 on K4's rows of that batch; K13's label stage on the corrected
+    # spectrum's links
+    rows = thread_windows(*threading)
+    prev_link = on_card("prev_link")
     loops = {"thread_rows": (lambda: thread_windows(*threading), 200),
              "rescue_1": (lambda: rescue(1), 200),
-             "rescue_loop": (lambda: rescue(k + 2), 20)}
+             "rescue_loop": (lambda: rescue(k + 2), 20),
+             "compact_rows": (lambda: compact_thread_outputs(*rows), 200),
+             "label_stage": (lambda: label_stage(prev_link), 50)}
 
     search_ms = {}
     for name, (fn, library, reps) in search.items():
@@ -414,6 +449,10 @@ def _child(tree: str, inputs: str) -> None:
         "rescue_loop_rescued": int((rescue(k + 2) != counts).sum()),
         "rescue_loop_launch_us": _launch_us(lambda: rescue(k + 2)),
         "thread_rows_events": int(thread_windows(*threading)[2].sum()),
+        "compact_rows_totals": [int(x.shape[0]) for x in compact_thread_outputs(*rows)[:4:2]],
+        "label_stage_has_cycle": label_stage(prev_link)[2],
+        "label_stage_info": _label_info(label_stage, prev_link),
+        "label_stage_launch_us": _launch_us(lambda: label_stage(prev_link)),
         **{f"{name}_ms": median_ms(lambda a=args: extract_kmers_packed(*a))
            for name, args in extracts.items()},
         **{f"{name}_ms": median_ms(lambda a=args: merge_at(*a)) for name, args in merges.items()},
@@ -428,7 +467,7 @@ def _child(tree: str, inputs: str) -> None:
             "reduce_sorted_merge": _device_us(lambda: reduce_sorted(mkeys, mcounts, cap)),
             "reduce_sorted_batch": _device_us(lambda: reduce_sorted(bkeys, None, cap)),
             **{name: _device_us(fn) for name, (fn, _lib, _reps) in search.items()},
-            **{name: _device_us(fn, 5 if name == "rescue_loop" else 20)
+            **{name: _device_us(fn, 5 if name in ("rescue_loop", "label_stage") else 20)
                for name, (fn, _reps) in loops.items()},
             **{f"{name}_searchsorted": _device_us(lib) for name, (_fn, lib, _r) in search.items()},
             **{name: _device_us(lambda a=args: extract_kmers_packed(*a))
@@ -437,6 +476,9 @@ def _child(tree: str, inputs: str) -> None:
             "merge_replay": _device_us(replay, 5),
         },
     }
+    # the card's idle time a call: the event time less the device time
+    row["idle_us"] = {name: row[f"{name}_ms"] * 1e3 - sum(row["device_us"][name].values())
+                      for name in ("compact_rows", "label_stage")}
     print(json.dumps(row), flush=True)
 
 

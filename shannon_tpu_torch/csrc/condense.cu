@@ -124,59 +124,245 @@ __global__ void group_links_kernel(const int64_t* __restrict__ skey,
 }
 
 // ---------------------------------------------------------------------------
-// K13: one round of pointer doubling to the chain heads, and one round of the
-// min-propagating cycle cut.
-// Replaces shannon_tpu/ops/condense.py:232 _label_stage (one while_loop round)
-// and :264 _cycle_fix (one fori_loop round).  Jacobi rounds: each launch reads
-// the previous round's buffers and writes new ones, so every lane steps from
-// the same state, as the reference does.  The first round (ptr_in null) builds
-// the starting pointers from prev_link in registers, so no init pass runs.
-// label_round sets *changed when any pointer moved (the host loop stops at the
-// first round that moves none); after the last round label_roots sets
-// *has_cycle when any root still has a predecessor, the reference's has_cycle.
-// Each block votes (__syncthreads_or) and stores the flag once: a store from
-// every lane that moved would put millions of stores on one word.  The entry
-// points zero the flags first.  The last cycle round writes the cut links
-// (prev = -1 at each cycle's minimum lane) instead of its pointers.
-// Bound: memory; a lane reads its own pointer and value and gathers those of
-// its target, then writes 16 bytes.  The gathers are random over C2 lanes.
+// K13, label stage: every round of pointer doubling to the chain heads in one
+// enqueue, over a frontier.
+// Replaces shannon_tpu/ops/condense.py:232 _label_stage: Jacobi rounds from
+// ptr = prev >= 0 ? prev : lane, dist = prev >= 0, each round ptr' = ptr[ptr],
+// dist' = dist + dist[ptr], stopping after the first round in which no
+// pointer moves (keeping that round's values) or after R = bit_length(C2)
+// rounds; has_cycle = any lane whose final pointer still has prev >= 0.
+// Bound: memory.  The least work reads prev once and writes ptr and dist
+// once; each round of the design adds, for each lane still in the frontier,
+// its own word, one random 8-byte gather (a 32-byte sector) and one store,
+// and the tail reads every lane's word once.
+// Design.
+//  - Packed state: a lane's (ptr, dist) is one 64-bit word: ptr in bits
+//    0-30 (C2 < 2^31, which the wrapper enforces), bit 31 set when ptr is a
+//    chain head (LABEL_HEAD), dist in bits 32-63, unsigned: dist counts the
+//    steps a lane has taken, at most 2^t after round t, so at most 2^R <=
+//    2^31.  A jump is one gather, and the target's word carries the head
+//    bit of the pointer the lane takes over, so no round looks a head up.
+//  - Two buffers: round t reads words[(t - 1) % 2] and writes words[t % 2].
+//  - Final lanes leave.  A head's state never changes (ptr = itself, dist
+//    0), so a lane whose pointer is a head is final.  Round t reads lane i's
+//    word: with the head bit set the lane writes it unchanged to the output
+//    buffer (the input buffer holds it already), so both buffers hold it for
+//    any later reader, and leaves.  Otherwise it gathers its target's word,
+//    steps, and stays.  "Final" is not "did not move": a lane on a cycle of
+//    length 2^a points at itself once 2^t >= 2^a but its dist doubles every
+//    round, so it stays.  "Moved" (ptr' != ptr, the loop's exit test) is
+//    counted over the frontier; lanes that left cannot move.  So every round
+//    equals the reference's, cycle lanes included.  Heads are never
+//    gathered, so their words are never written.
+//  - ptr and dist are written once, by the tail, in lane order: a lane that
+//    leaves writes only its 8-byte word (scattered 8-byte stores into the
+//    int64 outputs cost more than the rounds' own work).
+//  - label_heads_kernel writes the head bitmap (prev < 0, C2 / 8 bytes,
+//    inside L2).  Round 1 (label_first_kernel, every lane) builds the start
+//    from prev in registers and takes one step, to (prev[prev], 2) or, where
+//    prev's prev is -1, (prev, 1), its head bit from the bitmap.  Round 1
+//    reads no buffer, so a lane whose word is final already writes it to
+//    both buffers and leaves at once.  A warp takes 32 consecutive lanes
+//    (grid-stride) and its ballot writes one word of round 2's frontier.
+//  - Later rounds (label_round_kernel): a warp takes a chunk of 32 frontier
+//    words (1,024 lanes), lane j loading word j, and lists the chunk's set
+//    lanes in shared memory in lane order (a warp scan of the words' bit
+//    counts gives each word's place); then its lanes take the list two
+//    entries at a time, so each has two gathers in flight.  Every lane of
+//    the warp has work whatever the frontier's density, and a dense chunk's
+//    own loads and stores coalesce.  The lanes that stay set their bits in
+//    the chunk's 32 words in shared memory, which lane j stores to the other
+//    bitmap (every word, so no clearing).  The grid is the resident blocks,
+//    so a small frontier does not wait on empty waves.
+//  - No counter every warp of a dense grid hits: a thread counts in
+//    registers, and a warp adds its counts to ctl once, after its last
+//    chunk (a count from each warp of a one-warp-a-word grid serializes on
+//    its address).
+//  - No host read between rounds: the wrapper enqueues all R rounds and the
+//    tail at once.  ctl holds, for each round, the lanes that moved and the
+//    lanes that stay; a round after one in which nothing moved (the loop
+//    has stopped) or nothing stayed returns at once.  The tail
+//    (label_tail_kernel) finds the last round run, unpacks every lane's word
+//    from its buffer (a head: (lane, 0)) and sets has_cycle where a pointer
+//    is no head; then one host read of ctl.
 // ---------------------------------------------------------------------------
-__global__ void label_round_kernel(const int64_t* __restrict__ prev,
-                                   const int64_t* __restrict__ ptr_in,
-                                   const int64_t* __restrict__ dist_in,
-                                   int64_t C2, int64_t* __restrict__ ptr_out,
-                                   int64_t* __restrict__ dist_out,
-                                   int32_t* __restrict__ changed) {
-  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  bool moved = false;
-  if (i < C2) {
-    int64_t p, d, np, dp;
-    if (ptr_in == nullptr) {
-      const int64_t pv = prev[i];
-      p = pv >= 0 ? pv : i;
-      d = pv >= 0 ? 1 : 0;
-      const int64_t pp = prev[p];
-      np = pp >= 0 ? pp : p;
-      dp = pp >= 0 ? 1 : 0;
-    } else {
-      p = ptr_in[i];
-      d = dist_in[i];
-      np = ptr_in[p];
-      dp = dist_in[p];
-    }
-    ptr_out[i] = np;
-    dist_out[i] = d + dp;
-    moved = np != p;
-  }
-  if (__syncthreads_or(moved) && threadIdx.x == 0) *changed = 1;
+#define LABEL_PTR_MASK 0x7fffffffull
+#define LABEL_HEAD (1ull << 31)  // the word's pointer is a head
+#define LABEL_FULL_MASK 0xffffffffu
+#define LABEL_WARPS (THREADS / 32)
+// Blocks a kernel of the stage asks for at most (grid-stride); the wrapper
+// takes the resident count below it.
+#define LABEL_GRID 2112
+
+static __device__ __forceinline__ bool label_is_head(const uint32_t* __restrict__ heads,
+                                                     int64_t p) {
+  return (heads[p >> 5] >> (p & 31)) & 1u;
 }
 
-__global__ void label_roots_kernel(const int64_t* __restrict__ prev,
-                                   const int64_t* __restrict__ ptr, int64_t C2,
-                                   int32_t* __restrict__ has_cycle) {
-  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const bool cyc = i < C2 && prev[ptr[i]] >= 0;
-  if (__syncthreads_or(cyc) && threadIdx.x == 0) *has_cycle = 1;
+// ctl: [0] has_cycle; [t] the lanes that moved in round t, [R + t] the lanes
+// that stay after it, for t in 1..R.
+static __device__ __forceinline__ void label_add(int32_t* ctl, int t, int R, unsigned moved,
+                                                 unsigned stay) {
+  moved = __reduce_add_sync(LABEL_FULL_MASK, moved);
+  stay = __reduce_add_sync(LABEL_FULL_MASK, stay);
+  if ((threadIdx.x & 31) == 0) {
+    if (moved) atomicAdd(&ctl[t], (int32_t)moved);
+    if (stay) atomicAdd(&ctl[R + t], (int32_t)stay);
+  }
+}
+
+// The head bitmap: bit i set where prev[i] < 0, a warp a word.
+__global__ void label_heads_kernel(const int64_t* __restrict__ prev, int64_t C2,
+                                   uint32_t* __restrict__ heads) {
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t base = (int64_t)blockIdx.x * blockDim.x + (threadIdx.x & ~31); base < C2;
+       base += stride) {
+    const int64_t i = base + (threadIdx.x & 31);
+    const unsigned bits = __ballot_sync(LABEL_FULL_MASK, i < C2 && prev[i] < 0);
+    if ((threadIdx.x & 31) == 0) heads[base >> 5] = bits;
+  }
+}
+
+__global__ void label_first_kernel(const int64_t* __restrict__ prev, int64_t C2, int R,
+                                   const uint32_t* __restrict__ heads,
+                                   uint64_t* __restrict__ words0, uint64_t* __restrict__ words1,
+                                   uint32_t* __restrict__ bits, int32_t* ctl) {
+  const int lane = threadIdx.x & 31;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  unsigned moved = 0, stay = 0;
+  for (int64_t base = (int64_t)blockIdx.x * blockDim.x + (threadIdx.x & ~31); base < C2;
+       base += stride) {
+    const int64_t i = base + lane;
+    const int64_t pv = i < C2 ? prev[i] : -1;
+    bool go = false;
+    if (pv >= 0) {
+      const int64_t pp = prev[pv];
+      const uint64_t w = pp < 0 ? (1ull << 32) | LABEL_HEAD | (uint64_t)pv
+                                : (2ull << 32) | (label_is_head(heads, pp) ? LABEL_HEAD : 0ull) |
+                                      (uint64_t)pp;
+      moved += pp >= 0 && pp != pv;
+      words1[i] = w;
+      if (w & LABEL_HEAD) {
+        words0[i] = w;  // final: in both buffers, and out of the frontier
+      } else {
+        go = true;
+      }
+    }
+    const unsigned go_bits = __ballot_sync(LABEL_FULL_MASK, go);
+    if (lane == 0) {
+      bits[base >> 5] = go_bits;
+      stay += __popc(go_bits);
+    }
+  }
+  label_add(ctl, 1, R, moved, stay);
+}
+
+// One round's step of frontier lane i with word w: leave (its pointer is a
+// head: the word goes to words_out unchanged) or gather the target's word
+// wp and step.  Returns whether the lane stays.
+static __device__ __forceinline__ bool label_step(int64_t i, uint64_t w, uint64_t wp,
+                                                  uint64_t* __restrict__ words_out,
+                                                  unsigned* moved) {
+  if (w & LABEL_HEAD) {
+    words_out[i] = w;
+    return false;
+  }
+  const uint64_t np = wp & LABEL_PTR_MASK;
+  words_out[i] = (((w >> 32) + (wp >> 32)) << 32) | (wp & LABEL_HEAD) | np;
+  *moved += np != (w & LABEL_PTR_MASK);
+  return true;
+}
+
+__global__ void __launch_bounds__(THREADS) label_round_kernel(
+    int64_t C2, int t, int R, const uint64_t* __restrict__ words_in,
+    uint64_t* __restrict__ words_out, const uint32_t* __restrict__ bits_in,
+    uint32_t* __restrict__ bits_out, int32_t* ctl) {
+  // the loop stopped after round t - 1, or its frontier is empty
+  if (ctl[t - 1] == 0 || ctl[R + t - 1] == 0) return;
+  __shared__ uint16_t s_list[LABEL_WARPS][1024];
+  __shared__ uint32_t s_keep[LABEL_WARPS][32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  uint16_t* list = s_list[warp];
+  uint32_t* keep = s_keep[warp];
+  const int64_t n_words = (C2 + 31) >> 5;
+  const int64_t n_chunks = (n_words + 31) >> 5;
+  const int64_t warps = (int64_t)gridDim.x * LABEL_WARPS;
+  unsigned moved = 0, stay = 0;
+  for (int64_t chunk = (int64_t)blockIdx.x * LABEL_WARPS + warp; chunk < n_chunks;
+       chunk += warps) {
+    const int64_t wi = (chunk << 5) + lane;
+    const uint32_t m = wi < n_words ? bits_in[wi] : 0u;
+    const int c = __popc(m);
+    int at = c;  // inclusive warp scan of the words' bit counts
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int u = __shfl_up_sync(LABEL_FULL_MASK, at, d);
+      if (lane >= d) at += u;
+    }
+    const int total = __shfl_sync(LABEL_FULL_MASK, at, 31);
+    at -= c;
+    for (uint32_t mm = m; mm != 0; mm &= mm - 1) list[at++] = (uint16_t)(lane * 32 + __ffs(mm) - 1);
+    keep[lane] = 0u;
+    __syncwarp();
+    const int64_t lane0 = chunk << 10;
+    // two list entries a lane at a time, so each lane has two gathers in
+    // flight
+    for (int q = lane; q < total; q += 64) {
+      const bool two = q + 32 < total;
+      const int ja = list[q], jb = two ? list[q + 32] : ja;
+      const uint64_t wa = words_in[lane0 + ja];
+      const uint64_t wb = two ? words_in[lane0 + jb] : LABEL_HEAD;
+      const uint64_t wpa = wa & LABEL_HEAD ? 0ull : words_in[wa & LABEL_PTR_MASK];
+      const uint64_t wpb = wb & LABEL_HEAD ? 0ull : words_in[wb & LABEL_PTR_MASK];
+      if (label_step(lane0 + ja, wa, wpa, words_out, &moved)) {
+        atomicOr(&keep[ja >> 5], 1u << (ja & 31));
+      }
+      if (two && label_step(lane0 + jb, wb, wpb, words_out, &moved)) {
+        atomicOr(&keep[jb >> 5], 1u << (jb & 31));
+      }
+    }
+    __syncwarp();
+    if (wi < n_words) {
+      bits_out[wi] = keep[lane];
+      stay += __popc(keep[lane]);
+    }
+    __syncwarp();  // the next chunk rewrites the list and the words
+  }
+  label_add(ctl, t, R, moved, stay);
+}
+
+// After the last round run: every lane's word from that round's buffer
+// unpacked into ptr and dist (a head's is (lane, 0)), and has_cycle where a
+// pointer is no head.
+__global__ void label_tail_kernel(const uint32_t* __restrict__ heads, int64_t C2, int R,
+                                  const uint64_t* __restrict__ words, int32_t* ctl,
+                                  int64_t* __restrict__ ptr, int64_t* __restrict__ dist) {
+  __shared__ int last;
+  if (threadIdx.x == 0) {
+    last = R;
+    for (int t = 1; t < R; ++t) {
+      if (ctl[t] == 0) {
+        last = t;
+        break;
+      }
+    }
+  }
+  __syncthreads();
+  const uint64_t* w_last = words + (last & 1) * C2;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  bool cyc = false;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < C2; i += stride) {
+    int64_t p = i, d = 0;
+    if (!label_is_head(heads, i)) {
+      const uint64_t w = w_last[i];
+      p = (int64_t)(w & LABEL_PTR_MASK);
+      d = (int64_t)(w >> 32);
+      cyc |= !(w & LABEL_HEAD);
+    }
+    ptr[i] = p;
+    dist[i] = d;
+  }
+  if (__syncthreads_or(cyc) && threadIdx.x == 0) ctl[0] = 1;
 }
 
 __global__ void cycle_round_kernel(const int64_t* __restrict__ prev,
@@ -400,28 +586,63 @@ int shannon_group_links(const void* skey, const void* order, int64_t C2,
   return (int)cudaGetLastError();
 }
 
-int shannon_label_round(const void* prev, const void* ptr_in,
-                        const void* dist_in, int64_t C2, void* ptr_out,
-                        void* dist_out, void* changed, void* stream) {
-  cudaError_t err = cudaMemsetAsync(changed, 0, sizeof(int32_t), (cudaStream_t)stream);
-  if (err != cudaSuccess) return (int)err;
-  if (C2 > 0) {
-    label_round_kernel<<<blocks_for(C2), THREADS, 0, (cudaStream_t)stream>>>(
-        (const int64_t*)prev, (const int64_t*)ptr_in, (const int64_t*)dist_in, C2,
-        (int64_t*)ptr_out, (int64_t*)dist_out, (int32_t*)changed);
-  }
-  return (int)cudaGetLastError();
+// Scratch words (8 bytes each) shannon_label_rounds takes for C2 lanes: the
+// two buffers of packed words (C2 each), then the head bitmap and the two
+// frontier bitmaps (ceil(C2 / 32) uint32 words each).
+int64_t shannon_label_rounds_words(int64_t C2) {
+  return 2 * C2 + (3 * ((C2 + 31) / 32) + 1) / 2;
 }
 
-int shannon_label_roots(const void* prev, const void* ptr, int64_t C2,
-                        void* has_cycle, void* stream) {
-  cudaError_t err = cudaMemsetAsync(has_cycle, 0, sizeof(int32_t), (cudaStream_t)stream);
-  if (err != cudaSuccess) return (int)err;
-  if (C2 > 0) {
-    label_roots_kernel<<<blocks_for(C2), THREADS, 0, (cudaStream_t)stream>>>(
-        (const int64_t*)prev, (const int64_t*)ptr, C2, (int32_t*)has_cycle);
+// prev [C2] in [-1, C2), C2 < 2^31; scratch: shannon_label_rounds_words(C2)
+// words; ctl: 2R + 1 int32, zeroed here, R = max(bit_length(C2), 1) the
+// round cap: [0] has_cycle, [t] the lanes that moved in round t, [R + t]
+// the lanes that stay after it.
+int shannon_label_rounds(const void* prev, int64_t C2, void* scratch, int64_t scratch_words,
+                         void* ctl, int ctl_words, void* ptr, void* dist, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  int R = 1;
+  while (R < 63 && (C2 >> R) != 0) ++R;
+  if (C2 < 0 || C2 >= (1ll << 31) || ctl_words != 2 * R + 1 ||
+      scratch_words != shannon_label_rounds_words(C2)) {
+    return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
+  const int64_t bit_words = (C2 + 31) / 32;
+  cudaError_t err = cudaMemsetAsync(ctl, 0, sizeof(int32_t) * (size_t)(2 * R + 1), s);
+  if (err != cudaSuccess || C2 == 0) return (int)err;
+  int device = 0, sms = 0, per_sm = 0;
+  err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, label_round_kernel, THREADS, 0);
+  }
+  if (err != cudaSuccess) return (int)err;
+  const unsigned int first_grid = blocks_for(C2) < LABEL_GRID ? blocks_for(C2) : LABEL_GRID;
+  const unsigned int chunk_warps = (unsigned int)((bit_words + 31) / 32);
+  const unsigned int wanted = (chunk_warps + LABEL_WARPS - 1) / LABEL_WARPS;
+  const unsigned int resident = (unsigned int)(sms * per_sm);
+  const unsigned int grid = resident < wanted ? (resident > 0 ? resident : 1) : wanted;
+  uint64_t* w = (uint64_t*)scratch;
+  uint32_t* heads = (uint32_t*)(w + 2 * C2);
+  uint32_t* front = heads + bit_words;  // round t's frontier: front + (t % 2) * bit_words
+  label_heads_kernel<<<first_grid, THREADS, 0, s>>>((const int64_t*)prev, C2, heads);
+  err = cudaGetLastError();
+  if (err == cudaSuccess) {
+    label_first_kernel<<<first_grid, THREADS, 0, s>>>((const int64_t*)prev, C2, R, heads, w,
+                                                       w + C2, front, (int32_t*)ctl);
+    err = cudaGetLastError();
+  }
+  for (int t = 2; t <= R && err == cudaSuccess; ++t) {
+    label_round_kernel<<<grid, THREADS, 0, s>>>(
+        C2, t, R, w + ((t - 1) & 1) * C2, w + (t & 1) * C2, front + (t & 1) * bit_words,
+        front + ((t + 1) & 1) * bit_words, (int32_t*)ctl);
+    err = cudaGetLastError();
+  }
+  if (err == cudaSuccess) {
+    label_tail_kernel<<<first_grid, THREADS, 0, s>>>(heads, C2, R, w, (int32_t*)ctl,
+                                                      (int64_t*)ptr, (int64_t*)dist);
+    err = cudaGetLastError();
+  }
+  return (int)err;
 }
 
 int shannon_cycle_round(const void* prev, const void* ptr_in, const void* mn_in,

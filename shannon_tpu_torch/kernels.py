@@ -58,8 +58,7 @@ _ARGTYPES = {
     "shannon_reduce_sorted": [_P, _P, _I64, _I64, _P, _I64, _P, _P, _P, _P],
     "shannon_lookup_sorted": [_P, _I64, _P, _I64, _P, _I64, _P, _P, _P, _P],
     "shannon_thread_rows": [_P, _P, _P, _P, _P, _I64, _I, _I, *[_P] * 7, _P],
-    "shannon_row_counts": [_P, _I64, _I, _P, _P],
-    "shannon_compact_rows": [_P, _P, _I64, _I, _I, *[_P] * 8, _P],
+    "shannon_compact_rows": [*[_P] * 7, _I64, _I, _I, _P, _I64, *[_P] * 8, _P],
     "shannon_sf_greedy": [_P, _I64, _I, _I, *[_P] * 6, _P],
     "shannon_sf_jobs": [_P, _P, _P, _P, _I64, _I, _I, _I, _P, _P],
     "shannon_probe_lookup": [_P, _I64, _I, _I, _I, _P, _I64, _P, _P, _P, _P],
@@ -70,8 +69,7 @@ _ARGTYPES = {
     "shannon_node_counts": [_P, _I64, _P, _P, _I64, _I, _P, _P],
     "shannon_link_records": [_P, _I64, _I, _P, _P],
     "shannon_group_links": [_P, _P, _I64, _P, _P, _P, _P, _P],
-    "shannon_label_round": [_P, _P, _P, _I64, _P, _P, _P, _P],
-    "shannon_label_roots": [_P, _P, _I64, _P, _P],
+    "shannon_label_rounds": [_P, _I64, _P, _I64, _P, _I, _P, _P, _P],
     "shannon_cycle_round": [_P, _P, _P, _I64, _I, _P, _P, _P, _P],
     "shannon_head_flags": [_P, _P, _I64, _P, _P],
     "shannon_contig_reduce": [*[_P] * 9, _I64, _I, _I, *[_P] * 9, _P],
@@ -92,6 +90,9 @@ _ARGTYPES = {
     "shannon_ownership_scatter": [_P, _P, _P, _I64, _P, _I, _I64, *[_P] * 5, _P],
     "shannon_ownership_unpack": [_P, _I, _I64, *[_P] * 5, _P],
 }
+# Entry points whose scratch layout lives in their source alone: for each,
+# `<entry>_words(n)` gives the int64 words of scratch it takes at size n.
+_SCRATCH_SIZED = ("shannon_compact_rows", "shannon_label_rounds")
 
 
 def _sources() -> list[Path]:
@@ -171,6 +172,10 @@ class KernelLibrary:
             fn = getattr(self._lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+        for name in _SCRATCH_SIZED:
+            fn = getattr(self._lib, f"{name}_words")
+            fn.argtypes = [_I64]
+            fn.restype = _I64
         self._lib.shannon_error_string.argtypes = [ctypes.c_int]
         self._lib.shannon_error_string.restype = ctypes.c_char_p
         self.launches = {name: 0 for name in KERNELS}
@@ -188,6 +193,10 @@ class KernelLibrary:
         if err != 0:
             msg = self._lib.shannon_error_string(err).decode()
             raise RuntimeError(f"{entry} failed: CUDA error {err} ({msg})")
+
+    def scratch_words(self, entry: str, n: int) -> int:
+        """Int64 words of scratch C entry point `entry` takes at size `n`."""
+        return getattr(self._lib, f"{entry}_words")(n)
 
     def count(self, kernel: str) -> None:
         self.launches[kernel] += 1

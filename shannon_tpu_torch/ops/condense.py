@@ -10,7 +10,9 @@ Counterpart of ``shannon_tpu/ops/condense.py``:
      (K12, ``group_links``);
   3. labels: pointer doubling to each chain's head, with a cycle check and
      a min-propagation pass that cuts isolated cycles at their lowest lane
-     (K13, ``label_round`` and ``cycle_round``, one launch per round);
+     (K13: ``label_round`` enqueues every round of the label stage at
+     once, over a frontier, with one host read at its end; ``cycle_round``
+     is one launch per round);
   4. per-contig reduction (klen, exact count sum, float32 abundance, head
      and tail lanes), contig edges, and the reverse-complement twin (K14,
      ``contig_reduce``);
@@ -209,45 +211,52 @@ def label_stage_plain(prev_link: torch.Tensor):
     return ptr, dist, bool((prev_link[ptr] >= 0).any())
 
 
-def _label_stage_cuda(prev_link: torch.Tensor):
+# Node lanes K13's label stage takes: a lane's pointer is packed in 31 bits.
+LABEL_MAX_LANES = (1 << 31) - 1
+
+
+def _label_stage_cuda(prev_link: torch.Tensor, info: dict | None):
     kernels.check_cuda("prev_link", prev_link, torch.int64, 1)
     C2 = prev_link.shape[0]
     dev = prev_link.device
-    bufs = [
-        tuple(torch.empty(C2, dtype=torch.int64, device=dev) for _ in range(2))
-        for _ in range(2)
-    ]
-    changed = torch.empty(1, dtype=torch.int32, device=dev)
+    R = max(C2.bit_length(), 1)  # the round cap
+    ptr = torch.empty(C2, dtype=torch.int64, device=dev)
+    dist = torch.empty(C2, dtype=torch.int64, device=dev)
+    ctl = torch.empty(2 * R + 1, dtype=torch.int32, device=dev)
     lib = kernels.library()
-    ptr = dist = None
-    for r in range(max(C2.bit_length(), 1)):
-        out_ptr, out_dist = bufs[r % 2]
-        lib.call(
-            "shannon_label_round", dev,
-            kernels.ptr(prev_link), kernels.ptr(ptr), kernels.ptr(dist), C2,
-            kernels.ptr(out_ptr), kernels.ptr(out_dist), kernels.ptr(changed),
-        )
-        lib.count("label_round")
-        ptr, dist = out_ptr, out_dist
-        if not changed.item():
-            break
-    has_cycle = torch.empty(1, dtype=torch.int32, device=dev)
+    # packed words and bitmaps, laid out by the kernel's source
+    words = lib.scratch_words("shannon_label_rounds", C2)
+    scratch = torch.empty(words, dtype=torch.int64, device=dev)
     lib.call(
-        "shannon_label_roots", dev,
-        kernels.ptr(prev_link), kernels.ptr(ptr), C2, kernels.ptr(has_cycle),
+        "shannon_label_rounds", dev,
+        kernels.ptr(prev_link), C2, kernels.ptr(scratch), words, kernels.ptr(ctl), ctl.shape[0],
+        kernels.ptr(ptr), kernels.ptr(dist),
     )
-    return ptr, dist, bool(has_cycle.item())
+    lib.count("label_round")
+    # the one host read: has_cycle, then each round's moved and staying lanes
+    ctl = ctl.tolist() if C2 else [0] * (2 * R + 1)
+    moved, stay = ctl[1 : R + 1], ctl[R + 1 :]
+    run = next((t for t, n in enumerate(moved, 1) if n == 0), R) if C2 else 0
+    if info is not None:
+        info.update(rounds_run=run, frontier=([C2] + stay)[:run], host_reads=int(C2 > 0))
+    return ptr, dist, bool(ctl[0])
 
 
-def label_stage(prev_link: torch.Tensor):
+def label_stage(prev_link: torch.Tensor, info: dict | None = None):
     """Pointer doubling to each chain head with early exit
     (ops/condense.py:232 _label_stage).  Returns (head pointer, offset,
     any-cycle flag); capped at log2(C2) rounds, after which only lanes on
-    cycles still see a predecessor at their root.  Kernel K13
-    (``label_round``, one launch per round and a read of its changed flag,
-    then one check of the roots) on CUDA, the plain version on CPU."""
+    cycles still see a predecessor at their root.  Refuses tables of 2^31
+    lanes or more.  Kernel K13 (``label_round``: every round enqueued at
+    once over a frontier of the lanes whose pointer is no head yet, then one
+    host read) on CUDA, the plain version on CPU.  With `info`, the CUDA
+    route records the rounds run, each round's frontier and its host
+    reads."""
+    if prev_link.shape[0] > LABEL_MAX_LANES:
+        raise ValueError(f"{prev_link.shape[0]} node lanes exceed the 2^31 - 1 that K13's "
+                         "packed pointers take")
     if prev_link.is_cuda:
-        return _label_stage_cuda(prev_link)
+        return _label_stage_cuda(prev_link, info)
     return label_stage_plain(prev_link)
 
 

@@ -147,6 +147,10 @@ def compact_thread_outputs_plain(ev_cid, ev_run, n_events, run_p0, run_p1, run_o
     )
 
 
+# Events or runs K5 takes at most (its scan packs both counts in one word).
+COMPACT_MAX_LANES = (1 << 31) - 1
+
+
 def _compact_thread_outputs_cuda(ev_cid, ev_run, n_events, run_p0, run_p1, run_o0, run_o1):
     rows_e, rows_r = (ev_cid, ev_run), (run_p0, run_p1, run_o0, run_o1)
     for name, t in zip(("ev_cid", "ev_run", "run_p0", "run_p1", "run_o0", "run_o1"),
@@ -157,34 +161,36 @@ def _compact_thread_outputs_cuda(ev_cid, ev_run, n_events, run_p0, run_p1, run_o
     R = run_p0.shape[1]
     if ev_run.shape != (N, W) or any(t.shape != (N, R) for t in rows_r) or n_events.shape != (N,):
         raise ValueError("threading rows disagree on shape")
-    dev = ev_cid.device
+    if max(N * W, N * R) > COMPACT_MAX_LANES:
+        raise ValueError(f"{N} rows of {W} events and {R} runs exceed K5's 2^31 - 1 lanes")
+    # the flat outputs at their capacities, so no host read comes before the
+    # copy, with n_runs, the totals and the scan's scratch (sized by the
+    # kernel's source) in one allocation (the caching allocator hands the
+    # same block back batch after batch)
     lib = kernels.library()
-    n_runs = torch.empty(N, dtype=torch.int64, device=dev)
-    lib.call("shannon_row_counts", dev, kernels.ptr(run_p0), N, R, kernels.ptr(n_runs))
-    end_e = torch.cumsum(n_events, 0)
-    end_r = torch.cumsum(n_runs, 0)
-    tot_e, tot_r = torch.stack([end_e[-1], end_r[-1]]).tolist() if N else (0, 0)
-    flat_e = [torch.empty(tot_e, dtype=torch.int64, device=dev) for _ in rows_e]
-    flat_r = [torch.empty(tot_r, dtype=torch.int64, device=dev) for _ in rows_r]
-    for counts, ends, width, rows, flat in (
-        (n_events, end_e, W, rows_e, flat_e), (n_runs, end_r, R, rows_r, flat_r)
-    ):
-        ins = [kernels.ptr(t) for t in rows] + [None] * (4 - len(rows))
-        outs = [kernels.ptr(t) for t in flat] + [None] * (4 - len(flat))
-        lib.call(
-            "shannon_compact_rows", dev,
-            kernels.ptr(counts), kernels.ptr(ends), N, width, len(rows), *ins, *outs,
-        )
+    words = lib.scratch_words("shannon_compact_rows", N)
+    buf = torch.empty(2 * N * W + 4 * N * R + N + 2 + words, dtype=torch.int64,
+                      device=ev_cid.device)
+    *flat, n_runs, totals, scratch = buf.split([N * W] * 2 + [N * R] * 4 + [N, 2, words])
+    lib.call(
+        "shannon_compact_rows", ev_cid.device,
+        *map(kernels.ptr, (ev_cid, ev_run, n_events, run_p0, run_p1, run_o0, run_o1)), N, W, R,
+        kernels.ptr(scratch), words, *map(kernels.ptr, flat), kernels.ptr(n_runs),
+        kernels.ptr(totals),
+    )
     lib.count("compact_rows")
-    return (*flat_e, *flat_r, n_events, n_runs)
+    tot_e, tot_r = totals.tolist()  # the one host read, after the copy
+    return (*(t[:tot_e] for t in flat[:2]), *(t[:tot_r] for t in flat[2:]), n_events, n_runs)
 
 
 def compact_thread_outputs(ev_cid, ev_run, n_events, run_p0, run_p1, run_o0, run_o1):
     """Across-read compaction (ops/thread.py:178 compact_thread_outputs):
     every real event and every real run in (read, position) order.
     Returns (c_cid, c_run, c_p0, c_p1, c_o0, c_o1, n_events, n_runs).
-    Kernel K5 on CUDA (copies each row's first n_events events and its
-    real runs, the layout K4 writes), the plain version on CPU."""
+    Kernel K5 on CUDA (one pass: counts each row's runs, scans the rows'
+    counts and copies each row's first n_events events and its real runs,
+    the layout K4 writes, then one host read of the totals), the plain
+    version on CPU."""
     args = (ev_cid, ev_run, n_events, run_p0, run_p1, run_o0, run_o1)
     if ev_cid.is_cuda:
         return _compact_thread_outputs_cuda(*args)

@@ -23,6 +23,7 @@ from shannon_tpu.ops.count import count_spectrum_packed, spectrum_from_arrays
 from shannon_tpu.sim import random_seq, sample_reads, simulate_isoforms, simulate_transcripts
 from shannon_tpu_torch import convert
 from shannon_tpu_torch.ops import condense as tcd
+from test_torch_kernels import label_links
 
 CASES = {
     "multi": lambda rng: simulate_transcripts(rng, n=3, length=250),
@@ -240,3 +241,126 @@ def test_stage_cases_hold_what_they_name(case):
         assert int(((r["cut"] < 0) & (r["prev_link"] >= 0)).sum()) >= 6
     else:
         assert n == 0 and r["n_nodes"] == 0 and int(r["ca"].n_contigs) == 0
+
+
+# ---- K13's label stage design, transcribed ------------------------------------
+
+LABEL_POISON = np.uint64(0xFFFFFFFFFFFFFFFF)
+
+
+def _label_transcription(prev: np.ndarray):
+    """csrc/condense.cu label_heads / label_first / label_round / label_tail
+    in numpy: packed words (ptr in bits 0-30, bit 31 set where ptr is a
+    head, dist above), two buffers poisoned where no round wrote, the head
+    bitmap, frontier bitmaps of 32-bit words (poisoned until a round writes
+    them), ctl's counts of the lanes that moved and stayed, a round that
+    returns at once after one in which nothing moved or stayed, and the
+    tail, which unpacks every lane from the last round's buffer.  Returns
+    (ptr, dist, has_cycle, rounds run, the frontier of each round run)."""
+    C2 = len(prev)
+    R = max(C2.bit_length(), 1)
+    n_words = -(-C2 // 32)
+    mask, head, hi = np.uint64(0x7FFFFFFF), np.uint64(1 << 31), np.uint64(32)
+    words = [np.full(C2, LABEL_POISON) for _ in range(2)]
+    fronts = [np.full(n_words, 0xFFFFFFFF, np.uint64) for _ in range(2)]
+    moved, stay = np.zeros(R + 1, np.int64), np.zeros(R + 1, np.int64)
+
+    def bitmap(flags: np.ndarray) -> np.ndarray:
+        flags = np.concatenate([flags, np.zeros(32 * n_words - C2, bool)])
+        shifted = flags.reshape(n_words, 32) << np.arange(32, dtype=np.uint64)
+        return shifted.sum(1).astype(np.uint64)
+
+    def lanes_of(bits: np.ndarray) -> np.ndarray:
+        set_ = (bits[:, None] >> np.arange(32, dtype=np.uint64)) & np.uint64(1)
+        return np.nonzero(set_.reshape(-1))[0]
+
+    head_bits = bitmap(prev < 0)
+
+    def is_head(p: np.ndarray) -> np.ndarray:
+        return ((head_bits[p >> 5] >> (p & 31).astype(np.uint64)) & np.uint64(1)) == 1
+
+    # round 1, every lane: heads write nothing, final words go to both buffers
+    pv = prev
+    pp = np.where(pv < 0, -1, prev[np.maximum(pv, 0)])
+    real = pv >= 0
+    first = real & (pp < 0)
+    w = np.where(first, (np.uint64(1) << hi) | head | pv.astype(np.uint64),
+                 (np.uint64(2) << hi) | pp.astype(np.uint64)
+                 | np.where(is_head(np.maximum(pp, 0)) & (pp >= 0), head, np.uint64(0)))
+    final = real & ((w & head) != 0)
+    words[1][real] = w[real]
+    words[0][final] = w[final]
+    go = real & ~final
+    fronts[0] = bitmap(go)
+    moved[1], stay[1] = int((real & (pp >= 0) & (pp != pv)).sum()), int(go.sum())
+    # rounds 2..R
+    for t in range(2, R + 1):
+        if moved[t - 1] == 0 or stay[t - 1] == 0:
+            continue
+        w_in, w_out = words[(t - 1) % 2], words[t % 2]
+        f = lanes_of(fronts[t % 2])
+        assert len(f) == stay[t - 1]
+        w = w_in[f]
+        done = (w & head) != 0
+        w_out[f[done]] = w[done]
+        g, wg = f[~done], w[~done]
+        wp = w_in[(wg & mask).astype(np.int64)]
+        w_out[g] = (((wg >> hi) + (wp >> hi)) << hi) | (wp & head) | (wp & mask)
+        flags = np.zeros(C2, bool)
+        flags[g] = True
+        fronts[(t + 1) % 2] = bitmap(flags)
+        moved[t], stay[t] = int(((wp & mask) != (wg & mask)).sum()), len(g)
+    # the tail, every lane
+    last = next((t for t in range(1, R) if moved[t] == 0), R)
+    heads = is_head(np.arange(C2))
+    w = words[last % 2][~heads]
+    ptr, dist = np.arange(C2), np.zeros(C2, np.int64)
+    ptr[~heads], dist[~heads] = (w & mask).astype(np.int64), (w >> hi).astype(np.int64)
+    has_cycle = bool(((w & head) == 0).any())
+    return ptr, dist, has_cycle, last, [C2] + stay[1:last].tolist()
+
+
+def _label_rounds_reference(prev: np.ndarray) -> int:
+    """The rounds the reference's loop runs (shannon_tpu/ops/condense.py:232)."""
+    C2 = len(prev)
+    ptr = np.where(prev >= 0, prev, np.arange(C2))
+    for r in range(1, max(C2.bit_length(), 1) + 1):
+        nxt = ptr[ptr]
+        if (nxt == ptr).all():
+            return r
+        ptr = nxt
+    return r
+
+
+LABEL_CASES = [(kind, C2) for kind in ("isolated", "chains_pow2", "chains_pow2_plus1", "cycles",
+                                       "self", "random") for C2 in (1, 2, 31, 32, 33, 100, 1000)]
+LABEL_CASES += [("one_chain", C2) for C2 in (1, 2, 3, 31, 32, 33, 64, 65, 257, 1024, 1025)]
+
+
+@pytest.mark.parametrize("kind,C2", LABEL_CASES)
+def test_k13_frontier_transcription_matches_reference(kind, C2):
+    """K13's label stage design (packed words, done only at a head, final
+    words in both buffers, the frontier bitmaps, the early stop) against
+    the reference's _label_stage, cycle lanes' pointers and offsets
+    included, and the rounds it runs against the reference's loop."""
+    prev = label_links(kind, C2, seed=C2)
+    ptr, dist, has_cycle = (np.asarray(x) for x in jcd._label_stage(jnp.asarray(prev, jnp.int32)))
+    got = _label_transcription(prev)
+    np.testing.assert_array_equal(got[0], ptr.astype(np.int64))
+    np.testing.assert_array_equal(got[1], dist.astype(np.int64))
+    assert got[2] == bool(has_cycle)
+    assert got[3] == _label_rounds_reference(prev)
+    assert got[4][0] == C2 and all(a >= b for a, b in zip(got[4], got[4][1:]))
+    if kind == "self" or (kind == "cycles" and C2 >= 2):
+        assert has_cycle
+    if kind == "one_chain" and C2 > 2 and (C2 - 1) & (C2 - 2) == 0:
+        assert got[3] == C2.bit_length()  # 2^j + 1 lanes: the round cap
+
+
+def test_label_stage_refuses_2_31_lanes():
+    """K13 packs a pointer in 31 bits: label_stage refuses a table of 2^31
+    lanes before anything runs (a meta tensor holds no data)."""
+    big = torch.empty(1 << 31, dtype=torch.int64, device="meta")
+    with pytest.raises(ValueError, match="2\\^31"):
+        tcd.label_stage(big)
+    assert tcd.LABEL_MAX_LANES == (1 << 31) - 1

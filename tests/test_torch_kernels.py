@@ -401,6 +401,106 @@ def test_thread_rows_kernel_shapes(cuda, W, N, pattern):
         assert int((want[3] >= 0).sum(1).max()) == tth.max_runs(W) - 1
 
 
+@pytest.mark.parametrize("N", [0, 1, 31, 32, 33, 255, 256, 257, 1000, 4097])
+@pytest.mark.parametrize("W", [1, 33, 105])
+@pytest.mark.parametrize("pattern", ["random", "none", "events", "alternate"])
+def test_compact_rows_kernel_tile_edges(cuda, N, W, pattern):
+    """K5 (one pass on the look-back scan, 32 rows a warp, 256 a tile) at
+    row counts on both sides of the warp and tile edges, with rows without
+    a hit, full event rows (every window an event) and rows of R - 1 runs
+    (over 32 at W = 105): one launch a call, outputs equal to the plain
+    version's."""
+    idx, hit, valid, cid, off, clamped = _thread_case(
+        N, W, "all" if pattern == "events" else pattern, 7000 * W + N)
+    if pattern == "events":
+        off = torch.zeros_like(off)
+    rows = [t.to(cuda) for t in tth.thread_windows_plain(clamped, hit, valid, cid, off)]
+    lib = kernels.library()
+    before = dict(lib.launches)
+    got = tth.compact_thread_outputs(*rows)
+    torch.cuda.synchronize()
+    assert {n: c - before[n] for n, c in lib.launches.items() if c != before[n]} == (
+        {"compact_rows": 1})
+    for g, w in zip(got, tth.compact_thread_outputs_plain(*rows)):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    if pattern == "events" and N:
+        assert int(got[6].min()) == W
+
+
+def test_compact_rows_kernel_refuses_shapes(cuda):
+    idx, hit, valid, cid, off, clamped = _thread_case(3, 9, "random", 1)
+    rows = [t.to(cuda) for t in tth.thread_windows_plain(clamped, hit, valid, cid, off)]
+    with pytest.raises(ValueError, match="disagree"):
+        tth.compact_thread_outputs(*rows[:3], rows[3][:, :4].contiguous(), *rows[4:])
+    with pytest.raises(TypeError, match="int64"):
+        tth.compact_thread_outputs(rows[0].int(), *rows[1:])
+
+
+def label_links(kind: str, C2: int, seed: int) -> np.ndarray:
+    """prev_link arrays of known shape on C2 lanes, their lanes shuffled:
+    "isolated" (every lane a head), "chains_pow2" / "chains_pow2_plus1"
+    (chains of 2^j and 2^j + 1 nodes for j = 0, 1, ...), "one_chain" (all
+    C2 lanes one chain: the most rounds), "cycles" (cycles of 2, 3, 4 and
+    8 nodes mixed with chains), "self" (self-loops beside chains) and
+    "random" (any prev in [-1, C2): tails running into cycles too)."""
+    rng = np.random.default_rng(seed)
+    lanes = rng.permutation(C2)
+    prev = np.full(C2, -1, np.int64)
+    if kind == "random":
+        return np.where(rng.random(C2) < 0.2, -1, rng.integers(0, C2, C2))
+    if kind == "isolated":
+        return prev
+    if kind == "one_chain":
+        sizes = [C2]
+    elif kind in ("chains_pow2", "chains_pow2_plus1"):
+        sizes, j = [], 0
+        while sum(sizes) < C2:
+            sizes.append((1 << j) + (kind == "chains_pow2_plus1"))
+            j += 1
+    else:
+        pattern = [("cycle", 2), ("chain", 5), ("cycle", 3), ("cycle", 4), ("chain", 9),
+                   ("cycle", 8), ("chain", 1)] if kind == "cycles" else [("cycle", 1), ("chain", 3)]
+        sizes = pattern * -(-C2 // sum(n for _, n in pattern))
+    at = 0
+    for item in sizes:
+        form, n = item if isinstance(item, tuple) else ("chain", item)
+        group = lanes[at:at + n]
+        at += n
+        if len(group) == 0:
+            break
+        prev[group[1:]] = group[:-1]
+        if form == "cycle" and len(group) == n:
+            prev[group[0]] = group[-1]
+    return prev
+
+
+@pytest.mark.parametrize("kind", ["isolated", "chains_pow2", "chains_pow2_plus1", "one_chain",
+                                  "cycles", "self", "random"])
+@pytest.mark.parametrize("C2", [1, 2, 31, 32, 33, 1000, 65_537, 1 << 20])
+def test_label_stage_kernel_matches_plain(cuda, kind, C2):
+    """K13's label stage (every round enqueued at once over a frontier) on
+    chains of 2^j and 2^j + 1 nodes, one chain of every lane (the round
+    cap), power-of-two cycles (their lanes point at themselves and their
+    offsets still double) and any links at all: ptr, dist and has_cycle
+    equal the plain version's, in one launch count and one host read."""
+    prev = torch.from_numpy(label_links(kind, C2, seed=C2)).to(cuda)
+    want = tcd.label_stage_plain(prev)
+    lib = kernels.library()
+    before = lib.launches["label_round"]
+    info = {}
+    ptr, dist, has_cycle = tcd.label_stage(prev, info=info)
+    torch.cuda.synchronize()
+    assert lib.launches["label_round"] - before == 1
+    _equal(ptr, want[0], "ptr")
+    _equal(dist, want[1], "dist")
+    assert has_cycle == want[2]
+    if kind == "cycles" and C2 > 1 or kind == "self":
+        assert has_cycle
+    assert info["host_reads"] == 1 and len(info["frontier"]) == info["rounds_run"]
+    assert info["frontier"][0] == C2
+    assert 1 <= info["rounds_run"] <= max(C2.bit_length(), 1)
+
+
 def _sf_jobs(seed: int, B: int) -> np.ndarray:
     """Random 1-8 x 1-8 margins; every fourth job all ties, every fourth
     zero margins (nothing to pair), the rest real-valued or small integers."""

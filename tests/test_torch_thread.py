@@ -190,3 +190,117 @@ def test_compact_thread_outputs_edge_rows_match_reference(N):
         np.testing.assert_array_equal(p.numpy(), np.asarray(ref[j])[: tot_e if j < 2 else tot_r])
     np.testing.assert_array_equal(got[6].numpy(), rows[2].numpy())
     np.testing.assert_array_equal(got[7].numpy(), np.asarray(ref[6]))
+
+
+# ---- K5's one-pass design, transcribed ---------------------------------------
+
+K5_RUN_BITS = 31
+
+
+def _k4_rows(N: int, W: int, pattern: str, seed: int):
+    """K4's rows (its plain twin, the layout the kernel writes) for N reads
+    of W windows over a 50-lane node table: "random" (70% hits, 5% invalid,
+    a fifth of the offsets 0), "none" (no hit), "events" (every window hit
+    at offset 0: a full event row) or "alternate" (R - 1 runs a row)."""
+    rng = np.random.default_rng(seed)
+    hit = {"random": rng.random((N, W)) < 0.7, "none": np.zeros((N, W), bool),
+           "events": np.ones((N, W), bool),
+           "alternate": np.tile(np.arange(W) % 2 == 0, (N, 1))}[pattern]
+    valid = rng.random((N, W)) < 0.95 if pattern == "random" else np.ones((N, W), bool)
+    idx = rng.integers(0, 50, (N, W))
+    off = np.where(rng.random(50) < 0.2, 0, rng.integers(1, 60, 50))
+    if pattern == "events":
+        off[:] = 0
+    return tth.thread_windows_plain(*(torch.from_numpy(x) for x in (
+        idx, hit, valid, rng.integers(0, 1000, 50), off)))
+
+
+def _k5_runs(run_p0: np.ndarray, r: int) -> int:
+    """A warp's count of row r's runs: ballots over 32 lanes of run_p0 at a
+    time, going on only while a chunk is all real."""
+    R, runs = run_p0.shape[1], 0
+    for j0 in range(0, R, 32):
+        chunk = [j0 + lane < R and run_p0[r, j0 + lane] >= 0 for lane in range(32)]
+        runs += sum(chunk)
+        if not all(chunk):
+            break
+    return runs
+
+
+def _k5_stretch_copy(ex: np.ndarray, total: int, row0: int, width: int, srcs, dsts, base: int):
+    """A warp's copy of its stretch: entry k goes to lane k % 32, which finds
+    its row by a binary search of the 32 lanes' exclusive counts (lanes
+    past the warp's rows hold the total) and copies that row's lane."""
+    for k in range(total):
+        q = 0
+        for step in (16, 8, 4, 2, 1):
+            if ex[q + step] <= k:
+                q += step
+        for dst, src in zip(dsts, srcs):
+            dst[base + k] = src[row0 + q, k - ex[q]]
+
+
+def _k5_transcription(rows, tile_rows: int, rows_per_warp: int):
+    """csrc/thread.cu compact_rows_kernel in numpy: tiles of tile_rows rows,
+    warps of rows_per_warp rows (lane q row q); each lane's events << 31 |
+    runs; the block's exclusive scan in thread order; the tile's prefix, the
+    aggregates of the tiles before it (what the look-back of scan.cuh adds
+    up); then each warp's stretch copy.  The flat outputs are poisoned at
+    capacity and sliced to the total, the last tile's inclusive value."""
+    ev_cid, ev_run, n_events, p0, p1, o0, o1 = (t.numpy() for t in rows)
+    N, W = ev_cid.shape
+    R = p0.shape[1]
+    warps, mask = tile_rows // rows_per_warp, (1 << K5_RUN_BITS) - 1
+    tiles = -(-N // tile_rows)
+    # lane values of every tile, thread order; row -1 where a lane holds none
+    row = np.full((tiles, warps, 32), -1)
+    row[:, :, :rows_per_warp] = np.arange(tiles * tile_rows).reshape(tiles, warps, rows_per_warp)
+    row[row >= N] = -1
+    value = np.array([0 if r < 0 else (int(n_events[r]) << K5_RUN_BITS) | _k5_runs(p0, r)
+                      for r in row.reshape(-1)], dtype=np.int64).reshape(tiles, warps * 32)
+    aggregate = value.sum(1)
+    at = (np.cumsum(aggregate) - aggregate)[:, None] + np.cumsum(value, 1) - value
+    flat_e = [np.full(N * W, -7) for _ in range(2)]
+    flat_r = [np.full(N * R, -7) for _ in range(4)]
+    n_runs = np.full(N, -7)
+    for r, v in zip(row.reshape(-1), value.reshape(-1)):
+        if r >= 0:
+            n_runs[r] = int(v) & mask
+    for t in range(tiles):
+        for w in range(warps):
+            v = value[t, 32 * w:32 * (w + 1)]
+            ex = np.cumsum(v) - v
+            a = int(at[t, 32 * w])
+            row0 = t * tile_rows + w * rows_per_warp
+            _k5_stretch_copy(ex >> K5_RUN_BITS, int(v.sum()) >> K5_RUN_BITS, row0, W,
+                             (ev_cid, ev_run), flat_e, a >> K5_RUN_BITS)
+            _k5_stretch_copy(ex & mask, int(v.sum()) & mask, row0, R, (p0, p1, o0, o1), flat_r,
+                             a & mask)
+    total = int(aggregate.sum())
+    tot_e, tot_r = total >> K5_RUN_BITS, total & mask
+    return [t[:tot_e] for t in flat_e] + [t[:tot_r] for t in flat_r] + [n_runs]
+
+
+@pytest.mark.parametrize("N,W,pattern", [
+    (0, 9, "random"), (1, 9, "random"), (1, 105, "alternate"), (7, 33, "none"),
+    (9, 64, "events"), (64, 105, "random"), (65, 105, "random"), (130, 9, "random"),
+    (130, 105, "alternate"), (200, 64, "events"), (129, 31, "none"), (600, 33, "random"),
+])
+@pytest.mark.parametrize("tile_rows,rows_per_warp", [(256, 32), (8, 4)])
+def test_k5_one_pass_transcription_matches_reference(N, W, pattern, tile_rows, rows_per_warp):
+    """K5's design (a warp's ballot count of each row's runs, one 64-bit
+    scan value of events and runs, tile offsets by look-back, each warp's
+    stretch copied 32 entries at a time) against the reference's sort compaction, at row
+    counts that fill no tile, one, and part of the next, with rows without
+    a hit, full event rows and rows of R - 1 runs (more than 32)."""
+    rows = _k4_rows(N, W, pattern, seed=N * 1000 + W)
+    ref = jth.compact_thread_outputs(*(jnp.asarray(t.numpy()) for t in rows))
+    tot_e, tot_r = (int(x) for x in np.asarray(ref[-1]))
+    got = _k5_transcription(rows, tile_rows, rows_per_warp)
+    for j, g in enumerate(got[:6]):
+        np.testing.assert_array_equal(g, np.asarray(ref[j])[: tot_e if j < 2 else tot_r])
+    np.testing.assert_array_equal(got[6], np.asarray(ref[6]))
+    if pattern == "alternate":
+        assert int(np.asarray(ref[6]).max()) == tth.max_runs(W) - 1
+    if pattern == "none":
+        assert tot_e == tot_r == 0
