@@ -1161,6 +1161,8 @@ def _condense_chain(spec, k: int, canonical: bool, label: str, smi: str):
     rows, the stage's numbers)."""
     import math
 
+    import torch
+
     from shannon_tpu_torch import kernels
     from shannon_tpu_torch.ops import condense as tcd
 
@@ -1174,30 +1176,62 @@ def _condense_chain(spec, k: int, canonical: bool, label: str, smi: str):
     def nodes_plain():
         return tcd.nodes_stage_plain(spec, k, canonical)
 
-    node_key, node_count, n_nodes = nodes()
     want = nodes_plain()
+    sorted_n, real_sort = [], torch.sort
+
+    def counted_sort(x, *args, **kw):  # what the stage hands torch.sort
+        sorted_n.append(x.numel())
+        return real_sort(x, *args, **kw)
+
+    def one_call(fn, kernel: str):
+        """One stage call with torch.sort counted; its launches of `kernel`,
+        and the bytes it allocated above what was held before it."""
+        before = lib.launches[kernel]
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        torch.sort = counted_sort
+        try:
+            out = fn()
+        finally:
+            torch.sort = real_sort
+        torch.cuda.synchronize()
+        return out, lib.launches[kernel] - before, torch.cuda.max_memory_allocated() - base
+
+    (node_key, node_count, n_nodes), launched, _ = one_call(nodes, "node_strands")
+    n_real = min(spec.n, C)
+    if launched != 1 or sorted_n != [n_real]:
+        raise AssertionError(f"K11 [{label}] launched {launched} times and sorted {sorted_n} "
+                             f"keys, not once and [{n_real}]")
     if n_nodes != want[2]:
         raise AssertionError(f"K11 [{label}] n_nodes {n_nodes} != {want[2]}")
     C2 = node_key.shape[0]
-    steps = math.ceil(math.log2(max(C, 2))) + 1
-    # bytes: the spectrum in, the node table out; operations: a reverse
-    # complement and a binary search per node lane
+    # bytes: the spectrum's real lanes in, the node table out; operations: a
+    # reverse complement a k-mer and a merge step a node lane
     rows["node_strands"] = _row(
         _max_abs_err((node_key, node_count), want[:2]), _alternate(nodes, nodes_plain),
-        _nbytes(spec.key, spec.count, node_key, node_count), C2 * (10 + steps), None,
+        12 * n_real + _nbytes(node_key, node_count), 10 * n_real + 2 * C2, None,
     )
     _print_row(f"K11 node_strands [{label}] {spec.n} k-mers in {C} lanes -> {n_nodes} nodes "
-               f"in {C2} lanes (torch.sort and K2 inside kernel and plain)",
-               rows["node_strands"], smi)
+               f"in {C2} lanes (kernel: torch.sort of the {n_real} reverse complements "
+               "inside; plain: its sort of both strands)", rows["node_strands"], smi)
 
-    links = tcd.links_stage(node_key, k)
+    sorted_n.clear()
+    links, launched, grown = one_call(lambda: tcd.links_stage(node_key, k), "group_links")
+    if launched != 1 or sorted_n:
+        raise AssertionError(f"K12 [{label}] launched {launched} times and sorted {sorted_n} "
+                             "keys, not once and none")
+    # no 2*C2 sort key or index array: less than one beside the outputs
+    if grown >= _nbytes(*links) + 16 * C2:
+        raise AssertionError(f"K12 [{label}] allocated {grown} bytes for "
+                             f"{_nbytes(*links)} of outputs")
     rows["group_links"] = _row(
         _max_abs_err(links, tcd.links_stage_plain(node_key, k)),
         _alternate(lambda: tcd.links_stage(node_key, k), lambda: tcd.links_stage_plain(node_key, k)),
         _nbytes(node_key, *links), 16 * C2, None,
     )
-    _print_row(f"K12 group_links [{label}] {2 * C2} link records (torch.sort inside kernel "
-               "and plain)", rows["group_links"], smi)
+    _print_row(f"K12 group_links [{label}] {2 * C2} link records, {grown / 2**20:.1f} MiB "
+               "allocated a call (plain: torch.sort)", rows["group_links"], smi)
     prev, rec_lane, first_p, p_cnt = links
 
     before = lib.launches["label_round"]

@@ -1,8 +1,9 @@
 """Time kernels of several trees in turns on one card: K6 (sf_greedy, the
 sparse-flow greedy with restarts), K22 (sibling_maxes), K10 (compact_keep),
 K2 (reduce_sorted, three inputs), K7 (probe_lookup, both probe sets), K3
-(lookup_sorted, two inputs), K4 (thread_rows) and K8 (the dead-end rescue,
-one round and the main path's loop), on the same inputs for every tree, so a
+(lookup_sorted, two inputs), K4 (thread_rows), K8 (the dead-end rescue,
+one round and the main path's loop), K1, K17, K5, K11, K12 and K13's label
+stage, on the same inputs for every tree, so a
 change to a kernel's source can be held against its parent within one call.
 
     python scripts/kernel_turns.py --trees OLD NEW NEW OLD [--out FILE]
@@ -62,19 +63,24 @@ lanes and the last batch), and all of the count's merges replayed through
 ops.count.merge_batch from its 16 batch tables ("merge_replay", 20
 replays a window, the host reads of n included).  Each K1 and K17 row has
 its device_us.  K5 (compact_thread_outputs) on K4's rows of that first
-batch, and K13's label stage (label_stage) on the links of the 1M-read
-spectrum after correct_spectrum and shrink_spectrum (8,388,608 node lanes,
-chip_smoke.py's condensation input), each with its device_us and the
-card's idle time a call ("idle_us": the event time less the device time);
-the label stage also lists every launch of one call
-("label_stage_launch_us") and, where the tree's label_stage reports them,
-the rounds run and each round's frontier ("label_stage_info").  Prints
-one JSON line per tree and, with --out, writes them all.
+batch; K11 (nodes_stage) on the 1M-read spectrum after correct_spectrum
+and shrink_spectrum (3,653,479 k-mers in 4,194,304 lanes, chip_smoke.py's
+condensation input), K12 (links_stage) on its node table (8,388,608
+lanes) and K13's label stage (label_stage) on those links, each with its
+device_us and the card's idle time a call ("idle_us": the event time less
+the device time).  The three stages also list every launch of one call
+("<stage>_launch_us": the gaps between launches are the idle time); K11
+and K12 give a SHA-256 prefix of their outputs (equal in every tree) and
+the MiB a call allocates above what it was given ("<stage>_peak_mib");
+the label stage gives, where the tree's label_stage reports them, the
+rounds run and each round's frontier ("label_stage_info").  Prints one
+JSON line per tree and, with --out, writes them all.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import subprocess
 import sys
@@ -124,13 +130,15 @@ def _search_inputs() -> dict:
         spec, k, auto_min_abundance(spec), cfg.sibling_ratio, cfg.correction_rounds, canonical,
         cfg.error_rate,
     ))
-    prev_link = links_stage(nodes_stage(corrected, k, canonical)[0], k)[0]
+    cn_key = nodes_stage(corrected, k, canonical)[0]
+    prev_link = links_stage(cn_key, k)[0]
     out = {"p_key": spec.key, "p_count": spec.count, "node_key": ca.node_key,
-           "prev_link": prev_link,
+           "prev_link": prev_link, "k_key": corrected.key, "k_count": corrected.count,
+           "cn_key": cn_key,
            "windows": windows, "r_table": r_table, "r_query": r_query, "t_idx": t_idx,
            "t_hit": t_hit, "t_valid": valid, "node_cid": ca.node_cid, "node_off": ca.node_off}
     out = {name: x.cpu().numpy() for name, x in out.items()}
-    out["cut"], out["k"] = auto_min_abundance(spec), cfg.k
+    out["cut"], out["k"], out["k_n"] = auto_min_abundance(spec), cfg.k, corrected.n
     out.update(_merge_inputs(reads, cfg, dev))
     torch.cuda.empty_cache()
     return out
@@ -274,6 +282,19 @@ def _launch_us(fn) -> list:
             if evt.device_type == torch.autograd.DeviceType.CUDA]
 
 
+def _peak_mib(fn) -> float:
+    """MiB a call of fn allocates on the card above what was held before it
+    (torch.cuda.max_memory_allocated after reset_peak_memory_stats)."""
+    import torch
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 2**20
+
+
 def _label_info(label_stage, prev_link) -> dict:
     """The rounds run and each round's frontier of one label_stage call,
     where the tree's label_stage reports them (its info argument)."""
@@ -293,7 +314,7 @@ def _child(tree: str, inputs: str) -> None:
     import shannon_tpu_torch
     from shannon_tpu_torch.ops import correction as tcor
     from shannon_tpu_torch.ops.correction import compact, probe_resolve
-    from shannon_tpu_torch.ops.condense import label_stage
+    from shannon_tpu_torch.ops.condense import label_stage, links_stage, nodes_stage
     from shannon_tpu_torch.ops.thread import compact_thread_outputs, thread_windows
     from shannon_tpu_torch.ops import count as count_module
     from shannon_tpu_torch.ops.count import Spectrum, merge_at, merge_at_plain, merge_batch
@@ -417,15 +438,28 @@ def _child(tree: str, inputs: str) -> None:
                     break
                 c = nxt
             return c
-    # K5 on K4's rows of that batch; K13's label stage on the corrected
-    # spectrum's links
+    # K5 on K4's rows of that batch; K11's node table of the corrected
+    # spectrum, K12's links of that table and K13's label stage on them
     rows = thread_windows(*threading)
     prev_link = on_card("prev_link")
+    corrected = Spectrum(key=on_card("k_key"), count=on_card("k_count"), n=int(d["k_n"]))
+    cn_key = on_card("cn_key")
     loops = {"thread_rows": (lambda: thread_windows(*threading), 200),
              "rescue_1": (lambda: rescue(1), 200),
              "rescue_loop": (lambda: rescue(k + 2), 20),
              "compact_rows": (lambda: compact_thread_outputs(*rows), 200),
+             "nodes_stage": (lambda: nodes_stage(corrected, k, True), 50),
+             "links_stage": (lambda: links_stage(cn_key, k), 50),
              "label_stage": (lambda: label_stage(prev_link), 50)}
+    staged = ("compact_rows", "nodes_stage", "links_stage", "label_stage")
+
+    def digest(tensors) -> str:
+        """SHA-256 prefix of a stage's outputs, so the trees' rows show
+        they are equal."""
+        h = hashlib.sha256()
+        for t in tensors:
+            h.update(t.cpu().numpy().tobytes())
+        return h.hexdigest()[:16]
 
     search_ms = {}
     for name, (fn, library, reps) in search.items():
@@ -453,6 +487,13 @@ def _child(tree: str, inputs: str) -> None:
         "label_stage_has_cycle": label_stage(prev_link)[2],
         "label_stage_info": _label_info(label_stage, prev_link),
         "label_stage_launch_us": _launch_us(lambda: label_stage(prev_link)),
+        "nodes_stage_n": nodes_stage(corrected, k, True)[2],
+        "nodes_stage_sha": digest(nodes_stage(corrected, k, True)[:2]),
+        "links_stage_sha": digest(links_stage(cn_key, k)),
+        "nodes_stage_launch_us": _launch_us(lambda: nodes_stage(corrected, k, True)),
+        "links_stage_launch_us": _launch_us(lambda: links_stage(cn_key, k)),
+        "nodes_stage_peak_mib": _peak_mib(lambda: nodes_stage(corrected, k, True)),
+        "links_stage_peak_mib": _peak_mib(lambda: links_stage(cn_key, k)),
         **{f"{name}_ms": median_ms(lambda a=args: extract_kmers_packed(*a))
            for name, args in extracts.items()},
         **{f"{name}_ms": median_ms(lambda a=args: merge_at(*a)) for name, args in merges.items()},
@@ -467,7 +508,8 @@ def _child(tree: str, inputs: str) -> None:
             "reduce_sorted_merge": _device_us(lambda: reduce_sorted(mkeys, mcounts, cap)),
             "reduce_sorted_batch": _device_us(lambda: reduce_sorted(bkeys, None, cap)),
             **{name: _device_us(fn) for name, (fn, _lib, _reps) in search.items()},
-            **{name: _device_us(fn, 5 if name in ("rescue_loop", "label_stage") else 20)
+            **{name: _device_us(fn, 5 if name in ("rescue_loop", "label_stage", "nodes_stage",
+                                                  "links_stage") else 20)
                for name, (fn, _reps) in loops.items()},
             **{f"{name}_searchsorted": _device_us(lib) for name, (_fn, lib, _r) in search.items()},
             **{name: _device_us(lambda a=args: extract_kmers_packed(*a))
@@ -478,7 +520,7 @@ def _child(tree: str, inputs: str) -> None:
     }
     # the card's idle time a call: the event time less the device time
     row["idle_us"] = {name: row[f"{name}_ms"] * 1e3 - sum(row["device_us"][name].values())
-                      for name in ("compact_rows", "label_stage")}
+                      for name in staged}
     print(json.dumps(row), flush=True)
 
 

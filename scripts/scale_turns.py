@@ -15,8 +15,10 @@ same again in the same process (its allocator now holds blocks of every
 size the run asks for), and the CLI on N paired reads (N / 2 pairs) from
 two FASTA files.  Each merge of the count (ops.count.merge_at) is bracketed
 with two CUDA events, so a run reports how much of count_s the merges hold
-on the device stream; each line also gives threading's kernel_s (K1, K3,
-K4 and K5 a batch).
+on the device stream; each line also gives the condensation's
+tc_condense_s and condense_s (K11-K14), threading's kernel_s (K1, K3, K4
+and K5 a batch) and each single-end run's peak device memory
+(torch.cuda.max_memory_allocated after reset_peak_memory_stats).
 
 Prints one line a run, with the card's name and power limit, and writes
 the runs so far as JSON to --out after each run.  Imports nothing of JAX.
@@ -91,11 +93,13 @@ def child(tree: Path, n_reads: int) -> dict:
 
     def single_run() -> dict:
         timer = StageTimer(echo=False)
+        torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
         res = assemble(reads, AssemblyConfig(), device=dev, timer=timer)
         torch.cuda.synchronize(dev)
         e2e = time.perf_counter() - t0
         return {"e2e_s": e2e, "merges": merge_row(), "stages": timer.stages,
+                "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
                 "recall": evaluate(truth, [t.seq for t in res.transcripts], k=24)["recall_exact"]}
 
     single, single_again = single_run(), single_run()
@@ -124,8 +128,11 @@ def child(tree: Path, n_reads: int) -> dict:
 def _single(se: dict) -> str:
     sg = se["stages"]["spectrum+graph"]
     return (f"{se['e2e_s']:.2f} s (count_s {sg['count_s']:.3f}, merges {se['merges']['calls']} x = "
-            f"{se['merges']['ms']:.3f} ms, tipclip_s {sg['tipclip_s']:.3f}, threading kernel_s "
-            f"{se['stages']['threading']['kernel_s']:.3f}, recall {se['recall']:.4f})")
+            f"{se['merges']['ms']:.3f} ms, tipclip_s {sg['tipclip_s']:.3f}, tc_condense_s "
+            f"{sg.get('tc_condense_s', float('nan')):.4f}, condense_s "
+            f"{sg.get('condense_s', float('nan')):.4f}, threading kernel_s "
+            f"{se['stages']['threading']['kernel_s']:.3f}, peak {se['peak_gib']:.3f} GiB, "
+            f"recall {se['recall']:.4f})")
 
 
 def _line(run: dict, smi: str) -> str:

@@ -23,18 +23,11 @@ static __device__ __forceinline__ uint64_t revcomp_bits(uint64_t key, int k) {
   return r >> (64 - 2 * k);
 }
 
-// Binary search of `key` in the sorted table[0, table_len) (table_len >= 1):
-// the lower bound clamped to table_len - 1 goes to *idx, and the result says
-// whether that lane holds the key.  The kernels that search inside other
-// work use it: K11 and K14 (condense.cu), K18 (tipclip.cu), K21
-// (lookup_counts) and K22 / K28 (through sibling_maxes_of).  K3
-// (lookup_sorted) and K7 (probe_lookup) walk the 16-ary index of search.cuh
-// instead; every searcher returns the same exact clamped lower bound, so all
-// give the same (idx, hit) for the same query.
-static __device__ __forceinline__ bool lower_bound_hit(
-    const int64_t* __restrict__ table, int64_t table_len, int64_t key,
-    int64_t* idx) {
-  int64_t lo = 0, hi = table_len;
+// The first index in [lo, hi) of the sorted table whose key is >= `key`, or
+// hi: a binary search.  K12's tile bounds (link_bounds_kernel) take it as it
+// is; lower_bound_hit clamps it.
+static __device__ __forceinline__ int64_t lower_bound(const int64_t* __restrict__ table,
+                                                      int64_t lo, int64_t hi, int64_t key) {
   while (lo < hi) {
     int64_t mid = lo + ((hi - lo) >> 1);
     if (table[mid] < key) {
@@ -43,6 +36,21 @@ static __device__ __forceinline__ bool lower_bound_hit(
       hi = mid;
     }
   }
+  return lo;
+}
+
+// Binary search of `key` in the sorted table[0, table_len) (table_len >= 1):
+// the lower bound clamped to table_len - 1 goes to *idx, and the result says
+// whether that lane holds the key.  The kernels that search inside other
+// work use it: K14 (condense.cu), K18 (tipclip.cu), K21 (lookup_counts) and
+// K22 / K28 (through sibling_maxes_of).  K3 (lookup_sorted) and K7
+// (probe_lookup) walk the 16-ary index of search.cuh instead; every
+// searcher returns the same exact clamped lower bound, so all give the same
+// (idx, hit) for the same query.
+static __device__ __forceinline__ bool lower_bound_hit(
+    const int64_t* __restrict__ table, int64_t table_len, int64_t key,
+    int64_t* idx) {
+  const int64_t lo = lower_bound(table, 0, table_len, key);
   int64_t i = lo < table_len ? lo : table_len - 1;
   *idx = i;
   return table[i] == key;
@@ -102,4 +110,37 @@ static __device__ __forceinline__ void sibling_maxes_of(
   }
   *rmax = r;
   *lmax = l;
+}
+
+// The first index in [lo, hi) where pred is false, or hi, where pred is true
+// on a prefix of the range.  One warp calls it together, with the same lo
+// and hi in every lane; each round tests 32 pivots that cut the range into
+// 33 parts, so a range of 2^24 lanes takes 5 rounds of one load a lane.
+template <typename Pred>
+static __device__ __forceinline__ int64_t warp_partition(int64_t lo, int64_t hi, Pred pred) {
+  const int lane = threadIdx.x & 31;
+  while (hi > lo) {
+    const int64_t span = hi - lo;
+    if (span <= 32) {
+      const bool t = lane < span && pred(lo + lane);
+      return lo + __popc(__ballot_sync(0xffffffffu, t));
+    }
+    const int64_t p = lo + span * (lane + 1) / 33;
+    const int c = __popc(__ballot_sync(0xffffffffu, pred(p)));
+    const int64_t below = __shfl_sync(0xffffffffu, p, c > 0 ? c - 1 : 0);
+    const int64_t above = __shfl_sync(0xffffffffu, p, c < 32 ? c : 31);
+    if (c > 0) lo = below + 1;
+    if (c < 32) hi = above;
+  }
+  return lo;
+}
+
+// a's lanes among the first d lanes of the merge of a[0, na) and b[0, nb),
+// ties to a.  One warp calls it together.  K17 (merge_runs_kernel) and K11
+// (node_merge_kernel) split their tiles with it.
+static __device__ __forceinline__ int64_t merge_split(const int64_t* __restrict__ a, int64_t na,
+                                                      const int64_t* __restrict__ b, int64_t nb,
+                                                      int64_t d) {
+  return warp_partition(d > nb ? d - nb : 0, d < na ? d : na,
+                        [&](int64_t i) { return a[i] <= b[d - 1 - i]; });
 }

@@ -10,116 +10,385 @@
 
 // ---------------------------------------------------------------------------
 // K11: oriented node table (both strands of each canonical k-mer).
-// Replaces shannon_tpu/ops/condense.py:82 _nodes_stage.  The reference sorted
-// (key, count) pairs of both strands and kept each run's first payload.  Here
-// node_strands_kernel writes the keys alone, torch.sort sorts them, K2 dedupes
-// the palindromes (a palindrome is its own reverse complement, so it appears
-// twice), and node_counts_kernel gives each node the count of its canonical
-// k-mer by K3's binary search in the spectrum: the payload sort and the two
-// payload gathers of the plain version are never needed.
-// Bound: memory for the strands pass (8 bytes read, 16 written a lane); the
-// count pass is a binary search per node, bounded by the latency of its
-// dependent loads (the spectrum of a few million keys stays in the 50 MB L2).
+// Replaces shannon_tpu/ops/condense.py:82 _nodes_stage, which sorted the
+// (key, count) pairs of both strands of all C lanes, pads included, and kept
+// the first pair of each run (a palindrome is its own reverse complement, so
+// it appears twice).
+// The spectrum holds canonical keys, sorted, PAD past its n real lanes: one
+// strand, already sorted.  For a canonical x, rc(x) is another canonical key
+// y only where x is a palindrome (y <= rc(y) = x <= rc(x) = y), so the other
+// strand is the n reverse complements less the palindromes, and the two
+// strands share no key.  So:
+//  - node_rc_kernel writes rc(key) for the n real lanes, PAD for a
+//    palindrome (odd k has none), and counts the palindromes (a warp's
+//    ballot, one atomicAdd a warp);
+//  - the wrapper sorts those n keys with torch.sort, whose indices give
+//    each reverse complement's spectrum lane;
+//  - node_merge_kernel merges the two sorted lists.  They share no key, so
+//    a node's lane is its index plus its co-rank in the other list: no
+//    reduction, scan or look-back.  A block takes NODE_TILE node lanes,
+//    finds the merge-path split of its two diagonals (merge_split, one warp
+//    each), loads its stretch of both lists into shared memory coalesced (a
+//    reverse complement's count gathered through its index), and each
+//    thread takes the tile's lanes THREADS apart, each from a binary search
+//    of its diagonal in shared memory, so the node table is written
+//    coalesced.  Lanes past n_nodes = 2n - palindromes get PAD and 0.
+// No K2, no per-node search, no pad lane in the sort.  The wrapper reads the
+// palindrome count once, for n_nodes.
+// Bound: memory.  The function must read the spectrum's n real lanes (12
+// bytes each) and write the 2C node lanes (12 bytes each); the design adds
+// torch.sort's passes over n keys and their indices, and reads the sorted
+// keys and indices once more in the merge.
 // ---------------------------------------------------------------------------
-__global__ void node_strands_kernel(const int64_t* __restrict__ key, int64_t C,
-                                    int k, int64_t* __restrict__ both) {
-  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= C) return;
-  const int64_t v = key[i];
-  both[i] = v;
-  both[C + i] = v == PAD_KEY ? PAD_KEY : (int64_t)revcomp_bits((uint64_t)v, k);
+#define NODE_TILE 2048  // node lanes a merge block writes
+
+__global__ void node_rc_kernel(const int64_t* __restrict__ key, int64_t n, int k,
+                               int64_t* __restrict__ rc, unsigned long long* __restrict__ n_pal) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  bool pal = false;
+  if (i < n) {
+    const int64_t v = key[i];
+    const int64_t r = (int64_t)revcomp_bits((uint64_t)v, k);
+    pal = r == v;
+    rc[i] = pal ? PAD_KEY : r;
+  }
+  const unsigned ballot = __ballot_sync(0xffffffffu, pal);
+  if ((threadIdx.x & 31) == 0 && ballot != 0) {
+    atomicAdd(n_pal, (unsigned long long)__popc(ballot));
+  }
 }
 
-// The spectrum holds canonical keys, so a node and its reverse complement
-// share the spectrum entry min(v, revcomp(v)).
-__global__ void node_counts_kernel(const int64_t* __restrict__ node_key,
-                                   int64_t C2, const int64_t* __restrict__ table,
-                                   const int32_t* __restrict__ table_count,
-                                   int64_t C, int k,
-                                   int32_t* __restrict__ node_count) {
-  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= C2) return;
-  const int64_t v = node_key[i];
-  int32_t c = 0;
-  if (v != PAD_KEY) {
-    const int64_t rc = (int64_t)revcomp_bits((uint64_t)v, k);
-    int64_t lane;
-    if (lower_bound_hit(table, C, rc < v ? rc : v, &lane)) c = table_count[lane];
+__global__ void __launch_bounds__(THREADS) node_merge_kernel(
+    const int64_t* __restrict__ key, const int32_t* __restrict__ count, int64_t n,
+    const int64_t* __restrict__ rc_key, const int64_t* __restrict__ rc_lane,
+    const unsigned long long* __restrict__ n_pal, int64_t C2,
+    int64_t* __restrict__ node_key, int32_t* __restrict__ node_count) {
+  __shared__ int64_t s_key[NODE_TILE];  // the tile's stretch of key, then of rc_key
+  __shared__ int32_t s_count[NODE_TILE];
+  __shared__ int64_t s_split[2];        // key's lanes before the tile's two diagonals
+  const int64_t nb = n - (int64_t)*n_pal, N = n + nb;
+  const int64_t d0 = (int64_t)blockIdx.x * NODE_TILE;
+  const int64_t e = d0 + NODE_TILE < C2 ? d0 + NODE_TILE : C2;
+  const int64_t d1 = e < N ? e : N;  // the end of the tile's real lanes
+  if (d0 < d1) {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    if (warp < 2) {
+      const int64_t i = merge_split(key, n, rc_key, nb, warp == 0 ? d0 : d1);
+      if (lane == 0) s_split[warp] = i;
+    }
+    __syncthreads();
+    const int64_t a0 = s_split[0], b0 = d0 - a0;
+    const int la = (int)(s_split[1] - a0), L = (int)(d1 - d0), lb = L - la;
+    for (int p = threadIdx.x; p < L; p += THREADS) {
+      if (p < la) {
+        s_key[p] = key[a0 + p];
+        s_count[p] = count[a0 + p];
+      } else {
+        const int64_t j = b0 + (p - la);
+        s_key[p] = rc_key[j];
+        s_count[p] = count[rc_lane[j]];
+      }
+    }
+    __syncthreads();
+    for (int p = threadIdx.x; p < L; p += THREADS) {
+      // key's lanes among the tile's first p (the lists share no key)
+      int lo = p > lb ? p - lb : 0, hi = p < la ? p : la;
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (s_key[mid] < s_key[la + p - 1 - mid]) {
+          lo = mid + 1;
+        } else {
+          hi = mid;
+        }
+      }
+      const int bi = p - lo;
+      const int slot = lo < la && (bi >= lb || s_key[lo] < s_key[la + bi]) ? lo : la + bi;
+      node_key[d0 + p] = s_key[slot];
+      node_count[d0 + p] = s_count[slot];
+    }
   }
-  node_count[i] = c;
+  for (int64_t p = (d1 > d0 ? d1 : d0) + threadIdx.x; p < e; p += THREADS) {
+    node_key[p] = PAD_KEY;
+    node_count[p] = 0;
+  }
 }
 
 // ---------------------------------------------------------------------------
 // K12: mergeable links and the successor directory from one (k-1)-mer group
-// join.  Replaces shannon_tpu/ops/condense.py:109 _links_stage.
-// Every node gives a source record (its (k-1)-suffix) and a target record (its
-// (k-1)-prefix); link_records_kernel writes their sort keys (k-1)-mer * 2 +
-// side, PAD for pad nodes, and torch.sort(stable=True) orders them, so a group
-// is its sources then its targets, each in lane order (the order prev_link and
-// the successor runs are read in).  group_links_kernel runs one thread per
-// sorted record.  Node keys are distinct, so a group holds at most 4 sources
-// and 4 targets, and the thread finds its group's start, first target and end
-// by stepping over its neighbours (at most 7 loads, from cache) instead of the
-// reference's cummax/cumsum passes.  Each lane has exactly one source and one
-// target record, so the scatters to node order never collide: they replace the
-// reference's unsort sort.
-// Bound: memory (the records' 16 bytes read, 8 written a record, and 24 bytes
-// of node-order outputs a lane).
+// join.  Replaces shannon_tpu/ops/condense.py:109 _links_stage, which sorted
+// 2*C2 records, each node's (k-1)-suffix as a source and its (k-1)-prefix as
+// a target, by ((k-1)-mer, side, lane): a group is its sources, then its
+// targets, each in lane order, and rec_lane is the records' lanes in that
+// order.  A group with one source and one target is a mergeable link
+// (prev_link); each source's group gives its successor run (first_p, p_cnt).
+// The node table is sorted, PAD past its n real lanes, so that order needs no
+// sort: it is the merge of five sorted runs.  The targets in lane order are
+// sorted by prefix (v >> 2).  Run b of the sources, the lanes [seg_b,
+// seg_b+1) whose key starts with base b, is sorted by suffix (the low 2(k-1)
+// bits), strictly; in a group the source of run b comes before that of run
+// b + 1, as in lane order.
+// Design.
+//  - Key-range tiles: tile t owns the (k-1)-mers [x_t, x_t+1), x_t the
+//    prefix of target lane t * tile (x_0 = 0; from the first tile edge past
+//    the real lanes the range runs to the end), so no group crosses a tile.
+//    Its targets are the lanes [lb(x_t << 2), lb(x_t+1 << 2)), its sources
+//    of run b the lanes [lb(b << 2(k-1) | x_t), lb(b << 2(k-1) | x_t+1)),
+//    lb the lower bound on node_key itself (link_bounds_kernel: a thread a
+//    bound, 5 a tile edge, seg_b and n among them).  Its records fill the
+//    sorted order's slots from lb(x_t << 2) + sum_b (lb(b << 2(k-1) | x_t) -
+//    seg_b) on, contiguously.
+//  - link_tiles_kernel, a block a tile, loads the five stretches into shared
+//    memory coalesced and merges them there by ((k-1)-mer << 3 | run), the
+//    targets as run 4: runs 0 with 1 and 2 with 3, then the two results,
+//    then those with the targets (merge path: a thread takes LINK_ITEMS
+//    outputs from a binary search of its diagonal; no two runs share an
+//    order key, and a run keeps its own order).  rec_lane is written
+//    contiguously.  Then the group join: a record finds its group's first
+//    slot, first target and end by stepping over its neighbours in the
+//    merged order (a group holds at most 4 sources and 4 targets), with no
+//    halo, since the group lies in the tile.  prev_link goes to the tile's
+//    stretch of target lanes, first_p and p_cnt to its four stretches of
+//    source lanes, each written in lane order.  first_p is the group's first
+//    target slot, g0 + s_cnt, even where p_cnt = 0, as in the reference.
+//  - A traffic jam: a tile's sources are not bounded by its width (a key
+//    range rich in tips and poor in targets).  A chunk takes at most
+//    LINK_SRC_CAP records of each source run and LINK_TGT_CAP targets; where
+//    a run has more left, the chunk ends below the smallest (k-1)-mer of the
+//    first records past the caps, so no group is cut, each chunk takes at
+//    least LINK_SRC_CAP - 3 records of one run, and the block loops.  Shared
+//    memory holds one chunk, whatever the data.
+//  - Pads: lanes past n get prev_link -1 and first_p = p_cnt = 0, and their
+//    records rec_lane[2n:] = [n..C2-1, n..C2-1], where the stable sort left
+//    the PAD records (sources, then targets).  Block t writes those of its
+//    own lanes [t * tile, (t + 1) * tile).
+// No sort, no 2*C2 key or index array, no scatter through an order array and
+// no host read.
+// Bound: memory.  The function must read node_key (8 bytes a lane) and write
+// rec_lane (16 bytes a lane), prev_link, first_p and p_cnt (24); the design
+// reads each real node key twice, as a target and as a source.
 // ---------------------------------------------------------------------------
-__global__ void link_records_kernel(const int64_t* __restrict__ node_key,
-                                    int64_t C2, int k,
-                                    int64_t* __restrict__ sort_key) {
-  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= C2) return;
-  const int64_t v = node_key[i];
-  if (v == PAD_KEY) {
-    sort_key[i] = PAD_KEY;
-    sort_key[C2 + i] = PAD_KEY;
-    return;
-  }
-  const int64_t suf = v & (int64_t)((1ull << (2 * (k - 1))) - 1);
-  sort_key[i] = suf * 2;
-  sort_key[C2 + i] = (v >> 2) * 2 + 1;
+#define LINK_SRC_SHIFT 9
+#define LINK_SRC_CAP (1 << LINK_SRC_SHIFT)  // records of a source run a chunk takes
+#define LINK_TGT_CAP 1056                   // targets a chunk takes (a tile's width + 3 fit)
+#define LINK_SLOTS (4 * LINK_SRC_CAP + LINK_TGT_CAP)
+#define LINK_ITEMS 8
+// The chunk's node keys by slot (source run b from b * LINK_SRC_CAP, the
+// targets from 4 * LINK_SRC_CAP), then two merged orders of slots.
+#define LINK_SMEM (LINK_SLOTS * (sizeof(int64_t) + 2 * sizeof(uint16_t)))
+
+// A slot's run: 0-3 the sources by first base, 4 the targets.
+static __device__ __forceinline__ int link_run(int slot) {
+  const int r = slot >> LINK_SRC_SHIFT;
+  return r < 4 ? r : 4;
 }
 
-__global__ void group_links_kernel(const int64_t* __restrict__ skey,
-                                   const int64_t* __restrict__ order,
-                                   int64_t C2, int64_t* __restrict__ prev_link,
-                                   int64_t* __restrict__ rec_lane,
-                                   int64_t* __restrict__ first_p,
-                                   int64_t* __restrict__ p_cnt) {
-  int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const int64_t m = 2 * C2;
-  if (r >= m) return;
-  const int64_t o = order[r];
-  const bool target = o >= C2;
-  const int64_t lane = target ? o - C2 : o;
-  rec_lane[r] = lane;
-  const int64_t s = skey[r];
-  if (s == PAD_KEY) {  // pad records form no group
-    if (target) {
-      prev_link[lane] = -1;
+// A record's (k-1)-mer: a target's prefix, a source's suffix.
+static __device__ __forceinline__ uint64_t link_kmer(int64_t v, int run, uint64_t mask) {
+  return run == 4 ? (uint64_t)v >> 2 : (uint64_t)v & mask;
+}
+
+// A slot's order key: its (k-1)-mer (< 2^60), then its run.
+static __device__ __forceinline__ uint64_t link_order(const int64_t* s_key, int slot,
+                                                      uint64_t mask) {
+  const int r = link_run(slot);
+  return link_kmer(s_key[slot], r, mask) << 3 | (uint64_t)r;
+}
+
+// A sorted list of slots: idx[0, len), or with no idx the slots base, base + 1, ...
+struct LinkList {
+  const uint16_t* idx;
+  int base, len;
+  __device__ __forceinline__ int at(int i) const { return idx ? idx[i] : base + i; }
+};
+
+// out[d] for d in [d0, d1) of the merge of a and b (no order key in both).
+static __device__ __forceinline__ void link_merge(const int64_t* s_key, uint64_t mask,
+                                                  LinkList a, LinkList b, uint16_t* out,
+                                                  int d0, int d1) {
+  int lo = d0 > b.len ? d0 - b.len : 0, hi = d0 < a.len ? d0 : a.len;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (link_order(s_key, a.at(mid), mask) < link_order(s_key, b.at(d0 - 1 - mid), mask)) {
+      lo = mid + 1;
     } else {
-      first_p[lane] = 0;
-      p_cnt[lane] = 0;
+      hi = mid;
     }
-    return;
   }
-  // (PAD >> 1) is above every real (k-1)-mer, so the scans stop at the pads
-  const int64_t g = s >> 1;
-  int64_t g0 = r;
-  while (g0 > 0 && (skey[g0 - 1] >> 1) == g) --g0;
-  int64_t end = r + 1;
-  while (end < m && (skey[end] >> 1) == g) ++end;
-  int64_t fp = g0;
-  while (fp < end && (skey[fp] & 1) == 0) ++fp;
-  if (target) {
-    const bool single = fp - g0 == 1 && end - fp == 1;
-    const int64_t o0 = order[g0];
-    prev_link[lane] = single ? (o0 >= C2 ? o0 - C2 : o0) : -1;
-  } else {
-    first_p[lane] = fp;
-    p_cnt[lane] = end - fp;
+  int i = lo, j = d0 - lo;
+  uint64_t ka = i < a.len ? link_order(s_key, a.at(i), mask) : ~0ull;
+  uint64_t kb = j < b.len ? link_order(s_key, b.at(j), mask) : ~0ull;
+  for (int d = d0; d < d1; ++d) {
+    if (ka < kb) {
+      out[d] = (uint16_t)a.at(i++);
+      ka = i < a.len ? link_order(s_key, a.at(i), mask) : ~0ull;
+    } else {
+      out[d] = (uint16_t)b.at(j++);
+      kb = j < b.len ? link_order(s_key, b.at(j), mask) : ~0ull;
+    }
+  }
+}
+
+// bounds[5 t + r] for the tile edge t in [0, n_tiles]: r < 4 the first lane
+// of source run r at or past x_t, r = 4 the first target lane at or past it.
+// Edge 0 gives seg_0..seg_3 and 0; an edge at or past the real lanes gives
+// seg_1..seg_3, n and n.
+__global__ void link_bounds_kernel(const int64_t* __restrict__ node_key, int64_t C2, int k,
+                                   int64_t tile, int64_t n_tiles, int64_t* __restrict__ bounds) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= 5 * (n_tiles + 1)) return;
+  const int64_t t = i / 5;
+  const int r = (int)(i - 5 * t), hs = 2 * (k - 1);
+  const int64_t lane = t * tile;
+  const int64_t v = lane < C2 ? node_key[lane] : PAD_KEY;
+  int64_t q;
+  if (v != PAD_KEY) {
+    const int64_t x = t == 0 ? 0 : v >> 2;
+    q = r == 4 ? x << 2 : ((int64_t)r << hs) | x;
+  } else {  // (4 << 2(k-1)) = 4^k is above every real key, below PAD
+    q = r == 4 ? PAD_KEY : (int64_t)(r + 1) << hs;
+  }
+  bounds[i] = lower_bound(node_key, 0, C2, q);
+}
+
+__global__ void __launch_bounds__(THREADS) link_tiles_kernel(
+    const int64_t* __restrict__ node_key, int64_t C2, int k, int64_t tile,
+    const int64_t* __restrict__ bounds, int64_t n_tiles, int64_t* __restrict__ prev_link,
+    int64_t* __restrict__ rec_lane, int64_t* __restrict__ first_p,
+    int64_t* __restrict__ p_cnt) {
+  extern __shared__ int64_t s_key[];
+  uint16_t* s_a = (uint16_t*)(s_key + LINK_SLOTS);
+  uint16_t* s_b = s_a + LINK_SLOTS;
+  __shared__ int64_t s_pos[5], s_end[5];  // each run's next and last lane + 1
+  __shared__ int s_cnt[5], s_len[5];      // each run's loaded and taken records
+  __shared__ uint64_t s_y[5];             // the (k-1)-mer past each run's cap
+  __shared__ int64_t s_out;               // the chunk's first slot of rec_lane
+  const int64_t t = blockIdx.x;
+  const int64_t n = bounds[5 * n_tiles + 4];
+  const uint64_t mask = (1ull << (2 * (k - 1))) - 1;
+
+  const int64_t lo0 = t * tile, hi0 = lo0 + tile < C2 ? lo0 + tile : C2;
+  for (int64_t lane = (lo0 > n ? lo0 : n) + threadIdx.x; lane < hi0; lane += THREADS) {
+    prev_link[lane] = -1;
+    first_p[lane] = 0;
+    p_cnt[lane] = 0;
+    rec_lane[n + lane] = lane;
+    rec_lane[C2 + lane] = lane;
+  }
+  if (threadIdx.x < 5) {
+    s_pos[threadIdx.x] = bounds[5 * t + threadIdx.x];
+    s_end[threadIdx.x] = bounds[5 * t + 5 + threadIdx.x];
+  }
+  if (threadIdx.x == 0) {
+    int64_t out = bounds[5 * t + 4];
+    for (int b = 0; b < 4; ++b) out += bounds[5 * t + b] - bounds[b];
+    s_out = out;
+  }
+  for (;;) {
+    __syncthreads();
+    if (threadIdx.x < 5) {
+      const int r = threadIdx.x, cap = r < 4 ? LINK_SRC_CAP : LINK_TGT_CAP;
+      const int64_t left = s_end[r] - s_pos[r];
+      s_cnt[r] = (int)(left < cap ? left : cap);
+      s_y[r] = left > cap ? link_kmer(node_key[s_pos[r] + cap], r, mask) : ~0ull;
+    }
+    __syncthreads();
+    int total = 0;
+    uint64_t y = ~0ull;
+#pragma unroll
+    for (int r = 0; r < 5; ++r) {
+      total += s_cnt[r];
+      y = s_y[r] < y ? s_y[r] : y;
+    }
+    if (total == 0) break;
+#pragma unroll
+    for (int r = 0; r < 5; ++r) {
+      const int64_t p0 = s_pos[r];
+      for (int q = threadIdx.x; q < s_cnt[r]; q += THREADS) {
+        s_key[r * LINK_SRC_CAP + q] = node_key[p0 + q];
+      }
+    }
+    __syncthreads();
+    if (threadIdx.x < 5) {  // each run's records below y
+      const int r = threadIdx.x, base = r * LINK_SRC_CAP;
+      int lo = 0, hi = s_cnt[r];
+      if (y == ~0ull) {
+        lo = hi;
+      }
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (link_kmer(s_key[base + mid], r, mask) < y) {
+          lo = mid + 1;
+        } else {
+          hi = mid;
+        }
+      }
+      s_len[r] = lo;
+    }
+    __syncthreads();
+    const int n01 = s_len[0] + s_len[1], S = n01 + s_len[2] + s_len[3], M = S + s_len[4];
+    for (int d = threadIdx.x * LINK_ITEMS; d < S; d += THREADS * LINK_ITEMS) {
+      const int e = d + LINK_ITEMS < S ? d + LINK_ITEMS : S;
+      if (d < n01) {
+        link_merge(s_key, mask, LinkList{nullptr, 0, s_len[0]},
+                   LinkList{nullptr, LINK_SRC_CAP, s_len[1]}, s_a, d, e < n01 ? e : n01);
+      }
+      if (e > n01) {
+        link_merge(s_key, mask, LinkList{nullptr, 2 * LINK_SRC_CAP, s_len[2]},
+                   LinkList{nullptr, 3 * LINK_SRC_CAP, s_len[3]}, s_a + n01,
+                   (d > n01 ? d : n01) - n01, e - n01);
+      }
+    }
+    __syncthreads();
+    for (int d = threadIdx.x * LINK_ITEMS; d < S; d += THREADS * LINK_ITEMS) {
+      link_merge(s_key, mask, LinkList{s_a, 0, n01}, LinkList{s_a + n01, 0, S - n01}, s_b, d,
+                 d + LINK_ITEMS < S ? d + LINK_ITEMS : S);
+    }
+    __syncthreads();
+    for (int d = threadIdx.x * LINK_ITEMS; d < M; d += THREADS * LINK_ITEMS) {
+      link_merge(s_key, mask, LinkList{s_b, 0, S}, LinkList{nullptr, 4 * LINK_SRC_CAP, M - S},
+                 s_a, d, d + LINK_ITEMS < M ? d + LINK_ITEMS : M);
+    }
+    __syncthreads();
+    for (int j = threadIdx.x; j < M; j += THREADS) s_b[s_a[j]] = (uint16_t)j;  // slot -> place
+    __syncthreads();
+
+    const int64_t out = s_out;
+    auto lane_of = [&](int slot) {
+      const int r = link_run(slot);
+      return s_pos[r] + (slot - r * LINK_SRC_CAP);
+    };
+    auto kmer_at = [&](int j) {
+      const int slot = s_a[j];
+      return link_kmer(s_key[slot], link_run(slot), mask);
+    };
+    for (int j = threadIdx.x; j < M; j += THREADS) rec_lane[out + j] = lane_of(s_a[j]);
+#pragma unroll
+    for (int r = 0; r < 5; ++r) {
+      for (int q = threadIdx.x; q < s_len[r]; q += THREADS) {
+        const int slot = r * LINK_SRC_CAP + q, j = s_b[slot];
+        const uint64_t x = link_kmer(s_key[slot], r, mask);
+        const int64_t lane = s_pos[r] + q;
+        if (r == 4) {
+          int g0 = j;
+          while (g0 > 0 && kmer_at(g0 - 1) == x) --g0;
+          int fp = g0;  // sources lead the group, and j is a target
+          while (link_run(s_a[fp]) < 4) ++fp;
+          int end = j + 1;
+          while (end < M && kmer_at(end) == x) ++end;
+          prev_link[lane] = fp - g0 == 1 && end - fp == 1 ? lane_of(s_a[g0]) : -1;
+        } else {
+          int fp = j + 1;
+          while (fp < M && link_run(s_a[fp]) < 4 && kmer_at(fp) == x) ++fp;
+          int end = fp;
+          while (end < M && kmer_at(end) == x) ++end;
+          first_p[lane] = out + fp;
+          p_cnt[lane] = end - fp;
+        }
+      }
+    }
+    __syncthreads();
+    if (threadIdx.x < 5) s_pos[threadIdx.x] += s_len[threadIdx.x];
+    if (threadIdx.x == 0) s_out = out + M;
   }
 }
 
@@ -546,43 +815,53 @@ __global__ void heads_stream_kernel(const int64_t* __restrict__ node_key,
 // ---------------------------------------------------------------------------
 extern "C" {
 
-int shannon_node_strands(const void* key, int64_t C, int k, void* both,
+// K11.  rc [n]: the reverse complements of key[0, n), PAD on palindromes;
+// n_pal: one uint64, zeroed here, the palindromes.
+int shannon_node_strands(const void* key, int64_t n, int k, void* rc, void* n_pal,
                          void* stream) {
-  if (C > 0) {
-    node_strands_kernel<<<blocks_for(C), THREADS, 0, (cudaStream_t)stream>>>(
-        (const int64_t*)key, C, k, (int64_t*)both);
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err = cudaMemsetAsync(n_pal, 0, sizeof(unsigned long long), s);
+  if (err != cudaSuccess || n <= 0) return (int)err;
+  node_rc_kernel<<<blocks_for(n), THREADS, 0, s>>>((const int64_t*)key, n, k, (int64_t*)rc,
+                                                   (unsigned long long*)n_pal);
+  return (int)cudaGetLastError();
+}
+
+// K11.  key, count [>= n]: the spectrum, its n real lanes first; rc_key [n]
+// sorted (PAD last), rc_lane [n] the spectrum lane of each; node_key,
+// node_count [C2].
+int shannon_node_merge(const void* key, const void* count, int64_t n, const void* rc_key,
+                       const void* rc_lane, const void* n_pal, int64_t C2, void* node_key,
+                       void* node_count, void* stream) {
+  if (n < 0 || C2 < 2 * n) return (int)cudaErrorInvalidValue;
+  if (C2 > 0) {
+    node_merge_kernel<<<(unsigned int)((C2 + NODE_TILE - 1) / NODE_TILE), THREADS, 0,
+                        (cudaStream_t)stream>>>(
+        (const int64_t*)key, (const int32_t*)count, n, (const int64_t*)rc_key,
+        (const int64_t*)rc_lane, (const unsigned long long*)n_pal, C2, (int64_t*)node_key,
+        (int32_t*)node_count);
   }
   return (int)cudaGetLastError();
 }
 
-int shannon_node_counts(const void* node_key, int64_t C2, const void* table,
-                        const void* table_count, int64_t C, int k,
-                        void* node_count, void* stream) {
-  if (C2 > 0) {
-    node_counts_kernel<<<blocks_for(C2), THREADS, 0, (cudaStream_t)stream>>>(
-        (const int64_t*)node_key, C2, (const int64_t*)table,
-        (const int32_t*)table_count, C, k, (int32_t*)node_count);
-  }
-  return (int)cudaGetLastError();
-}
-
-int shannon_link_records(const void* node_key, int64_t C2, int k,
-                         void* sort_key, void* stream) {
-  if (C2 > 0) {
-    link_records_kernel<<<blocks_for(C2), THREADS, 0, (cudaStream_t)stream>>>(
-        (const int64_t*)node_key, C2, k, (int64_t*)sort_key);
-  }
-  return (int)cudaGetLastError();
-}
-
-int shannon_group_links(const void* skey, const void* order, int64_t C2,
-                        void* prev_link, void* rec_lane, void* first_p,
-                        void* p_cnt, void* stream) {
-  if (C2 > 0) {
-    group_links_kernel<<<blocks_for(2 * C2), THREADS, 0, (cudaStream_t)stream>>>(
-        (const int64_t*)skey, (const int64_t*)order, C2, (int64_t*)prev_link,
-        (int64_t*)rec_lane, (int64_t*)first_p, (int64_t*)p_cnt);
-  }
+// K12.  node_key [C2] sorted, PAD past its real lanes; tile >= 1 target lanes
+// a tile; bounds: 5 * (ceil(C2 / tile) + 1) int64 of scratch; prev_link,
+// first_p, p_cnt [C2]; rec_lane [2 * C2].
+int shannon_link_tiles(const void* node_key, int64_t C2, int k, int64_t tile, void* bounds,
+                       int64_t bounds_words, void* prev_link, void* rec_lane, void* first_p,
+                       void* p_cnt, void* stream) {
+  if (C2 < 0 || tile < 1 || k < 1 || k > 31) return (int)cudaErrorInvalidValue;
+  const int64_t n_tiles = (C2 + tile - 1) / tile;
+  if (bounds_words != 5 * (n_tiles + 1)) return (int)cudaErrorInvalidValue;
+  if (C2 == 0) return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  link_bounds_kernel<<<blocks_for(bounds_words), THREADS, 0, s>>>(
+      (const int64_t*)node_key, C2, k, tile, n_tiles, (int64_t*)bounds);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  link_tiles_kernel<<<(unsigned int)n_tiles, THREADS, LINK_SMEM, s>>>(
+      (const int64_t*)node_key, C2, k, tile, (const int64_t*)bounds, n_tiles,
+      (int64_t*)prev_link, (int64_t*)rec_lane, (int64_t*)first_p, (int64_t*)p_cnt);
   return (int)cudaGetLastError();
 }
 

@@ -383,37 +383,7 @@ __global__ void __launch_bounds__(SEARCH_THREADS, 6)
 // The shared-memory slot of a tile's lane p: one pad slot every 32 lanes.
 static __device__ __forceinline__ int merge_slot(int p) { return p + (p >> 5); }
 
-// The first index in [lo, hi) where pred is false, or hi, where pred is true
-// on a prefix of the range.  One warp calls it together, with the same lo
-// and hi in every lane; each round tests 32 pivots that cut the range into
-// 33 parts, so a range of 2^24 lanes takes 5 rounds of one load a lane.
-template <typename Pred>
-static __device__ __forceinline__ int64_t warp_partition(int64_t lo, int64_t hi, Pred pred) {
-  const int lane = threadIdx.x & 31;
-  while (hi > lo) {
-    const int64_t span = hi - lo;
-    if (span <= 32) {
-      const bool t = lane < span && pred(lo + lane);
-      return lo + __popc(__ballot_sync(SCAN_FULL_MASK, t));
-    }
-    const int64_t p = lo + span * (lane + 1) / 33;
-    const int c = __popc(__ballot_sync(SCAN_FULL_MASK, pred(p)));
-    const int64_t below = __shfl_sync(SCAN_FULL_MASK, p, c > 0 ? c - 1 : 0);
-    const int64_t above = __shfl_sync(SCAN_FULL_MASK, p, c < 32 ? c : 31);
-    if (c > 0) lo = below + 1;
-    if (c < 32) hi = above;
-  }
-  return lo;
-}
-
-// a's lanes among the first d lanes of the merge of a[0, na) and b[0, nb),
-// ties to a.  One warp calls it together.
-static __device__ __forceinline__ int64_t merge_split(const int64_t* __restrict__ a, int64_t na,
-                                                      const int64_t* __restrict__ b, int64_t nb,
-                                                      int64_t d) {
-  return warp_partition(d > nb ? d - nb : 0, d < na ? d : na,
-                        [&](int64_t i) { return a[i] <= b[d - 1 - i]; });
-}
+// warp_partition and merge_split (the tiles' splits) are in common.cuh.
 
 // Merges a thread's lanes [first, first + SCAN_ITEMS) of the tile (clipped
 // to L) from its split: ai of a's lanes before `first`, `prev` the merged

@@ -65,10 +65,9 @@ _ARGTYPES = {
     "shannon_rescue_rounds": [*[_P] * 6, _I64, _I, _P, _P, _P, _I64, _P, _P, _P],
     "shannon_prune_round": [_P, _P, _P, _I64, _F, _F, _I, _P, _P, _P],
     "shannon_compact_keep": [_P, _P, _P, _I64, _P, _I64, _P, _P, _P],
-    "shannon_node_strands": [_P, _I64, _I, _P, _P],
-    "shannon_node_counts": [_P, _I64, _P, _P, _I64, _I, _P, _P],
-    "shannon_link_records": [_P, _I64, _I, _P, _P],
-    "shannon_group_links": [_P, _P, _I64, _P, _P, _P, _P, _P],
+    "shannon_node_strands": [_P, _I64, _I, _P, _P, _P],
+    "shannon_node_merge": [_P, _P, _I64, _P, _P, _P, _I64, _P, _P, _P],
+    "shannon_link_tiles": [_P, _I64, _I, _I64, _P, _I64, _P, _P, _P, _P, _P],
     "shannon_label_rounds": [_P, _I64, _P, _I64, _P, _I, _P, _P, _P],
     "shannon_cycle_round": [_P, _P, _P, _I64, _I, _P, _P, _P, _P],
     "shannon_head_flags": [_P, _P, _I64, _P, _P],

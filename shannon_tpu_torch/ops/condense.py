@@ -3,11 +3,15 @@
 Counterpart of ``shannon_tpu/ops/condense.py``:
 
   1. oriented node table: both strands of every canonical k-mer, sorted,
-     palindromes deduped (kernel K11, ``node_strands``, with K2);
-  2. links: one sort of the 2*C2 suffix/prefix (k-1)-mer records groups
-     every edge endpoint; a group with one source and one target is a
-     mergeable link, and each node's target run is its successor list
-     (K12, ``group_links``);
+     palindromes deduped (kernel K11, ``node_strands``: the spectrum's real
+     reverse complements without the palindromes, sorted by ``torch.sort``,
+     merged with the spectrum, with which they share no key);
+  2. links: the 2*C2 suffix/prefix (k-1)-mer records in (k-1)-mer order
+     group every edge endpoint; a group with one source and one target is
+     a mergeable link, and each node's target run is its successor list
+     (K12, ``group_links``: that order is the merge of five sorted runs of
+     the node table, the targets and the sources of each first base, taken
+     in key-range tiles, with no sort);
   3. labels: pointer doubling to each chain's head, with a cycle check and
      a min-propagation pass that cuts isolated cycles at their lowest lane
      (K13: ``label_round`` enqueues every round of the label stage at
@@ -19,8 +23,8 @@ Counterpart of ``shannon_tpu/ops/condense.py``:
   5. the base streams materialization reads (K15, ``base_streams``).
 
 On CUDA tensors each stage launches its hand-written kernels in
-``csrc/condense.cu`` (around ``torch.sort`` and ``torch.cumsum``) or raises;
-on CPU tensors its ``_plain`` version runs.
+``csrc/condense.cu`` (around K11's ``torch.sort`` and K14's and K15's
+``torch.cumsum``) or raises; on CPU tensors its ``_plain`` version runs.
 
 Node lanes: capacity C2; contig-indexed arrays are valid in [0, n_contigs).
 """
@@ -33,7 +37,7 @@ import numpy as np
 import torch
 
 from shannon_tpu_torch import kernels
-from shannon_tpu_torch.ops.count import Spectrum, reduce_sorted, unique_first_sorted
+from shannon_tpu_torch.ops.count import Spectrum, unique_first_sorted
 from shannon_tpu_torch.ops.kmers import PAD, revcomp_key
 from shannon_tpu_torch.ops.spectrum import lookup_sorted_plain
 
@@ -82,26 +86,32 @@ def _nodes_stage_cuda(spec: Spectrum, k: int):
     if spec.count.shape[0] != C:
         raise ValueError("key and count disagree on length")
     dev = spec.key.device
-    both = torch.empty(2 * C, dtype=torch.int64, device=dev)
+    n = min(spec.n, C)  # the real lanes: a table keeps at most C keys
+    rc = torch.empty(n, dtype=torch.int64, device=dev)
+    n_pal = torch.empty(1, dtype=torch.int64, device=dev)
     lib = kernels.library()
-    lib.call("shannon_node_strands", dev, kernels.ptr(spec.key), C, k, kernels.ptr(both))
-    keys = torch.sort(both).values
-    node_key, _, _, n = reduce_sorted(keys, None, 2 * C)
+    lib.call("shannon_node_strands", dev, kernels.ptr(spec.key), n, k, kernels.ptr(rc),
+             kernels.ptr(n_pal))
+    rc_key, rc_lane = torch.sort(rc)
+    node_key = torch.empty(2 * C, dtype=torch.int64, device=dev)
     node_count = torch.empty(2 * C, dtype=torch.int32, device=dev)
     lib.call(
-        "shannon_node_counts", dev,
-        kernels.ptr(node_key), 2 * C, kernels.ptr(spec.key), kernels.ptr(spec.count), C, k,
+        "shannon_node_merge", dev,
+        kernels.ptr(spec.key), kernels.ptr(spec.count), n, kernels.ptr(rc_key),
+        kernels.ptr(rc_lane), kernels.ptr(n_pal), 2 * C, kernels.ptr(node_key),
         kernels.ptr(node_count),
     )
     lib.count("node_strands")
-    return node_key, node_count, n
+    return node_key, node_count, 2 * n - int(n_pal)  # the one host read
 
 
 def nodes_stage(spec: Spectrum, k: int, canonical: bool):
     """Oriented node table (ops/condense.py:82 _nodes_stage): (node_key
     [2C] sorted, PAD past n; node_count [2C] int32; n).  The identity when
     not canonical.  Kernel K11 on CUDA (the spectrum must hold canonical
-    keys, as canonical counting writes them), the plain version on CPU."""
+    keys in its first min(n, C) lanes, sorted, as canonical counting writes
+    them: the real reverse complements, sorted, merge with them), the plain
+    version on CPU."""
     if not canonical:
         return spec.key, spec.count, spec.n
     if spec.key.is_cuda:
@@ -161,22 +171,25 @@ def links_stage_plain(node_key: torch.Tensor, k: int):
     return prev_link, lane_s, first_p_lane, p_cnt_lane
 
 
-def _links_stage_cuda(node_key: torch.Tensor, k: int):
+# Target lanes a K12 tile takes (its chunks' caps are in csrc/condense.cu).
+LINK_TILE = 1024
+
+
+def _links_stage_cuda(node_key: torch.Tensor, k: int, tile: int = LINK_TILE):
     kernels.check_cuda("node_key", node_key, torch.int64, 1)
     C2 = node_key.shape[0]
     dev = node_key.device
-    sort_key = torch.empty(2 * C2, dtype=torch.int64, device=dev)
-    lib = kernels.library()
-    lib.call("shannon_link_records", dev, kernels.ptr(node_key), C2, k, kernels.ptr(sort_key))
-    skey, order = torch.sort(sort_key, stable=True)
+    # each tile edge's five lower bounds: sources of each first base, targets
+    bounds = torch.empty(5 * (-(-C2 // tile) + 1), dtype=torch.int64, device=dev)
     prev_link = torch.empty(C2, dtype=torch.int64, device=dev)
     rec_lane = torch.empty(2 * C2, dtype=torch.int64, device=dev)
     first_p = torch.empty(C2, dtype=torch.int64, device=dev)
     p_cnt = torch.empty(C2, dtype=torch.int64, device=dev)
+    lib = kernels.library()
     lib.call(
-        "shannon_group_links", dev,
-        kernels.ptr(skey), kernels.ptr(order), C2, kernels.ptr(prev_link),
-        kernels.ptr(rec_lane), kernels.ptr(first_p), kernels.ptr(p_cnt),
+        "shannon_link_tiles", dev,
+        kernels.ptr(node_key), C2, k, tile, kernels.ptr(bounds), bounds.shape[0],
+        kernels.ptr(prev_link), kernels.ptr(rec_lane), kernels.ptr(first_p), kernels.ptr(p_cnt),
     )
     lib.count("group_links")
     return prev_link, rec_lane, first_p, p_cnt
@@ -186,7 +199,9 @@ def links_stage(node_key: torch.Tensor, k: int):
     """Mergeable links and successor directory from one (k-1)-mer group
     join (ops/condense.py:109 _links_stage).  Returns (prev_link [C2],
     rec_lane [2*C2], first_p [C2], p_cnt [C2]); the reference's next_link
-    has no reader.  Kernel K12 on CUDA, the plain version on CPU."""
+    has no reader.  Kernel K12 on CUDA (the node table must be sorted,
+    distinct, PAD past its real lanes, as nodes_stage writes it: the group
+    join is a merge of its runs), the plain version on CPU."""
     if node_key.is_cuda:
         return _links_stage_cuda(node_key, k)
     return links_stage_plain(node_key, k)

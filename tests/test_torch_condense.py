@@ -23,7 +23,9 @@ from shannon_tpu.ops.count import count_spectrum_packed, spectrum_from_arrays
 from shannon_tpu.sim import random_seq, sample_reads, simulate_isoforms, simulate_transcripts
 from shannon_tpu_torch import convert
 from shannon_tpu_torch.ops import condense as tcd
-from test_torch_kernels import label_links
+from test_torch_kernels import (
+    STAGE_SPECTRUM_LANES, STAGE_TABLE_LANES, STAGE_TABLES, label_links, stage_tables,
+)
 
 CASES = {
     "multi": lambda rng: simulate_transcripts(rng, n=3, length=250),
@@ -364,3 +366,300 @@ def test_label_stage_refuses_2_31_lanes():
     with pytest.raises(ValueError, match="2\\^31"):
         tcd.label_stage(big)
     assert tcd.LABEL_MAX_LANES == (1 << 31) - 1
+
+
+# ---- K11's and K12's designs, transcribed ---------------------------------------
+
+PAD_KEY = np.int64((1 << 63) - 1)
+POISON = np.int64(-7)  # no lane of an output may keep it
+
+
+def _merge_split(a: np.ndarray, b: np.ndarray, d: int) -> int:
+    """common.cuh merge_split: a's lanes among the first d of the merge of a
+    and b, ties to a (the warp's 32-ary search finds the same first index
+    where the monotone test fails as this binary search)."""
+    lo, hi = max(0, d - len(b)), min(d, len(a))
+    while lo < hi:
+        mid = (lo + hi) // 2
+        if a[mid] <= b[d - 1 - mid]:
+            lo = mid + 1
+        else:
+            hi = mid
+    return lo
+
+
+def _nodes_transcription(key: np.ndarray, count: np.ndarray, n: int, k: int,
+                         tile: int = 2048):
+    """csrc/condense.cu node_rc_kernel, the sort and node_merge_kernel in
+    numpy: the reverse complements of the n real lanes with PAD on the
+    palindromes and their count, a sort with its indices, then tiles of
+    `tile` node lanes, each split on its two diagonals, loaded (a reverse
+    complement's count through its index) and written a lane at a time
+    from a binary search of the lane's diagonal in the tile."""
+    C2 = 2 * len(key)
+    a = key[:n]
+    r = tcd.revcomp_key(torch.from_numpy(a.copy()), k).numpy()
+    pal = r == a
+    rc = np.where(pal, PAD_KEY, r)
+    rc_lane = np.argsort(rc, kind="stable")
+    rc_key = rc[rc_lane]
+    nb = n - int(pal.sum())
+    N, b = n + nb, rc_key[:nb]
+    node_key = np.full(C2, POISON)
+    node_count = np.full(C2, -7, np.int32)
+    for d0 in range(0, C2, tile):
+        e = min(d0 + tile, C2)
+        d1 = min(e, N)
+        if d0 < d1:
+            a0, a1 = _merge_split(a, b, d0), _merge_split(a, b, d1)
+            b0, la, L = d0 - a0, a1 - a0, d1 - d0
+            lb = L - la
+            s_key = np.concatenate([a[a0:a1], rc_key[b0:b0 + lb]])
+            s_count = np.concatenate([count[a0:a1], count[rc_lane[b0:b0 + lb]]])
+            for p in range(L):
+                lo, hi = max(0, p - lb), min(p, la)
+                while lo < hi:
+                    mid = (lo + hi) // 2
+                    if s_key[mid] < s_key[la + p - 1 - mid]:
+                        lo = mid + 1
+                    else:
+                        hi = mid
+                bi = p - lo
+                slot = lo if lo < la and (bi >= lb or s_key[lo] < s_key[la + bi]) else la + bi
+                node_key[d0 + p], node_count[d0 + p] = s_key[slot], s_count[slot]
+        node_key[max(d1, d0):e], node_count[max(d1, d0):e] = PAD_KEY, 0
+    return node_key, node_count, 2 * n - int(pal.sum())
+
+
+# K12's geometry: (target lanes a tile, records of a source run a chunk
+# takes, targets a chunk takes, outputs a merge thread takes), the source's
+# and one small enough that nearly every tile is cut into chunks
+LINK_GEOMETRIES = {"source": (1024, 512, 1056, 8), "small": (5, 3, 6, 2)}
+
+
+def _links_transcription(node_key: np.ndarray, k: int, tile: int, src_cap: int,
+                         tgt_cap: int, items: int):
+    """csrc/condense.cu link_bounds_kernel and link_tiles_kernel in numpy:
+    five lower bounds a tile edge, then for each tile its pads and its
+    chunks: the caps, the chunk's end below the smallest (k-1)-mer past
+    them, the three merge-path levels over slots (source run r at r *
+    src_cap, the targets at 4 * src_cap) by their order keys ((k-1)-mer <<
+    3 | run) with `items` outputs a thread, the slot -> place inverse,
+    rec_lane, and each record's group walk, a run at a time."""
+    C2 = len(node_key)
+    hs = 2 * (k - 1)
+    mask = (1 << hs) - 1
+    n_tiles = -(-C2 // tile)
+    queries = []
+    for t in range(n_tiles + 1):
+        v = int(node_key[t * tile]) if t * tile < C2 else int(PAD_KEY)
+        x = 0 if t == 0 else v >> 2
+        for r in range(5):
+            if v != PAD_KEY:
+                queries.append(x << 2 if r == 4 else (r << hs) | x)
+            else:
+                queries.append(int(PAD_KEY) if r == 4 else (r + 1) << hs)
+    bounds = np.searchsorted(node_key, np.array(queries, np.int64)).reshape(-1, 5)
+    n = int(bounds[n_tiles, 4])
+    prev_link, first_p, p_cnt = (np.full(C2, POISON) for _ in range(3))
+    rec_lane = np.full(2 * C2, POISON)
+    caps = [src_cap] * 4 + [tgt_cap]
+
+    def run_of(slot):
+        return min(slot // src_cap, 4)
+
+    def kmer(v, r):
+        return int(v) >> 2 if r == 4 else int(v) & mask
+
+    def merge(s_key, a, b, out, d0, d1):  # link_merge; a, b lists of slots
+        def order(slot):
+            return kmer(s_key[slot], run_of(slot)) << 3 | run_of(slot)
+        lo, hi = max(0, d0 - len(b)), min(d0, len(a))
+        while lo < hi:
+            mid = (lo + hi) // 2
+            if order(a[mid]) < order(b[d0 - 1 - mid]):
+                lo = mid + 1
+            else:
+                hi = mid
+        i, j = lo, d0 - lo
+        for d in range(d0, d1):
+            ka = order(a[i]) if i < len(a) else 1 << 64
+            kb = order(b[j]) if j < len(b) else 1 << 64
+            assert ka != kb
+            if ka < kb:
+                out[d], i = a[i], i + 1
+            else:
+                out[d], j = b[j], j + 1
+
+    def level(pairs, total):  # a thread's `items` outputs, split at a pair's end
+        for d in range(0, total, items):
+            e = min(d + items, total)
+            for a, b, out, base in pairs:
+                lo, hi = max(d, base), min(e, base + len(a) + len(b))
+                if lo < hi:
+                    merge(s_key, a, b, out, lo - base, hi - base)
+
+    for t in range(n_tiles):
+        lo0, hi0 = t * tile, min(t * tile + tile, C2)
+        for lane in range(max(lo0, n), hi0):
+            prev_link[lane], first_p[lane], p_cnt[lane] = -1, 0, 0
+            rec_lane[n + lane] = rec_lane[C2 + lane] = lane
+        pos, end = [int(x) for x in bounds[t]], [int(x) for x in bounds[t + 1]]
+        out = pos[4] + sum(pos[b] - int(bounds[0, b]) for b in range(4))
+        while True:
+            left = [end[r] - pos[r] for r in range(5)]
+            cnt = [min(left[r], caps[r]) for r in range(5)]
+            ys = [kmer(node_key[pos[r] + caps[r]], r) if left[r] > caps[r] else None
+                  for r in range(5)]
+            if sum(cnt) == 0:
+                break
+            y = min((v for v in ys if v is not None), default=None)
+            s_key = {}
+            for r in range(5):
+                for q in range(cnt[r]):
+                    s_key[r * src_cap + q] = node_key[pos[r] + q]
+            lens = []
+            for r in range(5):
+                km = [kmer(s_key[r * src_cap + q], r) for q in range(cnt[r])]
+                lens.append(cnt[r] if y is None else int(np.searchsorted(km, y)))
+            runs = [[r * src_cap + q for q in range(lens[r])] for r in range(5)]
+            n01, S = lens[0] + lens[1], sum(lens[:4])
+            M = S + lens[4]
+            s_a, s_b = [None] * M, [None] * max(S, 1)
+            s_a01, s_a23 = [None] * n01, [None] * (S - n01)
+            level([(runs[0], runs[1], s_a01, 0), (runs[2], runs[3], s_a23, n01)], S)
+            s_a[:S] = s_a01 + s_a23
+            level([(s_a[:n01], s_a[n01:S], s_b, 0)], S)
+            level([(s_b[:S], runs[4], s_a, 0)], M)
+            place = {slot: j for j, slot in enumerate(s_a)}  # the slot -> place inverse
+            assert len(place) == M
+
+            def lane_of(slot):
+                r = run_of(slot)
+                return pos[r] + slot - r * src_cap
+
+            def kmer_at(j):
+                return kmer(s_key[s_a[j]], run_of(s_a[j]))
+
+            for j in range(M):
+                rec_lane[out + j] = lane_of(s_a[j])
+            for r in range(5):  # the group join, a run's records in lane order
+                for q in range(lens[r]):
+                    slot = r * src_cap + q
+                    j, x, lane = place[slot], kmer(s_key[slot], r), pos[r] + q
+                    if r == 4:
+                        g0 = j
+                        while g0 > 0 and kmer_at(g0 - 1) == x:
+                            g0 -= 1
+                        fp = g0
+                        while run_of(s_a[fp]) < 4:
+                            fp += 1
+                        e = j + 1
+                        while e < M and kmer_at(e) == x:
+                            e += 1
+                        prev_link[lane] = lane_of(s_a[g0]) if fp - g0 == 1 and e - fp == 1 else -1
+                    else:
+                        fp = j + 1
+                        while fp < M and run_of(s_a[fp]) < 4 and kmer_at(fp) == x:
+                            fp += 1
+                        e = fp
+                        while e < M and kmer_at(e) == x:
+                            e += 1
+                        first_p[lane], p_cnt[lane] = out + fp, e - fp
+            pos = [pos[r] + lens[r] for r in range(5)]
+            out += M
+    return prev_link, rec_lane, first_p, p_cnt, n_tiles
+
+
+@functools.lru_cache(maxsize=None)
+def _stress_reference(case: str) -> dict:
+    """The JAX package's node table (canonical cases) and links of one
+    stage_tables case, as numpy."""
+    keys, counts, k, canonical = stage_tables(case)
+    out = {"k": k, "canonical": canonical}
+    if canonical:
+        ref = spectrum_from_arrays(keys.astype(np.uint64), counts, STAGE_SPECTRUM_LANES)
+        node_hi, node_lo, node_count, n_nodes = jcd._nodes_stage(ref, k, True)
+        spec = convert.spectrum_from_numpy(np.asarray(ref.hi), np.asarray(ref.lo),
+                                           np.asarray(ref.count), int(ref.n))
+        out.update(spec=spec, node_count=np.asarray(node_count), n_nodes=int(n_nodes))
+    else:
+        table = np.full(STAGE_TABLE_LANES, PAD_KEY)
+        table[: len(keys)] = keys
+        node_hi, node_lo = (jnp.asarray(x) for x in convert.key_to_hilo(table))
+    _next, prev_link, rec_lane, first_p, p_cnt = jcd._links_stage(node_hi, node_lo, k)
+    out.update(node_key=convert.hilo_to_key(node_hi, node_lo), prev_link=prev_link,
+               rec_lane=rec_lane, first_p=first_p, p_cnt=p_cnt)
+    return {name: np.asarray(x).astype(np.int64) if name in LINK_OUTPUTS else x
+            for name, x in out.items()}
+
+
+LINK_OUTPUTS = ("prev_link", "rec_lane", "first_p", "p_cnt")
+DESIGN_POINTS = [("stage", p) for p in STAGE_POINTS] + [("stress", c) for c in STAGE_TABLES]
+# K11 takes canonical spectra (it is the identity on the other points)
+NODE_POINTS = [("stage", p) for p in STAGE_POINTS if p[2]] + [
+    ("stress", c) for c, (_k, canonical) in STAGE_TABLES.items() if canonical]
+
+
+def _design_reference(kind: str, point) -> dict:
+    if kind == "stage":
+        r = _reference_stages(*point)
+        return {**r, "k": point[1], "canonical": point[2]}
+    return _stress_reference(point)
+
+
+@pytest.mark.parametrize("kind,point", NODE_POINTS)
+def test_k11_transcription_matches_reference(kind, point):
+    """K11's design (the real reverse complements less the palindromes,
+    sorted, merged with the spectrum in tiles split on their diagonals)
+    against the reference's _nodes_stage, at the source's tile and at 7
+    lanes a tile (a tile edge inside every run of the merge)."""
+    r = _design_reference(kind, point)
+    spec = r["spec"]
+    key, count = spec.key.numpy(), spec.count.numpy()
+    n = min(spec.n, spec.capacity)
+    for tile in (2048, 7):
+        got = _nodes_transcription(key, count, n, r["k"], tile)
+        np.testing.assert_array_equal(got[0], r["node_key"], err_msg=f"node_key, tile {tile}")
+        np.testing.assert_array_equal(got[1], r["node_count"], err_msg=f"count, tile {tile}")
+        assert got[2] == r["n_nodes"]
+
+
+@pytest.mark.parametrize("geometry", list(LINK_GEOMETRIES))
+@pytest.mark.parametrize("kind,point", DESIGN_POINTS)
+def test_k12_transcription_matches_reference(kind, point, geometry):
+    """K12's design (key-range tiles from five lower bounds an edge, chunks
+    under the caps, three merge-path levels, the group walks) against the
+    reference's _links_stage, pads included, at the source's geometry and
+    at a small one (5 target lanes a tile: a C2 no tile width divides)."""
+    r = _design_reference(kind, point)
+    got = _links_transcription(r["node_key"], r["k"], *LINK_GEOMETRIES[geometry])
+    for name, g in zip(LINK_OUTPUTS, got):
+        np.testing.assert_array_equal(g, r[name], err_msg=name)
+
+
+def test_k12_stress_cases_hold_what_they_name():
+    """"tips" puts more than twice the source cap of one run into one
+    source-geometry tile (so that tile takes several chunks), "four_runs"
+    has groups of four sources in four runs, "no_A" / "no_T" an empty
+    source run, "palindromes" only palindromes."""
+    src_cap = LINK_GEOMETRIES["source"][1]
+    tile = LINK_GEOMETRIES["source"][0]
+    r = _stress_reference("tips")
+    key, k = r["node_key"], r["k"]
+    hs = 2 * (k - 1)
+    real = key[key != PAD_KEY]
+    edges = [0] + [int(real[t]) >> 2 for t in range(tile, len(real), tile)] + [1 << hs]
+    suf, first = real & ((1 << hs) - 1), real >> hs
+    per_tile = [int(((suf >= a) & (suf < b) & (first == 3)).sum()) for a, b in zip(edges, edges[1:])]
+    assert max(per_tile) > 2 * src_cap
+    r = _stress_reference("four_runs")
+    real = r["node_key"][r["node_key"] != PAD_KEY]
+    suf = real & ((1 << hs) - 1)
+    assert (np.unique(suf, return_counts=True)[1] == 4).sum() >= 250
+    for case, missing in (("no_A", 0), ("no_T", 3)):
+        r = _stress_reference(case)
+        key = r["node_key"]
+        assert not ((key != PAD_KEY) & (key >> (2 * r["k"] - 2) == missing)).any()
+    r = _stress_reference("palindromes")
+    assert r["n_nodes"] == r["spec"].n == 16

@@ -1152,6 +1152,84 @@ def _condense_spectrum(case: str, k: int, canonical: bool) -> Spectrum:
     return count_reads_spectrum(b, k=k, capacity=1 << 14, canonical=canonical, device="cpu")
 
 
+def _revcomp_np(x: np.ndarray, k: int) -> np.ndarray:
+    out, y = np.zeros_like(x), x.copy()
+    for _ in range(k):
+        out = (out << 2) | (3 - (y & 3))
+        y = y >> 2
+    return out
+
+
+# (k, canonical) of each stress case of stage_tables
+STAGE_TABLES = {
+    "empty": (15, True), "one": (15, True), "no_A": (15, True), "no_T": (15, True),
+    "palindromes": (4, True), "odd_k": (15, True), "k31": (31, True),
+    "tips": (15, False), "four_runs": (15, False),
+}
+# lanes of a stress spectrum (its node table has twice as many) and of a table
+STAGE_SPECTRUM_LANES, STAGE_TABLE_LANES = 2048, 4096
+
+
+def stage_tables(case: str) -> tuple[np.ndarray, np.ndarray, int, bool]:
+    """Sorted distinct keys that stress K11's and K12's designs, with counts
+    1-60, made from a seed: (keys, counts, k, canonical).  With canonical
+    the keys are canonical k-mers, a spectrum for nodes_stage (whose node
+    table then feeds links_stage); otherwise a node table for links_stage.
+    "empty" and "one": n = 0 and 1; "no_A" and "no_T": no node starts with
+    A / with T (an empty source run); "palindromes": all 16 k-mers of k = 4
+    that are their own reverse complement; "odd_k": k = 15, which has
+    none; "k31"; "tips": 1,500 nodes starting with T whose suffixes fill a
+    range no prefix falls in, beside 1,200 random ones, so one key-range
+    tile holds about three times K12's source cap of one run and few
+    targets; "four_runs": 300 (k-1)-mers each the suffix of one node of
+    every first base (four sources in four runs) and the prefix of 0-4
+    nodes."""
+    k, canonical = STAGE_TABLES[case]
+    rng = np.random.default_rng(sum(map(ord, case)))
+    hs = 2 * (k - 1)
+
+    def kmers(n, first=range(4), last=range(4)):
+        mid = rng.integers(0, 1 << (hs - 2), n) if k > 1 else np.zeros(n, np.int64)
+        return (rng.choice(list(first), n) << hs) | (mid << 2) | rng.choice(list(last), n)
+
+    if case == "empty":
+        keys = np.zeros(0, np.int64)
+    elif case == "palindromes":
+        h = np.arange(16, dtype=np.int64)
+        keys = (h << 4) | _revcomp_np(h, 2)
+    elif case == "tips":
+        lo = 2 << 26  # the suffixes of the tips: [lo, lo + 1500)
+        rand = kmers(4000)
+        rand = rand[((rand >> 2) < lo) | ((rand >> 2) >= lo + 1500)][:1200]
+        keys = np.concatenate([rand, (3 << hs) | np.arange(lo, lo + 1500, dtype=np.int64)])
+    elif case == "four_runs":
+        suf = rng.integers(0, 1 << hs, 300)
+        src = (np.arange(4, dtype=np.int64)[:, None] << hs) | suf[None, :]
+        tgt = [(s << 2) | c for s in suf for c in rng.permutation(4)[: rng.integers(0, 5)]]
+        keys = np.concatenate([src.ravel(), np.array(tgt, np.int64)])
+    else:
+        n = {"one": 1, "odd_k": 1500, "k31": 1500}.get(case, 1200)
+        first, last = {"no_A": ((1, 2, 3), (0, 1, 2)),
+                       "no_T": ((0, 1, 2), (1, 2, 3))}.get(case, (range(4), range(4)))
+        keys = kmers(n, first, last)
+    if canonical:
+        keys = np.minimum(keys, _revcomp_np(keys, k))
+    keys = np.unique(keys)
+    return keys, rng.integers(1, 61, len(keys)).astype(np.int32), k, canonical
+
+
+def stage_input(case: str, device="cpu"):
+    """stage_tables(case) padded with PAD: a Spectrum of STAGE_SPECTRUM_LANES
+    lanes (canonical cases) or a node table of STAGE_TABLE_LANES lanes."""
+    keys, counts, k, canonical = stage_tables(case)
+    if canonical:
+        return spectrum_from_arrays(keys.astype(np.uint64), counts, STAGE_SPECTRUM_LANES,
+                                    device=device), k
+    table = np.full(STAGE_TABLE_LANES, PAD, np.int64)
+    table[: len(keys)] = keys
+    return torch.from_numpy(table).to(device), k
+
+
 def _equal(got, want, what: str) -> None:
     assert got.dtype == want.dtype and got.shape == want.shape, what
     assert torch.equal(got, want), what
@@ -1212,6 +1290,75 @@ def test_condense_kernels_match_plain(cuda, case, k, canonical):
               "count_sum", "head_lane", "tail_lane", "out_edges", "rc_pair"):
         _equal(getattr(whole, f).cpu(), getattr(cpu, f), f)
     assert (whole.n_nodes, whole.n_contigs) == (cpu.n_nodes, cpu.n_contigs)
+
+
+def _kernel_names(fn) -> set:
+    """The CUDA kernels one call of fn launches, from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {evt.name.split("(")[0] for evt in prof.events()
+            if evt.device_type == torch.autograd.DeviceType.CUDA
+            and not evt.name.startswith(("Memset", "Memcpy"))}
+
+
+@pytest.mark.parametrize("case", list(STAGE_TABLES))
+def test_nodes_links_kernels_stress_shapes(cuda, case, monkeypatch):
+    """K11 and K12 on stage_tables' stress cases against their plain twins
+    over the full capacity, one launch a stage call.  K11 sorts the n real
+    reverse complements alone and launches neither K2 nor a search; K12
+    sorts nothing, launches only its two kernels and allocates less than
+    one 2*C2 int64 array beyond its outputs; K12 also at 7 target lanes a
+    tile (no tile width divides C2, and most tiles take several chunks)."""
+    inp, k = stage_input(case, cuda)
+    lib = kernels.library()
+    sorts, real_sort = [], torch.sort
+
+    def counted_sort(x, *args, **kw):
+        sorts.append(x.numel())
+        return real_sort(x, *args, **kw)
+
+    if isinstance(inp, Spectrum):
+        want = tcd.nodes_stage_plain(inp, k, True)
+        lib.reset_counts()
+        monkeypatch.setattr(torch, "sort", counted_sort)
+        got = tcd.nodes_stage(inp, k, True)
+        monkeypatch.undo()
+        assert sorts == [min(inp.n, inp.capacity)]
+        assert (lib.launches["node_strands"], lib.launches["reduce_sorted"]) == (1, 0)
+        _equal(got[0], want[0], "node_key")
+        _equal(got[1], want[1], "node_count")
+        assert got[2] == want[2]
+        names = _kernel_names(lambda: tcd.nodes_stage(inp, k, True))
+        assert {"node_merge_kernel"} | ({"node_rc_kernel"} if inp.n else set()) <= names
+        assert not any("reduce_runs" in x or "search" in x or "node_counts" in x for x in names)
+        node_key = got[0]
+    else:
+        node_key = inp
+    C2 = node_key.shape[0]
+    want = tcd.links_stage_plain(node_key, k)
+    sorts.clear()
+    lib.reset_counts()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    monkeypatch.setattr(torch, "sort", counted_sort)
+    got = tcd.links_stage(node_key, k)
+    monkeypatch.undo()
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - base < (40 + 16) * C2
+    assert sorts == [] and lib.launches["group_links"] == 1
+    for g, w, name in zip(got, want, ("prev_link", "rec_lane", "first_p", "p_cnt")):
+        _equal(g, w, name)
+    for g, w, name in zip(tcd._links_stage_cuda(node_key, k, tile=7), want,
+                          ("prev_link", "rec_lane", "first_p", "p_cnt")):
+        _equal(g, w, f"{name} at 7 lanes a tile")
+    assert _kernel_names(lambda: tcd.links_stage(node_key, k)) == {
+        "link_bounds_kernel", "link_tiles_kernel"}
 
 
 def test_condense_wrappers_validate_inputs(cuda):
