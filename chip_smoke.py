@@ -21,7 +21,9 @@ Phases; any failure exits nonzero:
      spectrum_device builds from them; K7 (probe lookup, both probe sets),
      K8 (the dead-end rescue from the cut counts: one round, and the whole
      loop at the oracle's cap of k + 2 rounds, with its rounds run and each
-     round's frontier), K9 (one prune round) and K10
+     round's frontier), K9 (one prune round, and the main path's loop of
+     correction_rounds, which is one launch, printing its rounds run,
+     each round's pruned lanes and its host reads a call) and K10
      (compaction of the final keep mask) on the counted, shrunk spectrum of
      the whole single-end scale dataset at the default AssemblyConfig, with
      K16 (count histogram of the auto cut; its global variant at max_count
@@ -29,9 +31,10 @@ Phases; any failure exits nonzero:
      K28 (neighbor counts: 8 extension and 8 sibling probes a lane, k = 24,
      canonical) on that spectrum and K17 (count merge) on the first and
      the largest (the last) merge its count made;
-     then the whole correct_spectrum there against its CPU run, and K9 on a
-     synthetic grid (every count 1..255 against every sibling maximum
-     1..4095, error_rate 0.01 and 0.02); K11-K15 (condensation: node table, group-join links,
+     then the whole correct_spectrum there against its CPU run, and K9
+     (one round and the loop) on a synthetic grid (every count 1..255
+     against every sibling maximum 1..4095, error_rate 0.01 and 0.02); each
+     loop's plain round on its output must prune nothing; K11-K15 (condensation: node table, group-join links,
      pointer-doubling labels, per-contig reduction, base streams) stage by
      stage on that corrected, shrunk spectrum, each kernel's output feeding
      the next stage, and the whole build_contig_arrays timed; K13's cycle
@@ -881,6 +884,27 @@ def _prune_grid(dev, max_c: int = 255, max_m: int = 4095):
     return tuple(torch.from_numpy(x).to(dev) for x in (counts, idx, hit))
 
 
+def _prune_loop_check(counts, sib, ratio, eps3, use_cap, rounds: int, label: str):
+    """K9's loop (prune_rounds) against the plain loop: counts and the
+    changed flag equal, the same rounds run and pruned a round (its info),
+    and the plain round on the loop's output prunes nothing.  Returns (the
+    error, the kernel's info)."""
+    from shannon_tpu_torch.ops import correction as tcor
+
+    info, want_info = {}, {}
+    got = tcor.prune_rounds(counts, *sib, ratio, eps3, use_cap, rounds, info)
+    want = tcor.prune_rounds_plain(counts, *sib, ratio, eps3, use_cap, rounds, want_info)
+    err = _max_abs_err(got[:1], want[:1])
+    if got[1] != want[1]:
+        raise AssertionError(f"K9 loop{label}: changed {got[1]} != the plain loop's {want[1]}")
+    if (info["rounds_run"], info["pruned"]) != (want_info["rounds_run"], want_info["pruned"]):
+        raise AssertionError(f"K9 loop{label}: rounds and pruned {info} != the plain loop's "
+                             f"{want_info}")
+    if tcor.prune_round_plain(got[0], *sib, ratio, eps3, use_cap)[1]:
+        raise AssertionError(f"K9 loop{label}: a plain round on its output still prunes")
+    return err, info
+
+
 def _merge_row(watch: Watch, smi: str) -> dict:
     """K17 on the first and on the largest (the last) merge the count made
     (kept by `watch`), each against merge_at_plain (torch.sort of both
@@ -1071,26 +1095,44 @@ def correction_phase(reads, dev, smi: str, watch: Watch):
                    lambda: tcor.prune_round_plain(counts, *sib, ratio, eps3, use_cap))
     alive = counts > 0
     n_alive, n_hits = int(alive.sum()), int(sib[1][:, alive].sum())
-    out["prune_round"] = _row(err, t, 8 * C + 8 * n_alive + 8 * n_hits, C + 20 * n_alive, None)
+    # bytes: the counts in and out, the alive lanes' 8 hit bytes and the idx
+    # of their hits; operations: a few a lane and 20 an alive lane
+    round_bytes, round_ops = 8 * C + 8 * n_alive + 8 * n_hits, C + 20 * n_alive
+    out["prune_round_1"] = _row(err, t, round_bytes, round_ops, None)
     _print_row(f"K9 prune_round {C} lanes, {n_alive} alive, "
-               f"{int((got[0] != counts).sum())} pruned", out["prune_round"], smi)
+               f"{int((got[0] != counts).sum())} pruned", out["prune_round_1"], smi)
+    # the main path's loop: prune_rounds at correction_rounds, whose round 1
+    # is the whole loop, against the plain loop (the same bytes: every round
+    # after the first prunes nothing)
+    rounds = cfg.correction_rounds
+    err, info = _prune_loop_check(counts, sib, ratio, eps3, use_cap, rounds, "")
+    t = _alternate(lambda: tcor.prune_rounds(counts, *sib, ratio, eps3, use_cap, rounds),
+                   lambda: tcor.prune_rounds_plain(counts, *sib, ratio, eps3, use_cap, rounds))
+    out["prune_round"] = _row(err, t, round_bytes, round_ops, None)
+    out["prune_round"].update(rounds=rounds, rounds_run=info["rounds_run"],
+                              pruned=info["pruned"], host_reads=info["host_reads"])
+    _print_row(f"K9 prune_rounds rounds={rounds} {C} lanes: {info['rounds_run']} rounds run, "
+               f"pruned a round {info['pruned']}, {info['host_reads']} host read a call with "
+               "info, none without", out["prune_round"], smi)
     for er in (0.01, 0.02):
         g_counts, g_idx, g_hit = _prune_grid(dev)
         g_ratio, g_eps3 = tcor.prune_constants(cfg.sibling_ratio, er)
         got = tcor.prune_round(g_counts, g_idx, g_hit, g_ratio, g_eps3, True)
         want = tcor.prune_round_plain(g_counts, g_idx, g_hit, g_ratio, g_eps3, True)
-        out["prune_round"]["max_abs_err"] = max(out["prune_round"]["max_abs_err"],
-                                                _max_abs_err(got[:1], want[:1]))
+        out["prune_round_1"]["max_abs_err"] = max(out["prune_round_1"]["max_abs_err"],
+                                                  _max_abs_err(got[:1], want[:1]))
         if got[1] != want[1] or not want[1]:
             raise AssertionError("K9 float grid: changed flags differ or nothing pruned")
-        print(f"K9 prune_round float grid, error_rate {er}: counts 1..255 x sibling maxima "
-              f"1..4095 x 2 sides, {int((got[0] != g_counts).sum())} pruned: exact [{smi}]")
+        g_err, g_info = _prune_loop_check(g_counts, (g_idx, g_hit), g_ratio, g_eps3, True,
+                                          rounds, " float grid")
+        out["prune_round"]["max_abs_err"] = max(out["prune_round"]["max_abs_err"], g_err)
+        print(f"K9 prune_round and prune_rounds rounds={rounds} float grid, error_rate {er}: "
+              f"counts 1..255 x sibling maxima 1..4095 x 2 sides, "
+              f"{int((got[0] != g_counts).sum())} pruned, {g_info['rounds_run']} rounds run, "
+              f"pruned a round {g_info['pruned']}: exact [{smi}]")
         del g_counts, g_idx, g_hit
-    for _ in range(cfg.correction_rounds):  # the main path's prune loop, to K10's mask
-        nxt, changed = tcor.prune_round(counts, *sib, ratio, eps3, use_cap)
-        if not changed:
-            break
-        counts = nxt
+    # the main path's prune loop, to K10's mask
+    counts, _ = tcor.prune_rounds(counts, *sib, ratio, eps3, use_cap, rounds)
     del sib, probes
 
     keep = counts > 0
@@ -1291,8 +1333,8 @@ def _condense_chain(spec, k: int, canonical: bool, label: str, smi: str):
         + _nbytes(*(getattr(ca, f) for f in fields)),
         10 * C2 + n * (math.ceil(math.log2(max(C2, 2))) + 1), None,
     )
-    _print_row(f"K14 contig_reduce [{label}] {C2} lanes -> {n} contigs, {n_edges} edges "
-               "(torch.cumsum inside)", rows["contig_reduce"], smi)
+    _print_row(f"K14 contig_reduce [{label}] {C2} lanes -> {n} contigs, {n_edges} edges",
+               rows["contig_reduce"], smi)
 
     streams = tcd.contig_base_streams(ca, k)
     rows["base_streams"] = _row(

@@ -2,8 +2,9 @@
 sparse-flow greedy with restarts), K22 (sibling_maxes), K10 (compact_keep),
 K2 (reduce_sorted, three inputs), K7 (probe_lookup, both probe sets), K3
 (lookup_sorted, two inputs), K4 (thread_rows), K8 (the dead-end rescue,
-one round and the main path's loop), K1, K17, K5, K11, K12 and K13's label
-stage, on the same inputs for every tree, so a
+one round and the main path's loop), K9 (the sibling prune, one round and
+the main path's loop), K1, K17, K5, K11, K12, K13's label stage and K14
+(reduce_stage), on the same inputs for every tree, so a
 change to a kernel's source can be held against its parent within one call.
 
     python scripts/kernel_turns.py --trees OLD NEW NEW OLD [--out FILE]
@@ -73,8 +74,17 @@ the device time).  The three stages also list every launch of one call
 and K12 give a SHA-256 prefix of their outputs (equal in every tree) and
 the MiB a call allocates above what it was given ("<stage>_peak_mib");
 the label stage gives, where the tree's label_stage reports them, the
-rounds run and each round's frontier ("label_stage_info").  Prints one
-JSON line per tree and, with --out, writes them all.
+rounds run and each round's frontier ("label_stage_info").  K14
+("reduce_stage") on those labels (the node table of 8,388,608 lanes and
+its links, built once by this checkout's K11-K13); K9 on the counted
+spectrum's sibling tables from the counts the main path's rescue (K8's
+k + 2 rounds) leaves: "prune_1" one prune_round call, "prune_loop" the
+main path's loop at the default AssemblyConfig (prune_rounds where the
+tree has it, else its correct_spectrum's loop of prune_round calls with a
+host read of the changed flag a round).  Each of the three has its
+device_us, idle_us, "<row>_peak_mib", "<row>_launch_us" (K14 and the loop)
+and a SHA-256 prefix of its outputs ("<row>_sha", equal in every tree).
+Prints one JSON line per tree and, with --out, writes them all.
 """
 
 from __future__ import annotations
@@ -100,7 +110,7 @@ def _search_inputs() -> dict:
     from shannon_tpu_torch.io.pack import pack_reads
     from shannon_tpu_torch.ops.count import count_reads_spectrum, reduce_sorted, shrink_spectrum
     from shannon_tpu_torch.ops.count import upload_words
-    from shannon_tpu_torch.ops.condense import links_stage, nodes_stage
+    from shannon_tpu_torch.ops.condense import label_stage, links_stage, nodes_stage
     from shannon_tpu_torch.ops.correction import auto_min_abundance, correct_spectrum
     from shannon_tpu_torch.ops.kmers import extract_kmers_packed
     from shannon_tpu_torch.ops.spectrum import lookup_sorted
@@ -130,15 +140,19 @@ def _search_inputs() -> dict:
         spec, k, auto_min_abundance(spec), cfg.sibling_ratio, cfg.correction_rounds, canonical,
         cfg.error_rate,
     ))
-    cn_key = nodes_stage(corrected, k, canonical)[0]
-    prev_link = links_stage(cn_key, k)[0]
+    cn_key, cn_count, cn_n = nodes_stage(corrected, k, canonical)
+    prev_link, rec_lane, first_p, p_cnt = links_stage(cn_key, k)
+    # K14's input: the labels of those links (no cycle on this spectrum)
+    l_ptr, l_dist, _ = label_stage(prev_link)
     out = {"p_key": spec.key, "p_count": spec.count, "node_key": ca.node_key,
            "prev_link": prev_link, "k_key": corrected.key, "k_count": corrected.count,
-           "cn_key": cn_key,
+           "cn_key": cn_key, "cn_count": cn_count, "rec_lane": rec_lane, "first_p": first_p,
+           "p_cnt": p_cnt, "l_ptr": l_ptr, "l_dist": l_dist,
            "windows": windows, "r_table": r_table, "r_query": r_query, "t_idx": t_idx,
            "t_hit": t_hit, "t_valid": valid, "node_cid": ca.node_cid, "node_off": ca.node_off}
     out = {name: x.cpu().numpy() for name, x in out.items()}
     out["cut"], out["k"], out["k_n"] = auto_min_abundance(spec), cfg.k, corrected.n
+    out["cn_n"] = cn_n
     out.update(_merge_inputs(reads, cfg, dev))
     torch.cuda.empty_cache()
     return out
@@ -312,9 +326,11 @@ def _child(tree: str, inputs: str) -> None:
     import torch
 
     import shannon_tpu_torch
+    from shannon_tpu_torch.config import AssemblyConfig
     from shannon_tpu_torch.ops import correction as tcor
     from shannon_tpu_torch.ops.correction import compact, probe_resolve
     from shannon_tpu_torch.ops.condense import label_stage, links_stage, nodes_stage
+    from shannon_tpu_torch.ops.condense import reduce_stage
     from shannon_tpu_torch.ops.thread import compact_thread_outputs, thread_windows
     from shannon_tpu_torch.ops import count as count_module
     from shannon_tpu_torch.ops.count import Spectrum, merge_at, merge_at_plain, merge_batch
@@ -438,20 +454,53 @@ def _child(tree: str, inputs: str) -> None:
                     break
                 c = nxt
             return c
+    # K9 from the main path's rescue: one round, and the main path's loop (a
+    # tree without prune_rounds runs its correct_spectrum's loop of
+    # prune_round calls, a host read of the changed flag a round)
+    cfg = AssemblyConfig()
+    ratio, eps3 = tcor.prune_constants(cfg.sibling_ratio, cfg.error_rate)
+    use_cap, p_rounds = cfg.error_rate > 0, cfg.correction_rounds
+    rescued = rescue(k + 2)
+
+    def prune_1():
+        return tcor.prune_round(rescued, *sib, ratio, eps3, use_cap)[0]
+
+    if hasattr(tcor, "prune_rounds"):
+        def prune_loop():
+            return tcor.prune_rounds(rescued, *sib, ratio, eps3, use_cap, p_rounds)[0]
+    else:
+        def prune_loop():
+            c = rescued
+            for _ in range(p_rounds):
+                nxt, changed = tcor.prune_round(c, *sib, ratio, eps3, use_cap)
+                if not changed:
+                    break
+                c = nxt
+            return c
     # K5 on K4's rows of that batch; K11's node table of the corrected
-    # spectrum, K12's links of that table and K13's label stage on them
+    # spectrum, K12's links of that table, K13's label stage on them and
+    # K14 on those labels
     rows = thread_windows(*threading)
     prev_link = on_card("prev_link")
     corrected = Spectrum(key=on_card("k_key"), count=on_card("k_count"), n=int(d["k_n"]))
     cn_key = on_card("cn_key")
+    r_args = (cn_key, on_card("cn_count"), int(d["cn_n"]), prev_link, on_card("l_ptr"),
+              on_card("l_dist"), on_card("rec_lane"), on_card("first_p"), on_card("p_cnt"),
+              k, True)
     loops = {"thread_rows": (lambda: thread_windows(*threading), 200),
              "rescue_1": (lambda: rescue(1), 200),
              "rescue_loop": (lambda: rescue(k + 2), 20),
+             "prune_1": (prune_1, 200),
+             "prune_loop": (prune_loop, 200),
              "compact_rows": (lambda: compact_thread_outputs(*rows), 200),
              "nodes_stage": (lambda: nodes_stage(corrected, k, True), 50),
              "links_stage": (lambda: links_stage(cn_key, k), 50),
-             "label_stage": (lambda: label_stage(prev_link), 50)}
-    staged = ("compact_rows", "nodes_stage", "links_stage", "label_stage")
+             "label_stage": (lambda: label_stage(prev_link), 50),
+             "reduce_stage": (lambda: reduce_stage(*r_args), 50)}
+    staged = ("compact_rows", "nodes_stage", "links_stage", "label_stage", "reduce_stage",
+              "prune_1", "prune_loop")
+    contig_fields = ("node_cid", "node_off", "klen", "abundance", "count_sum", "head_lane",
+                     "tail_lane", "out_edges", "rc_pair")
 
     def digest(tensors) -> str:
         """SHA-256 prefix of a stage's outputs, so the trees' rows show
@@ -494,6 +543,17 @@ def _child(tree: str, inputs: str) -> None:
         "links_stage_launch_us": _launch_us(lambda: links_stage(cn_key, k)),
         "nodes_stage_peak_mib": _peak_mib(lambda: nodes_stage(corrected, k, True)),
         "links_stage_peak_mib": _peak_mib(lambda: links_stage(cn_key, k)),
+        "reduce_stage_n": reduce_stage(*r_args).n_contigs,
+        "reduce_stage_sha": digest(getattr(reduce_stage(*r_args), f) for f in contig_fields),
+        "reduce_stage_launch_us": _launch_us(lambda: reduce_stage(*r_args)),
+        "reduce_stage_peak_mib": _peak_mib(lambda: reduce_stage(*r_args)),
+        "prune_1_pruned": int((prune_1() != rescued).sum()),
+        "prune_loop_pruned": int((prune_loop() != rescued).sum()),
+        "prune_1_sha": digest([prune_1()]),
+        "prune_loop_sha": digest([prune_loop()]),
+        "prune_loop_launch_us": _launch_us(prune_loop),
+        "prune_1_peak_mib": _peak_mib(prune_1),
+        "prune_loop_peak_mib": _peak_mib(prune_loop),
         **{f"{name}_ms": median_ms(lambda a=args: extract_kmers_packed(*a))
            for name, args in extracts.items()},
         **{f"{name}_ms": median_ms(lambda a=args: merge_at(*a)) for name, args in merges.items()},
@@ -509,7 +569,7 @@ def _child(tree: str, inputs: str) -> None:
             "reduce_sorted_batch": _device_us(lambda: reduce_sorted(bkeys, None, cap)),
             **{name: _device_us(fn) for name, (fn, _lib, _reps) in search.items()},
             **{name: _device_us(fn, 5 if name in ("rescue_loop", "label_stage", "nodes_stage",
-                                                  "links_stage") else 20)
+                                                  "links_stage", "reduce_stage") else 20)
                for name, (fn, _reps) in loops.items()},
             **{f"{name}_searchsorted": _device_us(lib) for name, (_fn, lib, _r) in search.items()},
             **{name: _device_us(lambda a=args: extract_kmers_packed(*a))

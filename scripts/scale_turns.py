@@ -15,10 +15,10 @@ same again in the same process (its allocator now holds blocks of every
 size the run asks for), and the CLI on N paired reads (N / 2 pairs) from
 two FASTA files.  Each merge of the count (ops.count.merge_at) is bracketed
 with two CUDA events, so a run reports how much of count_s the merges hold
-on the device stream; each line also gives the condensation's
-tc_condense_s and condense_s (K11-K14), threading's kernel_s (K1, K3, K4
-and K5 a batch) and each single-end run's peak device memory
-(torch.cuda.max_memory_allocated after reset_peak_memory_stats).
+on the device stream; each line also gives correct_s (K7-K10, K16, K20),
+the condensation's tc_condense_s and condense_s (K11-K14), threading's
+kernel_s (K1, K3, K4 and K5 a batch) and each single-end run's peak device
+memory (torch.cuda.max_memory_allocated after reset_peak_memory_stats).
 
 Prints one line a run, with the card's name and power limit, and writes
 the runs so far as JSON to --out after each run.  Imports nothing of JAX.
@@ -128,7 +128,8 @@ def child(tree: Path, n_reads: int) -> dict:
 def _single(se: dict) -> str:
     sg = se["stages"]["spectrum+graph"]
     return (f"{se['e2e_s']:.2f} s (count_s {sg['count_s']:.3f}, merges {se['merges']['calls']} x = "
-            f"{se['merges']['ms']:.3f} ms, tipclip_s {sg['tipclip_s']:.3f}, tc_condense_s "
+            f"{se['merges']['ms']:.3f} ms, correct_s {sg['correct_s']:.3f}, "
+            f"tipclip_s {sg['tipclip_s']:.3f}, tc_condense_s "
             f"{sg.get('tc_condense_s', float('nan')):.4f}, condense_s "
             f"{sg.get('condense_s', float('nan')):.4f}, threading kernel_s "
             f"{se['stages']['threading']['kernel_s']:.3f}, peak {se['peak_gib']:.3f} GiB, "

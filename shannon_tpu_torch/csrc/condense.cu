@@ -7,6 +7,7 @@
 // plain versions in shannon_tpu_torch/ops/condense.py leave there.
 
 #include "common.cuh"
+#include "scan.cuh"
 
 // ---------------------------------------------------------------------------
 // K11: oriented node table (both strands of each canonical k-mer).
@@ -670,100 +671,193 @@ __global__ void cycle_round_kernel(const int64_t* __restrict__ prev,
 // K14: per-contig reduction, contig edges and reverse-complement twins.
 // Replaces shannon_tpu/ops/condense.py:287 _reduce_stage.  The reference
 // sorted the nodes by (cid, offset) and compacted run starts and ends with two
-// more sorts.  Here contig ids come from one torch.cumsum of head_flags_kernel's
-// flags (cid = rank of the chain head), and the reductions need no order:
-// contig_lanes_kernel adds each node into its contig's klen and count sum with
-// int64 atomics (integer sums, so exact whatever the order) and writes the
-// head lane (offset 0); contig_tails_kernel writes the tail lane (offset
-// klen - 1); contig_edges_kernel runs one thread per contig for the float32
-// abundance (count_sum / klen, each converted and divided with round-to-nearest
-// intrinsics, so it is bit-equal to the plain version's and the host's
-// recomputation), the successor run of the tail node in the link records, and
-// the reverse-complement twin by K3's binary search.  Every head and tail slot
-// is written by exactly one lane; the entry point zeroes klen and count_sum and
-// fills head_lane and tail_lane with -1 first.
-// Bound: memory for the lane passes; the twin search, one per contig, is
-// bounded by the latency of its dependent loads.
+// more sorts.  A contig's id is the rank of its head lane (real, prev2 < 0)
+// among the heads, and the labels give each member its head (head_ptr) and
+// its offset (dist): the head 0, the members 0..klen-1, all distinct.  So the
+// reductions need no order.  Three launches:
+//  - contig_heads_kernel, one pass on scan.cuh (tiles of 4,096 lanes, 16 a
+//    thread, striped so every load is coalesced; each half of a thread's
+//    rows loads its keys and links before any is used): each lane's head
+//    flag, the tile's ranks from a warp ballot a row and a scan of the 128
+//    (row, warp) counts, the tile's first id by decoupled look-back.  It
+//    writes ids, an int32 a lane (the contig id of a head, -1 on another
+//    real lane, -2 on a pad), and sets up each contig's slots from its one
+//    head lane: head_lane, count_sum = the head's count, and tail_pack = the
+//    head lane (offset 0).  No flag array, no torch.cumsum, no C2-wide
+//    memset.
+//  - contig_lanes_kernel, a thread a lane: a real lane's cid is one gather,
+//    ids[head_ptr]; it writes node_cid and node_off, and a member that is
+//    not a head adds its count to count_sum and folds (offset << 32) | lane
+//    into tail_pack with a 64-bit atomicMax, so the largest offset leaves
+//    each contig both its tail lane and klen = that offset + 1.  Integer
+//    sums and maxima, so exact whatever the order.
+//  - contig_slots_kernel, a thread a contig slot, reads n_contigs on the
+//    card (the scan's last status word).  A slot c < n_contigs unpacks
+//    tail_pack into klen and tail_lane and writes the float32 abundance
+//    (count_sum / klen, each converted and divided with round-to-nearest
+//    intrinsics, so it is bit-equal to the plain version's and the host's
+//    recomputation), the successor run of the tail node in the link records
+//    and the reverse-complement twin (lower_bound_hit: one binary search a
+//    contig, 355,800 on the main path); a slot past n_contigs (95% of them
+//    on the main path, most of the stage's bytes) takes the fill values.
+//    (Measured slower on the main path: the fill in the lane pass, beside
+//    its atomics; two groups of resident blocks striding over the real
+//    slots and the fill side by side; and tiles taken in a prime-stride
+//    order to spread the real slots' blocks among the fill's.)
+// The wrapper reads n_contigs once, at the end.
+// Bound: memory: the labeled node table in, the contig arrays (C2 slots of
+// 76 bytes) out; the twin search is bounded by the latency of its dependent
+// loads.
 // ---------------------------------------------------------------------------
-__global__ void head_flags_kernel(const int64_t* __restrict__ node_key,
-                                  const int64_t* __restrict__ prev2, int64_t C2,
-                                  int32_t* __restrict__ flags) {
-  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= C2) return;
-  flags[i] = (node_key[i] != PAD_KEY && prev2[i] < 0) ? 1 : 0;
+#define CONTIG_PAD_ID (-2)
+#define CONTIG_HALF (SCAN_ITEMS / 2)  // rows a thread loads before it uses them
+
+__global__ void __launch_bounds__(SCAN_THREADS) contig_heads_kernel(
+    const int64_t* __restrict__ node_key, const int32_t* __restrict__ node_count,
+    const int64_t* __restrict__ prev2, int64_t C2, unsigned long long* __restrict__ scratch,
+    int32_t* __restrict__ ids, int64_t* __restrict__ count_sum,
+    int64_t* __restrict__ head_lane, unsigned long long* __restrict__ tail_pack) {
+  __shared__ ScanShared sh;
+  __shared__ unsigned s_off[SCAN_ITEMS * SCAN_WARPS];  // heads before each (row, warp)
+  __shared__ unsigned s_total;
+  unsigned long long* status = scratch + 1;
+  const long long tile = scan_ticket(scratch, &sh);
+  const int64_t base = (int64_t)tile * SCAN_TILE;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  unsigned heads[SCAN_ITEMS];  // each row's ballot of its warp's heads
+  unsigned real = 0;           // bit j: this thread's lane of row j is real
+#pragma unroll
+  for (int half = 0; half < SCAN_ITEMS; half += CONTIG_HALF) {
+    int64_t key[CONTIG_HALF], prev[CONTIG_HALF];
+#pragma unroll
+    for (int q = 0; q < CONTIG_HALF; ++q) {
+      const int64_t i = base + (half + q) * SCAN_THREADS + threadIdx.x;
+      key[q] = i < C2 ? node_key[i] : PAD_KEY;
+      prev[q] = i < C2 ? prev2[i] : 0;
+    }
+#pragma unroll
+    for (int q = 0; q < CONTIG_HALF; ++q) {
+      const int j = half + q;
+      const bool r = key[q] != PAD_KEY;
+      heads[j] = __ballot_sync(SCAN_FULL_MASK, r && prev[q] < 0);
+      if (r) real |= 1u << j;
+      if (lane == 0) s_off[j * SCAN_WARPS + warp] = __popc(heads[j]);
+    }
+  }
+  __syncthreads();
+  if (warp == 0) {
+    // the 128 counts in lane order (row-major, then warp), 4 a lane
+    constexpr int per = SCAN_ITEMS * SCAN_WARPS / 32;
+    unsigned v[per], sum = 0;
+#pragma unroll
+    for (int q = 0; q < per; ++q) {
+      v[q] = s_off[lane * per + q];
+      sum += v[q];
+    }
+    const unsigned inc = warp_inclusive_scan(sum);
+    unsigned run = inc - sum;
+#pragma unroll
+    for (int q = 0; q < per; ++q) {
+      s_off[lane * per + q] = run;
+      run += v[q];
+    }
+    if (lane == 31) s_total = inc;
+  }
+  __syncthreads();
+  const unsigned total = s_total;
+  scan_publish_aggregate(status, tile, total);
+  const int64_t prefix = (int64_t)scan_tile_prefix(status, tile, total, &sh);
+  const unsigned below = (1u << lane) - 1;
+#pragma unroll
+  for (int j = 0; j < SCAN_ITEMS; ++j) {
+    const int64_t i = base + j * SCAN_THREADS + threadIdx.x;
+    if (i >= C2) break;
+    if ((heads[j] >> lane) & 1) {
+      const int64_t cid = prefix + s_off[j * SCAN_WARPS + warp] + __popc(heads[j] & below);
+      ids[i] = (int32_t)cid;
+      head_lane[cid] = i;
+      count_sum[cid] = node_count[i];
+      tail_pack[cid] = (unsigned long long)i;  // offset 0
+    } else {
+      ids[i] = (real >> j) & 1 ? -1 : CONTIG_PAD_ID;
+    }
+  }
 }
 
-__global__ void contig_lanes_kernel(const int64_t* __restrict__ node_key,
+// n_contigs: the value of the scan's last inclusive status word.
+static __device__ __forceinline__ int64_t contig_count(const unsigned long long* last_status) {
+  return (int64_t)(*last_status & SCAN_VALUE_MASK);
+}
+
+__global__ void contig_lanes_kernel(const int32_t* __restrict__ ids,
                                     const int32_t* __restrict__ node_count,
-                                    const int64_t* __restrict__ prev2,
                                     const int64_t* __restrict__ head_ptr,
-                                    const int64_t* __restrict__ dist,
-                                    const int32_t* __restrict__ scan, int64_t C2,
+                                    const int64_t* __restrict__ dist, int64_t C2,
                                     int64_t* __restrict__ node_cid,
                                     int64_t* __restrict__ node_off,
-                                    int64_t* __restrict__ klen,
-                                    int64_t* __restrict__ count_sum,
-                                    int64_t* __restrict__ head_lane) {
-  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+                                    unsigned long long* __restrict__ count_sum,
+                                    unsigned long long* __restrict__ tail_pack) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= C2) return;
-  if (node_key[i] == PAD_KEY) {
+  const int32_t own = ids[i];
+  const int64_t hp = head_ptr[i], off = dist[i];
+  const int32_t count = node_count[i];
+  if (own == CONTIG_PAD_ID) {
     node_cid[i] = -1;
     node_off[i] = -1;
     return;
   }
-  const int64_t h = head_ptr[i];
-  const bool h_is_head = node_key[h] != PAD_KEY && prev2[h] < 0;
-  const int64_t cid = h_is_head ? (int64_t)scan[h] - 1 : -1;
-  const int64_t off = dist[i];
+  const int32_t h = ids[hp];
+  const int64_t cid = h >= 0 ? h : -1;
   node_cid[i] = cid;
   node_off[i] = off;
-  if (cid < 0) return;
-  atomicAdd(reinterpret_cast<unsigned long long*>(klen + cid), 1ull);
-  atomicAdd(reinterpret_cast<unsigned long long*>(count_sum + cid),
-            (unsigned long long)(int64_t)node_count[i]);
-  if (off == 0) head_lane[cid] = i;
+  if (own >= 0 || cid < 0) return;  // a head set its contig's slots up
+  atomicAdd(count_sum + cid, (unsigned long long)(int64_t)count);
+  atomicMax(tail_pack + cid, ((unsigned long long)off << 32) | (unsigned long long)i);
 }
 
-__global__ void contig_tails_kernel(const int64_t* __restrict__ node_cid,
-                                    const int64_t* __restrict__ node_off,
-                                    const int64_t* __restrict__ klen, int64_t C2,
-                                    int64_t* __restrict__ tail_lane) {
-  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= C2) return;
-  const int64_t cid = node_cid[i];
-  if (cid >= 0 && node_off[i] == klen[cid] - 1) tail_lane[cid] = i;
-}
-
-__global__ void contig_edges_kernel(const int64_t* __restrict__ node_key,
+__global__ void contig_slots_kernel(const int64_t* __restrict__ node_key,
                                     const int64_t* __restrict__ dist,
                                     const int64_t* __restrict__ rec_lane,
                                     const int64_t* __restrict__ first_p,
                                     const int64_t* __restrict__ p_cnt,
                                     const int64_t* __restrict__ node_cid,
-                                    const int64_t* __restrict__ klen,
-                                    const int64_t* __restrict__ count_sum,
-                                    const int64_t* __restrict__ tail_lane,
+                                    const unsigned long long* __restrict__ last_status,
                                     int64_t C2, int k, int canonical,
+                                    int64_t* __restrict__ klen,
+                                    int64_t* __restrict__ count_sum,
+                                    int64_t* __restrict__ head_lane,
+                                    int64_t* __restrict__ tail_lane,
                                     float* __restrict__ abundance,
                                     int64_t* __restrict__ out_edges,
                                     int64_t* __restrict__ rc_pair) {
-  int64_t c = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t c = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= C2) return;
-  const int64_t kl = klen[c];
-  abundance[c] = kl > 0 ? __fdiv_rn(__ll2float_rn(count_sum[c]), __ll2float_rn(kl))
-                        : 0.0f;
-  const int64_t tl = tail_lane[c];
-  int64_t fp = 0, pc = 0;
-  if (tl >= 0) {
-    fp = first_p[tl];
-    pc = p_cnt[tl];
+  if (c >= contig_count(last_status)) {  // contig slot c holds no contig
+    klen[c] = 0;
+    count_sum[c] = 0;
+    head_lane[c] = -1;
+    tail_lane[c] = -1;
+    abundance[c] = 0.0f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) out_edges[j * C2 + c] = -1;
+    rc_pair[c] = c;
+    return;
   }
+  // tail_lane holds the contig's tail_pack until here
+  const unsigned long long packed = (unsigned long long)tail_lane[c];
+  const int64_t tl = (int64_t)(packed & 0xFFFFFFFFull);
+  const int64_t kl = (int64_t)(packed >> 32) + 1;
+  klen[c] = kl;
+  tail_lane[c] = tl;
+  abundance[c] = __fdiv_rn(__ll2float_rn(count_sum[c]), __ll2float_rn(kl));
+  const int64_t fp = first_p[tl], pc = p_cnt[tl];
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     out_edges[j * C2 + c] = j < pc ? node_cid[rec_lane[fp + j]] : -1;
   }
   int64_t rc = c;
-  if (canonical && tl >= 0) {
+  if (canonical) {
     int64_t idx;
     const int64_t q = (int64_t)revcomp_bits((uint64_t)node_key[tl], k);
     if (lower_bound_hit(node_key, C2, q, &idx) && dist[idx] == 0) rc = node_cid[idx];
@@ -935,49 +1029,40 @@ int shannon_cycle_round(const void* prev, const void* ptr_in, const void* mn_in,
   return (int)cudaGetLastError();
 }
 
-int shannon_head_flags(const void* node_key, const void* prev2, int64_t C2,
-                       void* flags, void* stream) {
-  if (C2 > 0) {
-    head_flags_kernel<<<blocks_for(C2), THREADS, 0, (cudaStream_t)stream>>>(
-        (const int64_t*)node_key, (const int64_t*)prev2, C2, (int32_t*)flags);
-  }
-  return (int)cudaGetLastError();
-}
-
+// scratch: exactly tiles + 1 zeroed words (scan.cuh), tiles = ceil(C2 /
+// SCAN_TILE), or the call is refused; ids: C2 int32.  n_contigs is the
+// scan's total (kernels.scan_total).  tail_lane holds each contig's packed
+// tail until the last launch unpacks it.
 int shannon_contig_reduce(const void* node_key, const void* node_count,
                           const void* prev2, const void* head_ptr,
                           const void* dist, const void* rec_lane,
-                          const void* first_p, const void* p_cnt,
-                          const void* scan, int64_t C2, int k, int canonical,
+                          const void* first_p, const void* p_cnt, int64_t C2, int k,
+                          int canonical, void* scratch, int64_t scratch_words, void* ids,
                           void* node_cid, void* node_off, void* klen,
                           void* count_sum, void* head_lane, void* tail_lane,
                           void* abundance, void* out_edges, void* rc_pair,
                           void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const size_t bytes = (size_t)C2 * sizeof(int64_t);
-  cudaError_t err = cudaSuccess;
+  const long long tiles = scan_tiles(C2);
+  if (scratch_words != tiles + 1 || C2 >= (1ll << 31)) return (int)cudaErrorInvalidValue;
   if (C2 == 0) return (int)cudaGetLastError();
-  if ((err = cudaMemsetAsync(klen, 0, bytes, s)) != cudaSuccess) return (int)err;
-  if ((err = cudaMemsetAsync(count_sum, 0, bytes, s)) != cudaSuccess) return (int)err;
-  // all-ones bytes: -1 in every int64 lane
-  if ((err = cudaMemsetAsync(head_lane, 0xFF, bytes, s)) != cudaSuccess) return (int)err;
-  if ((err = cudaMemsetAsync(tail_lane, 0xFF, bytes, s)) != cudaSuccess) return (int)err;
+  unsigned long long* sc = (unsigned long long*)scratch;
+  contig_heads_kernel<<<(unsigned int)tiles, SCAN_THREADS, 0, s>>>(
+      (const int64_t*)node_key, (const int32_t*)node_count, (const int64_t*)prev2, C2, sc,
+      (int32_t*)ids, (int64_t*)count_sum, (int64_t*)head_lane,
+      (unsigned long long*)tail_lane);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
   contig_lanes_kernel<<<blocks_for(C2), THREADS, 0, s>>>(
-      (const int64_t*)node_key, (const int32_t*)node_count,
-      (const int64_t*)prev2, (const int64_t*)head_ptr, (const int64_t*)dist,
-      (const int32_t*)scan, C2, (int64_t*)node_cid, (int64_t*)node_off,
-      (int64_t*)klen, (int64_t*)count_sum, (int64_t*)head_lane);
+      (const int32_t*)ids, (const int32_t*)node_count, (const int64_t*)head_ptr,
+      (const int64_t*)dist, C2, (int64_t*)node_cid, (int64_t*)node_off,
+      (unsigned long long*)count_sum, (unsigned long long*)tail_lane);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  contig_tails_kernel<<<blocks_for(C2), THREADS, 0, s>>>(
-      (const int64_t*)node_cid, (const int64_t*)node_off, (const int64_t*)klen,
-      C2, (int64_t*)tail_lane);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  contig_edges_kernel<<<blocks_for(C2), THREADS, 0, s>>>(
+  contig_slots_kernel<<<blocks_for(C2), THREADS, 0, s>>>(
       (const int64_t*)node_key, (const int64_t*)dist, (const int64_t*)rec_lane,
-      (const int64_t*)first_p, (const int64_t*)p_cnt, (const int64_t*)node_cid,
-      (const int64_t*)klen, (const int64_t*)count_sum,
-      (const int64_t*)tail_lane, C2, k, canonical, (float*)abundance,
-      (int64_t*)out_edges, (int64_t*)rc_pair);
+      (const int64_t*)first_p, (const int64_t*)p_cnt, (const int64_t*)node_cid, sc + tiles,
+      C2, k, canonical, (int64_t*)klen, (int64_t*)count_sum, (int64_t*)head_lane,
+      (int64_t*)tail_lane, (float*)abundance, (int64_t*)out_edges, (int64_t*)rc_pair);
   return (int)cudaGetLastError();
 }
 

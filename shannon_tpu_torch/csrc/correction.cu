@@ -252,54 +252,76 @@ static __device__ __forceinline__ float error_cap(float F, float eps3) {
 }
 
 // ---------------------------------------------------------------------------
-// K9: one sibling-prune round.
-// Replaces one round of shannon_tpu/ops/correction.py:184 _prune_chunk (the
-// loop body, lines 205-217).  A Jacobi round: it reads only the previous
-// round's counts and writes a second buffer.  A lane with count c > 0 takes
-// the largest sibling count where hit on the right rows (0, 2, 4, 6) and on
-// the left rows (1, 3, 5, 7) and is pruned when, on either side,
-// f32(c) < ratio * f32(max) and, when use_cap, f32(c) <= error_cap(f32(max)).
-// ratio and eps3 arrive as the float32 values the plain version uses.
+// K9: the sibling-prune loop.
+// Replaces shannon_tpu/ops/correction.py:184 _prune_chunk: up to `rounds`
+// Jacobi rounds (the loop body, lines 205-217), stopping after the first
+// round that prunes nothing.  A lane with count c > 0 takes the largest
+// sibling count where hit on the right rows (0, 2, 4, 6) and on the left rows
+// (1, 3, 5, 7) and is pruned when, on either side, f32(c) < ratio * f32(max)
+// and, when use_cap, f32(c) <= error_cap(f32(max)).  ratio and eps3 arrive
+// as the float32 values the plain version uses.
+// Why one round is the whole loop.  A round only sets counts to 0, so from
+// round to round every count, and with it every side's sibling maximum M,
+// can only fall.  With ratio >= 0 and eps3 >= 0 both halves of the test grow
+// with M: ratio * f32(M) and every step of error_cap (a product, a correctly
+// rounded square root, sums, a max) are round-to-nearest operations, which
+// are monotone, and f32 of an integer is too.  A lane that survives round t
+// keeps its count, and its maxima in round t + 1 are no larger, so no side
+// that failed the test in round t passes it in round t + 1: every round
+// after the first prunes nothing.  So the loop's counts are round 1's, and
+// its last changed flag is round 1's when rounds == 1 and false for any
+// rounds >= 2 (round 2 runs and finds nothing).  The wrapper refuses
+// rounds >= 2 with a negative ratio or eps3, where the argument fails.
+// Design.  One launch computes round 1: it reads the input counts and writes
+// a new buffer.  A grid of as many blocks as the card holds at once strides
+// over the lanes; each thread counts its pruned lanes in registers and a
+// warp adds them once, after its last lane, to one counter that the wrapper
+// reads only for rounds == 1 or when asked for the rounds' counts (no word
+// every pruned lane stores to).  So the main path's loop is one launch and
+// no host read.
 // Bound: memory.  Lanes with count 0 copy through without touching the probe
 // rows; the others read 8 hit bytes and gather the counts of their hits.
 // ---------------------------------------------------------------------------
-__global__ void prune_round_kernel(const int32_t* __restrict__ counts,
-                                   const int64_t* __restrict__ sidx,
-                                   const uint8_t* __restrict__ shit, int64_t C,
-                                   float ratio, float eps3, int use_cap,
-                                   int32_t* __restrict__ out,
-                                   int32_t* __restrict__ changed) {
-  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= C) return;
-  const int32_t c = counts[i];
-  bool doomed = false;
-  if (c > 0) {
-    int32_t rmax = 0, lmax = 0;
+__global__ void __launch_bounds__(THREADS) prune_round_kernel(
+    const int32_t* __restrict__ counts, const int64_t* __restrict__ sidx,
+    const uint8_t* __restrict__ shit, int64_t C, float ratio, float eps3, int use_cap,
+    int32_t* __restrict__ out, unsigned long long* __restrict__ pruned) {
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  unsigned n = 0;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < C; i += stride) {
+    const int32_t c = counts[i];
+    bool doomed = false;
+    if (c > 0) {
+      int32_t rmax = 0, lmax = 0;
 #pragma unroll
-    for (int p = 0; p < 8; ++p) {
-      const int64_t l = (int64_t)p * C + i;
-      if (shit[l]) {
-        const int32_t v = counts[sidx[l]];
-        if (p & 1) {
-          lmax = v > lmax ? v : lmax;
-        } else {
-          rmax = v > rmax ? v : rmax;
+      for (int p = 0; p < 8; ++p) {
+        const int64_t l = (int64_t)p * C + i;
+        if (shit[l]) {
+          const int32_t v = counts[sidx[l]];
+          if (p & 1) {
+            lmax = v > lmax ? v : lmax;
+          } else {
+            rmax = v > rmax ? v : rmax;
+          }
         }
       }
+      const float cf = __int2float_rn(c);
+      const float rf = __int2float_rn(rmax);
+      const float lf = __int2float_rn(lmax);
+      bool dr = cf < __fmul_rn(ratio, rf);
+      bool dl = cf < __fmul_rn(ratio, lf);
+      if (use_cap) {
+        dr = dr && cf <= error_cap(rf, eps3);
+        dl = dl && cf <= error_cap(lf, eps3);
+      }
+      doomed = dr || dl;
     }
-    const float cf = __int2float_rn(c);
-    const float rf = __int2float_rn(rmax);
-    const float lf = __int2float_rn(lmax);
-    bool dr = cf < __fmul_rn(ratio, rf);
-    bool dl = cf < __fmul_rn(ratio, lf);
-    if (use_cap) {
-      dr = dr && cf <= error_cap(rf, eps3);
-      dl = dl && cf <= error_cap(lf, eps3);
-    }
-    doomed = dr || dl;
+    out[i] = doomed ? 0 : c;
+    n += doomed ? 1u : 0u;
   }
-  out[i] = doomed ? 0 : c;
-  if (doomed) *changed = 1;
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) n += __shfl_xor_sync(0xffffffffu, n, d);
+  if ((threadIdx.x & 31) == 0 && n != 0) atomicAdd(pruned, (unsigned long long)n);
 }
 
 // ---------------------------------------------------------------------------
@@ -530,16 +552,26 @@ int shannon_probe_lookup(const void* table, int64_t C, int k, int side_ext, int 
   return (int)cudaGetLastError();
 }
 
+// pruned: one uint64 word, zeroed here, that the round's pruned lanes are
+// added to.
 int shannon_prune_round(const void* counts, const void* sidx, const void* shit,
                         int64_t C, float ratio, float eps3, int use_cap,
-                        void* out, void* changed, void* stream) {
-  cudaError_t err = cudaMemsetAsync(changed, 0, sizeof(int32_t), (cudaStream_t)stream);
-  if (err != cudaSuccess) return (int)err;
-  if (C > 0) {
-    prune_round_kernel<<<blocks_for(C), THREADS, 0, (cudaStream_t)stream>>>(
-        (const int32_t*)counts, (const int64_t*)sidx, (const uint8_t*)shit, C,
-        ratio, eps3, use_cap, (int32_t*)out, (int32_t*)changed);
+                        void* out, void* pruned, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err = cudaMemsetAsync(pruned, 0, sizeof(unsigned long long), s);
+  if (err != cudaSuccess || C == 0) return (int)err;
+  int device = 0, sms = 0, per_sm = 0;
+  err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, prune_round_kernel, THREADS, 0);
   }
+  if (err != cudaSuccess) return (int)err;
+  const int64_t resident = (int64_t)sms * per_sm;
+  const int64_t grid = blocks_for(C) < resident ? blocks_for(C) : resident;
+  prune_round_kernel<<<(unsigned int)(grid > 0 ? grid : 1), THREADS, 0, s>>>(
+      (const int32_t*)counts, (const int64_t*)sidx, (const uint8_t*)shit, C, ratio, eps3,
+      use_cap, (int32_t*)out, (unsigned long long*)pruned);
   return (int)cudaGetLastError();
 }
 

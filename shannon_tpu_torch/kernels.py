@@ -70,8 +70,7 @@ _ARGTYPES = {
     "shannon_link_tiles": [_P, _I64, _I, _I64, _P, _I64, _P, _P, _P, _P, _P],
     "shannon_label_rounds": [_P, _I64, _P, _I64, _P, _I, _P, _P, _P],
     "shannon_cycle_round": [_P, _P, _P, _I64, _I, _P, _P, _P, _P],
-    "shannon_head_flags": [_P, _P, _I64, _P, _P],
-    "shannon_contig_reduce": [*[_P] * 9, _I64, _I, _I, *[_P] * 9, _P],
+    "shannon_contig_reduce": [*[_P] * 8, _I64, _I, _I, _P, _I64, *[_P] * 10, _P],
     "shannon_base_streams": [_P, _P, _P, _I64, _P, _P, _P, _I64, _I, _P, _P, _P],
     "shannon_count_histogram": [_P, _P, _I64, _I64, _P, _P],
     "shannon_merge_tables": [_P, _P, _I64, _P, _P, _I64, _I64, _P, _I64, _P, _P, _P],
@@ -228,7 +227,7 @@ _SCAN_VALUE_MASK = (1 << 62) - 1
 
 def scan_scratch(lanes: int, device) -> torch.Tensor:
     """Zeroed scratch of the single-pass scan over `lanes` lanes (K2, K10,
-    K17):
+    K14, K17):
     a ticket word and one status word a tile (csrc/scan.cuh)."""
     return torch.zeros(-(-lanes // SCAN_TILE) + 1, dtype=torch.int64, device=device)
 

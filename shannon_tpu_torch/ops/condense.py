@@ -19,11 +19,12 @@ Counterpart of ``shannon_tpu/ops/condense.py``:
      is one launch per round);
   4. per-contig reduction (klen, exact count sum, float32 abundance, head
      and tail lanes), contig edges, and the reverse-complement twin (K14,
-     ``contig_reduce``);
+     ``contig_reduce``: contig ids from one look-back scan of the head
+     lanes, integer atomics a member, then a pass over the contig slots);
   5. the base streams materialization reads (K15, ``base_streams``).
 
 On CUDA tensors each stage launches its hand-written kernels in
-``csrc/condense.cu`` (around K11's ``torch.sort`` and K14's and K15's
+``csrc/condense.cu`` (around K11's ``torch.sort`` and K15's
 ``torch.cumsum``) or raises; on CPU tensors its ``_plain`` version runs.
 
 Node lanes: capacity C2; contig-indexed arrays are valid in [0, n_contigs).
@@ -411,26 +412,24 @@ def _reduce_stage_cuda(
         if t.shape[0] != (2 * C2 if name == "rec_lane" else C2):
             raise ValueError(f"{name} has {t.shape[0]} lanes for a {C2}-lane node table")
     if C2 >= 1 << 31:
-        raise ValueError(f"{C2} node lanes exceed the int32 head scan")
+        raise ValueError(f"{C2} node lanes exceed the int32 contig ids")
     dev = node_key.device
-    lib = kernels.library()
-    flags = torch.empty(C2, dtype=torch.int32, device=dev)
-    lib.call("shannon_head_flags", dev, kernels.ptr(node_key), kernels.ptr(prev2), C2,
-             kernels.ptr(flags))
-    scan = torch.cumsum(flags, 0, dtype=torch.int32)
 
     def lanes(dtype=torch.int64):
         return torch.empty(C2, dtype=dtype, device=dev)
 
+    ids = lanes(torch.int32)
+    scratch = kernels.scan_scratch(C2, dev)
     node_cid, node_off, klen, csum = lanes(), lanes(), lanes(), lanes()
     head_lane, tail_lane, rc_pair = lanes(), lanes(), lanes()
     abundance = lanes(torch.float32)
     out_edges = torch.empty((4, C2), dtype=torch.int64, device=dev)
+    lib = kernels.library()
     lib.call(
         "shannon_contig_reduce", dev,
         *(kernels.ptr(t) for t in (node_key, node_count, prev2, head_ptr, dist, rec_lane,
-                                    first_p, p_cnt, scan)),
-        C2, k, int(canonical),
+                                    first_p, p_cnt)),
+        C2, k, int(canonical), kernels.ptr(scratch), scratch.shape[0], kernels.ptr(ids),
         *(kernels.ptr(t) for t in (node_cid, node_off, klen, csum, head_lane, tail_lane,
                                     abundance, out_edges, rc_pair)),
     )
@@ -448,7 +447,7 @@ def _reduce_stage_cuda(
         out_edges=out_edges,
         rc_pair=rc_pair,
         n_nodes=n_nodes,
-        n_contigs=int(scan[-1]) if C2 else 0,
+        n_contigs=kernels.scan_total(scratch),  # the one host read
     )
 
 
@@ -458,7 +457,8 @@ def reduce_stage(
 ) -> ContigArrays:
     """Per-contig reductions, edges and rc twins from the labeled nodes
     (ops/condense.py:287 _reduce_stage).  Kernel K14 on CUDA (contig ids
-    from a torch.cumsum of the head flags), the plain version on CPU."""
+    from one look-back scan of the head lanes, one host read), the plain
+    version on CPU."""
     args = (node_key, node_count, n_nodes, prev2, head_ptr, dist,
             rec_lane, first_p, p_cnt, k, canonical)
     if node_key.is_cuda:

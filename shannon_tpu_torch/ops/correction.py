@@ -5,13 +5,14 @@ Counterpart of ``shannon_tpu/ops/correction.py`` (oracle spec in
 ``shannon_tpu/oracle/correction.py``).  The abundance cut is one pass (kernel
 K20).  Probe sets resolve once (K7); the rescue rounds then run as one call
 of K8, which enqueues every round on the card and reads one flag at the end,
-and the prune rounds (K9) as a host loop, each stopping at the first round
-that changes nothing (the reference split them into chunks only to stay
-inside a TPU worker's execution limit); the kept entries are compacted
-(K10).  The auto abundance cut reads the count histogram (K16).  The
-reference's single-round steps ``abundance_filter`` (K20's keep flags) and
-``sibling_prune_round`` (the sibling maxima of K22, then K23's keep flags)
-compact through K10 as well.  On CUDA tensors each of these launches its
+and the prune rounds as one call of K9, whose first round is the whole loop
+(counts only fall, so a later round prunes nothing); each loop stops at the
+first round that changes nothing (the reference split the rounds into
+chunks only to stay inside a TPU worker's execution limit).  The kept
+entries are compacted (K10).  The auto abundance cut reads the count
+histogram (K16).  The reference's single-round steps ``abundance_filter``
+(K20's keep flags) and ``sibling_prune_round`` (the sibling maxima of K22,
+then K23's keep flags) compact through K10 as well.  On CUDA tensors each of these launches its
 hand-written kernel in ``csrc/correction.cu``, ``csrc/rescue.cu`` or
 ``csrc/spectrum.cu``; on CPU tensors its ``_plain`` version runs.
 
@@ -369,19 +370,68 @@ def prune_round_plain(counts, sidx, shit, ratio: float, eps3: float, use_cap: bo
     return torch.where(doomed, 0, counts), bool(doomed.any())
 
 
-def _prune_round_cuda(counts, sidx, shit, ratio, eps3, use_cap):
+def prune_rounds_plain(counts, sidx, shit, ratio: float, eps3: float, use_cap: bool,
+                       rounds: int, info=None):
+    """Plain PyTorch K9's loop: plain Jacobi rounds, stopping after the
+    first that prunes nothing."""
+    changed, pruned = True, []
+    while changed and len(pruned) < rounds:
+        nxt, changed = prune_round_plain(counts, sidx, shit, ratio, eps3, use_cap)
+        pruned.append(int((nxt != counts).sum()))  # a pruned lane's count goes to 0
+        counts = nxt
+    if info is not None:
+        info.update(rounds_run=len(pruned), pruned=pruned)
+    return counts, changed
+
+
+def _prune_launch(counts, sidx, shit, ratio, eps3, use_cap):
+    """One launch of K9's round: (new counts, the pruned-lane counter)."""
     _check_round(counts, ((sidx, shit),))
-    dev = counts.device
     out = torch.empty_like(counts)
-    changed = torch.empty(1, dtype=torch.int32, device=dev)
+    pruned = torch.empty(1, dtype=torch.int64, device=counts.device)
     lib = kernels.library()
     lib.call(
-        "shannon_prune_round", dev,
+        "shannon_prune_round", counts.device,
         kernels.ptr(counts), kernels.ptr(sidx), kernels.ptr(shit), counts.shape[0],
-        ratio, eps3, int(use_cap), kernels.ptr(out), kernels.ptr(changed),
+        ratio, eps3, int(use_cap), kernels.ptr(out), kernels.ptr(pruned),
     )
     lib.count("prune_round")
-    return out, bool(changed.item())
+    return out, pruned
+
+
+def _prune_rounds_cuda(counts, sidx, shit, ratio, eps3, use_cap, rounds, info):
+    if rounds < 1:
+        if info is not None:
+            info.update(rounds_run=0, pruned=[], host_reads=0)
+        return counts, True
+    if rounds > 1 and not (ratio >= 0 and eps3 >= 0):
+        raise ValueError(f"prune_rounds runs one round for the loop only where ratio >= 0 and "
+                         f"eps3 >= 0, got {ratio} and {eps3}")
+    out, pruned = _prune_launch(counts, sidx, shit, ratio, eps3, use_cap)
+    if rounds > 1 and info is None:
+        return out, False  # round 2 would prune nothing: no host read
+    n = int(pruned.item())  # the one host read
+    if info is not None:
+        run = 2 if rounds > 1 and n > 0 else 1
+        info.update(rounds_run=run, pruned=[n, 0][:run], host_reads=1)
+    return out, n > 0 and rounds == 1
+
+
+def prune_rounds(counts, sidx, shit, ratio: float, eps3: float, use_cap: bool, rounds: int,
+                 info=None):
+    """Up to `rounds` Jacobi sibling-prune rounds (ops/correction.py:184
+    _prune_chunk), stopping after the first round that prunes nothing; the
+    decision is prune_round's.  Returns (counts, whether the last round run
+    pruned a lane; True when rounds < 1, as the reference's loop returns);
+    the input is never written.  With a dict `info`, also the rounds run
+    and each one's pruned lanes (and, from K9, the host reads of the call).
+    Kernel K9 on CUDA: counts only fall, so every round after the first
+    prunes nothing (csrc/correction.cu), and the loop is one launch of
+    round 1, with no host read when rounds >= 2 and no `info` is asked for
+    (ratio and eps3 must then not be negative); the plain loop on CPU."""
+    if counts.is_cuda:
+        return _prune_rounds_cuda(counts, sidx, shit, ratio, eps3, use_cap, rounds, info)
+    return prune_rounds_plain(counts, sidx, shit, ratio, eps3, use_cap, rounds, info)
 
 
 def prune_round(counts, sidx, shit, ratio: float, eps3: float, use_cap: bool):
@@ -389,9 +439,11 @@ def prune_round(counts, sidx, shit, ratio: float, eps3: float, use_cap: bool):
     f32(max sibling count) on a side AND, when use_cap, f32(c) <= the
     error cap of that side.  ratio and eps3 come from prune_constants.
     Returns (new counts, whether any lane changed); the input is never
-    written.  Kernel K9 on CUDA, the plain version on CPU."""
+    written.  Kernel K9 on CUDA (one launch and one host read), the plain
+    version on CPU."""
     if counts.is_cuda:
-        return _prune_round_cuda(counts, sidx, shit, ratio, eps3, use_cap)
+        out, pruned = _prune_launch(counts, sidx, shit, ratio, eps3, use_cap)
+        return out, bool(pruned.item())
     return prune_round_plain(counts, sidx, shit, ratio, eps3, use_cap)
 
 
@@ -471,9 +523,5 @@ def correct_spectrum(
         counts, _ = rescue_rounds(counts, raw, sidx, shit, eidx, ehit, k + 2)
         del eidx, ehit
     ratio, eps3 = prune_constants(sibling_ratio, error_rate)
-    for _ in range(correction_rounds):
-        nxt, changed = prune_round(counts, sidx, shit, ratio, eps3, error_rate > 0)
-        if not changed:
-            break
-        counts = nxt
+    counts, _ = prune_rounds(counts, sidx, shit, ratio, eps3, error_rate > 0, correction_rounds)
     return compact(spec, counts > 0)

@@ -24,7 +24,8 @@ from shannon_tpu.sim import random_seq, sample_reads, simulate_isoforms, simulat
 from shannon_tpu_torch import convert
 from shannon_tpu_torch.ops import condense as tcd
 from test_torch_kernels import (
-    STAGE_SPECTRUM_LANES, STAGE_TABLE_LANES, STAGE_TABLES, label_links, stage_tables,
+    REDUCE_TABLES, STAGE_SPECTRUM_LANES, STAGE_TABLE_LANES, STAGE_TABLES, label_links,
+    reduce_tables, stage_tables,
 )
 
 CASES = {
@@ -663,3 +664,158 @@ def test_k12_stress_cases_hold_what_they_name():
         assert not ((key != PAD_KEY) & (key >> (2 * r["k"] - 2) == missing)).any()
     r = _stress_reference("palindromes")
     assert r["n_nodes"] == r["spec"].n == 16
+
+
+# ---- K14: edge tables, and its design transcribed --------------------------------
+
+# node lanes of the scan's tile (SCAN_TILE in csrc/scan.cuh) and one either side
+TILE_EDGES = [("singletons", c2) for c2 in (4095, 4096, 4097)]
+REDUCE_POINTS = [(case, 4096) for case in REDUCE_TABLES] + TILE_EDGES
+
+
+@functools.lru_cache(maxsize=None)
+def _reduce_reference(case: str, C2: int) -> dict:
+    """K14's inputs for one reduce_tables case, from the JAX package's
+    links and labels (cycles cut, as build_contig_arrays cuts them), and its
+    _reduce_stage on them, as _reference_stages runs it."""
+    node_key, node_count, n_nodes, k, canonical = reduce_tables(case, C2)
+    node_hi, node_lo = (jnp.asarray(x) for x in convert.key_to_hilo(node_key))
+    _next, prev, rec_lane, first_p, p_cnt = jcd._links_stage(node_hi, node_lo, k)
+    ptr, dist, has_cycle = jcd._label_stage(prev)
+    if bool(has_cycle):
+        prev = jcd._cycle_fix(prev)
+        ptr, dist, _ = jcd._label_stage(prev)
+    ca = jcd._reduce_stage(node_hi, node_lo, jnp.asarray(node_count), n_nodes, prev, ptr, dist,
+                           rec_lane, first_p, p_cnt, k, canonical)
+
+    def i64(x):
+        return np.asarray(x).astype(np.int64)
+
+    return dict(node_key=node_key, node_count=node_count, n_nodes=n_nodes, prev2=i64(prev),
+                ptr2=i64(ptr), dist2=i64(dist), rec_lane=i64(rec_lane), first_p=i64(first_p),
+                p_cnt=i64(p_cnt), has_cycle=bool(has_cycle), ca=ca, k=k, canonical=canonical)
+
+
+@pytest.mark.parametrize("case,C2", REDUCE_POINTS)
+def test_reduce_plain_on_edge_tables_matches_reference(case, C2):
+    """K14's plain version against the reference's _reduce_stage on tables
+    with no lane, only pads, one contig of every node, every node a contig,
+    rc twins and palindromes, one strand only, and cycles cut."""
+    r = _reduce_reference(case, C2)
+    _check_reduce(r, r["k"], r["canonical"])
+
+
+def test_reduce_edge_tables_hold_what_they_name():
+    def n_contigs(case, C2=4096):
+        return int(_reduce_reference(case, C2)["ca"].n_contigs)
+
+    assert len(_reduce_reference("empty", 4096)["node_key"]) == 0
+    assert n_contigs("empty") == n_contigs("all_pad") == 0
+    assert n_contigs("one_contig") == 1
+    for C2 in (4096, 4095, 4097):
+        assert n_contigs("singletons", C2) == _reduce_reference("singletons", C2)["n_nodes"]
+    r = _reduce_reference("twins_palindromes", 4096)
+    key = r["node_key"][: r["n_nodes"]]
+    assert (tcd.revcomp_key(torch.from_numpy(key), r["k"]).numpy() == key).any()
+    rc = np.asarray(r["ca"].rc_pair)[: n_contigs("twins_palindromes")]
+    assert (rc != np.arange(len(rc))).any() and (rc == np.arange(len(rc))).any()
+    assert _reduce_reference("cycles", 4096)["has_cycle"]
+    assert not _reduce_reference("non_canonical", 4096)["canonical"]
+
+
+def _reduce_transcription(r: dict, threads: int = 256, items: int = 16):
+    """csrc/condense.cu contig_heads / contig_lanes / contig_slots in numpy:
+    tiles of threads x items lanes, lane base + j * threads + t for thread t
+    and row j, ranked by each (row, warp) ballot's count scanned in lane
+    order, the tiles' prefixes in tile order (what the look-back gives);
+    ids (-1 real, -2 pad), the head's slots, then the members' count sums
+    and (offset << 32) | lane maxima, then the contig slots, n_contigs from
+    the scan's total.  Every output starts poisoned.  Returns the arrays in
+    ContigArrays order and n_contigs."""
+    node_key, count = r["node_key"], r["node_count"].astype(np.int64)
+    prev2, head_ptr, dist = r["prev2"], r["ptr2"], r["dist2"]
+    rec_lane, first_p, p_cnt, k = r["rec_lane"], r["first_p"], r["p_cnt"], r["k"]
+    C2, tile, warps = len(node_key), threads * items, threads // 32
+
+    def poisoned(dtype=np.int64):
+        return np.full(C2, -7, dtype)
+
+    ids, count_sum, head_lane = poisoned(), poisoned(), poisoned()
+    tail = np.full(C2, np.uint64(7 << 40), np.uint64)
+    prefix = 0
+    for t0 in range(0, C2, tile):
+        lanes = t0 + np.arange(items)[:, None] * threads + np.arange(threads)[None, :]
+        inside = lanes < C2
+        at = np.minimum(lanes, C2 - 1)
+        real = inside & (node_key[at] != PAD_KEY)
+        head = (real & (prev2[at] < 0)).reshape(items, warps, 32)
+        per = head.sum(2).ravel()  # (row, warp) counts in lane order
+        before = (np.cumsum(per) - per).reshape(items, warps, 1)
+        within = np.cumsum(head, 2) - head
+        cid = (prefix + before + within).reshape(items, threads)
+        head = head.reshape(items, threads)
+        h_lanes, h_cid = lanes[head], cid[head]
+        ids[h_lanes] = h_cid
+        head_lane[h_cid], count_sum[h_cid] = h_lanes, count[h_lanes]
+        tail[h_cid] = h_lanes.astype(np.uint64)
+        others = inside & ~head
+        ids[lanes[others]] = np.where(real[others], -1, -2)
+        prefix += int(head.sum())
+    n = prefix
+    assert (ids != -7).all()
+
+    pad = ids == -2
+    h = ids[head_ptr.clip(0, max(C2 - 1, 0))] if C2 else ids
+    node_cid = np.where(pad, -1, np.where(h >= 0, h, -1))
+    node_off = np.where(pad, -1, dist)
+    member = (ids == -1) & (node_cid >= 0)
+    lanes = np.nonzero(member)[0]
+    np.add.at(count_sum, node_cid[lanes], count[lanes])
+    packed = (dist[lanes].astype(np.uint64) << np.uint64(32)) | lanes.astype(np.uint64)
+    np.maximum.at(tail, node_cid[lanes], packed)
+
+    klen, abundance, tail_lane = np.zeros(C2, np.int64), np.zeros(C2, np.float32), poisoned()
+    out_edges, rc_pair = np.full((4, C2), -1, np.int64), np.arange(C2, dtype=np.int64)
+    c = np.arange(n)
+    tl = (tail[:n] & np.uint64(0xFFFFFFFF)).astype(np.int64)
+    klen[:n] = (tail[:n] >> np.uint64(32)).astype(np.int64) + 1
+    tail_lane[:n], tail_lane[n:] = tl, -1
+    count_sum[n:], head_lane[n:] = 0, -1
+    abundance[:n] = count_sum[:n].astype(np.float32) / klen[:n].astype(np.float32)
+    fp, pc = first_p[tl], p_cnt[tl]
+    for j in range(4):
+        hit = j < pc
+        out_edges[j, c[hit]] = node_cid[rec_lane[fp[hit] + j]]
+    if r["canonical"] and n:
+        q = tcd.revcomp_key(torch.from_numpy(node_key[tl]), k).numpy()
+        idx = np.minimum(np.searchsorted(node_key, q), C2 - 1)
+        twin = (node_key[idx] == q) & (dist[idx] == 0)
+        rc_pair[c[twin]] = node_cid[idx[twin]]
+    return (node_cid, node_off, klen, abundance, count_sum, head_lane, tail_lane, out_edges,
+            rc_pair), n
+
+
+REDUCE_GEOMETRIES = {"source": (256, 16), "small": (64, 2)}
+
+
+@pytest.mark.parametrize("geometry", list(REDUCE_GEOMETRIES))
+@pytest.mark.parametrize("case,C2", REDUCE_POINTS)
+def test_k14_transcription_matches_reference(case, C2, geometry):
+    """K14's design (head ids from a tiled ballot scan with the tiles'
+    prefixes in order, the members' atomic sums and packed maxima, the
+    contig slots from n_contigs) against the reference's _reduce_stage over
+    every lane, at the source's tile of 4,096 lanes and at 128 (so the
+    small tables span many tiles)."""
+    r = _reduce_reference(case, C2)
+    got, n = _reduce_transcription(r, *REDUCE_GEOMETRIES[geometry])
+    want = dict(zip(
+        "node_hi node_lo node_count node_cid node_off klen abundance count_sum head_lane "
+        "tail_lane out_edges rc_pair n_nodes n_contigs".split(), r["ca"].tree_flatten()[0]))
+    assert n == int(want["n_contigs"])
+    names = "node_cid node_off klen abundance count_sum head_lane tail_lane out_edges rc_pair"
+    for name, g in zip(names.split(), got):
+        w = np.asarray(want[name])
+        if name == "abundance":
+            np.testing.assert_array_equal(g.view(np.int32), w.view(np.int32), err_msg=name)
+        else:
+            np.testing.assert_array_equal(g, w.astype(np.int64), err_msg=name)

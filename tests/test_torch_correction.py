@@ -1,6 +1,7 @@
 """Port parity: error correction (histogram, abundance cut, probe tables,
-the rescue rounds, one error-capped prune round, compaction, the whole
-stage, and the single-round steps abundance_filter and sibling_prune_round)
+the rescue rounds, the error-capped prune rounds and the fixpoint after
+their first round, compaction, the whole stage, and the single-round steps
+abundance_filter and sibling_prune_round)
 against shannon_tpu.ops.correction on JAX-CPU, and a transcription of K8's
 frontier schedule with the probe symmetry it rests on.  Both packages start from
 the same counted spectrum (via convert).  The plain versions run here (CPU
@@ -315,6 +316,65 @@ def test_prune_round_matches_reference(k, cut, error_rate):
     got, changed = tcor.prune_round(tcounts, *tsib, ratio, t_eps3, error_rate > 0)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     assert changed == bool(w_changed)
+
+
+@pytest.mark.parametrize("k", [5, 24, 31])
+@pytest.mark.parametrize("rounds", [0, 1, 2, 8])
+@pytest.mark.parametrize("error_rate", [0.0, 0.01])
+def test_prune_rounds_plain_matches_reference(k, rounds, error_rate):
+    """K9's plain loop == _prune_chunk(rounds=...) from the cut counts,
+    counts and the last round's changed flag (True at rounds 0, as the
+    reference's loop returns); its info counts the rounds run and each
+    one's pruned lanes, and no round after the first prunes any."""
+    (jcounts, _, jsib, _), (tcounts, _, tsib, _) = _round_inputs(k, 2)
+    eps3 = jnp.float32(error_rate) / jnp.float32(3.0)
+    want, w_changed = jcor._prune_chunk(
+        jcounts, *jsib, jnp.float32(0.1), eps3, rounds=rounds, use_cap=error_rate > 0
+    )
+    ratio, t_eps3 = tcor.prune_constants(0.1, error_rate)
+    before, info = tcounts.clone(), {}
+    got, changed = tcor.prune_rounds(tcounts, *tsib, ratio, t_eps3, error_rate > 0, rounds, info)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert changed == bool(w_changed)
+    assert torch.equal(tcounts, before)  # the input is never written
+    assert info["rounds_run"] == len(info["pruned"]) == min(rounds, 2)
+    assert info["pruned"][1:] in ([], [0])
+    if rounds:
+        assert info["pruned"][0] == int((got != tcounts).sum()) > 0
+
+
+def _arbitrary_round(seed: int, C: int = 3000):
+    """A prune round's inputs with no structure: counts from 0 to 2^31 - 1
+    (a quarter 0, most small, some near the top of int32), each lane's 8
+    probe rows hit at random and pointing anywhere, so the sibling relation
+    is not symmetric."""
+    rng = np.random.default_rng(seed)
+    counts = np.exp2(rng.uniform(0, 31, C)).astype(np.int64)
+    counts = np.where(rng.random(C) < 0.5, counts % 64, counts)
+    counts[rng.random(C) < 0.25] = 0
+    counts[rng.integers(0, C, 20)] = (1 << 31) - 1
+    idx = rng.integers(0, C, (8, C))
+    hit = rng.random((8, C)) < 0.6
+    return (torch.from_numpy(counts.clip(0, (1 << 31) - 1).astype(np.int32)),
+            torch.from_numpy(idx), torch.from_numpy(hit))
+
+
+@pytest.mark.parametrize("seed", range(8))
+@pytest.mark.parametrize("ratio", [0.1, 0.5, 1.0])
+@pytest.mark.parametrize("error_rate", [0.0, 0.01, 0.05])
+def test_prune_fixpoint_after_one_round(seed, ratio, error_rate):
+    """The argument K9's loop rests on (csrc/correction.cu): counts only
+    fall, and both halves of the decision grow with the sibling maximum,
+    so a second prune round on round 1's output changes nothing, on
+    arbitrary non-symmetric tables, with and without the error cap."""
+    counts, idx, hit = _arbitrary_round(seed)
+    r, eps3 = tcor.prune_constants(ratio, error_rate)
+    one, changed = tcor.prune_round_plain(counts, idx, hit, r, eps3, error_rate > 0)
+    assert changed  # the table gives round 1 something to prune
+    two, again = tcor.prune_round_plain(one, idx, hit, r, eps3, error_rate > 0)
+    assert not again and torch.equal(two, one)
+    got, last = tcor.prune_rounds(counts, idx, hit, r, eps3, error_rate > 0, 8)
+    assert torch.equal(got, one) and not last
 
 
 @pytest.mark.parametrize("k", [5, 16, 24, 31])

@@ -717,6 +717,78 @@ def test_prune_round_kernel_float_grid(cuda, error_rate):
     assert want[1]  # the grid prunes some lanes
 
 
+def _prune_rounds_both(counts, idx, hit, ratio, eps3, use_cap, rounds: int) -> dict:
+    """K9's loop against its plain loop on the same CUDA inputs: counts and
+    changed equal, the input unwritten, one launch (none at rounds 0), no
+    host read at rounds >= 2 without info (a sync raises there), and with
+    info the plain loop's rounds and pruned counts.  Returns the info."""
+    lib = kernels.library()
+    before_in = counts.clone()
+    want_info, info = {}, {}
+    want = tcor.prune_rounds_plain(counts, idx, hit, ratio, eps3, use_cap, rounds, want_info)
+    torch.cuda.synchronize()
+    launched = lib.launches["prune_round"]
+    if rounds >= 2:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = tcor.prune_rounds(counts, idx, hit, ratio, eps3, use_cap, rounds)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert lib.launches["prune_round"] - launched == (1 if rounds >= 1 else 0)
+    assert got[0].dtype == want[0].dtype and torch.equal(got[0], want[0])
+    assert got[1] == want[1]
+    again = tcor.prune_rounds(counts, idx, hit, ratio, eps3, use_cap, rounds, info)
+    assert torch.equal(again[0], want[0]) and again[1] == want[1]
+    assert (info["rounds_run"], info["pruned"]) == (want_info["rounds_run"], want_info["pruned"])
+    assert info["host_reads"] == (1 if rounds >= 1 else 0)
+    assert torch.equal(counts, before_in)  # the input is never written
+    if rounds >= 1:  # the plain round on the loop's output changes nothing
+        assert not tcor.prune_round_plain(got[0], idx, hit, ratio, eps3, use_cap)[1]
+    return info
+
+
+@pytest.mark.parametrize("k", [16, 24, 31])
+@pytest.mark.parametrize("rounds", [0, 1, 2, 8])
+@pytest.mark.parametrize("error_rate", [0.0, 0.01])
+def test_prune_rounds_kernel_matches_plain(cuda, k, rounds, error_rate):
+    """K9's loop (one launch of round 1) against the plain loop of rounds
+    from the main path's rescue, at rounds 0, 1, 2 and correct_spectrum's
+    8, with and without the error cap."""
+    spec = _to(_spectrum(k), cuda)
+    sib = tcor.probe_resolve_plain(spec, k, True, "sib")
+    ext = tcor.probe_resolve_plain(spec, k, True, "ext")
+    raw, counts = tcor.cut_counts(spec, 2)
+    counts = tcor.rescue_rounds_plain(counts, raw, *sib, *ext, k + 2)[0]
+    ratio, eps3 = tcor.prune_constants(0.1, error_rate)
+    info = _prune_rounds_both(counts, *sib, ratio, eps3, error_rate > 0, rounds)
+    if rounds >= 1:
+        assert info["pruned"][0] > 0  # the round prunes lanes
+
+
+@pytest.mark.parametrize("rounds", [0, 1, 2, 8])
+@pytest.mark.parametrize("error_rate", [0.0, 0.01, 0.02])
+def test_prune_rounds_kernel_float_grid(cuda, rounds, error_rate):
+    """K9's loop on the float grid (every count 1..255 against every
+    sibling maximum 1..4095): exact, and a second round prunes nothing."""
+    counts, idx, hit = (torch.from_numpy(a).to(cuda) for a in prune_grid()[:3])
+    ratio, eps3 = tcor.prune_constants(0.1, error_rate)
+    info = _prune_rounds_both(counts, idx, hit, ratio, eps3, error_rate > 0, rounds)
+    if rounds >= 1:
+        assert info["pruned"][0] > 0 and info["pruned"][1:] in ([], [0])
+
+
+def test_prune_rounds_refuses_a_negative_ratio_or_eps3(cuda):
+    """The loop is round 1 only where the decision grows with the sibling
+    maximum: prune_rounds refuses rounds >= 2 with a negative ratio or
+    eps3 before it launches, and takes them at one round."""
+    counts, idx, hit = (torch.from_numpy(a).to(cuda) for a in prune_grid(8, 16)[:3])
+    for ratio, eps3 in ((-0.1, 0.0), (0.1, -0.01)):
+        with pytest.raises(ValueError, match="ratio >= 0"):
+            tcor.prune_rounds(counts, idx, hit, ratio, eps3, True, 2)
+        got = tcor.prune_rounds(counts, idx, hit, ratio, eps3, True, 1)
+        assert got[0].shape == counts.shape
+
+
 @pytest.mark.parametrize("keep", ["none", "all", "random"])
 def test_compact_kernel_edge_masks(cuda, keep):
     spec = _to(_spectrum(24), cuda)
@@ -1039,7 +1111,7 @@ def test_correct_spectrum_on_cuda_matches_cpu(cuda, k, min_abundance, canonical)
     lib = kernels.library()
     lib.reset_counts()
     got = tcor.correct_spectrum(_to(spec, cuda), *args)
-    assert lib.launches["probe_lookup"] > 0 and lib.launches["prune_round"] > 0
+    assert lib.launches["probe_lookup"] > 0 and lib.launches["prune_round"] == 1
     assert lib.launches["compact_keep"] == 1
     want = tcor.correct_spectrum(spec, *args)
     assert got.n == want.n
@@ -1230,6 +1302,72 @@ def stage_input(case: str, device="cpu"):
     return torch.from_numpy(table).to(device), k
 
 
+# (k, canonical) of each reduce_tables case
+REDUCE_TABLES = {
+    "empty": (21, True), "all_pad": (21, True), "one_contig": (21, False),
+    "singletons": (21, False), "twins_palindromes": (24, True), "non_canonical": (21, False),
+    "cycles": (21, False),
+}
+
+
+def _seq_kmers(seq: str, k: int) -> np.ndarray:
+    """The forward k-mer keys of every window of seq (2 bits a base)."""
+    codes = np.array(["ACGT".index(c) for c in seq], np.int64)
+    out = np.zeros(max(len(codes) - k + 1, 0), np.int64)
+    for j in range(k):
+        out = (out << 2) | codes[j:j + len(out)]
+    return out
+
+
+def reduce_tables(case: str, C2: int = 4096) -> tuple[np.ndarray, np.ndarray, int, int, bool]:
+    """Node tables that stress K14, made from a seed: (node_key [C2] sorted,
+    PAD past n_nodes; node_count [C2] int32, 0 on pads; n_nodes; k;
+    canonical).  "empty": no lane at all; "all_pad": C2 pad lanes;
+    "one_contig": the k-mers of one sequence, one chain through every real
+    node; "singletons": C2 - 3 random k-mers that share no (k-1)-mer, every
+    node a contig of its own (the contig ids run to the table's last
+    tiles); "twins_palindromes": both strands of sequences with a
+    palindromic junction h + revcomp(h) at even k (rc twins, and palindromes
+    that are their own twin); "non_canonical": one strand of two sequences
+    that share a middle segment (branches); "cycles": tandem repeats beside
+    a chain, whose isolated cycles cycle_fix cuts."""
+    k, canonical = REDUCE_TABLES[case]
+    rng = np.random.default_rng(sum(map(ord, case)) + C2)
+    if case == "empty":
+        C2 = 0
+
+    def seq(n: int) -> str:
+        return random_seq(rng, n)
+
+    if case in ("empty", "all_pad"):
+        keys = np.zeros(0, np.int64)
+    elif case == "singletons":
+        keys = rng.integers(0, 1 << (2 * k), max(C2 - 3, 0))
+    else:
+        if case == "one_contig":
+            seqs = [seq(min(600, C2) + k - 1)]
+        elif case == "twins_palindromes":
+            seqs = []
+            for _ in range(3):
+                h = seq(40)
+                seqs.append(seq(80) + h + revcomp_str(h) + seq(80))
+        elif case == "non_canonical":
+            m = seq(90)
+            seqs = [seq(120) + m + seq(120), seq(100) + m + seq(140)]
+        else:
+            seqs = [seq(n) * 4 for n in (37, 52, 71)] + [seq(300)]
+        keys = np.concatenate([_seq_kmers(x, k) for x in seqs])
+    if canonical:
+        keys = np.concatenate([keys, _revcomp_np(keys, k)])
+    keys = np.unique(keys)
+    n = len(keys)
+    node_key = np.full(C2, PAD, np.int64)
+    node_key[:n] = keys
+    node_count = np.zeros(C2, np.int32)
+    node_count[:n] = rng.integers(1, 61, n)
+    return node_key, node_count, n, k, canonical
+
+
 def _equal(got, want, what: str) -> None:
     assert got.dtype == want.dtype and got.shape == want.shape, what
     assert torch.equal(got, want), what
@@ -1290,6 +1428,57 @@ def test_condense_kernels_match_plain(cuda, case, k, canonical):
               "count_sum", "head_lane", "tail_lane", "out_edges", "rc_pair"):
         _equal(getattr(whole, f).cpu(), getattr(cpu, f), f)
     assert (whole.n_nodes, whole.n_contigs) == (cpu.n_nodes, cpu.n_contigs)
+
+
+@pytest.mark.parametrize("case,C2", [(case, 4096) for case in REDUCE_TABLES] + [
+    ("singletons", C2) for C2 in (4095, 4097, 65_537)])
+def test_reduce_kernel_on_edge_tables(cuda, case, C2, monkeypatch):
+    """K14 against its plain version on reduce_tables' edge tables (the
+    labels from the plain stages, cycles cut), every field over the full
+    capacity, and at C2 one either side of the scan's tile of 4,096 lanes
+    and across 17 tiles: one launch count, no torch.cumsum, its three
+    kernels and no other, and less than one int32 array a lane allocated
+    beyond its outputs ("empty" has no lane: no kernel launches)."""
+    node_key, node_count, n_nodes, k, canonical = reduce_tables(case, C2)
+    key = torch.from_numpy(node_key)
+    prev, rec_lane, first_p, p_cnt = tcd.links_stage_plain(key, k)
+    ptr, dist, has_cycle = tcd.label_stage_plain(prev)
+    if has_cycle:
+        prev = tcd.cycle_fix_plain(prev)
+        ptr, dist, _ = tcd.label_stage_plain(prev)
+    args = tuple(x.to(cuda) if torch.is_tensor(x) else x for x in (
+        key, torch.from_numpy(node_count), n_nodes, prev, ptr, dist, rec_lane, first_p, p_cnt,
+        k, canonical))
+    want = tcd.reduce_stage_plain(*args)
+    lib = kernels.library()
+    before = lib.launches["contig_reduce"]
+    cumsums, real_cumsum = [], torch.cumsum
+
+    def counted_cumsum(*a, **kw):
+        cumsums.append(1)
+        return real_cumsum(*a, **kw)
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    monkeypatch.setattr(torch, "cumsum", counted_cumsum)
+    ca = tcd.reduce_stage(*args)
+    monkeypatch.undo()
+    torch.cuda.synchronize()
+    fields = ("node_cid", "node_off", "klen", "abundance", "count_sum", "head_lane",
+              "tail_lane", "out_edges", "rc_pair")
+    outputs = sum(getattr(ca, f).numel() * getattr(ca, f).element_size() for f in fields)
+    # the allocator rounds each of the call's dozen blocks up to 512 bytes
+    assert torch.cuda.max_memory_allocated() - base < outputs + 4 * C2 + 16 * 512
+    assert lib.launches["contig_reduce"] - before == 1 and not cumsums
+    for f in fields:
+        _equal(getattr(ca, f), getattr(want, f), f)
+    assert (ca.n_nodes, ca.n_contigs) == (want.n_nodes, want.n_contigs)
+    names = _kernel_names(lambda: tcd.reduce_stage(*args))
+    assert {x for x in names if x.startswith("contig_")} == (
+        {"contig_heads_kernel", "contig_lanes_kernel", "contig_slots_kernel"}
+        if key.shape[0] else set())
+    assert not any("Scan" in x or "head_flags" in x for x in names)
 
 
 def _kernel_names(fn) -> set:
