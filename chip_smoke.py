@@ -43,11 +43,12 @@ Phases; any failure exits nonzero:
      homopolymers); K18 (tip clip's drop) and K19 (its remap of the node
      table) on the arguments one clip of that spectrum gives them; K6
      (sparse-flow greedy) on 4,096 random jobs of 1-8 by 1-8 margins at
-     sf_restarts = 4, K29 (the unpacked greedy, one decomposition a row) on
-     those jobs expanded to their 5 seeded restart rows (20,480 rows), each
-     job's winning row also held equal to K6's flows, and the batched solver
-     (K6) against the host solve_node loop on rounds of 8, 32 and 128
-     X-nodes.  Each kernel row
+     sf_restarts = 4 (also held exact at 40 restarts, more than a block's
+     warps, and at 4 greedy steps), K29 (the unpacked greedy, one
+     decomposition a row) on those jobs expanded to their 5 seeded restart
+     rows (20,480 rows), each job's winning row also held equal to K6's
+     flows, and the batched solver (K6) against the host solve_node loop on
+     rounds of 8, 32 and 128 X-nodes.  Each kernel row
      also times the one PyTorch call that computes the same function, where
      there is one (library_ms), and gives the least time the card could
      take (bound_ms: bytes over 3.35 TB/s or operations over 67 TFLOP/s,
@@ -1337,15 +1338,17 @@ def _condense_chain(spec, k: int, canonical: bool, label: str, smi: str):
                rows["contig_reduce"], smi)
 
     streams = tcd.contig_base_streams(ca, k)
+    n_tails = streams[0].numel()
+    # bytes: the real lanes' key, cid and offset, each contig's klen,
+    # head lane and head key, the streams out; operations: one a base
     rows["base_streams"] = _row(
         _max_abs_err(streams, tcd.contig_base_streams_plain(ca, k)),
         _alternate(lambda: tcd.contig_base_streams(ca, k),
                    lambda: tcd.contig_base_streams_plain(ca, k)),
-        _nbytes(ca.node_key, ca.node_cid, ca.node_off, *streams) + 16 * n,
-        C2 + n * (k - 1), None,
+        24 * n_tails + 24 * n + _nbytes(*streams), n_tails + n * (k - 1), None,
     )
-    _print_row(f"K15 base_streams [{label}] {streams[0].numel()} tail bases, {n} x {k - 1} head "
-               "bases (torch.cumsum inside)", rows["base_streams"], smi)
+    _print_row(f"K15 base_streams [{label}] {n_tails} tail bases of {C2} lanes, {n} x {k - 1} "
+               "head bases (no host read)", rows["base_streams"], smi)
 
     whole_ms = _time_ms(lambda: tcd.build_contig_arrays(spec, k, canonical), 3)
     print(f"build_contig_arrays [{label}] on K11-K14: {whole_ms:.3f} ms (CUDA events, mean of 3) "
@@ -1525,14 +1528,23 @@ def sf_phase(dev, smi: str) -> dict:
     got = tsf.batched_greedy_packed(buf, R)
     want = tsf.batched_greedy_packed_plain(buf, R)
     err = _max_abs_err((got[0].view(torch.int32), got[1]), (want[0].view(torch.int32), want[1]))
+    # more restarts than a block's warps, and the greedy cut short
+    for restarts, steps in ((40, 2 * tsf.MAXD), (R, 4)):
+        _max_abs_err(tuple(x.view(torch.int32) if x.is_floating_point() else x
+                           for x in tsf.batched_greedy_packed(buf, restarts, steps)),
+                     tuple(x.view(torch.int32) if x.is_floating_point() else x
+                           for x in tsf.batched_greedy_packed_plain(buf, restarts, steps)))
     t = _alternate(lambda: tsf.batched_greedy_packed(buf, R),
                    lambda: tsf.batched_greedy_packed_plain(buf, R))
-    # per (job, restart): at most 16 greedy steps, each a scan of the 64
-    # cells with about 4 operations per cell
-    ops = buf.shape[0] * (R + 1) * 16 * 64 * 4
-    out = {"sf_greedy": _row(err, t, _nbytes(buf, *got), ops, None), "sf_rounds": []}
-    _print_row(f"K6 sf_greedy {buf.shape[0]} jobs x {R + 1} restarts (flows bitwise)",
-               out["sf_greedy"], smi)
+    # per (job, restart): the greedy steps this data takes, and the step
+    # that finds nothing left where the loop ends early, each a scan of the
+    # 64 cells with about 4 operations per cell
+    taken = (tsf.greedy_core(*tsf.restart_rows(buf, R), 2 * tsf.MAXD)[1] >= 0).sum(1)
+    steps = int((taken + (taken < 2 * tsf.MAXD).long()).sum())
+    out = {"sf_greedy": _row(err, t, _nbytes(buf, *got), steps * 64 * 4, None),
+           "sf_rounds": []}
+    _print_row(f"K6 sf_greedy {buf.shape[0]} jobs x {R + 1} restarts, {steps} greedy steps "
+               "(flows bitwise; also exact at 41 restarts and at 4 steps)", out["sf_greedy"], smi)
     rows = tsf.restart_rows(buf, R)  # each job's R + 1 seeded rows, as K6 expands them
     flows = tsf.batched_greedy(*rows)
     err = _max_abs_err((flows.view(torch.int32),),

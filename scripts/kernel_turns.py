@@ -1,21 +1,34 @@
 """Time kernels of several trees in turns on one card: K6 (sf_greedy, the
-sparse-flow greedy with restarts), K22 (sibling_maxes), K10 (compact_keep),
-K2 (reduce_sorted, three inputs), K7 (probe_lookup, both probe sets), K3
-(lookup_sorted, two inputs), K4 (thread_rows), K8 (the dead-end rescue,
-one round and the main path's loop), K9 (the sibling prune, one round and
-the main path's loop), K1, K17, K5, K11, K12, K13's label stage and K14
-(reduce_stage), on the same inputs for every tree, so a
-change to a kernel's source can be held against its parent within one call.
+sparse-flow greedy with restarts, three inputs), K15 (base_streams), K22
+(sibling_maxes), K10 (compact_keep), K2 (reduce_sorted, three inputs), K7
+(probe_lookup, both probe sets), K3 (lookup_sorted, two inputs), K4
+(thread_rows), K8 (the dead-end rescue, one round and the main path's
+loop), K9 (the sibling prune, one round and the main path's loop), K1,
+K17, K5, K11, K12, K13's label stage and K14 (reduce_stage), on the same
+inputs for every tree, so a change to a kernel's source can be held
+against its parent within one call.
 
     python scripts/kernel_turns.py --trees OLD NEW NEW OLD [--out FILE]
+    python scripts/kernel_turns.py --only sf streams --trees OLD NEW NEW OLD
+
+--only sf and/or streams times K6's rows and/or K15's alone and builds only
+their inputs (about 1.5 minutes, then under half a minute a tree).
 
 Each tree runs in a fresh process that imports that tree's
 shannon_tpu_torch and builds its kernels into that tree's build/ (a tree is
 a checkout, e.g. a parent unpacked with git archive into a git-ignored
 directory).  Inputs, made once from seeds on the host with the plain
 versions: K6 on chip_smoke.py's 4,096 random jobs (_sf_jobs(7, 4096)) at
-sf_restarts = 4, where the wrapper's launches weigh as much as the kernel,
-and on 65,536 such jobs, where the kernel dominates; K22 on a canonical
+sf_restarts = 4 ("sf_greedy"), on 65,536 such jobs ("sf_greedy_65536"),
+where the kernel dominates, and on the main path's own jobs ("sf_main"):
+the buffers of every batched_greedy_packed call of one assemble of the
+1,000,000-read scale dataset (recorded once by wrapping the module function
+that solve_nodes_device calls, with this checkout's kernels), replayed in
+order, a replay a call of the row, with each call's job count
+("sf_main_jobs"); K15 ("base_streams") on the ContigArrays each tree's K14
+makes of the corrected 1M-read spectrum's labels (the K14 row's inputs).
+Each K6 and K15 row has its device_us, idle_us, "<row>_peak_mib",
+"<row>_launch_us" and "<row>_sha" (equal in every tree).  K22 on a canonical
 k = 24 table of 2^21 lanes holding 2^20 random real keys; K10 at
 chip_smoke.py's shape (12,582,912 lanes, 10,689,722 of them real random
 sorted keys, 3,653,479 of those kept at random); K2 on chip_smoke.py's
@@ -100,28 +113,88 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent.parent
 
 
-def _search_inputs() -> dict:
-    """K7's and K3's inputs (numpy), built on the card."""
+def _counted_spectrum(reads, cfg, dev):
+    """The counted, shrunk spectrum of `reads` at `cfg`, on the card."""
+    from shannon_tpu_torch.io.pack import pack_reads
+    from shannon_tpu_torch.ops.count import count_reads_spectrum, shrink_spectrum
+
+    return shrink_spectrum(count_reads_spectrum(
+        pack_reads(reads, pad_length=cfg.read_pad_length), k=cfg.k, capacity=cfg.kmer_capacity,
+        canonical=not cfg.strand_specific, batch_reads=cfg.batch_reads, device=dev,
+    ))
+
+
+def _condense_inputs(spec, cfg) -> dict:
+    """K11-K15's inputs (tensors on the card): the corrected, shrunk
+    spectrum of the counted `spec`, its node table (K11), links (K12) and
+    labels (K13; no cycle on this spectrum), as chip_smoke.py's
+    condensation phase gets them.  K14 turns the labels into the
+    ContigArrays that K15 reads."""
+    from shannon_tpu_torch.ops.count import shrink_spectrum
+    from shannon_tpu_torch.ops.condense import label_stage, links_stage, nodes_stage
+    from shannon_tpu_torch.ops.correction import auto_min_abundance, correct_spectrum
+
+    k, canonical = cfg.k, not cfg.strand_specific
+    corrected = shrink_spectrum(correct_spectrum(
+        spec, k, auto_min_abundance(spec), cfg.sibling_ratio, cfg.correction_rounds, canonical,
+        cfg.error_rate,
+    ))
+    cn_key, cn_count, cn_n = nodes_stage(corrected, k, canonical)
+    prev_link, rec_lane, first_p, p_cnt = links_stage(cn_key, k)
+    l_ptr, l_dist, _ = label_stage(prev_link)
+    return {"k_key": corrected.key, "k_count": corrected.count, "k_n": corrected.n,
+            "cn_key": cn_key, "cn_count": cn_count, "cn_n": cn_n, "prev_link": prev_link,
+            "rec_lane": rec_lane, "first_p": first_p, "p_cnt": p_cnt, "l_ptr": l_ptr,
+            "l_dist": l_dist, "k": k}
+
+
+def _sf_main_inputs(reads, cfg, dev) -> dict:
+    """K6's main-path inputs (numpy): the buffers of every
+    batched_greedy_packed call of one assemble of `reads` on the card,
+    recorded by wrapping the module function that solve_nodes_device
+    calls; their jobs laid end to end, the job count, k_restarts and
+    max_steps of each call."""
+    import numpy as np
+
+    from shannon_tpu_torch.ops import sparseflow as tsf
+    from shannon_tpu_torch.pipeline import assemble
+
+    calls, solve = [], tsf.batched_greedy_packed
+
+    def recorded(buf, k_restarts, max_steps=2 * tsf.MAXD):
+        calls.append((buf.cpu().numpy(), k_restarts, max_steps))
+        return solve(buf, k_restarts, max_steps)
+
+    tsf.batched_greedy_packed = recorded
+    try:
+        assemble(reads, cfg, device=dev)
+    finally:
+        tsf.batched_greedy_packed = solve
+    if not calls:
+        raise RuntimeError("the assembly made no batched_greedy_packed call")
+    return {"sf_main_buf": np.concatenate([c[0] for c in calls]),
+            "sf_main_jobs": np.array([c[0].shape[0] for c in calls]),
+            "sf_main_restarts": np.array([c[1] for c in calls]),
+            "sf_main_steps": np.array([c[2] for c in calls])}
+
+
+def _search_inputs(reads) -> dict:
+    """K7's, K3's and K11-K15's inputs (numpy), built on the card."""
     import torch
 
-    from chip_smoke import BATCH_READS, KERNEL_K, KERNEL_PAD, _random_batch, _scale_dataset
+    from chip_smoke import BATCH_READS, KERNEL_K, KERNEL_PAD, _random_batch
     from chip_smoke import window_keys
     from shannon_tpu_torch.config import AssemblyConfig
     from shannon_tpu_torch.io.pack import pack_reads
-    from shannon_tpu_torch.ops.count import count_reads_spectrum, reduce_sorted, shrink_spectrum
+    from shannon_tpu_torch.ops.count import reduce_sorted
     from shannon_tpu_torch.ops.count import upload_words
-    from shannon_tpu_torch.ops.condense import label_stage, links_stage, nodes_stage
-    from shannon_tpu_torch.ops.correction import auto_min_abundance, correct_spectrum
+    from shannon_tpu_torch.ops.correction import auto_min_abundance
     from shannon_tpu_torch.ops.kmers import extract_kmers_packed
     from shannon_tpu_torch.ops.spectrum import lookup_sorted
     from shannon_tpu_torch.pipeline import spectrum_device
 
     dev, cfg = torch.device("cuda", 0), AssemblyConfig()
-    reads = _scale_dataset(1_000_000)[1]
-    spec = shrink_spectrum(count_reads_spectrum(
-        pack_reads(reads, pad_length=cfg.read_pad_length), k=cfg.k, capacity=cfg.kmer_capacity,
-        canonical=not cfg.strand_specific, batch_reads=cfg.batch_reads, device=dev,
-    ))
+    spec = _counted_spectrum(reads, cfg, dev)
     _spec, ca = spectrum_device(pack_reads(reads, pad_length=cfg.read_pad_length), cfg, dev)
     batch = pack_reads(reads[:BATCH_READS], pad_length=128)
     m = batch.mask_rows(0, batch.n_reads)
@@ -133,26 +206,12 @@ def _search_inputs() -> dict:
     r_query = extract_kmers_packed(words, lengths, KERNEL_K, True, KERNEL_PAD)[0]
     r_table = reduce_sorted(window_keys(dev, seed=1), None, 1 << 22)[0]
     t_idx, t_hit = lookup_sorted(ca.node_key, windows)
-    # K13's input: the links of the corrected, shrunk spectrum, as
-    # chip_smoke.py's condensation phase gets them
-    k, canonical = cfg.k, not cfg.strand_specific
-    corrected = shrink_spectrum(correct_spectrum(
-        spec, k, auto_min_abundance(spec), cfg.sibling_ratio, cfg.correction_rounds, canonical,
-        cfg.error_rate,
-    ))
-    cn_key, cn_count, cn_n = nodes_stage(corrected, k, canonical)
-    prev_link, rec_lane, first_p, p_cnt = links_stage(cn_key, k)
-    # K14's input: the labels of those links (no cycle on this spectrum)
-    l_ptr, l_dist, _ = label_stage(prev_link)
     out = {"p_key": spec.key, "p_count": spec.count, "node_key": ca.node_key,
-           "prev_link": prev_link, "k_key": corrected.key, "k_count": corrected.count,
-           "cn_key": cn_key, "cn_count": cn_count, "rec_lane": rec_lane, "first_p": first_p,
-           "p_cnt": p_cnt, "l_ptr": l_ptr, "l_dist": l_dist,
            "windows": windows, "r_table": r_table, "r_query": r_query, "t_idx": t_idx,
-           "t_hit": t_hit, "t_valid": valid, "node_cid": ca.node_cid, "node_off": ca.node_off}
-    out = {name: x.cpu().numpy() for name, x in out.items()}
-    out["cut"], out["k"], out["k_n"] = auto_min_abundance(spec), cfg.k, corrected.n
-    out["cn_n"] = cn_n
+           "t_hit": t_hit, "t_valid": valid, "node_cid": ca.node_cid, "node_off": ca.node_off,
+           **_condense_inputs(spec, cfg)}
+    out = {name: x.cpu().numpy() if torch.is_tensor(x) else x for name, x in out.items()}
+    out["cut"] = auto_min_abundance(spec)
     out.update(_merge_inputs(reads, cfg, dev))
     torch.cuda.empty_cache()
     return out
@@ -218,13 +277,27 @@ def _merge_inputs(reads, cfg, dev) -> dict:
     return out
 
 
-def _inputs(path: Path) -> None:
+def _inputs(path: Path, only) -> None:
     import numpy as np
     import torch
 
     sys.path.insert(0, str(REPO))
     from chip_smoke import _scale_dataset, _sf_jobs, window_keys
+    from shannon_tpu_torch.config import AssemblyConfig
     from shannon_tpu_torch.ops.count import reduce_sorted_plain
+
+    reads = _scale_dataset(1_000_000)[1]
+    dev, cfg = torch.device("cuda", 0), AssemblyConfig()
+    focus = {"buf": _sf_jobs(7, 4096), "big": _sf_jobs(8, 65_536)}
+    if only is None or "sf" in only:
+        focus.update(_sf_main_inputs(reads, cfg, dev))
+    if only is not None:
+        if "streams" in only:
+            condense = _condense_inputs(_counted_spectrum(reads, cfg, dev), cfg)
+            focus.update({n: x.cpu().numpy() if torch.is_tensor(x) else x
+                          for n, x in condense.items()})
+        np.savez(path, **focus)
+        return
 
     rng = np.random.default_rng(22)
     k, lanes = 24, 1 << 21
@@ -252,11 +325,11 @@ def _inputs(path: Path) -> None:
     tb = reduce_sorted_plain(window_keys(cpu, seed=2), None, cap)
     mkeys, order = torch.sort(torch.cat([ta[0], tb[0]]))
     mcounts = torch.cat([ta[1], tb[1]])[order]
-    bkeys = window_keys(cpu, reads=_scale_dataset(1_000_000)[1])
-    np.savez(path, buf=_sf_jobs(7, 4096), big=_sf_jobs(8, 65_536), key=table, count=counts,
+    bkeys = window_keys(cpu, reads=reads)
+    np.savez(path, **focus, key=table, count=counts,
              n=len(keys), c_key=c_key, c_count=c_count, c_keep=c_keep, unit=unit.numpy(),
              mkeys=mkeys.numpy(), mcounts=mcounts.numpy(),
-             bkeys=bkeys.numpy(), **_search_inputs())
+             bkeys=bkeys.numpy(), **_search_inputs(reads))
 
 
 def _device_us(fn, calls: int = 20) -> dict:
@@ -309,6 +382,86 @@ def _peak_mib(fn) -> float:
     return (torch.cuda.max_memory_allocated() - base) / 2**20
 
 
+def _median_ms(fn, reps: int = 200, windows: int = 5) -> float:
+    """The median over `windows` of CUDA-event ms a call, `reps` calls a
+    window, after a warm-up."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(windows):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return sorted(times)[windows // 2]
+
+
+def _digest(tensors) -> str:
+    """SHA-256 prefix of a call's outputs, so the trees' rows show they are
+    equal."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def _focus_rows(d, dev, only) -> dict:
+    """K6's rows ("sf_greedy": 4,096 random jobs; "sf_greedy_65536";
+    "sf_main": every call the 1M-read single-end assembly made, replayed in
+    order, a replay a call of the row) and K15's ("base_streams", on the
+    ContigArrays that this tree's K14 makes of the saved labels): each
+    with ms, device_us, idle_us, MiB a call above its inputs and a SHA-256
+    prefix of its outputs; "<row>_launch_us" lists one call's launches."""
+    import torch
+
+    from shannon_tpu_torch.ops.sparseflow import batched_greedy_packed
+
+    fns = {}
+    if only is None or "sf" in only:
+        buf, big = (torch.from_numpy(d[x]).to(dev) for x in ("buf", "big"))
+        jobs = d["sf_main_jobs"].tolist()
+        bufs = torch.from_numpy(d["sf_main_buf"]).to(dev).split(jobs)
+        main = list(zip(bufs, d["sf_main_restarts"].tolist(), d["sf_main_steps"].tolist()))
+
+        def sf_main():
+            out = []
+            for b, r, steps in main:
+                out.extend(batched_greedy_packed(b, r, steps))
+            return out
+
+        fns.update(sf_greedy=(lambda: batched_greedy_packed(buf, 4), 200),
+                   sf_greedy_65536=(lambda: batched_greedy_packed(big, 4), 200),
+                   sf_main=(sf_main, 50))
+    if only is None or "streams" in only:
+        from shannon_tpu_torch.ops.condense import contig_base_streams, reduce_stage
+
+        k = int(d["k"])
+        ca = reduce_stage(*(torch.from_numpy(d[x]).to(dev) for x in (
+            "cn_key", "cn_count")), int(d["cn_n"]), *(torch.from_numpy(d[x]).to(dev) for x in (
+                "prev_link", "l_ptr", "l_dist", "rec_lane", "first_p", "p_cnt")), k, True)
+        fns["base_streams"] = (lambda: contig_base_streams(ca, k), 200)
+    row = {f"{name}_ms": _median_ms(fn, reps) for name, (fn, reps) in fns.items()}
+    if "sf_main" in fns:
+        row["sf_main_jobs"] = jobs
+        row["sf_main_ms_per_call"] = row["sf_main_ms"] / len(jobs)
+    if "base_streams" in fns:
+        row["base_streams_sizes"] = [ca.n_nodes, ca.n_contigs, int(ca.node_key.shape[0])]
+    for name, (fn, _reps) in fns.items():
+        row[f"{name}_sha"] = _digest(fn())
+        row[f"{name}_peak_mib"] = _peak_mib(fn)
+        row[f"{name}_launch_us"] = _launch_us(fn)
+    # after the timings, so the traces cannot disturb them
+    row["device_us"] = {name: _device_us(fn) for name, (fn, _reps) in fns.items()}
+    row["idle_us"] = {name: row[f"{name}_ms"] * 1e3 - sum(row["device_us"][name].values())
+                      for name in fns}
+    return row
+
+
 def _label_info(label_stage, prev_link) -> dict:
     """The rounds run and each round's frontier of one label_stage call,
     where the tree's label_stage reports them (its info argument)."""
@@ -320,7 +473,7 @@ def _label_info(label_stage, prev_link) -> dict:
     return info
 
 
-def _child(tree: str, inputs: str) -> None:
+def _child(tree: str, inputs: str, only) -> None:
     sys.path.insert(0, tree)
     import numpy as np
     import torch
@@ -336,17 +489,19 @@ def _child(tree: str, inputs: str) -> None:
     from shannon_tpu_torch.ops.count import Spectrum, merge_at, merge_at_plain, merge_batch
     from shannon_tpu_torch.ops.count import reduce_sorted
     from shannon_tpu_torch.ops.kmers import extract_kmers_packed
-    from shannon_tpu_torch.ops.sparseflow import batched_greedy_packed
     from shannon_tpu_torch.ops.spectrum import lookup_sorted, probe_keys, sibling_maxes
 
     assert Path(shannon_tpu_torch.__file__).resolve().is_relative_to(Path(tree).resolve())
     dev = torch.device("cuda", 0)
     d = np.load(inputs)
+    if only is not None:
+        print(json.dumps({"tree": tree, **_focus_rows(d, dev, only),
+                          "card": torch.cuda.get_device_name(0)}), flush=True)
+        return
 
     def on_card(name: str) -> torch.Tensor:
         return torch.from_numpy(d[name]).to(dev)
 
-    buf, big = on_card("buf"), on_card("big")
     spec = Spectrum(key=on_card("key"), count=on_card("count"), n=int(d["n"]))
     table = Spectrum(key=on_card("c_key"), count=on_card("c_count"), n=int(d["c_key"].shape[0]))
     keep = on_card("c_keep")
@@ -410,20 +565,6 @@ def _child(tree: str, inputs: str) -> None:
         if got.n != want.n or not (torch.equal(got.key, want.key)
                                    and torch.equal(got.count, want.count)):
             raise AssertionError(f"{name}: K17 disagrees with merge_at_plain")
-
-    def median_ms(fn, reps: int = 200, windows: int = 5) -> float:
-        fn()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(windows):
-            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            start.record()
-            for _ in range(reps):
-                fn()
-            end.record()
-            torch.cuda.synchronize()
-            times.append(start.elapsed_time(end) / reps)
-        return sorted(times)[windows // 2]
 
     search = {}
     for side in ("sib", "ext"):
@@ -502,33 +643,23 @@ def _child(tree: str, inputs: str) -> None:
     contig_fields = ("node_cid", "node_off", "klen", "abundance", "count_sum", "head_lane",
                      "tail_lane", "out_edges", "rc_pair")
 
-    def digest(tensors) -> str:
-        """SHA-256 prefix of a stage's outputs, so the trees' rows show
-        they are equal."""
-        h = hashlib.sha256()
-        for t in tensors:
-            h.update(t.cpu().numpy().tobytes())
-        return h.hexdigest()[:16]
-
     search_ms = {}
     for name, (fn, library, reps) in search.items():
-        search_ms[f"{name}_ms"] = median_ms(fn, reps)
-        search_ms[f"{name}_searchsorted_ms"] = median_ms(library, reps)
+        search_ms[f"{name}_ms"] = _median_ms(fn, reps)
+        search_ms[f"{name}_searchsorted_ms"] = _median_ms(library, reps)
 
     row = {
         "tree": tree,
-        "sf_greedy_ms": median_ms(lambda: batched_greedy_packed(buf, 4)),
-        "sf_greedy_65536_ms": median_ms(lambda: batched_greedy_packed(big, 4)),
-        "sibling_maxes_ms": median_ms(lambda: sibling_maxes(spec, 24, True)),
-        "compact_keep_ms": median_ms(lambda: compact(table, keep)),
+        "sibling_maxes_ms": _median_ms(lambda: sibling_maxes(spec, 24, True)),
+        "compact_keep_ms": _median_ms(lambda: compact(table, keep)),
         "compact_keep_n": compact(table, keep).n,
-        "reduce_sorted_unit_ms": median_ms(lambda: reduce_sorted(unit, None, cap)),
-        "reduce_sorted_merge_ms": median_ms(lambda: reduce_sorted(mkeys, mcounts, cap)),
-        "reduce_sorted_batch_ms": median_ms(lambda: reduce_sorted(bkeys, None, cap)),
+        "reduce_sorted_unit_ms": _median_ms(lambda: reduce_sorted(unit, None, cap)),
+        "reduce_sorted_merge_ms": _median_ms(lambda: reduce_sorted(mkeys, mcounts, cap)),
+        "reduce_sorted_batch_ms": _median_ms(lambda: reduce_sorted(bkeys, None, cap)),
         "reduce_sorted_n": [reduce_sorted(x, c, cap)[3]
                             for x, c in ((unit, None), (mkeys, mcounts), (bkeys, None))],
         **search_ms,
-        **{f"{name}_ms": median_ms(fn, reps) for name, (fn, reps) in loops.items()},
+        **{f"{name}_ms": _median_ms(fn, reps) for name, (fn, reps) in loops.items()},
         "rescue_loop_rescued": int((rescue(k + 2) != counts).sum()),
         "rescue_loop_launch_us": _launch_us(lambda: rescue(k + 2)),
         "thread_rows_events": int(thread_windows(*threading)[2].sum()),
@@ -537,27 +668,27 @@ def _child(tree: str, inputs: str) -> None:
         "label_stage_info": _label_info(label_stage, prev_link),
         "label_stage_launch_us": _launch_us(lambda: label_stage(prev_link)),
         "nodes_stage_n": nodes_stage(corrected, k, True)[2],
-        "nodes_stage_sha": digest(nodes_stage(corrected, k, True)[:2]),
-        "links_stage_sha": digest(links_stage(cn_key, k)),
+        "nodes_stage_sha": _digest(nodes_stage(corrected, k, True)[:2]),
+        "links_stage_sha": _digest(links_stage(cn_key, k)),
         "nodes_stage_launch_us": _launch_us(lambda: nodes_stage(corrected, k, True)),
         "links_stage_launch_us": _launch_us(lambda: links_stage(cn_key, k)),
         "nodes_stage_peak_mib": _peak_mib(lambda: nodes_stage(corrected, k, True)),
         "links_stage_peak_mib": _peak_mib(lambda: links_stage(cn_key, k)),
         "reduce_stage_n": reduce_stage(*r_args).n_contigs,
-        "reduce_stage_sha": digest(getattr(reduce_stage(*r_args), f) for f in contig_fields),
+        "reduce_stage_sha": _digest(getattr(reduce_stage(*r_args), f) for f in contig_fields),
         "reduce_stage_launch_us": _launch_us(lambda: reduce_stage(*r_args)),
         "reduce_stage_peak_mib": _peak_mib(lambda: reduce_stage(*r_args)),
         "prune_1_pruned": int((prune_1() != rescued).sum()),
         "prune_loop_pruned": int((prune_loop() != rescued).sum()),
-        "prune_1_sha": digest([prune_1()]),
-        "prune_loop_sha": digest([prune_loop()]),
+        "prune_1_sha": _digest([prune_1()]),
+        "prune_loop_sha": _digest([prune_loop()]),
         "prune_loop_launch_us": _launch_us(prune_loop),
         "prune_1_peak_mib": _peak_mib(prune_1),
         "prune_loop_peak_mib": _peak_mib(prune_loop),
-        **{f"{name}_ms": median_ms(lambda a=args: extract_kmers_packed(*a))
+        **{f"{name}_ms": _median_ms(lambda a=args: extract_kmers_packed(*a))
            for name, args in extracts.items()},
-        **{f"{name}_ms": median_ms(lambda a=args: merge_at(*a)) for name, args in merges.items()},
-        "merge_replay_ms": median_ms(replay, 20),
+        **{f"{name}_ms": _median_ms(lambda a=args: merge_at(*a)) for name, args in merges.items()},
+        "merge_replay_ms": _median_ms(replay, 20),
         "merge_n": [merge_at(*args).n for args in merges.values()] + [replayed.n],
         "merge_replay_calls": calls,
         "card": torch.cuda.get_device_name(0),
@@ -581,27 +712,33 @@ def _child(tree: str, inputs: str) -> None:
     # the card's idle time a call: the event time less the device time
     row["idle_us"] = {name: row[f"{name}_ms"] * 1e3 - sum(row["device_us"][name].values())
                       for name in staged}
-    print(json.dumps(row), flush=True)
+    focus = _focus_rows(d, dev, None)
+    row["device_us"].update(focus.pop("device_us"))
+    row["idle_us"].update(focus.pop("idle_us"))
+    print(json.dumps({**row, **focus}), flush=True)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--trees", nargs="+", required=True)
     ap.add_argument("--out", default=None)
+    ap.add_argument("--only", nargs="+", choices=("sf", "streams"), default=None,
+                    help="time only K6's rows (sf) and/or K15's (streams)")
     ap.add_argument("--child", nargs=2, metavar=("TREE", "INPUTS"), help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child:
-        _child(*args.child)
+        _child(*args.child, args.only)
         return 0
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     rows = []
     with tempfile.TemporaryDirectory() as tmp:
         inputs = Path(tmp) / "inputs.npz"
-        _inputs(inputs)
+        _inputs(inputs, args.only)
+        only = ["--only", *args.only] if args.only else []
         for tree in args.trees:
             proc = subprocess.run(
-                [sys.executable, __file__, "--trees", tree, "--child", tree, str(inputs)],
+                [sys.executable, __file__, "--trees", tree, *only, "--child", tree, str(inputs)],
                 capture_output=True, text=True, timeout=600,
             )
             if proc.returncode != 0:

@@ -869,39 +869,93 @@ __global__ void contig_slots_kernel(const int64_t* __restrict__ node_key,
 // K15: the contig base streams.
 // Replaces shannon_tpu/ops/condense.py:417 contig_base_streams, which sorted
 // the nodes by (cid, offset) to lay out their last bases.  Offsets within a
-// contig are 0..klen-1, so each node's slot is known: tails_stream_kernel
-// writes key & 3 of every real node to tstart[cid] + off, where tstart is the
-// exclusive prefix sum of klen (incl - klen from a torch.cumsum), and
-// heads_stream_kernel unpacks the k-1 leading bases of each contig's head key,
-// one thread per (contig, base).
-// Bound: memory (24 bytes read a node lane, one byte written a base).
+// contig are 0..klen-1, so each node's slot is its contig's tail start plus
+// its offset.  The real nodes fill the node table's first n_tails lanes, each
+// with a contig id, so the tails' length sum(klen) is n_tails, known on the
+// host: nothing is read back and nothing is scanned over the C2 lanes.  Two
+// launches:
+//  - stream_heads_kernel, one pass on scan.cuh's look-back over the n_contigs
+//    contigs, a thread a contig and STREAM_TILE contigs a tile (the
+//    library's 4,096-lane tiles gave the 355,800 contigs of the main path
+//    only 87 blocks, whose serial head writes took 53 us on an H100, against
+//    25 for tiles of 256): each contig's exclusive tail start (tstart, an
+//    int64 a contig) from the tile's block scan of klen and its look-back;
+//    and the heads, each thread gathering its contig's head key once
+//    (node_key[head_lane], into shared memory) and the block writing the
+//    tile's k-1 bases a contig as one contiguous stretch of 4-byte words.
+//  - tails_stream_kernel, a thread a real lane i < n_tails: one gather of
+//    tstart[cid] (the 2.8 MB start array sits in L2) and one byte stored at
+//    tstart[cid] + off.
+// Bound: memory: the real lanes' key, cid and offset (24 bytes a node), klen
+// and head_lane and a head key gather a contig (24 bytes), one byte out a
+// base.  The tails pass's byte stores are scattered, one L2 request a lane
+// that no neighbour shares: on an H100 they take 89 of its 158 us (the same
+// pass storing each byte at its own lane takes 70), and loading the lanes
+// evict-first changed nothing.
 // ---------------------------------------------------------------------------
+#define STREAM_TILE 256  // contigs a tile, a thread each
+#define STREAM_WORD_BYTES 4
+
+__global__ void __launch_bounds__(STREAM_TILE) stream_heads_kernel(
+    const int64_t* __restrict__ node_key, int64_t C2, const int64_t* __restrict__ klen,
+    const int64_t* __restrict__ head_lane, int64_t n_contigs, int k,
+    unsigned long long* __restrict__ scratch, int64_t* __restrict__ tstart,
+    uint8_t* __restrict__ heads) {
+  __shared__ ScanShared sh;
+  __shared__ unsigned long long s_warp[STREAM_TILE / 32];
+  __shared__ int64_t s_key[STREAM_TILE];  // the tile's head keys
+  unsigned long long* status = scratch + 1;
+  const long long tile = scan_ticket(scratch, &sh);
+  const int64_t base = (int64_t)tile * STREAM_TILE, c = base + threadIdx.x;
+  const int64_t end = base + STREAM_TILE < n_contigs ? base + STREAM_TILE : n_contigs;
+  unsigned long long len = 0;
+  if (c < end) {
+    int64_t hl = head_lane[c];
+    len = (unsigned long long)klen[c];
+    hl = hl < 0 ? 0 : (hl > C2 - 1 ? C2 - 1 : hl);
+    s_key[threadIdx.x] = node_key[hl];
+  }
+  unsigned long long total;
+  const unsigned long long before = block_exclusive_scan(len, s_warp, &total);
+  scan_publish_aggregate(status, tile, total);
+  // scan_tile_prefix ends with a barrier, which also publishes s_key
+  const unsigned long long prefix = scan_tile_prefix(status, tile, total, &sh);
+  if (c < end) tstart[c] = (int64_t)(prefix + before);
+  // the tile's heads: bytes [base * w, end * w) of the [n_contigs, w] array,
+  // a 4-byte word a thread at a time (base * w is a multiple of 4)
+  const int w = k - 1;
+  const int bytes = (int)(end - base) * w;  // at most 256 * 31
+  uint8_t* out = heads + base * w;
+  for (int t = threadIdx.x * STREAM_WORD_BYTES; t < bytes; t += STREAM_TILE * STREAM_WORD_BYTES) {
+    uint32_t word = 0;
+    int q = t / w, j = t - q * w;
+    const int n = bytes - t < STREAM_WORD_BYTES ? bytes - t : STREAM_WORD_BYTES;
+    for (int b = 0; b < n; ++b) {
+      word |= (uint32_t)((s_key[q] >> (2 * (w - j))) & 3) << (8 * b);
+      if (++j == w) {
+        j = 0;
+        ++q;
+      }
+    }
+    if (n == STREAM_WORD_BYTES) {
+      *reinterpret_cast<uint32_t*>(out + t) = word;
+    } else {
+      for (int b = 0; b < n; ++b) out[t + b] = (uint8_t)(word >> (8 * b));
+    }
+  }
+}
+
 __global__ void tails_stream_kernel(const int64_t* __restrict__ node_key,
                                     const int64_t* __restrict__ node_cid,
                                     const int64_t* __restrict__ node_off,
-                                    int64_t C2, const int64_t* __restrict__ klen,
-                                    const int64_t* __restrict__ incl,
+                                    const int64_t* __restrict__ tstart, int64_t n_tails,
                                     uint8_t* __restrict__ tails) {
-  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= C2) return;
-  const int64_t cid = node_cid[i];
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n_tails) return;
+  const int64_t cid = node_cid[i], off = node_off[i], key = node_key[i];
   if (cid < 0) return;
-  tails[incl[cid] - klen[cid] + node_off[i]] = (uint8_t)(node_key[i] & 3);
-}
-
-__global__ void heads_stream_kernel(const int64_t* __restrict__ node_key,
-                                    int64_t C2,
-                                    const int64_t* __restrict__ head_lane,
-                                    int64_t n_contigs, int k,
-                                    uint8_t* __restrict__ heads) {
-  int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const int w = k - 1;
-  if (t >= n_contigs * w) return;
-  const int64_t c = t / w;
-  const int j = (int)(t - c * w);
-  int64_t hl = head_lane[c];
-  hl = hl < 0 ? 0 : (hl > C2 - 1 ? C2 - 1 : hl);
-  heads[t] = (uint8_t)((node_key[hl] >> (2 * (w - j))) & 3);
+  const int64_t slot = tstart[cid] + off;
+  if (slot >= 0 && slot < n_tails) tails[slot] = (uint8_t)(key & 3);
 }
 
 // ---------------------------------------------------------------------------
@@ -1066,26 +1120,34 @@ int shannon_contig_reduce(const void* node_key, const void* node_count,
   return (int)cudaGetLastError();
 }
 
+int64_t shannon_base_streams_words(int64_t n_contigs) {
+  return (n_contigs + STREAM_TILE - 1) / STREAM_TILE + 1;
+}
+
+// n_tails: the real lanes, [0, n_tails), each with a contig id, so sum(klen)
+// over the n_contigs contigs; C2 below 2^31 (as K14 requires); scratch:
+// exactly shannon_base_streams_words(n_contigs) zeroed words (a ticket and a
+// status word a tile, scan.cuh), or the call is refused; tstart: n_contigs
+// int64.
 int shannon_base_streams(const void* node_key, const void* node_cid,
-                         const void* node_off, int64_t C2, const void* klen,
-                         const void* incl, const void* head_lane,
-                         int64_t n_contigs, int k, void* tails, void* heads,
-                         void* stream) {
+                         const void* node_off, int64_t C2, int64_t n_tails,
+                         const void* klen, const void* head_lane, int64_t n_contigs, int k,
+                         void* scratch, int64_t scratch_words, void* tstart, void* tails,
+                         void* heads, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (C2 > 0) {
-    tails_stream_kernel<<<blocks_for(C2), THREADS, 0, s>>>(
-        (const int64_t*)node_key, (const int64_t*)node_cid,
-        (const int64_t*)node_off, C2, (const int64_t*)klen,
-        (const int64_t*)incl, (uint8_t*)tails);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
+  if (scratch_words != shannon_base_streams_words(n_contigs) || n_tails > C2 ||
+      C2 >= (1ll << 31) || k < 2) {
+    return (int)cudaErrorInvalidValue;
   }
-  const int64_t n_heads = n_contigs * (int64_t)(k - 1);
-  if (n_heads > 0 && C2 > 0) {
-    heads_stream_kernel<<<blocks_for(n_heads), THREADS, 0, s>>>(
-        (const int64_t*)node_key, C2, (const int64_t*)head_lane, n_contigs, k,
-        (uint8_t*)heads);
-  }
+  if (n_contigs == 0) return (int)cudaGetLastError();
+  stream_heads_kernel<<<(unsigned int)(scratch_words - 1), STREAM_TILE, 0, s>>>(
+      (const int64_t*)node_key, C2, (const int64_t*)klen, (const int64_t*)head_lane, n_contigs,
+      k, (unsigned long long*)scratch, (int64_t*)tstart, (uint8_t*)heads);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || n_tails == 0) return (int)err;
+  tails_stream_kernel<<<blocks_for(n_tails), THREADS, 0, s>>>(
+      (const int64_t*)node_key, (const int64_t*)node_cid, (const int64_t*)node_off,
+      (const int64_t*)tstart, n_tails, (uint8_t*)tails);
   return (int)cudaGetLastError();
 }
 

@@ -10,7 +10,8 @@
 #define SF_THREADS 128
 
 // ---------------------------------------------------------------------------
-// The greedy max-min transport step that K6 and K29 share
+// The greedy max-min transport step of K29, a thread a job, with the tie
+// hash and eps that K6's warp step shares
 // (shannon_tpu/ops/sparseflow.py:49 _greedy_core, :27 _tie_hash_dev).
 // The margins are zero-padded to MAXD and stay in registers: every loop over
 // them is unrolled, so no index is dynamic.  A padded cell is min(x, 0) <= 0,
@@ -85,80 +86,152 @@ __device__ __forceinline__ bool greedy_step(float (&a)[MAXD], float (&b)[MAXD],
 // K6: seeded greedy max-min transport per job, and the restart selection.
 // Replaces shannon_tpu/ops/sparseflow.py:88 batched_greedy_packed (with :49
 // _greedy_core and :27 _tie_hash_dev).
-// Bound: latency of a short dependent loop (at most 15 active steps of 64
-// min/compare lanes) per (job, restart); the data is 17 words per job.
-// sf_restarts_kernel gives one thread each (job, restart): it runs
-// greedy_step until it stops, and writes its picks, their flows, its pairing
-// count and its 64-bit support mask to scratch.  sf_select_kernel gives one
-// thread each job: it picks the restart with the least (count, support
-// mask) and the earliest index, and writes that restart's flow tensor and
-// picks.
+// Bound: the latency of a short chain of dependent steps (at most max_steps
+// a restart) per (job, restart); the data is 17 words in and 64 + max_steps
+// words out per job.  One thread a restart scanning the 64 cells twice a
+// step made that chain 128 serial min/max/compare links long.  So a warp
+// takes a (job, restart) and its lanes the 64 cells, two a lane: lane l
+// holds cells 2l and 2l + 1 (row l / 4, columns 2 (l % 4) and 2 (l % 4) + 1),
+// keeps only the three margins they touch (a[row], b[c0], b[c1]) in
+// registers, and updates them from the broadcast pick with the same
+// round-to-nearest subtraction in every lane that holds a margin.  A step is
+// a few warp collectives:
+//  - the max: __reduce_max_sync of an order-preserving uint32 key of each
+//    lane's larger cell (the sign-flip key orders every finite float; with
+//    best > eps > 0 no zero of either sign can win, so the max equals the
+//    serial fmaxf chain's wherever it is used);
+//  - the ties, cells >= best, by two __ballot_sync (one a cell of the
+//    lane), the first in row-major order from the lowest set bit (lane l's
+//    cell 2l before 2l + 1);
+//  - with hashed ties, where more than one cell ties, the largest tie hash
+//    by a second __reduce_max_sync (each lane's two hashes are fixed for
+//    the restart), then the first tie that holds it (a lone tie is its own
+//    largest hash).
+// The margin totals are summed left to right as greedy_eps does, in every
+// lane, so eps is bit-equal too.  A lane records its cells' flows (a cell
+// is set once) and the pick of step `lane`, and the warp's pairing count
+// and 64-bit support mask.  A step is about 45 warp instructions, against
+// about 19 a restart for a thread a restart (a warp of those holds 32), so
+// at tens of thousands of jobs the card's instruction rate bounds this
+// design (65,536 jobs on an H100 at 700 W: 325 us against that one's 246,
+// both kernels in one call); the main path's calls hold at most a few
+// hundred jobs, where the chain's latency bounds it.
+// A block takes J = SF_WARPS / W jobs, W = min(K, SF_WARPS) warps a job
+// (at K = 5: one job, 5 warps, 12 blocks an SM; 47 registers, no spill),
+// warp w of a job running restarts w, w + W, ... and keeping the least
+// (count, mask), earliest first, in registers.  Each warp posts its best to
+// shared memory; after one barrier every warp of a job reads its group's W
+// posts, finds the least (count, mask, restart), and the warp that holds it
+// writes F (two cells a lane, one coalesced 8-byte store each) and its
+// picks straight to the outputs.  One launch, no global scratch.
 // ---------------------------------------------------------------------------
-__global__ void sf_restarts_kernel(const int32_t* __restrict__ buf,
-                                   int64_t n_jobs, int K, int max_steps,
-                                   int32_t* __restrict__ picks,
-                                   float* __restrict__ flows,
-                                   int32_t* __restrict__ nnz,
-                                   uint64_t* __restrict__ support) {
-  int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= n_jobs * K) return;
-  int64_t job = t / K;
-  int r = (int)(t - job * K);
-  const int32_t* row = buf + job * (2 * MAXD + 1);
-  float a[MAXD], b[MAXD];
-#pragma unroll
-  for (int c = 0; c < MAXD; ++c) {
-    a[c] = __int_as_float(row[c]);
-    b[c] = __int_as_float(row[MAXD + c]);
-  }
-  const float eps = greedy_eps(a, b);
-  const bool use_hash = r > 0;
-  const uint32_t seed = use_hash ? (uint32_t)row[2 * MAXD] + (uint32_t)r : 0u;
-  int32_t* my_picks = picks + t * max_steps;
-  float* my_flows = flows + t * max_steps;
-  int n = 0;
-  uint64_t mask = 0;
-  int step = 0;
-  for (; step < max_steps; ++step) {
-    int flat;
-    float best;
-    if (!greedy_step(a, b, eps, use_hash, seed, &flat, &best)) break;
-    my_picks[step] = flat;
-    my_flows[step] = best;
-    ++n;
-    mask |= 1ull << flat;
-  }
-  for (; step < max_steps; ++step) {
-    my_picks[step] = -1;
-    my_flows[step] = 0.0f;
-  }
-  nnz[t] = n;
-  support[t] = mask;
+#define SF_WARPS 8  // warps a block
+#define SF_FULL 0xffffffffu
+
+// uint32 key with the order of the float it encodes (finite floats).
+__device__ __forceinline__ uint32_t sf_key(float x) {
+  const uint32_t u = __float_as_uint(x);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
 }
 
-__global__ void sf_select_kernel(int64_t n_jobs, int K, int max_steps,
-                                 const int32_t* __restrict__ picks,
-                                 const float* __restrict__ flows,
-                                 const int32_t* __restrict__ nnz,
-                                 const uint64_t* __restrict__ support,
-                                 float* __restrict__ F,
-                                 int64_t* __restrict__ out_picks) {
-  int64_t job = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (job >= n_jobs) return;
-  const int64_t t0 = job * K;
-  int best = 0;
-  for (int r = 1; r < K; ++r) {
-    int32_t c = nnz[t0 + r], cb = nnz[t0 + best];
-    if (c < cb || (c == cb && support[t0 + r] < support[t0 + best])) best = r;
+__device__ __forceinline__ float sf_unkey(uint32_t k) {
+  return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
+}
+
+// (count, mask, restart) a is below b.
+__device__ __forceinline__ bool sf_less(int na, uint64_t ma, int ra, int nb, uint64_t mb,
+                                        int rb) {
+  if (na != nb) return na < nb;
+  if (ma != mb) return ma < mb;
+  return ra < rb;
+}
+
+__global__ void __launch_bounds__(SF_WARPS * 32) sf_greedy_kernel(
+    const int32_t* __restrict__ buf, int64_t n_jobs, int K, int W, int jobs_per_block,
+    int max_steps, float* __restrict__ F, int64_t* __restrict__ out_picks) {
+  __shared__ int s_count[SF_WARPS];
+  __shared__ int s_restart[SF_WARPS];
+  __shared__ uint64_t s_mask[SF_WARPS];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int group = warp / W, rw = warp - group * W;
+  const int64_t job = (int64_t)blockIdx.x * jobs_per_block + group;
+  const bool live = job < n_jobs;
+  const int row = lane >> 2, c0 = 2 * (lane & 3);
+  // the warp's best restart: count, mask, index, its two cells and its pick
+  int best_n = 0x7fffffff, best_r = 0x7fffffff, best_pick = -1;
+  uint64_t best_mask = ~0ull;
+  float best_f0 = 0.0f, best_f1 = 0.0f;
+  if (live) {
+    const int32_t* job_row = buf + job * (2 * MAXD + 1);
+    float a[MAXD], b[MAXD];
+#pragma unroll
+    for (int c = 0; c < MAXD; ++c) {
+      a[c] = __int_as_float(job_row[c]);
+      b[c] = __int_as_float(job_row[MAXD + c]);
+    }
+    const float eps = greedy_eps(a, b);
+    const float a_row = __int_as_float(job_row[row]);
+    const float b_c0 = __int_as_float(job_row[MAXD + c0]);
+    const float b_c1 = __int_as_float(job_row[MAXD + c0 + 1]);
+    const uint32_t node_seed = (uint32_t)job_row[2 * MAXD];
+    for (int r = rw; r < K; r += W) {
+      const bool use_hash = r > 0;
+      const uint32_t seed = use_hash ? node_seed + (uint32_t)r : 0u;
+      const uint32_t h0 = use_hash ? tie_hash(row, c0, seed) : 0u;
+      const uint32_t h1 = use_hash ? tie_hash(row, c0 + 1, seed) : 0u;
+      float ar = a_row, b0 = b_c0, b1 = b_c1, f0 = 0.0f, f1 = 0.0f;
+      int n = 0, pick = -1;
+      uint64_t mask = 0;
+      for (int step = 0; step < max_steps; ++step) {
+        const float m0 = fminf(ar, b0), m1 = fminf(ar, b1);
+        const float best = sf_unkey(__reduce_max_sync(SF_FULL, sf_key(fmaxf(m0, m1))));
+        if (!(best > eps)) break;  // the same in every lane
+        bool t0 = m0 >= best, t1 = m1 >= best;
+        uint32_t e0 = __ballot_sync(SF_FULL, t0), e1 = __ballot_sync(SF_FULL, t1);
+        if (use_hash && __popc(e0) + __popc(e1) > 1) {  // a lone tie needs no hash
+          const uint32_t hm = __reduce_max_sync(SF_FULL, max(t0 ? h0 : 0u, t1 ? h1 : 0u));
+          e0 = __ballot_sync(SF_FULL, t0 && h0 == hm);
+          e1 = __ballot_sync(SF_FULL, t1 && h1 == hm);
+        }
+        const int L = __ffs(e0 | e1) - 1;
+        const int flat = 2 * L + (((e0 >> L) & 1u) ? 0 : 1);
+        const int pi = flat >> 3, pj = flat & (MAXD - 1);
+        if (row == pi) ar = __fsub_rn(ar, best);
+        if (c0 == pj) b0 = __fsub_rn(b0, best);
+        if (c0 + 1 == pj) b1 = __fsub_rn(b1, best);
+        if (flat == 2 * lane) f0 = best;
+        if (flat == 2 * lane + 1) f1 = best;
+        if (lane == step) pick = flat;
+        mask |= 1ull << flat;
+        ++n;
+      }
+      if (sf_less(n, mask, r, best_n, best_mask, best_r)) {
+        best_n = n;
+        best_mask = mask;
+        best_r = r;
+        best_pick = pick;
+        best_f0 = f0;
+        best_f1 = f1;
+      }
+    }
   }
-  float* f = F + job * CELLS;
-  for (int c = 0; c < CELLS; ++c) f[c] = 0.0f;
-  const int32_t* p = picks + (t0 + best) * max_steps;
-  const float* v = flows + (t0 + best) * max_steps;
-  for (int s = 0; s < max_steps; ++s) {
-    if (p[s] >= 0) f[p[s]] = v[s];
-    out_picks[job * max_steps + s] = p[s];
+  if (lane == 0) {
+    s_count[warp] = best_n;
+    s_mask[warp] = best_mask;
+    s_restart[warp] = best_r;
   }
+  __syncthreads();
+  if (!live) return;
+  int win = group * W;
+  for (int w = group * W + 1; w < group * W + W; ++w) {
+    if (sf_less(s_count[w], s_mask[w], s_restart[w], s_count[win], s_mask[win],
+                s_restart[win])) {
+      win = w;
+    }
+  }
+  if (win != warp) return;
+  reinterpret_cast<float2*>(F + job * CELLS)[lane] = make_float2(best_f0, best_f1);
+  if (lane < max_steps) out_picks[job * max_steps + lane] = best_pick;
 }
 
 // ---------------------------------------------------------------------------
@@ -168,7 +241,7 @@ __global__ void sf_select_kernel(int64_t n_jobs, int K, int max_steps,
 // margins (M, N <= MAXD) zero-padded in registers, its own seed and tie rule,
 // greedy_step until it stops; it zeroes its [M, N] flow tensor and writes
 // each pick's flow into its cell.
-// Bound: as K6, the latency of at most 2 * MAXD dependent steps a job.
+// Bound: the latency of at most 2 * MAXD dependent steps a job.
 // ---------------------------------------------------------------------------
 __global__ void sf_jobs_kernel(const float* __restrict__ a_in,
                                const float* __restrict__ b_in,
@@ -199,23 +272,18 @@ __global__ void sf_jobs_kernel(const float* __restrict__ a_in,
 
 extern "C" {
 
-// buf: [n_jobs, 2 * MAXD + 1] int32 (a bits | b bits | node seed).
-// Scratch: picks/flows [n_jobs * K, max_steps], nnz/support [n_jobs * K].
-// Outputs: F [n_jobs, MAXD, MAXD] float32, out_picks [n_jobs, max_steps].
-int shannon_sf_greedy(const void* buf, int64_t n_jobs, int K, int max_steps,
-                      void* picks, void* flows, void* nnz, void* support,
-                      void* F, void* out_picks, void* stream) {
+// buf: [n_jobs, 2 * MAXD + 1] int32 (a bits | b bits | node seed); K >= 1
+// restarts a job, 0 < max_steps <= 2 * MAXD.  Outputs: F [n_jobs, MAXD,
+// MAXD] float32, out_picks [n_jobs, max_steps] int64.
+int shannon_sf_greedy(const void* buf, int64_t n_jobs, int K, int max_steps, void* F,
+                      void* out_picks, void* stream) {
+  if (K < 1 || max_steps < 1 || max_steps > 2 * MAXD) return (int)cudaErrorInvalidValue;
   if (n_jobs > 0) {
-    int64_t lanes = n_jobs * K;
-    sf_restarts_kernel<<<(unsigned int)((lanes + SF_THREADS - 1) / SF_THREADS),
-                         SF_THREADS, 0, (cudaStream_t)stream>>>(
-        (const int32_t*)buf, n_jobs, K, max_steps, (int32_t*)picks,
-        (float*)flows, (int32_t*)nnz, (uint64_t*)support);
-    sf_select_kernel<<<(unsigned int)((n_jobs + SF_THREADS - 1) / SF_THREADS),
-                       SF_THREADS, 0, (cudaStream_t)stream>>>(
-        n_jobs, K, max_steps, (const int32_t*)picks, (const float*)flows,
-        (const int32_t*)nnz, (const uint64_t*)support, (float*)F,
-        (int64_t*)out_picks);
+    const int W = K < SF_WARPS ? K : SF_WARPS;  // warps a job
+    const int J = SF_WARPS / W;                 // jobs a block
+    sf_greedy_kernel<<<(unsigned int)((n_jobs + J - 1) / J), J * W * 32, 0,
+                       (cudaStream_t)stream>>>((const int32_t*)buf, n_jobs, K, W, J, max_steps,
+                                               (float*)F, (int64_t*)out_picks);
   }
   return (int)cudaGetLastError();
 }

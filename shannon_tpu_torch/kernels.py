@@ -59,7 +59,7 @@ _ARGTYPES = {
     "shannon_lookup_sorted": [_P, _I64, _P, _I64, _P, _I64, _P, _P, _P, _P],
     "shannon_thread_rows": [_P, _P, _P, _P, _P, _I64, _I, _I, *[_P] * 7, _P],
     "shannon_compact_rows": [*[_P] * 7, _I64, _I, _I, _P, _I64, *[_P] * 8, _P],
-    "shannon_sf_greedy": [_P, _I64, _I, _I, *[_P] * 6, _P],
+    "shannon_sf_greedy": [_P, _I64, _I, _I, _P, _P, _P],
     "shannon_sf_jobs": [_P, _P, _P, _P, _I64, _I, _I, _I, _P, _P],
     "shannon_probe_lookup": [_P, _I64, _I, _I, _I, _P, _I64, _P, _P, _P, _P],
     "shannon_rescue_rounds": [*[_P] * 6, _I64, _I, _P, _P, _P, _I64, _P, _P, _P],
@@ -71,7 +71,7 @@ _ARGTYPES = {
     "shannon_label_rounds": [_P, _I64, _P, _I64, _P, _I, _P, _P, _P],
     "shannon_cycle_round": [_P, _P, _P, _I64, _I, _P, _P, _P, _P],
     "shannon_contig_reduce": [*[_P] * 8, _I64, _I, _I, _P, _I64, *[_P] * 10, _P],
-    "shannon_base_streams": [_P, _P, _P, _I64, _P, _P, _P, _I64, _I, _P, _P, _P],
+    "shannon_base_streams": [_P, _P, _P, _I64, _I64, _P, _P, _I64, _I, _P, _I64, _P, _P, _P, _P],
     "shannon_count_histogram": [_P, _P, _I64, _I64, _P, _P],
     "shannon_merge_tables": [_P, _P, _I64, _P, _P, _I64, _I64, _P, _I64, _P, _P, _P],
     "shannon_drop_keep": [_P, _I64, _P, _P, _I64, _P, _P, _P],
@@ -90,7 +90,7 @@ _ARGTYPES = {
 }
 # Entry points whose scratch layout lives in their source alone: for each,
 # `<entry>_words(n)` gives the int64 words of scratch it takes at size n.
-_SCRATCH_SIZED = ("shannon_compact_rows", "shannon_label_rounds")
+_SCRATCH_SIZED = ("shannon_compact_rows", "shannon_label_rounds", "shannon_base_streams")
 
 
 def _sources() -> list[Path]:

@@ -21,11 +21,13 @@ Counterpart of ``shannon_tpu/ops/condense.py``:
      and tail lanes), contig edges, and the reverse-complement twin (K14,
      ``contig_reduce``: contig ids from one look-back scan of the head
      lanes, integer atomics a member, then a pass over the contig slots);
-  5. the base streams materialization reads (K15, ``base_streams``).
+  5. the base streams materialization reads (K15, ``base_streams``: each
+     contig's tail start from one look-back scan of its klen, with the
+     heads, then one pass over the real lanes).
 
 On CUDA tensors each stage launches its hand-written kernels in
-``csrc/condense.cu`` (around K11's ``torch.sort`` and K15's
-``torch.cumsum``) or raises; on CPU tensors its ``_plain`` version runs.
+``csrc/condense.cu`` (around K11's ``torch.sort``) or raises; on CPU
+tensors its ``_plain`` version runs.
 
 Node lanes: capacity C2; contig-indexed arrays are valid in [0, n_contigs).
 """
@@ -506,18 +508,23 @@ def _contig_base_streams_cuda(ca: ContigArrays, k: int):
         raise ValueError("node_key, node_cid and node_off disagree on length")
     if ca.klen.shape[0] < n or ca.head_lane.shape[0] < n:
         raise ValueError(f"klen and head_lane must cover the {n} contigs")
+    if C2 >= 1 << 31:
+        raise ValueError(f"{C2} node lanes exceed the int32 contig lengths")
     dev = ca.node_key.device
-    # each contig's tail run starts at incl[cid] - klen[cid]
-    incl = torch.cumsum(ca.klen, 0)
-    total = int(incl[-1]) if incl.shape[0] else 0
-    tails = torch.empty(total, dtype=torch.uint8, device=dev)
-    heads = torch.empty((n, k - 1), dtype=torch.uint8, device=dev)
+    # every real lane, [0, min(n_nodes, C2)), has a contig id, so that is
+    # sum(klen[:n]): the tails' length, with no scan and no host read
+    n_tails = min(ca.n_nodes, C2) if n else 0
     lib = kernels.library()
+    scratch = torch.zeros(lib.scratch_words("shannon_base_streams", n), dtype=torch.int64,
+                          device=dev)
+    tstart = torch.empty(n, dtype=torch.int64, device=dev)
+    tails = torch.empty(n_tails, dtype=torch.uint8, device=dev)
+    heads = torch.empty((n, k - 1), dtype=torch.uint8, device=dev)
     lib.call(
         "shannon_base_streams", dev,
         kernels.ptr(ca.node_key), kernels.ptr(ca.node_cid), kernels.ptr(ca.node_off), C2,
-        kernels.ptr(ca.klen), kernels.ptr(incl), kernels.ptr(ca.head_lane), n, k,
-        kernels.ptr(tails), kernels.ptr(heads),
+        n_tails, kernels.ptr(ca.klen), kernels.ptr(ca.head_lane), n, k, kernels.ptr(scratch),
+        scratch.shape[0], kernels.ptr(tstart), kernels.ptr(tails), kernels.ptr(heads),
     )
     lib.count("base_streams")
     return tails, heads
@@ -527,8 +534,9 @@ def contig_base_streams(ca: ContigArrays, k: int):
     """(tails, heads): every node's last base in (cid, offset) order
     [sum klen] uint8, and each contig's k-1 leading bases [n_contigs, k-1]
     uint8 (ops/condense.py:417 contig_base_streams).  Kernel K15 on CUDA
-    (the slot of a node is its contig's start in a torch.cumsum of klen
-    plus its offset), the plain version on CPU."""
+    (each contig's tail start from one look-back scan of klen[:n_contigs],
+    the heads in the same pass, then a pass over the real lanes; no host
+    read), the plain version on CPU."""
     if ca.node_key.is_cuda:
         return _contig_base_streams_cuda(ca, k)
     return contig_base_streams_plain(ca, k)

@@ -74,10 +74,10 @@ def greedy_core(a, b, seeds, use_hash, max_steps: int):
         best = m.amax(dim=(1, 2))
         active = best > eps
         ties = m >= best[:, None, None]
-        flat_lex = torch.argmax(ties.reshape(B, -1).int(), dim=1)
+        flat_lex = torch.argmax(ties.reshape(B, M * N).int(), dim=1)
         hm = torch.where(ties, h, 0).amax(dim=(1, 2))
         cand = ties & (h == hm[:, None, None])
-        flat_hash = torch.argmax(cand.reshape(B, -1).int(), dim=1)
+        flat_hash = torch.argmax(cand.reshape(B, M * N).int(), dim=1)
         flat = torch.where(use_hash, flat_hash, flat_lex)
         picks[:, step] = torch.where(active, flat, -1)
         oh_i = torch.nn.functional.one_hot(flat // N, M).float()
@@ -189,22 +189,14 @@ def _batched_greedy_packed_cuda(buf: torch.Tensor, k_restarts: int, max_steps: i
     if k_restarts < 0 or not 0 < max_steps <= 2 * MAXD:
         raise ValueError(f"k_restarts={k_restarts}, max_steps={max_steps} out of range")
     B = buf.shape[0]
-    K = k_restarts + 1
     dev = buf.device
-    picks = torch.empty((B * K, max_steps), dtype=torch.int32, device=dev)
-    flows = torch.empty((B * K, max_steps), dtype=torch.float32, device=dev)
-    nnz = torch.empty(B * K, dtype=torch.int32, device=dev)
-    support = torch.empty(B * K, dtype=torch.int64, device=dev)
     F = torch.empty((B, MAXD, MAXD), dtype=torch.float32, device=dev)
-    out_picks = torch.empty((B, max_steps), dtype=torch.int64, device=dev)
+    picks = torch.empty((B, max_steps), dtype=torch.int64, device=dev)
     lib = kernels.library()
-    lib.call(
-        "shannon_sf_greedy", dev,
-        kernels.ptr(buf), B, K, max_steps,
-        *map(kernels.ptr, (picks, flows, nnz, support, F, out_picks)),
-    )
+    lib.call("shannon_sf_greedy", dev, kernels.ptr(buf), B, k_restarts + 1, max_steps,
+             kernels.ptr(F), kernels.ptr(picks))
     lib.count("sf_greedy")
-    return F, out_picks
+    return F, picks
 
 
 def batched_greedy_packed(buf: torch.Tensor, k_restarts: int, max_steps: int = 2 * MAXD):
@@ -212,7 +204,9 @@ def batched_greedy_packed(buf: torch.Tensor, k_restarts: int, max_steps: int = 2
     seed) with k_restarts + 1 seeded greedy runs; returns the winning
     restart's flow tensors [B, MAXD, MAXD] float32 and picks [B,
     max_steps] int64 (the flat cell of each step's pairing, -1 once
-    nothing is left).  Kernel K6 on CUDA, the plain version on CPU."""
+    nothing is left).  Kernel K6 on CUDA (a warp a restart, each job's
+    restarts and their selection in one block, one launch), the plain
+    version on CPU."""
     if buf.is_cuda:
         return _batched_greedy_packed_cuda(buf, k_restarts, max_steps)
     return batched_greedy_packed_plain(buf, k_restarts, max_steps)

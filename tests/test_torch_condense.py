@@ -819,3 +819,115 @@ def test_k14_transcription_matches_reference(case, C2, geometry):
             np.testing.assert_array_equal(g.view(np.int32), w.view(np.int32), err_msg=name)
         else:
             np.testing.assert_array_equal(g, w.astype(np.int64), err_msg=name)
+
+
+# ---- K15: the base streams on the edge tables, and its design transcribed --------
+
+# n_contigs at K15's scan tile of 256 contigs and at 16 of them, and one
+# either side: singletons tables of C2 - 3 nodes, every node a contig
+STREAM_TILE_EDGES = [("singletons", c2) for c2 in (258, 259, 260, 4098, 4099, 4100)]
+STREAM_POINTS = REDUCE_POINTS + STREAM_TILE_EDGES
+
+
+def _streams_input(case: str, C2: int):
+    """The reference's ContigArrays of one edge table (cycles cut), in the
+    port's layout."""
+    r = _reduce_reference(case, C2)
+    return r, convert.contig_arrays_from_numpy(
+        *(np.asarray(x) for x in r["ca"].tree_flatten()[0]))
+
+
+@pytest.mark.parametrize("case,C2", STREAM_POINTS)
+def test_streams_plain_on_edge_tables_matches_reference(case, C2):
+    """K15's plain version against the reference's contig_base_streams (its
+    first sum-klen tails, its first n_contigs head rows) on tables with no
+    lane, only pads, one contig of every node, every node a contig (at
+    n_contigs 255-257 and 4,095-4,097 too), rc twins and palindromes, one
+    strand only, and cycles cut."""
+    r, ca = _streams_input(case, C2)
+    k = r["k"]
+    tails, heads = tcd.contig_base_streams_plain(ca, k)
+    r_tails, r_heads = jcd.contig_base_streams(r["ca"], k)
+    total = int(ca.klen[: ca.n_contigs].sum())
+    assert tails.shape == (total,) and heads.shape == (ca.n_contigs, k - 1)
+    _eq(tails, np.asarray(r_tails)[:total], "tails")
+    _eq(heads, np.asarray(r_heads)[: ca.n_contigs], "heads")
+
+
+@pytest.mark.parametrize("case,C2", STREAM_POINTS)
+def test_streams_length_is_n_nodes_on_edge_tables(case, C2):
+    """What lets K15 size its tails with no scan and no host read: on every
+    edge table, in the reference's arrays and in the port's K14 (plain) on
+    the same labels, sum(klen[:n_contigs]) == n_nodes, and node_cid >= 0
+    on exactly the lanes [0, n_nodes)."""
+    r, ref_ca = _streams_input(case, C2)
+    port_ca = tcd.reduce_stage_plain(
+        _t(r["node_key"]), _t(r["node_count"]), r["n_nodes"], _t(r["prev2"]), _t(r["ptr2"]),
+        _t(r["dist2"]), _t(r["rec_lane"]), _t(r["first_p"]), _t(r["p_cnt"]), r["k"],
+        r["canonical"])
+    for ca in (ref_ca, port_ca):
+        assert ca.n_nodes == r["n_nodes"] <= ca.node_key.shape[0]
+        assert int(ca.klen[: ca.n_contigs].sum()) == ca.n_nodes
+        real = (ca.node_cid >= 0).numpy()
+        assert real[: ca.n_nodes].all() and not real[ca.n_nodes:].any()
+    if case == "singletons":
+        assert ref_ca.n_contigs == C2 - 3
+
+
+def _streams_transcription(ca, k: int, tile: int = 256):
+    """csrc/condense.cu stream_heads_kernel / tails_stream_kernel in numpy:
+    tiles of `tile` contigs, a thread each, their tail starts from the
+    tile's exclusive scan of klen and the tiles' prefixes in tile order
+    (what the look-back gives); each tile's heads written as 4-byte words
+    over its stretch of the [n_contigs, k-1] array from the gathered head
+    keys; then every lane of [0, n_tails) with a contig id stores its last
+    base at tstart[cid] + off.  Outputs start poisoned.  Returns (tails,
+    heads, the scan's total)."""
+    node_key, node_cid, node_off = (x.numpy() for x in (ca.node_key, ca.node_cid, ca.node_off))
+    n, C2, w = ca.n_contigs, len(node_key), k - 1
+    n_tails = min(ca.n_nodes, C2) if n else 0
+    klen, head_lane = ca.klen.numpy()[:n], ca.head_lane.numpy()[:n]
+    tstart = np.full(n, -7, np.int64)
+    heads = np.full(n * w, 0xEE, np.uint8)
+    prefix = 0
+    for base in range(0, n, tile):
+        end = min(base + tile, n)
+        keys = node_key[np.clip(head_lane[base:end], 0, C2 - 1)]
+        lens = klen[base:end]
+        tstart[base:end] = prefix + np.cumsum(lens) - lens
+        prefix += int(lens.sum())
+        n_bytes = (end - base) * w
+        for t in range(0, n_bytes, 4):
+            c, j = divmod(t, w)
+            for b in range(min(4, n_bytes - t)):
+                heads[base * w + t + b] = (int(keys[c]) >> (2 * (w - j))) & 3
+                j += 1
+                if j == w:
+                    c, j = c + 1, 0
+    tails = np.full(n_tails, 0xEE, np.uint8)
+    cid, off, key = node_cid[:n_tails], node_off[:n_tails], node_key[:n_tails]
+    has = cid >= 0
+    slot = tstart[cid[has]] + off[has]
+    inside = (slot >= 0) & (slot < n_tails)
+    tails[slot[inside]] = key[has][inside] & 3
+    return tails, heads.reshape(n, w), prefix
+
+
+# contigs a tile: the kernel's, and a small one so the small tables span
+# many tiles
+STREAM_GEOMETRIES = {"source": 256, "small": 8}
+
+
+@pytest.mark.parametrize("geometry", list(STREAM_GEOMETRIES))
+@pytest.mark.parametrize("case,C2", STREAM_POINTS)
+def test_k15_transcription_matches_plain(case, C2, geometry):
+    """K15's design (tail starts from a tiled look-back scan over the
+    contigs alone, heads as words from one gathered key a contig, tails
+    over the real lanes alone) against the plain twin, at the kernel's
+    tile of 256 contigs and at 8; the scan's total is the tails' length."""
+    r, ca = _streams_input(case, C2)
+    tails, heads, total = _streams_transcription(ca, r["k"], STREAM_GEOMETRIES[geometry])
+    want_tails, want_heads = tcd.contig_base_streams_plain(ca, r["k"])
+    assert total == tails.shape[0] == want_tails.shape[0]
+    np.testing.assert_array_equal(tails, want_tails.numpy())
+    np.testing.assert_array_equal(heads, want_heads.numpy())

@@ -601,6 +601,74 @@ def test_sf_greedy_kernel_validates_inputs(cuda):
         tsf.batched_greedy_packed(torch.zeros((4, 16), dtype=torch.int32, device=cuda), 4)
 
 
+def _k6_jobs(kind: str, B: int, seed: int) -> np.ndarray:
+    """K6's jobs of 1-8 by 1-8 margins: random real margins, all ties (every
+    cell ties at every step), tiny margins beside a large one, or zero
+    margins (nothing to pair); a random node seed each."""
+    rng = np.random.default_rng(seed)
+    buf = np.zeros((B, 2 * tsf.MAXD + 1), np.int32)
+    f = buf[:, : 2 * tsf.MAXD].view(np.float32)
+    for r in range(B):
+        M, N = int(rng.integers(1, 9)), int(rng.integers(1, 9))
+        if kind == "random":
+            f[r, :M] = rng.uniform(0.1, 50, M)
+            f[r, tsf.MAXD : tsf.MAXD + N] = rng.uniform(0.1, 50, N)
+        elif kind == "ties":
+            f[r, :M] = 2.0
+            f[r, tsf.MAXD : tsf.MAXD + N] = np.float32(2.0 * M / N)
+        elif kind == "tiny":
+            f[r, :M] = 1e-7
+            f[r, 0] = 3.0
+            f[r, tsf.MAXD : tsf.MAXD + N] = np.float32(1e-8)
+            f[r, tsf.MAXD + N - 1] = np.float32(3.0 + 1e-7 * (M - 1))
+    buf[:, 2 * tsf.MAXD] = rng.integers(0, 1 << 32, B, dtype=np.int64).astype(np.uint32).view(np.int32)
+    return buf
+
+
+def _k6_both(buf: torch.Tensor, restarts: int, max_steps: int) -> None:
+    got = tsf.batched_greedy_packed(buf, restarts, max_steps)
+    want = tsf.batched_greedy_packed_plain(buf, restarts, max_steps)
+    torch.cuda.synchronize()
+    assert got[0].shape == want[0].shape and got[1].shape == want[1].shape
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+    assert torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("kind", ["random", "ties", "tiny", "zero"])
+@pytest.mark.parametrize("restarts", [0, 1, 4, 40])
+@pytest.mark.parametrize("max_steps", [1, 4, 16])
+def test_sf_greedy_kernel_on_margin_kinds(cuda, kind, restarts, max_steps):
+    """K6 (a warp a restart, a job's restarts and their selection in one
+    block) against its plain twin: flows bitwise, picks equal, at restart
+    counts below, at and above a block's 8 warps and with the greedy cut
+    short."""
+    _k6_both(torch.from_numpy(_k6_jobs(kind, 1000, restarts * 17 + max_steps)).to(cuda),
+             restarts, max_steps)
+
+
+@pytest.mark.parametrize("B", [0, 1])
+@pytest.mark.parametrize("restarts", [0, 4, 40])
+def test_sf_greedy_kernel_on_no_job_and_one(cuda, B, restarts):
+    _k6_both(torch.from_numpy(_sf_jobs(B, max(B, 1))[:B]).to(cuda), restarts, 2 * tsf.MAXD)
+
+
+def test_sf_greedy_is_one_launch_with_two_allocations(cuda):
+    """One launch a call and no global scratch: the call allocates its F
+    and picks alone."""
+    buf = torch.from_numpy(_sf_jobs(11, 2048)).to(cuda)  # outputs below 1 MB each
+    lib = kernels.library()
+    before = lib.launches["sf_greedy"]
+    tsf.batched_greedy_packed(buf, 4)
+    assert lib.launches["sf_greedy"] - before == 1
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    F, picks = tsf.batched_greedy_packed(buf, 4)
+    torch.cuda.synchronize()
+    outputs = F.numel() * F.element_size() + picks.numel() * picks.element_size()
+    assert torch.cuda.max_memory_allocated() - base <= outputs + 2 * 512
+
+
 # Kernels assembly never launches: those of the flagship step alone
 # (shannon_tpu_torch.entry), K24, whose uint8 codes only dryrun_multichip
 # counts and threads, and K28 and K29, which the reference runs in its tests
@@ -1479,6 +1547,73 @@ def test_reduce_kernel_on_edge_tables(cuda, case, C2, monkeypatch):
         {"contig_heads_kernel", "contig_lanes_kernel", "contig_slots_kernel"}
         if key.shape[0] else set())
     assert not any("Scan" in x or "head_flags" in x for x in names)
+
+
+# K15's edge tables: reduce_tables' cases, and singletons tables whose
+# n_contigs (C2 - 3) is K15's scan tile of 256 contigs or 16 of them, and one
+# either side
+STREAM_CASES = [(case, 4096) for case in REDUCE_TABLES] + [
+    ("singletons", C2) for C2 in (258, 259, 260, 4098, 4099, 4100)]
+
+
+def _stream_arrays(cuda, case: str, C2: int):
+    """The ContigArrays K14 makes on the card of one reduce_tables case (the
+    labels from the plain stages, cycles cut), and its k."""
+    node_key, node_count, n_nodes, k, canonical = reduce_tables(case, C2)
+    key = torch.from_numpy(node_key)
+    prev, rec_lane, first_p, p_cnt = tcd.links_stage_plain(key, k)
+    ptr, dist, has_cycle = tcd.label_stage_plain(prev)
+    if has_cycle:
+        prev = tcd.cycle_fix_plain(prev)
+        ptr, dist, _ = tcd.label_stage_plain(prev)
+    args = tuple(x.to(cuda) if torch.is_tensor(x) else x for x in (
+        key, torch.from_numpy(node_count), n_nodes, prev, ptr, dist, rec_lane, first_p, p_cnt,
+        k, canonical))
+    return tcd.reduce_stage(*args), k
+
+
+@pytest.mark.parametrize("case,C2", STREAM_CASES)
+def test_base_streams_kernel_on_edge_tables(cuda, case, C2, monkeypatch):
+    """K15 against its plain twin on the edge tables: tails and heads equal,
+    one launch count, no torch.cumsum, no host read (the card's sync debug
+    mode raises on one), its two kernels and no other; and the lanes past
+    n_nodes are never read: poisoned, they change nothing."""
+    ca, k = _stream_arrays(cuda, case, C2)
+    if case == "singletons":
+        assert ca.n_contigs == C2 - 3
+    want = tcd.contig_base_streams_plain(ca, k)
+    lib = kernels.library()
+    before = lib.launches["base_streams"]
+    cumsums, real_cumsum = [], torch.cumsum
+
+    def counted_cumsum(*a, **kw):
+        cumsums.append(1)
+        return real_cumsum(*a, **kw)
+
+    torch.cuda.synchronize()
+    monkeypatch.setattr(torch, "cumsum", counted_cumsum)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = tcd.contig_base_streams(ca, k)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        monkeypatch.undo()
+    torch.cuda.synchronize()
+    assert lib.launches["base_streams"] - before == 1 and not cumsums
+    for g, w, name in zip(got, want, ("tails", "heads")):
+        _equal(g, w, name)
+    n = ca.n_nodes
+    poisoned = tcd.ContigArrays(**{**ca.__dict__})
+    for name, value in (("node_cid", 0), ("node_off", 0), ("node_key", 3)):
+        t = getattr(ca, name).clone()
+        t[n:] = value
+        setattr(poisoned, name, t)
+    for g, w, name in zip(tcd.contig_base_streams(poisoned, k), want, ("tails", "heads")):
+        _equal(g, w, name)
+    names = _kernel_names(lambda: tcd.contig_base_streams(ca, k))
+    assert {x for x in names if "stream" in x} == (
+        {"stream_heads_kernel", "tails_stream_kernel"} if ca.n_contigs else set())
+    assert not any("Scan" in x for x in names)
 
 
 def _kernel_names(fn) -> set:

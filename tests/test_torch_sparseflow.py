@@ -210,6 +210,161 @@ def test_batched_greedy_packed_degenerate_margins_match_reference(restarts):
     assert (picks[0::4, 0] >= 0).all()
 
 
+@pytest.mark.parametrize("restarts", [0, 1, 4, 40])
+@pytest.mark.parametrize("max_steps", [4, 16])
+def test_batched_greedy_packed_plain_matches_reference_at_any_restarts(restarts, max_steps):
+    """K6's plain twin against the reference on the degenerate buffers, at
+    restart counts below, at and above a block's warps of the kernel (8)
+    and with the greedy cut short; its picks name exactly the flow
+    tensor's nonzero cells, each once."""
+    buf = degenerate_buffers(np.random.default_rng(restarts + max_steps), 48)
+    want = np.asarray(ref_batched(jnp.asarray(buf), k_restarts=restarts, max_steps=max_steps))
+    got, picks = tsf.batched_greedy_packed_plain(torch.from_numpy(buf), restarts, max_steps)
+    np.testing.assert_array_equal(got.numpy().view(np.int32), want.view(np.int32))
+    assert picks.shape == (48, max_steps) and picks.dtype == torch.int64
+    for row, p in zip(got.numpy(), picks.numpy()):
+        p = p[p >= 0]
+        assert sorted(p.tolist()) == np.flatnonzero(row.reshape(-1) > 0).tolist()
+
+
+def test_batched_greedy_packed_plain_takes_no_job():
+    F, picks = tsf.batched_greedy_packed_plain(torch.zeros((0, 2 * MAXD + 1), dtype=torch.int32),
+                                               4, 5)
+    assert F.shape == (0, MAXD, MAXD) and picks.shape == (0, 5) and picks.dtype == torch.int64
+
+
+# ---- K6's warp design, transcribed ---------------------------------------------
+
+_M32 = np.uint64(0xFFFFFFFF)
+
+
+def _tie_hash_np(i, j, seed):
+    """The uint32 tie hash on uint64 arrays, reduced mod 2^32 after each
+    multiply (csrc/sparseflow.cu tie_hash)."""
+    h = ((i * np.uint64(2654435761)) & _M32) ^ ((j * np.uint64(40503)) & _M32) ^ seed
+    h = ((h ^ (h >> np.uint64(16))) * np.uint64(2246822519)) & _M32
+    return h ^ (h >> np.uint64(13))
+
+
+def _sf_key(x: np.ndarray) -> np.ndarray:
+    u = x.astype(np.float32).view(np.uint32)
+    return np.where(u & np.uint32(0x80000000), ~u, u | np.uint32(0x80000000))
+
+
+def _sf_unkey(k: np.ndarray) -> np.ndarray:
+    u = np.where(k & np.uint32(0x80000000), k & np.uint32(0x7FFFFFFF), ~k)
+    return u.astype(np.uint32).view(np.float32)
+
+
+def k6_transcription(buf: np.ndarray, k_restarts: int, max_steps: int):
+    """csrc/sparseflow.cu sf_greedy_kernel in numpy: a row of 32 lanes a
+    (job, restart), lane l holding cells 2l and 2l + 1 (row l // 4) and
+    only the margins a[row], b[c0], b[c1]; a step is the max of the lanes'
+    order-preserving keys, the ties' ballots, with hashed ties where more
+    than one cell ties the max of the tied cells' hashes, and the lowest
+    set bit; then each warp of a
+    job (W = min(K, 8), restarts w, w + W, ...) keeps its least (count,
+    mask), earliest first, and the least (count, mask, restart) of the
+    job's warps wins.  Returns (F [B, 8, 8] float32, picks [B, max_steps]
+    int64)."""
+    B, K = buf.shape[0], k_restarts + 1
+    f = buf[:, : 2 * MAXD].view(np.float32)
+    a, b = f[:, :MAXD], f[:, MAXD:]
+    sa, sb = a[:, 0].copy(), b[:, 0].copy()
+    for c in range(1, MAXD):
+        sa, sb = sa + a[:, c], sb + b[:, c]
+    eps = np.float32(1e-6) * np.maximum(np.maximum(sa, sb), np.float32(1.0))
+    lane = np.arange(32)
+    row, c0 = lane >> 2, 2 * (lane & 3)
+    job = np.repeat(np.arange(B), K)
+    r = np.tile(np.arange(K), B)
+    ar, b0, b1 = a[job][:, row], b[job][:, c0], b[job][:, c0 + 1]
+    node_seed = buf[:, 2 * MAXD].view(np.uint32).astype(np.uint64)[job]
+    seed = np.where(r > 0, (node_seed + r.astype(np.uint64)) & _M32, np.uint64(0))[:, None]
+    h0 = _tie_hash_np(row.astype(np.uint64), c0.astype(np.uint64), seed)
+    h1 = _tie_hash_np(row.astype(np.uint64), (c0 + 1).astype(np.uint64), seed)
+    hashed = (r > 0)[:, None]
+    R = B * K
+    f0 = np.zeros((R, 32), np.float32)
+    f1 = np.zeros((R, 32), np.float32)
+    picks = np.full((R, max_steps), -1, np.int64)
+    mask = np.zeros(R, np.uint64)
+    n = np.zeros(R, np.int64)
+    live = np.ones(R, bool)
+    rows = np.arange(R)
+    for step in range(max_steps):
+        m0, m1 = np.minimum(ar, b0), np.minimum(ar, b1)
+        best = _sf_unkey(_sf_key(np.maximum(m0, m1)).max(axis=1))
+        live &= best > eps[job]
+        t0, t1 = m0 >= best[:, None], m1 >= best[:, None]
+        # the hash only where more than one cell ties
+        by_hash = hashed & ((t0.sum(axis=1) + t1.sum(axis=1)) > 1)[:, None]
+        hm = np.maximum(np.where(t0, h0, 0), np.where(t1, h1, 0)).max(axis=1)[:, None]
+        t0 = np.where(by_hash, t0 & (h0 == hm), t0)
+        t1 = np.where(by_hash, t1 & (h1 == hm), t1)
+        L = np.argmax(t0 | t1, axis=1)
+        flat = 2 * L + np.where(t0[rows, L], 0, 1)
+        pi, pj = (flat >> 3)[:, None], (flat & 7)[:, None]
+        bst, on = best[:, None], live[:, None]
+        ar = np.where(on & (row == pi), ar - bst, ar)
+        b0 = np.where(on & (c0 == pj), b0 - bst, b0)
+        b1 = np.where(on & (c0 + 1 == pj), b1 - bst, b1)
+        f0 = np.where(on & (flat[:, None] == 2 * lane), bst, f0)
+        f1 = np.where(on & (flat[:, None] == 2 * lane + 1), bst, f1)
+        picks[:, step] = np.where(live, flat, -1)
+        mask |= np.where(live, np.uint64(1) << flat.astype(np.uint64), np.uint64(0))
+        n += live
+    W = min(K, 8)
+    win = np.zeros(B, np.int64)
+    for j in range(B):
+        posts = []
+        for w in range(W):  # each warp's best of its restarts, earliest first
+            mine = [(int(n[j * K + x]), int(mask[j * K + x]), x) for x in range(w, K, W)]
+            posts.append(min(mine))
+        win[j] = j * K + min(posts)[2]
+    F = np.stack([f0[win], f1[win]], axis=2).reshape(B, MAXD, MAXD)
+    return F, picks[win]
+
+
+TRANSCRIPTION_BUFFERS = {
+    "degenerate": lambda seed: degenerate_buffers(np.random.default_rng(seed), 40),
+    "integer": lambda seed: _buffers(np.random.default_rng(seed), 40, integer=True),
+    "real": lambda seed: _buffers(np.random.default_rng(seed), 40, integer=False),
+}
+
+
+@pytest.mark.parametrize("kind", list(TRANSCRIPTION_BUFFERS))
+@pytest.mark.parametrize("restarts", [0, 1, 4, 8, 40])
+@pytest.mark.parametrize("max_steps", [1, 4, 16])
+def test_k6_transcription_matches_plain(kind, restarts, max_steps):
+    """The kernel's warp step and its selection by warps, in numpy, give
+    the plain twin's flows bitwise and its picks (and so the reference's,
+    which the plain twin is held to)."""
+    buf = TRANSCRIPTION_BUFFERS[kind](restarts * 16 + max_steps)
+    F, picks = k6_transcription(buf, restarts, max_steps)
+    want, want_picks = tsf.batched_greedy_packed_plain(torch.from_numpy(buf), restarts,
+                                                       max_steps)
+    np.testing.assert_array_equal(F.view(np.int32), want.numpy().view(np.int32))
+    np.testing.assert_array_equal(picks, want_picks.numpy())
+
+
+def test_sf_key_orders_every_finite_float():
+    """The kernel's uint32 key of a float keeps the order of any finite
+    floats, zeros of both signs, subnormals and the extremes included, and
+    decodes back to the same bits."""
+    rng = np.random.default_rng(9)
+    x = np.concatenate([
+        rng.standard_normal(4000).astype(np.float32) * np.float32(1e3),
+        np.array([0.0, -0.0, 1e-45, -1e-45, 1e-38, -1e-38, 3.4e38, -3.4e38, 1e-6, 2.0],
+                 np.float32),
+    ])
+    k = _sf_key(x)
+    # sorted by key, the floats do not fall (-0.0 sorts just below +0.0)
+    assert (np.diff(x[np.argsort(k)].astype(np.float64)) >= 0).all()
+    assert len(np.unique(k)) == len(np.unique(x.view(np.uint32)))
+    np.testing.assert_array_equal(_sf_unkey(k).view(np.uint32), x.view(np.uint32))
+
+
 def _x_node_graph(rng, n_x: int) -> tuple[NodeGraph, list[int]]:
     """n_x X-nodes u0,u1 -> v -> w0,w1 with varied, often tied abundances."""
     nodes: list[Node] = []
