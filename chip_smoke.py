@@ -1363,8 +1363,6 @@ def _condense_chain(spec, k: int, canonical: bool, label: str, smi: str):
 def _clip_rows(spec, watch: Watch, smi: str) -> dict:
     """K18 and K19 against their plain versions on the arguments one clip
     of `spec` at the default AssemblyConfig gives them (kept by `watch`)."""
-    import math
-
     import torch
 
     from shannon_tpu_torch.config import AssemblyConfig
@@ -1388,23 +1386,22 @@ def _clip_rows(spec, watch: Watch, smi: str) -> dict:
     if got.n != want.n:
         raise AssertionError(f"K18 n {got.n} != {want.n}")
     C, C2 = sp.capacity, ca.node_key.numel()
-    steps = math.ceil(math.log2(C2)) + 1
     # bytes, what this clip's data needs: the real spectrum lanes in (12
     # bytes), the keys of the real nodes (one pass, as a merge join reads
     # them), the contig id at each real k-mer's node (every k-mer is a node:
     # the table was condensed from this spectrum), one doom flag a contig,
-    # and the clipped table of C lanes out; operations: a binary search per
-    # real spectrum lane (pads do none)
+    # and the clipped table of C lanes out; operations: one comparison a
+    # merged lane of the join
     n_sp = min(sp.n, C)
     rows["drop_contigs"] = _row(
         _max_abs_err((got.key, got.count), (want.key, want.count)),
         _alternate(lambda: drop(*args), lambda: tipclip._drop_contigs_plain(*args)),
         12 * n_sp + 8 * ca.n_nodes + 8 * n_sp + ca.n_contigs + 12 * C,
-        n_sp * steps, None,
+        n_sp + ca.n_nodes, None,
     )
     _print_row(f"K18 drop_contigs {C} spectrum lanes in {C2} node lanes, "
-               f"{int(doomed.sum())} contigs doomed, {sp.n} -> {got.n} k-mers (then torch.cumsum "
-               "and K10, as in the plain version)", rows["drop_contigs"], smi)
+               f"{int(doomed.sum())} contigs doomed, {sp.n} -> {got.n} k-mers (one merge join "
+               "that compacts as it joins)", rows["drop_contigs"], smi)
 
     args = watch.first_args.pop("clip_remap")
     ca, new_cid, off_shift, hlane, tlane, klen, csum, _rc, _oe, n_new, out_cap = args
@@ -1415,6 +1412,15 @@ def _clip_rows(spec, watch: Watch, smi: str) -> dict:
     fields = ("node_key", "node_count", "node_cid", "node_off", "head_lane", "tail_lane")
     err = _max_abs_err([getattr(got, f) for f in fields] + [got.abundance.view(torch.int32)],
                        [getattr(want, f) for f in fields] + [want.abundance.view(torch.int32)])
+    # and at an out_cap below the kept nodes, where n_nodes still counts them all
+    low = (*args[:-1], max(want.n_nodes // 3, 1))
+    got_low, want_low = remap(*low), tipclip._device_clip_remap_plain(*low)
+    if (got_low.n_nodes, want_low.n_nodes) != (want.n_nodes, want.n_nodes):
+        raise AssertionError(f"K19 n_nodes at out_cap {low[-1]}: {got_low.n_nodes} != "
+                             f"{want.n_nodes}")
+    err = max(err, _max_abs_err(
+        [getattr(got_low, f) for f in fields] + [got_low.abundance.view(torch.int32)],
+        [getattr(want_low, f) for f in fields] + [want_low.abundance.view(torch.int32)]))
     M = klen.numel()
     # bytes, what this clip's data needs: the contig id of each real node
     # lane, the two maps of each old contig, the key, count and offset (20
@@ -1429,7 +1435,8 @@ def _clip_rows(spec, watch: Watch, smi: str) -> dict:
         ca.n_nodes + M, None,
     )
     _print_row(f"K19 clip_remap {ca.node_key.numel()} -> {out_cap} node lanes, {got.n_nodes} "
-               f"kept, {n_new} merged contigs (torch.cumsum inside)", rows["clip_remap"], smi)
+               f"kept, {n_new} merged contigs (also exact at out_cap {low[-1]})",
+               rows["clip_remap"], smi)
     watch.reset()
     return rows
 

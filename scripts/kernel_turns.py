@@ -9,10 +9,11 @@ inputs for every tree, so a change to a kernel's source can be held
 against its parent within one call.
 
     python scripts/kernel_turns.py --trees OLD NEW NEW OLD [--out FILE]
-    python scripts/kernel_turns.py --only sf streams --trees OLD NEW NEW OLD
+    python scripts/kernel_turns.py --only sf streams clip --trees OLD NEW NEW OLD
 
---only sf and/or streams times K6's rows and/or K15's alone and builds only
-their inputs (about 1.5 minutes, then under half a minute a tree).
+--only sf, streams and/or clip times K6's rows, K15's and/or K18's and
+K19's alone and builds only their inputs (about 1.5 minutes, then under
+half a minute a tree).
 
 Each tree runs in a fresh process that imports that tree's
 shannon_tpu_torch and builds its kernels into that tree's build/ (a tree is
@@ -27,8 +28,19 @@ that solve_nodes_device calls, with this checkout's kernels), replayed in
 order, a replay a call of the row, with each call's job count
 ("sf_main_jobs"); K15 ("base_streams") on the ContigArrays each tree's K14
 makes of the corrected 1M-read spectrum's labels (the K14 row's inputs).
-Each K6 and K15 row has its device_us, idle_us, "<row>_peak_mib",
-"<row>_launch_us" and "<row>_sha" (equal in every tree).  K22 on a canonical
+K18 ("drop_contigs") and K19 ("clip_remap") on the arguments that one
+clip of that corrected spectrum at the default AssemblyConfig gives
+_drop_contigs and _device_clip_remap (captured by wrapping the two module
+functions while this checkout's clip_tips_graph runs, as chip_smoke.py's
+_clip_rows does; the node table's four fields and the maps are saved, the
+contig arrays' other fields, which neither reads, are left empty).  Each
+K6, K15, K18 and K19 row has its device_us, idle_us, "<row>_peak_mib",
+"<row>_launch_us", "<row>_launches" (the kernel library's launch counts
+of one call), "<row>_host_read_us" (the host's time a call in
+aten::_local_scalar_dense, the wait of its reads of the card, from a
+torch.profiler trace; with their number, "<row>_host_reads") and
+"<row>_sha" (a SHA-256 prefix of every output field and count, equal in
+every tree).  K22 on a canonical
 k = 24 table of 2^21 lanes holding 2^20 random real keys; K10 at
 chip_smoke.py's shape (12,582,912 lanes, 10,689,722 of them real random
 sorted keys, 3,653,479 of those kept at random); K2 on chip_smoke.py's
@@ -148,6 +160,45 @@ def _condense_inputs(spec, cfg) -> dict:
             "l_dist": l_dist, "k": k}
 
 
+def _clip_inputs(condense: dict, cfg) -> dict:
+    """K18's and K19's inputs (numpy): the arguments one clip of the
+    corrected spectrum (condense's k_key, k_count, k_n) at `cfg` gives
+    _drop_contigs and _device_clip_remap, recorded by wrapping both module
+    functions while clip_tips_graph runs on the card: the spectrum, the node
+    table's four fields, the doom flags, the remap's maps, n_new and
+    out_cap."""
+    from shannon_tpu_torch.ops import tipclip
+    from shannon_tpu_torch.ops.count import Spectrum
+
+    spec = Spectrum(key=condense["k_key"], count=condense["k_count"], n=condense["k_n"])
+    calls, drop, remap = {}, tipclip._drop_contigs, tipclip._device_clip_remap
+
+    def recorded(name, fn):
+        def wrapped(*args):
+            calls[name] = args
+            return fn(*args)
+        return wrapped
+
+    tipclip._drop_contigs = recorded("drop", drop)
+    tipclip._device_clip_remap = recorded("remap", remap)
+    try:
+        tipclip.clip_tips_graph(spec, cfg, not cfg.strand_specific)
+    finally:
+        tipclip._drop_contigs, tipclip._device_clip_remap = drop, remap
+    if set(calls) != {"drop", "remap"}:
+        raise RuntimeError(f"the clip made only {sorted(calls)} of the drop and the remap")
+    sp, ca, doomed = calls["drop"]
+    _ca, *maps, n_new, out_cap = calls["remap"]
+    names = ("new_cid", "off_shift", "hlane", "tlane", "klen", "csum", "rc", "out_e")
+    out = {"clip_key": sp.key, "clip_count": sp.count, "clip_n": sp.n, "clip_doomed": doomed,
+           "clip_n_nodes": ca.n_nodes, "clip_n_contigs": ca.n_contigs, "clip_n_new": n_new,
+           "clip_out_cap": out_cap,
+           **{f"clip_{f}": getattr(ca, f) for f in ("node_key", "node_count", "node_cid",
+                                                    "node_off")},
+           **{f"clip_{n}": m for n, m in zip(names, maps)}}
+    return {n: x.cpu().numpy() if hasattr(x, "cpu") else x for n, x in out.items()}
+
+
 def _sf_main_inputs(reads, cfg, dev) -> dict:
     """K6's main-path inputs (numpy): the buffers of every
     batched_greedy_packed call of one assemble of `reads` on the card,
@@ -179,7 +230,8 @@ def _sf_main_inputs(reads, cfg, dev) -> dict:
 
 
 def _search_inputs(reads) -> dict:
-    """K7's, K3's and K11-K15's inputs (numpy), built on the card."""
+    """K7's, K3's and K11-K15's, K18's and K19's inputs (numpy), built on
+    the card."""
     import torch
 
     from chip_smoke import BATCH_READS, KERNEL_K, KERNEL_PAD, _random_batch
@@ -206,10 +258,11 @@ def _search_inputs(reads) -> dict:
     r_query = extract_kmers_packed(words, lengths, KERNEL_K, True, KERNEL_PAD)[0]
     r_table = reduce_sorted(window_keys(dev, seed=1), None, 1 << 22)[0]
     t_idx, t_hit = lookup_sorted(ca.node_key, windows)
+    condense = _condense_inputs(spec, cfg)
     out = {"p_key": spec.key, "p_count": spec.count, "node_key": ca.node_key,
            "windows": windows, "r_table": r_table, "r_query": r_query, "t_idx": t_idx,
            "t_hit": t_hit, "t_valid": valid, "node_cid": ca.node_cid, "node_off": ca.node_off,
-           **_condense_inputs(spec, cfg)}
+           **condense, **_clip_inputs(condense, cfg)}
     out = {name: x.cpu().numpy() if torch.is_tensor(x) else x for name, x in out.items()}
     out["cut"] = auto_min_abundance(spec)
     out.update(_merge_inputs(reads, cfg, dev))
@@ -292,10 +345,12 @@ def _inputs(path: Path, only) -> None:
     if only is None or "sf" in only:
         focus.update(_sf_main_inputs(reads, cfg, dev))
     if only is not None:
-        if "streams" in only:
+        if "streams" in only or "clip" in only:
             condense = _condense_inputs(_counted_spectrum(reads, cfg, dev), cfg)
             focus.update({n: x.cpu().numpy() if torch.is_tensor(x) else x
                           for n, x in condense.items()})
+        if "clip" in only:
+            focus.update(_clip_inputs(condense, cfg))
         np.savez(path, **focus)
         return
 
@@ -410,13 +465,58 @@ def _digest(tensors) -> str:
     return h.hexdigest()[:16]
 
 
+def _tensors(out) -> list:
+    """A call's outputs as tensors: the fields of a dataclass (a Spectrum,
+    ContigArrays) or the items of a sequence, each count as a tensor too."""
+    import dataclasses
+
+    import torch
+
+    if dataclasses.is_dataclass(out):
+        out = [getattr(out, f.name) for f in dataclasses.fields(out)]
+    return [x if torch.is_tensor(x) else torch.tensor([x]) for x in out]
+
+
+def _host_reads(fn, calls: int = 20) -> tuple[float, float]:
+    """(host us a call in aten::_local_scalar_dense, reads a call): the
+    waits of fn's reads of the card, from a torch.profiler trace of `calls`
+    calls after a warm-up."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = n = 0
+    for evt in prof.key_averages():
+        if evt.key == "aten::_local_scalar_dense":
+            us += evt.cpu_time_total
+            n += evt.count
+    return us / calls, n / calls
+
+
+def _launches(fn) -> dict:
+    """The kernel library's launch counts of one call of fn."""
+    from shannon_tpu_torch import kernels
+
+    lib = kernels.library()
+    before = dict(lib.launches)
+    fn()
+    return {k: v - before[k] for k, v in lib.launches.items() if v != before[k]}
+
+
 def _focus_rows(d, dev, only) -> dict:
     """K6's rows ("sf_greedy": 4,096 random jobs; "sf_greedy_65536";
     "sf_main": every call the 1M-read single-end assembly made, replayed in
-    order, a replay a call of the row) and K15's ("base_streams", on the
-    ContigArrays that this tree's K14 makes of the saved labels): each
-    with ms, device_us, idle_us, MiB a call above its inputs and a SHA-256
-    prefix of its outputs; "<row>_launch_us" lists one call's launches."""
+    order, a replay a call of the row), K15's ("base_streams", on the
+    ContigArrays that this tree's K14 makes of the saved labels), K18's
+    ("drop_contigs") and K19's ("clip_remap", both on one clip's saved
+    arguments): each with ms, device_us, idle_us, MiB a call above its
+    inputs, its launches, its host reads and a SHA-256 prefix of its
+    outputs; "<row>_launch_us" lists one call's launches."""
     import torch
 
     from shannon_tpu_torch.ops.sparseflow import batched_greedy_packed
@@ -445,16 +545,48 @@ def _focus_rows(d, dev, only) -> dict:
             "cn_key", "cn_count")), int(d["cn_n"]), *(torch.from_numpy(d[x]).to(dev) for x in (
                 "prev_link", "l_ptr", "l_dist", "rec_lane", "first_p", "p_cnt")), k, True)
         fns["base_streams"] = (lambda: contig_base_streams(ca, k), 200)
+    if only is None or "clip" in only:
+        from shannon_tpu_torch.ops import tipclip
+        from shannon_tpu_torch.ops.condense import ContigArrays
+        from shannon_tpu_torch.ops.count import Spectrum
+
+        def on_card(name: str) -> torch.Tensor:
+            return torch.from_numpy(d[f"clip_{name}"]).to(dev)
+
+        clip_spec = Spectrum(key=on_card("key"), count=on_card("count"), n=int(d["clip_n"]))
+        empty = torch.empty(0, dtype=torch.int64, device=dev)
+        clip_ca = ContigArrays(
+            **{f: on_card(f) for f in ("node_key", "node_count", "node_cid", "node_off")},
+            klen=empty, abundance=empty.float(), count_sum=empty, head_lane=empty,
+            tail_lane=empty, out_edges=empty.view(4, 0), rc_pair=empty,
+            n_nodes=int(d["clip_n_nodes"]), n_contigs=int(d["clip_n_contigs"]))
+        doomed = on_card("doomed")
+        maps = [on_card(x) for x in ("new_cid", "off_shift", "hlane", "tlane", "klen", "csum",
+                                     "rc", "out_e")]
+        remap_args = (clip_ca, *maps, int(d["clip_n_new"]), int(d["clip_out_cap"]))
+        fns["drop_contigs"] = (lambda: tipclip._drop_contigs(clip_spec, clip_ca, doomed), 200)
+        fns["clip_remap"] = (lambda: tipclip._device_clip_remap(*remap_args), 200)
+        drop_n = tipclip._drop_contigs(clip_spec, clip_ca, doomed).n
+        remap_n = tipclip._device_clip_remap(*remap_args).n_nodes
     row = {f"{name}_ms": _median_ms(fn, reps) for name, (fn, reps) in fns.items()}
     if "sf_main" in fns:
         row["sf_main_jobs"] = jobs
         row["sf_main_ms_per_call"] = row["sf_main_ms"] / len(jobs)
     if "base_streams" in fns:
         row["base_streams_sizes"] = [ca.n_nodes, ca.n_contigs, int(ca.node_key.shape[0])]
+    if "clip_remap" in fns:
+        row["clip_sizes"] = {"C": int(d["clip_key"].shape[0]), "n": int(d["clip_n"]),
+                             "C2": int(d["clip_node_key"].shape[0]),
+                             "n_nodes": int(d["clip_n_nodes"]),
+                             "doomed": int(d["clip_doomed"].sum()),
+                             "dropped_to": drop_n, "kept_nodes": remap_n,
+                             "n_new": int(d["clip_n_new"]), "out_cap": int(d["clip_out_cap"])}
     for name, (fn, _reps) in fns.items():
-        row[f"{name}_sha"] = _digest(fn())
+        row[f"{name}_sha"] = _digest(_tensors(fn()))
         row[f"{name}_peak_mib"] = _peak_mib(fn)
         row[f"{name}_launch_us"] = _launch_us(fn)
+        row[f"{name}_launches"] = _launches(fn)
+        row[f"{name}_host_read_us"], row[f"{name}_host_reads"] = _host_reads(fn)
     # after the timings, so the traces cannot disturb them
     row["device_us"] = {name: _device_us(fn) for name, (fn, _reps) in fns.items()}
     row["idle_us"] = {name: row[f"{name}_ms"] * 1e3 - sum(row["device_us"][name].values())
@@ -722,8 +854,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--trees", nargs="+", required=True)
     ap.add_argument("--out", default=None)
-    ap.add_argument("--only", nargs="+", choices=("sf", "streams"), default=None,
-                    help="time only K6's rows (sf) and/or K15's (streams)")
+    ap.add_argument("--only", nargs="+", choices=("sf", "streams", "clip"), default=None,
+                    help="time only K6's rows (sf), K15's (streams) and/or K18's and K19's "
+                         "(clip)")
     ap.add_argument("--child", nargs=2, metavar=("TREE", "INPUTS"), help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child:

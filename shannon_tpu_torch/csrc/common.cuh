@@ -42,11 +42,12 @@ static __device__ __forceinline__ int64_t lower_bound(const int64_t* __restrict_
 // Binary search of `key` in the sorted table[0, table_len) (table_len >= 1):
 // the lower bound clamped to table_len - 1 goes to *idx, and the result says
 // whether that lane holds the key.  The kernels that search inside other
-// work use it: K14 (condense.cu), K18 (tipclip.cu), K21 (lookup_counts) and
-// K22 / K28 (through sibling_maxes_of).  K3 (lookup_sorted) and K7
-// (probe_lookup) walk the 16-ary index of search.cuh instead; every
-// searcher returns the same exact clamped lower bound, so all give the same
-// (idx, hit) for the same query.
+// work use it: K14 (condense.cu), K21 (lookup_counts) and K22 / K28
+// (through sibling_maxes_of).  K3 (lookup_sorted) and K7 (probe_lookup) walk
+// the 16-ary index of search.cuh instead, and K18 (drop_join_kernel) finds
+// the same lower bound of each sorted query by a merge join; every searcher
+// returns the same exact clamped lower bound, so all give the same (idx,
+// hit) for the same query.
 static __device__ __forceinline__ bool lower_bound_hit(
     const int64_t* __restrict__ table, int64_t table_len, int64_t key,
     int64_t* idx) {
@@ -136,8 +137,9 @@ static __device__ __forceinline__ int64_t warp_partition(int64_t lo, int64_t hi,
 }
 
 // a's lanes among the first d lanes of the merge of a[0, na) and b[0, nb),
-// ties to a.  One warp calls it together.  K17 (merge_runs_kernel) and K11
-// (node_merge_kernel) split their tiles with it.
+// ties to a.  One warp calls it together.  K17 (merge_runs_kernel), K18
+// (drop_join_kernel, through merge.cuh) and K11 (node_merge_kernel) split
+// their tiles with it.
 static __device__ __forceinline__ int64_t merge_split(const int64_t* __restrict__ a, int64_t na,
                                                       const int64_t* __restrict__ b, int64_t nb,
                                                       int64_t d) {

@@ -381,11 +381,7 @@ __global__ void __launch_bounds__(SCAN_THREADS)
   unsigned kept;
   unsigned r = block_exclusive_scan((unsigned)__popc(bits), s_warp, &kept);
   scan_publish_aggregate(status, tile, kept);
-  while (bits) {
-    const int j = __ffs(bits) - 1;
-    bits &= bits - 1;
-    s_lane[r++] = (uint16_t)(first + j);
-  }
+  scan_record_lanes(bits, first, r, s_lane);
   const int64_t prefix = (int64_t)scan_tile_prefix(status, tile, kept, &sh);
   for (unsigned q = threadIdx.x; q < kept; q += SCAN_THREADS) {
     const int64_t i = base + s_lane[q];

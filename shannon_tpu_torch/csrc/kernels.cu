@@ -17,6 +17,7 @@
 // key 2^63-1 sorts after every real key under signed comparison.
 
 #include "common.cuh"
+#include "merge.cuh"
 #include "scan.cuh"
 #include "search.cuh"
 
@@ -354,8 +355,9 @@ __global__ void __launch_bounds__(SEARCH_THREADS, 6)
 //    runs of a and b, keys and counts, coalesced into shared memory (one pad
 //    slot every 32, so the threads' merge heads fall on different banks),
 //    and each thread merges its SCAN_ITEMS lanes from a binary search of its
-//    own diagonal there.  Ties go to a, in the splits and in the merge alike;
-//    equal keys are summed, so any fixed rule gives the same table.
+//    own diagonal there (merge.cuh, shared with K18).  Ties go to a, in the
+//    splits and in the merge alike; equal keys are summed, so any fixed rule
+//    gives the same table.
 //  - Then K2's tile logic (reduce_runs_kernel): start flags and weights,
 //    the two block scans, the look-back, each start's slot and the weight
 //    before it recorded in shared memory, and the copy-out from there.  A
@@ -374,16 +376,13 @@ __global__ void __launch_bounds__(SEARCH_THREADS, 6)
 // bytes each, and write the capacity lanes of the merged table, 12 bytes
 // each.  No (Ca + Cb)-lane temporary, sort or scan array.
 // ---------------------------------------------------------------------------
-#define MERGE_SLOTS (SCAN_TILE + SCAN_TILE / 32)
 // The tile's keys and counts, then each start's weight before it and slot.
 #define MERGE_SMEM                                        \
   (MERGE_SLOTS * (sizeof(int64_t) + sizeof(unsigned)) + \
    SCAN_TILE * (sizeof(unsigned) + sizeof(uint16_t)))
 
-// The shared-memory slot of a tile's lane p: one pad slot every 32 lanes.
-static __device__ __forceinline__ int merge_slot(int p) { return p + (p >> 5); }
-
-// warp_partition and merge_split (the tiles' splits) are in common.cuh.
+// The tile helpers (real lengths, splits, the coalesced load and a thread's
+// split) are in merge.cuh, shared with K18.
 
 // Merges a thread's lanes [first, first + SCAN_ITEMS) of the tile (clipped
 // to L) from its split: ai of a's lanes before `first`, `prev` the merged
@@ -435,16 +434,9 @@ __global__ void __launch_bounds__(SCAN_THREADS, 3)
   __shared__ int64_t s_split[2];  // a's lanes before the tile's two diagonals
   __shared__ int64_t s_edge[2];   // the merged key before the tile, and after it
   unsigned long long* status = scratch + 1;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int64_t lowest = -PAD_KEY - 1;
 
-  if (warp < 2) {
-    const int64_t* key = warp == 0 ? a_key : b_key;
-    const int64_t n = warp_partition(0, warp == 0 ? Ca : Cb,
-                                     [&](int64_t i) { return key[i] != PAD_KEY; });
-    if (lane == 0) s_len[warp] = n;
-  }
-  __syncthreads();
+  merge_real_lengths(a_key, Ca, b_key, Cb, s_len);
   const int64_t na = s_len[0], nb = s_len[1], N = na + nb;
 
   for (;;) {
@@ -452,39 +444,11 @@ __global__ void __launch_bounds__(SCAN_THREADS, 3)
     const int64_t d0 = (int64_t)tile * SCAN_TILE;
     if (d0 >= N) break;
     const int64_t d1 = d0 + SCAN_TILE < N ? d0 + SCAN_TILE : N;
-    if (warp < 2) {
-      const int64_t i = merge_split(a_key, na, b_key, nb, warp == 0 ? d0 : d1);
-      if (lane == 0) s_split[warp] = i;
-    }
-    __syncthreads();
+    merge_tile_splits(a_key, na, b_key, nb, d0, d1, s_split);
     const int64_t a0 = s_split[0], a1 = s_split[1], b0 = d0 - a0, b1 = d1 - a1;
     const int la = (int)(a1 - a0), L = (int)(d1 - d0), lb = L - la;
 
-    // the tile's runs of a and b into lanes [0, la) and [la, L), coalesced
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      int64_t kv[SCAN_ITEMS / 2];
-      unsigned cv[SCAN_ITEMS / 2];
-#pragma unroll
-      for (int q = 0; q < SCAN_ITEMS / 2; ++q) {
-        const int p = threadIdx.x + (h * SCAN_ITEMS / 2 + q) * SCAN_THREADS;
-        if (p < la) {
-          kv[q] = a_key[a0 + p];
-          cv[q] = (unsigned)a_count[a0 + p];
-        } else if (p < L) {
-          kv[q] = b_key[b0 + (p - la)];
-          cv[q] = (unsigned)b_count[b0 + (p - la)];
-        }
-      }
-#pragma unroll
-      for (int q = 0; q < SCAN_ITEMS / 2; ++q) {
-        const int p = threadIdx.x + (h * SCAN_ITEMS / 2 + q) * SCAN_THREADS;
-        if (p < L) {
-          s_key[merge_slot(p)] = kv[q];
-          s_count[merge_slot(p)] = cv[q];
-        }
-      }
-    }
+    merge_load_tile<true>(a_key, a_count, a0, b_key, b_count, b0, la, L, s_key, s_count);
     if (threadIdx.x == SCAN_THREADS - 1) {
       int64_t before = PAD_KEY;  // before lane 0, as in K2: a real lane 0 starts a run
       if (d0 > 0) {
@@ -505,17 +469,8 @@ __global__ void __launch_bounds__(SCAN_THREADS, 3)
     int ai = 0;
     int64_t prev = s_edge[0];
     if (first < L) {
-      int lo = first > lb ? first - lb : 0, hi = first < la ? first : la;
-      while (lo < hi) {
-        const int mid = (lo + hi) >> 1;
-        if (s_key[merge_slot(mid)] <= s_key[merge_slot(la + first - 1 - mid)]) {
-          lo = mid + 1;
-        } else {
-          hi = mid;
-        }
-      }
-      ai = lo;
-      const int bi = first - lo;
+      ai = merge_thread_split(s_key, la, lb, first);
+      const int bi = first - ai;
       if (first > 0) {
         const int64_t x = ai > 0 ? s_key[merge_slot(ai - 1)] : lowest;
         const int64_t y = bi > 0 ? s_key[merge_slot(la + bi - 1)] : lowest;

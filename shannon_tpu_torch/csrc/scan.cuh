@@ -1,8 +1,9 @@
 // Single-pass prefix scan over tiles with decoupled look-back (Merrill and
 // Garland, "Single-pass Parallel Prefix Scan with Decoupled Look-back",
-// NVIDIA, 2016).  K2 (reduce_sorted, kernels.cu) and K10 (compact_keep,
-// correction.cu) count their 0/1 flags with it in the same pass that reads
-// them: no scan array goes to device memory and no separate scan launch runs.
+// NVIDIA, 2016).  K2 (reduce_sorted, kernels.cu), K10 (compact_keep,
+// correction.cu) and the kernels that followed them (K5, K14, K15, K17, K18,
+// K19) count their 0/1 flags with it in the same pass that reads them: no
+// scan array goes to device memory and no separate scan launch runs.
 //
 // Shape.  A block of SCAN_THREADS threads takes one tile of SCAN_TILE lanes,
 // SCAN_ITEMS consecutive lanes a thread (a blocked layout: a thread counts its
@@ -166,6 +167,19 @@ static __device__ __forceinline__ unsigned long long scan_tile_prefix(
   }
   __syncthreads();
   return sh->prefix;
+}
+
+// A compaction's kept lanes: the tile offsets first + j of the set bits j of
+// `bits`, in order, into s_lane from slot r on (r is the thread's exclusive
+// count in the tile).  The copy-out after scan_tile_prefix reads them: kept
+// lane q of the tile goes to slot prefix + q.  K10 and K18 share it.
+static __device__ __forceinline__ void scan_record_lanes(unsigned bits, int first, unsigned r,
+                                                         uint16_t* s_lane) {
+  while (bits) {
+    const int j = __ffs(bits) - 1;
+    bits &= bits - 1;
+    s_lane[r++] = (uint16_t)(first + j);
+  }
 }
 
 // The tail of a compaction, launched after the scanning kernel in stream

@@ -74,9 +74,9 @@ _ARGTYPES = {
     "shannon_base_streams": [_P, _P, _P, _I64, _I64, _P, _P, _I64, _I, _P, _I64, _P, _P, _P, _P],
     "shannon_count_histogram": [_P, _P, _I64, _I64, _P, _P],
     "shannon_merge_tables": [_P, _P, _I64, _P, _P, _I64, _I64, _P, _I64, _P, _P, _P],
-    "shannon_drop_keep": [_P, _I64, _P, _P, _I64, _P, _P, _P],
-    "shannon_remap_keep": [_P, _I64, _P, _I64, _P, _P],
-    "shannon_clip_remap": [*[_P] * 6, _I64, _P, _P, _I64, _I64, *[_P] * 8, _I64, *[_P] * 4],
+    "shannon_drop_contigs": [_P, _P, _I64, _P, _P, _I64, _P, _P, _I64, _P, _P, _P],
+    "shannon_clip_remap": [*[_P] * 4, _I64, _P, _P, _I64, _I64, _P, _I64, *[_P] * 8, _I64,
+                           *[_P] * 4],
     "shannon_abundance_cut": [_P, _P, _I64, _I, _P, _P, _P, _P],
     "shannon_lookup_counts": [_P, _P, _I64, _P, _I64, _P, _P],
     "shannon_sibling_maxes": [_P, _P, _I64, _I, _I, _P, _P, _P],
@@ -90,7 +90,9 @@ _ARGTYPES = {
 }
 # Entry points whose scratch layout lives in their source alone: for each,
 # `<entry>_words(n)` gives the int64 words of scratch it takes at size n.
-_SCRATCH_SIZED = ("shannon_compact_rows", "shannon_label_rounds", "shannon_base_streams")
+_SCRATCH_SIZED = (
+    "shannon_compact_rows", "shannon_label_rounds", "shannon_base_streams", "shannon_clip_remap",
+)
 
 
 def _sources() -> list[Path]:
@@ -227,7 +229,7 @@ _SCAN_VALUE_MASK = (1 << 62) - 1
 
 def scan_scratch(lanes: int, device) -> torch.Tensor:
     """Zeroed scratch of the single-pass scan over `lanes` lanes (K2, K10,
-    K14, K17):
+    K14, K17, K18):
     a ticket word and one status word a tile (csrc/scan.cuh)."""
     return torch.zeros(-(-lanes // SCAN_TILE) + 1, dtype=torch.int64, device=device)
 

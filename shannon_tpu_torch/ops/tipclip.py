@@ -5,8 +5,8 @@ Counterpart of ``shannon_tpu/ops/tipclip.py``.  The k-mer-scale work
 (condensation, the drop of doomed k-mers, the renumbering of the node
 table) runs on the tensors' device; the clip-and-merge fixpoint runs on
 the host at contig granularity.  On CUDA tensors the drop launches kernel
-K18 and then K10, the renumbering kernel K19 (``csrc/tipclip.cu``); on
-CPU tensors their ``_plain`` versions run.  The host rounds (``ClipState``,
+K18, the renumbering kernel K19 (``csrc/tipclip.cu``); on CPU tensors their
+``_plain`` versions run.  The host rounds (``ClipState``,
 ``_adjacency_lists``, ``_doom_round1``, ``_host_clip_rounds``) and the host
 half of ``_remap_clipped`` are copied from the reference module, which
 imports JAX and so cannot be imported here.
@@ -414,31 +414,39 @@ def _drop_contigs_plain(spec: Spectrum, ca: ContigArrays, doomed_c: torch.Tensor
 
 def _drop_contigs_cuda(spec: Spectrum, ca: ContigArrays, doomed_c: torch.Tensor) -> Spectrum:
     kernels.check_cuda("key", spec.key, torch.int64, 1)
+    kernels.check_cuda("count", spec.count, torch.int32, 1)
     kernels.check_cuda("node_key", ca.node_key, torch.int64, 1)
     kernels.check_cuda("node_cid", ca.node_cid, torch.int64, 1)
     kernels.check_cuda("doomed_c", doomed_c, torch.bool, 1)
     C, C2 = spec.capacity, ca.node_key.shape[0]
     if C2 == 0:
         raise ValueError("lookup in an empty node table")
+    if spec.count.shape[0] != C:
+        raise ValueError("key and count disagree on length")
     if ca.node_cid.shape[0] != C2 or doomed_c.shape[0] != C2:
         raise ValueError(f"node_cid and doomed_c must have the node table's {C2} lanes")
+    if C >= 1 << 31:
+        raise ValueError(f"{C} lanes exceed the 2^31 that K18 takes (the reference's int32 n)")
     dev = spec.key.device
-    keep = torch.empty(C, dtype=torch.bool, device=dev)
+    key = torch.empty_like(spec.key)
+    count = torch.empty_like(spec.count)
+    scratch = kernels.scan_scratch(C + C2, dev)
     lib = kernels.library()
     lib.call(
-        "shannon_drop_keep", dev,
-        kernels.ptr(spec.key), C, kernels.ptr(ca.node_key), kernels.ptr(ca.node_cid), C2,
-        kernels.ptr(doomed_c), kernels.ptr(keep),
+        "shannon_drop_contigs", dev,
+        kernels.ptr(spec.key), kernels.ptr(spec.count), C, kernels.ptr(ca.node_key),
+        kernels.ptr(ca.node_cid), C2, kernels.ptr(doomed_c), kernels.ptr(scratch),
+        scratch.shape[0], kernels.ptr(key), kernels.ptr(count),
     )
     lib.count("drop_contigs")
-    return compact(spec, keep)
+    return Spectrum(key=key, count=count, n=kernels.scan_total(scratch))
 
 
 def _drop_contigs(spec: Spectrum, ca: ContigArrays, doomed_c: torch.Tensor) -> Spectrum:
     """Remove the k-mers of doomed contigs from the spectrum
     (ops/tipclip.py:407 _drop_contigs); doomed_c has one flag per node
-    lane.  Kernel K18 (lookup and doom test fused) and K10 on CUDA, the
-    plain version on CPU."""
+    lane.  Kernel K18 on CUDA (one merge join of the sorted spectrum with
+    the node table that compacts as it joins), the plain version on CPU."""
     if spec.key.is_cuda:
         return _drop_contigs_cuda(spec, ca, doomed_c)
     return _drop_contigs_plain(spec, ca, doomed_c)
@@ -508,7 +516,7 @@ def _device_clip_remap_cuda(
     if C2 == 0 or npad == 0:
         raise ValueError("remap of an empty node table or contig map")
     if C2 >= 1 << 31:
-        raise ValueError(f"{C2} node lanes exceed the int32 keep scan")
+        raise ValueError(f"{C2} node lanes exceed the 2^31 that K19 takes")
     if any(t.shape[0] != C2 for t in (ca.node_count, ca.node_cid, ca.node_off)):
         raise ValueError("the node table's fields disagree on length")
     if off_shift_d.shape[0] != npad:
@@ -518,13 +526,9 @@ def _device_clip_remap_cuda(
     if out_cap < 0:
         raise ValueError(f"out_cap must be >= 0, got {out_cap}")
     dev = ca.node_key.device
-    keep = torch.empty(C2, dtype=torch.bool, device=dev)
     lib = kernels.library()
-    lib.call(
-        "shannon_remap_keep", dev,
-        kernels.ptr(ca.node_cid), C2, kernels.ptr(new_cid_d), npad, kernels.ptr(keep),
-    )
-    scan = torch.cumsum(keep, 0, dtype=torch.int32)
+    scratch = torch.empty(lib.scratch_words("shannon_clip_remap", C2), dtype=torch.int64,
+                          device=dev)
     node_key = torch.empty(out_cap, dtype=torch.int64, device=dev)
     node_count = torch.empty(out_cap, dtype=torch.int32, device=dev)
     node_cid = torch.empty(out_cap, dtype=torch.int64, device=dev)
@@ -535,19 +539,18 @@ def _device_clip_remap_cuda(
     lib.call(
         "shannon_clip_remap", dev,
         kernels.ptr(ca.node_key), kernels.ptr(ca.node_count), kernels.ptr(ca.node_cid),
-        kernels.ptr(ca.node_off), kernels.ptr(keep), kernels.ptr(scan), C2,
-        kernels.ptr(new_cid_d), kernels.ptr(off_shift_d), npad, out_cap,
-        kernels.ptr(node_key), kernels.ptr(node_count), kernels.ptr(node_cid),
-        kernels.ptr(node_off), kernels.ptr(hlane_orig), kernels.ptr(tlane_orig),
-        kernels.ptr(new_klen), kernels.ptr(new_csum), M, kernels.ptr(head), kernels.ptr(tail),
-        kernels.ptr(abundance),
+        kernels.ptr(ca.node_off), C2, kernels.ptr(new_cid_d), kernels.ptr(off_shift_d), npad,
+        out_cap, kernels.ptr(scratch), scratch.shape[0], kernels.ptr(node_key),
+        kernels.ptr(node_count), kernels.ptr(node_cid), kernels.ptr(node_off),
+        kernels.ptr(hlane_orig), kernels.ptr(tlane_orig), kernels.ptr(new_klen),
+        kernels.ptr(new_csum), M, kernels.ptr(head), kernels.ptr(tail), kernels.ptr(abundance),
     )
     lib.count("clip_remap")
     return ContigArrays(
         node_key=node_key, node_count=node_count, node_cid=node_cid, node_off=node_off,
         klen=new_klen, abundance=abundance, count_sum=new_csum, head_lane=head,
-        tail_lane=tail, out_edges=out_e_new, rc_pair=rc_new, n_nodes=int(scan[-1]),
-        n_contigs=n_new,
+        tail_lane=tail, out_edges=out_e_new, rc_pair=rc_new,
+        n_nodes=kernels.scan_total(scratch), n_contigs=n_new,  # the one host read
     )
 
 
@@ -556,7 +559,10 @@ def _device_clip_remap(ca: ContigArrays, *args) -> ContigArrays:
     doomed nodes and front-compact the (still sorted) table to out_cap
     lanes (ops/tipclip.py:423 _device_clip_remap); the arguments are those
     of _device_clip_remap_plain.  n_nodes counts every kept node, even past
-    out_cap.  Kernel K19 on CUDA, the plain version on CPU."""
+    out_cap.  Kernel K19 on CUDA (one look-back pass over the node lanes that
+    leaves a rank structure for the new contigs' head and tail lanes, then
+    the tail fill and the contigs, one host read), the plain version on
+    CPU."""
     if ca.node_key.is_cuda:
         return _device_clip_remap_cuda(ca, *args)
     return _device_clip_remap_plain(ca, *args)
@@ -673,9 +679,11 @@ def clip_tips_graph(
         )
     if not st.doomed.any():
         return spec, ca
-    doomed = torch.zeros(ca.node_key.shape[0], dtype=torch.bool)
-    doomed[:n] = torch.from_numpy(st.doomed)
-    out = _drop_contigs(spec, ca, doomed.to(spec.device))
+    # one flag a node lane; only the first n (one a contig) can be set, so
+    # only those cross to the device
+    doomed = torch.zeros(ca.node_key.shape[0], dtype=torch.bool, device=spec.device)
+    doomed[:n] = torch.from_numpy(st.doomed).to(spec.device)
+    out = _drop_contigs(spec, ca, doomed)
     t4 = time.perf_counter()
     if notes is not None:
         notes["tc_drop_s"] = round(t4 - t3, 3)

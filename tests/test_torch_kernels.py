@@ -1904,11 +1904,11 @@ def test_merge_kernel_matches_plain(cuda, case):
     _equal(got.count.cpu(), want.count, "count")
 
 
-def _clip_inputs(cuda, k: int = 24):
-    """A counted spectrum on the card, its contig arrays (K11-K15) and one
+def _clip_inputs(dev, k: int = 24):
+    """A counted spectrum on `dev`, its contig arrays (K11-K15) and one
     clip's host state (the port's host rounds)."""
     cfg = AssemblyConfig(k=k)
-    spec = _to(_spectrum(k), cuda)
+    spec = _to(_spectrum(k), dev)
     ca = tcd.build_contig_arrays(spec, k)
     n = ca.n_contigs
     st = ttc._host_clip_rounds(
@@ -1918,30 +1918,176 @@ def _clip_inputs(cuda, k: int = 24):
     return spec, ca, st
 
 
-@pytest.mark.parametrize("doom", ["clip", "none", "all", "random"])
-def test_drop_contigs_kernel_matches_plain(cuda, doom):
-    """K18 (then K10) against its plain version on the same CUDA inputs."""
-    spec, ca, st = _clip_inputs(cuda)
+def _synthetic_contigs(node_key: np.ndarray, node_cid: np.ndarray, rng) -> tcd.ContigArrays:
+    """Contig arrays around a node table (node_key sorted, PAD past its real
+    lanes) and its contig ids; counts and offsets random, every per-contig
+    field a placeholder (the drop and the remap read only the node fields)."""
+    C2 = node_key.shape[0]
+    z = torch.zeros(C2, dtype=torch.int64)
+    return tcd.ContigArrays(
+        node_key=torch.from_numpy(node_key), node_cid=torch.from_numpy(node_cid),
+        node_count=torch.from_numpy(rng.integers(1, 1000, C2).astype(np.int32)),
+        node_off=torch.from_numpy(rng.integers(-1, 300, C2)),
+        klen=z, abundance=z.float(), count_sum=z, head_lane=z, tail_lane=z,
+        out_edges=torch.zeros((4, C2), dtype=torch.int64), rc_pair=z,
+        n_nodes=int((node_key != PAD).sum()), n_contigs=0,
+    )
+
+
+def _sorted_table(keys: np.ndarray, C: int) -> np.ndarray:
+    out = np.full(C, PAD, np.int64)
+    keys = np.unique(keys)
+    out[: keys.shape[0]] = keys
+    return out
+
+
+# K18's inputs: the clip's own and its doom flags none, all and random; the
+# clip's spectrum with keys absent from the node table (kept), all PAD (n =
+# 0), with contig ids past C2 (the clamp to C2 - 1); synthetic tables with n
+# real k-mers at 64 and 4,096 (the small and the kernel's tile) and one
+# either side, 4,096 real nodes, so n + nodes also meets a tile edge; and a
+# spectrum whose keys sit in the high key range, above a long run of nodes.
+DROP_CASES = ["clip", "none", "all", "random", "absent", "all_pad",
+              "cid_past_c2", "n_63", "n_64", "n_65", "n_4095", "n_4096", "n_4097",
+              "high_keys"]
+
+
+def drop_case(name: str) -> tuple:
+    """(spectrum, contig arrays, doom flags over node lanes) of one K18
+    case, on the CPU."""
+    rng = np.random.default_rng(sum(map(ord, name)))
+    if name.startswith("n_") or name == "high_keys":
+        C2, n_nodes, n_contigs = 8192, 4096, 700
+        if name == "high_keys":
+            low = rng.choice(1 << 40, size=n_nodes - 600, replace=False)
+            high = (1 << 47) + rng.choice(1 << 40, size=600, replace=False)
+            nodes = np.concatenate([low, high])
+            spec_keys = np.concatenate([rng.choice(high, 300, replace=False),
+                                        (1 << 47) + rng.choice(1 << 40, 200)])
+            C = 1024
+        else:
+            nodes = rng.choice(1 << 46, size=n_nodes, replace=False)
+            n = int(name[2:])
+            hits = rng.choice(nodes, size=min(3 * n // 4, n_nodes), replace=False)
+            absent = rng.choice(1 << 46, size=4 * n, replace=False)
+            absent = rng.permutation(np.setdiff1d(absent, nodes))
+            spec_keys = np.concatenate([hits, absent[: n - hits.shape[0]]])
+            assert np.unique(spec_keys).shape[0] == n
+            C = 8192
+        node_key = _sorted_table(nodes, C2)
+        node_cid = np.where(node_key != PAD, rng.integers(-1, n_contigs, C2), -1)
+        ca = _synthetic_contigs(node_key, node_cid, rng)
+        key = _sorted_table(spec_keys, C)
+        n = int((key != PAD).sum())
+        spec = Spectrum(key=torch.from_numpy(key), n=n,
+                        count=torch.from_numpy(np.where(key != PAD, rng.integers(1, 99, C), 0)
+                                               .astype(np.int32)))
+        doomed = np.zeros(C2, bool)
+        doomed[:n_contigs] = rng.random(n_contigs) < 0.4
+        return spec, ca, torch.from_numpy(doomed)
+    spec, ca, st = _clip_inputs("cpu")
     n, C2 = ca.n_contigs, ca.node_key.shape[0]
+    assert st.doomed.any()
     doomed = torch.zeros(C2, dtype=torch.bool)
-    if doom == "clip":
-        assert st.doomed.any()
-        doomed[:n] = torch.from_numpy(st.doomed)
-    elif doom == "all":
+    doomed[:n] = torch.from_numpy(st.doomed)
+    if name == "none":
+        doomed[:] = False
+    elif name == "all":
         doomed[:] = True
-    elif doom == "random":
+    elif name == "random":
         doomed[:n] = torch.from_numpy(np.random.default_rng(4).random(n) < 0.3)
-    doomed = doomed.to(cuda)
+    elif name == "absent":
+        real = spec.key[: spec.n].numpy()
+        extra = np.setdiff1d(rng.choice(1 << 48, 600, replace=False), ca.node_key.numpy())
+        key = _sorted_table(np.concatenate([real, extra]), spec.capacity)
+        count = np.zeros(spec.capacity, np.int32)
+        count[np.searchsorted(key, real)] = spec.count[: spec.n].numpy()
+        fresh = ~np.isin(key, real) & (key != PAD)
+        count[fresh] = rng.integers(1, 99, int(fresh.sum()))
+        spec = Spectrum(key=torch.from_numpy(key), count=torch.from_numpy(count),
+                        n=int((key != PAD).sum()))
+    elif name == "all_pad":
+        spec = Spectrum(key=torch.full_like(spec.key, PAD), count=torch.zeros_like(spec.count),
+                        n=0)
+    elif name == "cid_past_c2":
+        cid = ca.node_cid.clone()
+        cid[: ca.n_nodes : 3] = C2 + torch.arange(0, ca.n_nodes, 3)
+        ca = tcd.ContigArrays(**{**ca.__dict__, "node_cid": cid})
+        doomed[C2 - 1] = True
+    return spec, ca, doomed
+
+
+def _contigs_to(ca: tcd.ContigArrays, dev) -> tcd.ContigArrays:
+    return tcd.ContigArrays(**{f: (v.to(dev) if torch.is_tensor(v) else v)
+                               for f, v in ca.__dict__.items()})
+
+
+def _one_host_read(fn):
+    """fn's result, and the messages of the synchronizing calls it made
+    (the card's sync debug mode warns on each), after one call to warm the
+    caching allocator and the kernel library."""
+    import warnings
+
+    fn()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, [str(w.message) for w in seen
+                 if "called a synchronizing CUDA operation" in str(w.message)]
+
+
+def _no_cumsum(monkeypatch, fn):
+    """fn's result; fails if fn called torch.cumsum."""
+    calls, real = [], torch.cumsum
+
+    def counted(*a, **kw):
+        calls.append(1)
+        return real(*a, **kw)
+
+    monkeypatch.setattr(torch, "cumsum", counted)
+    try:
+        out = fn()
+    finally:
+        monkeypatch.undo()
+    assert not calls, "torch.cumsum ran"
+    return out
+
+
+@pytest.mark.parametrize("case", DROP_CASES)
+def test_drop_contigs_kernel_matches_plain(cuda, case, monkeypatch):
+    """K18 against its plain version on the same CUDA inputs: key, count
+    and n equal, one launch count, no K10, no torch.cumsum and one host read
+    (the n it returns)."""
+    spec, ca, doomed = drop_case(case)
+    spec, ca, doomed = _to(spec, cuda), _contigs_to(ca, cuda), doomed.to(cuda)
     lib = kernels.library()
-    before = lib.launches["drop_contigs"]
-    got = ttc._drop_contigs(spec, ca, doomed)
-    assert lib.launches["drop_contigs"] == before + 1
+    before = dict(lib.launches)
+    got, reads = _one_host_read(
+        lambda: _no_cumsum(monkeypatch, lambda: ttc._drop_contigs(spec, ca, doomed)))
+    assert lib.launches["drop_contigs"] == before["drop_contigs"] + 2  # the warm-up's and ours
+    assert lib.launches["compact_keep"] == before["compact_keep"]
+    assert len(reads) == 1, reads
     want = ttc._drop_contigs_plain(spec, ca, doomed)
     torch.cuda.synchronize()
     assert got.n == want.n
     _equal(got.key, want.key, "key")
     _equal(got.count, want.count, "count")
-    assert (want.n == 0) == (doom == "all") and (want.n == spec.n) == (doom == "none")
+    check_drop_count(case, spec, want)
+
+
+def check_drop_count(case: str, spec: Spectrum, want: Spectrum) -> None:
+    """What a K18 case's name promises of its result: the clip and random
+    doom flags drop some real k-mers but not all, none drops none, all and
+    an all-PAD spectrum leave nothing."""
+    if case in ("clip", "none", "all", "random"):
+        assert (want.n == 0) == (case == "all") and (want.n == spec.n) == (case == "none")
+    if case == "all_pad":
+        assert want.n == 0
 
 
 def remap_args_of_clip(ca, st, klen, n2: int) -> tuple:
@@ -1957,11 +2103,11 @@ def remap_args_of_clip(ca, st, klen, n2: int) -> tuple:
     return captured[0]
 
 
-def _remap_args(cuda, doom: str):
+def _remap_args(dev, doom: str):
     """_device_clip_remap's arguments: those one clip gives it (captured
     from _remap_clipped), or no contig doomed (every map the identity), or
     every contig doomed."""
-    spec, ca, st = _clip_inputs(cuda)
+    spec, ca, st = _clip_inputs(dev)
     if doom == "clip":
         return remap_args_of_clip(ca, st, ca.klen[: ca.n_contigs].cpu().numpy(), spec.n)
     n, C2 = ca.n_contigs, ca.node_key.shape[0]
@@ -1969,27 +2115,68 @@ def _remap_args(cuda, doom: str):
     new_cid = torch.full((npad,), -1, dtype=torch.int64)
     if doom == "none":
         new_cid[:n] = torch.arange(n)
-    return (ca, new_cid.to(cuda), torch.zeros(npad, dtype=torch.int64, device=cuda),
+    return (ca, new_cid.to(dev), torch.zeros(npad, dtype=torch.int64, device=dev),
             ca.head_lane, ca.tail_lane, ca.klen, ca.count_sum, ca.rc_pair, ca.out_edges, n, C2)
 
 
-@pytest.mark.parametrize("doom", ["clip", "none", "all"])
-@pytest.mark.parametrize("cap", ["given", "below_kept", "above_table"])
-def test_clip_remap_kernel_matches_plain(cuda, doom, cap):
-    """K19 against its plain version on the same CUDA inputs: every field
-    over its full capacity, the float32 abundances bit for bit, n_nodes
-    counting every kept node even past out_cap."""
-    ca, *maps, n_new, out_cap = _remap_args(cuda, doom)
-    C2 = ca.node_key.shape[0]
-    if cap == "below_kept":
-        out_cap = max(int((ca.node_cid >= 0).sum()) // 3, 1)
-    elif cap == "above_table":
-        out_cap = C2 + 1000
-    args = (ca, *maps, n_new, out_cap)
+# K19's synthetic node tables: C2 at the 32-lane word and the 64- and
+# 4,096-lane tiles, and one either side.
+REMAP_SIZES = [31, 32, 33, 63, 64, 65, 4095, 4096, 4097]
+
+
+def remap_case(C2: int, cap: str) -> tuple:
+    """_device_clip_remap's arguments on a random node table of C2 lanes,
+    on the CPU: contig ids -1 and past the map's length among real ones,
+    about half the contigs dropped, and head and tail lanes at -1, at
+    dropped lanes, at C2 - 1, past C2, past out_cap and at kept lanes;
+    out_cap the given one (half the table), below the kept lanes or above
+    the table."""
+    rng = np.random.default_rng(C2)
+    n_real = C2 - C2 // 5
+    node_key = _sorted_table(rng.choice(1 << 46, size=n_real, replace=False), C2)
+    n_contigs = max(C2 // 6, 2)
+    npad = n_contigs + 3
+    node_cid = rng.integers(-1, n_contigs, C2)
+    node_cid[rng.random(C2) < 0.05] = npad + 7  # clamped to the map's last entry
+    node_cid[n_real:] = -1
+    ca = _synthetic_contigs(node_key, node_cid, rng)
+    M = max(n_contigs // 2, 16)
+    new_cid = np.where(rng.random(npad) < 0.5, rng.integers(0, M, npad), -1)
+    off_shift = rng.integers(0, 50, npad)
+    kept = np.nonzero((node_cid >= 0) & (new_cid[np.clip(node_cid, 0, npad - 1)] >= 0))[0]
+    dropped = np.setdiff1d(np.arange(C2), kept)
+    n_keep = kept.shape[0]
+    out_cap = {"given": C2 // 2, "below_kept": max(n_keep // 3, 1), "above_table": C2 + 100}[cap]
+    picks = [np.full(M, -1), rng.integers(0, C2, M)]
+    if dropped.size:
+        picks.append(rng.choice(dropped, M))
+    if kept.size:
+        picks.append(rng.choice(kept, M))
+        picks.append(np.full(M, kept[-1]))
+    picks += [np.full(M, C2 - 1), np.full(M, C2 + 9)]
+    choice = rng.integers(0, len(picks), (2, M))
+    hl, tl = (np.choose(c, picks) for c in choice)
+    hl[: len(picks)] = [x[0] for x in picks]  # every kind of lane at least once
+    tl[: len(picks)] = [x[-1] for x in picks[::-1]]
+    klen = rng.integers(0, 40, M)
+    csum = rng.integers(0, 1 << 40, M)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a, dtype=np.int64))  # noqa: E731
+    return (ca, t(new_cid), t(off_shift), t(hl), t(tl), t(klen), t(csum), t(np.arange(M)),
+            torch.full((4, M), -1, dtype=torch.int64), M, out_cap)
+
+
+def _remap_both(args, monkeypatch):
+    """K19 and its plain version on the same CUDA arguments: every field
+    equal over its full capacity, the float32 abundances bit for bit,
+    n_nodes (every kept node, even past out_cap) and n_contigs; one launch
+    count, no torch.cumsum and one host read (n_nodes).  Returns the plain
+    result."""
     lib = kernels.library()
     before = lib.launches["clip_remap"]
-    got = ttc._device_clip_remap(*args)
-    assert lib.launches["clip_remap"] == before + 1
+    got, reads = _one_host_read(
+        lambda: _no_cumsum(monkeypatch, lambda: ttc._device_clip_remap(*args)))
+    assert lib.launches["clip_remap"] == before + 2  # the warm-up's and ours
+    assert len(reads) == 1, reads
     want = ttc._device_clip_remap_plain(*args)
     torch.cuda.synchronize()
     for f in ("node_key", "node_count", "node_cid", "node_off", "klen", "count_sum",
@@ -1997,12 +2184,37 @@ def test_clip_remap_kernel_matches_plain(cuda, doom, cap):
         _equal(getattr(got, f), getattr(want, f), f)
     _equal(got.abundance.view(torch.int32), want.abundance.view(torch.int32), "abundance")
     assert (got.n_nodes, got.n_contigs) == (want.n_nodes, want.n_contigs)
+    return want
+
+
+@pytest.mark.parametrize("doom", ["clip", "none", "all"])
+@pytest.mark.parametrize("cap", ["given", "below_kept", "above_table"])
+def test_clip_remap_kernel_matches_plain(cuda, doom, cap, monkeypatch):
+    """K19 against its plain version on the same CUDA inputs (_remap_both)."""
+    ca, *maps, n_new, out_cap = _remap_args(cuda, doom)
+    C2 = ca.node_key.shape[0]
+    if cap == "below_kept":
+        out_cap = max(int((ca.node_cid >= 0).sum()) // 3, 1)
+    elif cap == "above_table":
+        out_cap = C2 + 1000
+    want = _remap_both((ca, *maps, n_new, out_cap), monkeypatch)
     if doom == "all":
         assert want.n_nodes == 0
     if doom == "none":
         assert want.n_nodes == ca.n_nodes
         if cap == "given":
             _equal(want.node_cid, ca.node_cid, "identity remap")
+
+
+@pytest.mark.parametrize("C2", REMAP_SIZES)
+@pytest.mark.parametrize("cap", ["given", "below_kept", "above_table"])
+def test_clip_remap_kernel_on_edge_tables(cuda, C2, cap, monkeypatch):
+    """K19 against its plain version on remap_case's tables (_remap_both)."""
+    ca, *maps = remap_case(C2, cap)
+    args = (_contigs_to(ca, cuda), *(x.to(cuda) if torch.is_tensor(x) else x for x in maps))
+    want = _remap_both(args, monkeypatch)
+    if cap != "given":
+        assert (want.n_nodes > args[-1]) == (cap == "below_kept")
 
 
 def test_clip_and_count_wrappers_validate_inputs(cuda):
