@@ -26,8 +26,8 @@ Phases; any failure exits nonzero:
      each round's pruned lanes and its host reads a call) and K10
      (compaction of the final keep mask) on the counted, shrunk spectrum of
      the whole single-end scale dataset at the default AssemblyConfig, with
-     K16 (count histogram of the auto cut; its global variant at max_count
-     65,536 printed beside it), K20 (the abundance cut, its cut mode) and
+     K16 (count histogram of the auto cut; at max_count 65,536 printed
+     beside it), K20 (the abundance cut, its cut mode) and
      K28 (neighbor counts: 8 extension and 8 sibling probes a lane, k = 24,
      canonical) on that spectrum and K17 (count merge) on the first and
      the largest (the last) merge its count made;
@@ -61,8 +61,9 @@ Phases; any failure exits nonzero:
      timed (CUDA events, median of 10), held equal to the JAX package's
      figures for __graft_entry__.entry() (ENTRY_FIGURES) and to its own CPU
      run, with K1, K2, K20, K10, K22 and K23 launched in it; then K20 (keep
-     and cut modes), K21 (count lookup: the flagship table and its 8 x C
-     sibling probes), K22 (sibling maxima) and K23 (prune keep flags) on the
+     and cut modes), K21 (count lookup in the flagship table: its 8 x C
+     sibling probes, and its real lanes' 8 x n alone, each beside
+     torch.searchsorted), K22 (sibling maxima) and K23 (prune keep flags) on the
      step's own intermediate tables, each against its plain version;
   3. parity: on 3,000 reads of the scale dataset, assemble on CUDA gives
      the same corrected spectrum, contig arrays and transcripts as on the
@@ -714,22 +715,28 @@ def entry_phase(dev, lib, smi: str) -> tuple[dict, dict]:
 
     table = tcor.abundance_filter(spec, tentry.MIN_ABUNDANCE)
     n_tab = min(table.n, table.capacity)
-    steps = math.ceil(math.log2(C)) + 1
-    query = tsp.probe_keys(table.key, tentry.K, "sib", True)
-    got = tsp.lookup_counts(table, query)
-    err = _max_abs_err((got,), (tsp.lookup_counts_plain(table, query),))
-    library = _time_ms(lambda: torch.searchsorted(table.key, query), 10)
-    # bytes: the real lanes' keys and counts, the queries in, the counts
-    # out; operations: a binary search per query
-    rows["lookup_counts"] = _row(
-        err, _alternate(lambda: tsp.lookup_counts(table, query),
-                        lambda: tsp.lookup_counts_plain(table, query)),
-        12 * n_tab + _nbytes(query, got), query.numel() * steps, library,
-    )
-    _print_row(f"K21 lookup_counts, the flagship table's 8 x {C} sibling probes in {C} lanes "
-               f"({n_tab} real; a binary search: latency-bound, not bandwidth-bound)",
-               rows["lookup_counts"], smi)
-    del query, got
+    steps = math.ceil(math.log2(n_tab)) + 1
+    # K21 on two inputs: the 8 x C sibling probes of every lane (the pad
+    # lanes' probes repeat, warp after warp) and those of the real lanes
+    # alone (8 x n_tab, where every query walks)
+    for name, query, what in (
+            ("lookup_counts", tsp.probe_keys(table.key, tentry.K, "sib", True),
+             f"the flagship table's 8 x {C} sibling probes"),
+            ("lookup_counts_real", tsp.probe_keys(table.key[:n_tab], tentry.K, "sib", True),
+             f"the flagship table's real lanes' 8 x {n_tab} sibling probes")):
+        got = tsp.lookup_counts(table, query)
+        err = _max_abs_err((got,), (tsp.lookup_counts_plain(table, query),))
+        library = _time_ms(lambda: torch.searchsorted(table.key, query), 10)
+        # bytes: the real lanes' keys and counts, the queries in, the counts
+        # out; operations: a binary search of the real lanes per query
+        rows[name] = _row(
+            err, _alternate(lambda: tsp.lookup_counts(table, query),
+                            lambda: tsp.lookup_counts_plain(table, query)),
+            12 * n_tab + _nbytes(query, got), query.numel() * steps, library,
+        )
+        _print_row(f"K21 lookup_counts, {what} in {C} lanes ({n_tab} real; a walk of the real "
+                   "lanes' search index)", rows[name], smi)
+        del query, got
 
     sib = tsp.sibling_maxes(table, tentry.K)
     err = _max_abs_err(sib, tsp.sibling_maxes_plain(table, tentry.K))
@@ -937,7 +944,7 @@ def _merge_row(watch: Watch, smi: str) -> dict:
 
 
 def correction_phase(reads, dev, smi: str, watch: Watch):
-    """K7-K10, K16 (and its global variant at max_count 65,536), K20 (cut
+    """K7-K10, K16 (also at max_count 65,536), K20 (cut
     mode) and K28 (neighbor counts, which no path runs) against their plain
     versions on the main path's input: the
     counted, shrunk spectrum of the whole single-end scale dataset at the
@@ -991,9 +998,9 @@ def correction_phase(reads, dev, smi: str, watch: Watch):
     clamped = torch.where(spec.key == PAD, 0, spec.count.clamp(0, 65_536)).long()
     library = _time_ms(lambda: torch.bincount(clamped, minlength=65_537), 10)
     del clamped
-    out["count_histogram_global"] = _row(err, t, 4 * n_real + _nbytes(wide), n_real, library)
-    _print_row(f"K16 count_histogram, global variant: {C} lanes, 65,537 bins, "
-               f"{int((wide > 0).sum())} nonzero", out["count_histogram_global"], smi)
+    out["count_histogram_65536"] = _row(err, t, 4 * n_real + _nbytes(wide), n_real, library)
+    _print_row(f"K16 count_histogram {C} lanes, 65,537 bins (those past 8,191 by global "
+               f"atomics), {int((wide > 0).sum())} nonzero", out["count_histogram_65536"], smi)
     del wide
     print(f"correction input: {spec.n} k-mers in {C} lanes, auto cut {cut}, k = {k}, "
           f"error_rate {cfg.error_rate} [{smi}]")

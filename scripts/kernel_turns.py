@@ -10,10 +10,20 @@ against its parent within one call.
 
     python scripts/kernel_turns.py --trees OLD NEW NEW OLD [--out FILE]
     python scripts/kernel_turns.py --only sf streams clip --trees OLD NEW NEW OLD
+    python scripts/kernel_turns.py --only hist lookup --trees OLD NEW NEW OLD
 
---only sf, streams and/or clip times K6's rows, K15's and/or K18's and
-K19's alone and builds only their inputs (about 1.5 minutes, then under
-half a minute a tree).
+--only sf, streams, clip, hist and/or lookup times K6's rows, K15's, K18's
+and K19's, K16's and/or K21's alone and builds only their inputs (about 1.5
+minutes, then under half a minute a tree).  K16 ("hist_1024",
+"hist_65536") runs on the counted, shrunk spectrum of the
+1,000,000-read scale dataset at the default AssemblyConfig (12,582,912
+lanes, 10,689,722 real) at max_count 1,024 (the auto cut's) and 65,536;
+K21 on the flagship table (chip_smoke.py's entry phase: the flagship
+step's count of shannon_tpu_torch.entry's batch, sliced to 2^21 lanes
+and abundance_filter(1), 174,607 real lanes), queried with the 8 x C
+sibling probes of every lane ("lookup_flagship") and with those of its
+real lanes alone ("lookup_real"), each beside torch.searchsorted on the
+same table and queries ("searchsorted_flagship", "searchsorted_real").
 
 Each tree runs in a fresh process that imports that tree's
 shannon_tpu_torch and builds its kernels into that tree's build/ (a tree is
@@ -330,6 +340,23 @@ def _merge_inputs(reads, cfg, dev) -> dict:
     return out
 
 
+def _lookup_inputs(dev) -> dict:
+    """K21's table (numpy): chip_smoke.py's entry phase's, the flagship
+    step's count of shannon_tpu_torch.entry's batch sliced to
+    CORRECT_CAP lanes, then abundance_filter(MIN_ABUNDANCE)."""
+    from shannon_tpu_torch import entry as tentry
+    from shannon_tpu_torch.ops.correction import abundance_filter
+    from shannon_tpu_torch.ops.count import _slice_spectrum, count_spectrum_packed
+
+    _step, (words, lengths) = tentry.entry(device=dev)
+    spec = _slice_spectrum(count_spectrum_packed(words, lengths, k=tentry.K,
+                                                 capacity=tentry.CAPACITY,
+                                                 length=tentry.READ_LEN), tentry.CORRECT_CAP)
+    table = abundance_filter(spec, tentry.MIN_ABUNDANCE)
+    return {"l_key": table.key.cpu().numpy(), "l_count": table.count.cpu().numpy(),
+            "l_n": table.n, "l_k": tentry.K}
+
+
 def _inputs(path: Path, only) -> None:
     import numpy as np
     import torch
@@ -339,9 +366,13 @@ def _inputs(path: Path, only) -> None:
     from shannon_tpu_torch.config import AssemblyConfig
     from shannon_tpu_torch.ops.count import reduce_sorted_plain
 
-    reads = _scale_dataset(1_000_000)[1]
     dev, cfg = torch.device("cuda", 0), AssemblyConfig()
     focus = {"buf": _sf_jobs(7, 4096), "big": _sf_jobs(8, 65_536)}
+    if only is not None and not {"sf", "streams", "clip", "hist"} & set(only):
+        focus.update(_lookup_inputs(dev))
+        np.savez(path, **focus)
+        return
+    reads = _scale_dataset(1_000_000)[1]
     if only is None or "sf" in only:
         focus.update(_sf_main_inputs(reads, cfg, dev))
     if only is not None:
@@ -351,6 +382,13 @@ def _inputs(path: Path, only) -> None:
                           for n, x in condense.items()})
         if "clip" in only:
             focus.update(_clip_inputs(condense, cfg))
+        if "hist" in only:
+            spec = _counted_spectrum(reads, cfg, dev)
+            focus.update(h_key=spec.key.cpu().numpy(), h_count=spec.count.cpu().numpy(),
+                         h_n=spec.n)
+            del spec
+        if "lookup" in only:
+            focus.update(_lookup_inputs(dev))
         np.savez(path, **focus)
         return
 
@@ -472,6 +510,8 @@ def _tensors(out) -> list:
 
     import torch
 
+    if torch.is_tensor(out):
+        return [out]
     if dataclasses.is_dataclass(out):
         out = [getattr(out, f.name) for f in dataclasses.fields(out)]
     return [x if torch.is_tensor(x) else torch.tensor([x]) for x in out]
@@ -568,7 +608,31 @@ def _focus_rows(d, dev, only) -> dict:
         fns["clip_remap"] = (lambda: tipclip._device_clip_remap(*remap_args), 200)
         drop_n = tipclip._drop_contigs(clip_spec, clip_ca, doomed).n
         remap_n = tipclip._device_clip_remap(*remap_args).n_nodes
+    if only is not None and "hist" in only:
+        from shannon_tpu_torch.ops.correction import count_histogram
+        from shannon_tpu_torch.ops.count import Spectrum
+
+        h_spec = Spectrum(key=torch.from_numpy(d["h_key"]).to(dev),
+                          count=torch.from_numpy(d["h_count"]).to(dev), n=int(d["h_n"]))
+        fns["hist_1024"] = (lambda: count_histogram(h_spec, 1024), 200)
+        fns["hist_65536"] = (lambda: count_histogram(h_spec, 65_536), 200)
+    if only is not None and "lookup" in only:
+        from shannon_tpu_torch.ops.count import Spectrum
+        from shannon_tpu_torch.ops.spectrum import lookup_counts, probe_keys
+
+        table = Spectrum(key=torch.from_numpy(d["l_key"]).to(dev),
+                         count=torch.from_numpy(d["l_count"]).to(dev), n=int(d["l_n"]))
+        n_tab, lk = min(table.n, table.capacity), int(d["l_k"])
+        q_all = probe_keys(table.key, lk, "sib", True)
+        q_real = probe_keys(table.key[:n_tab], lk, "sib", True)
+        fns.update(lookup_flagship=(lambda: lookup_counts(table, q_all), 200),
+                   lookup_real=(lambda: lookup_counts(table, q_real), 200),
+                   searchsorted_flagship=(lambda: torch.searchsorted(table.key, q_all), 200),
+                   searchsorted_real=(lambda: torch.searchsorted(table.key, q_real), 200))
     row = {f"{name}_ms": _median_ms(fn, reps) for name, (fn, reps) in fns.items()}
+    if "lookup_flagship" in fns:
+        row["lookup_sizes"] = {"C": table.capacity, "n": n_tab, "flagship": q_all.numel(),
+                               "real": q_real.numel()}
     if "sf_main" in fns:
         row["sf_main_jobs"] = jobs
         row["sf_main_ms_per_call"] = row["sf_main_ms"] / len(jobs)
@@ -854,9 +918,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--trees", nargs="+", required=True)
     ap.add_argument("--out", default=None)
-    ap.add_argument("--only", nargs="+", choices=("sf", "streams", "clip"), default=None,
-                    help="time only K6's rows (sf), K15's (streams) and/or K18's and K19's "
-                         "(clip)")
+    ap.add_argument("--only", nargs="+", choices=("sf", "streams", "clip", "hist", "lookup"),
+                    default=None,
+                    help="time only K6's rows (sf), K15's (streams), K18's and K19's (clip), "
+                         "K16's (hist) and/or K21's (lookup)")
     ap.add_argument("--child", nargs=2, metavar=("TREE", "INPUTS"), help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child:

@@ -42,12 +42,12 @@ static __device__ __forceinline__ int64_t lower_bound(const int64_t* __restrict_
 // Binary search of `key` in the sorted table[0, table_len) (table_len >= 1):
 // the lower bound clamped to table_len - 1 goes to *idx, and the result says
 // whether that lane holds the key.  The kernels that search inside other
-// work use it: K14 (condense.cu), K21 (lookup_counts) and K22 / K28
-// (through sibling_maxes_of).  K3 (lookup_sorted) and K7 (probe_lookup) walk
-// the 16-ary index of search.cuh instead, and K18 (drop_join_kernel) finds
-// the same lower bound of each sorted query by a merge join; every searcher
-// returns the same exact clamped lower bound, so all give the same (idx,
-// hit) for the same query.
+// work use it: K14 (condense.cu) and K22 / K28 (through sibling_maxes_of).
+// K3 (lookup_sorted), K7 (probe_lookup) and K21 (lookup_counts, over the
+// real lanes alone) walk the 16-ary index of search.cuh instead, and K18
+// (drop_join_kernel) finds the same lower bound of each sorted query by a
+// merge join; every searcher returns the same exact clamped lower bound, so
+// all give the same (idx, hit) for the same query.
 static __device__ __forceinline__ bool lower_bound_hit(
     const int64_t* __restrict__ table, int64_t table_len, int64_t key,
     int64_t* idx) {

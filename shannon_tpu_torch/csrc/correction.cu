@@ -395,67 +395,97 @@ __global__ void __launch_bounds__(SCAN_THREADS)
 // Replaces shannon_tpu/ops/correction.py:32 count_histogram, which sorted the
 // clamped counts and found max_count + 2 bin boundaries by searchsorted to keep
 // a contended scatter off the TPU.  h[c] counts the real lanes with
-// clamp(count, 0, max_count) == c; pads and counts <= 0 fall in bin 0, which is
-// never counted, so h[0] stays 0 from the entry point's memset.
-// Bound: memory, one pass over keys and counts (12 bytes a lane).  A grid of a
-// few blocks per SM strides over the table; each block keeps a private
-// histogram of max_count + 1 bins in shared memory and adds its nonzero bins to
-// the global one once.  Most lanes hold count 1 (at 1M reads the cut drops two
-// thirds of the table), so the lanes of one warp mostly share a bin:
-// __match_any_sync groups the warp's lanes by bin and one lane of each group
-// adds the group's size, one shared atomic per distinct bin instead of 32 to
-// one address.  Above HIST_KERNEL_MAX_COUNT the block histogram would not fit
-// the 48 KB of shared memory a launch gets without opting in, so the global
-// variant below counts straight into the global bins instead, with the same
-// warp aggregation: one global atomic per distinct bin of each warp.
+// clamp(count, 0, max_count) == c; counts <= 0 fall in bin 0, which is never
+// counted, so h[0] stays 0.
+// Reads only count[0, n), n = min(spectrum n, C), and no key: under the
+// Spectrum contract (ops/count.py) those are the real lanes, and every lane
+// past them is PAD with count 0, which bin 0 would take.
+// Bound: memory, 4 bytes a real lane.
+// Design.
+//  - Loads: a grid of HIST_BLOCKS_PER_SM blocks an SM strides over the
+//    counts 16 bytes a load, two loads in flight a thread (a scalar head
+//    and tail where the view is not 16-byte aligned).
+//  - Bins: most real lanes hold count 1 (8.26M of 10.69M at 1M reads), so
+//    bins 1-4 are counters in each thread's registers, summed by warp
+//    reductions into the block's bins once at the end; bins 5 to
+//    HIST_SMEM_BINS - 1 are a private histogram a block in shared memory;
+//    higher bins (max_count >= HIST_SMEM_BINS; rare lanes: 1,241 nonzero
+//    bins at max_count 65,536) take a global atomic each.  One design for
+//    every max_count.
+//  - Zeroing: the entry point's memset, a 1 us launch.  Zeroing in the
+//    kernel's own launch (the first block to start zeroes, the others wait
+//    on a flag before their first global atomic) took the same device time
+//    on an H100 (memset 1.0 + kernel 19.6 us against 20.4-20.7 at max_count
+//    1,024) and needs a state that outlives the call, so it is not kept.
 // ---------------------------------------------------------------------------
-#define HIST_KERNEL_MAX_COUNT 8192
+#define HIST_THREADS 1024
+#define HIST_BLOCKS_PER_SM 2
+// Bins a block counts in shared memory (32 KB), and bins a thread counts in
+// registers (1 to HIST_REG_BINS).
+#define HIST_SMEM_BINS 8192
+#define HIST_REG_BINS 4
 
-// The bin of lane i, 0 for lanes past C, pads and counts <= 0 (bin 0 is never
-// counted); counts above max_count clamp into the top bin.
-static __device__ __forceinline__ int hist_bin(const int64_t* __restrict__ key,
-                                               const int32_t* __restrict__ count,
-                                               int64_t C, int64_t i, int64_t max_count) {
-  if (i >= C || key[i] == PAD_KEY) return 0;
-  const int32_t v = count[i];
-  return v < 0 ? 0 : (v > max_count ? (int)max_count : v);
-}
-
-__global__ void count_histogram_kernel(const int64_t* __restrict__ key,
-                                       const int32_t* __restrict__ count,
-                                       int64_t C, int max_count,
-                                       int32_t* __restrict__ hist) {
+__global__ void __launch_bounds__(HIST_THREADS, HIST_BLOCKS_PER_SM)
+    count_histogram_kernel(const int32_t* __restrict__ count, int64_t n, int64_t max_count,
+                           int smem_bins, int32_t* __restrict__ hist) {
   extern __shared__ int32_t bins[];
-  for (int b = threadIdx.x; b <= max_count; b += blockDim.x) bins[b] = 0;
+  for (int b = threadIdx.x; b < smem_bins; b += blockDim.x) bins[b] = 0;
   __syncthreads();
-  const int lane = threadIdx.x & 31;
+  // counts above INT32_MAX never clamp
+  const int top = max_count < INT32_MAX ? (int)max_count : INT32_MAX;
+  unsigned r1 = 0, r2 = 0, r3 = 0, r4 = 0;
+  auto add = [&](int32_t v) {
+    const int b = v < 1 ? 0 : (v > top ? top : v);
+    r1 += b == 1;
+    r2 += b == 2;
+    r3 += b == 3;
+    r4 += b == 4;
+    if (b > HIST_REG_BINS) {
+      atomicAdd(b < smem_bins ? &bins[b] : &hist[b], 1);
+    }
+  };
+  // count is 4-byte aligned: the lanes before its first 16-byte boundary
+  const int64_t head_lanes = (int64_t)(((16 - ((uintptr_t)count & 15)) & 15) >> 2);
+  const int64_t head = head_lanes < n ? head_lanes : n;
+  const int64_t n4 = (n - head) >> 2, tail = head + 4 * n4;
+  const int4* __restrict__ vec = (const int4*)(count + head);
+  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  // base is the same for every thread of the block, so all 32 lanes of a warp
-  // reach __match_any_sync together
-  for (int64_t base = (int64_t)blockIdx.x * blockDim.x; base < C; base += stride) {
-    const int c = hist_bin(key, count, C, base + threadIdx.x, max_count);
-    const unsigned same = __match_any_sync(0xffffffffu, c);
-    if (c > 0 && lane == __ffs(same) - 1) atomicAdd(&bins[c], __popc(same));
+  int64_t j = t;
+  for (; j + stride < n4; j += 2 * stride) {  // two loads in flight a thread
+    const int4 x = __ldcs(vec + j), y = __ldcs(vec + j + stride);
+    add(x.x);
+    add(x.y);
+    add(x.z);
+    add(x.w);
+    add(y.x);
+    add(y.y);
+    add(y.z);
+    add(y.w);
+  }
+  if (j < n4) {
+    const int4 x = __ldcs(vec + j);
+    add(x.x);
+    add(x.y);
+    add(x.z);
+    add(x.w);
+  }
+  if (t < head) add(count[t]);
+  if (t < n - tail) add(count[tail + t]);
+  // the registers' bins: a warp's sums, one shared atomic each
+  r1 = __reduce_add_sync(0xffffffffu, r1);
+  r2 = __reduce_add_sync(0xffffffffu, r2);
+  r3 = __reduce_add_sync(0xffffffffu, r3);
+  r4 = __reduce_add_sync(0xffffffffu, r4);
+  if ((threadIdx.x & 31) == 0) {  // a nonzero sum's bin is <= max_count < smem_bins
+    if (r1) atomicAdd(&bins[1], (int)r1);
+    if (r2) atomicAdd(&bins[2], (int)r2);
+    if (r3) atomicAdd(&bins[3], (int)r3);
+    if (r4) atomicAdd(&bins[4], (int)r4);
   }
   __syncthreads();
-  for (int b = threadIdx.x + 1; b <= max_count; b += blockDim.x) {
+  for (int b = threadIdx.x + 1; b < smem_bins; b += blockDim.x) {
     if (bins[b] != 0) atomicAdd(&hist[b], bins[b]);
-  }
-}
-
-// K16's global variant, for max_count > HIST_KERNEL_MAX_COUNT: the same
-// strided walk and warp aggregation, with the group's size added to the
-// global bin (zeroed by the entry point's memset).
-__global__ void count_histogram_global_kernel(const int64_t* __restrict__ key,
-                                              const int32_t* __restrict__ count,
-                                              int64_t C, int64_t max_count,
-                                              int32_t* __restrict__ hist) {
-  const int lane = threadIdx.x & 31;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t base = (int64_t)blockIdx.x * blockDim.x; base < C; base += stride) {
-    const int c = hist_bin(key, count, C, base + threadIdx.x, max_count);
-    const unsigned same = __match_any_sync(0xffffffffu, c);
-    if (c > 0 && lane == __ffs(same) - 1) atomicAdd(&hist[c], __popc(same));
   }
 }
 
@@ -571,30 +601,21 @@ int shannon_prune_round(const void* counts, const void* sidx, const void* shit,
   return (int)cudaGetLastError();
 }
 
-int shannon_count_histogram(const void* key, const void* count, int64_t C,
-                            int64_t max_count, void* hist, void* stream) {
-  if (max_count < 0) return (int)cudaErrorInvalidValue;
+// count: the real lanes' counts, count[0, n); hist: max_count + 1 words;
+// sms: the card's SM count.
+int shannon_count_histogram(const void* count, int64_t n, int64_t max_count, int sms, void* hist,
+                            void* stream) {
+  if (max_count < 0 || n < 0 || sms < 1) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaMemsetAsync(hist, 0, sizeof(int32_t) * (size_t)(max_count + 1),
                                     (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
-  if (C > 0) {
-    int dev = 0, sms = 0;
-    err = cudaGetDevice(&dev);
-    if (err == cudaSuccess) {
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    }
-    if (err != cudaSuccess) return (int)err;
-    const int64_t want = blocks_for(C);
-    const unsigned int grid = (unsigned int)(want < 8 * sms ? want : 8 * sms);
-    if (max_count <= HIST_KERNEL_MAX_COUNT) {
-      count_histogram_kernel<<<grid, THREADS, sizeof(int32_t) * (max_count + 1),
-                               (cudaStream_t)stream>>>(
-          (const int64_t*)key, (const int32_t*)count, C, (int)max_count, (int32_t*)hist);
-    } else {
-      count_histogram_global_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-          (const int64_t*)key, (const int32_t*)count, C, max_count, (int32_t*)hist);
-    }
-  }
+  const int smem_bins = max_count < HIST_SMEM_BINS ? (int)max_count + 1 : HIST_SMEM_BINS;
+  const int64_t want = (n / 4 + HIST_THREADS - 1) / HIST_THREADS;
+  const int64_t full = (int64_t)sms * HIST_BLOCKS_PER_SM;
+  const unsigned int grid = (unsigned int)(want < 1 ? 1 : (want < full ? want : full));
+  count_histogram_kernel<<<grid, HIST_THREADS, sizeof(int32_t) * smem_bins,
+                           (cudaStream_t)stream>>>((const int32_t*)count, n, max_count,
+                                                   smem_bins, (int32_t*)hist);
   return (int)cudaGetLastError();
 }
 

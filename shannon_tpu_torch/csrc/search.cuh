@@ -2,8 +2,10 @@
 // implicit 16-ary index that each call builds (search_build_kernel) and then
 // walks: a lane a query through the top level in shared memory
 // (search_top), then 8 lanes a query through the levels below it
-// (search_walk).  K3 (lookup_sorted, kernels.cu) and K7 (probe_lookup,
-// correction.cu) walk it.
+// (search_walk), or one lane a query (search_lane).  K3 (lookup_sorted,
+// kernels.cu) and K7 (probe_lookup, correction.cu) walk it by groups, K21
+// (lookup_counts, spectrum.cu, an index of the spectrum's real lanes alone)
+// a lane a query.
 //
 // Replaces shannon_tpu/ops/spectrum.py:137 lookup_hilo and :28
 // lower_bound_hilo (the log2(C)-step binary search on the TPU; its
@@ -54,7 +56,7 @@
 //    16-byte aligned (a view that starts at an odd lane) its leaf lines load
 //    8 bytes at a time.
 //
-// Every other searcher (K11, K14, K18, K21, K22, K28) keeps common.cuh's
+// Every other searcher (K11, K14, K18, K22, K28) keeps common.cuh's
 // lower_bound_hit inside its own work; all return the same exact lower
 // bound clamped to C - 1.
 #pragma once
@@ -249,4 +251,40 @@ static __device__ __forceinline__ void search_walk(const SearchIndex& ix,
     lb[j] = node[j] * SEARCH_FANOUT + __popc(lt0) + __popc(lt1);
     hit[j] = eq != 0;
   }
+}
+
+// One lane's own query q from node, its node one level below the top
+// (search_top): the lower bound of q in table[0, n) and whether that lane
+// holds q.  A lane walks alone (no warp collective, so any subset of a
+// warp's lanes may call it): at each level below the top, and at the leaf
+// line, a binary search of the node's 16 entries, four dependent 8-byte
+// loads (lanes past the table's end compare greater than every query).
+// q must not exceed table[n - 1], so no node is ranked past its last entry
+// (each level's entry is the last key of its subtree, the level's last node
+// filled up with PAD) and the lower bound is a lane of the table.
+static __device__ __forceinline__ int search_lane(const SearchIndex& ix,
+                                                  const int64_t* __restrict__ index,
+                                                  const int64_t* __restrict__ table, int n,
+                                                  int64_t q, int node, bool* hit) {
+#pragma unroll
+  for (int t = SEARCH_MAX_LEVELS - 2; t >= 0; --t) {
+    if (t < ix.levels - 1) {  // the levels below the top
+      const int64_t* __restrict__ level = index + ix.offset[t] + node * SEARCH_FANOUT;
+      int r = 0;
+#pragma unroll
+      for (int h = SEARCH_FANOUT / 2; h > 0; h >>= 1) {
+        if (__ldg(level + r + h - 1) < q) r += h;
+      }
+      node = node * SEARCH_FANOUT + r;
+    }
+  }
+  const int base = node * SEARCH_FANOUT;
+  int r = 0;
+#pragma unroll
+  for (int h = SEARCH_FANOUT / 2; h > 0; h >>= 1) {
+    const int pos = base + r + h - 1;
+    if (pos < n && __ldg(table + pos) < q) r += h;
+  }
+  *hit = __ldg(table + base + r) == q;
+  return base + r;
 }

@@ -19,6 +19,7 @@ show that the main path went through it (``chip_smoke.py`` reads them).
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -72,13 +73,13 @@ _ARGTYPES = {
     "shannon_cycle_round": [_P, _P, _P, _I64, _I, _P, _P, _P, _P],
     "shannon_contig_reduce": [*[_P] * 8, _I64, _I, _I, _P, _I64, *[_P] * 10, _P],
     "shannon_base_streams": [_P, _P, _P, _I64, _I64, _P, _P, _I64, _I, _P, _I64, _P, _P, _P, _P],
-    "shannon_count_histogram": [_P, _P, _I64, _I64, _P, _P],
+    "shannon_count_histogram": [_P, _I64, _I64, _I, _P, _P],
     "shannon_merge_tables": [_P, _P, _I64, _P, _P, _I64, _I64, _P, _I64, _P, _P, _P],
     "shannon_drop_contigs": [_P, _P, _I64, _P, _P, _I64, _P, _P, _I64, _P, _P, _P],
     "shannon_clip_remap": [*[_P] * 4, _I64, _P, _P, _I64, _I64, _P, _I64, *[_P] * 8, _I64,
                            *[_P] * 4],
     "shannon_abundance_cut": [_P, _P, _I64, _I, _P, _P, _P, _P],
-    "shannon_lookup_counts": [_P, _P, _I64, _P, _I64, _P, _P],
+    "shannon_lookup_counts": [_P, _P, _I64, _P, _I64, _P, _I64, _P, _I, _P, _P],
     "shannon_sibling_maxes": [_P, _P, _I64, _I, _I, _P, _P, _P],
     "shannon_neighbor_counts": [_P, _P, _I64, _I, _I, *[_P] * 4, _P],
     "shannon_prune_keep": [_P, _P, _P, _P, _I64, _F, _P, _P],
@@ -214,6 +215,17 @@ def library() -> KernelLibrary:
             path, _log = build()
             _library = KernelLibrary(path)
         return _library
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device: torch.device) -> int:
+    """The card's SM count (K16's and K21's grids), looked up once a
+    process."""
+    return _sm_count(device.index)
 
 
 def ptr(t: torch.Tensor | None) -> int | None:

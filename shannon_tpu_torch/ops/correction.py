@@ -78,13 +78,6 @@ def compact(spec: Spectrum, keep: torch.Tensor) -> Spectrum:
     return compact_plain(spec, keep)
 
 
-# The largest max_count for which kernel K16 keeps a block histogram of
-# max_count + 1 int32 bins in the 48 KB of shared memory a launch gets without
-# opting in (HIST_KERNEL_MAX_COUNT in csrc/correction.cu); above it K16 counts
-# into the global bins.  A switch point, not a limit.
-HISTOGRAM_MAX_COUNT = 8192
-
-
 def count_histogram_plain(spec: Spectrum, max_count: int = 64) -> torch.Tensor:
     """Plain PyTorch K16: torch.bincount of the clamped counts."""
     pad = spec.key == PAD
@@ -105,9 +98,11 @@ def _count_histogram_cuda(spec: Spectrum, max_count: int) -> torch.Tensor:
     dev = spec.key.device
     hist = torch.empty(max_count + 1, dtype=torch.int32, device=dev)
     lib = kernels.library()
+    # the Spectrum contract: lanes past min(n, C) are PAD with count 0
     lib.call(
         "shannon_count_histogram", dev,
-        kernels.ptr(spec.key), kernels.ptr(spec.count), C, max_count, kernels.ptr(hist),
+        kernels.ptr(spec.count), min(spec.n, C), max_count, kernels.sm_count(dev),
+        kernels.ptr(hist),
     )
     lib.count("count_histogram")
     return hist
@@ -116,8 +111,8 @@ def _count_histogram_cuda(spec: Spectrum, max_count: int) -> torch.Tensor:
 def count_histogram(spec: Spectrum, max_count: int = 64) -> torch.Tensor:
     """[max_count + 1] int32 histogram of entry counts, clamped into the
     top bin, h[0] = 0 (ops/correction.py:32 count_histogram).  Kernel K16
-    on CUDA (its shared-memory histogram up to HISTOGRAM_MAX_COUNT, its
-    global one above), the plain version on CPU."""
+    on CUDA (the counts of the real lanes count[:min(n, C)] alone, no key),
+    the plain version on CPU (over the whole table)."""
     if spec.key.is_cuda:
         return _count_histogram_cuda(spec, max_count)
     return count_histogram_plain(spec, max_count)

@@ -1,15 +1,15 @@
 """Sorted-table lookups: exact hits (kernel K3), counts (K21), sibling
 maxima (K22) and neighbor counts (K28), and the layout of the 16-ary search
-index that K3 and K7 walk.
+index that K3, K7 and K21 walk.
 
 Counterpart of ``shannon_tpu/ops/spectrum.py`` (``lookup_hilo``,
 ``lookup_counts``, ``sibling_maxes``, ``neighbor_counts``).  The TPU
 switched between a sort-merge join and a binary search by a cost model of
-that chip; here every lookup is one search per query: K3 walks the index of
-``csrc/search.cuh`` (built in the same call), K21, K22 and K28 a binary
-search.  On CUDA tensors each function launches its hand-written kernel
-(``csrc/kernels.cu``, ``csrc/spectrum.cu``); on CPU tensors its ``_plain``
-version runs.
+that chip; here every lookup is one search per query: K3 and K21 walk the
+index of ``csrc/search.cuh`` (built in the same call; K21's over the real
+lanes alone), K22 and K28 a binary search.  On CUDA tensors each function
+launches its hand-written kernel (``csrc/kernels.cu``,
+``csrc/spectrum.cu``); on CPU tensors its ``_plain`` version runs.
 
 Contract: ``idx`` is the lower bound clamped to ``len(table) - 1`` on every
 lane, a miss included (the reference promised ``idx`` only where ``hit``).
@@ -27,10 +27,10 @@ from shannon_tpu_torch.ops.count import Spectrum
 from shannon_tpu_torch.ops.kmers import PAD, canonical_key, check_k
 
 
-# The 16-ary search index of K3 and K7 (csrc/search.cuh, whose constants of
-# the same names these must equal): SEARCH_FANOUT entries a node, levels up
-# to the first of at most SEARCH_TOP_WORDS entries (the top, which each
-# block holds in shared memory), at most SEARCH_MAX_LEVELS levels.
+# The 16-ary search index of K3, K7 and K21 (csrc/search.cuh, whose
+# constants of the same names these must equal): SEARCH_FANOUT entries a
+# node, levels up to the first of at most SEARCH_TOP_WORDS entries (the top,
+# which each block holds in shared memory), at most SEARCH_MAX_LEVELS levels.
 SEARCH_FANOUT = 16
 SEARCH_MAX_LEVELS = 8
 SEARCH_TOP_WORDS = 4096
@@ -83,10 +83,10 @@ def search_index_plain(table: torch.Tensor) -> torch.Tensor:
 
 
 def search_args(n: int, device) -> tuple[torch.Tensor, ctypes.Array]:
-    """What a search entry point (K3, K7) takes beside its table: the index
-    scratch, which the entry point fills, and the layout as the host words
-    it checks (SEARCH_LAYOUT_WORDS: the number of levels, then the sizes
-    and the offsets, each padded to SEARCH_MAX_LEVELS)."""
+    """What a search entry point (K3, K7, K21) takes beside its table: the
+    index scratch, which the entry point fills, and the layout as the host
+    words it checks (SEARCH_LAYOUT_WORDS: the number of levels, then the
+    sizes and the offsets, each padded to SEARCH_MAX_LEVELS)."""
     lay = search_layout(n)
     pad = (0,) * (SEARCH_MAX_LEVELS - len(lay.sizes))
     words = (ctypes.c_int64 * (1 + 2 * SEARCH_MAX_LEVELS))(
@@ -153,14 +153,19 @@ def _lookup_counts_cuda(spec: Spectrum, query: torch.Tensor) -> torch.Tensor:
     if query.device != spec.key.device or query.dtype != torch.int64:
         raise ValueError("query must be int64 on the table's device")
     q = query.contiguous()
-    out = torch.zeros(q.shape, dtype=torch.int32, device=q.device)
-    if spec.capacity == 0 or q.numel() == 0:
-        return out
+    # the Spectrum contract: the real lanes come first, PAD with count 0
+    # after them, so only key[:n_real] is searched
+    n_real = min(spec.n, spec.capacity)
+    if n_real == 0 or q.numel() == 0:
+        return torch.zeros(q.shape, dtype=torch.int32, device=q.device)
+    out = torch.empty(q.shape, dtype=torch.int32, device=q.device)
+    scratch, layout = search_args(n_real, spec.key.device)
     lib = kernels.library()
     lib.call(
         "shannon_lookup_counts", spec.key.device,
-        kernels.ptr(spec.key), kernels.ptr(spec.count), spec.capacity, kernels.ptr(q),
-        q.numel(), kernels.ptr(out),
+        kernels.ptr(spec.key), kernels.ptr(spec.count), n_real, kernels.ptr(q), q.numel(),
+        kernels.ptr(scratch), scratch.shape[0], layout, kernels.sm_count(spec.key.device),
+        kernels.ptr(out),
     )
     lib.count("lookup_counts")
     return out
@@ -170,7 +175,8 @@ def lookup_counts(spec: Spectrum, query: torch.Tensor) -> torch.Tensor:
     """int32 count of each int64 query key (any shape) in the sorted table,
     0 where absent (ops/spectrum.py:60 lookup_counts).  Queries must be in
     the table's orientation (canonical for a canonical spectrum).  Kernel
-    K21 on CUDA, the plain version on CPU."""
+    K21 on CUDA (a walk of the search index of the real lanes
+    key[:min(n, C)]), the plain version on CPU (over the whole table)."""
     if spec.key.is_cuda:
         return _lookup_counts_cuda(spec, query)
     return lookup_counts_plain(spec, query)

@@ -28,7 +28,9 @@ from shannon_tpu_torch.ops import correction as tcor
 from shannon_tpu_torch.ops.count import Spectrum
 from shannon_tpu_torch.ops.kmers import PAD, canonical_key
 from shannon_tpu_torch.ops.spectrum import probe_keys
-from test_torch_kernels import EDGE_SIZES, keep_case, prune_grid
+from test_torch_kernels import (
+    CONTRACT_CASES, EDGE_SIZES, _histogram_spectrum, contract_case, keep_case, prune_grid,
+)
 
 
 def _spectra(k: int, seed: int = 0, error_rate: float = 0.01, canonical: bool = True):
@@ -70,18 +72,61 @@ def test_count_histogram_matches_reference(max_count):
 
 def test_count_histogram_runs_plain_on_cpu_and_bounds_max_count(monkeypatch):
     """On CPU tensors count_histogram is its plain version and reaches no
-    kernel, so it takes a max_count past K16's limit as the reference does
-    (the CUDA wrapper raises there; test_torch_kernels holds that)."""
+    kernel, and takes a max_count past K16's shared-memory bins (8,192) as
+    the reference does (test_torch_kernels holds the kernel there)."""
     def no_library():
         raise AssertionError("a CPU histogram reached the kernel library")
 
     monkeypatch.setattr(kernels, "library", no_library)
     port, ref = _spectra(21)
     assert torch.equal(tcor.count_histogram(port, 1024), tcor.count_histogram_plain(port, 1024))
-    wide = tcor.HISTOGRAM_MAX_COUNT + 1
+    wide = 8193
     np.testing.assert_array_equal(
         tcor.count_histogram(port, wide).numpy(), np.asarray(jcor.count_histogram(ref, wide))
     )
+
+
+def _jax_spectrum(spec: Spectrum) -> JSpectrum:
+    hi, lo = convert.key_to_hilo(spec.key)
+    return JSpectrum(hi=jnp.asarray(hi), lo=jnp.asarray(lo),
+                     count=jnp.asarray(spec.count.numpy()), n=jnp.int32(spec.n))
+
+
+@pytest.mark.parametrize("case", CONTRACT_CASES + ["count1_heavy", "wide"])
+@pytest.mark.parametrize("max_count", [1024, 65_536])
+def test_count_histogram_contract_tables_match_reference(case, max_count):
+    """K16's plain version == count_histogram on the Spectrum contract's
+    edge tables (C twelve times n, n == C, n == 0 with C > 0, n above C)
+    and on 2^20-lane tables of skewed counts from -3 up to 20,000 and
+    100,000; and what K16 relies on: the counts of the real lanes
+    count[:min(n, C)] alone, with no key read, give the same histogram."""
+    if case in CONTRACT_CASES:
+        spec = contract_case(case)[0]
+    else:
+        spec = _histogram_spectrum(case)
+    want = np.asarray(jcor.count_histogram(_jax_spectrum(spec), max_count))
+    np.testing.assert_array_equal(tcor.count_histogram(spec, max_count).numpy(), want)
+    m = min(spec.n, spec.capacity)
+    real = np.bincount(np.clip(spec.count[:m].numpy(), 0, max_count), minlength=max_count + 1)
+    real[0] = 0
+    np.testing.assert_array_equal(real, want)
+
+
+def _k16_split(offset: int, n: int) -> list[int]:
+    """numpy transcription of K16's split of count[0, n) at a view that
+    starts `offset` int32 lanes past a 16-byte boundary: the scalar head up
+    to the first boundary, whole 16-byte vectors, the scalar tail; the
+    lanes each part reads, in order."""
+    head = min((16 - 4 * offset) % 16 // 4, n)
+    n4 = (n - head) >> 2
+    tail = head + 4 * n4
+    return list(range(head)) + list(range(head, tail)) + list(range(tail, n))
+
+
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+def test_k16_split_reads_each_real_lane_once(offset):
+    for n in [0, 1, 2, 3, 4, 5, 7, 8, 9, 1023, 1_038_091]:
+        assert _k16_split(offset, n) == list(range(n))
 
 
 @pytest.mark.parametrize("side", ["sib", "ext"])

@@ -141,6 +141,82 @@ def test_count_reads_spectrum_matches_reference(capacity):
     _assert_same(tc.shrink_spectrum(port), jc.shrink_spectrum(ref))
 
 
+def _contract_producer(name: str) -> tc.Spectrum:
+    """A Spectrum (CPU) from one of the port's producers, on small reads."""
+    from shannon_tpu_torch.ops import correction as tcor
+    from shannon_tpu_torch.ops import tipclip as ttc
+    from shannon_tpu_torch.ops.condense import build_contig_arrays
+    from shannon_tpu_torch.parallel import make_mesh
+    from shannon_tpu_torch.parallel.distributed import count_reads_spectrum_sharded
+
+    batch = pack_reads(_reads(5, n_tr=4), pad_length=64)
+    k, cap = 21, 1 << 12
+
+    def counted() -> tc.Spectrum:
+        return tc.count_reads_spectrum(batch, k=k, capacity=cap, batch_reads=128, device="cpu")
+
+    def part(seed: int) -> tc.Spectrum:
+        return _both_counts(pack_reads(_reads(seed), pad_length=64), k, cap)[0]
+
+    if name == "count_reads_spectrum":
+        return counted()
+    if name == "shrink_spectrum":
+        return tc.shrink_spectrum(counted())
+    if name == "merge_spectra_fixed":
+        return tc.merge_spectra_fixed(part(2), part(3))
+    if name == "merge_spectra_sized":
+        return tc.merge_spectra_sized(part(2), part(3))
+    if name == "abundance_filter":
+        return tcor.abundance_filter(counted(), 2)
+    if name == "correct_spectrum":
+        return tcor.correct_spectrum(counted(), k, 0, 0.1, 8, True, 0.01)
+    if name == "drop_contigs":
+        spec = tcor.correct_spectrum(counted(), k, 0, 0.1, 8, True, 0.01)
+        ca = build_contig_arrays(spec, k, True)
+        doomed = torch.from_numpy(np.random.default_rng(5).random(ca.node_key.shape[0]) < 0.3)
+        return ttc._drop_contigs(spec, ca, doomed)
+    if name == "count_reads_spectrum_sharded":
+        spec, overflowed = count_reads_spectrum_sharded(
+            batch, k=k, capacity=cap, mesh=make_mesh(4, "cpu"), batch_reads=128)
+        assert not overflowed
+        return spec
+    if name == "spectrum_from_numpy":
+        ref = jc.count_reads_spectrum(batch, k=k, capacity=cap, batch_reads=128)
+        return convert.spectrum_from_numpy(ref.hi, ref.lo, ref.count, int(ref.n))
+    if name == "empty_spectrum":
+        return tc.empty_spectrum(4096, "cpu")
+    if name == "overflow_batch":  # a batch table past its capacity
+        return _both_counts(pack_reads(_reads(1), pad_length=64), k, 64)[0]
+    if name == "overflow_merge":  # a merge below the union
+        return tc.merge_at(part(2), part(3), 256)
+    if name == "overflow_slice":  # ops/count.py _slice_spectrum below n
+        return tc._slice_spectrum(counted(), 100)
+    raise ValueError(name)
+
+
+CONTRACT_PRODUCERS = [
+    "count_reads_spectrum", "shrink_spectrum", "merge_spectra_fixed", "merge_spectra_sized",
+    "abundance_filter", "correct_spectrum", "drop_contigs", "count_reads_spectrum_sharded",
+    "spectrum_from_numpy", "empty_spectrum", "overflow_batch", "overflow_merge",
+    "overflow_slice",
+]
+
+
+@pytest.mark.parametrize("producer", CONTRACT_PRODUCERS)
+def test_spectrum_contract(producer):
+    """The Spectrum contract that K16 and K21 rely on (they read only the
+    first min(n, C) lanes): key[:min(n, C)] strictly increasing with no PAD,
+    key[min(n, C):] all PAD with count 0; for every producer of a Spectrum,
+    and for tables that overflowed (n >= C)."""
+    spec = _contract_producer(producer)
+    m = min(spec.n, spec.capacity)
+    key, count = spec.key.numpy(), spec.count.numpy()
+    assert (key[:m] != PAD).all() and (np.diff(key[:m]) > 0).all()
+    assert (key[m:] == PAD).all() and (count[m:] == 0).all()
+    assert (m > 0) == (producer != "empty_spectrum")
+    assert producer.startswith("overflow") == (spec.n >= spec.capacity)
+
+
 def test_unique_first_sorted_matches_reference():
     rng = np.random.default_rng(7)
     keys = np.sort(rng.integers(0, 50, size=300)).astype(np.int64)

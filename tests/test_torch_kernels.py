@@ -1744,9 +1744,10 @@ def test_assemble_on_cuda_matches_cpu_and_counts_launches(cuda):
 
 def _histogram_spectrum(case: str) -> Spectrum:
     """A table on the CPU: counted reads; all pads; no lanes; or 2^20 lanes
-    of which nine in ten hold count 1 and the rest counts from -3 to 20,000
-    (some in bin 0, some past every max_count, a few pads among them), or
-    to 100,000 for the case "wide"."""
+    whose first 1,038,091 hold sorted distinct keys, nine in ten of count 1
+    and the rest counts from -3 to 20,000 (some in bin 0, some past every
+    max_count), or to 100,000 for the case "wide", and PAD with count 0
+    past them (the Spectrum contract)."""
     if case == "counted":
         return _spectrum(24)
     if case == "all_pad":
@@ -1754,18 +1755,20 @@ def _histogram_spectrum(case: str) -> Spectrum:
     if case == "no_lanes":
         return empty_spectrum(0, "cpu")
     rng = np.random.default_rng(2)
-    C = 1 << 20
+    C, n = 1 << 20, 1_038_091
     top = 100_000 if case == "wide" else 20_000
-    count = np.where(rng.random(C) < 0.9, 1, rng.integers(-3, top, C)).astype(np.int32)
-    key = np.sort(rng.integers(0, 1 << 48, C))
-    key[rng.random(C) < 0.01] = PAD
-    return Spectrum(key=torch.from_numpy(key), count=torch.from_numpy(count), n=C)
+    count = np.zeros(C, np.int32)
+    count[:n] = np.where(rng.random(n) < 0.9, 1, rng.integers(-3, top, n))
+    key = np.full(C, PAD, np.int64)
+    key[:n] = np.unique(rng.integers(0, 1 << 48, n + 64))[:n]
+    return Spectrum(key=torch.from_numpy(key), count=torch.from_numpy(count), n=n)
 
 
 @pytest.mark.parametrize("case", ["counted", "all_pad", "no_lanes", "count1_heavy"])
-@pytest.mark.parametrize("max_count", [0, 64, 1024, tcor.HISTOGRAM_MAX_COUNT])
+@pytest.mark.parametrize("max_count", [0, 64, 1024, 8192])
 def test_count_histogram_kernel_matches_plain(cuda, case, max_count):
-    """K16: bin for bin, h[0] = 0."""
+    """K16: bin for bin, h[0] = 0; one launch, also where no lane is
+    real."""
     spec = _to(_histogram_spectrum(case), cuda)
     lib = kernels.library()
     before = lib.launches["count_histogram"]
@@ -1777,10 +1780,10 @@ def test_count_histogram_kernel_matches_plain(cuda, case, max_count):
     assert int(got[0]) == 0
 
 
-@pytest.mark.parametrize("max_count", [tcor.HISTOGRAM_MAX_COUNT, tcor.HISTOGRAM_MAX_COUNT + 1, 65_536])
+@pytest.mark.parametrize("max_count", [8192, 8193, 65_536])
 def test_count_histogram_kernel_at_any_max_count(cuda, max_count):
-    """K16's shared variant up to HISTOGRAM_MAX_COUNT, its global variant
-    above, on counts drawn up to 100,000."""
+    """K16 at every width: bins below HIST_SMEM_BINS (8,192) in shared
+    memory, higher ones by global atomics, on counts drawn up to 100,000."""
     spec = _to(_histogram_spectrum("wide"), cuda)
     got = tcor.count_histogram(spec, max_count)
     want = tcor.count_histogram_plain(spec, max_count)
@@ -2281,6 +2284,78 @@ def test_cut_counts_and_abundance_filter_launch_k20(cuda):
     assert got.n == want.n
     _equal(got.key.cpu(), want.key, "filtered keys")
     _equal(got.count.cpu(), want.count, "filtered counts")
+
+
+# Tables at the edges of the Spectrum contract that K16 and K21 rely on
+# (the real lanes first, strictly increasing; PAD with count 0 past min(n,
+# C)): C twelve times n, as in the flagship table (174,607 real lanes in
+# 2,097,152); n == C; n == 0 with C > 0; n above C (an overflowed count).
+CONTRACT_CASES = ["sparse", "full", "empty", "overflow"]
+
+
+def contract_case(name: str) -> tuple[Spectrum, list[np.ndarray]]:
+    """(table on the CPU, queries) of one case, made of _spectrum(24)'s
+    real lanes: the [8, C] sibling probes of every lane (a pad lane's probes
+    repeat, warp after warp), and a shuffled flat set of hits, random
+    misses, keys above and below every real key, and PAD."""
+    base = _spectrum(24)
+    n = base.n
+    real_key, real_count = base.key[:n].numpy(), base.count[:n].numpy()
+    C = {"sparse": 12 * n, "full": n, "empty": 4096, "overflow": n}[name]
+    m = 0 if name == "empty" else n
+    key = np.full(C, PAD, np.int64)
+    key[:m] = real_key[:m]
+    count = np.zeros(C, np.int32)
+    count[:m] = real_count[:m]
+    spec = Spectrum(key=torch.from_numpy(key), count=torch.from_numpy(count),
+                    n=n + 7 if name == "overflow" else m)
+    rng = np.random.default_rng(sum(map(ord, name)))
+    top = int(real_key[-1])
+    flat = np.concatenate([
+        rng.choice(real_key, 3000), rng.integers(0, 1 << 48, 3000),
+        top + 1 + rng.integers(0, 1 << 40, 500), [0, int(real_key[0]), top, top + 1, PAD - 1],
+        np.full(100, PAD),
+    ]).astype(np.int64)
+    rng.shuffle(flat)
+    probes = tsp.probe_keys(spec.key, 24, "sib", True).numpy()
+    return spec, [flat, probes]
+
+
+@pytest.mark.parametrize("case", CONTRACT_CASES)
+def test_lookup_counts_kernel_on_contract_tables(cuda, case):
+    """K21 == its plain version (which searches the whole table) on tables
+    at the contract's edges; n == 0 returns zeros with no launch."""
+    spec, queries = contract_case(case)
+    spec = _to(spec, cuda)
+    lib = kernels.library()
+    for q in queries:
+        before = lib.launches["lookup_counts"]
+        query = torch.from_numpy(q).to(cuda)
+        got = tsp.lookup_counts(spec, query)
+        assert lib.launches["lookup_counts"] == before + (case != "empty")
+        want = tsp.lookup_counts_plain(spec, query)
+        torch.cuda.synchronize()
+        _equal(got, want, "counts")
+        assert (got[query == PAD] == 0).all()
+        assert (got > 0).any() == (case != "empty")
+
+
+@pytest.mark.parametrize("case", CONTRACT_CASES + ["unaligned"])
+@pytest.mark.parametrize("max_count", [1024, 65_536])
+def test_count_histogram_kernel_on_contract_tables(cuda, case, max_count):
+    """K16 == its plain version on the contract's edge tables, and on a view
+    that starts one lane into the wide table (its counts not 16-byte
+    aligned), with a real-lane count that is not a multiple of 4."""
+    if case == "unaligned":
+        wide = _to(_histogram_spectrum("wide"), cuda)
+        spec = Spectrum(key=wide.key[1:], count=wide.count[1:], n=wide.n - 1)
+        assert spec.count.data_ptr() % 16 != 0 and spec.n % 4 != 0
+    else:
+        spec = _to(contract_case(case)[0], cuda)
+    got = tcor.count_histogram(spec, max_count)
+    want = tcor.count_histogram_plain(spec, max_count)
+    torch.cuda.synchronize()
+    _equal(got, want, "histogram")
 
 
 @pytest.mark.parametrize("k", [5, 24, 31])

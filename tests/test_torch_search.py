@@ -11,7 +11,11 @@ walk on the card (csrc/search.cuh), on the CPU:
    right sibling's lies within 3 lanes of its own key's;
 3. the plain twins (lookup_sorted_plain, probe_resolve_plain) equal to the
    JAX package's lower_bound_hilo on the same tables, idx on misses
-   included.
+   included;
+4. K21 (csrc/spectrum.cu lookup_counts_kernel): search_lane, a lane's
+   own walk of the index, equal to np.searchsorted; the queries resolved
+   at the table's ends and the searches over the real lanes' index, equal
+   to lookup_counts_plain on the Spectrum contract's edge tables.
 
 Inputs are made from seeds with numpy.  Tolerance: exact."""
 
@@ -28,8 +32,8 @@ from shannon_tpu_torch.ops import spectrum as tsp
 from shannon_tpu_torch.ops.count import Spectrum
 from shannon_tpu_torch.ops.kmers import PAD
 from test_torch_kernels import (
-    PROBE_TABLES, SEARCH_SIZES, SEARCH_TABLES, _revcomp_np, probe_table, search_queries,
-    search_table,
+    CONTRACT_CASES, PROBE_TABLES, SEARCH_SIZES, SEARCH_TABLES, _revcomp_np, contract_case,
+    probe_table, search_queries, search_table,
 )
 
 F = tsp.SEARCH_FANOUT
@@ -215,3 +219,79 @@ def test_plain_probe_resolve_matches_reference_lower_bound(kind, side, canonical
     want = _hilo_lower_bound(table, q)
     np.testing.assert_array_equal(got[0].numpy(), want[0])
     np.testing.assert_array_equal(got[1].numpy(), want[1])
+
+
+def lane_walk(table: np.ndarray, index: np.ndarray, layout: tsp.SearchLayout, q: np.ndarray):
+    """numpy transcription of search_top and search_lane (a query a lane,
+    q <= table[-1]): below the top, each level's and then the leaf line's
+    16 entries searched by the four steps h = 8, 4, 2, 1 (r += h where
+    entry r + h - 1 is below q; leaf lanes past the table's end compare
+    greater).  Returns (lower bound, hit)."""
+    n = len(table)
+    node = np.zeros(len(q), np.int64)
+    if layout.sizes:
+        top = index[:layout.sizes[-1]]
+        node = np.minimum(np.searchsorted(top, q, side="left"), len(top) - 1)
+
+    def rank(entries):
+        r = np.zeros(len(q), np.int64)
+        for h in (8, 4, 2, 1):
+            r += np.where(entries[np.arange(len(q)), r + h - 1] < q, h, 0)
+        return r
+
+    for off in reversed(layout.offsets[:-1]):
+        node = node * F + rank(index[off + node[:, None] * F + np.arange(F)])
+    pos = node[:, None] * F + np.arange(F)
+    lb = node * F + rank(np.where(pos < n, table[np.minimum(pos, n - 1)], PAD))
+    return lb, table[lb] == q
+
+
+def k21_transcription(key: np.ndarray, count: np.ndarray, n: int, q: np.ndarray) -> np.ndarray:
+    """numpy transcription of lookup_counts_kernel over key[:n]: a query
+    inside [key[0], key[n - 1]] searches (lane_walk) and counts its hit's
+    count, 0 on a miss; every other query, PAD included, counts 0 with no
+    search."""
+    out = np.zeros(len(q), np.int32)
+    if n == 0:
+        return out
+    table = key[:n]
+    layout = tsp.search_layout(n)
+    index = tsp.search_index_plain(torch.from_numpy(table)).numpy()
+    inside = (q >= table[0]) & (q <= table[-1])
+    lb, hit = lane_walk(table, index, layout, q[inside])
+    out[inside] = np.where(hit, count[lb], 0)
+    return out
+
+
+@pytest.mark.parametrize("n", SEARCH_SIZES)
+@pytest.mark.parametrize("kind", SEARCH_TABLES)
+def test_lane_walk_is_the_lower_bound(n, kind):
+    """search_lane, transcribed, == np.searchsorted for every query up to
+    the table's last key, on the edge tables of the index."""
+    table = search_table(n, kind)
+    real = table[table != PAD]
+    if len(real) == 0:
+        return
+    table = real
+    layout = tsp.search_layout(len(table))
+    index = tsp.search_index_plain(torch.from_numpy(table)).numpy()
+    q = search_queries(table)
+    q = q[q <= table[-1]]
+    lb, hit = lane_walk(table, index, layout, q)
+    np.testing.assert_array_equal(lb, np.searchsorted(table, q, side="left"))
+    np.testing.assert_array_equal(hit, table[lb] == q)
+
+
+@pytest.mark.parametrize("case", CONTRACT_CASES)
+def test_k21_transcription_matches_plain(case):
+    """K21's search == lookup_counts_plain on the contract's edge tables:
+    the flat queries (hits, misses, keys above and below every real key,
+    PAD), the same sorted and repeated, and the [8, C] probes (a pad lane's
+    probes fill warp after warp)."""
+    spec, (flat, probes) = contract_case(case)
+    key, count = spec.key.numpy(), spec.count.numpy()
+    n = min(spec.n, spec.capacity)
+    runs = np.sort(np.repeat(flat[:400], 77))
+    for q in (flat, runs, probes.reshape(-1)):
+        want = tsp.lookup_counts_plain(spec, torch.from_numpy(q)).numpy()
+        np.testing.assert_array_equal(k21_transcription(key, count, n, q), want)

@@ -23,7 +23,9 @@ from shannon_tpu_torch.ops.kmers import PAD
 from shannon_tpu_torch.ops.spectrum import (
     lookup_counts, lookup_sorted, neighbor_counts, probe_keys, sibling_maxes,
 )
-from test_torch_correction import _spectra
+from shannon_tpu_torch.ops.count import Spectrum
+from test_torch_correction import _jax_spectrum, _spectra
+from test_torch_kernels import CONTRACT_CASES, contract_case
 
 
 def _table(rng, k: int, n: int, cap: int) -> np.ndarray:
@@ -94,6 +96,36 @@ def test_lookup_counts_in_an_empty_table_misses():
     port, _ = _spectra(24)
     empty = type(port)(key=port.key[:0], count=port.count[:0], n=0)
     assert lookup_counts(empty, torch.tensor([[1, PAD]])).tolist() == [[0, 0]]
+
+
+@pytest.mark.parametrize("case", CONTRACT_CASES)
+def test_lookup_counts_contract_tables_match_reference(case):
+    """K21's plain version == lookup_counts on the Spectrum contract's edge
+    tables (C twelve times n as in the flagship table, n == C, n == 0 with
+    C > 0, n above C): the [8, C] sibling probes, and hits, misses, queries
+    above and below every real key and PAD queries."""
+    spec, queries = contract_case(case)
+    ref = _jax_spectrum(spec)
+    for q in queries:
+        qhi, qlo = key_to_hilo(q)
+        want = np.asarray(jspec.lookup_counts(ref, jnp.asarray(qhi), jnp.asarray(qlo)))
+        got = lookup_counts(spec, torch.from_numpy(q))
+        assert got.shape == q.shape
+        np.testing.assert_array_equal(got.numpy(), want)
+        assert (want[q == PAD] == 0).all()
+
+
+@pytest.mark.parametrize("case", CONTRACT_CASES)
+def test_lookup_counts_of_the_real_lanes_alone(case):
+    """What K21 relies on: under the contract a search of key[:min(n, C)]
+    alone (a miss counting 0) gives the whole table's counts."""
+    spec, queries = contract_case(case)
+    m = min(spec.n, spec.capacity)
+    real = Spectrum(key=spec.key[:m], count=spec.count[:m], n=m)
+    for q in queries:
+        query = torch.from_numpy(q)
+        np.testing.assert_array_equal(lookup_counts(real, query).numpy(),
+                                      lookup_counts(spec, query).numpy())
 
 
 @pytest.mark.parametrize("k", [5, 16, 17, 24, 31])
