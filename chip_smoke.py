@@ -27,7 +27,8 @@ Phases; any failure exits nonzero:
      (compaction of the final keep mask) on the counted, shrunk spectrum of
      the whole single-end scale dataset at the default AssemblyConfig, with
      K16 (count histogram of the auto cut; at max_count 65,536 printed
-     beside it), K20 (the abundance cut, its cut mode) and
+     beside it), K20 (the abundance cut: its cut and keep modes, and the
+     abundance filter, one compaction on K10's tile) and
      K28 (neighbor counts: 8 extension and 8 sibling probes a lane, k = 24,
      canonical) on that spectrum and K17 (count merge) on the first and
      the largest (the last) merge its count made;
@@ -61,7 +62,7 @@ Phases; any failure exits nonzero:
      timed (CUDA events, median of 10), held equal to the JAX package's
      figures for __graft_entry__.entry() (ENTRY_FIGURES) and to its own CPU
      run, with K1, K2, K20, K10, K22 and K23 launched in it; then K20 (keep
-     and cut modes), K21 (count lookup in the flagship table: its 8 x C
+     and cut modes, and the abundance filter beside keep mode + K10), K21 (count lookup in the flagship table: its 8 x C
      sibling probes, and its real lanes' 8 x n alone, each beside
      torch.searchsorted), K22 (sibling maxima) and K23 (prune keep flags) on the
      step's own intermediate tables, each against its plain version;
@@ -640,6 +641,49 @@ def _entry_figures(key, count, n: int) -> dict:
             "counts_sha256": hashlib.sha256(c.tobytes()).hexdigest()[:16]}
 
 
+def _keep_library_ms(spec, cut: int, keep) -> float | None:
+    """The ms of torch.ge(count, cut), one PyTorch call that gives K20's
+    keep mode where cut >= 1 (every lane past n_real has count 0 under the
+    Spectrum contract); None for a cut of 0, where it does not."""
+    import torch
+
+    if cut < 1:
+        return None
+    if not torch.equal(torch.ge(spec.count, cut), keep):
+        raise AssertionError("torch.ge(count, cut) differs from K20's keep mode")
+    return _time_ms(lambda: torch.ge(spec.count, cut), 10)
+
+
+def _filter_row(spec, cut: int, what: str, smi: str) -> dict:
+    """K20's abundance filter (one compaction on K10's tile whose keep bits
+    are the real lanes' counts >= cut; counted as K20) against its plain
+    version, exactly; its time beside keep mode then K10, the route it
+    replaced."""
+    import torch
+
+    from shannon_tpu_torch.ops import correction as tcor
+
+    got = tcor.abundance_filter(spec, cut)
+    want = tcor.abundance_filter_plain(spec, cut)
+    if got.n != want.n:
+        raise AssertionError(f"K20 abundance_filter n {got.n} != {want.n}")
+    err = _max_abs_err((got.key, got.count), (want.key, want.count))
+    t = _alternate(lambda: tcor.abundance_filter(spec, cut),
+                   lambda: tcor.abundance_filter_plain(spec, cut))
+    keep_k10 = _time_ms(lambda: tcor.compact(spec, tcor.abundance_cut(spec, cut, False, False)[2]),
+                        10)
+    C, n_real = spec.capacity, min(spec.n, spec.capacity)
+    # bytes: the real lanes' counts in (the predicate's read; a kept lane's
+    # count is not read again), the kept lanes' keys gathered, every output
+    # lane written; operations: one a real lane
+    row = _row(err, t, 4 * n_real + 8 * got.n + 12 * C, n_real, None)
+    _print_row(f"K20 abundance_filter on {what}: {C} lanes, {n_real} real, cut {cut} -> {got.n} "
+               f"kept (keep mode + K10: {keep_k10:.4f} ms)", row, smi)
+    del got, want
+    torch.cuda.empty_cache()
+    return row
+
+
 def entry_phase(dev, lib, smi: str) -> tuple[dict, dict]:
     """The flagship step through shannon_tpu_torch.entry: warmed, its
     launches counted, timed, held to ENTRY_FIGURES and to its CPU run; then
@@ -706,12 +750,14 @@ def entry_phase(dev, lib, smi: str) -> tuple[dict, dict]:
 
         got = [x for x in kernel() if x is not None]
         err = _max_abs_err(got, [x for x in plain() if x is not None])
+        library = _keep_library_ms(spec, tentry.MIN_ABUNDANCE, got[0]) if mode == "keep" else None
         # bytes: the counts of the real lanes in (n says where the pads
         # begin), the outputs of every lane out; operations: one a lane
         rows[f"abundance_cut_{mode}"] = _row(err, _alternate(kernel, plain),
-                                             4 * n_real + out_bytes * C, n_real, None)
+                                             4 * n_real + out_bytes * C, n_real, library)
         _print_row(f"K20 abundance_cut ({mode} mode) on the flagship table, {C} lanes, "
                    f"{n_real} real, cut {tentry.MIN_ABUNDANCE}", rows[f"abundance_cut_{mode}"], smi)
+    rows["abundance_filter"] = _filter_row(spec, tentry.MIN_ABUNDANCE, "the flagship table", smi)
 
     table = tcor.abundance_filter(spec, tentry.MIN_ABUNDANCE)
     n_tab = min(table.n, table.capacity)
@@ -944,8 +990,8 @@ def _merge_row(watch: Watch, smi: str) -> dict:
 
 
 def correction_phase(reads, dev, smi: str, watch: Watch):
-    """K7-K10, K16 (also at max_count 65,536), K20 (cut
-    mode) and K28 (neighbor counts, which no path runs) against their plain
+    """K7-K10, K16 (also at max_count 65,536), K20 (cut and keep
+    modes, the abundance filter) and K28 (neighbor counts, which no path runs) against their plain
     versions on the main path's input: the
     counted, shrunk spectrum of the whole single-end scale dataset at the
     default AssemblyConfig (k = 24, the auto cut, sibling ratio 0.1, the
@@ -1052,6 +1098,16 @@ def correction_phase(reads, dev, smi: str, watch: Watch):
     out["abundance_cut"] = _row(err, t, 4 * n_real + 8 * C, n_real, None)
     _print_row(f"K20 abundance_cut (cut mode, the main path's) {C} lanes, cut {cut}, "
                f"{int((counts > 0).sum())} left", out["abundance_cut"], smi)
+    keep = tcor.abundance_cut(spec, cut, False, False)
+    err = _max_abs_err(keep[2:], tcor.abundance_cut_plain(spec, cut, False, False)[2:])
+    t = _alternate(lambda: tcor.abundance_cut(spec, cut, False, False),
+                   lambda: tcor.abundance_cut_plain(spec, cut, False, False))
+    library = _keep_library_ms(spec, cut, keep[2])
+    out["abundance_cut_keep_main"] = _row(err, t, 4 * n_real + C, n_real, library)
+    _print_row(f"K20 abundance_cut (keep mode) {C} lanes, cut {cut}, {int(keep[2].sum())} kept",
+               out["abundance_cut_keep_main"], smi)
+    del keep
+    out["abundance_filter_main"] = _filter_row(spec, cut, "the counted spectrum", smi)
     # K8 at rounds = 1 (one round, comparable with a one-round kernel), then
     # the main path's call: the whole loop at the oracle's cap k + 2
     cand = (raw > 0) & (counts == 0)
@@ -1819,12 +1875,12 @@ def owner_row(batch, dev, smi: str) -> dict:
     errs = []
     for cap, overflows in ((bucket_cap, False), (widest - 1, True)):
         args = (local.key, local.count, SHARDS, cap)
-        got = td.owner_buckets(*args)
+        got = td.owner_buckets(*args, n_real)
         errs.append(_max_abs_err(got, td.owner_buckets_plain(*args)))
         if bool(got[2]) != overflows:
             raise AssertionError(f"K25 at bucket_cap {cap}: overflow flag {bool(got[2])}")
     args = (local.key, local.count, SHARDS, bucket_cap)
-    t = _alternate(lambda: td.owner_buckets(*args), lambda: td.owner_buckets_plain(*args))
+    t = _alternate(lambda: td.owner_buckets(*args, n_real), lambda: td.owner_buckets_plain(*args))
     # bytes: the real lanes' keys and counts in, the [D, bucket_cap] keys and
     # counts out; operations: a hash and a rank a real lane
     row = _row(max(errs), t, 12 * n_real + 12 * SHARDS * bucket_cap, 8 * n_real, None)
@@ -2260,11 +2316,12 @@ def main(argv=None) -> int:
         report["kernels"]["reduce_sorted"]["max_abs_err"], row["max_abs_err"])
     rows, report["correction"], corrected = correction_phase(reads, dev, smi, watch)
     report["kernels"].update(rows)
-    # K20's row is the main path's cut mode; its error covers the flagship
-    # table's keep and cut modes too
+    # K20's row is the main path's cut mode; its error covers its keep mode
+    # and the abundance filter there, and the flagship table's three too
     report["kernels"]["abundance_cut"]["max_abs_err"] = max(
         report["kernels"][name]["max_abs_err"]
-        for name in ("abundance_cut", "abundance_cut_keep", "abundance_cut_cut"))
+        for name in ("abundance_cut", "abundance_cut_keep", "abundance_cut_cut",
+                     "abundance_cut_keep_main", "abundance_filter", "abundance_filter_main"))
     rows, report["condense"] = condense_phase(corrected, dev, smi, watch)
     report["kernels"].update(rows)
     del corrected

@@ -11,10 +11,21 @@ against its parent within one call.
     python scripts/kernel_turns.py --trees OLD NEW NEW OLD [--out FILE]
     python scripts/kernel_turns.py --only sf streams clip --trees OLD NEW NEW OLD
     python scripts/kernel_turns.py --only hist lookup --trees OLD NEW NEW OLD
+    python scripts/kernel_turns.py --only owner cut --trees OLD NEW NEW OLD
 
---only sf, streams, clip, hist and/or lookup times K6's rows, K15's, K18's
-and K19's, K16's and/or K21's alone and builds only their inputs (about 1.5
-minutes, then under half a minute a tree).  K16 ("hist_1024",
+--only sf, streams, clip, hist, lookup, owner and/or cut times K6's rows,
+K15's, K18's and K19's, K16's, K21's, K25's and/or K20's alone and builds
+only their inputs (about 1.5 minutes, then under half a minute a tree).
+K25 ("owner_buckets") runs at chip_smoke.py's owner_row shape: shard 0's
+local table of the 1,000,000-read scale dataset's first batch (its first
+1/8 of the default batch's rows, k = 24, canonical, counted into the
+default 2^22 lanes), bucketed for 8 owners at the default bucket_cap
+(2^20), with "owner_sizes".  K20's cut mode ("cut_main") runs on the hist
+group's spectrum at its auto cut; its keep mode ("keep_flagship"), the
+abundance filter ("filter_flagship") and the filter as keep mode then K10
+("filter_keep_k10", what abundance_filter was before the fused
+compaction) on the flagship step's table before its filter (the lookup
+group's count, sliced to 2^21 lanes), at cut 1.  K16 ("hist_1024",
 "hist_65536") runs on the counted, shrunk spectrum of the
 1,000,000-read scale dataset at the default AssemblyConfig (12,582,912
 lanes, 10,689,722 real) at max_count 1,024 (the auto cut's) and 65,536;
@@ -354,7 +365,31 @@ def _lookup_inputs(dev) -> dict:
                                                  length=tentry.READ_LEN), tentry.CORRECT_CAP)
     table = abundance_filter(spec, tentry.MIN_ABUNDANCE)
     return {"l_key": table.key.cpu().numpy(), "l_count": table.count.cpu().numpy(),
-            "l_n": table.n, "l_k": tentry.K}
+            "l_n": table.n, "l_k": tentry.K, "f_key": spec.key.cpu().numpy(),
+            "f_count": spec.count.cpu().numpy(), "f_n": spec.n, "f_cut": tentry.MIN_ABUNDANCE}
+
+
+def _owner_inputs(reads, cfg, dev) -> dict:
+    """K25's input (numpy): chip_smoke.py's owner_row table, shard 0's local
+    spectrum of the first read batch, with its owners and bucket_cap."""
+    import torch
+
+    from chip_smoke import SHARDS
+    from shannon_tpu_torch.io.pack import pack_reads
+    from shannon_tpu_torch.ops.count import count_window_keys, upload_words
+    from shannon_tpu_torch.ops.kmers import extract_kmers_packed
+    from shannon_tpu_torch.parallel.distributed import default_bucket_cap
+
+    rows = cfg.batch_reads // SHARDS
+    batch = pack_reads(reads[:rows], pad_length=cfg.read_pad_length)
+    m = batch.mask_rows(0, rows)
+    keys, _ = extract_kmers_packed(
+        upload_words(batch.words, dev), torch.from_numpy(batch.lengths).to(dev), cfg.k, True,
+        batch.pad_length, None if m is None else upload_words(m, dev))
+    local = count_window_keys(keys, cfg.kmer_capacity)
+    return {"o_key": local.key.cpu().numpy(), "o_count": local.count.cpu().numpy(),
+            "o_n": local.n, "o_dev": SHARDS,
+            "o_cap": default_bucket_cap(cfg.kmer_capacity, SHARDS)}
 
 
 def _inputs(path: Path, only) -> None:
@@ -368,7 +403,7 @@ def _inputs(path: Path, only) -> None:
 
     dev, cfg = torch.device("cuda", 0), AssemblyConfig()
     focus = {"buf": _sf_jobs(7, 4096), "big": _sf_jobs(8, 65_536)}
-    if only is not None and not {"sf", "streams", "clip", "hist"} & set(only):
+    if only is not None and not {"sf", "streams", "clip", "hist", "owner", "cut"} & set(only):
         focus.update(_lookup_inputs(dev))
         np.savez(path, **focus)
         return
@@ -382,13 +417,15 @@ def _inputs(path: Path, only) -> None:
                           for n, x in condense.items()})
         if "clip" in only:
             focus.update(_clip_inputs(condense, cfg))
-        if "hist" in only:
+        if "hist" in only or "cut" in only:
             spec = _counted_spectrum(reads, cfg, dev)
             focus.update(h_key=spec.key.cpu().numpy(), h_count=spec.count.cpu().numpy(),
                          h_n=spec.n)
             del spec
-        if "lookup" in only:
+        if "lookup" in only or "cut" in only:
             focus.update(_lookup_inputs(dev))
+        if "owner" in only:
+            focus.update(_owner_inputs(reads, cfg, dev))
         np.savez(path, **focus)
         return
 
@@ -505,7 +542,8 @@ def _digest(tensors) -> str:
 
 def _tensors(out) -> list:
     """A call's outputs as tensors: the fields of a dataclass (a Spectrum,
-    ContigArrays) or the items of a sequence, each count as a tensor too."""
+    ContigArrays) or the items of a sequence (an output not asked for,
+    None, left out), each count as a tensor too."""
     import dataclasses
 
     import torch
@@ -514,7 +552,7 @@ def _tensors(out) -> list:
         return [out]
     if dataclasses.is_dataclass(out):
         out = [getattr(out, f.name) for f in dataclasses.fields(out)]
-    return [x if torch.is_tensor(x) else torch.tensor([x]) for x in out]
+    return [x if torch.is_tensor(x) else torch.tensor([x]) for x in out if x is not None]
 
 
 def _host_reads(fn, calls: int = 20) -> tuple[float, float]:
@@ -629,7 +667,42 @@ def _focus_rows(d, dev, only) -> dict:
                    lookup_real=(lambda: lookup_counts(table, q_real), 200),
                    searchsorted_flagship=(lambda: torch.searchsorted(table.key, q_all), 200),
                    searchsorted_real=(lambda: torch.searchsorted(table.key, q_real), 200))
+    if only is not None and "owner" in only:
+        import inspect
+
+        from shannon_tpu_torch.parallel import distributed as td
+
+        o_key, o_count = (torch.from_numpy(d[x]).to(dev) for x in ("o_key", "o_count"))
+        o_real, o_dev, o_cap = min(int(d["o_n"]), o_key.shape[0]), int(d["o_dev"]), int(d["o_cap"])
+        if "n_real" in inspect.signature(td.owner_buckets).parameters:
+            fns["owner_buckets"] = (
+                lambda: td.owner_buckets(o_key, o_count, o_dev, o_cap, o_real), 200)
+        else:  # a tree before K25 took n_real
+            fns["owner_buckets"] = (lambda: td.owner_buckets(o_key, o_count, o_dev, o_cap), 200)
+    if only is not None and "cut" in only:
+        from shannon_tpu_torch.ops import correction as tcor
+        from shannon_tpu_torch.ops.count import Spectrum
+
+        def spectrum(p: str) -> Spectrum:
+            return Spectrum(key=torch.from_numpy(d[f"{p}_key"]).to(dev),
+                            count=torch.from_numpy(d[f"{p}_count"]).to(dev), n=int(d[f"{p}_n"]))
+
+        c_spec, f_spec, f_cut = spectrum("h"), spectrum("f"), int(d["f_cut"])
+        c_cut = tcor.auto_min_abundance(c_spec)
+        fns.update(
+            cut_main=(lambda: tcor.cut_counts(c_spec, c_cut), 200),
+            keep_flagship=(lambda: tcor.abundance_cut(f_spec, f_cut, False, False), 200),
+            filter_flagship=(lambda: tcor.abundance_filter(f_spec, f_cut), 200),
+            filter_keep_k10=(lambda: tcor.compact(
+                f_spec, tcor.abundance_cut(f_spec, f_cut, False, False)[2]), 200))
     row = {f"{name}_ms": _median_ms(fn, reps) for name, (fn, reps) in fns.items()}
+    if "owner_buckets" in fns:
+        row["owner_sizes"] = {"C": o_key.shape[0], "n_real": o_real, "D": o_dev, "cap": o_cap}
+    if "cut_main" in fns:
+        row["cut_sizes"] = {"C": c_spec.capacity, "n_real": min(c_spec.n, c_spec.capacity),
+                            "cut": c_cut, "flagship_C": f_spec.capacity,
+                            "flagship_n_real": min(f_spec.n, f_spec.capacity),
+                            "flagship_cut": f_cut}
     if "lookup_flagship" in fns:
         row["lookup_sizes"] = {"C": table.capacity, "n": n_tab, "flagship": q_all.numel(),
                                "real": q_real.numel()}
@@ -918,10 +991,11 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--trees", nargs="+", required=True)
     ap.add_argument("--out", default=None)
-    ap.add_argument("--only", nargs="+", choices=("sf", "streams", "clip", "hist", "lookup"),
+    ap.add_argument("--only", nargs="+",
+                    choices=("sf", "streams", "clip", "hist", "lookup", "owner", "cut"),
                     default=None,
                     help="time only K6's rows (sf), K15's (streams), K18's and K19's (clip), "
-                         "K16's (hist) and/or K21's (lookup)")
+                         "K16's (hist), K21's (lookup), K25's (owner) and/or K20's (cut)")
     ap.add_argument("--child", nargs=2, metavar=("TREE", "INPUTS"), help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child:

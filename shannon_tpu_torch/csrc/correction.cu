@@ -1,7 +1,7 @@
-// Error-correction kernels K7, K9, K10, K16, K20 and K23 of the
-// shannon_tpu_torch port (plain C interface; see kernels.cu for the
-// conventions every entry point follows).  K8, the dead-end rescue, is in
-// rescue.cu.
+// Error-correction kernels K7, K9, K10, K16, K20 (with the abundance filter
+// on K10's tile) and K23 of the shannon_tpu_torch port (plain C interface; see
+// kernels.cu for the conventions every entry point follows).  K8, the
+// dead-end rescue, is in rescue.cu.
 //
 // The spectrum is a sorted table of C int64 keys with int32 counts, PAD past
 // its real entries.  A probe table is [8, C], entry i of probe row p at
@@ -365,11 +365,17 @@ static __device__ __forceinline__ unsigned keep_bits(const uint8_t* __restrict__
   return bits;
 }
 
-__global__ void __launch_bounds__(SCAN_THREADS)
-    compact_keep_kernel(const int64_t* __restrict__ key, const int32_t* __restrict__ count,
-                        const uint8_t* __restrict__ keep, int64_t C,
-                        unsigned long long* __restrict__ scratch,
-                        int64_t* __restrict__ out_key, int32_t* __restrict__ out_count) {
+// One tile of a compaction: bits_of(first) gives the keep bits of the
+// thread's SCAN_ITEMS lanes from tile lane `first` on; the kept lanes' keys
+// and counts go out in order from the tile's prefix.  K10 takes its bits from
+// a keep array, the fused abundance filter (K20) from the counts.
+template <typename BitsOf>
+static __device__ __forceinline__ void compact_tile(const int64_t* __restrict__ key,
+                                                    const int32_t* __restrict__ count,
+                                                    unsigned long long* __restrict__ scratch,
+                                                    int64_t* __restrict__ out_key,
+                                                    int32_t* __restrict__ out_count,
+                                                    BitsOf bits_of) {
   __shared__ ScanShared sh;
   __shared__ unsigned s_warp[SCAN_WARPS];
   __shared__ uint16_t s_lane[SCAN_TILE];  // tile offsets of the kept lanes, in order
@@ -377,7 +383,7 @@ __global__ void __launch_bounds__(SCAN_THREADS)
   const long long tile = scan_ticket(scratch, &sh);
   const int64_t base = (int64_t)tile * SCAN_TILE;
   const int first = threadIdx.x * SCAN_ITEMS;
-  unsigned bits = keep_bits(keep, base + first, C);
+  unsigned bits = bits_of(base + first);
   unsigned kept;
   unsigned r = block_exclusive_scan((unsigned)__popc(bits), s_warp, &kept);
   scan_publish_aggregate(status, tile, kept);
@@ -388,6 +394,15 @@ __global__ void __launch_bounds__(SCAN_THREADS)
     out_key[prefix + q] = key[i];
     out_count[prefix + q] = count[i];
   }
+}
+
+__global__ void __launch_bounds__(SCAN_THREADS)
+    compact_keep_kernel(const int64_t* __restrict__ key, const int32_t* __restrict__ count,
+                        const uint8_t* __restrict__ keep, int64_t C,
+                        unsigned long long* __restrict__ scratch,
+                        int64_t* __restrict__ out_key, int32_t* __restrict__ out_count) {
+  compact_tile(key, count, scratch, out_key, out_count,
+               [&](int64_t first) { return keep_bits(keep, first, C); });
 }
 
 // ---------------------------------------------------------------------------
@@ -490,31 +505,128 @@ __global__ void __launch_bounds__(HIST_THREADS, HIST_BLOCKS_PER_SM)
 }
 
 // ---------------------------------------------------------------------------
-// K20: the abundance cut.
+// K20: the abundance cut, and the abundance filter on it.
 // Replaces shannon_tpu/ops/correction.py:134 _cut_counts and the keep mask of
-// :54 abundance_filter.  One streaming pass over key and count, given the cut
-// m; it writes whichever outputs the caller passes non-null:
-//   raw  = key == PAD ? 0 : count        (int32)
+// :54 abundance_filter, given the cut m.  Under the Spectrum contract
+// (ops/count.py) the first n_real = min(n, C) lanes are the real ones and
+// every lane past them is PAD with count 0, so neither kernel reads a key.
+//
+// abundance_cut_kernel writes whichever outputs the caller passes non-null:
+//   raw  = i < n_real ? count : 0        (int32)
 //   cut  = raw < m ? 0 : raw             (int32)
-//   keep = key != PAD && count >= m      (bool)
+//   keep = i < n_real && count >= m      (bool)
 // keep is not cut > 0: with m <= 0 a real lane of count 0 is kept, as the
-// reference keeps it.
-// Bound: memory; 12 bytes a lane in, up to 9 out.
+// reference keeps it.  Bound: memory, the real lanes' counts in (4 bytes a
+// lane) and every lane's outputs out (up to 9 bytes).  A block takes
+// CUT_TILE lanes, a thread CUT_LANES of them: four 16-byte count loads
+// (none past n_real) and, with raw or cut, four 16-byte stores of each, a
+// warp's accesses on 512 contiguous bytes (4-byte stores of keep there);
+// keep alone, one 16-byte store of a thread's 16 contiguous flags.  Lanes
+// past n_real are written in the same launch.  A view that is not 16-byte
+// aligned and the table's last partial block take one lane at a time.
+//
+// abundance_filter (filter_count_kernel, then scan_fill_tail): K10's
+// compaction tile with its keep bits taken from count >= m over the real
+// lanes (tiles over [0, n_real) alone), so no keep array is written or read
+// and no K20 pass runs before it.  Bound: memory, the real lanes' counts in,
+// the kept lanes' keys and counts gathered, every output lane written once.
 // ---------------------------------------------------------------------------
-__global__ void abundance_cut_kernel(const int64_t* __restrict__ key,
-                                     const int32_t* __restrict__ count,
-                                     int64_t C, int32_t m,
-                                     int32_t* __restrict__ raw,
-                                     int32_t* __restrict__ cut,
-                                     uint8_t* __restrict__ keep) {
-  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= C) return;
-  const bool real = key[i] != PAD_KEY;
-  const int32_t c = count[i];
-  const int32_t r = real ? c : 0;
-  if (raw) raw[i] = r;
-  if (cut) cut[i] = r < m ? 0 : r;
-  if (keep) keep[i] = (real && c >= m) ? 1 : 0;
+#define CUT_LANES 16
+#define CUT_TILE (THREADS * CUT_LANES)  // 4,096 lanes a block
+
+__global__ void __launch_bounds__(THREADS)
+    abundance_cut_kernel(const int32_t* __restrict__ count, int64_t n_real, int64_t C,
+                         int32_t m, int vec, int32_t* __restrict__ raw,
+                         int32_t* __restrict__ cut, uint8_t* __restrict__ keep) {
+  const int64_t base = (int64_t)blockIdx.x * CUT_TILE;
+  if (vec && base + CUT_TILE <= C) {
+    if (raw || cut) {
+      // striped: quad q of thread t is lanes base + 4 (q THREADS + t), so
+      // each warp's load and stores cover 512 contiguous bytes (whole
+      // sectors: a thread's own 64 contiguous bytes would leave each store
+      // of a warp half a sector)
+#pragma unroll
+      for (int q = 0; q < CUT_LANES / 4; ++q) {
+        const int64_t i = base + 4 * (q * THREADS + threadIdx.x);
+        int c[4] = {0, 0, 0, 0};
+        if (i < n_real) {
+          const int4 v = *reinterpret_cast<const int4*>(count + i);
+          c[0] = v.x;
+          c[1] = i + 1 < n_real ? v.y : 0;
+          c[2] = i + 2 < n_real ? v.z : 0;
+          c[3] = i + 3 < n_real ? v.w : 0;
+        }
+        if (raw) *reinterpret_cast<int4*>(raw + i) = make_int4(c[0], c[1], c[2], c[3]);
+        if (cut) {
+          *reinterpret_cast<int4*>(cut + i) =
+              make_int4(c[0] < m ? 0 : c[0], c[1] < m ? 0 : c[1], c[2] < m ? 0 : c[2],
+                        c[3] < m ? 0 : c[3]);
+        }
+        if (keep) {
+          unsigned w = 0;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            if (i + j < n_real && c[j] >= m) w |= 1u << (8 * j);
+          }
+          *reinterpret_cast<unsigned*>(keep + i) = w;
+        }
+      }
+    } else if (keep) {
+      // keep alone: a thread's 16 contiguous lanes, four 16-byte loads (a
+      // warp's four loads cover the same 2,048 bytes) and one 16-byte store
+      const int64_t first = base + CUT_LANES * threadIdx.x;
+      unsigned w[4] = {0u, 0u, 0u, 0u};
+      if (first < n_real) {
+#pragma unroll
+        for (int q = 0; q < CUT_LANES / 4; ++q) {
+          const int4 v = reinterpret_cast<const int4*>(count + first)[q];
+          const int c[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            if (first + 4 * q + j < n_real && c[j] >= m) w[q] |= 1u << (8 * j);
+          }
+        }
+      }
+      *reinterpret_cast<uint4*>(keep + first) = make_uint4(w[0], w[1], w[2], w[3]);
+    }
+    return;
+  }
+  // an unaligned view, or the table's last partial block: lane by lane
+  for (int64_t i = base + threadIdx.x; i < base + CUT_TILE && i < C; i += THREADS) {
+    const int32_t r = i < n_real ? count[i] : 0;
+    if (raw) raw[i] = r;
+    if (cut) cut[i] = r < m ? 0 : r;
+    if (keep) keep[i] = (i < n_real && r >= m) ? 1 : 0;
+  }
+}
+
+// Bit j of the result is lane first + j's test count >= m (lanes at or past
+// n_real read 0).
+static __device__ __forceinline__ unsigned count_bits(const int32_t* __restrict__ count,
+                                                      int64_t first, int64_t n_real, int32_t m) {
+  unsigned bits = 0;
+  if (first + SCAN_ITEMS <= n_real && ((uintptr_t)(count + first) & 15) == 0) {
+#pragma unroll
+    for (int q = 0; q < SCAN_ITEMS / 4; ++q) {
+      const int4 v = reinterpret_cast<const int4*>(count + first)[q];
+      bits |= ((unsigned)(v.x >= m) | (unsigned)(v.y >= m) << 1 | (unsigned)(v.z >= m) << 2 |
+               (unsigned)(v.w >= m) << 3) << (4 * q);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < SCAN_ITEMS; ++j) {
+      if (first + j < n_real && count[first + j] >= m) bits |= 1u << j;
+    }
+  }
+  return bits;
+}
+
+__global__ void __launch_bounds__(SCAN_THREADS)
+    filter_count_kernel(const int64_t* __restrict__ key, const int32_t* __restrict__ count,
+                        int64_t n_real, int32_t m, unsigned long long* __restrict__ scratch,
+                        int64_t* __restrict__ out_key, int32_t* __restrict__ out_count) {
+  compact_tile(key, count, scratch, out_key, out_count,
+               [&](int64_t first) { return count_bits(count, first, n_real, m); });
 }
 
 // ---------------------------------------------------------------------------
@@ -637,13 +749,38 @@ int shannon_compact_keep(const void* key, const void* count, const void* keep, i
   return (int)cudaGetLastError();
 }
 
-int shannon_abundance_cut(const void* key, const void* count, int64_t C, int m,
-                          void* raw, void* cut, void* keep, void* stream) {
-  if (C > 0) {
-    abundance_cut_kernel<<<blocks_for(C), THREADS, 0, (cudaStream_t)stream>>>(
-        (const int64_t*)key, (const int32_t*)count, C, (int32_t)m, (int32_t*)raw,
-        (int32_t*)cut, (uint8_t*)keep);
+// count: the table's counts, its real lanes [0, n_real) first; raw, cut,
+// keep: C lanes each, or null.
+int shannon_abundance_cut(const void* count, int64_t n_real, int64_t C, int m, void* raw,
+                          void* cut, void* keep, void* stream) {
+  if (n_real < 0 || n_real > C) return (int)cudaErrorInvalidValue;
+  const int vec = ((uintptr_t)count & 15) == 0 && ((uintptr_t)raw & 15) == 0 &&
+                  ((uintptr_t)cut & 15) == 0 && ((uintptr_t)keep & 15) == 0;
+  const int64_t blocks = (C + CUT_TILE - 1) / CUT_TILE;
+  if (blocks > 0) {
+    abundance_cut_kernel<<<(unsigned int)blocks, THREADS, 0, (cudaStream_t)stream>>>(
+        (const int32_t*)count, n_real, C, (int32_t)m, vec, (int32_t*)raw, (int32_t*)cut,
+        (uint8_t*)keep);
   }
+  return (int)cudaGetLastError();
+}
+
+// The abundance filter: the real lanes [0, n_real) of count >= m compacted
+// into out_key / out_count (C lanes, PAD / 0 past them).  scratch: exactly
+// scan_tiles(n_real) + 1 zeroed words (scan.cuh); any other size is refused.
+int shannon_abundance_filter(const void* key, const void* count, int64_t n_real, int64_t C,
+                             int m, void* scratch, int64_t scratch_words, void* out_key,
+                             void* out_count, void* stream) {
+  if (n_real < 0 || n_real > C) return (int)cudaErrorInvalidValue;
+  const long long tiles = scan_tiles(n_real);
+  if (scratch_words != tiles + 1) return (int)cudaErrorInvalidValue;
+  if (tiles > 0) {
+    filter_count_kernel<<<(unsigned int)tiles, SCAN_THREADS, 0, (cudaStream_t)stream>>>(
+        (const int64_t*)key, (const int32_t*)count, n_real, (int32_t)m,
+        (unsigned long long*)scratch, (int64_t*)out_key, (int32_t*)out_count);
+  }
+  scan_fill_tail((const unsigned long long*)scratch, tiles, C, (int64_t*)out_key,
+                 (int32_t*)out_count, (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }
 

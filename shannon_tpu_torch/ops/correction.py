@@ -10,9 +10,10 @@ and the prune rounds as one call of K9, whose first round is the whole loop
 first round that changes nothing (the reference split the rounds into
 chunks only to stay inside a TPU worker's execution limit).  The kept
 entries are compacted (K10).  The auto abundance cut reads the count
-histogram (K16).  The reference's single-round steps ``abundance_filter``
-(K20's keep flags) and ``sibling_prune_round`` (the sibling maxima of K22,
-then K23's keep flags) compact through K10 as well.  On CUDA tensors each of these launches its
+histogram (K16).  The reference's single-round step ``abundance_filter``
+is one compaction on K10's tile that tests the counts itself (K20's
+filter), and ``sibling_prune_round`` (the sibling maxima of K22, then
+K23's keep flags) compacts through K10.  On CUDA tensors each of these launches its
 hand-written kernel in ``csrc/correction.cu``, ``csrc/rescue.cu`` or
 ``csrc/spectrum.cu``; on CPU tensors its ``_plain`` version runs.
 
@@ -173,7 +174,8 @@ def abundance_cut_plain(
     )
 
 
-def _abundance_cut_cuda(spec: Spectrum, min_abundance: int, raw: bool, cut: bool, keep: bool):
+def _check_table(spec: Spectrum, min_abundance: int) -> int:
+    """K20's input checks; returns C."""
     kernels.check_cuda("key", spec.key, torch.int64, 1)
     kernels.check_cuda("count", spec.count, torch.int32, 1)
     C = spec.capacity
@@ -181,6 +183,11 @@ def _abundance_cut_cuda(spec: Spectrum, min_abundance: int, raw: bool, cut: bool
         raise ValueError("key and count disagree on length")
     if not -(1 << 31) <= min_abundance < 1 << 31:
         raise ValueError(f"min_abundance {min_abundance} is not an int32")
+    return C
+
+
+def _abundance_cut_cuda(spec: Spectrum, min_abundance: int, raw: bool, cut: bool, keep: bool):
+    C = _check_table(spec, min_abundance)
     dev = spec.key.device
     outs = (
         torch.empty(C, dtype=torch.int32, device=dev) if raw else None,
@@ -189,9 +196,10 @@ def _abundance_cut_cuda(spec: Spectrum, min_abundance: int, raw: bool, cut: bool
     )
     if C and (raw or cut or keep):
         lib = kernels.library()
+        # the Spectrum contract: lanes past min(n, C) are PAD with count 0
         lib.call(
             "shannon_abundance_cut", dev,
-            kernels.ptr(spec.key), kernels.ptr(spec.count), C, min_abundance,
+            kernels.ptr(spec.count), min(spec.n, C), C, min_abundance,
             *(kernels.ptr(o) for o in outs),
         )
         lib.count("abundance_cut")
@@ -206,7 +214,8 @@ def abundance_cut(
     min_abundance else 0 (ops/correction.py:134 _cut_counts), keep = real
     lanes of count >= min_abundance (the mask of :54 abundance_filter; with
     min_abundance <= 0 it keeps real lanes of count 0, which cut > 0 would
-    not).  Kernel K20 on CUDA, the plain version on CPU."""
+    not).  Kernel K20 on CUDA (the counts of the real lanes count[:min(n,
+    C)] alone, no key), the plain version on CPU (over the whole table)."""
     if spec.key.is_cuda:
         return _abundance_cut_cuda(spec, min_abundance, raw, cut, keep)
     return abundance_cut_plain(spec, min_abundance, raw, cut, keep)
@@ -223,10 +232,39 @@ def cut_counts(spec: Spectrum, min_abundance: int):
     return abundance_cut(spec, min_abundance, keep=False)[:2]
 
 
+def abundance_filter_plain(spec: Spectrum, min_abundance: int) -> Spectrum:
+    """Plain PyTorch abundance filter: K20's keep flags, then K10."""
+    return compact_plain(spec, abundance_cut_plain(spec, min_abundance, raw=False, cut=False)[2])
+
+
+def _abundance_filter_cuda(spec: Spectrum, min_abundance: int) -> Spectrum:
+    C = _check_table(spec, min_abundance)
+    if C >= 1 << 31:
+        raise ValueError(f"{C} lanes exceed the 2^31 that K10 takes (the reference's int32 n)")
+    dev = spec.key.device
+    n_real = min(spec.n, C)
+    key = torch.empty_like(spec.key)
+    count = torch.empty_like(spec.count)
+    scratch = kernels.scan_scratch(n_real, dev)
+    lib = kernels.library()
+    lib.call(
+        "shannon_abundance_filter", dev,
+        kernels.ptr(spec.key), kernels.ptr(spec.count), n_real, C, min_abundance,
+        kernels.ptr(scratch), scratch.shape[0], kernels.ptr(key), kernels.ptr(count),
+    )
+    lib.count("abundance_cut")
+    return Spectrum(key=key, count=count, n=kernels.scan_total(scratch))
+
+
 def abundance_filter(spec: Spectrum, min_abundance: int) -> Spectrum:
     """Drop the PAD lanes and the k-mers of count < min_abundance
-    (ops/correction.py:54 abundance_filter): K20's keep flags, then K10."""
-    return compact(spec, abundance_cut(spec, min_abundance, raw=False, cut=False)[2])
+    (ops/correction.py:54 abundance_filter).  On CUDA one compaction on
+    K10's tile whose keep bits are count >= min_abundance over the real
+    lanes count[:min(n, C)] (counted as K20; no keep array), then the PAD
+    tail; on CPU K20's plain keep flags, then K10's plain version."""
+    if spec.key.is_cuda:
+        return _abundance_filter_cuda(spec, min_abundance)
+    return abundance_filter_plain(spec, min_abundance)
 
 
 def _check_round(counts, probe_sets) -> None:

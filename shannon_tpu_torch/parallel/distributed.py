@@ -50,8 +50,9 @@ from shannon_tpu_torch.parallel.mesh import Mesh
 _M32 = 0xFFFFFFFF
 # The most owners K25 bins in shared memory (MAX_OWNERS in csrc/distributed.cu).
 MAX_OWNERS = 1024
-# Lanes per block of K25's kernels (THREADS in csrc/common.cuh).
-_BLOCK_LANES = 256
+# Lanes a tile of K25's passes (OB_TILE in csrc/distributed.cu; the entry
+# point refuses a scratch sized for any other tile).
+_OWNER_TILE = 2048
 
 
 def default_bucket_cap(capacity: int, n_dev: int) -> int:
@@ -102,7 +103,7 @@ def owner_buckets_plain(
     return out_key.view(n_dev, bucket_cap), out_count.view(n_dev, bucket_cap), overflow
 
 
-def _owner_buckets_cuda(key, count, n_dev, bucket_cap):
+def _owner_buckets_cuda(key, count, n_dev, bucket_cap, n_real):
     kernels.check_cuda("key", key, torch.int64, 1)
     kernels.check_cuda("count", count, torch.int32, 1)
     C = key.shape[0]
@@ -113,36 +114,40 @@ def _owner_buckets_cuda(key, count, n_dev, bucket_cap):
     if not 1 <= n_dev <= MAX_OWNERS:
         raise ValueError(f"n_dev={n_dev} is outside 1..{MAX_OWNERS}")
     dev = key.device
-    block_counts = torch.empty((n_dev, -(-C // _BLOCK_LANES)), dtype=torch.int32, device=dev)
-    out_key = torch.full((n_dev, bucket_cap), PAD, dtype=torch.int64, device=dev)
-    out_count = torch.zeros((n_dev, bucket_cap), dtype=torch.int32, device=dev)
-    flag = torch.zeros(1, dtype=torch.int32, device=dev)
+    # the [D, tiles] counts (then starts), then D totals
+    scratch = torch.empty(n_dev * -(-n_real // _OWNER_TILE) + n_dev, dtype=torch.int32,
+                          device=dev)
+    out_key = torch.empty((n_dev, bucket_cap), dtype=torch.int64, device=dev)
+    out_count = torch.empty((n_dev, bucket_cap), dtype=torch.int32, device=dev)
+    overflow = torch.empty((), dtype=torch.bool, device=dev)
     lib = kernels.library()
-    lib.call("shannon_owner_counts", dev, kernels.ptr(key), C, n_dev, kernels.ptr(block_counts))
-    block_ends = torch.cumsum(block_counts, 1, dtype=torch.int32)
     lib.call(
-        "shannon_owner_scatter", dev,
-        kernels.ptr(key), kernels.ptr(count), C, n_dev, bucket_cap,
-        kernels.ptr(block_counts), kernels.ptr(block_ends),
-        kernels.ptr(out_key), kernels.ptr(out_count), kernels.ptr(flag),
+        "shannon_owner_buckets", dev,
+        kernels.ptr(key), kernels.ptr(count), n_real, n_dev, bucket_cap,
+        kernels.ptr(scratch), scratch.shape[0], kernels.ptr(out_key), kernels.ptr(out_count),
+        kernels.ptr(overflow),
     )
     lib.count("owner_buckets")
-    return out_key, out_count, flag[0] != 0
+    return out_key, out_count, overflow
 
 
 def owner_buckets(
-    key: torch.Tensor, count: torch.Tensor, n_dev: int, bucket_cap: int
+    key: torch.Tensor, count: torch.Tensor, n_dev: int, bucket_cap: int, n_real: int
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Partition a sorted table (PAD last) by owner shard, keeping key order
     inside each owner: (bucket keys [D, bucket_cap] int64, PAD past each
     bucket's lanes; bucket counts [D, bucket_cap] int32, 0 there; overflow,
     a 0-d bool tensor, true where an owner has more than bucket_cap real
-    lanes, whose lanes past bucket_cap are dropped).  Kernel K25 on CUDA,
-    the plain version on CPU."""
+    lanes, whose lanes past bucket_cap are dropped).  n_real: the table's
+    real lanes, min(n, C) under the Spectrum contract (ops/count.py), which
+    kernel K25 reads alone on CUDA; the plain version on CPU reads the whole
+    table, as the reference does."""
     if bucket_cap < 1:
         raise ValueError(f"bucket_cap={bucket_cap} must be >= 1")
+    if not 0 <= n_real <= key.shape[0]:
+        raise ValueError(f"n_real={n_real} is outside 0..{key.shape[0]}")
     if key.is_cuda:
-        return _owner_buckets_cuda(key, count, n_dev, bucket_cap)
+        return _owner_buckets_cuda(key, count, n_dev, bucket_cap, n_real)
     return owner_buckets_plain(key, count, n_dev, bucket_cap)
 
 
@@ -150,7 +155,8 @@ def sharded_tail(key: torch.Tensor, n_dev: int, capacity: int, bucket_cap: int):
     """One shard's half of _sharded_tail (parallel/distributed.py:126-160):
     the local pre-count of its window keys, then its owner buckets."""
     local = count_window_keys(key, capacity)
-    return owner_buckets(local.key, local.count, n_dev, bucket_cap)
+    return owner_buckets(local.key, local.count, n_dev, bucket_cap,
+                         min(local.n, local.capacity))
 
 
 def owner_slice(keys: torch.Tensor, counts: torch.Tensor, bucket_cap: int):

@@ -2,8 +2,10 @@
 the rescue rounds, the error-capped prune rounds and the fixpoint after
 their first round, compaction, the whole stage, and the single-round steps
 abundance_filter and sibling_prune_round)
-against shannon_tpu.ops.correction on JAX-CPU, and a transcription of K8's
-frontier schedule with the probe symmetry it rests on.  Both packages start from
+against shannon_tpu.ops.correction on JAX-CPU, a transcription of K8's
+frontier schedule with the probe symmetry it rests on, and transcriptions
+of K20's cut kernel and of the abundance filter's count-predicate
+compaction.  Both packages start from
 the same counted spectrum (via convert).  The plain versions run here (CPU
 tensors); tests/test_torch_kernels.py holds kernels K7-K10, K16, K20 and
 K23 against them on the card.
@@ -28,8 +30,10 @@ from shannon_tpu_torch.ops import correction as tcor
 from shannon_tpu_torch.ops.count import Spectrum
 from shannon_tpu_torch.ops.kmers import PAD, canonical_key
 from shannon_tpu_torch.ops.spectrum import probe_keys
+from test_torch_count import CONTRACT_PRODUCERS, _contract_producer
 from test_torch_kernels import (
-    CONTRACT_CASES, EDGE_SIZES, _histogram_spectrum, contract_case, keep_case, prune_grid,
+    K20_CUTS, K20_N_REAL, CONTRACT_CASES, EDGE_SIZES, _histogram_spectrum, contract_case, cut_table, keep_case,
+    prune_grid,
 )
 
 
@@ -497,6 +501,151 @@ def test_abundance_filter_matches_reference(min_abundance):
     got = tcor.abundance_filter(port, min_abundance)
     _assert_same(got, jcor.abundance_filter(ref, min_abundance))
     assert got.n == int((port.count[: port.n] >= min_abundance).sum())
+
+
+# csrc/correction.cu: a block of abundance_cut_kernel (256 threads x 16
+# lanes), and the compaction tile's geometry (scan.cuh: 256 threads x 16
+# lanes), with a small one of many tiles
+CUT_THREADS, CUT_LANES = 256, 16
+K20_GEOMETRIES = {"source": (256, 16), "small": (4, 16)}
+
+
+def k20_cut_transcription(count: np.ndarray, n_real: int, m: int, keep_only: bool,
+                          offset: int = 0):
+    """numpy transcription of abundance_cut_kernel: blocks of 4,096 lanes.
+    Where count (a view `offset` lanes past a 16-byte boundary) and the
+    outputs are aligned and the block is whole: with raw or cut, quad q of
+    thread t is the 4 lanes from base + 4 (256 q + t), loaded as one
+    16-byte load where its first lane is below n_real (lanes past n_real
+    zeroed); keep alone, thread t's 16 lanes from base + 16 t, four loads
+    where the first is below n_real.  Else lane by lane below n_real.  No
+    key is read.  Returns (raw, cut, keep, the lanes read)."""
+    C = count.shape[0]
+    raw, cut = np.empty(C, np.int32), np.empty(C, np.int32)
+    keep, read = np.empty(C, bool), np.zeros(C, bool)
+    tile = CUT_THREADS * CUT_LANES
+    t = np.arange(CUT_THREADS)
+    for base in range(0, C, tile):
+        if offset % 4 == 0 and base + tile <= C:
+            if keep_only:
+                groups = base + CUT_LANES * t[:, None] + np.arange(CUT_LANES)
+            else:
+                groups = base + 4 * (np.arange(4)[:, None] * CUT_THREADS + t)[..., None] \
+                    + np.arange(4)
+                groups = groups.reshape(-1, 4)
+            loaded = groups[:, 0] < n_real
+            c = np.where(loaded[:, None], count[groups], 0)
+            read[groups[loaded]] = True
+            c = np.where(groups < n_real, c, 0)
+            lanes = groups.reshape(-1)
+            c = c.reshape(-1)
+        else:
+            lanes = np.arange(base, min(base + tile, C))
+            c = np.where(lanes < n_real, count[lanes], 0)
+            read[lanes[lanes < n_real]] = True
+        raw[lanes] = c
+        cut[lanes] = np.where(c < m, 0, c)
+        keep[lanes] = (lanes < n_real) & (c >= m)
+    return raw, cut, keep, read
+
+
+def k20_filter_transcription(key: np.ndarray, count: np.ndarray, n_real: int, m: int,
+                             threads: int = 256, items: int = 16, offset: int = 0):
+    """numpy transcription of the abundance filter on CUDA
+    (filter_count_kernel on K10's compaction tile, then scan_fill_tail):
+    tiles of threads x items lanes over [0, n_real) alone; a thread's keep
+    bits count >= m from one 16-byte load a 4 lanes where its lanes are
+    below n_real and aligned, else lane by lane below n_real; the block's
+    exclusive scan of the bits' counts; each tile's prefix, the earlier
+    tiles' kept lanes (the look-back); the kept lanes' keys and counts out
+    in lane order; PAD / 0 from n on.  Returns (key, count, n) and asserts
+    each output lane is written once."""
+    C, tile = key.shape[0], threads * items
+    out_key, out_count = np.empty(C, np.int64), np.empty(C, np.int32)
+    written = np.zeros(C, np.int64)
+    prefix = 0
+    for base in range(0, n_real, tile):
+        firsts = base + items * np.arange(threads)
+        lanes = firsts[:, None] + np.arange(items)
+        vec = (firsts + items <= n_real) & ((offset + firsts) % 4 == 0)
+        safe = np.minimum(lanes, C - 1)
+        bits = np.where(vec[:, None], count[safe] >= m,
+                        (lanes < n_real) & (count[safe] >= m))
+        per_thread = bits.sum(1)
+        r = np.cumsum(per_thread) - per_thread  # the block's exclusive scan
+        kept = int(per_thread.sum())
+        s_lane = np.empty(kept, np.int64)
+        for t in range(threads):
+            s_lane[r[t]:r[t] + per_thread[t]] = lanes[t][bits[t]] - base
+        slots = prefix + np.arange(kept)
+        out_key[slots] = key[base + s_lane]
+        out_count[slots] = count[base + s_lane]
+        written[slots] += 1
+        prefix += kept
+    out_key[prefix:], out_count[prefix:] = PAD, 0
+    written[prefix:] += 1
+    assert (written == 1).all()
+    return out_key, out_count, prefix
+
+
+def _k20_check(spec: Spectrum, m: int, offset: int = 0, geometry: str = "source") -> None:
+    """K20's transcriptions == abundance_cut_plain / cut_counts /
+    abundance_filter on the CPU == _cut_counts / abundance_filter of the
+    reference, for a table under the contract."""
+    n_real = min(spec.n, spec.capacity)
+    key, count = spec.key.numpy(), spec.count.numpy()
+    plain = tcor.abundance_cut_plain(spec, m)
+    for keep_only, width in ((False, 4), (True, CUT_LANES)):
+        raw, cut, keep, read = k20_cut_transcription(count, n_real, m, keep_only, offset)
+        assert read[:n_real].all() and not read[-(-n_real // width) * width:].any()
+        for got, want in zip((raw, cut, keep), plain):
+            np.testing.assert_array_equal(got, want.numpy())
+    for got, want in zip((raw, cut), tcor.cut_counts(spec, m)):
+        np.testing.assert_array_equal(got, want.numpy())
+    ref = _jax_spectrum(spec)
+    for got, want in zip((raw, cut), jcor._cut_counts(ref, m)):
+        np.testing.assert_array_equal(got, np.asarray(want))
+    f_key, f_count, f_n = k20_filter_transcription(key, count, n_real, m,
+                                                   *K20_GEOMETRIES[geometry], offset)
+    port = tcor.abundance_filter(spec, m)
+    assert f_n == port.n == int(keep.sum())
+    np.testing.assert_array_equal(f_key, port.key.numpy())
+    np.testing.assert_array_equal(f_count, port.count.numpy())
+    want = jcor.abundance_filter(ref, m)
+    assert f_n == int(want.n)
+    np.testing.assert_array_equal(f_key, convert.hilo_to_key(np.asarray(want.hi),
+                                                             np.asarray(want.lo)))
+    np.testing.assert_array_equal(f_count, np.asarray(want.count))
+
+
+@pytest.mark.parametrize("n_real", K20_N_REAL)
+@pytest.mark.parametrize("m", K20_CUTS)
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("geometry", list(K20_GEOMETRIES))
+def test_k20_transcription_matches_plain_and_reference(n_real, m, offset, geometry):
+    """K20's cut mode and the count-predicate compaction on tables whose real
+    lanes end inside a group of 16 (n_real mod 4 != 0), on a tile edge and
+    beside it, fill the table (C = 8,195, not a multiple of 16), or are
+    none; read from an aligned table and from a view one lane past a
+    16-byte boundary (every load lane by lane)."""
+    _k20_check(cut_table(n_real, offset), m, offset, geometry)
+
+
+_PRODUCED: dict = {}
+
+
+@pytest.mark.parametrize("producer", CONTRACT_PRODUCERS)
+@pytest.mark.parametrize("m", [0, 1, 2, "above"])
+def test_k20_transcription_on_contract_producers(producer, m):
+    """K20's transcriptions on the table of every producer of the Spectrum
+    contract (tests/test_torch_count.py), overflowed tables included, at a
+    cut of 0, 1, 2 and one above the table's largest count."""
+    if producer not in _PRODUCED:
+        _PRODUCED[producer] = _contract_producer(producer)
+    spec = _PRODUCED[producer]
+    if m == "above":
+        m = int(spec.count.max()) + 1
+    _k20_check(spec, m)
 
 
 @pytest.mark.parametrize("k", [5, 16, 24, 31])

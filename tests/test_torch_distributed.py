@@ -3,8 +3,10 @@ shannon_tpu.parallel on the conftest's 8 virtual JAX-CPU devices, the port
 on make_mesh(D, "cpu") (D shards, one process).  Every case of
 tests/test_distributed.py, plus a bucket_cap at the margin where one lane
 decides the overflow flag, a local table that overflows, meshes of 2 and 3
-shards, the packed and batch drivers, the owner hash and K25's plain
-version, and the sharded route through assemble, run_pipeline and the CLI.
+shards, the packed and batch counts, the owner hash, K25's plain version
+and a numpy transcription of K25's kernels (held to the plain version and
+to the reference's bucketing in JAX), and the sharded route through
+assemble, run_pipeline and the CLI.
 
 Tolerance: exact — tables (keys, counts) over the whole capacity, the
 overflow flag, the same transcripts."""
@@ -18,6 +20,7 @@ import jax.numpy as jnp
 from shannon_tpu.config import AssemblyConfig
 from shannon_tpu.io.fastx import write_fasta
 from shannon_tpu.io.pack import pack_reads
+from shannon_tpu.ops.kmers import SENTINEL
 from shannon_tpu.parallel import distributed as jd
 from shannon_tpu.parallel import make_mesh as ref_make_mesh
 from shannon_tpu.pipeline import assemble as ref_assemble
@@ -26,12 +29,12 @@ from shannon_tpu.sim import random_seq, sample_reads, simulate_isoforms, simulat
 from shannon_tpu_torch import convert
 from shannon_tpu_torch import pipeline as tpipe
 from shannon_tpu_torch.cli import main as port_cli
-from shannon_tpu_torch.ops.count import count_spectrum
+from shannon_tpu_torch.ops.count import count_spectrum, count_window_keys
 from shannon_tpu_torch.ops.kmers import PAD, extract_kmers
 from shannon_tpu_torch.parallel import distributed as td
 from shannon_tpu_torch.parallel.mesh import make_mesh
 
-from test_torch_kernels import owner_table
+from test_torch_kernels import K25_N_REAL, k25_table, owner_table
 
 
 def _random_batch(rng, n_reads, L=72):
@@ -279,11 +282,229 @@ def test_owner_buckets_plain_matches_numpy(n_dev, slack):
     key, count = owner_table(n_dev)
     widest = int(np.bincount(td.owner_of(torch.from_numpy(key[key != PAD]), n_dev).numpy()).max())
     bucket_cap = {"roomy": 2 * widest, "margin": widest, "over": widest - 1}[slack]
-    got = td.owner_buckets(torch.from_numpy(key), torch.from_numpy(count), n_dev, bucket_cap)
+    got = td.owner_buckets(torch.from_numpy(key), torch.from_numpy(count), n_dev, bucket_cap,
+                           int((key != PAD).sum()))
     want = buckets_numpy(key, count, n_dev, bucket_cap)
     np.testing.assert_array_equal(got[0].numpy(), want[0])
     np.testing.assert_array_equal(got[1].numpy(), want[1])
     assert bool(got[2]) == want[2] == (slack == "over")
+
+
+def buckets_jax(key: np.ndarray, count: np.ndarray, n_dev: int, bucket_cap: int):
+    """The reference's bucketing, parallel/distributed.py:133-160 with its
+    own _hash_dev, in JAX on the (hi, lo) halves of the keys."""
+    import jax
+
+    h, l = convert.key_to_hilo(key)
+    hi, lo, cnt = jnp.asarray(h), jnp.asarray(l), jnp.asarray(count)
+    dev = jd._hash_dev(hi, lo, n_dev)
+    pad = (hi == SENTINEL) & (lo == SENTINEL)
+    dev = jnp.where(pad, n_dev, dev)
+    dev, bhi, blo, bcnt = jax.lax.sort((dev, hi, lo, cnt), num_keys=3)
+    idx = jnp.arange(key.shape[0], dtype=jnp.int32)
+    first_of_dev = jnp.searchsorted(dev, jnp.arange(n_dev + 1, dtype=jnp.int32)).astype(jnp.int32)
+    within = idx - first_of_dev[jnp.clip(dev, 0, n_dev)]
+    overflow = jnp.any((within >= bucket_cap) & (dev < n_dev))
+    tgt = jnp.where((dev < n_dev) & (within < bucket_cap), dev * bucket_cap + within,
+                    n_dev * bucket_cap)
+    size = n_dev * bucket_cap + 1
+    buf_hi = jnp.full(size, SENTINEL, jnp.uint32).at[tgt].set(bhi)
+    buf_lo = jnp.full(size, SENTINEL, jnp.uint32).at[tgt].set(blo)
+    buf_cnt = jnp.zeros(size, jnp.int32).at[tgt].set(jnp.where(dev < n_dev, bcnt, 0))
+    out_key = convert.hilo_to_key(np.asarray(buf_hi[:-1]), np.asarray(buf_lo[:-1]))
+    shape = (n_dev, bucket_cap)
+    return out_key.reshape(shape), np.asarray(buf_cnt[:-1]).reshape(shape), bool(overflow)
+
+
+def _owner_np(key: np.ndarray, n_dev: int) -> np.ndarray:
+    """owner_of in numpy: the uint32 hash of (hi, lo), PAD to n_dev."""
+    hi = (key >> 32).astype(np.uint32)
+    lo = (key & 0xFFFFFFFF).astype(np.uint32)
+    h = lo * np.uint32(2654435761) + hi * np.uint32(0x9E3779B9)
+    h ^= h >> np.uint32(16)
+    return np.where(key == PAD, n_dev, (h % np.uint32(n_dev)).astype(np.int64))
+
+
+# csrc/distributed.cu's geometry: 8 warps a tile, 4 rounds of 64 lanes a
+# warp (OB_TILE = 2,048 lanes), and a small one with many tiles
+K25_GEOMETRIES = {"source": (8, 4), "small": (2, 1)}
+
+
+def k25_transcription(key, count, n_real: int, n_dev: int, bucket_cap: int, warps: int = 8,
+                      rounds: int = 4):
+    """numpy transcription of K25 (csrc/distributed.cu): the tile counts of
+    owner_tile_counts_kernel (a round's ballots of the owners' bits, its
+    leaders' counts), owner_offsets_kernel's scan of each owner's row in
+    chunks of 32 tiles, totals and flag, owner_write_kernel's ranks (a
+    running count a warp and owner, then the warps' starts) and its fill of
+    4 lanes a thread.  Returns (out_key, out_count, flag) and asserts that
+    each bucket lane is written exactly once."""
+    tile = warps * 64 * rounds
+    tiles = -(-n_real // tile)
+    nbits = (n_dev - 1).bit_length()
+    k = np.full(tiles * tile, PAD, np.int64)
+    k[:n_real] = key[:n_real]
+    c = np.zeros(tiles * tile, np.int32)
+    c[:n_real] = count[:n_real]
+    shape = (tiles, warps, rounds, 32, 2)  # [tile, warp, round, lane, item]
+    o = _owner_np(k, n_dev).reshape(shape)
+    v = o < n_dev
+    lanebit = np.uint64(1) << np.arange(32, dtype=np.uint64)
+    full = np.uint64(0xFFFFFFFF)
+
+    def ballot(pred):  # [..., 32] -> [..., 1], a mask of the lanes
+        return (pred.astype(np.uint64) * lanebit).sum(-1, keepdims=True)
+
+    oa, ob = o[..., 0], o[..., 1]
+    bits_a = [ballot((oa >> b) & 1) for b in range(nbits)]
+    bits_b = [ballot((ob >> b) & 1) for b in range(nbits)]
+    va, vb = ballot(v[..., 0]), ballot(v[..., 1])
+
+    def masks(bits, valid, own):
+        m = np.broadcast_to(valid, own.shape).copy()
+        for b in range(nbits):
+            m &= np.where((own >> b) & 1 == 1, bits[b], ~bits[b] & full)
+        return m
+
+    lt = lanebit - np.uint64(1)
+    le = lt | lanebit
+    pc = np.bitwise_count
+    aa, ab = masks(bits_a, va, oa), masks(bits_b, vb, oa)
+    ba, bb = masks(bits_a, va, ob), masks(bits_b, vb, ob)
+    rank_a = pc(aa & lt).astype(np.int64) + pc(ab & lt)
+    total_a = pc(aa).astype(np.int64) + pc(ab)
+    rank_b = pc(ba & le).astype(np.int64) + pc(bb & lt)
+    total_b = pc(ba).astype(np.int64) + pc(bb)
+    lead_a, lead_b = v[..., 0] & (rank_a == 0), v[..., 1] & (rank_b == 0)
+    t_idx, w_idx, _ = np.indices(shape[:3])
+    t_idx, w_idx = (np.broadcast_to(x[..., None], shape[:4]) for x in (t_idx, w_idx))
+
+    # pass 1: each tile's count of each owner, from the leaders
+    counts = np.zeros((n_dev, tiles), np.int64)
+    np.add.at(counts, (oa[lead_a], t_idx[lead_a]), total_a[lead_a])
+    np.add.at(counts, (ob[lead_b], t_idx[lead_b]), total_b[lead_b])
+    assert counts.sum() == v.sum()
+    # pass 2: each owner's row scanned in chunks of 32 tiles
+    starts = np.zeros_like(counts)
+    totals = np.zeros(n_dev, np.int64)
+    for d in range(n_dev):
+        run = 0
+        for c0 in range(0, tiles, 32):
+            chunk = counts[d, c0:c0 + 32]
+            inc = np.cumsum(chunk)
+            starts[d, c0:c0 + 32] = run + inc - chunk
+            run += int(inc[-1])
+        totals[d] = run
+    flag = bool((totals > bucket_cap).any())
+    # pass 3, tile blocks: the running count a warp and owner, round by round
+    run = np.zeros((tiles, warps, n_dev), np.int64)
+    base = np.zeros(shape, np.int64)
+    for r in range(rounds):
+        for item, lead, total in ((0, lead_a, total_a), (1, lead_b, total_b)):
+            own = o[:, :, r, :, item]
+            safe = np.where(v[:, :, r, :, item], own, 0)
+            base[:, :, r, :, item] = run[t_idx[:, :, r], w_idx[:, :, r], safe]
+        for item, lead, total in ((0, lead_a, total_a), (1, lead_b, total_b)):
+            sel = lead[:, :, r]
+            np.add.at(run, (t_idx[:, :, r][sel], w_idx[:, :, r][sel],
+                            o[:, :, r, :, item][sel]), total[:, :, r][sel])
+    warp_start = starts.T[:, None, :] + np.cumsum(run, axis=1) - run  # [tiles, warps, D]
+    rank = np.stack([rank_a, rank_b], -1) + base
+    written = np.zeros(n_dev * bucket_cap, np.int64)
+    out_key = np.empty(n_dev * bucket_cap, np.int64)
+    out_count = np.empty(n_dev * bucket_cap, np.int32)
+    for t, w, r, lane, item in zip(*np.nonzero(v)):
+        own = o[t, w, r, lane, item]
+        place = warp_start[t, w, own] + rank[t, w, r, lane, item]
+        if place < bucket_cap:
+            at = own * bucket_cap + place
+            out_key[at] = k.reshape(shape)[t, w, r, lane, item]
+            out_count[at] = c.reshape(shape)[t, w, r, lane, item]
+            written[at] += 1
+    # pass 3, fill blocks: 4 lanes a thread of the flat buckets, stepping
+    # across bucket edges
+    lanes = n_dev * bucket_cap
+    a = 4 * np.arange(-(-lanes // 4), dtype=np.int64)
+    d = a // bucket_cap
+    w = a - d * bucket_cap
+    for j in range(4):
+        if j > 0:
+            w = w + 1
+            wrap = w == bucket_cap
+            d, w = d + wrap, np.where(wrap, 0, w)
+        fill = (a + j < lanes) & (w >= totals[np.minimum(d, n_dev - 1)])
+        out_key[a[fill] + j] = PAD
+        out_count[a[fill] + j] = 0
+        written[a[fill] + j] += 1
+    assert (written == 1).all()
+    return out_key.reshape(n_dev, bucket_cap), out_count.reshape(n_dev, bucket_cap), flag
+
+
+def _k25_check(key, count, n_real: int, n_dev: int, geometry: str) -> None:
+    """The transcription == owner_buckets_plain == the reference's
+    bucketing, at bucket_cap the widest owner's count (no flag) and one
+    below it (the flag up, the widest bucket cut)."""
+    owners = _owner_np(key[:n_real], n_dev)
+    widest = int(np.bincount(owners, minlength=n_dev).max()) if n_real else 0
+    caps = [max(widest, 1)] + ([widest - 1] if widest >= 2 else [])
+    for cap in caps:
+        got = k25_transcription(key, count, n_real, n_dev, cap, *K25_GEOMETRIES[geometry])
+        plain = td.owner_buckets_plain(torch.from_numpy(key), torch.from_numpy(count), n_dev, cap)
+        ref = buckets_jax(key, count, n_dev, cap)
+        for g, p, r in zip(got[:2], plain[:2], ref[:2]):
+            np.testing.assert_array_equal(g, p.numpy())
+            np.testing.assert_array_equal(g, r)
+        assert got[2] == bool(plain[2]) == ref[2] == (cap < widest)
+
+
+@pytest.mark.parametrize("n_dev", [1, 2, 8, 33, 1024])
+@pytest.mark.parametrize("n_real", K25_N_REAL)
+@pytest.mark.parametrize("geometry", list(K25_GEOMETRIES))
+def test_k25_transcription_matches_plain_and_reference(n_dev, n_real, geometry):
+    """K25's design (tile counts, offsets, in-tile ranks, fill) on tables
+    whose real lanes end on and beside a round, a 16-byte pair, a warp's
+    segment and a tile of either geometry, or fill the table (n_real == C,
+    no PAD)."""
+    key, count = k25_table(n_real)
+    n = key.shape[0] if n_real == "C" else n_real
+    _k25_check(key, count, n, n_dev, geometry)
+
+
+@pytest.mark.parametrize("n_dev", [1, 2, 8, 33, 1024])
+def test_k25_transcription_on_an_overflowed_table(n_dev):
+    """A local table whose distinct keys outgrew its capacity (n > C, the
+    reference's silent cut): every lane is real, and sharded_tail passes
+    n_real = min(n, C) = C."""
+    rng = np.random.default_rng(n_dev)
+    keys = torch.from_numpy(np.sort(rng.integers(0, 1 << 40, size=6000)))
+    local = count_window_keys(keys, 3000)
+    assert local.n > local.capacity
+    n_real = min(local.n, local.capacity)
+    _k25_check(local.key.numpy(), local.count.numpy(), n_real, n_dev, "small")
+    got = td.owner_buckets(local.key, local.count, n_dev, 3000, n_real)
+    want = buckets_jax(local.key.numpy(), local.count.numpy(), n_dev, 3000)
+    np.testing.assert_array_equal(got[0].numpy(), want[0])
+    np.testing.assert_array_equal(got[1].numpy(), want[1])
+
+
+def test_sharded_tail_passes_the_real_lanes(monkeypatch):
+    """sharded_tail hands owner_buckets n_real = min(n, C) of the local
+    table, and owner_buckets refuses an n_real outside 0..C."""
+    seen = []
+    real = td.owner_buckets
+
+    def spy(key, count, n_dev, bucket_cap, n_real):
+        seen.append((n_real, key.shape[0]))
+        return real(key, count, n_dev, bucket_cap, n_real)
+
+    monkeypatch.setattr(td, "owner_buckets", spy)
+    keys = torch.from_numpy(np.sort(np.random.default_rng(3).integers(0, 1 << 40, 5000)))
+    td.sharded_tail(keys, 8, 1 << 13, 1 << 11)
+    td.sharded_tail(keys, 8, 1000, 1 << 11)
+    local = count_window_keys(keys, 1 << 13)
+    assert seen == [(local.n, 1 << 13), (1000, 1000)]
+    with pytest.raises(ValueError, match="n_real"):
+        real(local.key, local.count, 8, 16, (1 << 13) + 1)
 
 
 def test_make_mesh_places_shards_round_robin(monkeypatch):

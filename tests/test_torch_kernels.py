@@ -2358,6 +2358,84 @@ def test_count_histogram_kernel_on_contract_tables(cuda, case, max_count):
     _equal(got, want, "histogram")
 
 
+# Tables of K20's transcription tests (tests/test_torch_correction.py) and
+# cuda tests: real lanes ending inside a group of 16, on a compaction tile's
+# edge and beside it, none, or all C = 8,195 lanes; cuts of 0, 1, 2 and 7,
+# above every count.
+K20_N_REAL = [0, 1, 5, 63, 4095, 4097, 6001, "C"]
+K20_CUTS = [0, 1, 2, 7]
+
+
+def cut_table(n_real, offset: int = 0, C: int = 8195, seed: int = 4,
+              device="cpu") -> Spectrum:
+    """A table of C lanes on `device` under the Spectrum contract: n_real
+    ("C": every lane) sorted distinct keys with counts 0-6 first (real
+    lanes of count 0 included), PAD with count 0 past them; with offset, a
+    view that starts that many lanes into a table of C + offset lanes."""
+    n = C if n_real == "C" else n_real
+    rng = np.random.default_rng(seed + n)
+    key = np.full(C + offset, PAD, np.int64)
+    key[:n + offset] = np.sort(rng.choice(1 << 40, size=n + offset, replace=False))
+    count = np.zeros(C + offset, np.int32)
+    count[:n + offset] = rng.integers(0, 7, n + offset)
+    key, count = torch.from_numpy(key).to(device), torch.from_numpy(count).to(device)
+    return Spectrum(key=key[offset:], count=count[offset:], n=n)
+
+
+@pytest.mark.parametrize("n_real", K20_N_REAL)
+@pytest.mark.parametrize("m", K20_CUTS)
+@pytest.mark.parametrize("offset", [0, 1])
+def test_abundance_cut_and_filter_kernels_on_cut_tables(cuda, n_real, m, offset):
+    """K20's three outputs == abundance_cut_plain, and the abundance filter
+    (one compaction, counted as K20, no K10) == compact_plain and K10 of
+    abundance_cut_plain's keep flags, on the transcription tests' tables:
+    aligned, and a view one lane past a 16-byte boundary."""
+    spec = cut_table(n_real, offset, device=cuda)
+    assert (spec.count.data_ptr() % 16 == 0) == (offset == 0)
+    for g, w in zip(tcor.abundance_cut(spec, m), tcor.abundance_cut_plain(spec, m)):
+        _equal(g, w, "abundance cut")
+    _filter_matches_plain(spec, m)
+
+
+def _filter_matches_plain(spec: Spectrum, m: int) -> None:
+    lib = kernels.library()
+    before = dict(lib.launches)
+    got = tcor.abundance_filter(spec, m)
+    assert lib.launches["abundance_cut"] == before["abundance_cut"] + 1
+    assert lib.launches["compact_keep"] == before["compact_keep"]
+    keep = tcor.abundance_cut_plain(spec, m, raw=False, cut=False)[2]
+    for want in (tcor.compact_plain(spec, keep), tcor.compact(spec, keep)):
+        assert got.n == want.n
+        _equal(got.key, want.key, "filtered keys")
+        _equal(got.count, want.count, "filtered counts")
+
+
+@pytest.mark.parametrize("case", CONTRACT_CASES + ["unaligned", "counted", "count1_heavy",
+                                                  "all_pad", "no_lanes"])
+@pytest.mark.parametrize("m", [-1, 0, 1, 2, 3, 1 << 20])
+def test_abundance_cut_and_filter_kernels_on_contract_tables(cuda, case, m):
+    """K20's cut and keep modes and the abundance filter == their plain
+    versions on the contract's edge tables (n above C included), on a view
+    one lane into the wide table, and on K16's tables (real lanes of count
+    0 and below, which keep takes at m <= 0)."""
+    if case == "unaligned":
+        wide = _to(_histogram_spectrum("wide"), cuda)
+        spec = Spectrum(key=wide.key[1:], count=wide.count[1:], n=wide.n - 1)
+        assert spec.count.data_ptr() % 16 != 0 and spec.n % 4 != 0
+    elif case in CONTRACT_CASES:
+        spec = _to(contract_case(case)[0], cuda)
+    else:
+        spec = _to(_histogram_spectrum(case), cuda)
+    for outputs in ((True, True, False), (False, False, True)):
+        got = tcor.abundance_cut(spec, m, *outputs)
+        want = tcor.abundance_cut_plain(spec, m, *outputs)
+        for g, w in zip(got, want):
+            assert (g is None) == (w is None)
+            if g is not None:
+                _equal(g, w, "abundance cut")
+    _filter_matches_plain(spec, m)
+
+
 @pytest.mark.parametrize("k", [5, 24, 31])
 def test_lookup_counts_kernel_matches_plain(cuda, k):
     """K21 on [Q] queries (hits, misses, PAD) and on the [8, C] sibling
@@ -2540,25 +2618,92 @@ def test_owner_buckets_kernel_matches_plain(cuda, n_dev, slack, n):
     from shannon_tpu_torch.parallel import distributed as td
 
     key, count = (torch.from_numpy(a) for a in owner_table(n_dev, n=n))
-    widest = int(torch.bincount(td.owner_of(key[key != PAD], n_dev)).max())
+    n_real = int((key != PAD).sum())
+    widest = int(torch.bincount(td.owner_of(key[:n_real], n_dev)).max())
     bucket_cap = {"roomy": 2 * widest, "margin": widest, "over": widest - 1}[slack]
     want = td.owner_buckets_plain(key, count, n_dev, bucket_cap)
-    got = td.owner_buckets(key.to(cuda), count.to(cuda), n_dev, bucket_cap)
+    lib = kernels.library()
+    before = lib.launches["owner_buckets"]
+    got = td.owner_buckets(key.to(cuda), count.to(cuda), n_dev, bucket_cap, n_real)
+    assert lib.launches["owner_buckets"] == before + 1
     torch.cuda.synchronize()
     assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+    assert got[2].dtype == torch.bool and got[2].dim() == 0
     assert bool(got[2]) == bool(want[2]) == (slack == "over")
+
+
+# Tables of K25's transcription tests (tests/test_torch_distributed.py) and
+# cuda tests: real lanes ending on and beside a round of 64, a 16-byte pair,
+# a warp's segment (256 lanes) and a tile (2,048 lanes), or filling all C =
+# 4,500 lanes.
+K25_N_REAL = [0, 1, 2, 63, 64, 65, 255, 256, 257, 1025, 2047, 2048, 2049, 4097, "C"]
+
+
+def k25_table(n_real, C: int = 4500, seed: int = 0):
+    """A sorted table of C lanes under the Spectrum contract, as numpy int64
+    keys and int32 counts: n_real ("C": every lane) distinct random keys
+    below 2^48 first, PAD with count 0 past them."""
+    n = C if n_real == "C" else n_real
+    rng = np.random.default_rng(seed + n)
+    key = np.full(C, PAD, np.int64)
+    key[:n] = np.sort(rng.choice(1 << 48, size=n, replace=False))
+    count = np.where(key == PAD, 0, rng.integers(1, 1 << 20, size=C)).astype(np.int32)
+    return key, count
+
+
+@pytest.mark.parametrize("n_dev", [1, 2, 8, 33, 1024])
+@pytest.mark.parametrize("n_real", K25_N_REAL + ["overflow"])
+def test_owner_buckets_kernel_on_real_lane_tables(cuda, n_dev, n_real):
+    """K25 == owner_buckets_plain on the transcription tests' tables and on
+    a local table whose keys outgrew its capacity (n > C), at bucket_cap
+    the widest owner's count and one below it (the flag up)."""
+    from shannon_tpu_torch.ops.count import count_window_keys
+    from shannon_tpu_torch.parallel import distributed as td
+
+    if n_real == "overflow":
+        keys = np.sort(np.random.default_rng(n_dev).integers(0, 1 << 40, size=6000))
+        local = count_window_keys(torch.from_numpy(keys), 3000)
+        assert local.n > local.capacity
+        key, count, n = local.key, local.count, local.capacity
+    else:
+        key, count = (torch.from_numpy(a) for a in k25_table(n_real))
+        n = key.shape[0] if n_real == "C" else n_real
+    widest = int(torch.bincount(td.owner_of(key[:n], n_dev)).max()) if n else 0
+    for cap in [max(widest, 1)] + ([widest - 1] if widest >= 2 else []):
+        want = td.owner_buckets_plain(key, count, n_dev, cap)
+        got = td.owner_buckets(key.to(cuda), count.to(cuda), n_dev, cap, n)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+        assert bool(got[2]) == bool(want[2]) == (cap < widest)
+
+
+def test_owner_buckets_kernel_on_unaligned_views(cuda):
+    """A view one lane into the table (keys and counts not 16- and 8-byte
+    aligned: every load lane by lane) gives the plain version's buckets."""
+    from shannon_tpu_torch.parallel import distributed as td
+
+    key, count = (torch.from_numpy(a) for a in k25_table(3001))
+    d_key, d_count = key.to(cuda)[1:], count.to(cuda)[1:]
+    assert d_key.data_ptr() % 16 != 0 and d_count.data_ptr() % 8 != 0
+    for n_dev in (1, 8, 1024):
+        want = td.owner_buckets_plain(key[1:], count[1:], n_dev, 700)
+        got = td.owner_buckets(d_key, d_count, n_dev, 700, 3000)
+        assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
 
 
 @pytest.mark.parametrize("table", ["empty", "all_pad"])
 def test_owner_buckets_kernel_edge_tables(cuda, table):
+    """No lane, or only PAD lanes: all-PAD buckets and no flag, with n_real
+    0 and (all_pad) with n_real C, where the PAD lanes take owner D."""
     from shannon_tpu_torch.parallel import distributed as td
 
     key = torch.full((0 if table == "empty" else 1000,), PAD, dtype=torch.int64)
     count = torch.zeros(key.shape[0], dtype=torch.int32)
     want = td.owner_buckets_plain(key, count, 8, 16)
-    got = td.owner_buckets(key.to(cuda), count.to(cuda), 8, 16)
-    assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
-    assert not bool(got[2]) and not bool(want[2])
+    for n_real in {0, key.shape[0]}:
+        got = td.owner_buckets(key.to(cuda), count.to(cuda), 8, 16, n_real)
+        assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+        assert not bool(got[2]) and not bool(want[2])
 
 
 def test_sharded_wrappers_validate_inputs(cuda):
@@ -2568,11 +2713,13 @@ def test_sharded_wrappers_validate_inputs(cuda):
     key = torch.zeros(8, dtype=torch.int64, device=cuda)
     count = torch.zeros(8, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="1..1024"):
-        td.owner_buckets(key, count, 1025, 4)
+        td.owner_buckets(key, count, 1025, 4, 8)
     with pytest.raises(ValueError, match="bucket_cap"):
-        td.owner_buckets(key, count, 8, 0)
+        td.owner_buckets(key, count, 8, 0, 8)
     with pytest.raises(TypeError, match="int32"):
-        td.owner_buckets(key, key, 8, 4)
+        td.owner_buckets(key, key, 8, 4, 8)
+    with pytest.raises(ValueError, match="n_real"):
+        td.owner_buckets(key, count, 8, 4, 9)
     with pytest.raises(TypeError, match="uint8"):
         extract_kmers(count.view(2, 4), count[:2], 3)
 
