@@ -1999,6 +1999,53 @@ def _group_script():
     return mod
 
 
+def _launches_a_call(fn) -> str:
+    """One call of fn on the card after a warm-up: its kernel launches,
+    copies and memsets (a torch.profiler trace) and its host reads (the
+    synchronizing calls torch's sync debug mode warns of)."""
+    import warnings
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    # the call between two torch.cuda._sleep kernels; a trace can miss the
+    # launches made just after it starts, so only one that holds both is read
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            torch.cuda._sleep(1000)
+            fn()
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+        names = [e.name for e in events]
+        marks = [i for i, x in enumerate(names) if "spin_kernel" in x]
+        if len(marks) >= 2:
+            names = names[marks[-2] + 1 : marks[-1]]
+            break
+    else:
+        names = None
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    reads = sum("called a synchronizing CUDA operation" in str(w.message) for w in seen)
+    if names is None:
+        return f"launches not traced, {reads} host reads a call"
+    copies = sum(x.startswith("Memcpy") for x in names)
+    memsets = sum(x.startswith("Memset") for x in names)
+    return (f"{len(names) - copies - memsets} kernel launches, {copies} copies, {memsets} "
+            f"memsets and {reads} host reads a call")
+
+
 def _ownership_rows(evidence: Path, n_ranks: int, dev, smi: str) -> dict:
     """K26 and K27 against their plain versions on rank 0's local evidence
     and owner table of the full-width run, as route_evidence_ownership got
@@ -2019,19 +2066,26 @@ def _ownership_rows(evidence: Path, n_ranks: int, dev, smi: str) -> dict:
     send = got[0]
     t = _alternate(lambda: tmh.ownership_pack(*args, n_ranks),
                    lambda: tmh.ownership_pack_plain(*args, n_ranks))
-    # bytes: flat, offs and weights in, one owner a path, the [H, cap] buffer out
+    # bytes: flat, offs and weights in, one owner a path, the [H, cap] buffer
+    # out (the contract makes it write every word of it)
     rows = {"ownership_pack": _row(err, t, 4 * (n_flat + 3 * n_paths + 1) + 4 * send.numel(),
                                    0, None)}
     _print_row(f"K26 ownership_pack, rank 0's evidence of the full-width run: {n_paths} paths, "
-               f"{n_flat} node ids, {n_ranks} ranks x {send.shape[1]} words", rows["ownership_pack"],
-               smi)
+               f"{n_flat} node ids, {n_ranks} ranks x {send.shape[1]} words, "
+               f"{_launches_a_call(lambda: tmh.ownership_pack(*args, n_ranks))}",
+               rows["ownership_pack"], smi)
     got = tmh.ownership_unpack(send)
     err = _max_abs_err([x.cpu() for x in got], tmh.ownership_unpack_plain(send.cpu()))
     t = _alternate(lambda: tmh.ownership_unpack(send), lambda: tmh.ownership_unpack_plain(send))
-    # bytes: the [H, cap] buffer in; int64 flat, offs and weights out
-    rows["ownership_unpack"] = _row(err, t, 4 * send.numel() + 8 * (n_flat + 2 * n_paths + 1),
-                                    0, None)
-    _print_row(f"K27 ownership_unpack of that buffer: {n_paths} paths, {n_flat} node ids",
+    # bytes: the headers and the real words in (2 n_p + n_f a row; the pad is
+    # never read, and the bound over the whole [H, cap] buffer, 4 * H * cap,
+    # is printed beside it); int64 flat, offs and weights out
+    real = 2 * n_ranks + int(2 * send[:, 0].sum() + send[:, 1].sum())
+    rows["ownership_unpack"] = _row(err, t, 4 * real + 8 * (n_flat + 2 * n_paths + 1), 0, None)
+    _print_row(f"K27 ownership_unpack of that buffer: {n_paths} paths, {n_flat} node ids, "
+               f"{real} real words of {send.numel()} (bound over all of them "
+               f"{(4 * send.numel() + 8 * (n_flat + 2 * n_paths + 1)) / HBM_BYTES_PER_S * 1e3:.4f}"
+               f" ms), {_launches_a_call(lambda: tmh.ownership_unpack(send))}",
                rows["ownership_unpack"], smi)
     return rows
 

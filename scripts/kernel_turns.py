@@ -12,10 +12,21 @@ against its parent within one call.
     python scripts/kernel_turns.py --only sf streams clip --trees OLD NEW NEW OLD
     python scripts/kernel_turns.py --only hist lookup --trees OLD NEW NEW OLD
     python scripts/kernel_turns.py --only owner cut --trees OLD NEW NEW OLD
+    python scripts/kernel_turns.py --only ownership --trees OLD NEW NEW OLD
 
---only sf, streams, clip, hist, lookup, owner and/or cut times K6's rows,
-K15's, K18's and K19's, K16's, K21's, K25's and/or K20's alone and builds
-only their inputs (about 1.5 minutes, then under half a minute a tree).
+--only sf, streams, clip, hist, lookup, owner, cut and/or ownership times K6's
+rows, K15's, K18's and K19's, K16's, K21's, K25's, K20's and/or K26's and
+K27's alone and builds only their inputs (about 1.5 minutes, then under half
+a minute a tree).  K26 ("ownership_pack_2", "ownership_pack_4") packs the
+evidence of one assemble of the 1,000,000-read scale dataset on the card in
+one process (recorded by wrapping pipeline._assemble_backhalf) for H = 2 and
+4 ranks, with owner = comp[0] mod H as _assemble_backhalf makes it, at its
+own widest bucket; K27 ("ownership_unpack_2", "_4") unpacks that send
+buffer.  "ownership_sizes" gives each H's paths, node ids, cap and real
+words (2H + the rows' 2 n_p + n_f); every focus row's "<row>_syncs" counts
+the synchronizing calls of one call (torch's sync debug mode), the host
+reads of a wrapper that reads with .cpu() or a stream's synchronize as
+well as with .item().
 K25 ("owner_buckets") runs at chip_smoke.py's owner_row shape: shard 0's
 local table of the 1,000,000-read scale dataset's first batch (its first
 1/8 of the default batch's rows, k = 24, canonical, counted into the
@@ -392,6 +403,41 @@ def _owner_inputs(reads, cfg, dev) -> dict:
             "o_cap": default_bucket_cap(cfg.kmer_capacity, SHARDS)}
 
 
+# Ranks K26 and K27 are timed at ("ownership_pack_<H>", "ownership_unpack_<H>").
+OWNERSHIP_RANKS = (2, 4)
+
+
+def _ownership_inputs(reads, cfg, dev) -> dict:
+    """K26's inputs (numpy): the evidence (flat, offs, weights) and the
+    component owners of one assemble of `reads` on the card in one process,
+    recorded by wrapping pipeline._assemble_backhalf; owner = comp[0] mod H
+    for each H of OWNERSHIP_RANKS, as _assemble_backhalf makes it in a
+    group of H ranks."""
+    import numpy as np
+
+    from shannon_tpu_torch import pipeline
+
+    seen, backhalf = {}, pipeline._assemble_backhalf
+
+    def recorded(cgraph, comps, evidence, *rest):
+        seen.update(n=cgraph.n, comps=comps, evidence=evidence)
+        return backhalf(cgraph, comps, evidence, *rest)
+
+    pipeline._assemble_backhalf = recorded
+    try:
+        pipeline.assemble(reads, cfg, device=dev)
+    finally:
+        pipeline._assemble_backhalf = backhalf
+    flat, offs, weights = (np.asarray(a, np.int64) for a in seen["evidence"])
+    out = {"w_flat": flat, "w_offs": offs, "w_weights": weights}
+    for H in OWNERSHIP_RANKS:
+        owner = np.zeros(seen["n"], np.int64)
+        for comp in seen["comps"]:
+            owner[comp] = comp[0] % H
+        out[f"w_owner{H}"] = owner
+    return out
+
+
 def _inputs(path: Path, only) -> None:
     import numpy as np
     import torch
@@ -403,7 +449,8 @@ def _inputs(path: Path, only) -> None:
 
     dev, cfg = torch.device("cuda", 0), AssemblyConfig()
     focus = {"buf": _sf_jobs(7, 4096), "big": _sf_jobs(8, 65_536)}
-    if only is not None and not {"sf", "streams", "clip", "hist", "owner", "cut"} & set(only):
+    if only is not None and not {"sf", "streams", "clip", "hist", "owner", "cut",
+                                 "ownership"} & set(only):
         focus.update(_lookup_inputs(dev))
         np.savez(path, **focus)
         return
@@ -426,6 +473,8 @@ def _inputs(path: Path, only) -> None:
             focus.update(_lookup_inputs(dev))
         if "owner" in only:
             focus.update(_owner_inputs(reads, cfg, dev))
+        if "ownership" in only:
+            focus.update(_ownership_inputs(reads, cfg, dev))
         np.savez(path, **focus)
         return
 
@@ -576,6 +625,25 @@ def _host_reads(fn, calls: int = 20) -> tuple[float, float]:
     return us / calls, n / calls
 
 
+def _syncs(fn) -> int:
+    """The synchronizing calls (host reads of the card) of one call of fn,
+    as torch's sync debug mode warns of them, after a warm-up."""
+    import warnings
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("called a synchronizing CUDA operation" in str(w.message) for w in seen)
+
+
 def _launches(fn) -> dict:
     """The kernel library's launch counts of one call of fn."""
     from shannon_tpu_torch import kernels
@@ -679,6 +747,22 @@ def _focus_rows(d, dev, only) -> dict:
                 lambda: td.owner_buckets(o_key, o_count, o_dev, o_cap, o_real), 200)
         else:  # a tree before K25 took n_real
             fns["owner_buckets"] = (lambda: td.owner_buckets(o_key, o_count, o_dev, o_cap), 200)
+    if only is not None and "ownership" in only:
+        import numpy as np
+
+        from shannon_tpu_torch.parallel import multihost as tmh
+
+        w_ev = [torch.from_numpy(d[x].astype(np.int32)).to(dev)
+                for x in ("w_flat", "w_offs", "w_weights")]
+        w_sizes = {}
+        for H in OWNERSHIP_RANKS:
+            w_args = (*w_ev, torch.from_numpy(d[f"w_owner{H}"].astype(np.int32)).to(dev), H)
+            w_send = tmh.ownership_pack(*w_args)[0]
+            fns[f"ownership_pack_{H}"] = (lambda a=w_args: tmh.ownership_pack(*a), 200)
+            fns[f"ownership_unpack_{H}"] = (lambda r=w_send: tmh.ownership_unpack(r), 200)
+            w_sizes[H] = {"paths": w_ev[1].shape[0] - 1, "ids": w_ev[0].shape[0], "H": H,
+                          "cap": w_send.shape[1],
+                          "real_words": int(2 * H + 2 * w_send[:, 0].sum() + w_send[:, 1].sum())}
     if only is not None and "cut" in only:
         from shannon_tpu_torch.ops import correction as tcor
         from shannon_tpu_torch.ops.count import Spectrum
@@ -696,6 +780,8 @@ def _focus_rows(d, dev, only) -> dict:
             filter_keep_k10=(lambda: tcor.compact(
                 f_spec, tcor.abundance_cut(f_spec, f_cut, False, False)[2]), 200))
     row = {f"{name}_ms": _median_ms(fn, reps) for name, (fn, reps) in fns.items()}
+    if "ownership_pack_2" in fns:
+        row["ownership_sizes"] = w_sizes
     if "owner_buckets" in fns:
         row["owner_sizes"] = {"C": o_key.shape[0], "n_real": o_real, "D": o_dev, "cap": o_cap}
     if "cut_main" in fns:
@@ -724,6 +810,7 @@ def _focus_rows(d, dev, only) -> dict:
         row[f"{name}_launch_us"] = _launch_us(fn)
         row[f"{name}_launches"] = _launches(fn)
         row[f"{name}_host_read_us"], row[f"{name}_host_reads"] = _host_reads(fn)
+        row[f"{name}_syncs"] = _syncs(fn)
     # after the timings, so the traces cannot disturb them
     row["device_us"] = {name: _device_us(fn) for name, (fn, _reps) in fns.items()}
     row["idle_us"] = {name: row[f"{name}_ms"] * 1e3 - sum(row["device_us"][name].values())
@@ -992,10 +1079,12 @@ def main() -> int:
     ap.add_argument("--trees", nargs="+", required=True)
     ap.add_argument("--out", default=None)
     ap.add_argument("--only", nargs="+",
-                    choices=("sf", "streams", "clip", "hist", "lookup", "owner", "cut"),
+                    choices=("sf", "streams", "clip", "hist", "lookup", "owner", "cut",
+                             "ownership"),
                     default=None,
                     help="time only K6's rows (sf), K15's (streams), K18's and K19's (clip), "
-                         "K16's (hist), K21's (lookup), K25's (owner) and/or K20's (cut)")
+                         "K16's (hist), K21's (lookup), K25's (owner), K20's (cut) and/or "
+                         "K26's and K27's (ownership)")
     ap.add_argument("--child", nargs=2, metavar=("TREE", "INPUTS"), help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child:

@@ -3,7 +3,11 @@
 // NVIDIA, 2016).  K2 (reduce_sorted, kernels.cu), K10 (compact_keep,
 // correction.cu) and the kernels that followed them (K5, K14, K15, K17, K18,
 // K19) count their 0/1 flags with it in the same pass that reads them: no
-// scan array goes to device memory and no separate scan launch runs.
+// scan array goes to device memory and no separate scan launch runs.  K27
+// (ownership_unpack, multihost.cu) scans the received path lengths into
+// their offsets with it, in the launch that copies the rest; K26
+// (ownership_pack) uses only block_exclusive_scan, in its offsets pass and
+// its pad fill.
 //
 // Shape.  A block of SCAN_THREADS threads takes one tile of SCAN_TILE lanes,
 // SCAN_ITEMS consecutive lanes a thread (a blocked layout: a thread counts its

@@ -85,9 +85,10 @@ _ARGTYPES = {
     "shannon_neighbor_counts": [_P, _P, _I64, _I, _I, *[_P] * 4, _P],
     "shannon_prune_keep": [_P, _P, _P, _P, _I64, _F, _P, _P],
     "shannon_owner_buckets": [_P, _P, _I64, _I, _I64, _P, _I64, _P, _P, _P, _P],
-    "shannon_ownership_counts": [_P, _P, _I64, _P, _I, _P, _P, _P, _P],
-    "shannon_ownership_scatter": [_P, _P, _P, _I64, _P, _I, _I64, *[_P] * 5, _P],
-    "shannon_ownership_unpack": [_P, _I, _I64, *[_P] * 5, _P],
+    "shannon_ownership_counts": [_P, _P, _I64, _P, _I, _P, _I64, _P, _P],
+    "shannon_ownership_scatter": [_P, _P, _P, _I64, _I, _P, _I64, _P, _P, _I64, _P, _P],
+    "shannon_ownership_headers": [_P, _I, _I64, _P, _P],
+    "shannon_ownership_unpack": [_P, _I, _I64, _I64, _I64, _P, _I64, _P, _P, _P, _P],
 }
 # Entry points whose scratch layout lives in their source alone: for each,
 # `<entry>_words(n)` gives the int64 words of scratch it takes at size n.
@@ -241,7 +242,7 @@ _SCAN_VALUE_MASK = (1 << 62) - 1
 
 def scan_scratch(lanes: int, device) -> torch.Tensor:
     """Zeroed scratch of the single-pass scan over `lanes` lanes (K2, K10,
-    K14, K17, K18):
+    K14, K17, K18, K27):
     a ticket word and one status word a tile (csrc/scan.cuh)."""
     return torch.zeros(-(-lanes // SCAN_TILE) + 1, dtype=torch.int64, device=device)
 

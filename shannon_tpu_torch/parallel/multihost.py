@@ -42,10 +42,11 @@ from shannon_tpu_torch.parallel.distributed import (
     sharded_tail,
 )
 
-# The most ranks K26 bins in shared memory (MAX_RANKS in csrc/multihost.cu).
+# The most ranks K26 and K27 take (MAX_RANKS in csrc/multihost.cu).
 MAX_RANKS = 512
-# Lanes per block of K26's kernels (THREADS in csrc/common.cuh).
-_BLOCK_LANES = 256
+# Paths a tile of K26 (PACK_TILE in csrc/multihost.cu; the entry points
+# refuse a scratch sized for any other tile).
+_PACK_TILE = 2048
 _INT32_RANGE = 1 << 31
 
 
@@ -334,30 +335,30 @@ def _ownership_pack_cuda(flat, offs, weights, owner, n_ranks, agree):
     if not 1 <= n_ranks <= MAX_RANKS:
         raise ValueError(f"n_ranks={n_ranks} is outside 1..{MAX_RANKS}")
     dev = flat.device
-    blocks = -(-P // _BLOCK_LANES)
-    dest = torch.empty(P, dtype=torch.int32, device=dev)
-    path_counts = torch.zeros((n_ranks, blocks), dtype=torch.int32, device=dev)
-    flat_counts = torch.zeros((n_ranks, blocks), dtype=torch.int32, device=dev)
+    # the [2H, tiles] counts (then starts), n_paths [H], n_flat [H], then a
+    # uint16 destination a path
+    scratch = torch.empty(2 * n_ranks * -(-P // _PACK_TILE) + 2 * n_ranks + (P + 1) // 2,
+                          dtype=torch.int32, device=dev)
+    sizes = torch.empty(n_ranks, dtype=torch.int64, device=dev)
     lib = kernels.library()
-    if P:
-        lib.call(
-            "shannon_ownership_counts", dev,
-            kernels.ptr(flat), kernels.ptr(offs), P, kernels.ptr(owner), n_ranks,
-            kernels.ptr(dest), kernels.ptr(path_counts), kernels.ptr(flat_counts),
-        )
-    path_ends = torch.cumsum(path_counts, 1, dtype=torch.int32)
-    flat_ends = torch.cumsum(flat_counts, 1, dtype=torch.int32)
-    sizes = 2 + 2 * path_counts.sum(1, dtype=torch.int64) + flat_counts.sum(1, dtype=torch.int64)
-    cap = agree(int(sizes.max()))
-    send = torch.zeros((n_ranks, cap), dtype=torch.int32, device=dev)
-    if P:
-        lib.call(
-            "shannon_ownership_scatter", dev,
-            kernels.ptr(flat), kernels.ptr(offs), kernels.ptr(weights), P, kernels.ptr(dest),
-            n_ranks, cap, kernels.ptr(path_counts), kernels.ptr(path_ends),
-            kernels.ptr(flat_counts), kernels.ptr(flat_ends), kernels.ptr(send),
-        )
-        lib.count("ownership_pack")
+    lib.call(
+        "shannon_ownership_counts", dev,
+        kernels.ptr(flat), kernels.ptr(offs), P, kernels.ptr(owner), n_ranks,
+        kernels.ptr(scratch), scratch.shape[0], kernels.ptr(sizes),
+    )
+    host = sizes.cpu()  # the one read from the device
+    widest = int(host.numpy().max())
+    cap = agree(widest)
+    if cap < widest:
+        raise ValueError(f"cap {cap} is below the widest bucket, {widest} words")
+    send = torch.empty((n_ranks, cap), dtype=torch.int32, device=dev)
+    lib.call(
+        "shannon_ownership_scatter", dev,
+        kernels.ptr(flat), kernels.ptr(offs), kernels.ptr(weights), P, n_ranks,
+        kernels.ptr(scratch), scratch.shape[0], kernels.ptr(sizes), kernels.ptr(host), cap,
+        kernels.ptr(send),
+    )
+    lib.count("ownership_pack")
     return send, sizes
 
 
@@ -369,16 +370,18 @@ def ownership_pack(flat, offs, weights, owner, n_ranks: int, agree=_local_cap):
     rank p owns, in source-local order, zero-padded; each bucket's length,
     int64 [H]).  `agree` maps the widest local bucket to cap: the
     all_reduce(MAX) over the ranks in a process group, the identity
-    otherwise.  Kernel K26 on CUDA (two launches, `agree` between them),
-    the plain version on CPU.  Inputs are not range-checked here: the
+    otherwise.  Kernel K26 on CUDA (a count and an offsets launch, one
+    host read of the sizes, `agree`, one write launch), the plain version
+    on CPU.  Inputs are not range-checked here: the
     caller checks them on the host (route_evidence_ownership)."""
     if flat.is_cuda:
         return _ownership_pack_cuda(flat, offs, weights, owner, n_ranks, agree)
     return ownership_pack_plain(flat, offs, weights, owner, n_ranks, agree)
 
 
-def _check_headers(hdr: torch.Tensor, cap: int) -> None:
-    """Each (n_paths, n_flat) header on the host must fit its row of cap."""
+def _check_headers(hdr, cap: int) -> None:
+    """Each (n_paths, n_flat) header on the host (an int64 [H, 2] tensor or
+    numpy array) must fit its row of cap."""
     if bool((hdr < 0).any()) or bool((2 + 2 * hdr[:, 0] + hdr[:, 1] > cap).any()):
         raise ValueError("a received bucket's header does not fit its row")
 
@@ -402,33 +405,36 @@ def ownership_unpack_plain(recv: torch.Tensor):
 def _ownership_unpack_cuda(recv: torch.Tensor):
     kernels.check_cuda("recv", recv, torch.int32, 2)
     n_ranks, cap = recv.shape
+    if n_ranks > MAX_RANKS:
+        raise ValueError(f"{n_ranks} source ranks exceed {MAX_RANKS}")
+    if cap < 2:
+        raise ValueError("a received bucket's header does not fit its row")
     dev = recv.device
-    hdr = recv[:, :2].to(torch.int64)
-    ends = torch.cumsum(hdr, 0)
-    host = torch.cat([hdr, ends[-1:]]).cpu()  # the one read from the device
-    _check_headers(host[:-1], cap)
-    n_paths, n_flat = host[-1].tolist()
-    starts = ends - hdr
-    lens = torch.empty(n_paths, dtype=torch.int64, device=dev)
-    weights = torch.empty(n_paths, dtype=torch.int64, device=dev)
-    flat = torch.empty(n_flat, dtype=torch.int64, device=dev)
-    path_start, flat_start = starts[:, 0].contiguous(), starts[:, 1].contiguous()
     lib = kernels.library()
+    hdr = torch.empty((n_ranks, 2), dtype=torch.int32, pin_memory=True)
+    lib.call("shannon_ownership_headers", dev, kernels.ptr(recv), n_ranks, cap, kernels.ptr(hdr))
+    torch.cuda.current_stream(dev).synchronize()  # the one read from the device
+    hdr = hdr.numpy().astype(np.int64)
+    _check_headers(hdr, cap)
+    n_paths, n_flat = (int(x) for x in hdr.sum(0))
+    flat = torch.empty(n_flat, dtype=torch.int64, device=dev)
+    offs = torch.empty(n_paths + 1, dtype=torch.int64, device=dev)
+    weights = torch.empty(n_paths, dtype=torch.int64, device=dev)
+    scratch = kernels.scan_scratch(n_paths, dev)
     lib.call(
         "shannon_ownership_unpack", dev,
-        kernels.ptr(recv), n_ranks, cap, kernels.ptr(path_start), kernels.ptr(flat_start),
-        kernels.ptr(lens), kernels.ptr(weights), kernels.ptr(flat),
+        kernels.ptr(recv), n_ranks, cap, n_paths, n_flat, kernels.ptr(scratch),
+        scratch.shape[0], kernels.ptr(flat), kernels.ptr(offs), kernels.ptr(weights),
     )
     lib.count("ownership_unpack")
-    offs = torch.zeros(n_paths + 1, dtype=torch.int64, device=dev)
-    torch.cumsum(lens, 0, out=offs[1:])
     return flat, offs, weights
 
 
 def ownership_unpack(recv: torch.Tensor):
     """The evidence an exchange delivered ([H, cap] int32, row s from rank
     s) as int64 (flat, offs, weights), concatenated in source-rank order.
-    Kernel K27 on CUDA, the plain version on CPU."""
+    Kernel K27 on CUDA (one host read of the headers, one launch over the
+    rows' real words), the plain version on CPU."""
     if recv.shape[0] == 0:
         raise ValueError("unpack of an exchange with no ranks")
     if recv.is_cuda:

@@ -2829,6 +2829,112 @@ def test_ownership_unpack_kernel_on_an_exchange(cuda, n_ranks):
             assert torch.equal(g.cpu(), w)
 
 
+def _device_launches(fn, tries: int = 5) -> list:
+    """The names of the kernels, copies and memsets on the card of one call
+    of fn, in launch order, from a torch.profiler trace after a warm-up.
+    The call runs between two `torch.cuda._sleep` kernels, and only a trace
+    that holds both (so its collection was running before the call began) is
+    read: a trace can miss the launches made just after it starts."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            torch.cuda._sleep(1000)
+            fn()
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+        names = [e.name for e in events]
+        marks = [i for i, x in enumerate(names) if "spin_kernel" in x]
+        if len(marks) >= 2:
+            return names[marks[-2] + 1 : marks[-1]]
+    raise AssertionError(f"no trace held the call between its two markers: {names}")
+
+
+def _dirty(cuda, *sizes) -> None:
+    """Fill and free, with -1, a large buffer and one buffer of each byte
+    size given, so the caching allocator hands dirty memory to the next
+    allocations of those sizes."""
+    for n in (256 << 20, *sizes):
+        buf = torch.full((max(n, 8) // 4,), -1, dtype=torch.int32, device=cuda)
+        del buf
+
+
+@pytest.mark.parametrize("n_ranks", [1, 2, 3, 4, 8, 512])
+@pytest.mark.parametrize("case", ["random", "empty", "skew", "edge-1", "edge", "edge+1",
+                                  "long", "wide", "stray"])
+def test_ownership_kernels_on_transcription_cases(cuda, n_ranks, case, monkeypatch):
+    """K26 and K27 == their plain versions on the cases of
+    test_torch_ownership_transcription (a tile's edges, one path longer than
+    a tile, a cap above every bucket, every path to one rank, owners outside
+    [0, H)), on dirty memory; one launch count, one host read, no
+    torch.cumsum and K26's three launches (two with no path) and K27's one
+    with the scan's scratch fill, a call."""
+    from shannon_tpu_torch.parallel import multihost as tmh
+    from test_torch_ownership_transcription import ownership_case
+
+    flat, offs, weights, owner, agree = ownership_case(case, n_ranks, "source")
+    args = [torch.from_numpy(np.asarray(a, np.int64).astype(np.int32))
+            for a in (flat, offs, weights, owner)]
+    want = tmh.ownership_pack_plain(*args, n_ranks, agree)
+    dev_args = [a.to(cuda) for a in args]
+
+    def pack():
+        return _no_cumsum(monkeypatch, lambda: tmh.ownership_pack(*dev_args, n_ranks, agree))
+
+    lib = kernels.library()
+    before = lib.launches["ownership_pack"]
+    _, reads = _one_host_read(pack)
+    assert len(reads) == 1, reads
+    assert lib.launches["ownership_pack"] == before + 2  # the warm-up's and ours
+    names = _device_launches(pack)
+    ran = [x for x in names if not x.startswith("Memcpy")]
+    assert len(ran) == (3 if len(offs) > 1 else 2) and all("pack_" in x for x in ran), names
+    _dirty(cuda, 4 * want[0].numel())
+    got = pack()
+    torch.cuda.synchronize()
+    assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+
+    recv = got[0]
+    plain = tmh.ownership_unpack_plain(want[0])
+
+    def unpack():
+        return _no_cumsum(monkeypatch, lambda: tmh.ownership_unpack(recv))
+
+    before = lib.launches["ownership_unpack"]
+    _, reads = _one_host_read(unpack)
+    assert len(reads) == 1, reads
+    assert lib.launches["ownership_unpack"] == before + 2
+    names = [x for x in _device_launches(unpack) if not x.startswith("Memcpy")]
+    assert len(names) == 2 and sum("ownership_unpack_kernel" in x for x in names) == 1, names
+    _dirty(cuda, *(8 * x.numel() for x in plain))
+    got = unpack()
+    torch.cuda.synchronize()
+    for g, w in zip(got, plain):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("n_ranks, cap", [(1, 2), (2, 9), (512, 2), (512, 7)])
+def test_ownership_unpack_kernel_on_empty_rows(cuda, n_ranks, cap):
+    """A received buffer whose rows are all empty: offs == [0], no flat id,
+    no weight."""
+    from shannon_tpu_torch.parallel import multihost as tmh
+
+    recv = torch.zeros((n_ranks, cap), dtype=torch.int32)
+    _dirty(cuda, 8)
+    got = tmh.ownership_unpack(recv.to(cuda))
+    torch.cuda.synchronize()
+    for g, w in zip(got, tmh.ownership_unpack_plain(recv)):
+        assert torch.equal(g.cpu(), w)
+    assert got[1].tolist() == [0]
+
+
 def test_ownership_wrappers_validate_and_raise(cuda):
     from shannon_tpu_torch.parallel import multihost as tmh
 
@@ -2844,10 +2950,15 @@ def test_ownership_wrappers_validate_and_raise(cuda):
         tmh.ownership_pack(flat, offs, weights[:3], owner, 2)
     with pytest.raises(TypeError, match="int32"):
         tmh.ownership_unpack(torch.zeros((2, 4), dtype=torch.int64, device=cuda))
+    with pytest.raises(ValueError, match="below the widest bucket"):
+        tmh.ownership_pack(flat, offs, weights, owner, 2, agree=lambda c: c - 1)
+    with pytest.raises(ValueError, match="header"):
+        tmh.ownership_unpack(torch.zeros((2, 1), dtype=torch.int32, device=cuda))
     # a launch the kernel refuses raises, with the entry point's CUDA status
-    counts = torch.zeros((513, 1), dtype=torch.int32, device=cuda)
+    scratch = torch.zeros(2 * 513 + 2 * 513, dtype=torch.int32, device=cuda)
+    sizes = torch.zeros(513, dtype=torch.int64, device=cuda)
     lib = kernels.library()
     with pytest.raises(RuntimeError, match="shannon_ownership_counts failed"):
         lib.call("shannon_ownership_counts", cuda, kernels.ptr(flat), kernels.ptr(offs), 4,
-                 kernels.ptr(owner), 513, kernels.ptr(flat), kernels.ptr(counts),
-                 kernels.ptr(counts))
+                 kernels.ptr(owner), 513, kernels.ptr(scratch), scratch.shape[0],
+                 kernels.ptr(sizes))
