@@ -13,7 +13,10 @@ Phases; any failure exits nonzero:
      extraction), K2 (sorted-run reduction) and K3 (sorted-table lookup) on
      65,536 reads of 100 bp at pad 128, k = 24, a 2^22-lane table, and K24
      (k-mer extraction from uint8 codes, with and without N codes) on the
-     same reads as codes, also held equal to K1 on them packed; K2 again on
+     same reads as codes, and on them at 101 codes a row with N codes, k =
+     31, also held equal to K1 on them packed, and on the dry run's own
+     calls (its 2,048-read batch of 100 codes whole and its eight 256-row
+     shard views, canonical and not, k = 24); K2 again on
      the sorted window keys of the scale dataset's first read batch (what
      the main path gives it); K4
      (threading run scan) and K5 (across-read compaction) on the first
@@ -30,7 +33,8 @@ Phases; any failure exits nonzero:
      beside it), K20 (the abundance cut: its cut and keep modes, and the
      abundance filter, one compaction on K10's tile) and
      K28 (neighbor counts: 8 extension and 8 sibling probes a lane, k = 24,
-     canonical) on that spectrum and K17 (count merge) on the first and
+     canonical) and K22 (sibling maxima, on a table larger than L2) on that
+     spectrum and K17 (count merge) on the first and
      the largest (the last) merge its count made;
      then the whole correct_spectrum there against its CPU run, and K9
      (one round and the loop) on a synthetic grid (every count 1..255
@@ -467,8 +471,9 @@ def _write_mates(reads, directory: Path) -> tuple[str, str]:
     return str(left), str(right)
 
 
-def _random_batch(seed: int, with_n: bool, dev, codes_too: bool = False):
-    """KERNEL_READS random reads of 100 bp at pad KERNEL_PAD, packed (words,
+def _random_batch(seed: int, with_n: bool, dev, codes_too: bool = False,
+                  pad: int = KERNEL_PAD):
+    """KERNEL_READS random reads of 100 bp at `pad`, packed (words,
     lengths, N mask or None), and their uint8 codes with codes_too; with_n
     puts one N in the middle of every other read."""
     import numpy as np
@@ -476,7 +481,7 @@ def _random_batch(seed: int, with_n: bool, dev, codes_too: bool = False):
 
     from shannon_tpu_torch.io.pack import invalid_mask_words, pack_words
 
-    n, pad = KERNEL_READS, KERNEL_PAD
+    n = KERNEL_READS
     rng = np.random.default_rng(seed)
     codes = np.full((n, pad), 4, np.uint8)
     codes[:, :100] = rng.integers(0, 4, (n, 100))
@@ -601,6 +606,46 @@ def kernel_phase(dev, smi: str) -> dict:
         rows.append(_row(err, t, _nbytes(codes, lengths, *got), 2 * n * W * k, None))
         _print_row(f"K24 extract_codes canonical N={with_n}, {n} x {pad} uint8 codes (== K1 on "
                    "them packed)", rows[-1], smi)
+    # rows of 101 bases: every row but one in sixteen starts off a 16-byte
+    # boundary; k = 31, the longest key
+    words, lengths, mask, codes = _random_batch(2, True, dev, codes_too=True, pad=101)
+    args = (codes, lengths, 31, True)
+    got = extract_kmers(*args)
+    err = _max_abs_err(got, extract_kmers_plain(*args))
+    if _max_abs_err(got, extract_kmers_packed(words, lengths, 31, True, 101, mask)):
+        raise AssertionError("K24 disagrees with K1 on the same reads packed")
+    t = _alternate(lambda: extract_kmers(*args), lambda: extract_kmers_plain(*args))
+    W = got[0].shape[1]
+    rows.append(_row(err, t, _nbytes(codes, lengths, *got), 2 * n * W * 31, None))
+    out["extract_codes_101"] = rows[-1]
+    _print_row(f"K24 extract_codes canonical N=True, {n} x 101 uint8 codes, k = 31 (== K1 on "
+               "them packed)", rows[-1], smi)
+    # the dry run's own calls (dryrun_multichip(SHARDS), the only path that
+    # runs K24): its batch whole, as its one-device count and threading take
+    # it, and its 256-row shard views, as the sharded count and each shard's
+    # threading take them, canonical and not; the plan differs with the rows
+    from shannon_tpu_torch import entry as tentry
+
+    batch = tentry.example_batch(256 * SHARDS, tentry.READ_LEN)
+    d_codes = torch.from_numpy(batch.codes).to(dev)
+    d_lengths = torch.from_numpy(batch.lengths).to(dev)
+    per = d_codes.shape[0] // SHARDS
+    views = [(d_codes, d_lengths)] + [(d_codes[i * per:(i + 1) * per],
+                                       d_lengths[i * per:(i + 1) * per]) for i in range(SHARDS)]
+    err = max(_max_abs_err(extract_kmers(c, m, tentry.K, canonical),
+                           extract_kmers_plain(c, m, tentry.K, canonical))
+              for canonical in (True, False) for c, m in views)
+    for name, (c, m), label in (("dryrun", views[0], "whole batch"),
+                                ("dryrun_shard", views[1], "first shard view")):
+        args = (c, m, tentry.K, True)
+        got = extract_kmers(*args)
+        t = _alternate(lambda: extract_kmers(*args), lambda: extract_kmers_plain(*args))
+        W = got[0].shape[1]
+        rows.append(_row(err, t, _nbytes(c, m, *got), 2 * c.shape[0] * W * tentry.K, None))
+        out[f"extract_codes_{name}"] = rows[-1]
+        _print_row(f"K24 extract_codes, the dry run's {label}, {c.shape[0]} x {c.shape[1]} uint8 "
+                   f"codes, k = {tentry.K} (all {len(views)} views == plain in both modes)",
+                   rows[-1], smi)
     out["extract_codes"] = {**rows[0], "max_abs_err": max(r["max_abs_err"] for r in rows)}
 
     words, lengths, _ = _random_batch(1, False, dev)
@@ -687,8 +732,8 @@ def _filter_row(spec, cut: int, what: str, smi: str) -> dict:
 def entry_phase(dev, lib, smi: str) -> tuple[dict, dict]:
     """The flagship step through shannon_tpu_torch.entry: warmed, its
     launches counted, timed, held to ENTRY_FIGURES and to its CPU run; then
-    K20-K23 against their plain versions on the step's own tables.  Returns
-    (kernel rows, the phase's numbers)."""
+    K20-K23 against their plain versions on the step's own tables, and K22 on
+    the dry run's table.  Returns (kernel rows, the phase's numbers)."""
     import math
     import statistics
 
@@ -697,7 +742,9 @@ def entry_phase(dev, lib, smi: str) -> tuple[dict, dict]:
     from shannon_tpu_torch import entry as tentry
     from shannon_tpu_torch.ops import correction as tcor
     from shannon_tpu_torch.ops import spectrum as tsp
-    from shannon_tpu_torch.ops.count import _slice_spectrum, count_spectrum_packed
+    from shannon_tpu_torch.ops.count import (
+        Spectrum, _slice_spectrum, count_spectrum, count_spectrum_packed,
+    )
 
     step, (words, lengths) = tentry.entry(device=dev)
     step(words, lengths)
@@ -787,14 +834,35 @@ def entry_phase(dev, lib, smi: str) -> tuple[dict, dict]:
     sib = tsp.sibling_maxes(table, tentry.K)
     err = _max_abs_err(sib, tsp.sibling_maxes_plain(table, tentry.K))
     # bytes: the real lanes' keys and counts in, both maxima of every lane
-    # out; operations: 8 binary searches per real lane
+    # out; operations: a binary search of the real lanes per probe, 8 a
+    # real lane
     rows["sibling_maxes"] = _row(
         err, _alternate(lambda: tsp.sibling_maxes(table, tentry.K),
                         lambda: tsp.sibling_maxes_plain(table, tentry.K)),
         12 * n_tab + _nbytes(*sib), 8 * n_tab * steps, None,
     )
     _print_row(f"K22 sibling_maxes, the flagship table: {C} lanes, {n_tab} real, 8 probes each "
-               "(binary searches: latency-bound, not bandwidth-bound)", rows["sibling_maxes"], smi)
+               "(walks of the real lanes' search index and K7's group steps: bound by the L1 "
+               "passes of their scattered loads, not by bandwidth)", rows["sibling_maxes"], smi)
+
+    # K22 on the dry run's table (dryrun_multichip(SHARDS)'s batch counted
+    # into 2^15 lanes and abundance_filter(1), made with the plain versions on
+    # the host), where the index is one level that each block gathers itself
+    batch = tentry.example_batch(256 * SHARDS, tentry.READ_LEN)
+    d_spec = tcor.abundance_filter(count_spectrum(
+        torch.from_numpy(batch.codes), torch.from_numpy(batch.lengths), tentry.K, 1 << 15),
+        tentry.MIN_ABUNDANCE)
+    d_spec = Spectrum(key=d_spec.key.to(dev), count=d_spec.count.to(dev), n=d_spec.n)
+    d_n = min(d_spec.n, d_spec.capacity)
+    d_sib = tsp.sibling_maxes(d_spec, tentry.K)
+    err = _max_abs_err(d_sib, tsp.sibling_maxes_plain(d_spec, tentry.K))
+    rows["sibling_maxes_dryrun"] = _row(
+        err, _alternate(lambda: tsp.sibling_maxes(d_spec, tentry.K),
+                        lambda: tsp.sibling_maxes_plain(d_spec, tentry.K)),
+        12 * d_n + _nbytes(*d_sib), 8 * d_n * (math.ceil(math.log2(d_n)) + 1), None,
+    )
+    _print_row(f"K22 sibling_maxes, the dry run's table: {d_spec.capacity} lanes, {d_n} real, "
+               "8 probes each", rows["sibling_maxes_dryrun"], smi)
 
     ratio, _ = tcor.prune_constants(tentry.SIBLING_RATIO, 0.0)
     keep = tcor.prune_keep(table, *sib, ratio)
@@ -991,7 +1059,8 @@ def _merge_row(watch: Watch, smi: str) -> dict:
 
 def correction_phase(reads, dev, smi: str, watch: Watch):
     """K7-K10, K16 (also at max_count 65,536), K20 (cut and keep
-    modes, the abundance filter) and K28 (neighbor counts, which no path runs) against their plain
+    modes, the abundance filter), K22 (sibling maxima, which the flagship
+    step runs) and K28 (neighbor counts, which no path runs) against their plain
     versions on the main path's input: the
     counted, shrunk spectrum of the whole single-end scale dataset at the
     default AssemblyConfig (k = 24, the auto cut, sibling ratio 0.1, the
@@ -1088,6 +1157,22 @@ def correction_phase(reads, dev, smi: str, watch: Watch):
     out["neighbor_counts"] = _row(err, t, 52 * C, 16 * n_real * steps, library)
     _print_row(f"K28 neighbor_counts {C} lanes, {n_real} real x 16 probes (16 binary "
                "searches a lane: latency-bound, not bandwidth-bound)", out["neighbor_counts"], smi)
+
+    # K22 on a table larger than L2 (its real lanes' keys alone are 86 MB)
+    def sib_kernel():
+        return tsp.sibling_maxes(spec, k, canonical)
+
+    def sib_plain():
+        return tsp.sibling_maxes_plain(spec, k, canonical)
+
+    err = _max_abs_err(sib_kernel(), sib_plain())
+    t = _alternate(sib_kernel, sib_plain)
+    # bytes: the real lanes' keys and counts in, both maxima of every lane
+    # out; operations: a binary search of the real lanes per probe
+    out["sibling_maxes_counted"] = _row(err, t, 12 * n_real + 8 * C,
+                                        8 * n_real * (math.ceil(math.log2(n_real)) + 1), None)
+    _print_row(f"K22 sibling_maxes {C} lanes, {n_real} real x 8 probes (walks of the real "
+               "lanes' search index and K7's group steps)", out["sibling_maxes_counted"], smi)
 
     sib, ext = probes["sib"], probes["ext"]
     raw, counts = tcor.cut_counts(spec, cut)
@@ -2376,6 +2461,11 @@ def main(argv=None) -> int:
         report["kernels"][name]["max_abs_err"]
         for name in ("abundance_cut", "abundance_cut_keep", "abundance_cut_cut",
                      "abundance_cut_keep_main", "abundance_filter", "abundance_filter_main"))
+    # K22's row is the flagship step's; its error covers the dry run's table and
+    # the counted spectrum
+    report["kernels"]["sibling_maxes"]["max_abs_err"] = max(
+        report["kernels"][name]["max_abs_err"]
+        for name in ("sibling_maxes", "sibling_maxes_dryrun", "sibling_maxes_counted"))
     rows, report["condense"] = condense_phase(corrected, dev, smi, watch)
     report["kernels"].update(rows)
     del corrected

@@ -1,6 +1,6 @@
 """Time kernels of several trees in turns on one card: K6 (sf_greedy, the
-sparse-flow greedy with restarts, three inputs), K15 (base_streams), K22
-(sibling_maxes), K10 (compact_keep), K2 (reduce_sorted, three inputs), K7
+sparse-flow greedy with restarts, three inputs), K15 (base_streams), K10
+(compact_keep), K2 (reduce_sorted, three inputs), K7
 (probe_lookup, both probe sets), K3 (lookup_sorted, two inputs), K4
 (thread_rows), K8 (the dead-end rescue, one round and the main path's
 loop), K9 (the sibling prune, one round and the main path's loop), K1,
@@ -13,11 +13,31 @@ against its parent within one call.
     python scripts/kernel_turns.py --only hist lookup --trees OLD NEW NEW OLD
     python scripts/kernel_turns.py --only owner cut --trees OLD NEW NEW OLD
     python scripts/kernel_turns.py --only ownership --trees OLD NEW NEW OLD
+    python scripts/kernel_turns.py --only codes sib --trees OLD NEW NEW OLD
 
---only sf, streams, clip, hist, lookup, owner, cut and/or ownership times K6's
-rows, K15's, K18's and K19's, K16's, K21's, K25's, K20's and/or K26's and
-K27's alone and builds only their inputs (about 1.5 minutes, then under half
-a minute a tree).  K26 ("ownership_pack_2", "ownership_pack_4") packs the
+--only sf, streams, clip, hist, lookup, owner, cut, ownership, codes and/or
+sib times K6's rows, K15's, K18's and K19's, K16's, K21's, K25's, K20's,
+K26's and K27's, K24's (with K1 beside it) and/or K22's (with K7 beside
+it) alone and builds only their inputs (about 1.5 minutes, then under half
+a minute a tree).  K24 ("codes_*") on chip_smoke.py's kernel-phase reads as
+uint8 codes (_random_batch(1, False) and (1, True), 65,536 x 128, k = 24,
+canonical: "codes_smoke", "codes_smoke_n") and at 101 codes a row
+(_random_batch(2, True, pad=101), k = 31: "codes_101"), and on the dry
+run's batch (dryrun_multichip(8): example_batch's 2,048 reads of 100
+codes, k = 24), whole as its one-device count takes it ("codes_dryrun")
+and as its 8 shard views of 256 rows, one call each, as the sharded count
+takes them ("codes_shards", the 8 calls a row); K1 on the kernel-phase
+reads packed, unmasked and masked ("extract_smoke", "extract_smoke_masked",
+the windows K24 gives from their codes).  K22 ("sib_flagship") on the
+flagship table (the lookup group's) and on the counted, shrunk spectrum of
+the 1,000,000-read scale dataset (the hist group's, 10,689,722 real lanes:
+"sib_counted"), and on the dry run's table (dryrun_multichip(8)'s batch
+counted into 2^15 lanes, then abundance_filter(1): "sib_dryrun", the
+table of both of its K22 calls), k = 24, canonical; beside it K7 (probe_resolve, "sib")
+on the flagship table's real lanes alone ("probe_flagship_real": the same
+8 probes a real lane, resolved by K7's group walk and job queue) and K7
+on the counted spectrum ("probe_sib", "probe_ext"), which share K22's
+probe-group steps.  K26 ("ownership_pack_2", "ownership_pack_4") packs the
 evidence of one assemble of the 1,000,000-read scale dataset on the card in
 one process (recorded by wrapping pipeline._assemble_backhalf) for H = 2 and
 4 ranks, with owner = comp[0] mod H as _assemble_backhalf makes it, at its
@@ -31,7 +51,8 @@ K25 ("owner_buckets") runs at chip_smoke.py's owner_row shape: shard 0's
 local table of the 1,000,000-read scale dataset's first batch (its first
 1/8 of the default batch's rows, k = 24, canonical, counted into the
 default 2^22 lanes), bucketed for 8 owners at the default bucket_cap
-(2^20), with "owner_sizes".  K20's cut mode ("cut_main") runs on the hist
+(2^20), with "owner_sizes".  K1, K24, K7 and K22 rows give "codes_sizes"
+and "sib_sizes".  K20's cut mode ("cut_main") runs on the hist
 group's spectrum at its auto cut; its keep mode ("keep_flagship"), the
 abundance filter ("filter_flagship") and the filter as keep mode then K10
 ("filter_keep_k10", what abundance_filter was before the fused
@@ -72,8 +93,7 @@ of one call), "<row>_host_read_us" (the host's time a call in
 aten::_local_scalar_dense, the wait of its reads of the card, from a
 torch.profiler trace; with their number, "<row>_host_reads") and
 "<row>_sha" (a SHA-256 prefix of every output field and count, equal in
-every tree).  K22 on a canonical
-k = 24 table of 2^21 lanes holding 2^20 random real keys; K10 at
+every tree).  K10 at
 chip_smoke.py's shape (12,582,912 lanes, 10,689,722 of them real random
 sorted keys, 3,653,479 of those kept at random); K2 on chip_smoke.py's
 kernel-phase inputs (the sorted window keys of 65,536 random 100 bp reads,
@@ -407,6 +427,49 @@ def _owner_inputs(reads, cfg, dev) -> dict:
 OWNERSHIP_RANKS = (2, 4)
 
 
+def _codes_inputs() -> dict:
+    """K24's and K1's inputs (numpy): chip_smoke.py's kernel-phase reads,
+    packed and as codes, without and with N codes, at 101 codes a row, and
+    dryrun_multichip(8)'s batch as codes."""
+    import torch
+
+    from chip_smoke import SHARDS, _random_batch
+    from shannon_tpu_torch import entry as tentry
+
+    cpu, out = torch.device("cpu"), {}
+    for name, (seed, with_n, pad) in (("smoke", (1, False, 128)), ("smoke_n", (1, True, 128)),
+                                      ("101", (2, True, 101))):
+        words, lengths, mask, codes = _random_batch(seed, with_n, cpu, codes_too=True, pad=pad)
+        out.update({f"x{name}_words": words.numpy(), f"x{name}_lengths": lengths.numpy(),
+                    f"x{name}_codes": codes.numpy()})
+        if mask is not None:
+            out[f"x{name}_mask"] = mask.numpy()
+    batch = tentry.example_batch(256 * SHARDS, tentry.READ_LEN)
+    out.update(xdry_codes=batch.codes, xdry_lengths=batch.lengths, xdry_shards=SHARDS,
+               xdry_k=tentry.K)
+    return out
+
+
+def _sib_dryrun_inputs() -> dict:
+    """K22's input in dryrun_multichip(8), made with the plain versions:
+    its batch counted into 2^15 lanes (count_spectrum, as its one-device
+    count; the sharded count gives the same table), then
+    abundance_filter(1)."""
+    import torch
+
+    from chip_smoke import SHARDS
+    from shannon_tpu_torch import entry as tentry
+    from shannon_tpu_torch.ops.correction import abundance_filter
+    from shannon_tpu_torch.ops.count import count_spectrum
+
+    batch = tentry.example_batch(256 * SHARDS, tentry.READ_LEN)
+    spec = count_spectrum(torch.from_numpy(batch.codes), torch.from_numpy(batch.lengths),
+                          tentry.K, 1 << 15)
+    spec = abundance_filter(spec, tentry.MIN_ABUNDANCE)
+    return {"d_key": spec.key.numpy(), "d_count": spec.count.numpy(), "d_n": spec.n,
+            "d_k": tentry.K}
+
+
 def _ownership_inputs(reads, cfg, dev) -> dict:
     """K26's inputs (numpy): the evidence (flat, offs, weights) and the
     component owners of one assemble of `reads` on the card in one process,
@@ -449,9 +512,14 @@ def _inputs(path: Path, only) -> None:
 
     dev, cfg = torch.device("cuda", 0), AssemblyConfig()
     focus = {"buf": _sf_jobs(7, 4096), "big": _sf_jobs(8, 65_536)}
+    if only is not None and "codes" in only:
+        focus.update(_codes_inputs())
+    if only is not None and "sib" in only:
+        focus.update(_sib_dryrun_inputs())
     if only is not None and not {"sf", "streams", "clip", "hist", "owner", "cut",
-                                 "ownership"} & set(only):
-        focus.update(_lookup_inputs(dev))
+                                 "ownership", "sib"} & set(only):
+        if "lookup" in only:
+            focus.update(_lookup_inputs(dev))
         np.savez(path, **focus)
         return
     reads = _scale_dataset(1_000_000)[1]
@@ -464,12 +532,12 @@ def _inputs(path: Path, only) -> None:
                           for n, x in condense.items()})
         if "clip" in only:
             focus.update(_clip_inputs(condense, cfg))
-        if "hist" in only or "cut" in only:
+        if "hist" in only or "cut" in only or "sib" in only:
             spec = _counted_spectrum(reads, cfg, dev)
             focus.update(h_key=spec.key.cpu().numpy(), h_count=spec.count.cpu().numpy(),
                          h_n=spec.n)
             del spec
-        if "lookup" in only or "cut" in only:
+        if "lookup" in only or "cut" in only or "sib" in only:
             focus.update(_lookup_inputs(dev))
         if "owner" in only:
             focus.update(_owner_inputs(reads, cfg, dev))
@@ -477,14 +545,6 @@ def _inputs(path: Path, only) -> None:
             focus.update(_ownership_inputs(reads, cfg, dev))
         np.savez(path, **focus)
         return
-
-    rng = np.random.default_rng(22)
-    k, lanes = 24, 1 << 21
-    keys = np.unique(rng.integers(0, 1 << (2 * k), 1 << 20, dtype=np.int64))
-    table = np.full(lanes, (1 << 63) - 1, np.int64)
-    table[: len(keys)] = keys
-    counts = np.zeros(lanes, np.int32)
-    counts[: len(keys)] = rng.integers(1, 50, len(keys))
 
     # K10: chip_smoke.py's correction-phase shape, made at random
     C, real, kept = 12_582_912, 10_689_722, 3_653_479
@@ -505,8 +565,7 @@ def _inputs(path: Path, only) -> None:
     mkeys, order = torch.sort(torch.cat([ta[0], tb[0]]))
     mcounts = torch.cat([ta[1], tb[1]])[order]
     bkeys = window_keys(cpu, reads=reads)
-    np.savez(path, **focus, key=table, count=counts,
-             n=len(keys), c_key=c_key, c_count=c_count, c_keep=c_keep, unit=unit.numpy(),
+    np.savez(path, **focus, c_key=c_key, c_count=c_count, c_keep=c_keep, unit=unit.numpy(),
              mkeys=mkeys.numpy(), mcounts=mcounts.numpy(),
              bkeys=bkeys.numpy(), **_search_inputs(reads))
 
@@ -779,7 +838,65 @@ def _focus_rows(d, dev, only) -> dict:
             filter_flagship=(lambda: tcor.abundance_filter(f_spec, f_cut), 200),
             filter_keep_k10=(lambda: tcor.compact(
                 f_spec, tcor.abundance_cut(f_spec, f_cut, False, False)[2]), 200))
+    if only is not None and "codes" in only:
+        from shannon_tpu_torch.ops.kmers import extract_kmers, extract_kmers_packed
+
+        def x(name: str) -> torch.Tensor:
+            return torch.from_numpy(d[name]).to(dev)
+
+        xs = {name: (x(f"x{name}_codes"), x(f"x{name}_lengths"), x(f"x{name}_words"))
+              for name in ("smoke", "smoke_n", "101")}
+        x_mask = x("xsmoke_n_mask")
+        dry_codes, dry_lengths = x("xdry_codes"), x("xdry_lengths")
+        shards, dry_k = int(d["xdry_shards"]), int(d["xdry_k"])
+        rows = dry_codes.shape[0] // shards
+        shard_views = [(dry_codes[i * rows:(i + 1) * rows], dry_lengths[i * rows:(i + 1) * rows])
+                       for i in range(shards)]
+
+        def codes_shards():
+            return [t for c, n in shard_views for t in extract_kmers(c, n, dry_k, True)]
+
+        fns.update(
+            codes_smoke=(lambda: extract_kmers(*xs["smoke"][:2], 24, True), 200),
+            codes_smoke_n=(lambda: extract_kmers(*xs["smoke_n"][:2], 24, True), 200),
+            codes_101=(lambda: extract_kmers(*xs["101"][:2], 31, True), 200),
+            codes_dryrun=(lambda: extract_kmers(dry_codes, dry_lengths, dry_k, True), 200),
+            codes_shards=(codes_shards, 200),
+            extract_smoke=(lambda: extract_kmers_packed(
+                xs["smoke"][2], xs["smoke"][1], 24, True, 128, None), 200),
+            extract_smoke_masked=(lambda: extract_kmers_packed(
+                xs["smoke_n"][2], xs["smoke_n"][1], 24, True, 128, x_mask), 200))
+        codes_sizes = {name: list(c.shape) for name, (c, _n, _w) in xs.items()}
+        codes_sizes.update(dryrun=list(dry_codes.shape), shards=shards)
+    if only is not None and "sib" in only:
+        from shannon_tpu_torch.ops.correction import probe_resolve
+        from shannon_tpu_torch.ops.count import Spectrum
+        from shannon_tpu_torch.ops.spectrum import sibling_maxes
+
+        def card_spectrum(p: str) -> Spectrum:
+            return Spectrum(key=torch.from_numpy(d[f"{p}_key"]).to(dev),
+                            count=torch.from_numpy(d[f"{p}_count"]).to(dev), n=int(d[f"{p}_n"]))
+
+        s_flag, s_counted, sk = card_spectrum("l"), card_spectrum("h"), int(d["l_k"])
+        s_dry, dk = card_spectrum("d"), int(d["d_k"])
+        s_n = min(s_flag.n, s_flag.capacity)
+        s_real = Spectrum(key=s_flag.key[:s_n], count=s_flag.count[:s_n], n=s_n)
+        fns.update(
+            sib_flagship=(lambda: sibling_maxes(s_flag, sk, True), 200),
+            sib_counted=(lambda: sibling_maxes(s_counted, 24, True), 50),
+            sib_dryrun=(lambda: sibling_maxes(s_dry, dk, True), 200),
+            probe_flagship_real=(lambda: probe_resolve(s_real, sk, True, "sib"), 200),
+            probe_sib=(lambda: probe_resolve(s_counted, 24, True, "sib"), 20),
+            probe_ext=(lambda: probe_resolve(s_counted, 24, True, "ext"), 20))
+        sib_sizes = {"flagship_C": s_flag.capacity, "flagship_n": s_n,
+                     "counted_C": s_counted.capacity,
+                     "counted_n": min(s_counted.n, s_counted.capacity),
+                     "dryrun_C": s_dry.capacity, "dryrun_n": min(s_dry.n, s_dry.capacity)}
     row = {f"{name}_ms": _median_ms(fn, reps) for name, (fn, reps) in fns.items()}
+    if "codes_smoke" in fns:
+        row["codes_sizes"] = codes_sizes
+    if "sib_flagship" in fns:
+        row["sib_sizes"] = sib_sizes
     if "ownership_pack_2" in fns:
         row["ownership_sizes"] = w_sizes
     if "owner_buckets" in fns:
@@ -845,7 +962,7 @@ def _child(tree: str, inputs: str, only) -> None:
     from shannon_tpu_torch.ops.count import Spectrum, merge_at, merge_at_plain, merge_batch
     from shannon_tpu_torch.ops.count import reduce_sorted
     from shannon_tpu_torch.ops.kmers import extract_kmers_packed
-    from shannon_tpu_torch.ops.spectrum import lookup_sorted, probe_keys, sibling_maxes
+    from shannon_tpu_torch.ops.spectrum import lookup_sorted, probe_keys
 
     assert Path(shannon_tpu_torch.__file__).resolve().is_relative_to(Path(tree).resolve())
     dev = torch.device("cuda", 0)
@@ -858,7 +975,6 @@ def _child(tree: str, inputs: str, only) -> None:
     def on_card(name: str) -> torch.Tensor:
         return torch.from_numpy(d[name]).to(dev)
 
-    spec = Spectrum(key=on_card("key"), count=on_card("count"), n=int(d["n"]))
     table = Spectrum(key=on_card("c_key"), count=on_card("c_count"), n=int(d["c_key"].shape[0]))
     keep = on_card("c_keep")
     unit, mkeys, mcounts, bkeys = (on_card(x) for x in ("unit", "mkeys", "mcounts", "bkeys"))
@@ -1006,7 +1122,6 @@ def _child(tree: str, inputs: str, only) -> None:
 
     row = {
         "tree": tree,
-        "sibling_maxes_ms": _median_ms(lambda: sibling_maxes(spec, 24, True)),
         "compact_keep_ms": _median_ms(lambda: compact(table, keep)),
         "compact_keep_n": compact(table, keep).n,
         "reduce_sorted_unit_ms": _median_ms(lambda: reduce_sorted(unit, None, cap)),
@@ -1080,11 +1195,12 @@ def main() -> int:
     ap.add_argument("--out", default=None)
     ap.add_argument("--only", nargs="+",
                     choices=("sf", "streams", "clip", "hist", "lookup", "owner", "cut",
-                             "ownership"),
+                             "ownership", "codes", "sib"),
                     default=None,
                     help="time only K6's rows (sf), K15's (streams), K18's and K19's (clip), "
-                         "K16's (hist), K21's (lookup), K25's (owner), K20's (cut) and/or "
-                         "K26's and K27's (ownership)")
+                         "K16's (hist), K21's (lookup), K25's (owner), K20's (cut), K26's "
+                         "and K27's (ownership), K24's and K1's (codes) and/or K22's and "
+                         "K7's (sib)")
     ap.add_argument("--child", nargs=2, metavar=("TREE", "INPUTS"), help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child:

@@ -42,9 +42,10 @@ static __device__ __forceinline__ int64_t lower_bound(const int64_t* __restrict_
 // Binary search of `key` in the sorted table[0, table_len) (table_len >= 1):
 // the lower bound clamped to table_len - 1 goes to *idx, and the result says
 // whether that lane holds the key.  The kernels that search inside other
-// work use it: K14 (condense.cu) and K22 / K28 (through sibling_maxes_of).
-// K3 (lookup_sorted), K7 (probe_lookup) and K21 (lookup_counts, over the
-// real lanes alone) walk the 16-ary index of search.cuh instead, and K18
+// work use it: K14 (condense.cu) and K28 (through sibling_maxes_of).  K3
+// (lookup_sorted), K7 (probe_lookup), K21 (lookup_counts) and K22
+// (sibling_maxes; both over the real lanes alone) walk the 16-ary index of
+// search.cuh instead, and K18
 // (drop_join_kernel) finds the same lower bound of each sorted query by a
 // merge join; every searcher returns the same exact clamped lower bound, so
 // all give the same (idx, hit) for the same query.
@@ -90,8 +91,8 @@ static __device__ __forceinline__ int64_t probe_key(uint64_t v, int k, int p,
 // its left siblings (rows 1, 3, 5, 7) in the sorted table: each probe is one
 // lower_bound_hit, and a miss counts 0, as in the reference's lookup_counts.
 // The eight searches are independent, so the unrolled loop keeps them in
-// flight together.  K22 (sibling_maxes) and K28 (neighbor_counts) run it once
-// per real entry; a later kernel can fuse it with K23's decision.
+// flight together.  K28 (neighbor_counts) runs it once per real entry (K22
+// resolves the same probes on the search index, spectrum.cu).
 static __device__ __forceinline__ void sibling_maxes_of(
     const int64_t* __restrict__ table, const int32_t* __restrict__ count,
     int64_t table_len, uint64_t v, int k, int canonical, int32_t* rmax,

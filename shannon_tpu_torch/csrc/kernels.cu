@@ -29,20 +29,65 @@
 // Bound: memory.  Each window writes 9 bytes (key + valid); the read rows
 // are 4 bytes a 16 bases.  A block stages a run of read rows (their words,
 // mask words and lengths) in shared memory with coalesced loads, then its
-// threads walk the block's flat windows, consecutive threads on consecutive
-// windows across row ends, so every key and valid store is coalesced.  A
-// thread finds its first window's row with one 32-bit division and steps
-// row and offset by constants after that.  Base p of a row sits at bits
-// 2(p & 15) of word p >> 4, so a window is one funnel shift of the (at most
-// three) words holding bases [j, j + k): S, base j in its low bits.  That
-// is the reverse complement with its bases complemented, so rc = ~S & mask
-// and fwd = revcomp_bits(rc, k); no per-base loop.  The mask bits of
-// [j, j + k) are one funnel shift of at most two mask words.  Rows too
-// long to stage in EXTRACT_SMEM bytes are read from device memory in
-// place, a row a block.
+// threads walk the block's flat windows (extract_windows, shared with K24).
+// Rows too long to stage in EXTRACT_SMEM bytes are read from device memory
+// in place, a row a block.
 // ---------------------------------------------------------------------------
 #define EXTRACT_ROWS 32
 #define EXTRACT_SMEM (48 * 1024)
+
+// The window walk of K1 and K24 over a block's rows in K1's layout: `rows`
+// rows of words_per_row 2-bit words (base p at bits 2(p & 15) of word p >> 4)
+// and wm N-mask words (bit p & 31 of word p >> 5 set where base p is
+// invalid; row_mask null for none), and each row's length in row_len; the
+// keys and flags of row r's window j go to out_key / out_valid[r * n_windows
+// + j].  Consecutive threads take consecutive windows across row ends, so
+// every key and valid store is coalesced; a thread finds its first window's
+// row with one 32-bit division and steps row and offset by constants after
+// that.  A window is one funnel shift of the (at most three) words holding
+// bases [j, j + k): S, base j in its low bits.  That is the reverse
+// complement with its bases complemented, so rc = ~S & mask and fwd =
+// revcomp_bits(rc, k); no per-base loop.  The mask bits of [j, j + k) are
+// one funnel shift of at most two mask words.  Words past a row's last read
+// 0, so bases past it only ever land above the window's 2k bits.
+static __device__ __forceinline__ void extract_windows(
+    const uint32_t* row_words, int words_per_row, const uint32_t* row_mask, int wm,
+    const int32_t* row_len, int rows, int n_windows, int k, int canonical,
+    int64_t* __restrict__ out_key, uint8_t* __restrict__ out_valid) {
+  const uint64_t kmask = (1ull << (2 * k)) - 1;
+  const uint32_t bad_bits = 0xFFFFFFFFu >> (32 - k);
+  const int total = rows * n_windows;
+  const int step_r = blockDim.x / n_windows, step_j = blockDim.x - step_r * n_windows;
+  int r = threadIdx.x / n_windows;
+  int j = threadIdx.x - r * n_windows;
+  for (int f = threadIdx.x; f < total; f += blockDim.x) {
+    const uint32_t* row = row_words + r * words_per_row;
+    const int w0 = j >> 4, shift = 2 * (j & 15);
+    const uint32_t x0 = row[w0];
+    const uint32_t x1 = w0 + 1 < words_per_row ? row[w0 + 1] : 0u;
+    const uint32_t x2 = w0 + 2 < words_per_row ? row[w0 + 2] : 0u;
+    const uint64_t S = ((uint64_t)__funnelshift_r(x1, x2, shift) << 32) |
+                       (uint64_t)__funnelshift_r(x0, x1, shift);
+    const uint64_t rc = ~S & kmask;
+    const uint64_t fwd = revcomp_bits(rc, k);
+    bool ok = j + k <= row_len[r];
+    if (row_mask != nullptr) {
+      const uint32_t* mrow = row_mask + r * wm;
+      const int m0 = j >> 5;
+      const uint32_t y1 = m0 + 1 < wm ? mrow[m0 + 1] : 0u;
+      if (__funnelshift_r(mrow[m0], y1, j & 31) & bad_bits) ok = false;
+    }
+    const uint64_t v = (canonical && rc < fwd) ? rc : fwd;
+    out_key[f] = ok ? (int64_t)v : PAD_KEY;
+    out_valid[f] = ok ? 1 : 0;
+    j += step_j;
+    r += step_r;
+    if (j >= n_windows) {
+      j -= n_windows;
+      ++r;
+    }
+  }
+}
 
 __global__ void __launch_bounds__(THREADS)
     extract_kmers_kernel(const uint32_t* __restrict__ words, const int32_t* __restrict__ lengths,
@@ -68,80 +113,135 @@ __global__ void __launch_bounds__(THREADS)
     row_mask = mask != nullptr ? s_mask : nullptr;
   }
   __syncthreads();
-
-  const uint64_t kmask = (1ull << (2 * k)) - 1;
-  const uint32_t bad_bits = 0xFFFFFFFFu >> (32 - k);
-  const int total = rows * n_windows;
-  const int step_r = blockDim.x / n_windows, step_j = blockDim.x - step_r * n_windows;
-  int r = threadIdx.x / n_windows;
-  int j = threadIdx.x - r * n_windows;
-  int64_t* out_key = keys + r0 * n_windows;
-  uint8_t* out_valid = valid + r0 * n_windows;
-  for (int f = threadIdx.x; f < total; f += blockDim.x) {
-    const uint32_t* row = row_words + r * words_per_row;
-    const int w0 = j >> 4, shift = 2 * (j & 15);
-    const uint32_t x0 = row[w0];
-    const uint32_t x1 = w0 + 1 < words_per_row ? row[w0 + 1] : 0u;
-    const uint32_t x2 = w0 + 2 < words_per_row ? row[w0 + 2] : 0u;
-    const uint64_t S = ((uint64_t)__funnelshift_r(x1, x2, shift) << 32) |
-                       (uint64_t)__funnelshift_r(x0, x1, shift);
-    const uint64_t rc = ~S & kmask;
-    const uint64_t fwd = revcomp_bits(rc, k);
-    bool ok = j + k <= s_len[r];
-    if (row_mask != nullptr) {
-      const uint32_t* mrow = row_mask + r * wm;
-      const int m0 = j >> 5;
-      const uint32_t y1 = m0 + 1 < wm ? mrow[m0 + 1] : 0u;
-      if (__funnelshift_r(mrow[m0], y1, j & 31) & bad_bits) ok = false;
-    }
-    const uint64_t v = (canonical && rc < fwd) ? rc : fwd;
-    out_key[f] = ok ? (int64_t)v : PAD_KEY;
-    out_valid[f] = ok ? 1 : 0;
-    j += step_j;
-    r += step_r;
-    if (j >= n_windows) {
-      j -= n_windows;
-      ++r;
-    }
-  }
+  extract_windows(row_words, words_per_row, row_mask, wm, s_len, rows, n_windows, k, canonical,
+                  keys + r0 * n_windows, valid + r0 * n_windows);
 }
 
 // ---------------------------------------------------------------------------
 // K24: k-mer extraction from [N, L] uint8 base codes.
 // Replaces shannon_tpu/ops/kmers.py:116 extract_kmers (with _windows_from_c32
-// :78, revcomp_hilo :49, canonical_hilo :69).  One thread per (read,
-// window), consecutive threads on consecutive windows, forward key and
-// reverse complement in one k-step loop over the window's bytes.  A code >= 4
-// (N) invalidates its windows before its low 2 bits are read
-// (ops/kmers.py:127-128), so an N never reads as A.  K1 builds each window
-// from one funnel shift of its packed row instead; K24 keeps its per-base
-// loop (ROADMAP: it should take K1's staged design next).
-// Bound: memory (k bytes read a window, shared with the neighbours through
-// L1; 9 bytes written).
+// :78, revcomp_hilo :49, canonical_hilo :69).  A code >= 4 (N) invalidates
+// its windows before its low 2 bits are read (ops/kmers.py:127-128), so an N
+// never reads as A.
+// Bound: memory.  The function must read the codes once (a byte a base) and
+// write 9 bytes a window; at 65,536 x 128 codes and k = 24, 8.4 MB in and
+// 61.9 MB out, 0.021 ms at 3.35 TB/s.  K1 writes the same windows from 2-bit
+// words; K24 packs its bytes straight into K1's layout in shared memory and
+// runs K1's window walk (extract_windows), so no thread loops over a
+// window's bytes.
+// Design.
+//  - A block takes a run of rows, whose code bytes are one contiguous span
+//    [r0 L, (r0 + rows) L).  A thread takes 16 bases of a row: the <= 5
+//    aligned 4-byte words that hold them (byte loads for a word that
+//    straddles either end of the span, so any L (100, 101) and any view's
+//    start work), funnel-shifted by the bases' byte offset, become one 2-bit
+//    word (each byte's low 2 bits, four bases a byte by two shift-ors) and
+//    one half of an N-mask word (__vcmpgtu4 against 3, one bit a byte by a
+//    multiply), stored in shared memory; bytes past the row count as 0.
+//    Consecutive threads take consecutive 16 bases, so the warp's loads are
+//    coalesced, and the bytes never pass through shared memory.
+//  - Then, after one barrier, the block walks its windows as K1 does.
+//  - A row too long to stage (its lengths, words and mask past EXTRACT_SMEM)
+//    is taken in pieces of CODES_PIECE windows, a piece a block: the piece
+//    stages its windows' bases, CODES_PIECE + k - 1 of them (a k - 1 base
+//    halo past its last window), as a row of its own whose length is the
+//    read's less the piece's first window, and its keys go to that window's
+//    place in the row.
 // ---------------------------------------------------------------------------
-__global__ void extract_codes_kernel(const uint8_t* __restrict__ codes,
-                                     const int32_t* __restrict__ lengths,
-                                     int64_t n_reads, int row_len, int n_windows,
-                                     int k, int canonical,
-                                     int64_t* __restrict__ keys,
-                                     uint8_t* __restrict__ valid) {
-  int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= n_reads * (int64_t)n_windows) return;
-  int64_t r = t / n_windows;
-  int j = (int)(t - r * n_windows);
-  const uint8_t* row = codes + r * row_len;
-  bool ok = j + k <= lengths[r];
-  uint64_t fwd = 0, rc = 0;
-  for (int i = 0; i < k; ++i) {
-    const uint32_t code = row[j + i];
-    if (code > 3u) ok = false;
-    const uint64_t c = code & 3u;
-    fwd = (fwd << 2) | c;
-    rc |= (3ull - c) << (2 * i);
+#define CODES_PIECE 16384
+
+// Bytes of shared memory a K24 block of `rows` rows of `len` bases takes:
+// the lengths, the 2-bit words (one a 16 bases) and the mask words (one a
+// 32 bases).
+static __host__ __device__ inline int64_t codes_smem_bytes(int64_t rows, int64_t len) {
+  const int64_t units = (len + 15) / 16;
+  return 4 * rows * (1 + units + (units + 1) / 2);
+}
+
+// Four code bytes as four bases' 2-bit codes (low byte first, 8 bits).
+static __device__ __forceinline__ uint32_t pack4(uint32_t b) {
+  const uint32_t c = b & 0x03030303u;
+  const uint32_t t = c | (c >> 6);
+  return (t & 0xFu) | ((t >> 12) & 0xF0u);
+}
+
+// Four code bytes as four N-mask bits: bit q set where byte q is >= 4.
+static __device__ __forceinline__ uint32_t bad4(uint32_t b) {
+  return ((__vcmpgtu4(b, 0x03030303u) & 0x08040201u) * 0x01010101u) >> 24;
+}
+
+// The aligned 4-byte word at w, its bytes outside [lo, hi) read as 0 (and
+// not read).
+static __device__ __forceinline__ uint32_t span_word(const uint32_t* w, const uint8_t* lo,
+                                                     const uint8_t* hi) {
+  const uint8_t* p = reinterpret_cast<const uint8_t*>(w);
+  if (p >= lo && p + 4 <= hi) return __ldg(w);
+  uint32_t x = 0;
+  for (int b = 0; b < 4; ++b) {
+    if (p + b >= lo && p + b < hi) x |= (uint32_t)p[b] << (8 * b);
   }
-  uint64_t v = (canonical && rc < fwd) ? rc : fwd;
-  keys[t] = ok ? (int64_t)v : PAD_KEY;
-  valid[t] = ok ? 1 : 0;
+  return x;
+}
+
+__global__ void __launch_bounds__(THREADS)
+    extract_codes_kernel(const uint8_t* __restrict__ codes, const int32_t* __restrict__ lengths,
+                         int64_t n_reads, int row_len, int n_windows, int k, int canonical,
+                         int rows_per_block, int pieces, int64_t* __restrict__ keys,
+                         uint8_t* __restrict__ valid) {
+  // pieces: 0 where a block takes rows_per_block whole rows, else each row's
+  // pieces (rows_per_block is then 1)
+  extern __shared__ uint32_t s_codes[];
+  int64_t r0;
+  int rows, len, win, j0;
+  if (pieces == 0) {  // whole rows
+    r0 = (int64_t)blockIdx.x * rows_per_block;
+    rows = (int)(n_reads - r0 < rows_per_block ? n_reads - r0 : rows_per_block);
+    j0 = 0;
+    win = n_windows;
+    len = row_len;
+  } else {  // a piece of one row
+    r0 = blockIdx.x / pieces;
+    j0 = (int)(blockIdx.x - r0 * pieces) * CODES_PIECE;
+    rows = 1;
+    win = n_windows - j0 < CODES_PIECE ? n_windows - j0 : CODES_PIECE;
+    len = win + k - 1;
+  }
+  const int units = (len + 15) >> 4;  // 2-bit words a row, 16 bases each
+  const int wm = (units + 1) >> 1;    // mask words a row, 32 bases each
+  int32_t* s_len = (int32_t*)s_codes;
+  uint32_t* s_words = s_codes + rows_per_block;
+  uint32_t* s_mask = s_words + rows_per_block * units;
+  uint16_t* s_half = reinterpret_cast<uint16_t*>(s_mask);
+
+  const uint8_t* src = codes + r0 * row_len + j0;
+  const uint8_t* end = src + rows * len;
+  for (int i = threadIdx.x; i < rows; i += blockDim.x) s_len[i] = lengths[r0 + i] - j0;
+  for (int t = threadIdx.x; t < rows * units; t += blockDim.x) {
+    const int i = t / units, u = t - i * units;
+    const uint8_t* a = src + i * len + 16 * u;
+    const int nb = min(16, len - 16 * u);  // the unit's bases inside the row
+    const uint32_t* w = reinterpret_cast<const uint32_t*>((uintptr_t)a & ~(uintptr_t)3);
+    const int sh = 8 * (int)((uintptr_t)a & 3);
+    const int nw = (sh / 8 + nb + 3) >> 2;  // words holding the unit's bytes
+    uint32_t x[5];
+#pragma unroll
+    for (int q = 0; q < 5; ++q) x[q] = q < nw ? span_word(w + q, src, end) : 0u;
+    uint32_t word = 0, bad = 0;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      uint32_t b = __funnelshift_r(x[q], x[q + 1], sh);
+      const int in_row = nb - 4 * q;
+      if (in_row < 4) b = in_row <= 0 ? 0u : b & ((1u << (8 * in_row)) - 1u);
+      word |= pack4(b) << (8 * q);
+      bad |= bad4(b) << (4 * q);
+    }
+    s_words[i * units + u] = word;
+    s_half[2 * (i * wm + (u >> 1)) + (u & 1)] = (uint16_t)bad;
+    if ((u & 1) == 0 && u + 1 == units) s_half[2 * (i * wm + (u >> 1)) + 1] = 0;
+  }
+  __syncthreads();
+  extract_windows(s_words, units, s_mask, wm, s_len, rows, win, k, canonical,
+                  keys + r0 * n_windows + j0, valid + r0 * n_windows + j0);
 }
 
 // ---------------------------------------------------------------------------
@@ -559,15 +659,35 @@ int shannon_extract_kmers(const void* words, const void* lengths,
   return (int)cudaGetLastError();
 }
 
-int shannon_extract_codes(const void* codes, const void* lengths, int64_t n_reads,
-                          int row_len, int n_windows, int k, int canonical,
-                          void* keys, void* valid, void* stream) {
-  int64_t total = n_reads * (int64_t)n_windows;
-  if (total > 0) {
-    extract_codes_kernel<<<blocks_for(total), THREADS, 0, (cudaStream_t)stream>>>(
-        (const uint8_t*)codes, (const int32_t*)lengths, n_reads, row_len, n_windows,
-        k, canonical, (int64_t*)keys, (uint8_t*)valid);
+// A block takes whole rows that fit EXTRACT_SMEM bytes of shared memory
+// (codes_smem_bytes): up to EXTRACT_ROWS, and no more than n_reads / sms
+// rounded up, so that a small batch still spreads over the card's sms SMs
+// (a dry run's 256-row shard: 2 rows a block, its 2,048-row batch 16); a
+// row that does not fit alone is taken in pieces of CODES_PIECE windows, a
+// piece a block.  On an H100 a shard took 2.00 us at 2 rows a block against
+// 2.05 at 1; a block trimmed to its windows gained at most 0.01 us more.
+int shannon_extract_codes(const void* codes, const void* lengths, int64_t n_reads, int row_len,
+                          int n_windows, int k, int canonical, int sms, void* keys, void* valid,
+                          void* stream) {
+  if (sms < 1) return (int)cudaErrorInvalidValue;
+  if (n_reads <= 0 || n_windows <= 0) return (int)cudaGetLastError();
+  const int64_t spread = (n_reads + sms - 1) / sms;
+  int64_t rows = spread < EXTRACT_ROWS ? spread : EXTRACT_ROWS;
+  int64_t len = row_len, blocks = 0;
+  while (rows > 0 && codes_smem_bytes(rows, row_len) > EXTRACT_SMEM) --rows;
+  int pieces = 0;
+  if (rows > 0) {
+    blocks = (n_reads + rows - 1) / rows;
+  } else {  // W > CODES_PIECE here: a row of that many bases fits
+    rows = 1;
+    pieces = (n_windows + CODES_PIECE - 1) / CODES_PIECE;
+    len = CODES_PIECE + k - 1;
+    blocks = n_reads * pieces;
   }
+  extract_codes_kernel<<<(unsigned int)blocks, THREADS, (size_t)codes_smem_bytes(rows, len),
+                         (cudaStream_t)stream>>>(
+      (const uint8_t*)codes, (const int32_t*)lengths, n_reads, row_len, n_windows, k, canonical,
+      (int)rows, pieces, (int64_t*)keys, (uint8_t*)valid);
   return (int)cudaGetLastError();
 }
 

@@ -55,7 +55,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _ARGTYPES = {
     "shannon_extract_kmers": [_P, _P, _P, _I64, _I, _I, _I, _I, _I, _P, _P, _P],
-    "shannon_extract_codes": [_P, _P, _I64, _I, _I, _I, _I, _P, _P, _P],
+    "shannon_extract_codes": [_P, _P, _I64, _I, _I, _I, _I, _I, _P, _P, _P],
     "shannon_reduce_sorted": [_P, _P, _I64, _I64, _P, _I64, _P, _P, _P, _P],
     "shannon_lookup_sorted": [_P, _I64, _P, _I64, _P, _I64, _P, _P, _P, _P],
     "shannon_thread_rows": [_P, _P, _P, _P, _P, _I64, _I, _I, *[_P] * 7, _P],
@@ -81,7 +81,7 @@ _ARGTYPES = {
     "shannon_abundance_cut": [_P, _I64, _I64, _I, _P, _P, _P, _P],
     "shannon_abundance_filter": [_P, _P, _I64, _I64, _I, _P, _I64, _P, _P, _P],
     "shannon_lookup_counts": [_P, _P, _I64, _P, _I64, _P, _I64, _P, _I, _P, _P],
-    "shannon_sibling_maxes": [_P, _P, _I64, _I, _I, _P, _P, _P],
+    "shannon_sibling_maxes": [_P, _P, _I64, _I64, _I, _I, _P, _I64, _P, _I, _P, _P, _P],
     "shannon_neighbor_counts": [_P, _P, _I64, _I, _I, *[_P] * 4, _P],
     "shannon_prune_keep": [_P, _P, _P, _P, _I64, _F, _P, _P],
     "shannon_owner_buckets": [_P, _P, _I64, _I, _I64, _P, _I64, _P, _P, _P, _P],
@@ -224,8 +224,8 @@ def _sm_count(index: int) -> int:
 
 
 def sm_count(device: torch.device) -> int:
-    """The card's SM count (K16's and K21's grids), looked up once a
-    process."""
+    """The card's SM count (K16's, K21's and K22's grids, K24's plan),
+    looked up once a process."""
     return _sm_count(device.index)
 
 

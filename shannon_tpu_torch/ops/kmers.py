@@ -191,7 +191,7 @@ def _extract_codes_cuda(codes, lengths, k, canonical):
     lib.call(
         "shannon_extract_codes", codes.device,
         kernels.ptr(codes), kernels.ptr(lengths), n, L, W, k, int(canonical),
-        kernels.ptr(keys), kernels.ptr(valid),
+        kernels.sm_count(codes.device), kernels.ptr(keys), kernels.ptr(valid),
     )
     lib.count("extract_codes")
     return keys, valid

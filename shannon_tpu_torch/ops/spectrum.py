@@ -1,13 +1,14 @@
 """Sorted-table lookups: exact hits (kernel K3), counts (K21), sibling
 maxima (K22) and neighbor counts (K28), and the layout of the 16-ary search
-index that K3, K7 and K21 walk.
+index that K3, K7, K21 and K22 walk.
 
 Counterpart of ``shannon_tpu/ops/spectrum.py`` (``lookup_hilo``,
 ``lookup_counts``, ``sibling_maxes``, ``neighbor_counts``).  The TPU
 switched between a sort-merge join and a binary search by a cost model of
-that chip; here every lookup is one search per query: K3 and K21 walk the
-index of ``csrc/search.cuh`` (built in the same call; K21's over the real
-lanes alone), K22 and K28 a binary search.  On CUDA tensors each function
+that chip; here every lookup is one search per query: K3, K21 and K22 walk
+the index of ``csrc/search.cuh`` (built in the same call; K21's and K22's
+over the real lanes alone, K22's with K7's probe-group steps), K28 a binary
+search.  On CUDA tensors each function
 launches its hand-written kernel (``csrc/kernels.cu``,
 ``csrc/spectrum.cu``); on CPU tensors its ``_plain`` version runs.
 
@@ -18,6 +19,7 @@ lane, a miss included (the reference promised ``idx`` only where ``hit``).
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -27,7 +29,7 @@ from shannon_tpu_torch.ops.count import Spectrum
 from shannon_tpu_torch.ops.kmers import PAD, canonical_key, check_k
 
 
-# The 16-ary search index of K3, K7 and K21 (csrc/search.cuh, whose
+# The 16-ary search index of K3, K7, K21 and K22 (csrc/search.cuh, whose
 # constants of the same names these must equal): SEARCH_FANOUT entries a
 # node, levels up to the first of at most SEARCH_TOP_WORDS entries (the top,
 # which each block holds in shared memory), at most SEARCH_MAX_LEVELS levels.
@@ -88,11 +90,15 @@ def search_args(n: int, device) -> tuple[torch.Tensor, ctypes.Array]:
     words it checks (SEARCH_LAYOUT_WORDS: the number of levels, then the
     sizes and the offsets, each padded to SEARCH_MAX_LEVELS)."""
     lay = search_layout(n)
+    return torch.empty(lay.words, dtype=torch.int64, device=device), layout_words(lay)
+
+
+def layout_words(lay: SearchLayout) -> ctypes.Array:
+    """The layout as the SEARCH_LAYOUT_WORDS host words an entry point checks."""
     pad = (0,) * (SEARCH_MAX_LEVELS - len(lay.sizes))
-    words = (ctypes.c_int64 * (1 + 2 * SEARCH_MAX_LEVELS))(
+    return (ctypes.c_int64 * (1 + 2 * SEARCH_MAX_LEVELS))(
         len(lay.sizes), *lay.sizes, *pad, *lay.offsets, *pad
     )
-    return torch.empty(lay.words, dtype=torch.int64, device=device), words
 
 
 def lookup_sorted_plain(
@@ -217,26 +223,48 @@ def _sibling_maxes_cuda(spec: Spectrum, k: int, canonical: bool):
     C = spec.capacity
     if spec.count.shape[0] != C:
         raise ValueError("key and count disagree on length")
-    rmax = torch.empty(C, dtype=torch.int32, device=spec.key.device)
-    lmax = torch.empty(C, dtype=torch.int32, device=spec.key.device)
+    dev = spec.key.device
+    rmax = torch.empty(C, dtype=torch.int32, device=dev)
+    lmax = torch.empty(C, dtype=torch.int32, device=dev)
     if C == 0:
         return rmax, lmax
+    # the Spectrum contract: the real lanes come first, PAD with count 0
+    # after them, so only key[:n_real] is searched and the kernel writes the
+    # lanes past it as zeros
+    n_real = min(spec.n, C)
+    scratch, words, layout = None, 0, None
+    if n_real:
+        levels, words, layout = _sib_layout(n_real)
+        if levels > 1:  # a one-level top each block gathers from the table
+            scratch = torch.empty(words, dtype=torch.int64, device=dev)
     lib = kernels.library()
     lib.call(
-        "shannon_sibling_maxes", spec.key.device,
-        kernels.ptr(spec.key), kernels.ptr(spec.count), C, k, int(canonical),
-        kernels.ptr(rmax), kernels.ptr(lmax),
+        "shannon_sibling_maxes", dev,
+        kernels.ptr(spec.key), kernels.ptr(spec.count), n_real, C, k, int(canonical),
+        kernels.ptr(scratch), words, layout, kernels.sm_count(dev), kernels.ptr(rmax),
+        kernels.ptr(lmax),
     )
     lib.count("sibling_maxes")
     return rmax, lmax
+
+
+@functools.lru_cache(maxsize=64)
+def _sib_layout(n: int) -> tuple[int, int, ctypes.Array]:
+    """K22's index of n real lanes: its levels, its words and its layout's
+    host words, made once for each n (the entry point reads them and never
+    writes them)."""
+    lay = search_layout(n)
+    return len(lay.sizes), lay.words, layout_words(lay)
 
 
 def sibling_maxes(spec: Spectrum, k: int, canonical: bool = True):
     """(right_sib_max, left_sib_max), int32 [C]: the largest count among
     each entry's right siblings prefix.b and among its left siblings
     b.suffix, canonicalized when `canonical`; PAD lanes give 0
-    (ops/spectrum.py:166 sibling_maxes).  Kernel K22 on CUDA, the plain
-    version on CPU."""
+    (ops/spectrum.py:166 sibling_maxes).  Kernel K22 on CUDA (the probes of
+    the real lanes key[:min(n, C)], resolved on the search index of those
+    lanes with K7's probe-group steps; zeros past them), the plain version
+    on CPU (over the whole table)."""
     if spec.key.is_cuda:
         return _sibling_maxes_cuda(spec, k, canonical)
     return sibling_maxes_plain(spec, k, canonical)

@@ -105,6 +105,25 @@ def extract_case(pad: int, k: int, n: int = 777, seed: int = 0):
     return pack_words(codes), lengths, mask, pad
 
 
+def codes_case(L: int, k: int, n: int = 48, seed: int = 0):
+    """K24's input, [n, L] uint8 codes and int32 lengths as numpy arrays
+    made from a seed: lengths 0..L (a third of the rows full, a sixth
+    shorter than k), N codes (4) at bases 15, 16, 31, 32, 63 and 64 of
+    every seventh row (either side of the 2-bit words' and the mask words'
+    edges), and codes >= 4 that no encoder writes (4, 5, 7, 255) at random,
+    past a read's length too."""
+    rng = np.random.default_rng(seed + 1000 * L + k)
+    codes = rng.integers(0, 4, (n, L)).astype(np.uint8)
+    lengths = rng.integers(0, L + 1, n).astype(np.int32)
+    lengths[: n // 3] = L
+    lengths[n // 3 : n // 2] = rng.integers(0, k, n // 2 - n // 3)
+    for i, p in enumerate(b for b in (15, 16, 31, 32, 63, 64) if b < L):
+        codes[i::7, p] = 4
+    hot = rng.random(codes.shape) < 0.01
+    codes[hot] = rng.choice(np.array([4, 5, 7, 255], np.uint8), size=int(hot.sum()))
+    return codes, lengths
+
+
 @pytest.mark.parametrize("pad", [64, 100, 150, 256])
 @pytest.mark.parametrize("k", [1, 16, 24, 31])
 @pytest.mark.parametrize("with_mask", [True, False])
@@ -1020,6 +1039,31 @@ def probe_table(kind: str, k: int, canonical: bool, C: int = 3000, seed: int = 0
         keys = np.minimum(keys, _revcomp_np(keys, k))
     keys = np.unique(keys)[:C]
     return np.concatenate([keys, np.full(C - len(keys), PAD)]).astype(np.int64)
+
+
+def k22_tables(k: int, canonical: bool, C: int = 512) -> dict:
+    """Spectra of C lanes for K22, made from seeds (counts 0..97 on real
+    lanes): "sparse" n < C; "full" n == C; "one" n == 1; "empty" n == 0;
+    "overflow" n == C + 7 (every lane real); "palindromic" (even k) keys
+    that are their own reverse complements with their siblings."""
+    real = probe_table("dense", k, canonical, C=4096)
+    real = real[real != PAD][:C]
+    assert len(real) == C
+    rng = np.random.default_rng(k + 2 * canonical)
+    out = {}
+    for name, m, n in (("sparse", C - C // 5, C - C // 5), ("full", C, C), ("one", 1, 1),
+                       ("empty", 0, 0), ("overflow", C, C + 7)):
+        key = np.full(C, PAD, np.int64)
+        key[:m] = real[:m] if name != "sparse" else np.sort(rng.choice(real, m, replace=False))
+        out[name] = (key, n)
+    if k % 2 == 0:
+        key = probe_table("palindromic", k, canonical, C=C)
+        assert (key[key != PAD] == _revcomp_np(key[key != PAD], k)).any()
+        out["palindromic"] = (key, int((key != PAD).sum()))
+    return {name: Spectrum(key=torch.from_numpy(key),
+                           count=torch.from_numpy(np.where(key == PAD, 0, rng.integers(
+                               0, 98, C)).astype(np.int32)), n=n)
+            for name, (key, n) in out.items()}
 
 
 def _lookup_both(cuda, table: torch.Tensor, query: torch.Tensor) -> None:
@@ -2470,6 +2514,112 @@ def test_sibling_maxes_kernel_matches_plain(cuda, k, canonical):
     assert (got[0][spec.n:] == 0).all() and (got[1][spec.n:] == 0).all()
 
 
+@pytest.mark.parametrize("k", [5, 16, 17, 24, 31])
+@pytest.mark.parametrize("canonical", [True, False])
+def test_sibling_maxes_kernel_on_edge_tables(cuda, k, canonical):
+    """K22 == its plain version (which searches the whole table) on
+    k22_tables (n < C, n == C, n == 1, n == 0, n > C, palindromes at even
+    k) into dirty memory: the kernel writes every lane, the zeros past the
+    real lanes included; one launch a call, since these tables' index has
+    at most one level (n <= 65,536), which each block of the kernel
+    gathers from the table (two, the index build first, past that: the
+    L2 test), and no host read."""
+    lib = kernels.library()
+    for name, spec in k22_tables(k, canonical).items():
+        spec = _to(spec, cuda)
+        want = tsp.sibling_maxes_plain(spec, k, canonical)
+        _dirty(cuda, 4 * spec.capacity)
+        before = lib.launches["sibling_maxes"]
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = tsp.sibling_maxes(spec, k, canonical)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert lib.launches["sibling_maxes"] == before + 1
+        torch.cuda.synchronize()
+        _equal(got[0], want[0], f"{name}: right sibling maxima")
+        _equal(got[1], want[1], f"{name}: left sibling maxima")
+        names = _device_launches(lambda: tsp.sibling_maxes(spec, k, canonical))
+        # the index build launches only where the index has two levels or more
+        assert min(spec.n, spec.capacity) <= 16 * tsp.SEARCH_TOP_WORDS
+        expect = ["sibling_maxes_kernel"]
+        assert [x.split("(")[0] for x in names] == expect, (name, names)
+
+
+def test_sibling_maxes_kernel_beyond_l2(cuda):
+    """K22 on a table larger than the 50 MB L2: 2^24 lanes, 9,000,000 real
+    random keys (k = 24, both canonical modes), against its plain
+    version."""
+    rng = np.random.default_rng(22)
+    C, n = 1 << 24, 9_000_000
+    key = torch.full((C,), PAD, dtype=torch.int64, device=cuda)
+    key[:n] = torch.from_numpy(np.sort(rng.choice(1 << 48, n, replace=False))).to(cuda)
+    count = torch.zeros(C, dtype=torch.int32, device=cuda)
+    count[:n] = torch.from_numpy(rng.integers(1, 1000, n).astype(np.int32)).to(cuda)
+    spec = Spectrum(key=key, count=count, n=n)
+    for canonical in (True, False):
+        got = tsp.sibling_maxes(spec, 24, canonical)
+        want = tsp.sibling_maxes_plain(spec, 24, canonical)
+        torch.cuda.synchronize()
+        _equal(got[0], want[0], "right sibling maxima")
+        _equal(got[1], want[1], "left sibling maxima")
+        del want
+    names = _device_launches(lambda: tsp.sibling_maxes(spec, 24, True))
+    assert [x.split("(")[0] for x in names] == ["search_build_kernel", "sibling_maxes_kernel"]
+
+
+@pytest.mark.parametrize("n", [16, 17, 16 * 4096, 16 * 4096 + 1])
+@pytest.mark.parametrize("canonical", [True, False])
+def test_sibling_maxes_kernel_at_index_edges(cuda, n, canonical):
+    """K22 either side of the index's edges: no level (n <= 16), a top of
+    level 1 that each block gathers from the table (one launch, up to
+    65,536 real lanes), and two levels with the index built first (two
+    launches); n random keys below 4^24 with the siblings of some, a PAD
+    tail of 1,000 lanes, against the plain version."""
+    rng = np.random.default_rng(n)
+    real = rng.choice(1 << 46, n // 2, replace=False).astype(np.int64)
+    real = np.concatenate([real, real[: n - n // 2] ^ 3])  # each with one sibling
+    real = np.unique(real)
+    while len(real) < n:
+        real = np.unique(np.concatenate([real, rng.integers(0, 1 << 48, n - len(real))]))
+    key = np.concatenate([real[:n], np.full(1000, PAD, np.int64)])
+    count = np.where(key == PAD, 0, rng.integers(1, 500, key.shape[0])).astype(np.int32)
+    spec = _to(Spectrum(key=torch.from_numpy(key), count=torch.from_numpy(count), n=n), cuda)
+    got = tsp.sibling_maxes(spec, 24, canonical)
+    want = tsp.sibling_maxes_plain(spec, 24, canonical)
+    torch.cuda.synchronize()
+    _equal(got[0], want[0], "right sibling maxima")
+    _equal(got[1], want[1], "left sibling maxima")
+    names = _device_launches(lambda: tsp.sibling_maxes(spec, 24, canonical))
+    expect = ["search_build_kernel"] * (n > 16 * 4096) + ["sibling_maxes_kernel"]
+    assert [x.split("(")[0] for x in names] == expect, names
+
+
+def test_sibling_maxes_and_extract_codes_entries_refuse(cuda):
+    """K22's entry point refuses a missing scratch where the index has two
+    levels (at one it reads none) and an SM count below 1; K24's refuses an
+    SM count below 1."""
+    n = 16 * 4096 + 1
+    key = torch.arange(n, dtype=torch.int64, device=cuda)
+    count = torch.ones(n, dtype=torch.int32, device=cuda)
+    out = torch.empty((2, n), dtype=torch.int32, device=cuda)
+    lay = tsp.search_layout(n)
+    assert len(lay.sizes) == 2
+    scratch = torch.empty(lay.words, dtype=torch.int64, device=cuda)
+    lib, p = kernels.library(), kernels.ptr
+    for ptr, sms in ((None, 132), (p(scratch), 0)):
+        with pytest.raises(RuntimeError, match="shannon_sibling_maxes"):
+            lib.call("shannon_sibling_maxes", cuda, p(key), p(count), n, n, 24, 1, ptr,
+                     lay.words, tsp.layout_words(lay), sms, p(out[0]), p(out[1]))
+    codes = torch.zeros((4, 100), dtype=torch.uint8, device=cuda)
+    lengths = torch.full((4,), 100, dtype=torch.int32, device=cuda)
+    keys = torch.empty((4, 77), dtype=torch.int64, device=cuda)
+    valid = torch.empty((4, 77), dtype=torch.bool, device=cuda)
+    with pytest.raises(RuntimeError, match="shannon_extract_codes"):
+        lib.call("shannon_extract_codes", cuda, p(codes), p(lengths), 4, 100, 77, 24, 1, 0,
+                 p(keys), p(valid))
+
+
 @pytest.mark.parametrize("k", [13, 24, 31])
 @pytest.mark.parametrize("canonical", [True, False])
 def test_neighbor_counts_kernel_matches_plain(cuda, k, canonical):
@@ -2586,6 +2736,56 @@ def _codes_batch(seed: int, n: int = 3000) -> tuple[torch.Tensor, torch.Tensor]:
     hot = rng.random(codes.shape) < 0.002
     codes[hot] = rng.choice(np.array([4, 5, 7, 255], np.uint8), size=int(hot.sum()))
     return torch.from_numpy(codes), torch.from_numpy(b.lengths)
+
+
+@pytest.mark.parametrize("L", [64, 100, 101, 128, 150])
+@pytest.mark.parametrize("k", [1, 16, 24, 31])
+def test_extract_codes_kernel_shapes(cuda, L, k):
+    """K24 on codes_case (rows off 16-byte boundaries at L = 100 and 101, N
+    codes either side of the word and mask-word edges, codes >= 4 past a
+    read's length, reads shorter than k), both canonical modes, from the
+    start of an allocation and from a view 5 bytes into one, into dirty
+    memory: equal to the plain version; one launch, no copy or memset."""
+    from shannon_tpu_torch.ops.kmers import extract_kmers, extract_kmers_plain
+
+    codes, lengths = (torch.from_numpy(x) for x in codes_case(L, k))
+    buf = torch.zeros(codes.numel() + 16, dtype=torch.uint8, device=cuda)
+    buf[5:5 + codes.numel()] = codes.reshape(-1).to(cuda)
+    lib = kernels.library()
+    for dev_codes in (codes.to(cuda), buf[5:5 + codes.numel()].view(codes.shape)):
+        for canonical in (True, False):
+            want = extract_kmers_plain(codes, lengths, k, canonical)
+            _dirty(cuda, 8 * want[0].numel(), want[1].numel())
+            before = lib.launches["extract_codes"]
+            got = extract_kmers(dev_codes, lengths.to(cuda), k, canonical)
+            assert lib.launches["extract_codes"] == before + 1
+            torch.cuda.synchronize()
+            _equal(got[0].cpu(), want[0], "keys")
+            _equal(got[1].cpu(), want[1], "valid")
+    names = _device_launches(lambda: extract_kmers(dev_codes, lengths.to(cuda), k, True))
+    assert [x.split("(")[0] for x in names if not x.startswith("Memcpy")] == [
+        "extract_codes_kernel"], names
+
+
+@pytest.mark.parametrize("L,k", [(36_000, 31), (131_056, 24), (140_000, 5), (200_001, 31)])
+def test_extract_codes_kernel_long_rows(cuda, L, k):
+    """Long rows: staged whole up to 131,056 codes (a block a row), and
+    past that taken in pieces of CODES_PIECE windows (with a k - 1 base
+    halo), N codes and short reads included, equal to the plain version,
+    in one launch."""
+    from shannon_tpu_torch.ops.kmers import extract_kmers, extract_kmers_plain
+
+    codes, lengths = (torch.from_numpy(x) for x in codes_case(L, k, n=5))
+    lengths[0] = L - 20_000  # a read that ends inside a middle piece
+    lib = kernels.library()
+    for canonical in (True, False):
+        want = extract_kmers_plain(codes, lengths, k, canonical)
+        before = lib.launches["extract_codes"]
+        got = extract_kmers(codes.to(cuda), lengths.to(cuda), k, canonical)
+        assert lib.launches["extract_codes"] == before + 1
+        torch.cuda.synchronize()
+        _equal(got[0].cpu(), want[0], "keys")
+        _equal(got[1].cpu(), want[1], "valid")
 
 
 @pytest.mark.parametrize("k", [5, 16, 24, 31])
@@ -2833,8 +3033,11 @@ def _device_launches(fn, tries: int = 5) -> list:
     """The names of the kernels, copies and memsets on the card of one call
     of fn, in launch order, from a torch.profiler trace after a warm-up.
     The call runs between two `torch.cuda._sleep` kernels, and only a trace
-    that holds both (so its collection was running before the call began) is
-    read: a trace can miss the launches made just after it starts."""
+    that holds both (so its collection was running before the call began)
+    and something between them is read: a trace can miss the launches made
+    just after it starts, or all of a call's (every caller's fn launches at
+    least once, so a call that launches nothing still fails, after the
+    tries)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -2852,7 +3055,7 @@ def _device_launches(fn, tries: int = 5) -> list:
                         key=lambda e: e.time_range.start)
         names = [e.name for e in events]
         marks = [i for i, x in enumerate(names) if "spin_kernel" in x]
-        if len(marks) >= 2:
+        if len(marks) >= 2 and marks[-1] > marks[-2] + 1:
             return names[marks[-2] + 1 : marks[-1]]
     raise AssertionError(f"no trace held the call between its two markers: {names}")
 

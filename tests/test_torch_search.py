@@ -15,7 +15,12 @@ walk on the card (csrc/search.cuh), on the CPU:
 4. K21 (csrc/spectrum.cu lookup_counts_kernel): search_lane, a lane's
    own walk of the index, equal to np.searchsorted; the queries resolved
    at the table's ends and the searches over the real lanes' index, equal
-   to lookup_counts_plain on the Spectrum contract's edge tables.
+   to lookup_counts_plain on the Spectrum contract's edge tables;
+5. K22 (csrc/spectrum.cu sibling_maxes_kernel): each real lane's 8 sibling
+   probes resolved over key[:min(n, C)] by K7's group rule (own-group
+   steps from the lane, one walk of the shared reverse-complement group
+   and steps up from it, a lane walk for every other probe), equal to the
+   JAX package's sibling_maxes at the contract's edges and on palindromes.
 
 Inputs are made from seeds with numpy.  Tolerance: exact."""
 
@@ -25,6 +30,7 @@ import torch
 
 import jax.numpy as jnp
 
+from shannon_tpu.ops import spectrum as jspec
 from shannon_tpu.ops.spectrum import lower_bound_hilo
 from shannon_tpu_torch.convert import key_to_hilo
 from shannon_tpu_torch.ops import correction as tcor
@@ -33,7 +39,7 @@ from shannon_tpu_torch.ops.count import Spectrum
 from shannon_tpu_torch.ops.kmers import PAD
 from test_torch_kernels import (
     CONTRACT_CASES, PROBE_TABLES, SEARCH_SIZES, SEARCH_TABLES, _revcomp_np, contract_case,
-    probe_table, search_queries, search_table,
+    k22_tables, probe_table, search_queries, search_table,
 )
 
 F = tsp.SEARCH_FANOUT
@@ -295,3 +301,100 @@ def test_k21_transcription_matches_plain(case):
     for q in (flat, runs, probes.reshape(-1)):
         want = tsp.lookup_counts_plain(spec, torch.from_numpy(q)).numpy()
         np.testing.assert_array_equal(k21_transcription(key, count, n, q), want)
+
+
+def _step_up(table: np.ndarray, j: np.ndarray, x: np.ndarray):
+    """probe.cuh step_up: from lane j (at or below x's lower bound) up past
+    the keys below x; (lower bound, hit)."""
+    n, j = len(table), j.copy()
+    while True:
+        move = (j < n) & (table[np.minimum(j, n - 1)] < x)
+        if not move.any():
+            return j, (j < n) & (table[np.minimum(j, n - 1)] == x)
+        j[move] += 1
+
+
+def _step_down(table: np.ndarray, j: np.ndarray, x: np.ndarray):
+    """probe.cuh step_down: from lane j, whose key is >= x, down past the
+    keys >= x; (lower bound, hit)."""
+    j = j.copy()
+    while True:
+        move = (j > 0) & (table[np.maximum(j - 1, 0)] >= x)
+        if not move.any():
+            return j, table[j] == x
+        j[move] -= 1
+
+
+def k22_transcription(key: np.ndarray, count: np.ndarray, n: int, k: int, canonical: bool):
+    """numpy transcription of sibling_maxes_kernel over key[:n] (n = min(spectrum
+    n, C), the real lanes under the Spectrum contract): lanes past n are 0;
+    a real lane v's probe p (probe_key: the plain version's form) in its own
+    group (x & ~3 == v & ~3) steps from the lane (down from i where x <= v,
+    else up from i + 1); one in the shared group ga = rc(v) & ~3 steps up
+    from ga's lower bound, which one walk gives; every other probe walks.  A
+    walk (sib_find) of a query above key[n - 1] gives n and a miss, any
+    other the lane walk's answer (over the index the entry point builds, or,
+    where it has one level, the top each block gathers from the table).
+    Each probe's count (0 on a miss) goes
+    into the right maximum (even p) or the left one (odd p).  Returns
+    (rmax, lmax, walks a lane)."""
+    C = len(key)
+    rmax, lmax = np.zeros(C, np.int32), np.zeros(C, np.int32)
+    if n == 0:
+        return rmax, lmax, np.zeros(0, np.int64)
+    table = key[:n]
+    layout = tsp.search_layout(n)
+    if len(layout.sizes) == 1:  # no build: each block gathers its top from the table
+        top = layout.sizes[0]
+        index = np.full(layout.words, tsp.PAD, np.int64)
+        index[:top] = table[np.minimum(16 * np.arange(1, top + 1), n) - 1]
+    else:
+        index = tsp.search_index_plain(torch.from_numpy(table)).numpy()
+
+    def find(q):
+        above = q > table[-1]
+        lb, hit = lane_walk(table, index, layout, np.where(above, table[-1], q))
+        return np.where(above, n, lb), hit & ~above
+
+    lane = np.arange(n)
+    ga = _revcomp_np(table, k) & ~3
+    x = tsp.probe_keys(torch.from_numpy(table), k, "sib", canonical).numpy()
+    route = np.where((x & ~3) == (table & ~3), 0, np.where((x & ~3) == ga, 1, 3))
+    lb, hit = np.zeros((8, n), np.int64), np.zeros((8, n), bool)
+    for p in range(8):
+        own, down = route[p] == 0, x[p] <= table
+        for sel, step in ((own & down, _step_down), (own & ~down, _step_up)):
+            at = lane[sel] + (step is _step_up)
+            lb[p, sel], hit[p, sel] = step(table, at, x[p, sel])
+        walks = route[p] == 3
+        lb[p, walks], hit[p, walks] = find(x[p, walks])
+    grouped = (route == 1).any(axis=0)
+    lb_ga = np.zeros(n, np.int64)
+    lb_ga[grouped] = find(ga[grouped])[0]
+    for p in range(8):
+        sel = route[p] == 1
+        lb[p, sel], hit[p, sel] = _step_up(table, lb_ga[sel], x[p, sel])
+    c = np.where(hit, count[np.minimum(lb, n - 1)], 0)
+    rmax[:n], lmax[:n] = c[0::2].max(axis=0), c[1::2].max(axis=0)
+    return rmax, lmax, (route == 3).sum(axis=0) + grouped
+
+
+@pytest.mark.parametrize("k", [5, 16, 17, 24, 31])
+@pytest.mark.parametrize("canonical", [True, False])
+def test_k22_transcription_matches_reference(k, canonical):
+    """K22's per-lane resolution, transcribed, equals the JAX package's
+    sibling_maxes on tables with n < C, n == C, n == 1, n == 0 and n > C,
+    and on palindromes at even k; it walks at most 9 times a lane, and on
+    the canonical tables fewer than the 8 searches a lane it replaced."""
+    from test_torch_correction import _jax_spectrum
+
+    for name, spec in k22_tables(k, canonical).items():
+        key, count = spec.key.numpy(), spec.count.numpy()
+        n = min(spec.n, spec.capacity)
+        rmax, lmax, walks = k22_transcription(key, count, n, k, canonical)
+        want = jspec.sibling_maxes(_jax_spectrum(spec), k, canonical)
+        np.testing.assert_array_equal(rmax, np.asarray(want[0]), err_msg=name)
+        np.testing.assert_array_equal(lmax, np.asarray(want[1]), err_msg=name)
+        assert walks.max(initial=0) <= 9
+        if canonical and name in ("sparse", "full"):
+            assert walks.mean() < 6, (name, walks.mean())
