@@ -30,10 +30,11 @@ Phases; any failure exits nonzero:
      (compaction of the final keep mask) on the counted, shrunk spectrum of
      the whole single-end scale dataset at the default AssemblyConfig, with
      K16 (count histogram of the auto cut; at max_count 65,536 printed
-     beside it), K20 (the abundance cut: its cut and keep modes, and the
-     abundance filter, one compaction on K10's tile) and
+     beside it), K20 (the abundance cut in its cut mode, and the abundance
+     filter, one compaction on K10's tile) and
      K28 (neighbor counts: 8 extension and 8 sibling probes a lane, k = 24,
-     canonical) and K22 (sibling maxima, on a table larger than L2) on that
+     canonical, on the real lanes' search index) and K22 (sibling maxima, on
+     a table larger than L2) on that
      spectrum and K17 (count merge) on the first and
      the largest (the last) merge its count made;
      then the whole correct_spectrum there against its CPU run, and K9
@@ -65,11 +66,13 @@ Phases; any failure exits nonzero:
      abundance_filter(1), one sibling_prune_round(0.1)), run once to warm,
      timed (CUDA events, median of 10), held equal to the JAX package's
      figures for __graft_entry__.entry() (ENTRY_FIGURES) and to its own CPU
-     run, with K1, K2, K20, K10, K22 and K23 launched in it; then K20 (keep
-     and cut modes, and the abundance filter beside keep mode + K10), K21 (count lookup in the flagship table: its 8 x C
-     sibling probes, and its real lanes' 8 x n alone, each beside
-     torch.searchsorted), K22 (sibling maxima) and K23 (prune keep flags) on the
-     step's own intermediate tables, each against its plain version;
+     run, with K1, K2, K20, K22 and K23 launched in it and no K10; then K20
+     (its cut mode, and the abundance filter), K21 (count lookup in the
+     flagship table: its 8 x C sibling probes, and its real lanes' 8 x n
+     alone, each beside torch.searchsorted), K22 (sibling maxima) and K23
+     (the sibling-prune round's decision and compaction, given K22's maxima
+     of the real lanes) on the step's own intermediate tables, and K22 and
+     K23 on the dry run's table, each against its plain version;
   3. parity: on 3,000 reads of the scale dataset, assemble on CUDA gives
      the same corrected spectrum, contig arrays and transcripts as on the
      CPU (plain versions), and the same canonical set as the pure-Python
@@ -228,9 +231,10 @@ TESTS_ONLY = {"neighbor_counts": "K28", "sf_jobs": "K29"}
 # order) and of their int32 counts.
 ENTRY_FIGURES = {"n": 163_705, "count_sum": 4_980_529, "capacity": 2_097_152,
                  "keys_sha256": "3d3e0a60778df30b", "counts_sha256": "d9258556cc896c36"}
-# Kernels the flagship step must launch.
-ENTRY_KERNELS = ("extract_kmers", "reduce_sorted", "abundance_cut", "compact_keep",
-                 "sibling_maxes", "prune_keep")
+# Kernels the flagship step must launch (its filter and its prune round each
+# compact in their own kernel, so it launches no K10).
+ENTRY_KERNELS = ("extract_kmers", "reduce_sorted", "abundance_cut", "sibling_maxes",
+                 "prune_keep")
 
 # dryrun_multichip(8)'s figures: those __graft_entry__.dryrun_multichip(8)
 # prints on JAX-CPU (8 virtual devices).
@@ -686,24 +690,10 @@ def _entry_figures(key, count, n: int) -> dict:
             "counts_sha256": hashlib.sha256(c.tobytes()).hexdigest()[:16]}
 
 
-def _keep_library_ms(spec, cut: int, keep) -> float | None:
-    """The ms of torch.ge(count, cut), one PyTorch call that gives K20's
-    keep mode where cut >= 1 (every lane past n_real has count 0 under the
-    Spectrum contract); None for a cut of 0, where it does not."""
-    import torch
-
-    if cut < 1:
-        return None
-    if not torch.equal(torch.ge(spec.count, cut), keep):
-        raise AssertionError("torch.ge(count, cut) differs from K20's keep mode")
-    return _time_ms(lambda: torch.ge(spec.count, cut), 10)
-
-
 def _filter_row(spec, cut: int, what: str, smi: str) -> dict:
     """K20's abundance filter (one compaction on K10's tile whose keep bits
     are the real lanes' counts >= cut; counted as K20) against its plain
-    version, exactly; its time beside keep mode then K10, the route it
-    replaced."""
+    version, exactly."""
     import torch
 
     from shannon_tpu_torch.ops import correction as tcor
@@ -715,15 +705,47 @@ def _filter_row(spec, cut: int, what: str, smi: str) -> dict:
     err = _max_abs_err((got.key, got.count), (want.key, want.count))
     t = _alternate(lambda: tcor.abundance_filter(spec, cut),
                    lambda: tcor.abundance_filter_plain(spec, cut))
-    keep_k10 = _time_ms(lambda: tcor.compact(spec, tcor.abundance_cut(spec, cut, False, False)[2]),
-                        10)
     C, n_real = spec.capacity, min(spec.n, spec.capacity)
     # bytes: the real lanes' counts in (the predicate's read; a kept lane's
     # count is not read again), the kept lanes' keys gathered, every output
     # lane written; operations: one a real lane
     row = _row(err, t, 4 * n_real + 8 * got.n + 12 * C, n_real, None)
     _print_row(f"K20 abundance_filter on {what}: {C} lanes, {n_real} real, cut {cut} -> {got.n} "
-               f"kept (keep mode + K10: {keep_k10:.4f} ms)", row, smi)
+               "kept", row, smi)
+    del got, want
+    torch.cuda.empty_cache()
+    return row
+
+
+def _prune_row(table, sib, ratio: float, what: str, smi: str) -> dict:
+    """K23 (the sibling-prune round's decision as the predicate of one
+    compaction, given K22's maxima of the real lanes, as the round gives
+    them) against its plain version (prune_keep_plain, then compact_plain,
+    on the maxima of every lane), exactly."""
+    import torch
+
+    from shannon_tpu_torch.ops import correction as tcor
+
+    C, n_real = table.capacity, min(table.n, table.capacity)
+    real = tuple(m[:n_real] for m in sib)
+
+    def kernel():
+        return tcor.prune_filter(table, *real, ratio)
+
+    def plain():
+        return tcor.prune_filter_plain(table, *sib, ratio)
+
+    got, want = kernel(), plain()
+    if got.n != want.n:
+        raise AssertionError(f"K23 kept {got.n} lanes, its plain version {want.n}")
+    err = _max_abs_err((got.key, got.count), (want.key, want.count))
+    # bytes: the real lanes' counts and maxima in (the decision reads no
+    # key), the kept lanes' keys gathered, every output lane written;
+    # operations: a few a real lane
+    row = _row(err, _alternate(kernel, plain), 12 * n_real + 8 * got.n + 12 * C, 4 * n_real,
+               None)
+    _print_row(f"K23 prune_filter (decision + compaction) on {what}: {C} lanes, {n_real} real, "
+               f"{n_real - got.n} dropped", row, smi)
     del got, want
     torch.cuda.empty_cache()
     return row
@@ -732,8 +754,9 @@ def _filter_row(spec, cut: int, what: str, smi: str) -> dict:
 def entry_phase(dev, lib, smi: str) -> tuple[dict, dict]:
     """The flagship step through shannon_tpu_torch.entry: warmed, its
     launches counted, timed, held to ENTRY_FIGURES and to its CPU run; then
-    K20-K23 against their plain versions on the step's own tables, and K22 on
-    the dry run's table.  Returns (kernel rows, the phase's numbers)."""
+    K20-K23 against their plain versions on the step's own tables, and K22
+    and K23 on the dry run's table.  Returns (kernel rows, the phase's
+    numbers)."""
     import math
     import statistics
 
@@ -788,22 +811,16 @@ def entry_phase(dev, lib, smi: str) -> tuple[dict, dict]:
                                                  length=tentry.READ_LEN), tentry.CORRECT_CAP)
     C, n_real = spec.capacity, min(spec.n, spec.capacity)
     rows = {}
-    for mode, outputs, out_bytes in (("keep", (False, False, True), 1), ("cut", (True, True, False), 8)):
-        def kernel():
-            return tcor.abundance_cut(spec, tentry.MIN_ABUNDANCE, *outputs)
-
-        def plain():
-            return tcor.abundance_cut_plain(spec, tentry.MIN_ABUNDANCE, *outputs)
-
-        got = [x for x in kernel() if x is not None]
-        err = _max_abs_err(got, [x for x in plain() if x is not None])
-        library = _keep_library_ms(spec, tentry.MIN_ABUNDANCE, got[0]) if mode == "keep" else None
-        # bytes: the counts of the real lanes in (n says where the pads
-        # begin), the outputs of every lane out; operations: one a lane
-        rows[f"abundance_cut_{mode}"] = _row(err, _alternate(kernel, plain),
-                                             4 * n_real + out_bytes * C, n_real, library)
-        _print_row(f"K20 abundance_cut ({mode} mode) on the flagship table, {C} lanes, "
-                   f"{n_real} real, cut {tentry.MIN_ABUNDANCE}", rows[f"abundance_cut_{mode}"], smi)
+    err = _max_abs_err(tcor.cut_counts(spec, tentry.MIN_ABUNDANCE),
+                       tcor.cut_counts_plain(spec, tentry.MIN_ABUNDANCE))
+    # bytes: the counts of the real lanes in (n says where the pads begin),
+    # raw and cut of every lane out; operations: one a lane
+    rows["abundance_cut_cut"] = _row(
+        err, _alternate(lambda: tcor.cut_counts(spec, tentry.MIN_ABUNDANCE),
+                        lambda: tcor.cut_counts_plain(spec, tentry.MIN_ABUNDANCE)),
+        4 * n_real + 8 * C, n_real, None)
+    _print_row(f"K20 abundance_cut (cut mode) on the flagship table, {C} lanes, {n_real} real, "
+               f"cut {tentry.MIN_ABUNDANCE}", rows["abundance_cut_cut"], smi)
     rows["abundance_filter"] = _filter_row(spec, tentry.MIN_ABUNDANCE, "the flagship table", smi)
 
     table = tcor.abundance_filter(spec, tentry.MIN_ABUNDANCE)
@@ -865,18 +882,15 @@ def entry_phase(dev, lib, smi: str) -> tuple[dict, dict]:
                "8 probes each", rows["sibling_maxes_dryrun"], smi)
 
     ratio, _ = tcor.prune_constants(tentry.SIBLING_RATIO, 0.0)
-    keep = tcor.prune_keep(table, *sib, ratio)
-    err = _max_abs_err((keep,), (tcor.prune_keep_plain(table, *sib, ratio),))
-    # bytes: the real lanes' counts and maxima in, the keep flags out;
-    # operations: a few a real lane
-    rows["prune_keep"] = _row(
-        err, _alternate(lambda: tcor.prune_keep(table, *sib, ratio),
-                        lambda: tcor.prune_keep_plain(table, *sib, ratio)),
-        12 * n_tab + C, 4 * n_tab, None,
-    )
-    _print_row(f"K23 prune_keep, the flagship table: {C} lanes, {n_tab} real, "
-               f"{n_tab - int(keep.sum())} dropped", rows["prune_keep"], smi)
-    del spec, table, sib, keep, words, lengths
+    rows["prune_keep"] = _prune_row(table, sib, ratio, "the flagship table", smi)
+    rows["prune_keep_dryrun"] = _prune_row(d_spec, d_sib, ratio, "the dry run's table", smi)
+    stage["round_ms"] = {
+        name: _time_ms(lambda t=t: tcor.sibling_prune_round(t, tentry.K, tentry.SIBLING_RATIO), 10)
+        for name, t in (("flagship", table), ("dryrun", d_spec))}
+    print(f"sibling_prune_round (K22 over the real lanes, then K23): "
+          f"{stage['round_ms']['flagship']:.4f} ms a call on the flagship table, "
+          f"{stage['round_ms']['dryrun']:.4f} on the dry run's [{smi}]")
+    del spec, table, sib, d_spec, d_sib, words, lengths
     torch.cuda.empty_cache()
     return rows, stage
 
@@ -1058,8 +1072,8 @@ def _merge_row(watch: Watch, smi: str) -> dict:
 
 
 def correction_phase(reads, dev, smi: str, watch: Watch):
-    """K7-K10, K16 (also at max_count 65,536), K20 (cut and keep
-    modes, the abundance filter), K22 (sibling maxima, which the flagship
+    """K7-K10, K16 (also at max_count 65,536), K20 (its cut mode and
+    the abundance filter), K22 (sibling maxima, which the flagship
     step runs) and K28 (neighbor counts, which no path runs) against their plain
     versions on the main path's input: the
     counted, shrunk spectrum of the whole single-end scale dataset at the
@@ -1151,12 +1165,15 @@ def correction_phase(reads, dev, smi: str, watch: Watch):
     q = torch.cat([tcor.probe_keys(spec.key, k, side, canonical) for side in ("ext", "sib")])
     library = _time_ms(lambda: torch.searchsorted(spec.key, q), 10)
     del q
-    # bytes: each lane's key and count in (12), its 8 extension counts and 2
-    # sibling maxima out (40); operations: 16 binary searches a real lane
-    # (pads search nothing)
-    out["neighbor_counts"] = _row(err, t, 52 * C, 16 * n_real * steps, library)
-    _print_row(f"K28 neighbor_counts {C} lanes, {n_real} real x 16 probes (16 binary "
-               "searches a lane: latency-bound, not bandwidth-bound)", out["neighbor_counts"], smi)
+    # bytes: the real lanes' keys and counts in (12 a lane), the 8
+    # extension counts and 2 sibling maxima of every lane out (40);
+    # operations: a binary search of the real lanes per probe, 16 a real
+    # lane (pads search nothing)
+    out["neighbor_counts"] = _row(err, t, 12 * n_real + 40 * C,
+                                  16 * n_real * (math.ceil(math.log2(n_real)) + 1), library)
+    _print_row(f"K28 neighbor_counts {C} lanes, {n_real} real x 16 probes (walks of the real "
+               "lanes' search index and K7's group steps: bound by the L1 passes of their "
+               "scattered loads, not by bandwidth)", out["neighbor_counts"], smi)
 
     # K22 on a table larger than L2 (its real lanes' keys alone are 86 MB)
     def sib_kernel():
@@ -1183,15 +1200,6 @@ def correction_phase(reads, dev, smi: str, watch: Watch):
     out["abundance_cut"] = _row(err, t, 4 * n_real + 8 * C, n_real, None)
     _print_row(f"K20 abundance_cut (cut mode, the main path's) {C} lanes, cut {cut}, "
                f"{int((counts > 0).sum())} left", out["abundance_cut"], smi)
-    keep = tcor.abundance_cut(spec, cut, False, False)
-    err = _max_abs_err(keep[2:], tcor.abundance_cut_plain(spec, cut, False, False)[2:])
-    t = _alternate(lambda: tcor.abundance_cut(spec, cut, False, False),
-                   lambda: tcor.abundance_cut_plain(spec, cut, False, False))
-    library = _keep_library_ms(spec, cut, keep[2])
-    out["abundance_cut_keep_main"] = _row(err, t, 4 * n_real + C, n_real, library)
-    _print_row(f"K20 abundance_cut (keep mode) {C} lanes, cut {cut}, {int(keep[2].sum())} kept",
-               out["abundance_cut_keep_main"], smi)
-    del keep
     out["abundance_filter_main"] = _filter_row(spec, cut, "the counted spectrum", smi)
     # K8 at rounds = 1 (one round, comparable with a one-round kernel), then
     # the main path's call: the whole loop at the oracle's cap k + 2
@@ -2455,12 +2463,15 @@ def main(argv=None) -> int:
         report["kernels"]["reduce_sorted"]["max_abs_err"], row["max_abs_err"])
     rows, report["correction"], corrected = correction_phase(reads, dev, smi, watch)
     report["kernels"].update(rows)
-    # K20's row is the main path's cut mode; its error covers its keep mode
-    # and the abundance filter there, and the flagship table's three too
+    # K20's row is the main path's cut mode; its error covers the abundance
+    # filter there, and the flagship table's cut mode and filter too
     report["kernels"]["abundance_cut"]["max_abs_err"] = max(
         report["kernels"][name]["max_abs_err"]
-        for name in ("abundance_cut", "abundance_cut_keep", "abundance_cut_cut",
-                     "abundance_cut_keep_main", "abundance_filter", "abundance_filter_main"))
+        for name in ("abundance_cut", "abundance_cut_cut", "abundance_filter",
+                     "abundance_filter_main"))
+    # K23's row is the flagship table's; its error covers the dry run's table
+    report["kernels"]["prune_keep"]["max_abs_err"] = max(
+        report["kernels"][name]["max_abs_err"] for name in ("prune_keep", "prune_keep_dryrun"))
     # K22's row is the flagship step's; its error covers the dry run's table and
     # the counted spectrum
     report["kernels"]["sibling_maxes"]["max_abs_err"] = max(

@@ -17,8 +17,9 @@ against its parent within one call.
 
 --only sf, streams, clip, hist, lookup, owner, cut, ownership, codes and/or
 sib times K6's rows, K15's, K18's and K19's, K16's, K21's, K25's, K20's,
-K26's and K27's, K24's (with K1 beside it) and/or K22's (with K7 beside
-it) alone and builds only their inputs (about 1.5 minutes, then under half
+K26's and K27's, K24's (with K1 beside it) and/or K22's, K23's and K28's
+(with K7 beside them, and the flagship step) alone and builds only their
+inputs (about 1.5 minutes, then under half
 a minute a tree).  K24 ("codes_*") on chip_smoke.py's kernel-phase reads as
 uint8 codes (_random_batch(1, False) and (1, True), 65,536 x 128, k = 24,
 canonical: "codes_smoke", "codes_smoke_n") and at 101 codes a row
@@ -37,7 +38,11 @@ table of both of its K22 calls), k = 24, canonical; beside it K7 (probe_resolve,
 on the flagship table's real lanes alone ("probe_flagship_real": the same
 8 probes a real lane, resolved by K7's group walk and job queue) and K7
 on the counted spectrum ("probe_sib", "probe_ext"), which share K22's
-probe-group steps.  K26 ("ownership_pack_2", "ownership_pack_4") packs the
+probe-group steps.  The sibling-prune round (sibling_prune_round at the
+step's ratio 0.1: K22, then K23) on the flagship table ("prune_flagship")
+and on the dry run's table ("prune_dryrun"); K28 (neighbor_counts) on the
+counted spectrum ("nbr_counted"); and the whole flagship step
+(shannon_tpu_torch.entry's step on its own batch, "step_flagship").  K26 ("ownership_pack_2", "ownership_pack_4") packs the
 evidence of one assemble of the 1,000,000-read scale dataset on the card in
 one process (recorded by wrapping pipeline._assemble_backhalf) for H = 2 and
 4 ranks, with owner = comp[0] mod H as _assemble_backhalf makes it, at its
@@ -53,11 +58,10 @@ local table of the 1,000,000-read scale dataset's first batch (its first
 default 2^22 lanes), bucketed for 8 owners at the default bucket_cap
 (2^20), with "owner_sizes".  K1, K24, K7 and K22 rows give "codes_sizes"
 and "sib_sizes".  K20's cut mode ("cut_main") runs on the hist
-group's spectrum at its auto cut; its keep mode ("keep_flagship"), the
-abundance filter ("filter_flagship") and the filter as keep mode then K10
-("filter_keep_k10", what abundance_filter was before the fused
-compaction) on the flagship step's table before its filter (the lookup
-group's count, sliced to 2^21 lanes), at cut 1.  K16 ("hist_1024",
+group's spectrum at its auto cut, and the abundance filter
+("filter_flagship") on the flagship step's table before its filter (the
+lookup group's count, sliced to 2^21 lanes), at cut 1, beside K10 alone
+on that table and the filter's keep flags ("compact_flagship").  K16 ("hist_1024",
 "hist_65536") runs on the counted, shrunk spectrum of the
 1,000,000-read scale dataset at the default AssemblyConfig (12,582,912
 lanes, 10,689,722 real) at max_count 1,024 (the auto cut's) and 65,536;
@@ -832,12 +836,11 @@ def _focus_rows(d, dev, only) -> dict:
 
         c_spec, f_spec, f_cut = spectrum("h"), spectrum("f"), int(d["f_cut"])
         c_cut = tcor.auto_min_abundance(c_spec)
+        f_keep = tcor.abundance_cut_plain(f_spec, f_cut, False, False)[2]
         fns.update(
             cut_main=(lambda: tcor.cut_counts(c_spec, c_cut), 200),
-            keep_flagship=(lambda: tcor.abundance_cut(f_spec, f_cut, False, False), 200),
             filter_flagship=(lambda: tcor.abundance_filter(f_spec, f_cut), 200),
-            filter_keep_k10=(lambda: tcor.compact(
-                f_spec, tcor.abundance_cut(f_spec, f_cut, False, False)[2]), 200))
+            compact_flagship=(lambda: tcor.compact(f_spec, f_keep), 200))
     if only is not None and "codes" in only:
         from shannon_tpu_torch.ops.kmers import extract_kmers, extract_kmers_packed
 
@@ -869,9 +872,10 @@ def _focus_rows(d, dev, only) -> dict:
         codes_sizes = {name: list(c.shape) for name, (c, _n, _w) in xs.items()}
         codes_sizes.update(dryrun=list(dry_codes.shape), shards=shards)
     if only is not None and "sib" in only:
-        from shannon_tpu_torch.ops.correction import probe_resolve
+        from shannon_tpu_torch import entry as tentry
+        from shannon_tpu_torch.ops.correction import probe_resolve, sibling_prune_round
         from shannon_tpu_torch.ops.count import Spectrum
-        from shannon_tpu_torch.ops.spectrum import sibling_maxes
+        from shannon_tpu_torch.ops.spectrum import neighbor_counts, sibling_maxes
 
         def card_spectrum(p: str) -> Spectrum:
             return Spectrum(key=torch.from_numpy(d[f"{p}_key"]).to(dev),
@@ -888,6 +892,13 @@ def _focus_rows(d, dev, only) -> dict:
             probe_flagship_real=(lambda: probe_resolve(s_real, sk, True, "sib"), 200),
             probe_sib=(lambda: probe_resolve(s_counted, 24, True, "sib"), 20),
             probe_ext=(lambda: probe_resolve(s_counted, 24, True, "ext"), 20))
+        ratio = tentry.SIBLING_RATIO
+        step, step_args = tentry.entry(device=dev)
+        fns.update(
+            prune_flagship=(lambda: sibling_prune_round(s_flag, sk, ratio, True), 200),
+            prune_dryrun=(lambda: sibling_prune_round(s_dry, dk, ratio, True), 200),
+            nbr_counted=(lambda: neighbor_counts(s_counted, 24, True), 20),
+            step_flagship=(lambda: step(*step_args), 50))
         sib_sizes = {"flagship_C": s_flag.capacity, "flagship_n": s_n,
                      "counted_C": s_counted.capacity,
                      "counted_n": min(s_counted.n, s_counted.capacity),

@@ -42,10 +42,10 @@ static __device__ __forceinline__ int64_t lower_bound(const int64_t* __restrict_
 // Binary search of `key` in the sorted table[0, table_len) (table_len >= 1):
 // the lower bound clamped to table_len - 1 goes to *idx, and the result says
 // whether that lane holds the key.  The kernels that search inside other
-// work use it: K14 (condense.cu) and K28 (through sibling_maxes_of).  K3
-// (lookup_sorted), K7 (probe_lookup), K21 (lookup_counts) and K22
-// (sibling_maxes; both over the real lanes alone) walk the 16-ary index of
-// search.cuh instead, and K18
+// work use it: K14 (condense.cu).  K3 (lookup_sorted), K7 (probe_lookup),
+// K21 (lookup_counts), K22 (sibling_maxes) and K28 (neighbor_counts; the
+// last three over the real lanes alone) walk the 16-ary index of search.cuh
+// instead, and K18
 // (drop_join_kernel) finds the same lower bound of each sorted query by a
 // merge join; every searcher returns the same exact clamped lower bound, so
 // all give the same (idx, hit) for the same query.
@@ -64,9 +64,8 @@ static __device__ __forceinline__ bool lower_bound_hit(
 // ones.  Siblings are prefix.b = (v & ~3) | b and b.suffix = (v & (mask >> 2))
 // | b << 2(k-1); with side_ext, extensions suffix.b = ((v << 2) | b) & mask and
 // b.prefix = (v >> 2) | b << 2(k-1).  With canonical, the smaller of the probe
-// and its reverse complement.  K7 (probe_lookup) and K22 (sibling_maxes) share
-// it, so both search the same keys; K28 (neighbor_counts) searches the
-// extension probes too.
+// and its reverse complement.  K7 (probe_lookup), K22 (sibling_maxes) and K28
+// (neighbor_counts) share it, so all search the same keys.
 static __device__ __forceinline__ int64_t probe_key(uint64_t v, int k, int p,
                                                     int side_ext, int canonical) {
   const uint64_t mask = (1ull << (2 * k)) - 1;
@@ -85,33 +84,6 @@ static __device__ __forceinline__ int64_t probe_key(uint64_t v, int k, int p,
     key = rc < key ? rc : key;
   }
   return key;
-}
-
-// The largest count of key v's right siblings (probe rows 0, 2, 4, 6) and of
-// its left siblings (rows 1, 3, 5, 7) in the sorted table: each probe is one
-// lower_bound_hit, and a miss counts 0, as in the reference's lookup_counts.
-// The eight searches are independent, so the unrolled loop keeps them in
-// flight together.  K28 (neighbor_counts) runs it once per real entry (K22
-// resolves the same probes on the search index, spectrum.cu).
-static __device__ __forceinline__ void sibling_maxes_of(
-    const int64_t* __restrict__ table, const int32_t* __restrict__ count,
-    int64_t table_len, uint64_t v, int k, int canonical, int32_t* rmax,
-    int32_t* lmax) {
-  int32_t r = INT32_MIN, l = INT32_MIN;
-#pragma unroll
-  for (int p = 0; p < 8; ++p) {
-    int64_t lane;
-    const int32_t c = lower_bound_hit(table, table_len, probe_key(v, k, p, 0, canonical), &lane)
-                          ? count[lane]
-                          : 0;
-    if (p & 1) {
-      l = c > l ? c : l;
-    } else {
-      r = c > r ? c : r;
-    }
-  }
-  *rmax = r;
-  *lmax = l;
 }
 
 // The first index in [lo, hi) where pred is false, or hi, where pred is true

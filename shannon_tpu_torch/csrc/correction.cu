@@ -1,7 +1,8 @@
 // Error-correction kernels K7, K9, K10, K16, K20 (with the abundance filter
-// on K10's tile) and K23 of the shannon_tpu_torch port (plain C interface; see
-// kernels.cu for the conventions every entry point follows).  K8, the
-// dead-end rescue, is in rescue.cu.
+// on K10's tile) and K23 (the sibling-prune filter, on K10's tile too) of the
+// shannon_tpu_torch port (plain C interface; see kernels.cu for the
+// conventions every entry point follows).  K8, the dead-end rescue, is in
+// rescue.cu.
 //
 // The spectrum is a sorted table of C int64 keys with int32 counts, PAD past
 // its real entries.  A probe table is [8, C], entry i of probe row p at
@@ -55,7 +56,7 @@
 // consecutive lanes, which are sorted in lane order, walk one after another
 // through the same nodes; each answer goes back to its slot.  The group
 // rule and the steps (probe_group, probe_route, step_up, step_down) are in
-// probe.cuh, shared with K22.
+// probe.cuh, shared with K22 and K28.
 // ---------------------------------------------------------------------------
 #define PROBE_JOBS 10
 #define PROBE_HIT (1ll << 62)  // beside a lower bound (<= C < 2^62)
@@ -319,10 +320,13 @@ static __device__ __forceinline__ unsigned keep_bits(const uint8_t* __restrict__
   return bits;
 }
 
+#define COMPACT_GATHER 4
+
 // One tile of a compaction: bits_of(first) gives the keep bits of the
 // thread's SCAN_ITEMS lanes from tile lane `first` on; the kept lanes' keys
 // and counts go out in order from the tile's prefix.  K10 takes its bits from
-// a keep array, the fused abundance filter (K20) from the counts.
+// a keep array, the fused abundance filter (K20) from the counts, the
+// sibling-prune filter (K23) from the counts and both sibling maxima.
 template <typename BitsOf>
 static __device__ __forceinline__ void compact_tile(const int64_t* __restrict__ key,
                                                     const int32_t* __restrict__ count,
@@ -343,10 +347,31 @@ static __device__ __forceinline__ void compact_tile(const int64_t* __restrict__ 
   scan_publish_aggregate(status, tile, kept);
   scan_record_lanes(bits, first, r, s_lane);
   const int64_t prefix = (int64_t)scan_tile_prefix(status, tile, kept, &sh);
-  for (unsigned q = threadIdx.x; q < kept; q += SCAN_THREADS) {
-    const int64_t i = base + s_lane[q];
-    out_key[prefix + q] = key[i];
-    out_count[prefix + q] = count[i];
+  // COMPACT_GATHER kept lanes a thread gathered before any is stored, so
+  // their loads are in flight together: one at a time, a thread waited out
+  // an L2 round trip for each of its up to 16 lanes, and K23's tile took
+  // 9.2-9.8 us on an H100 against 6.9-7.8 (the first gathers issued during
+  // the look-back, behind one more barrier, saved only 0.3 us more)
+  for (unsigned q0 = threadIdx.x; q0 < kept; q0 += COMPACT_GATHER * SCAN_THREADS) {
+    int64_t k[COMPACT_GATHER];
+    int32_t c[COMPACT_GATHER];
+#pragma unroll
+    for (int u = 0; u < COMPACT_GATHER; ++u) {
+      const unsigned q = q0 + u * SCAN_THREADS;
+      if (q < kept) {
+        const int64_t i = base + s_lane[q];
+        k[u] = key[i];
+        c[u] = count[i];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < COMPACT_GATHER; ++u) {
+      const unsigned q = q0 + u * SCAN_THREADS;
+      if (q < kept) {
+        out_key[prefix + q] = k[u];
+        out_count[prefix + q] = c[u];
+      }
+    }
   }
 }
 
@@ -468,16 +493,17 @@ __global__ void __launch_bounds__(HIST_THREADS, HIST_BLOCKS_PER_SM)
 // abundance_cut_kernel writes whichever outputs the caller passes non-null:
 //   raw  = i < n_real ? count : 0        (int32)
 //   cut  = raw < m ? 0 : raw             (int32)
-//   keep = i < n_real && count >= m      (bool)
-// keep is not cut > 0: with m <= 0 a real lane of count 0 is kept, as the
-// reference keeps it.  Bound: memory, the real lanes' counts in (4 bytes a
-// lane) and every lane's outputs out (up to 9 bytes).  A block takes
-// CUT_TILE lanes, a thread CUT_LANES of them: four 16-byte count loads
-// (none past n_real) and, with raw or cut, four 16-byte stores of each, a
-// warp's accesses on 512 contiguous bytes (4-byte stores of keep there);
-// keep alone, one 16-byte store of a thread's 16 contiguous flags.  Lanes
-// past n_real are written in the same launch.  A view that is not 16-byte
-// aligned and the table's last partial block take one lane at a time.
+// Bound: memory, the real lanes' counts in (4 bytes a lane) and every lane's
+// outputs out (up to 8 bytes).  A block takes CUT_TILE lanes, a thread
+// CUT_LANES of them: four 16-byte count loads (none past n_real) and four
+// 16-byte stores of each output, a warp's accesses on 512 contiguous bytes.
+// Lanes past n_real are written in the same launch.  A view that is not
+// 16-byte aligned and the table's last partial block take one lane at a
+// time.  The keep flags of the reference's abundance_filter (count >= m on
+// a real lane; with m <= 0 a real lane of count 0 is kept) have no kernel of
+// their own: the filter below tests them in its tiles, and torch.ge(count,
+// m) gives them where m >= 1 (a keep mode here lost to it, 0.0433 against
+// 0.0170 ms on an H100).
 //
 // abundance_filter (filter_count_kernel, then scan_fill_tail): K10's
 // compaction tile with its keep bits taken from count >= m over the real
@@ -491,57 +517,30 @@ __global__ void __launch_bounds__(HIST_THREADS, HIST_BLOCKS_PER_SM)
 __global__ void __launch_bounds__(THREADS)
     abundance_cut_kernel(const int32_t* __restrict__ count, int64_t n_real, int64_t C,
                          int32_t m, int vec, int32_t* __restrict__ raw,
-                         int32_t* __restrict__ cut, uint8_t* __restrict__ keep) {
+                         int32_t* __restrict__ cut) {
   const int64_t base = (int64_t)blockIdx.x * CUT_TILE;
   if (vec && base + CUT_TILE <= C) {
-    if (raw || cut) {
-      // striped: quad q of thread t is lanes base + 4 (q THREADS + t), so
-      // each warp's load and stores cover 512 contiguous bytes (whole
-      // sectors: a thread's own 64 contiguous bytes would leave each store
-      // of a warp half a sector)
+    // striped: quad q of thread t is lanes base + 4 (q THREADS + t), so each
+    // warp's load and stores cover 512 contiguous bytes (whole sectors: a
+    // thread's own 64 contiguous bytes would leave each store of a warp half
+    // a sector)
 #pragma unroll
-      for (int q = 0; q < CUT_LANES / 4; ++q) {
-        const int64_t i = base + 4 * (q * THREADS + threadIdx.x);
-        int c[4] = {0, 0, 0, 0};
-        if (i < n_real) {
-          const int4 v = *reinterpret_cast<const int4*>(count + i);
-          c[0] = v.x;
-          c[1] = i + 1 < n_real ? v.y : 0;
-          c[2] = i + 2 < n_real ? v.z : 0;
-          c[3] = i + 3 < n_real ? v.w : 0;
-        }
-        if (raw) *reinterpret_cast<int4*>(raw + i) = make_int4(c[0], c[1], c[2], c[3]);
-        if (cut) {
-          *reinterpret_cast<int4*>(cut + i) =
-              make_int4(c[0] < m ? 0 : c[0], c[1] < m ? 0 : c[1], c[2] < m ? 0 : c[2],
-                        c[3] < m ? 0 : c[3]);
-        }
-        if (keep) {
-          unsigned w = 0;
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            if (i + j < n_real && c[j] >= m) w |= 1u << (8 * j);
-          }
-          *reinterpret_cast<unsigned*>(keep + i) = w;
-        }
+    for (int q = 0; q < CUT_LANES / 4; ++q) {
+      const int64_t i = base + 4 * (q * THREADS + threadIdx.x);
+      int c[4] = {0, 0, 0, 0};
+      if (i < n_real) {
+        const int4 v = *reinterpret_cast<const int4*>(count + i);
+        c[0] = v.x;
+        c[1] = i + 1 < n_real ? v.y : 0;
+        c[2] = i + 2 < n_real ? v.z : 0;
+        c[3] = i + 3 < n_real ? v.w : 0;
       }
-    } else if (keep) {
-      // keep alone: a thread's 16 contiguous lanes, four 16-byte loads (a
-      // warp's four loads cover the same 2,048 bytes) and one 16-byte store
-      const int64_t first = base + CUT_LANES * threadIdx.x;
-      unsigned w[4] = {0u, 0u, 0u, 0u};
-      if (first < n_real) {
-#pragma unroll
-        for (int q = 0; q < CUT_LANES / 4; ++q) {
-          const int4 v = reinterpret_cast<const int4*>(count + first)[q];
-          const int c[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            if (first + 4 * q + j < n_real && c[j] >= m) w[q] |= 1u << (8 * j);
-          }
-        }
+      if (raw) *reinterpret_cast<int4*>(raw + i) = make_int4(c[0], c[1], c[2], c[3]);
+      if (cut) {
+        *reinterpret_cast<int4*>(cut + i) =
+            make_int4(c[0] < m ? 0 : c[0], c[1] < m ? 0 : c[1], c[2] < m ? 0 : c[2],
+                      c[3] < m ? 0 : c[3]);
       }
-      *reinterpret_cast<uint4*>(keep + first) = make_uint4(w[0], w[1], w[2], w[3]);
     }
     return;
   }
@@ -550,7 +549,6 @@ __global__ void __launch_bounds__(THREADS)
     const int32_t r = i < n_real ? count[i] : 0;
     if (raw) raw[i] = r;
     if (cut) cut[i] = r < m ? 0 : r;
-    if (keep) keep[i] = (i < n_real && r >= m) ? 1 : 0;
   }
 }
 
@@ -584,29 +582,77 @@ __global__ void __launch_bounds__(SCAN_THREADS)
 }
 
 // ---------------------------------------------------------------------------
-// K23: the keep flags of one sibling-prune round.
-// Replaces the decision of shannon_tpu/ops/correction.py:61
-// sibling_prune_round (lines 68-74); K22 gives the sibling maxima, and
-// torch.cumsum and K10 compact the kept lanes.  A lane is kept iff it is not
-// PAD and neither f < ratio * R nor f < ratio * L, with f, R, L the float32
-// values of its count and of its right and left sibling maxima.  Unlike K9
-// there is no count > 0 guard and no error cap: a real lane of count 0 beside
-// a positive sibling is dropped, as in the reference.  Each product is
-// __fmul_rn, so nvcc cannot contract it; ratio arrives as the float32 value
-// prune_constants rounds once.
-// Bound: memory; 16 bytes a lane in, one out.
+// K23: one sibling-prune round's decision and compaction.
+// Replaces shannon_tpu/ops/correction.py:61 sibling_prune_round after its
+// sibling maxima (K22): the decision (lines 68-74) and the compaction of the
+// kept lanes.  A lane is kept iff it is real and neither f < ratio * R nor
+// f < ratio * L, with f, R, L the float32 values of its count and of its
+// right and left sibling maxima.  Unlike K9 there is no count > 0 guard and
+// no error cap: a real lane of count 0 beside a positive sibling is dropped,
+// as in the reference, and at ratio 0 every real lane is kept.  Each product
+// is __fmul_rn, so nvcc cannot contract it; ratio arrives as the float32
+// value prune_constants rounds once.
+// Reads only lanes [0, n_real), n_real = min(spectrum n, C), and no key for
+// the decision: under the Spectrum contract (ops/count.py) those are the
+// real lanes, and every lane past them is PAD, which no round keeps.  K22
+// gives the maxima of those lanes alone (the round's wrapper sizes its
+// outputs to n_real, so it writes no zeros past them).
+// Bound: memory, the real lanes' counts and maxima in (12 bytes a lane), the
+// kept lanes' keys gathered (8) and every output lane written once (12, the
+// PAD / 0 tail included): about 30 MB on the flagship table, 9 us at 3.35
+// TB/s.
+// Design.  prune_filter_kernel is K10's compaction tile (compact_tile) over
+// [0, n_real) alone, its keep bits the decision: 16-byte loads of count,
+// rmax and lmax where a thread's 16 lanes are below n_real and all three are
+// aligned, lane by lane elsewhere.  Then scan_fill_tail writes PAD / 0 from
+// the kept count on.  No keep array is written or read and no K10 pass runs,
+// as in the abundance filter (K20).
 // ---------------------------------------------------------------------------
-__global__ void prune_keep_kernel(const int64_t* __restrict__ key,
-                                  const int32_t* __restrict__ count,
-                                  const int32_t* __restrict__ rmax,
-                                  const int32_t* __restrict__ lmax, int64_t C,
-                                  float ratio, uint8_t* __restrict__ keep) {
-  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= C) return;
-  const float f = __int2float_rn(count[i]);
-  const bool doomed = f < __fmul_rn(ratio, __int2float_rn(rmax[i])) ||
-                      f < __fmul_rn(ratio, __int2float_rn(lmax[i]));
-  keep[i] = (key[i] != PAD_KEY && !doomed) ? 1 : 0;
+static __device__ __forceinline__ bool prune_kept(int32_t c, int32_t r, int32_t l, float ratio) {
+  const float f = __int2float_rn(c);
+  return !(f < __fmul_rn(ratio, __int2float_rn(r)) || f < __fmul_rn(ratio, __int2float_rn(l)));
+}
+
+// Bit j of the result is lane first + j's keep decision (lanes at or past
+// n_real read 0).
+static __device__ __forceinline__ unsigned prune_bits(const int32_t* __restrict__ count,
+                                                      const int32_t* __restrict__ rmax,
+                                                      const int32_t* __restrict__ lmax,
+                                                      int64_t first, int64_t n_real,
+                                                      float ratio) {
+  unsigned bits = 0;
+  const uintptr_t at =
+      (uintptr_t)(count + first) | (uintptr_t)(rmax + first) | (uintptr_t)(lmax + first);
+  if (first + SCAN_ITEMS <= n_real && (at & 15) == 0) {
+#pragma unroll
+    for (int q = 0; q < SCAN_ITEMS / 4; ++q) {
+      const int4 c = reinterpret_cast<const int4*>(count + first)[q];
+      const int4 r = reinterpret_cast<const int4*>(rmax + first)[q];
+      const int4 l = reinterpret_cast<const int4*>(lmax + first)[q];
+      bits |= ((unsigned)prune_kept(c.x, r.x, l.x, ratio) |
+               (unsigned)prune_kept(c.y, r.y, l.y, ratio) << 1 |
+               (unsigned)prune_kept(c.z, r.z, l.z, ratio) << 2 |
+               (unsigned)prune_kept(c.w, r.w, l.w, ratio) << 3)
+              << (4 * q);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < SCAN_ITEMS; ++j) {
+      const int64_t i = first + j;
+      if (i < n_real && prune_kept(count[i], rmax[i], lmax[i], ratio)) bits |= 1u << j;
+    }
+  }
+  return bits;
+}
+
+__global__ void __launch_bounds__(SCAN_THREADS)
+    prune_filter_kernel(const int64_t* __restrict__ key, const int32_t* __restrict__ count,
+                        const int32_t* __restrict__ rmax, const int32_t* __restrict__ lmax,
+                        int64_t n_real, float ratio, unsigned long long* __restrict__ scratch,
+                        int64_t* __restrict__ out_key, int32_t* __restrict__ out_count) {
+  compact_tile(key, count, scratch, out_key, out_count, [&](int64_t first) {
+    return prune_bits(count, rmax, lmax, first, n_real, ratio);
+  });
 }
 
 // ---------------------------------------------------------------------------
@@ -703,18 +749,17 @@ int shannon_compact_keep(const void* key, const void* count, const void* keep, i
   return (int)cudaGetLastError();
 }
 
-// count: the table's counts, its real lanes [0, n_real) first; raw, cut,
-// keep: C lanes each, or null.
+// count: the table's counts, its real lanes [0, n_real) first; raw, cut: C
+// lanes each, or null.
 int shannon_abundance_cut(const void* count, int64_t n_real, int64_t C, int m, void* raw,
-                          void* cut, void* keep, void* stream) {
+                          void* cut, void* stream) {
   if (n_real < 0 || n_real > C) return (int)cudaErrorInvalidValue;
   const int vec = ((uintptr_t)count & 15) == 0 && ((uintptr_t)raw & 15) == 0 &&
-                  ((uintptr_t)cut & 15) == 0 && ((uintptr_t)keep & 15) == 0;
+                  ((uintptr_t)cut & 15) == 0;
   const int64_t blocks = (C + CUT_TILE - 1) / CUT_TILE;
-  if (blocks > 0) {
+  if (blocks > 0 && (raw || cut)) {
     abundance_cut_kernel<<<(unsigned int)blocks, THREADS, 0, (cudaStream_t)stream>>>(
-        (const int32_t*)count, n_real, C, (int32_t)m, vec, (int32_t*)raw, (int32_t*)cut,
-        (uint8_t*)keep);
+        (const int32_t*)count, n_real, C, (int32_t)m, vec, (int32_t*)raw, (int32_t*)cut);
   }
   return (int)cudaGetLastError();
 }
@@ -738,14 +783,26 @@ int shannon_abundance_filter(const void* key, const void* count, int64_t n_real,
   return (int)cudaGetLastError();
 }
 
-int shannon_prune_keep(const void* key, const void* count, const void* rmax,
-                       const void* lmax, int64_t C, float ratio, void* keep,
-                       void* stream) {
-  if (C > 0) {
-    prune_keep_kernel<<<blocks_for(C), THREADS, 0, (cudaStream_t)stream>>>(
+// One sibling-prune round's filter: the real lanes [0, n_real) that K23's
+// decision keeps, given their sibling maxima rmax[0, n_real) and lmax[0,
+// n_real), compacted into out_key / out_count (C lanes, PAD / 0 past them).
+// scratch: exactly scan_tiles(n_real) + 1 zeroed words (scan.cuh); any other
+// size is refused.
+int shannon_prune_filter(const void* key, const void* count, const void* rmax,
+                         const void* lmax, int64_t n_real, int64_t C, float ratio,
+                         void* scratch, int64_t scratch_words, void* out_key, void* out_count,
+                         void* stream) {
+  if (n_real < 0 || n_real > C) return (int)cudaErrorInvalidValue;
+  const long long tiles = scan_tiles(n_real);
+  if (scratch_words != tiles + 1) return (int)cudaErrorInvalidValue;
+  if (tiles > 0) {
+    prune_filter_kernel<<<(unsigned int)tiles, SCAN_THREADS, 0, (cudaStream_t)stream>>>(
         (const int64_t*)key, (const int32_t*)count, (const int32_t*)rmax,
-        (const int32_t*)lmax, C, ratio, (uint8_t*)keep);
+        (const int32_t*)lmax, n_real, ratio, (unsigned long long*)scratch, (int64_t*)out_key,
+        (int32_t*)out_count);
   }
+  scan_fill_tail((const unsigned long long*)scratch, tiles, C, (int64_t*)out_key,
+                 (int32_t*)out_count, (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }
 

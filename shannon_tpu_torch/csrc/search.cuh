@@ -3,9 +3,9 @@
 // walks: a lane a query through the top level in shared memory
 // (search_top), then 8 lanes a query through the levels below it
 // (search_walk), or one lane a query (search_lane).  K3 (lookup_sorted,
-// kernels.cu) and K7 (probe_lookup, correction.cu) walk it by groups, K21
-// and K22 (lookup_counts, sibling_maxes, spectrum.cu, an index of the
-// spectrum's real lanes alone) a lane a query.
+// kernels.cu) and K7 (probe_lookup, correction.cu) walk it by groups, K21,
+// K22 and K28 (lookup_counts, sibling_maxes, neighbor_counts, spectrum.cu,
+// an index of the spectrum's real lanes alone) a lane a query.
 //
 // Replaces shannon_tpu/ops/spectrum.py:137 lookup_hilo and :28
 // lower_bound_hilo (the log2(C)-step binary search on the TPU; its
@@ -56,8 +56,8 @@
 //    16-byte aligned (a view that starts at an odd lane) its leaf lines load
 //    8 bytes at a time.
 //
-// Every other searcher (K11, K14, K18, K28) keeps common.cuh's
-// lower_bound_hit inside its own work; all return the same exact lower
+// Every other searcher (K11, K14, K18) keeps common.cuh's lower_bound_hit
+// inside its own work; all return the same exact lower
 // bound clamped to C - 1.
 #pragma once
 

@@ -3,10 +3,9 @@
 // kernels.cu for the conventions every entry point follows).
 //
 // The spectrum is a sorted table of C int64 keys with int32 counts, PAD (with
-// count 0) past its real entries.  K21 and K22 walk the 16-ary index of
-// search.cuh over the real lanes (K22 with K7's probe-group steps,
-// probe.cuh); K28 searches the whole table with K3's lower_bound_hit
-// (common.cuh), so a key is found exactly where K3 finds it.
+// count 0) past its real entries.  K21, K22 and K28 walk the 16-ary index of
+// search.cuh over the real lanes (K22 and K28 with K7's probe-group steps,
+// probe.cuh's probe_lane, which the two share).
 
 #include "probe.cuh"
 #include "search.cuh"
@@ -103,31 +102,16 @@ __global__ void __launch_bounds__(SEARCH_THREADS, COUNTS_BLOCKS_PER_SM)
 //    its own (it walks the last key instead), and one below the first key
 //    ends at lane 0 as the walk finds it.
 // Each answer's count (0 on a miss) goes straight into the lane's two maxima
-// in registers; no [8, C] probe table is stored.  About 3.7 walks a real
-// lane remain of the 8 searches.  The walks' scattered loads bound the
-// kernel by their L1 passes (search.cuh), not by a lane's chain of loads:
-// on an H100 two walks a round (the odd one walked twice) took 5% longer on
-// the flagship table, four in lock step 16% longer.  K7's job queue, which
+// in registers; no [8, C] probe table is stored.  The lane's resolution is
+// probe.cuh's probe_lane, which K28 runs on the same probes.  About 3.7
+// walks a real lane remain of the 8 searches.  The walks' scattered loads
+// bound the kernel by their L1 passes (search.cuh), not by a lane's chain
+// of loads: on an H100 two walks a round (the odd one walked twice) took 5%
+// longer on the flagship table, four in lock step 16% longer.  K7's job queue, which
 // walks a query with 8 lanes, took 56 us on the same probes of the flagship
 // table's real lanes (its [8, n] answers stored) against this kernel's 30.
 // ---------------------------------------------------------------------------
 #define SIB_BLOCKS_PER_SM 6
-
-// The lower bound of q in table[0, n) and whether that lane holds q, for any
-// q: a q above the table's last key (hi_key) gives n and a miss from a walk
-// of hi_key (search_lane takes no query above it).
-static __device__ __forceinline__ int sib_find(const SearchIndex& ix,
-                                               const int64_t* __restrict__ index,
-                                               const int64_t* top,
-                                               const int64_t* __restrict__ table, int n,
-                                               int64_t hi_key, int64_t q, bool* hit) {
-  const bool above = q > hi_key;
-  const int64_t w = above ? hi_key : q;
-  bool h;
-  const int lb = search_lane(ix, index, table, n, w, search_top(ix, top, w), &h);
-  *hit = h && !above;
-  return above ? n : lb;
-}
 
 // Folds probe p's count (0 on a miss) into the maxima: even p right, odd left.
 static __device__ __forceinline__ void sib_fold(const int32_t* __restrict__ count, int p,
@@ -170,55 +154,14 @@ __global__ void __launch_bounds__(SEARCH_THREADS, SIB_BLOCKS_PER_SM)
   extern __shared__ int64_t top[];
   sib_fill(n, C, rmax, lmax);
   if (n == 0) return;
-  if (ix.levels == 1) {  // the top is level 1: each block gathers it from the table
-    for (int w = threadIdx.x; w < ix.top_size; w += blockDim.x) {
-      top[w] = __ldg(key + min(SEARCH_FANOUT * (w + 1), n) - 1);
-    }
-    __syncthreads();
-  } else {
-    search_load_top(ix, index, top);
-  }
+  probe_load_top(ix, index, key, n, top);
   const int64_t hi_key = __ldg(key + n - 1);
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
     const int64_t v = __ldg(key + i);
     int32_t r = INT32_MIN, l = INT32_MIN;
-    const int64_t ga = probe_group((uint64_t)v, k, 0, 0);
-    unsigned walks = 0, shared = 0;  // bit p: probe p walks / steps from ga; bit 8: ga walks
-#pragma unroll
-    for (int p = 0; p < 8; ++p) {
-      const int64_t x = probe_key((uint64_t)v, k, p, 0, canonical);
-      const int route = probe_route(x, v, ga, 0, 0);
-      if (route == 0) {
-        bool hit;
-        const int64_t lb = x <= v ? step_down(key, i, v, x, &hit) : step_up(key, n, i + 1, x, &hit);
-        sib_fold(count, p, lb, hit, &r, &l);
-      } else if (route == 1) {
-        shared |= 1u << p;
-      } else {
-        walks |= 1u << p;
-      }
-    }
-    if (shared != 0) walks |= 1u << 8;
-    int64_t lb_ga = 0;
-    while (walks != 0) {  // job 8 is ga, the others probes
-      const int a = __ffs(walks) - 1;
-      walks &= walks - 1;
-      const int64_t qa = a == 8 ? ga : probe_key((uint64_t)v, k, a, 0, canonical);
-      bool ha;
-      const int la = sib_find(ix, index, top, key, n, hi_key, qa, &ha);
-      if (a == 8) {
-        lb_ga = la;
-      } else {
-        sib_fold(count, a, la, ha, &r, &l);
-      }
-    }
-    for (; shared != 0; shared &= shared - 1) {
-      const int p = __ffs(shared) - 1;
-      bool hit;
-      const int64_t lb = step_up(key, n, lb_ga, probe_key((uint64_t)v, k, p, 0, canonical), &hit);
-      sib_fold(count, p, lb, hit, &r, &l);
-    }
+    probe_lane(ix, index, top, key, n, hi_key, i, v, k, 0, canonical,
+               [&](int p, int64_t lb, bool hit) { sib_fold(count, p, lb, hit, &r, &l); });
     rmax[i] = r;
     lmax[i] = l;
   }
@@ -228,46 +171,71 @@ __global__ void __launch_bounds__(SEARCH_THREADS, SIB_BLOCKS_PER_SM)
 // K28: the counts of each entry's 4 right extensions (suffix.b) and 4 left
 // extensions (b.prefix), and K22's two sibling maxima.
 // Replaces shannon_tpu/ops/spectrum.py:212 neighbor_counts (its [16, C] probe
-// tensor, canonical_hilo and the lookup_counts of the probes).  One thread
-// per entry builds its 8 extension probes in registers
-// (probe_key with side_ext), searches each with lower_bound_hit, then takes
-// the sibling maxima with sibling_maxes_of, so no [16, C] tensor is stored.
-// Row b of each [4, C] output is written at b * C + i: consecutive threads
-// store consecutive words.  A PAD lane writes zeros without searching.
-// Bound: the latency of 16 binary searches per real lane, not bandwidth
-// (12 bytes read and 40 written a lane).
+// tensor, canonical_hilo and the lookup_counts of the probes).  The wrapper
+// passes n = min(spectrum n, C): under the Spectrum contract key[0, n) holds
+// the real keys, strictly increasing, and every lane past them is PAD with
+// count 0, whose ten outputs are 0; so the kernel resolves the real lanes'
+// probes in key[0, n) alone, and writes lanes [n, C) of its ten rows as
+// zeros in the same launch.
+// Bound: the bytes of the real lanes' keys and counts in (12 a lane) and the
+// ten rows of every lane out (40 a lane); the probes' walks cost far more,
+// the L1 passes of their scattered loads (search.cuh).
+// Design: K22's kernel, extended to the extension probes.  The entry point
+// builds search.cuh's index of key[0, n) (each block gathers a one-level top
+// from the table, as K22's does); persistent blocks, NBR_BLOCKS_PER_SM an SM,
+// first zero their share of [n, C) in all ten rows with 16-byte stores
+// (sib_fill, a row pair at a time) and then take a real lane a thread.  The
+// lane resolves its 8 sibling probes exactly as K22 does and its 8
+// extension probes with K7's ext routes (probe_lane with side_ext: the right
+// extensions kept in forward form share group job 8, (v << 2) & mask, the
+// left ones kept in reverse-complement form group job 9, (rc(v) << 2) &
+// mask; one walk finds each group's lower bound and its probes step up from
+// it; a probe in the lane's own group steps from the lane; every other probe
+// walks).  Each answer's count goes to registers, and the 8 extension
+// counts are stored at b * C + i, so consecutive threads store consecutive
+// words.  No [16, C] probe table is stored.  On the counted 1M-read
+// spectrum (10,689,722 real lanes) an H100 took 4.11-4.13 ms at 6 blocks an
+// SM (40 registers, 116 bytes of spills) against 4.75-4.77 at 4 (56
+// registers, none) and 5.77-5.78 at 8.
 // ---------------------------------------------------------------------------
-__global__ void neighbor_counts_kernel(const int64_t* __restrict__ key,
-                                       const int32_t* __restrict__ count,
-                                       int64_t C, int k, int canonical,
-                                       int32_t* __restrict__ rext,
-                                       int32_t* __restrict__ lext,
-                                       int32_t* __restrict__ rmax,
-                                       int32_t* __restrict__ lmax) {
-  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= C) return;
-  const int64_t v = key[i];
-  int32_t e[8];
-  int32_t r = 0, l = 0;
+#define NBR_BLOCKS_PER_SM 6
+
+__global__ void __launch_bounds__(SEARCH_THREADS, NBR_BLOCKS_PER_SM)
+    neighbor_counts_kernel(const int64_t* __restrict__ key, const int32_t* __restrict__ count,
+                           int n, int64_t C, const int64_t* __restrict__ index, SearchIndex ix,
+                           int k, int canonical, int32_t* __restrict__ rext,
+                           int32_t* __restrict__ lext, int32_t* __restrict__ rmax,
+                           int32_t* __restrict__ lmax) {
+  extern __shared__ int64_t top[];
 #pragma unroll
-  for (int p = 0; p < 8; ++p) e[p] = 0;
-  if (v != PAD_KEY) {
+  for (int b = 0; b < 4; ++b) sib_fill(n, C, rext + b * C, lext + b * C);
+  sib_fill(n, C, rmax, lmax);
+  if (n == 0) return;
+  probe_load_top(ix, index, key, n, top);
+  const int64_t hi_key = __ldg(key + n - 1);
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
+    const int64_t v = __ldg(key + i);
+    int32_t r = INT32_MIN, l = INT32_MIN;
+    probe_lane(ix, index, top, key, n, hi_key, i, v, k, 0, canonical,
+               [&](int p, int64_t lb, bool hit) { sib_fold(count, p, lb, hit, &r, &l); });
+    int32_t e[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+    probe_lane(ix, index, top, key, n, hi_key, i, v, k, 1, canonical,
+               [&](int p, int64_t lb, bool hit) {
+                 const int32_t c = hit ? __ldg(count + lb) : 0;
 #pragma unroll
-    for (int p = 0; p < 8; ++p) {
-      int64_t lane;
-      if (lower_bound_hit(key, C, probe_key((uint64_t)v, k, p, 1, canonical), &lane)) {
-        e[p] = count[lane];
-      }
+                 for (int q = 0; q < 8; ++q) {  // a register each, for any p
+                   if (q == p) e[q] = c;
+                 }
+               });
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      rext[b * C + i] = e[2 * b];
+      lext[b * C + i] = e[2 * b + 1];
     }
-    sibling_maxes_of(key, count, C, (uint64_t)v, k, canonical, &r, &l);
+    rmax[i] = r;
+    lmax[i] = l;
   }
-#pragma unroll
-  for (int b = 0; b < 4; ++b) {
-    rext[b * C + i] = e[2 * b];
-    lext[b * C + i] = e[2 * b + 1];
-  }
-  rmax[i] = r;
-  lmax[i] = l;
 }
 
 // ---------------------------------------------------------------------------
@@ -302,6 +270,37 @@ int shannon_lookup_counts(const void* table, const void* count, int64_t n, const
   return (int)cudaGetLastError();
 }
 
+// The launch of a kernel that walks the index of the real lanes key[0, n)
+// of a table of C lanes with a lane a query and fills [n, C) of its outputs
+// (K22, K28): the checks of both entry points, the index build where it has
+// two levels or more, and the grid, persistent blocks of SEARCH_THREADS,
+// at most per_sm an SM, enough for the walks and for fill_rows rows' zeros.
+static cudaError_t lane_walk_setup(const int64_t* key, int64_t n, int64_t C, void* scratch,
+                                   int64_t scratch_words, const void* layout, int sms,
+                                   int per_sm, int fill_rows, cudaStream_t stream,
+                                   SearchIndex* ix, size_t* smem, unsigned int* grid) {
+  *ix = SearchIndex{};
+  if (sms < 1 || n < 0 || n > C ||
+      (n > 0 && !search_index_from((const int64_t*)layout, n, scratch_words, ix)) ||
+      (ix->levels > 1 && scratch == nullptr)) {
+    return cudaErrorInvalidValue;
+  }
+  if (n > 0 && ix->levels > 1) {
+    cudaError_t err = search_build(key, n, *ix, scratch_words, (int64_t*)scratch, stream);
+    if (err != cudaSuccess) return err;
+  }
+  // a block walks SEARCH_THREADS lanes at a time and fills 4 * SEARCH_THREADS
+  // lanes of each row pair; at most SEARCH_TOP_WORDS keys of top a block, so
+  // per_sm blocks fit an SM's shared memory
+  *smem = sizeof(int64_t) * (size_t)ix->top_size;
+  const int64_t walk = (n + SEARCH_THREADS - 1) / SEARCH_THREADS;
+  const int64_t fill = ((C - n) * (fill_rows / 2) + 4 * SEARCH_THREADS - 1) / (4 * SEARCH_THREADS);
+  const int64_t want = walk > fill ? walk : fill;
+  const int64_t full = (int64_t)sms * per_sm;
+  *grid = (unsigned int)(want < 1 ? 1 : (want < full ? want : full));
+  return cudaSuccess;
+}
+
 // n: the real lanes, min(spectrum n, C); layout: SEARCH_LAYOUT_WORDS host
 // words for a table of n lanes (ops/spectrum.py search_layout) and
 // scratch_words exactly the index's words, or the call is refused (both
@@ -311,41 +310,35 @@ int shannon_lookup_counts(const void* table, const void* count, int64_t n, const
 int shannon_sibling_maxes(const void* key, const void* count, int64_t n, int64_t C, int k,
                           int canonical, void* scratch, int64_t scratch_words,
                           const void* layout, int sms, void* rmax, void* lmax, void* stream) {
-  SearchIndex ix = {};
-  if (sms < 1 || n < 0 || n > C ||
-      (n > 0 && !search_index_from((const int64_t*)layout, n, scratch_words, &ix)) ||
-      (ix.levels > 1 && scratch == nullptr)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  if (C == 0) return (int)cudaGetLastError();
-  if (n > 0 && ix.levels > 1) {
-    cudaError_t err = search_build((const int64_t*)key, n, ix, scratch_words,
-                                   (int64_t*)scratch, (cudaStream_t)stream);
-    if (err != cudaSuccess) return (int)err;
-  }
-  // a block walks SEARCH_THREADS lanes at a time and fills 4 * SEARCH_THREADS
-  // of the zeros; at most SEARCH_TOP_WORDS keys of top a block, so
-  // SIB_BLOCKS_PER_SM blocks fit an SM's shared memory
-  const size_t smem = sizeof(int64_t) * (size_t)ix.top_size;
-  const int64_t walk = (n + SEARCH_THREADS - 1) / SEARCH_THREADS;
-  const int64_t fill = (C - n + 4 * SEARCH_THREADS - 1) / (4 * SEARCH_THREADS);
-  const int64_t want = walk > fill ? walk : fill;
-  const int64_t full = (int64_t)sms * SIB_BLOCKS_PER_SM;
-  const unsigned int grid = (unsigned int)(want < 1 ? 1 : (want < full ? want : full));
+  SearchIndex ix;
+  size_t smem;
+  unsigned int grid;
+  cudaError_t err = lane_walk_setup((const int64_t*)key, n, C, scratch, scratch_words, layout,
+                                    sms, SIB_BLOCKS_PER_SM, 2, (cudaStream_t)stream, &ix,
+                                    &smem, &grid);
+  if (err != cudaSuccess || C == 0) return (int)err;
   sibling_maxes_kernel<<<grid, SEARCH_THREADS, smem, (cudaStream_t)stream>>>(
       (const int64_t*)key, (const int32_t*)count, (int)n, C, (const int64_t*)scratch, ix, k,
       canonical, (int32_t*)rmax, (int32_t*)lmax);
   return (int)cudaGetLastError();
 }
 
-int shannon_neighbor_counts(const void* key, const void* count, int64_t C, int k,
-                            int canonical, void* rext, void* lext, void* rmax,
+// The same arguments as shannon_sibling_maxes; rext, lext: [4, C] each, base
+// b's row at b * C.
+int shannon_neighbor_counts(const void* key, const void* count, int64_t n, int64_t C, int k,
+                            int canonical, void* scratch, int64_t scratch_words,
+                            const void* layout, int sms, void* rext, void* lext, void* rmax,
                             void* lmax, void* stream) {
-  if (C > 0) {
-    neighbor_counts_kernel<<<blocks_for(C), THREADS, 0, (cudaStream_t)stream>>>(
-        (const int64_t*)key, (const int32_t*)count, C, k, canonical,
-        (int32_t*)rext, (int32_t*)lext, (int32_t*)rmax, (int32_t*)lmax);
-  }
+  SearchIndex ix;
+  size_t smem;
+  unsigned int grid;
+  cudaError_t err = lane_walk_setup((const int64_t*)key, n, C, scratch, scratch_words, layout,
+                                    sms, NBR_BLOCKS_PER_SM, 10, (cudaStream_t)stream, &ix,
+                                    &smem, &grid);
+  if (err != cudaSuccess || C == 0) return (int)err;
+  neighbor_counts_kernel<<<grid, SEARCH_THREADS, smem, (cudaStream_t)stream>>>(
+      (const int64_t*)key, (const int32_t*)count, (int)n, C, (const int64_t*)scratch, ix, k,
+      canonical, (int32_t*)rext, (int32_t*)lext, (int32_t*)rmax, (int32_t*)lmax);
   return (int)cudaGetLastError();
 }
 

@@ -4,9 +4,10 @@ Counterpart of ``__graft_entry__.py`` (``_example_batch``, ``entry``,
 ``dryrun_multichip``).  ``entry()`` gives the step and its arguments at the
 reference's flagship shape: count the k-mers of one batch of 2-bit packed
 reads (K1, ``torch.sort``, K2), slice the table to the correction capacity,
-drop the k-mers below the abundance cut (K20's keep flags, K10) and run one
-sibling-prune round (K22's sibling maxima, K23's keep flags, K10), at 65,536
-reads of 100 bp, k = 24, a 2^22-lane count table sliced to 2^21 lanes.  ``dryrun_multichip(n)`` runs one full sharded
+drop the k-mers below the abundance cut (K20's filter, one compaction) and
+run one sibling-prune round (K22's sibling maxima of the real lanes, then
+K23's decision and compaction in one pass), at 65,536 reads of 100 bp, k =
+24, a 2^22-lane count table sliced to 2^21 lanes.  ``dryrun_multichip(n)`` runs one full sharded
 step on an n-shard mesh (``parallel.mesh.make_mesh``) and holds each part
 against the same work on one device.
 

@@ -78,12 +78,12 @@ _ARGTYPES = {
     "shannon_drop_contigs": [_P, _P, _I64, _P, _P, _I64, _P, _P, _I64, _P, _P, _P],
     "shannon_clip_remap": [*[_P] * 4, _I64, _P, _P, _I64, _I64, _P, _I64, *[_P] * 8, _I64,
                            *[_P] * 4],
-    "shannon_abundance_cut": [_P, _I64, _I64, _I, _P, _P, _P, _P],
+    "shannon_abundance_cut": [_P, _I64, _I64, _I, _P, _P, _P],
     "shannon_abundance_filter": [_P, _P, _I64, _I64, _I, _P, _I64, _P, _P, _P],
     "shannon_lookup_counts": [_P, _P, _I64, _P, _I64, _P, _I64, _P, _I, _P, _P],
     "shannon_sibling_maxes": [_P, _P, _I64, _I64, _I, _I, _P, _I64, _P, _I, _P, _P, _P],
-    "shannon_neighbor_counts": [_P, _P, _I64, _I, _I, *[_P] * 4, _P],
-    "shannon_prune_keep": [_P, _P, _P, _P, _I64, _F, _P, _P],
+    "shannon_neighbor_counts": [_P, _P, _I64, _I64, _I, _I, _P, _I64, _P, _I, *[_P] * 4, _P],
+    "shannon_prune_filter": [_P, _P, _P, _P, _I64, _I64, _F, _P, _I64, _P, _P, _P],
     "shannon_owner_buckets": [_P, _P, _I64, _I, _I64, _P, _I64, _P, _P, _P, _P],
     "shannon_ownership_counts": [_P, _P, _I64, _P, _I, _P, _I64, _P, _P],
     "shannon_ownership_scatter": [_P, _P, _P, _I64, _I, _P, _I64, _P, _P, _I64, _P, _P],
@@ -224,7 +224,7 @@ def _sm_count(index: int) -> int:
 
 
 def sm_count(device: torch.device) -> int:
-    """The card's SM count (K16's, K21's and K22's grids, K24's plan),
+    """The card's SM count (K16's, K21's, K22's and K28's grids, K24's plan),
     looked up once a process."""
     return _sm_count(device.index)
 

@@ -10,10 +10,10 @@ and the prune rounds as one call of K9, whose first round is the whole loop
 first round that changes nothing (the reference split the rounds into
 chunks only to stay inside a TPU worker's execution limit).  The kept
 entries are compacted (K10).  The auto abundance cut reads the count
-histogram (K16).  The reference's single-round step ``abundance_filter``
-is one compaction on K10's tile that tests the counts itself (K20's
-filter), and ``sibling_prune_round`` (the sibling maxima of K22, then
-K23's keep flags) compacts through K10.  On CUDA tensors each of these launches its
+histogram (K16).  The reference's single-round steps are each one
+compaction on K10's tile that tests its lanes itself: ``abundance_filter``
+(K20's filter, the counts) and ``sibling_prune_round`` (K23, the counts
+and the sibling maxima of K22).  On CUDA tensors each of these launches its
 hand-written kernel in ``csrc/correction.cu``, ``csrc/rescue.cu`` or
 ``csrc/spectrum.cu``; on CPU tensors its ``_plain`` version runs.
 
@@ -31,7 +31,7 @@ from shannon_tpu_torch import kernels
 from shannon_tpu_torch.ops.count import Spectrum
 from shannon_tpu_torch.ops.kmers import PAD
 from shannon_tpu_torch.ops.spectrum import (
-    lookup_sorted_plain, probe_keys, search_args, sibling_maxes,
+    _sibling_maxes_cuda, lookup_sorted_plain, probe_keys, search_args, sibling_maxes_plain,
 )
 from shannon_tpu_torch.oracle.correction import choose_min_abundance
 
@@ -165,7 +165,9 @@ def probe_resolve(spec: Spectrum, k: int, canonical: bool, side: str):
 def abundance_cut_plain(
     spec: Spectrum, min_abundance: int, raw: bool = True, cut: bool = True, keep: bool = True
 ):
-    """Plain PyTorch K20: torch.where and compares."""
+    """Plain PyTorch K20: torch.where and compares; with keep, also the keep
+    flags of the reference's abundance_filter (real lanes of count >=
+    min_abundance), which abundance_filter_plain compacts."""
     r = torch.where(spec.key == PAD, 0, spec.count)
     return (
         r if raw else None,
@@ -186,15 +188,14 @@ def _check_table(spec: Spectrum, min_abundance: int) -> int:
     return C
 
 
-def _abundance_cut_cuda(spec: Spectrum, min_abundance: int, raw: bool, cut: bool, keep: bool):
+def _abundance_cut_cuda(spec: Spectrum, min_abundance: int, raw: bool, cut: bool):
     C = _check_table(spec, min_abundance)
     dev = spec.key.device
     outs = (
         torch.empty(C, dtype=torch.int32, device=dev) if raw else None,
         torch.empty(C, dtype=torch.int32, device=dev) if cut else None,
-        torch.empty(C, dtype=torch.bool, device=dev) if keep else None,
     )
-    if C and (raw or cut or keep):
+    if C and (raw or cut):
         lib = kernels.library()
         # the Spectrum contract: lanes past min(n, C) are PAD with count 0
         lib.call(
@@ -206,19 +207,17 @@ def _abundance_cut_cuda(spec: Spectrum, min_abundance: int, raw: bool, cut: bool
     return outs
 
 
-def abundance_cut(
-    spec: Spectrum, min_abundance: int, raw: bool = True, cut: bool = True, keep: bool = True
-):
-    """(raw, cut, keep) of one pass over the table, each None where not
-    asked for: raw = count with pads zeroed, cut = raw where raw >=
-    min_abundance else 0 (ops/correction.py:134 _cut_counts), keep = real
-    lanes of count >= min_abundance (the mask of :54 abundance_filter; with
-    min_abundance <= 0 it keeps real lanes of count 0, which cut > 0 would
-    not).  Kernel K20 on CUDA (the counts of the real lanes count[:min(n,
-    C)] alone, no key), the plain version on CPU (over the whole table)."""
+def abundance_cut(spec: Spectrum, min_abundance: int, raw: bool = True, cut: bool = True):
+    """(raw, cut) of one pass over the table, each None where not asked
+    for: raw = count with pads zeroed, cut = raw where raw >= min_abundance
+    else 0 (ops/correction.py:134 _cut_counts).  Kernel K20 on CUDA (the
+    counts of the real lanes count[:min(n, C)] alone, no key), the plain
+    version on CPU (over the whole table).  The keep mask of
+    abundance_filter has no pass of its own: abundance_filter tests it in
+    its compaction."""
     if spec.key.is_cuda:
-        return _abundance_cut_cuda(spec, min_abundance, raw, cut, keep)
-    return abundance_cut_plain(spec, min_abundance, raw, cut, keep)
+        return _abundance_cut_cuda(spec, min_abundance, raw, cut)
+    return abundance_cut_plain(spec, min_abundance, raw, cut, keep=False)[:2]
 
 
 def cut_counts_plain(spec: Spectrum, min_abundance: int):
@@ -229,7 +228,7 @@ def cut_counts_plain(spec: Spectrum, min_abundance: int):
 def cut_counts(spec: Spectrum, min_abundance: int):
     """(raw counts with pads zeroed, counts after the abundance cut), K20
     in its cut mode."""
-    return abundance_cut(spec, min_abundance, keep=False)[:2]
+    return abundance_cut(spec, min_abundance)
 
 
 def abundance_filter_plain(spec: Spectrum, min_abundance: int) -> Spectrum:
@@ -481,53 +480,86 @@ def prune_round(counts, sidx, shit, ratio: float, eps3: float, use_cap: bool):
 
 
 def prune_keep_plain(spec: Spectrum, rmax: torch.Tensor, lmax: torch.Tensor, ratio: float):
-    """Plain PyTorch K23: float32 products and compares."""
+    """Plain PyTorch K23's decision: the keep flags of one sibling-prune
+    round (ops/correction.py:61 sibling_prune_round, lines 68-74), real
+    lanes where neither f32(count) < ratio * f32(rmax) nor f32(count) <
+    ratio * f32(lmax), by float32 products and compares.  No count > 0
+    guard and no error cap, unlike prune_round: a real lane of count 0
+    beside a positive sibling is dropped.  ratio is the float32 value from
+    prune_constants."""
     r = torch.tensor(ratio, dtype=torch.float32, device=spec.key.device)
     cf = spec.count.float()
     doomed = (cf < r * rmax.float()) | (cf < r * lmax.float())
     return (spec.key != PAD) & ~doomed
 
 
-def _prune_keep_cuda(spec: Spectrum, rmax, lmax, ratio: float):
+def prune_filter_plain(spec: Spectrum, rmax: torch.Tensor, lmax: torch.Tensor,
+                       ratio: float) -> Spectrum:
+    """Plain PyTorch K23: the keep flags, then K10's plain version."""
+    return compact_plain(spec, prune_keep_plain(spec, rmax, lmax, ratio))
+
+
+def _prune_filter_cuda(spec: Spectrum, rmax, lmax, ratio: float) -> Spectrum:
     kernels.check_cuda("key", spec.key, torch.int64, 1)
-    for name, t in (("count", spec.count), ("rmax", rmax), ("lmax", lmax)):
-        kernels.check_cuda(name, t, torch.int32, 1)
-        if t.shape[0] != spec.capacity:
-            raise ValueError(f"key and {name} disagree on length")
+    kernels.check_cuda("count", spec.count, torch.int32, 1)
     C = spec.capacity
-    keep = torch.empty(C, dtype=torch.bool, device=spec.key.device)
-    if C:
-        lib = kernels.library()
-        lib.call(
-            "shannon_prune_keep", spec.key.device,
-            kernels.ptr(spec.key), kernels.ptr(spec.count), kernels.ptr(rmax),
-            kernels.ptr(lmax), C, ratio, kernels.ptr(keep),
-        )
+    if spec.count.shape[0] != C:
+        raise ValueError("key and count disagree on length")
+    # the Spectrum contract: lanes past min(n, C) are PAD, which no round keeps
+    n_real = min(spec.n, C)
+    for name, t in (("rmax", rmax), ("lmax", lmax)):
+        kernels.check_cuda(name, t, torch.int32, 1)
+        if t.shape[0] not in (C, n_real):
+            raise ValueError(f"{name} holds {t.shape[0]} lanes, neither the table's {C} nor "
+                             f"its real lanes' {n_real}")
+    if C >= 1 << 31:
+        raise ValueError(f"{C} lanes exceed the 2^31 that K10 takes (the reference's int32 n)")
+    dev = spec.key.device
+    key = torch.empty_like(spec.key)
+    count = torch.empty_like(spec.count)
+    scratch = kernels.scan_scratch(n_real, dev)
+    lib = kernels.library()
+    lib.call(
+        "shannon_prune_filter", dev,
+        kernels.ptr(spec.key), kernels.ptr(spec.count), kernels.ptr(rmax), kernels.ptr(lmax),
+        n_real, C, ratio, kernels.ptr(scratch), scratch.shape[0], kernels.ptr(key),
+        kernels.ptr(count),
+    )
+    if n_real:
         lib.count("prune_keep")
-    return keep
+    return Spectrum(key=key, count=count, n=kernels.scan_total(scratch))
 
 
-def prune_keep(spec: Spectrum, rmax: torch.Tensor, lmax: torch.Tensor, ratio: float):
-    """Keep flags of one sibling-prune round (ops/correction.py:61
-    sibling_prune_round, lines 68-74): real lanes where neither f32(count)
-    < ratio * f32(rmax) nor f32(count) < ratio * f32(lmax).  No count > 0
-    guard and no error cap, unlike prune_round: a real lane of count 0
-    beside a positive sibling is dropped.  ratio is the float32 value from
-    prune_constants.  Kernel K23 on CUDA, the plain version on CPU."""
+def prune_filter(spec: Spectrum, rmax: torch.Tensor, lmax: torch.Tensor,
+                 ratio: float) -> Spectrum:
+    """The lanes one sibling-prune round keeps (prune_keep_plain's
+    decision), compacted: the table stays sorted and PAD-filled.  rmax and
+    lmax hold the sibling maxima of every lane [C] or of the real lanes
+    [min(n, C)] alone.  Kernel K23 on CUDA: one compaction on K10's tile
+    whose keep bits are the decision over the real lanes (counts and maxima
+    of lanes [:min(n, C)] alone, no key; no keep array, no K10), then the
+    PAD tail and one host read; on CPU the plain decision, then K10's plain
+    version."""
     if spec.key.is_cuda:
-        return _prune_keep_cuda(spec, rmax, lmax, ratio)
-    return prune_keep_plain(spec, rmax, lmax, ratio)
+        return _prune_filter_cuda(spec, rmax, lmax, ratio)
+    return prune_filter_plain(spec, rmax, lmax, ratio)
 
 
 def sibling_prune_round(
     spec: Spectrum, k: int, sibling_ratio: float, canonical: bool = True
 ) -> Spectrum:
     """One Jacobi round of sibling-ratio pruning, then compaction
-    (ops/correction.py:61 sibling_prune_round): K22's sibling maxima, K23's
-    keep flags with f32(sibling_ratio), then K10."""
-    rmax, lmax = sibling_maxes(spec, k, canonical)
+    (ops/correction.py:61 sibling_prune_round): the sibling maxima, K23's
+    decision with f32(sibling_ratio), the kept lanes compacted.  On CUDA
+    K22 over the real lanes alone (its outputs sized to min(n, C), so it
+    writes no zeros past them), then K23's one compaction (prune_filter);
+    on CPU the plain versions over the whole table."""
     ratio, _ = prune_constants(sibling_ratio, 0.0)
-    return compact(spec, prune_keep(spec, rmax, lmax, ratio))
+    if spec.key.is_cuda:
+        maxes = _sibling_maxes_cuda(spec, k, canonical, lanes=min(spec.n, spec.capacity))
+    else:
+        maxes = sibling_maxes_plain(spec, k, canonical)
+    return prune_filter(spec, *maxes, ratio)
 
 
 def correct_spectrum(

@@ -1,14 +1,14 @@
 """Sorted-table lookups: exact hits (kernel K3), counts (K21), sibling
 maxima (K22) and neighbor counts (K28), and the layout of the 16-ary search
-index that K3, K7, K21 and K22 walk.
+index that K3, K7, K21, K22 and K28 walk.
 
 Counterpart of ``shannon_tpu/ops/spectrum.py`` (``lookup_hilo``,
 ``lookup_counts``, ``sibling_maxes``, ``neighbor_counts``).  The TPU
 switched between a sort-merge join and a binary search by a cost model of
-that chip; here every lookup is one search per query: K3, K21 and K22 walk
-the index of ``csrc/search.cuh`` (built in the same call; K21's and K22's
-over the real lanes alone, K22's with K7's probe-group steps), K28 a binary
-search.  On CUDA tensors each function
+that chip; here every lookup is one search per query: K3, K21, K22 and K28
+walk the index of ``csrc/search.cuh`` (built in the same call; K21's, K22's
+and K28's over the real lanes alone, K22's and K28's with K7's probe-group
+steps).  On CUDA tensors each function
 launches its hand-written kernel (``csrc/kernels.cu``,
 ``csrc/spectrum.cu``); on CPU tensors its ``_plain`` version runs.
 
@@ -29,7 +29,7 @@ from shannon_tpu_torch.ops.count import Spectrum
 from shannon_tpu_torch.ops.kmers import PAD, canonical_key, check_k
 
 
-# The 16-ary search index of K3, K7, K21 and K22 (csrc/search.cuh, whose
+# The 16-ary search index of K3, K7, K21, K22 and K28 (csrc/search.cuh, whose
 # constants of the same names these must equal): SEARCH_FANOUT entries a
 # node, levels up to the first of at most SEARCH_TOP_WORDS entries (the top,
 # which each block holds in shared memory), at most SEARCH_MAX_LEVELS levels.
@@ -217,32 +217,47 @@ def sibling_maxes_plain(spec: Spectrum, k: int, canonical: bool = True):
     )
 
 
-def _sibling_maxes_cuda(spec: Spectrum, k: int, canonical: bool):
+def _check_spectrum(spec: Spectrum) -> int:
+    """The checks of K22's and K28's wrappers; returns C."""
     kernels.check_cuda("key", spec.key, torch.int64, 1)
     kernels.check_cuda("count", spec.count, torch.int32, 1)
-    C = spec.capacity
-    if spec.count.shape[0] != C:
+    if spec.count.shape[0] != spec.capacity:
         raise ValueError("key and count disagree on length")
-    dev = spec.key.device
-    rmax = torch.empty(C, dtype=torch.int32, device=dev)
-    lmax = torch.empty(C, dtype=torch.int32, device=dev)
-    if C == 0:
-        return rmax, lmax
-    # the Spectrum contract: the real lanes come first, PAD with count 0
-    # after them, so only key[:n_real] is searched and the kernel writes the
-    # lanes past it as zeros
-    n_real = min(spec.n, C)
+    return spec.capacity
+
+
+def _lane_walk_args(spec: Spectrum) -> tuple:
+    """K22's and K28's arguments beside the table: the real lanes (the
+    Spectrum contract: the real lanes come first, PAD with count 0 after
+    them, so only key[:n_real] is searched and the kernel writes the lanes
+    past it as zeros), the index scratch (none for a one-level top, which
+    each block gathers from the table), its words and its layout words."""
+    n_real = min(spec.n, spec.capacity)
     scratch, words, layout = None, 0, None
     if n_real:
         levels, words, layout = _sib_layout(n_real)
-        if levels > 1:  # a one-level top each block gathers from the table
-            scratch = torch.empty(words, dtype=torch.int64, device=dev)
+        if levels > 1:
+            scratch = torch.empty(words, dtype=torch.int64, device=spec.key.device)
+    return n_real, scratch, words, layout, kernels.sm_count(spec.key.device)
+
+
+def _sibling_maxes_cuda(spec: Spectrum, k: int, canonical: bool, lanes: int | None = None):
+    """K22: both maxima of the first `lanes` lanes (every lane by default;
+    sibling_prune_round asks for the real lanes alone, past which the
+    kernel then has nothing to fill)."""
+    C = _check_spectrum(spec)
+    lanes = C if lanes is None else lanes
+    dev = spec.key.device
+    rmax = torch.empty(lanes, dtype=torch.int32, device=dev)
+    lmax = torch.empty(lanes, dtype=torch.int32, device=dev)
+    if lanes == 0:
+        return rmax, lmax
+    n_real, scratch, words, layout, sms = _lane_walk_args(spec)
     lib = kernels.library()
     lib.call(
         "shannon_sibling_maxes", dev,
-        kernels.ptr(spec.key), kernels.ptr(spec.count), n_real, C, k, int(canonical),
-        kernels.ptr(scratch), words, layout, kernels.sm_count(dev), kernels.ptr(rmax),
-        kernels.ptr(lmax),
+        kernels.ptr(spec.key), kernels.ptr(spec.count), n_real, lanes, k, int(canonical),
+        kernels.ptr(scratch), words, layout, sms, kernels.ptr(rmax), kernels.ptr(lmax),
     )
     lib.count("sibling_maxes")
     return rmax, lmax
@@ -250,9 +265,9 @@ def _sibling_maxes_cuda(spec: Spectrum, k: int, canonical: bool):
 
 @functools.lru_cache(maxsize=64)
 def _sib_layout(n: int) -> tuple[int, int, ctypes.Array]:
-    """K22's index of n real lanes: its levels, its words and its layout's
-    host words, made once for each n (the entry point reads them and never
-    writes them)."""
+    """K22's and K28's index of n real lanes: its levels, its words and its
+    layout's host words, made once for each n (the entry points read them
+    and never write them)."""
     lay = search_layout(n)
     return len(lay.sizes), lay.words, layout_words(lay)
 
@@ -285,11 +300,7 @@ def neighbor_counts_plain(spec: Spectrum, k: int, canonical: bool = True):
 
 
 def _neighbor_counts_cuda(spec: Spectrum, k: int, canonical: bool):
-    kernels.check_cuda("key", spec.key, torch.int64, 1)
-    kernels.check_cuda("count", spec.count, torch.int32, 1)
-    C = spec.capacity
-    if spec.count.shape[0] != C:
-        raise ValueError("key and count disagree on length")
+    C = _check_spectrum(spec)
     dev = spec.key.device
     rext = torch.empty((4, C), dtype=torch.int32, device=dev)
     lext = torch.empty((4, C), dtype=torch.int32, device=dev)
@@ -297,11 +308,12 @@ def _neighbor_counts_cuda(spec: Spectrum, k: int, canonical: bool):
     lmax = torch.empty(C, dtype=torch.int32, device=dev)
     if C == 0:
         return rext, lext, rmax, lmax
+    n_real, scratch, words, layout, sms = _lane_walk_args(spec)
     lib = kernels.library()
     lib.call(
         "shannon_neighbor_counts", dev,
-        kernels.ptr(spec.key), kernels.ptr(spec.count), C, k, int(canonical),
-        *map(kernels.ptr, (rext, lext, rmax, lmax)),
+        kernels.ptr(spec.key), kernels.ptr(spec.count), n_real, C, k, int(canonical),
+        kernels.ptr(scratch), words, layout, sms, *map(kernels.ptr, (rext, lext, rmax, lmax)),
     )
     lib.count("neighbor_counts")
     return rext, lext, rmax, lmax
@@ -313,8 +325,10 @@ def neighbor_counts(spec: Spectrum, k: int, canonical: bool = True):
     extensions suffix.b and left extensions b.prefix, and the largest count
     among its right siblings prefix.b and its left siblings b.suffix, all
     canonicalized when `canonical`; PAD lanes give 0
-    (ops/spectrum.py:212 neighbor_counts).  Kernel K28 on CUDA, the plain
-    version on CPU."""
+    (ops/spectrum.py:212 neighbor_counts).  Kernel K28 on CUDA (the 16
+    probes of the real lanes key[:min(n, C)], resolved on the search index
+    of those lanes with K7's probe-group steps, as K22 resolves its 8;
+    zeros past them), the plain version on CPU (over the whole table)."""
     check_k(k)
     if spec.key.is_cuda:
         return _neighbor_counts_cuda(spec, k, canonical)

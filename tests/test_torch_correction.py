@@ -5,7 +5,8 @@ abundance_filter and sibling_prune_round)
 against shannon_tpu.ops.correction on JAX-CPU, a transcription of K8's
 frontier schedule with the probe symmetry it rests on, and transcriptions
 of K20's cut kernel and of the abundance filter's count-predicate
-compaction.  Both packages start from
+compaction, and of the sibling-prune round on CUDA (K22's real lanes, then
+K23's decision as one compaction's predicate).  Both packages start from
 the same counted spectrum (via convert).  The plain versions run here (CPU
 tensors); tests/test_torch_kernels.py holds kernels K7-K10, K16, K20 and
 K23 against them on the card.
@@ -33,7 +34,7 @@ from shannon_tpu_torch.ops.spectrum import probe_keys
 from test_torch_count import CONTRACT_PRODUCERS, _contract_producer
 from test_torch_kernels import (
     K20_CUTS, K20_N_REAL, CONTRACT_CASES, EDGE_SIZES, _histogram_spectrum, contract_case, cut_table, keep_case,
-    prune_grid,
+    k22_tables, k23_float_grid, prune_grid,
 )
 
 
@@ -510,29 +511,24 @@ CUT_THREADS, CUT_LANES = 256, 16
 K20_GEOMETRIES = {"source": (256, 16), "small": (4, 16)}
 
 
-def k20_cut_transcription(count: np.ndarray, n_real: int, m: int, keep_only: bool,
-                          offset: int = 0):
+def k20_cut_transcription(count: np.ndarray, n_real: int, m: int, offset: int = 0):
     """numpy transcription of abundance_cut_kernel: blocks of 4,096 lanes.
     Where count (a view `offset` lanes past a 16-byte boundary) and the
-    outputs are aligned and the block is whole: with raw or cut, quad q of
-    thread t is the 4 lanes from base + 4 (256 q + t), loaded as one
-    16-byte load where its first lane is below n_real (lanes past n_real
-    zeroed); keep alone, thread t's 16 lanes from base + 16 t, four loads
-    where the first is below n_real.  Else lane by lane below n_real.  No
-    key is read.  Returns (raw, cut, keep, the lanes read)."""
+    outputs are aligned and the block is whole, quad q of thread t is the 4
+    lanes from base + 4 (256 q + t), loaded as one 16-byte load where its
+    first lane is below n_real (lanes past n_real zeroed).  Else lane by
+    lane below n_real.  No key is read.  Returns (raw, cut, the lanes
+    read)."""
     C = count.shape[0]
     raw, cut = np.empty(C, np.int32), np.empty(C, np.int32)
-    keep, read = np.empty(C, bool), np.zeros(C, bool)
+    read = np.zeros(C, bool)
     tile = CUT_THREADS * CUT_LANES
     t = np.arange(CUT_THREADS)
     for base in range(0, C, tile):
         if offset % 4 == 0 and base + tile <= C:
-            if keep_only:
-                groups = base + CUT_LANES * t[:, None] + np.arange(CUT_LANES)
-            else:
-                groups = base + 4 * (np.arange(4)[:, None] * CUT_THREADS + t)[..., None] \
-                    + np.arange(4)
-                groups = groups.reshape(-1, 4)
+            groups = base + 4 * (np.arange(4)[:, None] * CUT_THREADS + t)[..., None] \
+                + np.arange(4)
+            groups = groups.reshape(-1, 4)
             loaded = groups[:, 0] < n_real
             c = np.where(loaded[:, None], count[groups], 0)
             read[groups[loaded]] = True
@@ -545,8 +541,7 @@ def k20_cut_transcription(count: np.ndarray, n_real: int, m: int, keep_only: boo
             read[lanes[lanes < n_real]] = True
         raw[lanes] = c
         cut[lanes] = np.where(c < m, 0, c)
-        keep[lanes] = (lanes < n_real) & (c >= m)
-    return raw, cut, keep, read
+    return raw, cut, read
 
 
 def k20_filter_transcription(key: np.ndarray, count: np.ndarray, n_real: int, m: int,
@@ -595,11 +590,10 @@ def _k20_check(spec: Spectrum, m: int, offset: int = 0, geometry: str = "source"
     n_real = min(spec.n, spec.capacity)
     key, count = spec.key.numpy(), spec.count.numpy()
     plain = tcor.abundance_cut_plain(spec, m)
-    for keep_only, width in ((False, 4), (True, CUT_LANES)):
-        raw, cut, keep, read = k20_cut_transcription(count, n_real, m, keep_only, offset)
-        assert read[:n_real].all() and not read[-(-n_real // width) * width:].any()
-        for got, want in zip((raw, cut, keep), plain):
-            np.testing.assert_array_equal(got, want.numpy())
+    raw, cut, read = k20_cut_transcription(count, n_real, m, offset)
+    assert read[:n_real].all() and not read[-(-n_real // 4) * 4:].any()
+    for got, want in zip((raw, cut), plain):
+        np.testing.assert_array_equal(got, want.numpy())
     for got, want in zip((raw, cut), tcor.cut_counts(spec, m)):
         np.testing.assert_array_equal(got, want.numpy())
     ref = _jax_spectrum(spec)
@@ -608,7 +602,7 @@ def _k20_check(spec: Spectrum, m: int, offset: int = 0, geometry: str = "source"
     f_key, f_count, f_n = k20_filter_transcription(key, count, n_real, m,
                                                    *K20_GEOMETRIES[geometry], offset)
     port = tcor.abundance_filter(spec, m)
-    assert f_n == port.n == int(keep.sum())
+    assert f_n == port.n == int(plain[2].sum())
     np.testing.assert_array_equal(f_key, port.key.numpy())
     np.testing.assert_array_equal(f_count, port.count.numpy())
     want = jcor.abundance_filter(ref, m)
@@ -646,6 +640,129 @@ def test_k20_transcription_on_contract_producers(producer, m):
     if m == "above":
         m = int(spec.count.max()) + 1
     _k20_check(spec, m)
+
+
+def k23_decision(count: np.ndarray, rmax: np.ndarray, lmax: np.ndarray, ratio: float):
+    """numpy transcription of prune_kept: kept iff neither f32(count) <
+    f32(ratio) * f32(rmax) nor f32(count) < f32(ratio) * f32(lmax), each
+    product one rounded float32 multiply (no FMA)."""
+    f, r = count.astype(np.float32), np.float32(ratio)
+    return ~((f < r * rmax.astype(np.float32)) | (f < r * lmax.astype(np.float32)))
+
+
+def k23_prune_filter_transcription(key, count, rmax, lmax, n_real: int, ratio: float,
+                                   threads: int = 256, items: int = 16, offset: int = 0):
+    """numpy transcription of sibling_prune_round's compaction on CUDA
+    (prune_filter_kernel on K10's compaction tile, then scan_fill_tail),
+    given rmax and lmax of the real lanes (n_real each): tiles of threads x
+    items lanes over [0, n_real) alone; a thread's keep bits are K23's
+    decision (k23_decision) of its lanes, from one 16-byte load of count,
+    rmax and lmax a 4 lanes where its lanes are below n_real and aligned
+    (count a view `offset` lanes past a 16-byte boundary, the maxima
+    aligned), else lane by lane below n_real; the block's exclusive scan of
+    the bits' counts; each tile's prefix, the earlier tiles' kept lanes (the
+    look-back); the kept lanes' keys and counts out in lane order; PAD / 0
+    from n on.  Returns (key, count, n) and asserts that each output lane is
+    written once, that no lane at or past n_real is read, and that no key
+    but a kept lane's is read."""
+    C, tile = key.shape[0], threads * items
+    assert len(rmax) == len(lmax) == n_real
+    r_all, l_all = np.zeros(C, np.int32), np.zeros(C, np.int32)  # never read past n_real
+    r_all[:n_real], l_all[:n_real] = rmax, lmax
+    out_key, out_count = np.empty(C, np.int64), np.empty(C, np.int32)
+    written = np.zeros(C, np.int64)
+    read, key_read, kept_lanes = np.zeros(C, bool), np.zeros(C, bool), np.zeros(C, bool)
+    prefix = 0
+    for base in range(0, n_real, tile):
+        firsts = base + items * np.arange(threads)
+        lanes = firsts[:, None] + np.arange(items)
+        vec = (firsts + items <= n_real) & ((offset + firsts) % 4 == 0)
+        live = np.where(vec[:, None], True, lanes < n_real)
+        read[lanes[live]] = True
+        safe = np.minimum(lanes, C - 1)
+        bits = live & k23_decision(count[safe], r_all[safe], l_all[safe], ratio)
+        per_thread = bits.sum(1)
+        r = np.cumsum(per_thread) - per_thread  # the block's exclusive scan
+        kept = int(per_thread.sum())
+        s_lane = np.empty(kept, np.int64)
+        for t in range(threads):
+            s_lane[r[t]:r[t] + per_thread[t]] = lanes[t][bits[t]] - base
+        slots = prefix + np.arange(kept)
+        out_key[slots] = key[base + s_lane]
+        out_count[slots] = count[base + s_lane]
+        key_read[base + s_lane] = kept_lanes[base + s_lane] = True
+        written[slots] += 1
+        prefix += kept
+    out_key[prefix:], out_count[prefix:] = PAD, 0
+    written[prefix:] += 1
+    assert (written == 1).all()
+    assert not read[n_real:].any() and not (key_read & ~kept_lanes).any()
+    return out_key, out_count, prefix
+
+
+@pytest.mark.parametrize("k", [5, 16, 24, 31])
+@pytest.mark.parametrize("canonical", [True, False])
+@pytest.mark.parametrize("ratio", [0.0, 0.1, 0.5])
+def test_k23_transcription_matches_reference(k, canonical, ratio):
+    """The sibling-prune round on CUDA, transcribed: K22 over the real
+    lanes (k22_transcription, its maxima of those lanes alone), then K23's
+    decision as the predicate of one compaction over [0, min(n, C)) at the
+    source's tile (256 x 16) and a small one (4 x 16), from an aligned
+    count and from one a lane past a 16-byte boundary; equal to the JAX
+    package's sibling_prune_round and to the port's CPU round on k22_tables
+    (n < C, n == C, n == 1, n == 0, n > C, palindromes at even k).  At ratio
+    0 every real lane stays."""
+    from test_torch_search import k22_transcription
+
+    ratio32, _ = tcor.prune_constants(ratio, 0.0)
+    for name, spec in k22_tables(k, canonical).items():
+        n_real = min(spec.n, spec.capacity)
+        key, count = spec.key.numpy(), spec.count.numpy()
+        rmax, lmax, _walks = k22_transcription(key, count, n_real, k, canonical)
+        want = jcor.sibling_prune_round(_jax_spectrum(spec), k, jnp.float32(ratio), canonical)
+        want_key = convert.hilo_to_key(np.asarray(want.hi), np.asarray(want.lo))
+        port = tcor.sibling_prune_round(spec, k, ratio, canonical)
+        assert port.n == int(want.n), name
+        if ratio == 0.0:
+            assert port.n == n_real, name
+        for geometry in K20_GEOMETRIES.values():
+            for offset in (0, 1):
+                got = k23_prune_filter_transcription(key, count, rmax[:n_real], lmax[:n_real],
+                                                     n_real, ratio32, *geometry, offset)
+                assert got[2] == port.n, (name, geometry, offset)
+                np.testing.assert_array_equal(got[0], want_key, err_msg=name)
+                np.testing.assert_array_equal(got[1], np.asarray(want.count), err_msg=name)
+                np.testing.assert_array_equal(got[0], port.key.numpy(), err_msg=name)
+                np.testing.assert_array_equal(got[1], port.count.numpy(), err_msg=name)
+
+
+@pytest.mark.parametrize("ratio", [0.1, 0.3, 0.5])
+def test_k23_decision_on_the_float_grid(ratio):
+    """K23's decision, transcribed, == prune_keep_plain on the float grid
+    of its cuda test (counts 0..255 against maxima 0..4095), where the
+    float32 products decide lanes that exact products would decide
+    otherwise; and the compaction of the grid's first tiles == the plain
+    filter's there."""
+    spec, rmax, lmax, ratio32 = k23_float_grid(ratio)
+    n = spec.n
+    count, r, l = spec.count.numpy(), rmax.numpy(), lmax.numpy()
+    got = k23_decision(count[:n], r[:n], l[:n], ratio32)
+    want = tcor.prune_keep_plain(spec, rmax, lmax, ratio32).numpy()
+    np.testing.assert_array_equal(got, want[:n])
+    assert not want[n:].any() and got.any() and not got.all()
+    # the products of the same float32 values, unrounded (exact in float64)
+    exact = ~((count[:n] < ratio32 * r[:n].astype(np.float64))
+              | (count[:n] < ratio32 * l[:n].astype(np.float64)))
+    if ratio != 0.5:  # halving is exact in float32
+        assert (exact != got).any()
+    lanes = 3 * 4096 + 5
+    head = Spectrum(key=spec.key[:lanes].clone(), count=spec.count[:lanes].clone(), n=lanes)
+    f_key, f_count, f_n = k23_prune_filter_transcription(
+        head.key.numpy(), head.count.numpy(), r[:lanes], l[:lanes], lanes, ratio32)
+    plain = tcor.prune_filter_plain(head, rmax[:lanes], lmax[:lanes], ratio32)
+    assert f_n == plain.n
+    np.testing.assert_array_equal(f_key, plain.key.numpy())
+    np.testing.assert_array_equal(f_count, plain.count.numpy())
 
 
 @pytest.mark.parametrize("k", [5, 16, 24, 31])

@@ -2295,18 +2295,14 @@ def test_clip_and_count_wrappers_validate_inputs(cuda):
 
 
 @pytest.mark.parametrize("case", ["counted", "count1_heavy", "all_pad", "no_lanes"])
-@pytest.mark.parametrize("outputs", [
-    (True, True, True), (True, True, False), (True, False, True), (False, True, True),
-    (True, False, False), (False, True, False), (False, False, True), (False, False, False),
-])
+@pytest.mark.parametrize("outputs", [(True, True), (True, False), (False, True), (False, False)])
 @pytest.mark.parametrize("min_abundance", [-1, 0, 1, 3])
 def test_abundance_cut_kernel_matches_plain(cuda, case, outputs, min_abundance):
     """K20 in every combination of its outputs; absent outputs stay None.
-    count1_heavy holds real lanes of count 0 and below, which keep takes at
-    min_abundance <= 0 and cut > 0 would not."""
+    count1_heavy holds real lanes of count 0 and below."""
     spec = _to(_histogram_spectrum(case), cuda)
     got = tcor.abundance_cut(spec, min_abundance, *outputs)
-    want = tcor.abundance_cut_plain(spec, min_abundance, *outputs)
+    want = tcor.abundance_cut_plain(spec, min_abundance, *outputs, keep=False)[:2]
     torch.cuda.synchronize()
     for asked, g, w in zip(outputs, got, want):
         assert (g is None) == (w is None) == (not asked)
@@ -2430,7 +2426,7 @@ def cut_table(n_real, offset: int = 0, C: int = 8195, seed: int = 4,
 @pytest.mark.parametrize("m", K20_CUTS)
 @pytest.mark.parametrize("offset", [0, 1])
 def test_abundance_cut_and_filter_kernels_on_cut_tables(cuda, n_real, m, offset):
-    """K20's three outputs == abundance_cut_plain, and the abundance filter
+    """K20's two outputs == abundance_cut_plain's, and the abundance filter
     (one compaction, counted as K20, no K10) == compact_plain and K10 of
     abundance_cut_plain's keep flags, on the transcription tests' tables:
     aligned, and a view one lane past a 16-byte boundary."""
@@ -2458,10 +2454,10 @@ def _filter_matches_plain(spec: Spectrum, m: int) -> None:
                                                   "all_pad", "no_lanes"])
 @pytest.mark.parametrize("m", [-1, 0, 1, 2, 3, 1 << 20])
 def test_abundance_cut_and_filter_kernels_on_contract_tables(cuda, case, m):
-    """K20's cut and keep modes and the abundance filter == their plain
-    versions on the contract's edge tables (n above C included), on a view
-    one lane into the wide table, and on K16's tables (real lanes of count
-    0 and below, which keep takes at m <= 0)."""
+    """K20's cut mode and the abundance filter == their plain versions on
+    the contract's edge tables (n above C included), on a view one lane
+    into the wide table, and on K16's tables (real lanes of count 0 and
+    below, which the filter keeps at m <= 0)."""
     if case == "unaligned":
         wide = _to(_histogram_spectrum("wide"), cuda)
         spec = Spectrum(key=wide.key[1:], count=wide.count[1:], n=wide.n - 1)
@@ -2470,9 +2466,9 @@ def test_abundance_cut_and_filter_kernels_on_contract_tables(cuda, case, m):
         spec = _to(contract_case(case)[0], cuda)
     else:
         spec = _to(_histogram_spectrum(case), cuda)
-    for outputs in ((True, True, False), (False, False, True)):
+    for outputs in ((True, True), (True, False), (False, True)):
         got = tcor.abundance_cut(spec, m, *outputs)
-        want = tcor.abundance_cut_plain(spec, m, *outputs)
+        want = tcor.abundance_cut_plain(spec, m, *outputs, keep=False)[:2]
         for g, w in zip(got, want):
             assert (g is None) == (w is None)
             if g is not None:
@@ -2635,6 +2631,61 @@ def test_neighbor_counts_kernel_matches_plain(cuda, k, canonical):
     assert (got[3][spec.n:] == 0).all()
 
 
+@pytest.mark.parametrize("k", [5, 13, 16, 17, 24, 31])
+@pytest.mark.parametrize("canonical", [True, False])
+def test_neighbor_counts_kernel_on_edge_tables(cuda, k, canonical):
+    """K28 == its plain version (which searches the whole table) on
+    k22_tables (n < C, n == C, n == 1, n == 0, n > C, palindromes at even
+    k) into dirty memory: the kernel writes every lane of its ten rows, the
+    zeros past the real lanes included; one launch a call (these tables'
+    index has one level, which each block gathers from the table) and no
+    host read."""
+    lib = kernels.library()
+    for name, spec in k22_tables(k, canonical).items():
+        spec = _to(spec, cuda)
+        want = tsp.neighbor_counts_plain(spec, k, canonical)
+        _dirty(cuda, 16 * spec.capacity, 4 * spec.capacity)
+        before = lib.launches["neighbor_counts"]
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = tsp.neighbor_counts(spec, k, canonical)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert lib.launches["neighbor_counts"] == before + 1
+        torch.cuda.synchronize()
+        for g, w, what in zip(got, want, ("right ext", "left ext", "right sib", "left sib")):
+            _equal(g, w, f"{name}: {what}")
+        names = _device_launches(lambda: tsp.neighbor_counts(spec, k, canonical))
+        assert [x.split("(")[0] for x in names] == ["neighbor_counts_kernel"], (name, names)
+
+
+def test_neighbor_counts_kernel_beyond_l2(cuda):
+    """K28 on a table larger than the 50 MB L2 with a two-level index: 2^23
+    lanes, up to 6,000,000 real random keys with a sibling and an extension
+    of some (k = 24, both canonical modes), against its plain version; the
+    index build, then the kernel."""
+    rng = np.random.default_rng(28)
+    C, n = 1 << 23, 6_000_000
+    base = rng.choice(1 << 46, n // 3, replace=False)
+    mask = (1 << 48) - 1
+    real = np.unique(np.concatenate([base, base ^ 1, (base << 2 | 3) & mask]))[:n]
+    key = torch.full((C,), PAD, dtype=torch.int64, device=cuda)
+    key[:len(real)] = torch.from_numpy(real).to(cuda)
+    count = torch.zeros(C, dtype=torch.int32, device=cuda)
+    count[:len(real)] = torch.from_numpy(
+        rng.integers(1, 1000, len(real)).astype(np.int32)).to(cuda)
+    spec = Spectrum(key=key, count=count, n=len(real))
+    for canonical in (True, False):
+        got = tsp.neighbor_counts(spec, 24, canonical)
+        want = tsp.neighbor_counts_plain(spec, 24, canonical)
+        torch.cuda.synchronize()
+        for g, w, what in zip(got, want, ("right ext", "left ext", "right sib", "left sib")):
+            _equal(g, w, what)
+        del got, want
+    names = _device_launches(lambda: tsp.neighbor_counts(spec, 24, True))
+    assert [x.split("(")[0] for x in names] == ["search_build_kernel", "neighbor_counts_kernel"]
+
+
 def test_neighbor_counts_kernel_on_an_all_pad_table(cuda):
     spec = Spectrum(key=torch.full((1000,), PAD, dtype=torch.int64, device=cuda),
                     count=torch.zeros(1000, dtype=torch.int32, device=cuda), n=0)
@@ -2644,11 +2695,11 @@ def test_neighbor_counts_kernel_on_an_all_pad_table(cuda):
     assert all((x == 0).all() for x in got)
 
 
-@pytest.mark.parametrize("ratio", [0.1, 0.3, 0.5])
-def test_prune_keep_kernel_float_grid(cuda, ratio):
-    """K23 bit-exact where an FMA would show: every count 0..255 against
-    every sibling maximum 0..4095 on the right (the left maximum half of
-    it), and the same with the sides swapped; a few PAD lanes."""
+def k23_float_grid(ratio: float, device="cpu"):
+    """K23's float grid on `device`: every count 0..255 against every
+    sibling maximum 0..4095 on the right (the left maximum half of it), and
+    the same with the sides swapped, 7 PAD lanes after them; the keys are
+    the lane numbers.  Returns (table, rmax, lmax, f32(ratio))."""
     c, m = np.meshgrid(np.arange(256), np.arange(4096), indexing="ij")
     c, m = np.tile(c.ravel(), 2), np.tile(m.ravel(), 2)
     half = c.size // 2
@@ -2656,39 +2707,124 @@ def test_prune_keep_kernel_float_grid(cuda, ratio):
     lmax = np.concatenate([m[:half] // 2, m[half:]]).astype(np.int32)
     key = np.arange(c.size, dtype=np.int64)
     key[-7:] = PAD
-    spec = Spectrum(key=torch.from_numpy(key).to(cuda),
-                    count=torch.from_numpy(c.astype(np.int32)).to(cuda), n=c.size - 7)
-    r, l = torch.from_numpy(rmax).to(cuda), torch.from_numpy(lmax).to(cuda)
+    count = np.where(key == PAD, 0, c).astype(np.int32)
+    spec = _to(Spectrum(key=torch.from_numpy(key), count=torch.from_numpy(count),
+                        n=c.size - 7), device)
     ratio32, _ = tcor.prune_constants(ratio, 0.0)
-    got = tcor.prune_keep(spec, r, l, ratio32)
-    want = tcor.prune_keep_plain(spec, r, l, ratio32)
-    torch.cuda.synchronize()
-    _equal(got, want, "keep")
-    assert not got[-7:].any() and (~got).sum() > 7 and got.any()
+    return (spec, torch.from_numpy(rmax).to(device), torch.from_numpy(lmax).to(device),
+            ratio32)
+
+
+@pytest.mark.parametrize("ratio", [0.1, 0.3, 0.5])
+def test_prune_keep_kernel_float_grid(cuda, ratio):
+    """K23 bit-exact where an FMA would show: k23_float_grid through the
+    fused entry point (prune_filter, the maxima given, of every lane and of
+    the real lanes alone) against its plain version."""
+    spec, r, l, ratio32 = k23_float_grid(ratio, cuda)
+    want = tcor.prune_filter_plain(spec, r, l, ratio32)
+    assert 0 < want.n < spec.n
+    n = spec.n
+    for maxes in ((r, l), (r[:n].clone(), l[:n].clone())):
+        got = tcor.prune_filter(spec, *maxes, ratio32)
+        torch.cuda.synchronize()
+        assert got.n == want.n
+        _equal(got.key, want.key, "kept keys")
+        _equal(got.count, want.count, "kept counts")
 
 
 @pytest.mark.parametrize("k", [5, 16, 24, 31])
 @pytest.mark.parametrize("canonical", [True, False])
 @pytest.mark.parametrize("ratio", [0.0, 0.1, 0.5])
 def test_sibling_prune_round_on_cuda_matches_cpu(cuda, k, canonical, ratio):
-    """K22, K23 and K10 in one round equal the CPU run."""
+    """One round on the card equals the CPU run: K22 over the real lanes
+    (its maxima sized to them: no zeros past them), then K23's one
+    compaction after the memset of its scratch, and the tail fill; no K10,
+    no C-wide keep array, one host read (the kept count)."""
     spec = _spectrum(k, canonical)
     lib = kernels.library()
+    on_card = _to(spec, cuda)
     lib.reset_counts()
-    got = tcor.sibling_prune_round(_to(spec, cuda), k, ratio, canonical)
-    for name in ("sibling_maxes", "prune_keep", "compact_keep"):
-        assert lib.launches[name] == 1, lib.launches
+    got, reads = _one_host_read(lambda: tcor.sibling_prune_round(on_card, k, ratio, canonical))
+    assert len(reads) == 1, reads
+    for name, calls in (("sibling_maxes", 2), ("prune_keep", 2), ("compact_keep", 0)):
+        assert lib.launches[name] == calls, lib.launches  # the warm-up's and ours
     want = tcor.sibling_prune_round(spec, k, ratio, canonical)
     assert got.n == want.n
     _equal(got.key.cpu(), want.key, "keys")
     _equal(got.count.cpu(), want.count, "counts")
+    names = [x.split("(")[0] for x in _device_launches(
+        lambda: tcor.sibling_prune_round(on_card, k, ratio, canonical)) if "Memcpy" not in x]
+    # K22, the zeros of the scan's scratch, K23, the tail fill
+    assert names[0] == "sibling_maxes_kernel" and "FillFunctor" in names[1], names
+    assert names[2:] == ["prune_filter_kernel", "scan_fill_tail_kernel"], names
+    n = min(on_card.n, on_card.capacity)
+    assert n < on_card.capacity
+    before = torch.cuda.memory_allocated()
+    maxes = tsp._sibling_maxes_cuda(on_card, k, canonical, lanes=n)
+    assert [m.shape[0] for m in maxes] == [n, n]
+    assert torch.cuda.memory_allocated() - before <= 2 * (4 * n + 512)
+
+
+@pytest.mark.parametrize("k", [5, 16, 24, 31])
+@pytest.mark.parametrize("canonical", [True, False])
+@pytest.mark.parametrize("ratio", [0.0, 0.1, 0.5])
+def test_sibling_prune_round_on_cuda_on_edge_tables(cuda, k, canonical, ratio):
+    """The round on the card == its plain version on k22_tables (n < C,
+    n == C, n == 1, n == 0, n > C, palindromes at even k): at n == 0 only
+    the tail fill runs (no K22, no K23 launch)."""
+    lib = kernels.library()
+    for name, spec in k22_tables(k, canonical).items():
+        before = dict(lib.launches)
+        got = tcor.sibling_prune_round(_to(spec, cuda), k, ratio, canonical)
+        real = int(min(spec.n, spec.capacity) > 0)
+        for kernel in ("sibling_maxes", "prune_keep"):
+            assert lib.launches[kernel] == before[kernel] + real, (name, kernel)
+        want = tcor.sibling_prune_round(spec, k, ratio, canonical)
+        assert got.n == want.n, name
+        _equal(got.key.cpu(), want.key, f"{name}: keys")
+        _equal(got.count.cpu(), want.count, f"{name}: counts")
+
+
+def test_prune_filter_and_neighbor_counts_entries_refuse(cuda):
+    """K23's entry point refuses a scratch other than scan_tiles(n_real) + 1
+    words and n_real above C; K28's refuses a layout or a scratch that does
+    not match the real lanes, a missing scratch where the index has two
+    levels, and an SM count below 1."""
+    n = 16 * 4096 + 1
+    C = n + 5
+    key = torch.full((C,), PAD, dtype=torch.int64, device=cuda)
+    key[:n] = torch.arange(n, dtype=torch.int64, device=cuda)
+    count = torch.ones(C, dtype=torch.int32, device=cuda)
+    out_key, out_count = torch.empty_like(key), torch.empty_like(count)
+    lib, p = kernels.library(), kernels.ptr
+    tiles = -(-n // kernels.SCAN_TILE)
+    for n_real, words in ((n, tiles), (n, tiles + 2),
+                          (C + 1, -(-(C + 1) // kernels.SCAN_TILE) + 1)):
+        scratch = torch.zeros(words, dtype=torch.int64, device=cuda)
+        with pytest.raises(RuntimeError, match="shannon_prune_filter"):
+            lib.call("shannon_prune_filter", cuda, p(key), p(count), p(count), p(count), n_real,
+                     C, 0.1, p(scratch), words, p(out_key), p(out_count))
+    lay = tsp.search_layout(n)
+    assert len(lay.sizes) == 2
+    scratch = torch.empty(lay.words + 16, dtype=torch.int64, device=cuda)
+    rows = torch.empty((10, C), dtype=torch.int32, device=cuda)
+    outs = (p(rows[0]), p(rows[4]), p(rows[8]), p(rows[9]))
+    right = tsp.layout_words(lay)
+    wrong = tsp.layout_words(tsp.search_layout(16 * 4096 + 17))
+    for ptr, words, layout, sms in ((None, lay.words, right, 132),
+                                    (p(scratch), lay.words, right, 0),
+                                    (p(scratch), lay.words + 16, right, 132),
+                                    (p(scratch), lay.words, wrong, 132)):
+        with pytest.raises(RuntimeError, match="shannon_neighbor_counts"):
+            lib.call("shannon_neighbor_counts", cuda, p(key), p(count), n, C, 24, 1, ptr, words,
+                     layout, sms, *outs)
 
 
 @pytest.mark.parametrize("k", [24, 31])
 def test_entry_step_on_cuda_matches_cpu(cuda, k):
     """The flagship step at 512 reads, capacity 2^15, correction capacity
-    2^14: the CUDA run launches K1, K2, K20, K10, K22 and K23 and equals
-    the CPU run."""
+    2^14: the CUDA run launches K1, K2, K20 (its filter), K22 and K23 (the
+    round's compaction), no K10, and equals the CPU run."""
     from shannon_tpu_torch import entry as tentry
     from shannon_tpu_torch.ops.count import upload_words
 
@@ -2697,9 +2833,10 @@ def test_entry_step_on_cuda_matches_cpu(cuda, k):
     lib = kernels.library()
     lib.reset_counts()
     key, count, n = step(upload_words(batch.words, cuda), torch.from_numpy(batch.lengths).to(cuda))
-    for name in ("extract_kmers", "reduce_sorted", "abundance_cut", "compact_keep",
-                 "sibling_maxes", "prune_keep"):
+    for name in ("extract_kmers", "reduce_sorted", "abundance_cut", "sibling_maxes",
+                 "prune_keep"):
         assert lib.launches[name] > 0, lib.launches
+    assert lib.launches["compact_keep"] == 0, lib.launches
     c_key, c_count, c_n = step(upload_words(batch.words, "cpu"), torch.from_numpy(batch.lengths))
     assert n == c_n
     _equal(key.cpu(), c_key, "keys")
@@ -2719,9 +2856,9 @@ def test_entry_kernel_wrappers_validate_inputs(cuda):
     with pytest.raises(ValueError, match="disagree"):
         tsp.sibling_maxes(Spectrum(key=key, count=count[:4], n=0), 24)
     with pytest.raises(ValueError, match="rmax"):
-        tcor.prune_keep(spec, count[:4], count, 0.1)
+        tcor.prune_filter(spec, count[:4], count, 0.1)
     with pytest.raises(ValueError, match="CUDA"):
-        tcor.prune_keep(spec, count.cpu(), count, 0.1)
+        tcor.prune_filter(spec, count.cpu(), count, 0.1)
 
 
 # ---- K24-K25: uint8 extraction, owner bucketing; the sharded count ---------
@@ -3035,16 +3172,18 @@ def _device_launches(fn, tries: int = 5) -> list:
     The call runs between two `torch.cuda._sleep` kernels, and only a trace
     that holds both (so its collection was running before the call began)
     and something between them is read: a trace can miss the launches made
-    just after it starts, or all of a call's (every caller's fn launches at
-    least once, so a call that launches nothing still fails, after the
-    tries)."""
+    just after it starts (after many traces in one process, an H100's
+    traces dropped their first two or three), or all of a call's (every
+    caller's fn launches at least once, so a call that launches nothing
+    still fails, after the tries).  So eight sleeps open each trace."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            torch.cuda._sleep(1000)
+            for _ in range(8):
+                torch.cuda._sleep(1000)
             torch.cuda.synchronize()
             torch.cuda._sleep(1000)
             fn()

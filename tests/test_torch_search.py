@@ -325,31 +325,36 @@ def _step_down(table: np.ndarray, j: np.ndarray, x: np.ndarray):
         j[move] -= 1
 
 
-def k22_transcription(key: np.ndarray, count: np.ndarray, n: int, k: int, canonical: bool):
-    """numpy transcription of sibling_maxes_kernel over key[:n] (n = min(spectrum
-    n, C), the real lanes under the Spectrum contract): lanes past n are 0;
-    a real lane v's probe p (probe_key: the plain version's form) in its own
-    group (x & ~3 == v & ~3) steps from the lane (down from i where x <= v,
-    else up from i + 1); one in the shared group ga = rc(v) & ~3 steps up
-    from ga's lower bound, which one walk gives; every other probe walks.  A
-    walk (sib_find) of a query above key[n - 1] gives n and a miss, any
-    other the lane walk's answer (over the index the entry point builds, or,
-    where it has one level, the top each block gathers from the table).
-    Each probe's count (0 on a miss) goes
-    into the right maximum (even p) or the left one (odd p).  Returns
-    (rmax, lmax, walks a lane)."""
-    C = len(key)
-    rmax, lmax = np.zeros(C, np.int32), np.zeros(C, np.int32)
-    if n == 0:
-        return rmax, lmax, np.zeros(0, np.int64)
-    table = key[:n]
+def _real_index(table: np.ndarray) -> tuple[np.ndarray, tsp.SearchLayout]:
+    """The index K22 and K28 walk over the real lanes `table`: the one the
+    entry point builds or, where it has one level, the top each block
+    gathers from the table (no build)."""
+    n = len(table)
     layout = tsp.search_layout(n)
-    if len(layout.sizes) == 1:  # no build: each block gathers its top from the table
+    if len(layout.sizes) == 1:
         top = layout.sizes[0]
         index = np.full(layout.words, tsp.PAD, np.int64)
         index[:top] = table[np.minimum(16 * np.arange(1, top + 1), n) - 1]
     else:
         index = tsp.search_index_plain(torch.from_numpy(table)).numpy()
+    return index, layout
+
+
+def probe_lane_transcription(table: np.ndarray, count: np.ndarray, k: int, side: str,
+                             canonical: bool):
+    """numpy transcription of probe.cuh's probe_lane over the real lanes
+    `table` = key[:n] (distinct, sorted): a real lane v's probe p
+    (probe_key: the plain version's form) in its own group (x & ~3 == v &
+    ~3) steps from the lane (down from i where x <= v, else up from i + 1);
+    one in group job 8 (sib: rc(v) & ~3; ext: (v << 2) & mask) or, for
+    ext, job 9 ((rc(v) << 2) & mask) steps up from that group's lower
+    bound, which one walk gives; every other probe walks.  A walk
+    (probe_find) of a query above key[n - 1] gives n and a miss, any other
+    the lane walk's answer over _real_index.  Returns (each probe's count,
+    0 on a miss, [8, n]; the walks of each lane, group walks included)."""
+    n = len(table)
+    mask = (1 << (2 * k)) - 1
+    index, layout = _real_index(table)
 
     def find(q):
         above = q > table[-1]
@@ -357,9 +362,13 @@ def k22_transcription(key: np.ndarray, count: np.ndarray, n: int, k: int, canoni
         return np.where(above, n, lb), hit & ~above
 
     lane = np.arange(n)
-    ga = _revcomp_np(table, k) & ~3
-    x = tsp.probe_keys(torch.from_numpy(table), k, "sib", canonical).numpy()
-    route = np.where((x & ~3) == (table & ~3), 0, np.where((x & ~3) == ga, 1, 3))
+    rc = _revcomp_np(table, k)
+    ga = ((table << 2) & mask) if side == "ext" else rc & ~3
+    gb = (rc << 2) & mask
+    x = tsp.probe_keys(torch.from_numpy(table), k, side, canonical).numpy()
+    g = x & ~3
+    route = np.where(g == (table & ~3), 0, np.where(
+        g == ga, 1, np.where((side == "ext") & (g == gb), 2, 3)))
     lb, hit = np.zeros((8, n), np.int64), np.zeros((8, n), bool)
     for p in range(8):
         own, down = route[p] == 0, x[p] <= table
@@ -368,15 +377,50 @@ def k22_transcription(key: np.ndarray, count: np.ndarray, n: int, k: int, canoni
             lb[p, sel], hit[p, sel] = step(table, at, x[p, sel])
         walks = route[p] == 3
         lb[p, walks], hit[p, walks] = find(x[p, walks])
-    grouped = (route == 1).any(axis=0)
-    lb_ga = np.zeros(n, np.int64)
-    lb_ga[grouped] = find(ga[grouped])[0]
-    for p in range(8):
-        sel = route[p] == 1
-        lb[p, sel], hit[p, sel] = _step_up(table, lb_ga[sel], x[p, sel])
-    c = np.where(hit, count[np.minimum(lb, n - 1)], 0)
+    walked = (route == 3).sum(axis=0)
+    for r, group in ((1, ga), (2, gb)):
+        grouped = (route == r).any(axis=0)
+        walked += grouped
+        lb_g = np.zeros(n, np.int64)
+        lb_g[grouped] = find(group[grouped])[0]
+        for p in range(8):
+            sel = route[p] == r
+            lb[p, sel], hit[p, sel] = _step_up(table, lb_g[sel], x[p, sel])
+    return np.where(hit, count[np.minimum(lb, n - 1)], 0), walked
+
+
+def k22_transcription(key: np.ndarray, count: np.ndarray, n: int, k: int, canonical: bool):
+    """numpy transcription of sibling_maxes_kernel over key[:n] (n = min(spectrum
+    n, C), the real lanes under the Spectrum contract): lanes past n are 0;
+    each real lane resolves its 8 sibling probes by probe_lane
+    (probe_lane_transcription, side "sib"), and each probe's count (0 on a
+    miss) goes into the right maximum (even p) or the left one (odd p).
+    Returns (rmax, lmax, walks a lane)."""
+    C = len(key)
+    rmax, lmax = np.zeros(C, np.int32), np.zeros(C, np.int32)
+    if n == 0:
+        return rmax, lmax, np.zeros(0, np.int64)
+    c, walks = probe_lane_transcription(key[:n], count[:n], k, "sib", canonical)
     rmax[:n], lmax[:n] = c[0::2].max(axis=0), c[1::2].max(axis=0)
-    return rmax, lmax, (route == 3).sum(axis=0) + grouped
+    return rmax, lmax, walks
+
+
+def k28_transcription(key: np.ndarray, count: np.ndarray, n: int, k: int, canonical: bool):
+    """numpy transcription of neighbor_counts_kernel over key[:n] (the real
+    lanes under the Spectrum contract): lanes past n are 0 in all ten rows;
+    each real lane resolves its 8 sibling probes as K22 does and its 8
+    extension probes by probe_lane with the ext routes
+    (probe_lane_transcription, side "ext"), the extension counts stored at
+    b * C + i.  Returns (rext [4, C], lext [4, C], rmax, lmax, walks a lane,
+    both sides)."""
+    C = len(key)
+    rext, lext = np.zeros((4, C), np.int32), np.zeros((4, C), np.int32)
+    rmax, lmax, sib_walks = k22_transcription(key, count, n, k, canonical)
+    if n == 0:
+        return rext, lext, rmax, lmax, sib_walks
+    e, ext_walks = probe_lane_transcription(key[:n], count[:n], k, "ext", canonical)
+    rext[:, :n], lext[:, :n] = e[0::2], e[1::2]
+    return rext, lext, rmax, lmax, sib_walks + ext_walks
 
 
 @pytest.mark.parametrize("k", [5, 16, 17, 24, 31])
@@ -398,3 +442,27 @@ def test_k22_transcription_matches_reference(k, canonical):
         assert walks.max(initial=0) <= 9
         if canonical and name in ("sparse", "full"):
             assert walks.mean() < 6, (name, walks.mean())
+
+
+@pytest.mark.parametrize("k", [5, 13, 16, 17, 24, 31])
+@pytest.mark.parametrize("canonical", [True, False])
+def test_k28_transcription_matches_reference(k, canonical):
+    """K28's per-lane resolution, transcribed (K22's sibling routes plus
+    K7's ext routes, zeros past the real lanes in all ten rows), equals the
+    JAX package's neighbor_counts on tables with n < C, n == C, n == 1,
+    n == 0 and n > C, and on palindromes at even k; it walks at most 17
+    times a lane (K22's 9 and 8 for the extensions, group walks included),
+    and on the canonical tables fewer than the 16 searches a lane it
+    replaced."""
+    from test_torch_correction import _jax_spectrum
+
+    for name, spec in k22_tables(k, canonical).items():
+        key, count = spec.key.numpy(), spec.count.numpy()
+        n = min(spec.n, spec.capacity)
+        *got, walks = k28_transcription(key, count, n, k, canonical)
+        want = jspec.neighbor_counts(_jax_spectrum(spec), k, canonical)
+        for g, w, what in zip(got, want, ("right ext", "left ext", "right sib", "left sib")):
+            np.testing.assert_array_equal(g, np.asarray(w), err_msg=f"{name}: {what}")
+        assert walks.max(initial=0) <= 17
+        if canonical and name in ("sparse", "full"):
+            assert walks.mean() < 16, (name, walks.mean())
