@@ -44,16 +44,19 @@ Phases; any failure exits nonzero:
      pointer-doubling labels, per-contig reduction, base streams) stage by
      stage on that corrected, shrunk spectrum, each kernel's output feeding
      the next stage, and the whole build_contig_arrays timed; K13's cycle
-     cut (cycle_round) and every other condensation stage again on a
+     cut (cycle_round, given the label stage's pointers as the main path
+     gives them: its rounds and cycle lanes from its info, the one-argument
+     call held equal too) and every other condensation stage again on a
      synthetic spectrum of isolated cycles (tandem repeats and
      homopolymers); K18 (tip clip's drop) and K19 (its remap of the node
      table) on the arguments one clip of that spectrum gives them; K6
      (sparse-flow greedy) on 4,096 random jobs of 1-8 by 1-8 margins at
      sf_restarts = 4 (also held exact at 40 restarts, more than a block's
      warps, and at 4 greedy steps), K29 (the unpacked greedy, one
-     decomposition a row) on those jobs expanded to their 5 seeded restart
-     rows (20,480 rows), each job's winning row also held equal to K6's
-     flows, and the batched solver (K6) against the host solve_node loop on
+     decomposition a row, on K6's warp step) on those jobs expanded to
+     their 5 seeded restart rows (20,480 rows) and on 65,536 such jobs
+     (327,680 rows), each job's winning row also held equal to K6's flows,
+     and the batched solver (K6) against the host solve_node loop on
      rounds of 8, 32 and 128 X-nodes.  Each kernel row
      also times the one PyTorch call that computes the same function, where
      there is one (library_ms), and gives the least time the card could
@@ -1454,16 +1457,31 @@ def _condense_chain(spec, k: int, canonical: bool, label: str, smi: str):
                f"{info['frontier']} ({lane_rounds} lane-rounds), {info['host_reads']} host read "
                f"a call, has_cycle {has_cycle}", rows["label_round"], smi)
     if has_cycle:
+        # as build_contig_arrays calls it: with the label stage's pointers
         before = lib.launches["cycle_round"]
-        cut = tcd.cycle_fix(prev)
-        c_rounds = lib.launches["cycle_round"] - before
+        c_info = {}
+        cut = tcd.cycle_fix(prev, ptr, info=c_info)
+        if lib.launches["cycle_round"] - before != 1:
+            raise AssertionError(f"K13 [{label}] the cycle cut counted "
+                                 f"{lib.launches['cycle_round'] - before} launches, not one")
+        c_rounds, cycle_lanes = c_info["rounds_run"], c_info["frontier"]
+        if not 1 <= c_rounds <= max(C2.bit_length(), 1) or c_info["host_reads"]:
+            raise AssertionError(f"K13 [{label}] the cycle cut ran {c_rounds} rounds with "
+                                 f"{c_info['host_reads']} host reads")
+        want_cut = tcd.cycle_fix_plain(prev)
+        # the one-argument call (the cut runs the label rounds itself) too
+        _max_abs_err((tcd.cycle_fix(prev),), (want_cut,))
+        # bytes: the links and the label stage's pointers in, the cut links
+        # out; operations: a few a cycle lane a round run
         rows["cycle_round"] = _row(
-            _max_abs_err((cut,), (tcd.cycle_fix_plain(prev),)),
-            _alternate(lambda: tcd.cycle_fix(prev), lambda: tcd.cycle_fix_plain(prev)),
-            _nbytes(prev, cut), 4 * c_rounds * C2, None,
+            _max_abs_err((cut,), (want_cut,)),
+            _alternate(lambda: tcd.cycle_fix(prev, ptr), lambda: tcd.cycle_fix_plain(prev)),
+            _nbytes(prev, ptr, cut), 4 * c_rounds * cycle_lanes, None,
         )
         n_cut = int(((cut < 0) & (prev >= 0)).sum())
-        _print_row(f"K13 cycle_round [{label}] {C2} lanes, {c_rounds} rounds, {n_cut} cycles cut",
+        _print_row(f"K13 cycle_round [{label}] {C2} lanes, {cycle_lanes} cycle lanes, {c_rounds} "
+                   f"rounds (minima changed a round {c_info['changed']}), "
+                   f"{c_info['host_reads']} host reads a call, {n_cut} cycles cut",
                    rows["cycle_round"], smi)
         prev = cut
         ptr, dist, again = tcd.label_stage(prev)
@@ -1675,7 +1693,8 @@ def _x_node_graph(seed: int, n_x: int):
 def sf_phase(dev, smi: str) -> dict:
     """K6 against its plain version on 4,096 jobs; K29 (the unpacked greedy,
     which no path runs) on the same jobs expanded to their seeded restart
-    rows, against its plain version and, row chosen by row, against K6;
+    rows, and on 65,536 such jobs, against its plain version and, row
+    chosen by row, against K6;
     then the batched solver
     (K6) against the host solve_node loop at small rounds (the reference
     keeps rounds of at most 32 jobs on the host; the port does not)."""
@@ -1708,21 +1727,33 @@ def sf_phase(dev, smi: str) -> dict:
            "sf_rounds": []}
     _print_row(f"K6 sf_greedy {buf.shape[0]} jobs x {R + 1} restarts, {steps} greedy steps "
                "(flows bitwise; also exact at 41 restarts and at 4 steps)", out["sf_greedy"], smi)
-    rows = tsf.restart_rows(buf, R)  # each job's R + 1 seeded rows, as K6 expands them
-    flows = tsf.batched_greedy(*rows)
-    err = _max_abs_err((flows.view(torch.int32),),
-                       (tsf.batched_greedy_plain(*rows).view(torch.int32),))
-    per_job = flows.reshape(buf.shape[0], R + 1, tsf.MAXD, tsf.MAXD)
-    won = per_job[torch.arange(buf.shape[0], device=dev), tsf.best_restart(per_job)]
-    if not torch.equal(won.view(torch.int32), got[0].view(torch.int32)):
-        raise AssertionError("K29's winning restart rows differ from K6's flow tensors")
-    t = _alternate(lambda: tsf.batched_greedy(*rows), lambda: tsf.batched_greedy_plain(*rows))
-    # per row: at most 16 greedy steps of about 4 operations on each of the
-    # 64 cells, as K6's rows
-    out["sf_jobs"] = _row(err, t, _nbytes(*rows, flows), rows[0].shape[0] * 16 * 64 * 4, None)
-    _print_row(f"K29 sf_jobs {rows[0].shape[0]} rows ({buf.shape[0]} jobs x {R + 1} seeded "
-               "restarts; flows bitwise; each job's winning row == K6's flows)",
-               out["sf_jobs"], smi)
+    # K29 on each job's R + 1 seeded rows, as K6 expands them: K6's 4,096
+    # jobs, and 65,536 such jobs
+    big = torch.from_numpy(_sf_jobs(8, 65_536)).to(dev)
+    for name, jobs, k6_flows in (("sf_jobs", buf, got[0]),
+                                 ("sf_jobs_65536", big, tsf.batched_greedy_packed(big, R)[0])):
+        rows = tsf.restart_rows(jobs, R)
+        flows = tsf.batched_greedy(*rows)
+        err = _max_abs_err((flows.view(torch.int32),),
+                           (tsf.batched_greedy_plain(*rows).view(torch.int32),))
+        per_job = flows.reshape(jobs.shape[0], R + 1, tsf.MAXD, tsf.MAXD)
+        won = per_job[torch.arange(jobs.shape[0], device=dev), tsf.best_restart(per_job)]
+        if not torch.equal(won.view(torch.int32), k6_flows.view(torch.int32)):
+            raise AssertionError(f"K29's winning restart rows differ from K6's flow tensors "
+                                 f"({jobs.shape[0]} jobs)")
+        t = _alternate(lambda: tsf.batched_greedy(*rows), lambda: tsf.batched_greedy_plain(*rows))
+        # per row: the greedy steps this data takes, and the step that finds
+        # nothing left where the loop ends early, each about 4 operations on
+        # each of the 64 cells, as K6's rows
+        taken = (tsf.greedy_core(*rows, 2 * tsf.MAXD)[1] >= 0).sum(1)
+        steps = int((taken + (taken < 2 * tsf.MAXD).long()).sum())
+        out[name] = _row(err, t, _nbytes(*rows, flows), steps * 64 * 4, None)
+        _print_row(f"K29 sf_jobs {rows[0].shape[0]} rows ({jobs.shape[0]} jobs x {R + 1} seeded "
+                   f"restarts), {steps} greedy steps (flows bitwise; each job's winning row == "
+                   "K6's flows)", out[name], smi)
+    # K29's row is K6's 4,096 jobs'; its error covers the 65,536 jobs
+    out["sf_jobs"]["max_abs_err"] = max(out["sf_jobs"]["max_abs_err"],
+                                        out["sf_jobs_65536"]["max_abs_err"])
     for n_nodes in (8, 32, 128):
         g, xs = _x_node_graph(n_nodes, n_nodes)
         n_jobs = 0

@@ -14,13 +14,24 @@ against its parent within one call.
     python scripts/kernel_turns.py --only owner cut --trees OLD NEW NEW OLD
     python scripts/kernel_turns.py --only ownership --trees OLD NEW NEW OLD
     python scripts/kernel_turns.py --only codes sib --trees OLD NEW NEW OLD
+    python scripts/kernel_turns.py --only cycle --trees OLD NEW NEW OLD
 
---only sf, streams, clip, hist, lookup, owner, cut, ownership, codes and/or
-sib times K6's rows, K15's, K18's and K19's, K16's, K21's, K25's, K20's,
-K26's and K27's, K24's (with K1 beside it) and/or K22's, K23's and K28's
-(with K7 beside them, and the flagship step) alone and builds only their
+--only sf, streams, clip, hist, lookup, owner, cut, ownership, codes, sib
+and/or cycle times K6's rows, K15's, K18's and K19's, K16's, K21's, K25's,
+K20's, K26's and K27's, K24's (with K1 beside it), K22's, K23's and K28's
+(with K7 beside them, and the flagship step) and/or K13's cycle cut's and
+K29's (with K6's rows beside them) alone and builds only their
 inputs (about 1.5 minutes, then under half
-a minute a tree).  K24 ("codes_*") on chip_smoke.py's kernel-phase reads as
+a minute a tree).  K13's cycle cut ("cycle_ptr", "cycle_noptr") on the
+links of chip_smoke.py's cycle input (_cycle_spectrum at k = 24,
+canonical: 1,572,864 node lanes, built once on the card by this
+checkout's K11 and K12), with the label stage's pointers as
+build_contig_arrays gives them and without (a tree whose cycle_fix takes
+no pointers runs its one-argument call in both rows), with "cycle_sizes"
+(C2, cycle lanes, the rounds the reference's loop runs); K29
+("jobs_4096", "jobs_65536") on the 5 seeded restart rows of each of
+_sf_jobs(7, 4096)'s and _sf_jobs(8, 65_536)'s jobs (restart_rows), with
+K6's three rows beside them.  K24 ("codes_*") on chip_smoke.py's kernel-phase reads as
 uint8 codes (_random_batch(1, False) and (1, True), 65,536 x 128, k = 24,
 canonical: "codes_smoke", "codes_smoke_n") and at 101 codes a row
 (_random_batch(2, True, pad=101), k = 31: "codes_101"), and on the dry
@@ -505,6 +516,21 @@ def _ownership_inputs(reads, cfg, dev) -> dict:
     return out
 
 
+def _cycle_inputs(dev) -> dict:
+    """K13's cycle cut's inputs (numpy): the links of chip_smoke.py's cycle
+    input (_cycle_spectrum at k = 24, canonical) and the label stage's
+    pointers on them, made on the card by this checkout's K11-K13."""
+    from chip_smoke import _cycle_spectrum
+    from shannon_tpu_torch.ops.condense import label_stage, links_stage, nodes_stage
+
+    node_key = nodes_stage(_cycle_spectrum(dev, 24), 24, True)[0]
+    prev = links_stage(node_key, 24)[0]
+    ptr, _dist, has_cycle = label_stage(prev)
+    if not has_cycle:
+        raise RuntimeError("the cycle input's labels found no cycle")
+    return {"cyc_prev": prev.cpu().numpy(), "cyc_ptr": ptr.cpu().numpy()}
+
+
 def _inputs(path: Path, only) -> None:
     import numpy as np
     import torch
@@ -516,18 +542,20 @@ def _inputs(path: Path, only) -> None:
 
     dev, cfg = torch.device("cuda", 0), AssemblyConfig()
     focus = {"buf": _sf_jobs(7, 4096), "big": _sf_jobs(8, 65_536)}
+    if only is not None and "cycle" in only:
+        focus.update(_cycle_inputs(dev))
     if only is not None and "codes" in only:
         focus.update(_codes_inputs())
     if only is not None and "sib" in only:
         focus.update(_sib_dryrun_inputs())
     if only is not None and not {"sf", "streams", "clip", "hist", "owner", "cut",
-                                 "ownership", "sib"} & set(only):
+                                 "ownership", "sib", "cycle"} & set(only):
         if "lookup" in only:
             focus.update(_lookup_inputs(dev))
         np.savez(path, **focus)
         return
     reads = _scale_dataset(1_000_000)[1]
-    if only is None or "sf" in only:
+    if only is None or "sf" in only or "cycle" in only:
         focus.update(_sf_main_inputs(reads, cfg, dev))
     if only is not None:
         if "streams" in only or "clip" in only:
@@ -731,7 +759,7 @@ def _focus_rows(d, dev, only) -> dict:
     from shannon_tpu_torch.ops.sparseflow import batched_greedy_packed
 
     fns = {}
-    if only is None or "sf" in only:
+    if only is None or "sf" in only or "cycle" in only:
         buf, big = (torch.from_numpy(d[x]).to(dev) for x in ("buf", "big"))
         jobs = d["sf_main_jobs"].tolist()
         bufs = torch.from_numpy(d["sf_main_buf"]).to(dev).split(jobs)
@@ -746,6 +774,36 @@ def _focus_rows(d, dev, only) -> dict:
         fns.update(sf_greedy=(lambda: batched_greedy_packed(buf, 4), 200),
                    sf_greedy_65536=(lambda: batched_greedy_packed(big, 4), 200),
                    sf_main=(sf_main, 50))
+    if only is not None and "cycle" in only:
+        import inspect
+
+        import numpy as np
+
+        from shannon_tpu_torch.ops.condense import cycle_fix
+        from shannon_tpu_torch.ops.sparseflow import batched_greedy, restart_rows
+
+        c_prev, c_ptr = (torch.from_numpy(d[x]).to(dev) for x in ("cyc_prev", "cyc_ptr"))
+        takes_ptr = "head_ptr" in inspect.signature(cycle_fix).parameters
+        rows_4096, rows_65536 = restart_rows(buf, 4), restart_rows(big, 4)
+        fns.update(
+            cycle_ptr=((lambda: cycle_fix(c_prev, c_ptr)) if takes_ptr
+                       else (lambda: cycle_fix(c_prev)), 50),
+            cycle_noptr=(lambda: cycle_fix(c_prev), 50),
+            jobs_4096=(lambda: batched_greedy(*rows_4096), 200),
+            jobs_65536=(lambda: batched_greedy(*rows_65536), 50))
+        # the cycle lanes and the rounds the reference's loop would need
+        # before no minimum changes on them, from the saved arrays
+        p_np, h_np = d["cyc_prev"], d["cyc_ptr"]
+        in_s = p_np[h_np] >= 0
+        cycle_sizes = {"C2": int(p_np.shape[0]), "cycle_lanes": int(in_s.sum()),
+                       "takes_ptr": takes_ptr}
+        ptr_np, mn = np.where(p_np >= 0, p_np, np.arange(p_np.shape[0])), np.arange(p_np.shape[0])
+        for r in range(1, max(p_np.shape[0].bit_length(), 1) + 1):
+            nxt = np.minimum(mn, mn[ptr_np])
+            if (nxt[in_s] == mn[in_s]).all():
+                break
+            ptr_np, mn = ptr_np[ptr_np], nxt
+        cycle_sizes["rounds"] = r
     if only is None or "streams" in only:
         from shannon_tpu_torch.ops.condense import contig_base_streams, reduce_stage
 
@@ -904,6 +962,8 @@ def _focus_rows(d, dev, only) -> dict:
                      "counted_n": min(s_counted.n, s_counted.capacity),
                      "dryrun_C": s_dry.capacity, "dryrun_n": min(s_dry.n, s_dry.capacity)}
     row = {f"{name}_ms": _median_ms(fn, reps) for name, (fn, reps) in fns.items()}
+    if "cycle_ptr" in fns:
+        row["cycle_sizes"] = cycle_sizes
     if "codes_smoke" in fns:
         row["codes_sizes"] = codes_sizes
     if "sib_flagship" in fns:
@@ -1206,12 +1266,12 @@ def main() -> int:
     ap.add_argument("--out", default=None)
     ap.add_argument("--only", nargs="+",
                     choices=("sf", "streams", "clip", "hist", "lookup", "owner", "cut",
-                             "ownership", "codes", "sib"),
+                             "ownership", "codes", "sib", "cycle"),
                     default=None,
                     help="time only K6's rows (sf), K15's (streams), K18's and K19's (clip), "
                          "K16's (hist), K21's (lookup), K25's (owner), K20's (cut), K26's "
-                         "and K27's (ownership), K24's and K1's (codes) and/or K22's and "
-                         "K7's (sib)")
+                         "and K27's (ownership), K24's and K1's (codes), K22's and "
+                         "K7's (sib) and/or K13's cycle cut and K29 with K6 (cycle)")
     ap.add_argument("--child", nargs=2, metavar=("TREE", "INPUTS"), help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child:

@@ -543,6 +543,29 @@ static __device__ __forceinline__ bool label_step(int64_t i, uint64_t w, uint64_
   return true;
 }
 
+// Lists the set lanes of frontier chunk `chunk` (32 words of the bitmap
+// `bits`, 1,024 lanes; lane j of the warp loads word j) in `list`, in lane
+// order: a warp scan of the words' bit counts gives each word's place.
+// Returns their number, the same in every lane.  The caller syncs the warp
+// before it reads the list.
+static __device__ __forceinline__ int frontier_list(const uint32_t* __restrict__ bits,
+                                                    int64_t chunk, int64_t n_words, int lane,
+                                                    uint16_t* list) {
+  const int64_t wi = (chunk << 5) + lane;
+  const uint32_t m = wi < n_words ? bits[wi] : 0u;
+  const int c = __popc(m);
+  int at = c;  // inclusive warp scan of the words' bit counts
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int u = __shfl_up_sync(LABEL_FULL_MASK, at, d);
+    if (lane >= d) at += u;
+  }
+  const int total = __shfl_sync(LABEL_FULL_MASK, at, 31);
+  at -= c;
+  for (uint32_t mm = m; mm != 0; mm &= mm - 1) list[at++] = (uint16_t)(lane * 32 + __ffs(mm) - 1);
+  return total;
+}
+
 __global__ void __launch_bounds__(THREADS) label_round_kernel(
     int64_t C2, int t, int R, const uint64_t* __restrict__ words_in,
     uint64_t* __restrict__ words_out, const uint32_t* __restrict__ bits_in,
@@ -561,17 +584,7 @@ __global__ void __launch_bounds__(THREADS) label_round_kernel(
   for (int64_t chunk = (int64_t)blockIdx.x * LABEL_WARPS + warp; chunk < n_chunks;
        chunk += warps) {
     const int64_t wi = (chunk << 5) + lane;
-    const uint32_t m = wi < n_words ? bits_in[wi] : 0u;
-    const int c = __popc(m);
-    int at = c;  // inclusive warp scan of the words' bit counts
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const int u = __shfl_up_sync(LABEL_FULL_MASK, at, d);
-      if (lane >= d) at += u;
-    }
-    const int total = __shfl_sync(LABEL_FULL_MASK, at, 31);
-    at -= c;
-    for (uint32_t mm = m; mm != 0; mm &= mm - 1) list[at++] = (uint16_t)(lane * 32 + __ffs(mm) - 1);
+    const int total = frontier_list(bits_in, chunk, n_words, lane, list);
     keep[lane] = 0u;
     __syncwarp();
     const int64_t lane0 = chunk << 10;
@@ -635,35 +648,166 @@ __global__ void label_tail_kernel(const uint32_t* __restrict__ heads, int64_t C2
   if (__syncthreads_or(cyc) && threadIdx.x == 0) ctl[0] = 1;
 }
 
-__global__ void cycle_round_kernel(const int64_t* __restrict__ prev,
-                                   const int64_t* __restrict__ ptr_in,
-                                   const int64_t* __restrict__ mn_in,
-                                   int64_t C2, int last,
-                                   int64_t* __restrict__ ptr_out,
-                                   int64_t* __restrict__ mn_out,
-                                   int64_t* __restrict__ prev_out) {
-  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= C2) return;
-  int64_t p, mn, np, mp;
-  if (ptr_in == nullptr) {
-    const int64_t pv = prev[i];
-    p = pv >= 0 ? pv : i;
-    mn = i;
-    const int64_t pp = prev[p];
-    np = pp >= 0 ? pp : p;
-    mp = p;
-  } else {
-    p = ptr_in[i];
-    mn = mn_in[i];
-    np = ptr_in[p];
-    mp = mn_in[p];
+// ---------------------------------------------------------------------------
+// K13, cycle cut: every round of the reference's min-propagating pointer
+// doubling in one enqueue, over the cycle lanes alone, with an early stop.
+// Replaces shannon_tpu/ops/condense.py:264 _cycle_fix: R = bit_length(C2)
+// Jacobi rounds from ptr = prev >= 0 ? prev : lane, mn = lane, each round
+// mn' = min(mn, mn[ptr]), ptr' = ptr[ptr]; then a lane is cut (prev -1)
+// where prev[ptr_R] >= 0 and mn_R == lane.
+// Three facts let the cut skip most of that work:
+//  - Only lanes of S can be cut, where S is the set of lanes whose walk
+//    along prev reaches a cycle (rho shapes' tails included).  A walk that
+//    reaches a head (prev -1) takes fewer than C2 < 2^R steps, and a head
+//    is its own pointer, so there ptr_R is the head and prev[ptr_R] = -1.
+//    A walk that reaches a cycle passes no head, so prev[ptr_R] >= 0.
+//  - The label stage names S exactly: S = {i : prev[head_ptr[i]] >= 0} for
+//    its pointers head_ptr (the test !(w & LABEL_HEAD) of
+//    label_tail_kernel).  Its pointer is P^(2^t)(i) after its last round t,
+//    P the start pointer: on a walk into a cycle it is no head, whatever t;
+//    on a walk to a head it is the head both at the round cap (2^R > C2) and
+//    at the early stop (every pointer is then a fixed point of P^(2^t), and
+//    on such a walk only the head is one).
+//  - S is closed under ptr, and the minima can stop early.  After round t,
+//    mn_t(i) is the least lane of the 2^t lanes of i's walk from i.  Let
+//    round t + 1 change no minimum on S: mn_t(i) <= mn_t(P^(2^t)(i)) for
+//    every i in S.  Applied to i and to P^(2^t)(i) (in S), mn_t(i) <=
+//    mn_t(P^(2^(t+1))(i)), so round t + 2 changes none either, and by
+//    induction no later round does.  So the minima after the first round
+//    that changes none are the reference's after R rounds, exactly, for
+//    any prev in [-1, C2).  The pointers themselves are not needed at the
+//    end: on S, prev[ptr_R] >= 0 always.
+// Design.
+//  - Packed state: a lane's (ptr, mn) is one 64-bit word, ptr in bits 0-30
+//    and mn in bits 32-62 (C2 < 2^31, which the wrapper enforces), so a
+//    round is one 8-byte gather a lane, not two.  Two buffers: round t
+//    reads words[(t - 1) % 2] and writes words[t % 2]; only lanes of S are
+//    ever written or read (S is closed under ptr).
+//  - cycle_first_kernel, every lane (a warp takes 32 consecutive lanes,
+//    grid-stride): i is in S where prev[head_ptr[i]] >= 0; a warp's ballot
+//    writes one word of the S bitmap.  A lane of S takes round 1 at once
+//    from prev in registers: ptr = prev[prev[i]] (prev[i] is in S, so no
+//    head), mn = min(i, prev[i]).  Both gathers are issued before either
+//    is used (prev[prev[i]] for every lane with a predecessor).
+//  - cycle_round_kernel, rounds 2..R, over S as label_round_kernel walks its
+//    frontier: a warp takes a chunk of 32 bitmap words (1,024 lanes), lists
+//    its set lanes in shared memory (frontier_list) and takes the list two
+//    entries a lane at a time, so each lane has two gathers in flight.  S
+//    does not shrink, so the bitmap is read, never written.
+//  - No host read: the wrapper enqueues all R rounds and the tail at once.
+//    ctl[t] counts the lanes whose minimum changed in round t (a warp adds
+//    its count once, after its last chunk); a round after one that changed
+//    none returns at once.
+//  - cycle_tail_kernel, every lane: finds the last round run (the first t
+//    with ctl[t] == 0, else R) and writes prev_out = prev, except -1 on a
+//    lane of S whose minimum in that round's buffer is itself.
+// Bound: memory.  The least work reads prev and head_ptr once and writes
+// prev_out once; each round of the design adds, for each lane of S, its own
+// word, one random 8-byte gather (a 32-byte sector) and one store.
+// ---------------------------------------------------------------------------
+
+// ctl: [0] |S|; [t] the lanes of S whose minimum changed in round t, t in
+// 1..R.
+static __device__ __forceinline__ void cycle_add(int32_t* ctl, int at, unsigned n) {
+  n = __reduce_add_sync(LABEL_FULL_MASK, n);
+  if ((threadIdx.x & 31) == 0 && n) atomicAdd(&ctl[at], (int32_t)n);
+}
+
+__global__ void cycle_first_kernel(const int64_t* __restrict__ prev,
+                                   const int64_t* __restrict__ head_ptr, int64_t C2,
+                                   uint64_t* __restrict__ words1, uint32_t* __restrict__ bits,
+                                   int32_t* ctl) {
+  const int lane = threadIdx.x & 31;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  unsigned changed = 0, in_s = 0;
+  for (int64_t base = (int64_t)blockIdx.x * blockDim.x + (threadIdx.x & ~31); base < C2;
+       base += stride) {
+    const int64_t i = base + lane;
+    bool s = false;
+    if (i < C2) {
+      const int64_t pv = prev[i], h = head_ptr[i];
+      // both gathers in flight; prev[pv] is used only on S, where pv >= 0
+      const int64_t ph = prev[h], pp = pv >= 0 ? prev[pv] : -1;
+      s = ph >= 0;  // a head is its own pointer: never in S
+      if (s) {
+        const int64_t m = pv < i ? pv : i;
+        words1[i] = ((uint64_t)m << 32) | (uint64_t)pp;
+        changed += pv < i;
+      }
+    }
+    const unsigned s_bits = __ballot_sync(LABEL_FULL_MASK, s);
+    if (lane == 0) {
+      bits[base >> 5] = s_bits;
+      in_s += __popc(s_bits);
+    }
   }
-  mn = mp < mn ? mp : mn;
-  if (last) {
-    prev_out[i] = (prev[np] >= 0 && mn == i) ? -1 : prev[i];
-  } else {
-    ptr_out[i] = np;
-    mn_out[i] = mn;
+  cycle_add(ctl, 0, in_s);
+  cycle_add(ctl, 1, changed);
+}
+
+// One round's step of lane i of S with word w and its target's word wp.
+// Returns whether the lane's minimum changed.
+static __device__ __forceinline__ unsigned cycle_step(int64_t i, uint64_t w, uint64_t wp,
+                                                      uint64_t* __restrict__ words_out) {
+  const uint64_t m = w >> 32, mp = wp >> 32;
+  words_out[i] = ((mp < m ? mp : m) << 32) | (wp & LABEL_PTR_MASK);
+  return mp < m;
+}
+
+__global__ void __launch_bounds__(THREADS) cycle_round_kernel(
+    int64_t C2, int t, const uint64_t* __restrict__ words_in, uint64_t* __restrict__ words_out,
+    const uint32_t* __restrict__ bits, int32_t* ctl) {
+  if (ctl[t - 1] == 0) return;  // round t - 1 changed no minimum: the loop has stopped
+  __shared__ uint16_t s_list[LABEL_WARPS][1024];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  uint16_t* list = s_list[warp];
+  const int64_t n_words = (C2 + 31) >> 5;
+  const int64_t n_chunks = (n_words + 31) >> 5;
+  const int64_t warps = (int64_t)gridDim.x * LABEL_WARPS;
+  unsigned changed = 0;
+  for (int64_t chunk = (int64_t)blockIdx.x * LABEL_WARPS + warp; chunk < n_chunks;
+       chunk += warps) {
+    const int total = frontier_list(bits, chunk, n_words, lane, list);
+    __syncwarp();
+    const int64_t lane0 = chunk << 10;
+    // two list entries a lane at a time, so each lane has two gathers in
+    // flight
+    for (int q = lane; q < total; q += 64) {
+      const bool two = q + 32 < total;
+      const int64_t ia = lane0 + list[q], ib = lane0 + (two ? list[q + 32] : list[q]);
+      const uint64_t wa = words_in[ia];
+      const uint64_t wb = two ? words_in[ib] : 0ull;
+      const uint64_t wpa = words_in[wa & LABEL_PTR_MASK];
+      const uint64_t wpb = two ? words_in[wb & LABEL_PTR_MASK] : 0ull;
+      changed += cycle_step(ia, wa, wpa, words_out);
+      if (two) changed += cycle_step(ib, wb, wpb, words_out);
+    }
+    __syncwarp();  // the next chunk rewrites the list
+  }
+  cycle_add(ctl, t, changed);
+}
+
+__global__ void cycle_tail_kernel(const int64_t* __restrict__ prev, int64_t C2, int R,
+                                  const uint64_t* __restrict__ words,
+                                  const uint32_t* __restrict__ bits, const int32_t* ctl,
+                                  int64_t* __restrict__ prev_out) {
+  __shared__ int last;
+  if (threadIdx.x == 0) {
+    last = R;
+    for (int t = 1; t < R; ++t) {
+      if (ctl[t] == 0) {
+        last = t;
+        break;
+      }
+    }
+  }
+  __syncthreads();
+  const uint64_t* w_last = words + (last & 1) * C2;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < C2; i += stride) {
+    int64_t pv = prev[i];
+    if (((bits[i >> 5] >> (i & 31)) & 1u) && (int64_t)(w_last[i] >> 32) == i) pv = -1;
+    prev_out[i] = pv;
   }
 }
 
@@ -1072,15 +1216,57 @@ int shannon_label_rounds(const void* prev, int64_t C2, void* scratch, int64_t sc
   return (int)err;
 }
 
-int shannon_cycle_round(const void* prev, const void* ptr_in, const void* mn_in,
-                        int64_t C2, int last, void* ptr_out, void* mn_out,
-                        void* prev_out, void* stream) {
-  if (C2 > 0) {
-    cycle_round_kernel<<<blocks_for(C2), THREADS, 0, (cudaStream_t)stream>>>(
-        (const int64_t*)prev, (const int64_t*)ptr_in, (const int64_t*)mn_in, C2,
-        last, (int64_t*)ptr_out, (int64_t*)mn_out, (int64_t*)prev_out);
+// Scratch words (8 bytes each) shannon_cycle_rounds takes for C2 lanes: the
+// two buffers of packed words (C2 each), then the S bitmap (ceil(C2 / 32)
+// uint32 words).
+int64_t shannon_cycle_rounds_words(int64_t C2) { return 2 * C2 + ((C2 + 31) / 32 + 1) / 2; }
+
+// prev [C2] in [-1, C2), C2 < 2^31; head_ptr [C2]: the label stage's
+// pointers on prev; scratch: shannon_cycle_rounds_words(C2) words; ctl: R + 1
+// int32, zeroed here, R = max(bit_length(C2), 1): [0] |S|, [t] the lanes
+// whose minimum changed in round t; prev_out [C2] the cut links.
+int shannon_cycle_rounds(const void* prev, const void* head_ptr, int64_t C2, void* scratch,
+                         int64_t scratch_words, void* ctl, int ctl_words, void* prev_out,
+                         void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  int R = 1;
+  while (R < 63 && (C2 >> R) != 0) ++R;
+  if (C2 < 0 || C2 >= (1ll << 31) || ctl_words != R + 1 ||
+      scratch_words != shannon_cycle_rounds_words(C2)) {
+    return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
+  const int64_t bit_words = (C2 + 31) / 32;
+  cudaError_t err = cudaMemsetAsync(ctl, 0, sizeof(int32_t) * (size_t)(R + 1), s);
+  if (err != cudaSuccess || C2 == 0) return (int)err;
+  int device = 0, sms = 0, per_sm = 0;
+  err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, cycle_round_kernel, THREADS, 0);
+  }
+  if (err != cudaSuccess) return (int)err;
+  const unsigned int lane_grid = blocks_for(C2) < LABEL_GRID ? blocks_for(C2) : LABEL_GRID;
+  const unsigned int chunk_warps = (unsigned int)((bit_words + 31) / 32);
+  const unsigned int wanted = (chunk_warps + LABEL_WARPS - 1) / LABEL_WARPS;
+  const unsigned int resident = (unsigned int)(sms * per_sm);
+  const unsigned int grid = resident < wanted ? (resident > 0 ? resident : 1) : wanted;
+  uint64_t* w = (uint64_t*)scratch;
+  const uint32_t* bits = (const uint32_t*)(w + 2 * C2);
+  cycle_first_kernel<<<lane_grid, THREADS, 0, s>>>((const int64_t*)prev,
+                                                   (const int64_t*)head_ptr, C2, w + C2,
+                                                   (uint32_t*)(w + 2 * C2), (int32_t*)ctl);
+  err = cudaGetLastError();
+  for (int t = 2; t <= R && err == cudaSuccess; ++t) {
+    cycle_round_kernel<<<grid, THREADS, 0, s>>>(C2, t, w + ((t - 1) & 1) * C2, w + (t & 1) * C2,
+                                                bits, (int32_t*)ctl);
+    err = cudaGetLastError();
+  }
+  if (err == cudaSuccess) {
+    cycle_tail_kernel<<<lane_grid, THREADS, 0, s>>>((const int64_t*)prev, C2, R, w, bits,
+                                                    (const int32_t*)ctl, (int64_t*)prev_out);
+    err = cudaGetLastError();
+  }
+  return (int)err;
 }
 
 // scratch: exactly tiles + 1 zeroed words (scan.cuh), tiles = ceil(C2 /

@@ -70,7 +70,7 @@ _ARGTYPES = {
     "shannon_node_merge": [_P, _P, _I64, _P, _P, _P, _I64, _P, _P, _P],
     "shannon_link_tiles": [_P, _I64, _I, _I64, _P, _I64, _P, _P, _P, _P, _P],
     "shannon_label_rounds": [_P, _I64, _P, _I64, _P, _I, _P, _P, _P],
-    "shannon_cycle_round": [_P, _P, _P, _I64, _I, _P, _P, _P, _P],
+    "shannon_cycle_rounds": [_P, _P, _I64, _P, _I64, _P, _I, _P, _P],
     "shannon_contig_reduce": [*[_P] * 8, _I64, _I, _I, _P, _I64, *[_P] * 10, _P],
     "shannon_base_streams": [_P, _P, _P, _I64, _I64, _P, _P, _I64, _I, _P, _I64, _P, _P, _P, _P],
     "shannon_count_histogram": [_P, _I64, _I64, _I, _P, _P],
@@ -93,7 +93,8 @@ _ARGTYPES = {
 # Entry points whose scratch layout lives in their source alone: for each,
 # `<entry>_words(n)` gives the int64 words of scratch it takes at size n.
 _SCRATCH_SIZED = (
-    "shannon_compact_rows", "shannon_label_rounds", "shannon_base_streams", "shannon_clip_remap",
+    "shannon_compact_rows", "shannon_label_rounds", "shannon_cycle_rounds", "shannon_base_streams",
+    "shannon_clip_remap",
 )
 
 

@@ -16,7 +16,8 @@ Counterpart of ``shannon_tpu/ops/condense.py``:
      a min-propagation pass that cuts isolated cycles at their lowest lane
      (K13: ``label_round`` enqueues every round of the label stage at
      once, over a frontier, with one host read at its end; ``cycle_round``
-     is one launch per round);
+     enqueues every round of the cut at once, over the cycle lanes the
+     labels found, with an early stop and no host read);
   4. per-contig reduction (klen, exact count sum, float32 abundance, head
      and tail lanes), contig edges, and the reverse-complement twin (K14,
      ``contig_reduce``: contig ids from one look-back scan of the head
@@ -233,7 +234,15 @@ def label_stage_plain(prev_link: torch.Tensor):
 LABEL_MAX_LANES = (1 << 31) - 1
 
 
-def _label_stage_cuda(prev_link: torch.Tensor, info: dict | None):
+def _check_lanes(prev_link: torch.Tensor) -> None:
+    if prev_link.shape[0] > LABEL_MAX_LANES:
+        raise ValueError(f"{prev_link.shape[0]} node lanes exceed the 2^31 - 1 that K13's "
+                         "packed pointers take")
+
+
+def _label_launch(prev_link: torch.Tensor):
+    """Enqueue every round of K13's label stage; (ptr, dist, ctl), nothing
+    read back."""
     kernels.check_cuda("prev_link", prev_link, torch.int64, 1)
     C2 = prev_link.shape[0]
     dev = prev_link.device
@@ -251,6 +260,13 @@ def _label_stage_cuda(prev_link: torch.Tensor, info: dict | None):
         kernels.ptr(ptr), kernels.ptr(dist),
     )
     lib.count("label_round")
+    return ptr, dist, ctl
+
+
+def _label_stage_cuda(prev_link: torch.Tensor, info: dict | None):
+    ptr, dist, ctl = _label_launch(prev_link)
+    C2 = prev_link.shape[0]
+    R = max(C2.bit_length(), 1)
     # the one host read: has_cycle, then each round's moved and staying lanes
     ctl = ctl.tolist() if C2 else [0] * (2 * R + 1)
     moved, stay = ctl[1 : R + 1], ctl[R + 1 :]
@@ -270,9 +286,7 @@ def label_stage(prev_link: torch.Tensor, info: dict | None = None):
     host read) on CUDA, the plain version on CPU.  With `info`, the CUDA
     route records the rounds run, each round's frontier and its host
     reads."""
-    if prev_link.shape[0] > LABEL_MAX_LANES:
-        raise ValueError(f"{prev_link.shape[0]} node lanes exceed the 2^31 - 1 that K13's "
-                         "packed pointers take")
+    _check_lanes(prev_link)
     if prev_link.is_cuda:
         return _label_stage_cuda(prev_link, info)
     return label_stage_plain(prev_link)
@@ -291,39 +305,56 @@ def cycle_fix_plain(prev_link: torch.Tensor) -> torch.Tensor:
     return torch.where(cycle_head, -1, prev_link)
 
 
-def _cycle_fix_cuda(prev_link: torch.Tensor) -> torch.Tensor:
+def _cycle_fix_cuda(prev_link: torch.Tensor, head_ptr: torch.Tensor | None,
+                    info: dict | None) -> torch.Tensor:
     kernels.check_cuda("prev_link", prev_link, torch.int64, 1)
     C2 = prev_link.shape[0]
     dev = prev_link.device
-    bufs = [
-        tuple(torch.empty(C2, dtype=torch.int64, device=dev) for _ in range(2))
-        for _ in range(2)
-    ]
+    if head_ptr is None:
+        head_ptr = _label_launch(prev_link)[0]
+    kernels.check_cuda("head_ptr", head_ptr, torch.int64, 1)
+    R = max(C2.bit_length(), 1)
     out = torch.empty(C2, dtype=torch.int64, device=dev)
+    ctl = torch.empty(R + 1, dtype=torch.int32, device=dev)
     lib = kernels.library()
-    ptr = mn = None
-    n_rounds = max(C2.bit_length(), 1)
-    for r in range(n_rounds):
-        out_ptr, out_mn = bufs[r % 2]
-        lib.call(
-            "shannon_cycle_round", dev,
-            kernels.ptr(prev_link), kernels.ptr(ptr), kernels.ptr(mn), C2,
-            int(r == n_rounds - 1), kernels.ptr(out_ptr), kernels.ptr(out_mn),
-            kernels.ptr(out),
-        )
-        lib.count("cycle_round")
-        ptr, mn = out_ptr, out_mn
+    # packed words and the cycle lanes' bitmap, laid out by the kernel's source
+    words = lib.scratch_words("shannon_cycle_rounds", C2)
+    scratch = torch.empty(words, dtype=torch.int64, device=dev)
+    lib.call(
+        "shannon_cycle_rounds", dev,
+        kernels.ptr(prev_link), kernels.ptr(head_ptr), C2, kernels.ptr(scratch), words,
+        kernels.ptr(ctl), ctl.shape[0], kernels.ptr(out),
+    )
+    lib.count("cycle_round")
+    if info is not None:  # read only for info: the call itself reads nothing back
+        ctl = ctl.tolist() if C2 else [0] * (R + 1)
+        changed = ctl[1:]
+        run = next((t for t, n in enumerate(changed, 1) if n == 0), R) if C2 else 0
+        info.update(rounds_run=run, frontier=ctl[0], changed=changed[:run], host_reads=0)
     return out
 
 
-def cycle_fix(prev_link: torch.Tensor) -> torch.Tensor:
+def cycle_fix(prev_link: torch.Tensor, head_ptr: torch.Tensor | None = None,
+              info: dict | None = None) -> torch.Tensor:
     """Cut isolated cycles at their minimum lane (ops/condense.py:264
-    _cycle_fix): min-propagating pointer doubling, the full log2(C2) rounds
-    (a cycle's minimum must travel the whole cycle).  Kernel K13
-    (``cycle_round``, one launch per round; the last writes the cut links)
-    on CUDA, the plain version on CPU."""
+    _cycle_fix): min-propagating pointer doubling.  `head_ptr`, the label
+    stage's pointers on prev_link, names the lanes whose walk reaches a
+    cycle, the only lanes that can be cut; without it the CUDA route runs
+    the label stage's rounds itself.  Kernel K13 (``cycle_round``: every
+    round enqueued at once over those lanes, stopping after the first round
+    that changes no minimum, at most log2(C2) rounds; the last launch writes
+    the cut links; no host read) on CUDA, the plain version (the
+    reference's full loop, which needs no head_ptr) on CPU.  With `info`,
+    the CUDA route records the rounds run, the cycle lanes (frontier), the
+    lanes whose minimum changed in each round and its host reads (0; the
+    counts are read for info alone).  Refuses tables of 2^31 lanes or
+    more."""
+    _check_lanes(prev_link)
+    if head_ptr is not None and head_ptr.shape != prev_link.shape:
+        raise ValueError(f"head_ptr {tuple(head_ptr.shape)} and prev_link "
+                         f"{tuple(prev_link.shape)} disagree")
     if prev_link.is_cuda:
-        return _cycle_fix_cuda(prev_link)
+        return _cycle_fix_cuda(prev_link, head_ptr, info)
     return cycle_fix_plain(prev_link)
 
 
@@ -476,7 +507,7 @@ def build_contig_arrays(spec: Spectrum, k: int, canonical: bool = True) -> Conti
     prev_link, rec_lane, first_p, p_cnt = links_stage(node_key, k)
     ptr, dist, has_cycle = label_stage(prev_link)
     if has_cycle:
-        prev_link = cycle_fix(prev_link)
+        prev_link = cycle_fix(prev_link, ptr)
         ptr, dist, _ = label_stage(prev_link)
     return reduce_stage(
         node_key, node_count, n_nodes, prev_link, ptr, dist,

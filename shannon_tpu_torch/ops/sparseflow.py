@@ -5,10 +5,10 @@ Counterpart of ``shannon_tpu/ops/sparseflow.py``.  Nodes are padded to
 (MAXD, MAXD) = (8, 8) margins; each job is solved with sf_restarts + 1
 seeds at once and the best restart is chosen on the device with the
 oracle's key.  On CUDA tensors this is kernel K6 (``csrc/sparseflow.cu``),
-and the unpacked form without restarts (``batched_greedy``) kernel K29;
-on CPU tensors their plain twins, where flows are float32 and the tie hash
-wraps at uint32, computed in int64 with a mask after every multiply and
-add.
+and the unpacked form without restarts (``batched_greedy``) kernel K29,
+both on one warp step (``sf_best``, ``sf_pick``); on CPU tensors their plain twins,
+where flows are float32 and the tie hash wraps at uint32, computed in int64
+with a mask after every multiply and add.
 
 One deliberate difference from the reference's device solver: pairings
 come back in the greedy's pick order, as the oracle's ``solve_node`` emits
@@ -120,7 +120,8 @@ def batched_greedy(a, b, seeds, use_hash, max_steps: int = 2 * MAXD):
     selection (ops/sparseflow.py:38 batched_greedy).  seeds [B]: uint32
     values carried as int64 in [0, 2^32), or their int32 bit pattern;
     use_hash [B] bool: hashed ties (else lexicographic).  Kernel K29 on CUDA
-    (M, N <= MAXD, 0 < max_steps <= 2 * MAXD), the plain version on CPU (any
+    (a warp a row on K6's warp step, the flows stored straight to F;
+    M, N <= MAXD, 0 < max_steps <= 2 * MAXD), the plain version on CPU (any
     shape, as the reference)."""
     if a.is_cuda:
         return _batched_greedy_cuda(a, b, seeds, use_hash, max_steps)

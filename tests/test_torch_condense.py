@@ -336,8 +336,11 @@ def _label_rounds_reference(prev: np.ndarray) -> int:
 
 
 LABEL_CASES = [(kind, C2) for kind in ("isolated", "chains_pow2", "chains_pow2_plus1", "cycles",
-                                       "self", "random") for C2 in (1, 2, 31, 32, 33, 100, 1000)]
+                                       "self", "random", "one_cycle", "cycles_pow2",
+                                       "cycles_pow2_plus1")
+               for C2 in (1, 2, 31, 32, 33, 100, 1000)]
 LABEL_CASES += [("one_chain", C2) for C2 in (1, 2, 3, 31, 32, 33, 64, 65, 257, 1024, 1025)]
+LABEL_CASES += [("one_cycle", C2) for C2 in (3, 64, 65, 257, 1024, 1025)]
 
 
 @pytest.mark.parametrize("kind,C2", LABEL_CASES)
@@ -360,12 +363,120 @@ def test_k13_frontier_transcription_matches_reference(kind, C2):
         assert got[3] == C2.bit_length()  # 2^j + 1 lanes: the round cap
 
 
+def _cycle_transcription(prev: np.ndarray, head_ptr: np.ndarray):
+    """csrc/condense.cu cycle_first / cycle_round / cycle_tail in numpy:
+    the cycle lanes S (prev[head_ptr] >= 0) as a bitmap of 32-bit words,
+    packed words (ptr in bits 0-30, the running minimum in bits 32-62) in
+    two buffers poisoned where no round wrote (every read of a lane of S
+    must find a word a round wrote), round 1 from prev for the lanes of S
+    alone, rounds 2..R over the bitmap's lanes, ctl's count of the lanes
+    whose minimum changed, a round that returns at once after one that
+    changed none, and the tail, which cuts a lane of S whose minimum is
+    itself.  Returns (the cut links, rounds run, |S|, each round's
+    changed count)."""
+    C2 = len(prev)
+    R = max(C2.bit_length(), 1)
+    n_words = -(-C2 // 32)
+    mask, hi = np.uint64(0x7FFFFFFF), np.uint64(32)
+    words = [np.full(C2, LABEL_POISON) for _ in range(2)]
+    ctl = np.zeros(R + 1, np.int64)
+
+    # the first launch, every lane: the bitmap of S, and round 1 on S
+    in_s = prev[head_ptr] >= 0
+    flags = np.concatenate([in_s, np.zeros(32 * n_words - C2, bool)])
+    bits = (flags.reshape(n_words, 32) << np.arange(32, dtype=np.uint64)).sum(1).astype(np.uint64)
+    lanes = np.nonzero(in_s)[0]
+    pv = prev[lanes]
+    assert (pv >= 0).all() and (prev[pv] >= 0).all()  # S holds no head, and is closed
+    words[1][lanes] = (np.minimum(pv, lanes).astype(np.uint64) << hi) | prev[pv].astype(np.uint64)
+    ctl[0], ctl[1] = len(lanes), int((pv < lanes).sum())
+    # rounds 2..R over the bitmap's lanes
+    for t in range(2, R + 1):
+        if ctl[t - 1] == 0:
+            continue
+        w_in, w_out = words[(t - 1) % 2], words[t % 2]
+        set_ = (bits[:, None] >> np.arange(32, dtype=np.uint64)) & np.uint64(1)
+        f = np.nonzero(set_.reshape(-1))[0]
+        w = w_in[f]
+        wp = w_in[(w & mask).astype(np.int64)]
+        assert (w != LABEL_POISON).all() and (wp != LABEL_POISON).all()
+        m, mp = w >> hi, wp >> hi
+        w_out[f] = (np.minimum(m, mp) << hi) | (wp & mask)
+        ctl[t] = int((mp < m).sum())
+    # the tail, every lane
+    last = next((t for t in range(1, R) if ctl[t] == 0), R)
+    w = words[last % 2][lanes]
+    assert (w != LABEL_POISON).all()
+    out = prev.copy()
+    out[lanes[(w >> hi).astype(np.int64) == lanes]] = -1
+    return out, last, int(ctl[0]), ctl[1 : last + 1].tolist()
+
+
+def _cycle_rounds_reference(prev: np.ndarray, in_s: np.ndarray) -> int:
+    """The first round of the reference's loop (shannon_tpu/ops/condense.py:264)
+    that changes no minimum on the lanes of S, else its R rounds."""
+    C2 = len(prev)
+    R = max(C2.bit_length(), 1)
+    ptr = np.where(prev >= 0, prev, np.arange(C2))
+    mn = np.arange(C2)
+    for r in range(1, R + 1):
+        nxt = np.minimum(mn, mn[ptr])
+        if (nxt[in_s] == mn[in_s]).all():
+            return r
+        ptr, mn = ptr[ptr], nxt
+    return R
+
+
+@pytest.mark.parametrize("kind,C2", LABEL_CASES)
+def test_k13_cycle_transcription_matches_reference(kind, C2):
+    """K13's cycle cut design (S from the label stage's pointers, packed
+    (pointer, minimum) words, rounds over S alone, the early stop) against
+    the reference's _cycle_fix, rho shapes and self-loops included; it
+    stops at the first round that changes no minimum on S, never after R."""
+    prev = label_links(kind, C2, seed=C2)
+    head_ptr = np.asarray(jcd._label_stage(jnp.asarray(prev, jnp.int32))[0]).astype(np.int64)
+    want = np.asarray(jcd._cycle_fix(jnp.asarray(prev, jnp.int32))).astype(np.int64)
+    cut, rounds, n_s, changed = _cycle_transcription(prev, head_ptr)
+    np.testing.assert_array_equal(cut, want)
+    in_s = prev[head_ptr] >= 0
+    assert n_s == int(in_s.sum())
+    assert rounds == _cycle_rounds_reference(prev, in_s) <= max(C2.bit_length(), 1)
+    assert len(changed) == rounds and all(changed[:-1])
+    assert ((cut < 0) & (prev >= 0) & ~in_s).sum() == 0  # only lanes of S are cut
+    if kind == "one_cycle":
+        # the minimum travels the whole cycle: changes up to round
+        # ceil(log2(C2)), so every one of the R rounds runs
+        assert n_s == C2 and int((cut < 0).sum()) == 1
+        assert rounds == max(C2.bit_length(), 1)
+    if kind in ("isolated", "chains_pow2", "chains_pow2_plus1", "one_chain"):
+        assert n_s == 0 and rounds == 1
+
+
+@pytest.mark.parametrize("kind", ["cycles", "self", "random", "one_cycle", "cycles_pow2_plus1",
+                                  "chains_pow2"])
+@pytest.mark.parametrize("C2", [1, 33, 1000])
+def test_cycle_fix_head_ptr_route_matches_reference(kind, C2):
+    """cycle_fix with the label stage's pointers equals the one-argument
+    call and the reference's _cycle_fix on the plain route."""
+    prev = label_links(kind, C2, seed=C2 + 1)
+    want = np.asarray(jcd._cycle_fix(jnp.asarray(prev, jnp.int32))).astype(np.int64)
+    t_prev = _t(prev)
+    head_ptr = tcd.label_stage(t_prev)[0]
+    with_ptr = tcd.cycle_fix(t_prev, head_ptr)
+    _eq(with_ptr, want, "cut with head_ptr")
+    _eq(tcd.cycle_fix(t_prev), want, "cut")
+    with pytest.raises(ValueError, match="disagree"):
+        tcd.cycle_fix(t_prev, head_ptr[:-1])
+
+
 def test_label_stage_refuses_2_31_lanes():
     """K13 packs a pointer in 31 bits: label_stage refuses a table of 2^31
     lanes before anything runs (a meta tensor holds no data)."""
     big = torch.empty(1 << 31, dtype=torch.int64, device="meta")
     with pytest.raises(ValueError, match="2\\^31"):
         tcd.label_stage(big)
+    with pytest.raises(ValueError, match="2\\^31"):
+        tcd.cycle_fix(big, big)
     assert tcd.LABEL_MAX_LANES == (1 << 31) - 1
 
 

@@ -461,7 +461,10 @@ def label_links(kind: str, C2: int, seed: int) -> np.ndarray:
     (chains of 2^j and 2^j + 1 nodes for j = 0, 1, ...), "one_chain" (all
     C2 lanes one chain: the most rounds), "cycles" (cycles of 2, 3, 4 and
     8 nodes mixed with chains), "self" (self-loops beside chains) and
-    "random" (any prev in [-1, C2): tails running into cycles too)."""
+    "random" (any prev in [-1, C2): tails running into cycles too),
+    "one_cycle" (all C2 lanes one cycle: the most rounds of the cycle cut)
+    and "cycles_pow2" / "cycles_pow2_plus1" (cycles of 2^j and 2^j + 1
+    nodes)."""
     rng = np.random.default_rng(seed)
     lanes = rng.permutation(C2)
     prev = np.full(C2, -1, np.int64)
@@ -471,6 +474,13 @@ def label_links(kind: str, C2: int, seed: int) -> np.ndarray:
         return prev
     if kind == "one_chain":
         sizes = [C2]
+    elif kind == "one_cycle":
+        sizes = [("cycle", C2)]
+    elif kind in ("cycles_pow2", "cycles_pow2_plus1"):
+        sizes, j = [], 0
+        while sum(n for _, n in sizes) < C2:
+            sizes.append(("cycle", (1 << j) + (kind == "cycles_pow2_plus1")))
+            j += 1
     elif kind in ("chains_pow2", "chains_pow2_plus1"):
         sizes, j = [], 0
         while sum(sizes) < C2:
@@ -518,6 +528,52 @@ def test_label_stage_kernel_matches_plain(cuda, kind, C2):
     assert info["host_reads"] == 1 and len(info["frontier"]) == info["rounds_run"]
     assert info["frontier"][0] == C2
     assert 1 <= info["rounds_run"] <= max(C2.bit_length(), 1)
+
+
+@pytest.mark.parametrize("with_ptr", [True, False])
+@pytest.mark.parametrize("kind", ["cycles", "self", "random", "one_cycle", "chains_pow2"])
+@pytest.mark.parametrize("C2", [1, 2, 31, 32, 33, 1000, 65_537, 1 << 20])
+def test_cycle_fix_kernel_matches_plain(cuda, kind, C2, with_ptr):
+    """K13's cycle cut (every round enqueued at once over the cycle lanes
+    the label stage found, stopping after the first round that changes no
+    minimum) equals the plain version on power-of-two cycles, self-loops,
+    rho shapes, one cycle of every lane (every round runs) and chains
+    (nothing to cut), with the label stage's pointers and without: one
+    launch count a call, no host read, at most R rounds."""
+    prev = torch.from_numpy(label_links(kind, C2, seed=C2)).to(cuda)
+    want = tcd.cycle_fix_plain(prev)
+    head_ptr = tcd.label_stage(prev)[0] if with_ptr else None
+    lib = kernels.library()
+    before = dict(lib.launches)
+    info = {}
+    cut = tcd.cycle_fix(prev, head_ptr, info=info)
+    torch.cuda.synchronize()
+    launched = {n: c - before[n] for n, c in lib.launches.items() if c != before[n]}
+    assert launched == ({"cycle_round": 1} if with_ptr else {"cycle_round": 1, "label_round": 1})
+    _equal(cut, want, "cut")
+    assert info["host_reads"] == 0
+    assert 1 <= info["rounds_run"] == len(info["changed"]) <= max(C2.bit_length(), 1)
+    assert info["frontier"] == int((prev[tcd.label_stage_plain(prev)[0]] >= 0).sum())
+    if kind == "one_cycle":
+        assert info["rounds_run"] == max(C2.bit_length(), 1)
+    if kind == "chains_pow2":
+        assert info["frontier"] == 0 and info["rounds_run"] == 1
+        assert torch.equal(cut, prev)
+    # no read of the card without info
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = tcd.cycle_fix(prev, head_ptr)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    _equal(again, want, "cut, no info")
+
+
+def test_cycle_fix_kernel_refuses_shapes(cuda):
+    prev = torch.from_numpy(label_links("cycles", 64, seed=1)).to(cuda)
+    with pytest.raises(ValueError, match="disagree"):
+        tcd.cycle_fix(prev, prev[:-1].contiguous())
+    with pytest.raises(TypeError, match="int64"):
+        tcd.cycle_fix(prev, prev.int())
 
 
 def _sf_jobs(seed: int, B: int) -> np.ndarray:
@@ -589,6 +645,46 @@ def test_sf_jobs_kernel_matches_plain(cuda, kind, shape, max_steps):
     assert got.shape == want.shape == (2048, *shape)
     assert torch.equal(got.view(torch.int32).cpu(), want.view(torch.int32))
     assert (want > 0).any()
+
+
+@pytest.mark.parametrize("B", [20_480, 327_680])
+def test_sf_jobs_kernel_at_scale(cuda, B):
+    """K29 at K6's 4,096 and 65,536 jobs as their 5 seeded restart rows
+    each: flows bit-equal to the plain version's, in one launch."""
+    buf = torch.from_numpy(_sf_jobs(B, B // 5)).to(cuda)
+    rows = tsf.restart_rows(buf, 4)
+    lib = kernels.library()
+    before = lib.launches["sf_jobs"]
+    got = tsf.batched_greedy(*rows)
+    assert lib.launches["sf_jobs"] - before == 1
+    want = tsf.batched_greedy_plain(*(x.cpu() for x in rows))
+    assert torch.equal(got.view(torch.int32).cpu(), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("shape", [(5, 7), (2, 3), (7, 8), (8, 1)])
+def test_sf_jobs_kernel_mixed_sizes(cuda, shape):
+    """One launch over rows whose real sizes vary below M x N < 8 x 8 (zero
+    margins past each row's size, some rows all zero): bit-equal to the
+    plain version."""
+    M, N = shape
+    rng = np.random.default_rng(M * 10 + N)
+    B = 4099
+    a = np.zeros((B, M), np.float32)
+    b = np.zeros((B, N), np.float32)
+    for r in range(B):
+        if r % 7 == 0:
+            continue
+        m, n = int(rng.integers(1, M + 1)), int(rng.integers(1, N + 1))
+        ints = r % 2 == 0
+        a[r, :m] = rng.integers(1, 4, m) if ints else rng.uniform(0.1, 50, m)
+        b[r, :n] = rng.integers(1, 4, n) if ints else rng.uniform(0.1, 50, n)
+    args = (torch.from_numpy(a), torch.from_numpy(b),
+            torch.from_numpy(rng.integers(0, 1 << 32, B, dtype=np.int64)),
+            torch.arange(B) % 3 != 0)
+    got = tsf.batched_greedy(*(x.to(cuda) for x in args))
+    want = tsf.batched_greedy_plain(*args)
+    assert got.shape == want.shape == (B, M, N)
+    assert torch.equal(got.view(torch.int32).cpu(), want.view(torch.int32))
 
 
 def test_sf_jobs_winning_rows_equal_k6(cuda):
@@ -1514,7 +1610,7 @@ def test_condense_kernels_match_plain(cuda, case, k, canonical):
     assert has_cycle == want[2]
     assert has_cycle == (case == "cycles")
     if has_cycle:
-        cut = tcd.cycle_fix(prev)
+        cut = tcd.cycle_fix(prev, ptr)  # as build_contig_arrays calls it
         _equal(cut, tcd.cycle_fix_plain(prev), "cut")
         prev = cut
         ptr, dist, again = tcd.label_stage(prev)

@@ -348,6 +348,101 @@ def test_k6_transcription_matches_plain(kind, restarts, max_steps):
     np.testing.assert_array_equal(picks, want_picks.numpy())
 
 
+def k29_transcription(a: np.ndarray, b: np.ndarray, seeds: np.ndarray, use_hash: np.ndarray,
+                      max_steps: int) -> np.ndarray:
+    """csrc/sparseflow.cu sf_jobs_kernel in numpy: a warp a row, lane l
+    holding cells 2l and 2l + 1 of the zero-padded 8 x 8 grid (row l // 4)
+    and only the margins they touch; K6's step (sf_best, sf_pick): the max
+    of the lanes' order-preserving keys, a ballot a cell of the lane, with
+    hashed ties where more than one cell ties the max of the tied cells'
+    hashes, and the lowest set bit, then that lane's first tied cell; a
+    stopped row changes nothing.  Returns F [B, M, N] float32 at stride
+    N."""
+    B, M = a.shape
+    N = b.shape[1]
+    C, G = 2, 32  # cells a lane, lanes a row
+    ap = np.zeros((B, MAXD), np.float32)
+    bp = np.zeros((B, MAXD), np.float32)
+    ap[:, :M], bp[:, :N] = a, b
+    sa, sb = ap[:, 0].copy(), bp[:, 0].copy()
+    for c in range(1, MAXD):
+        sa, sb = sa + ap[:, c], sb + bp[:, c]
+    eps = np.float32(1e-6) * np.maximum(np.maximum(sa, sb), np.float32(1.0))
+    gl = np.arange(G)
+    row, c0 = (gl * C) >> 3, (gl * C) & (MAXD - 1)
+    col = c0[:, None] + np.arange(C)  # [G, C]
+    cell = gl[:, None] * C + np.arange(C)
+    ar, bm = ap[:, row], bp[:, col]  # [B, G], [B, G, C]
+    seed = (seeds.astype(np.int64) & 0xFFFFFFFF).astype(np.uint64)[:, None, None]
+    h = _tie_hash_np(np.broadcast_to(row[:, None], (G, C)).astype(np.uint64),
+                     col.astype(np.uint64), seed)
+    h = np.where(use_hash[:, None, None], h, np.uint64(0))
+    f = np.zeros((B, G, C), np.float32)
+    rows = np.arange(B)
+    for _step in range(max_steps):
+        m = np.minimum(ar[:, :, None], bm)
+        best = _sf_unkey(_sf_key(m.max(axis=2)).max(axis=1))
+        active = best > eps
+        t = m >= best[:, None, None]
+        by_hash = use_hash & (t.sum(axis=(1, 2)) > 1)
+        hm = np.where(t, h, np.uint64(0)).max(axis=(1, 2))
+        e = np.where(by_hash[:, None, None], t & (h == hm[:, None, None]), t)
+        L = np.argmax(e.any(axis=2), axis=1)
+        flat = L * C + np.argmax(e[rows, L], axis=1)
+        pi, pj = flat >> 3, flat & (MAXD - 1)
+        bst, on = best[:, None], active[:, None]
+        ar = np.where(on & (row[None] == pi[:, None]), ar - bst, ar)
+        on3, bst3 = active[:, None, None], best[:, None, None]
+        bm = np.where(on3 & (col[None] == pj[:, None, None]), bm - bst3, bm)
+        f = np.where(on3 & (cell[None] == flat[:, None, None]), bst3, f)
+    return f.reshape(B, MAXD, MAXD)[:, :M, :N]
+
+
+def _greedy_rows(kind: str, seed: int, M: int, N: int, B: int = 48):
+    """K29's rows at one M x N: all cells tied, small integers (many ties),
+    real margins, or rows mixing every smaller real size (zero margins past
+    it, some rows all zero); a uint32 seed each, hashed ties on every other
+    row."""
+    rng = np.random.default_rng(seed)
+    a = np.zeros((B, M), np.float32)
+    b = np.zeros((B, N), np.float32)
+    for r in range(B):
+        m, n = (int(rng.integers(1, M + 1)), int(rng.integers(1, N + 1))) if kind == "mixed" \
+            else (M, N)
+        if kind == "ties":
+            x, y = np.full(m, 2.0, np.float32), np.full(n, np.float32(2.0 * m / n))
+        elif kind == "integer":
+            x, y = rng.integers(1, 4, m).astype(np.float32), rng.integers(1, 4, n).astype(np.float32)
+        elif kind == "mixed" and r % 5 == 0:
+            continue
+        else:
+            x, y = rng.uniform(0.1, 50, m).astype(np.float32), rng.uniform(0.1, 50, n).astype(np.float32)
+        a[r, :m], b[r, :n] = x, y
+    seeds = rng.integers(0, 1 << 32, B, dtype=np.int64)
+    return a, b, seeds, np.arange(B) % 2 == 1
+
+
+@pytest.mark.parametrize("kind", ["ties", "integer", "real", "mixed"])
+@pytest.mark.parametrize("shape", [(8, 8), (3, 5), (1, 8)])
+@pytest.mark.parametrize("max_steps", [1, 4, 16])
+def test_k29_transcription_matches_plain(kind, shape, max_steps):
+    """K29's warp step, in numpy, gives the plain twin's flows bitwise and
+    the reference's batched_greedy's, on rows of every real size below M x
+    N too."""
+    a, b, seeds, use_hash = _greedy_rows(kind, 100 * shape[0] + 10 * shape[1] + max_steps,
+                                         *shape)
+    got = k29_transcription(a, b, seeds, use_hash, max_steps)
+    want = tsf.batched_greedy_plain(torch.from_numpy(a), torch.from_numpy(b),
+                                    torch.from_numpy(seeds), torch.from_numpy(use_hash), max_steps)
+    ref = np.asarray(ref_greedy(jnp.asarray(a), jnp.asarray(b),
+                                jnp.asarray(seeds.astype(np.uint32)), jnp.asarray(use_hash),
+                                max_steps=max_steps))
+    assert got.shape == tuple(want.shape) == ref.shape == (48, *shape)
+    np.testing.assert_array_equal(got.view(np.int32), want.numpy().view(np.int32))
+    np.testing.assert_array_equal(got.view(np.int32), ref.view(np.int32))
+    assert (got > 0).any()
+
+
 def test_sf_key_orders_every_finite_float():
     """The kernel's uint32 key of a float keeps the order of any finite
     floats, zeros of both signs, subnormals and the extremes included, and
